@@ -9,9 +9,12 @@ Phases, each of which exits non-zero when it fails:
   2. build   — the prefill kernel library from ``src/repro_torch/kernels/
                prefill/csrc`` (nvcc, sm_90a), with its build seconds,
   3. kernels — K1 (``prefill_flash``) and K2 (``cache_cast``) held against
-               their plain torch versions on the card, then timed at the
-               serve path's shapes beside the plain version, PyTorch's own
-               call for the same function, and the card's bound,
+               their plain torch versions on the card: K1 through
+               ``prefill_attention``, the op the model calls, at every
+               bucket the serve phase pads to (and 48, 768, head_dim 16);
+               then both timed at the serve path's shapes beside the plain
+               version, PyTorch's own call for the same function, and the
+               card's bound,
   4. model   — full-width Qwen2-1.5B in f32 from ``Model.init(seed)``:
                prefill logits on the kernel path against ``use_pallas=False``
                for one prompt of length 100 (bucket 128), greedy first tokens
@@ -21,10 +24,13 @@ Phases, each of which exits non-zero when it fails:
                request completes with 16 tokens, 8 KV handoffs, and K1 runs
                once per layer per prefill (8 x 28 launches); the wall time
                is split into the engines' prefill, insert and step calls
-               and the control plane around them.
+               and the control plane around them.  The inputs K1 got on
+               this path, one set per bucket, are kept and K1 is held
+               against its plain version on them afterwards.
 
 Phases 4 and 5 are the main path: the kernels' launch counts are set to 0
-just before phase 4 and read after phase 5.  The next-to-last line is the
+just before each and read just after it; the ``kernels`` line gives each
+kernel's launches in all and by phase.  The next-to-last line is the
 ``kernels`` JSON object; a line before it holds the card's name and power
 limit; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the repository's ``src/repro_torch`` beside this file, it exits with
@@ -69,19 +75,24 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean milliseconds per call on the card (CUDA events, after warm-up)."""
+def time_ms(torch, fn, iters: int = 20, reps: int = 7,
+            warmup: int = 5) -> float:
+    """Milliseconds per call on the card: the median over ``reps`` loops of
+    ``iters`` calls, each loop timed by CUDA events, after warm-up."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    per_call = []
+    for _ in range(reps):
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / iters)
+    return sorted(per_call)[reps // 2]
 
 
 def check_close(torch, name, got, want, dtype_name) -> float:
@@ -95,6 +106,27 @@ def check_close(torch, name, got, want, dtype_name) -> float:
         fail(f"{name}: {int(bad.sum())} elements outside rtol {rtol} / "
              f"atol {atol}, max abs err {float(err.max()):.3e}")
     return float(err.max())
+
+
+@contextlib.contextmanager
+def keep_inputs(module, name):
+    """Wrap ``module.<name>(q, k, v, ...)`` while the block runs and keep a
+    copy of the first q, k, v it gets for each shape and dtype."""
+    kept = {}
+    saved = getattr(module, name)
+
+    @functools.wraps(saved)
+    def call(q, k, v, *args, **kwargs):
+        key = (tuple(q.shape), tuple(k.shape), q.dtype)
+        if key not in kept:
+            kept[key] = (q.clone(), k.clone(), v.clone(), kwargs.get("group"))
+        return saved(q, k, v, *args, **kwargs)
+
+    setattr(module, name, call)
+    try:
+        yield kept
+    finally:
+        setattr(module, name, saved)
 
 
 @contextlib.contextmanager
@@ -166,6 +198,7 @@ def main() -> int:
     from repro_torch.cluster import Cluster, ServeJob
     from repro_torch.configs import get_config
     from repro_torch.kernels.build import BUILD_DIR
+    from repro_torch.kernels.prefill import ops
     from repro_torch.kernels.prefill import prefill as pf
     from repro_torch.kernels.prefill.ref import cache_cast_ref, prefill_ref
     from repro_torch.models import Model
@@ -203,24 +236,28 @@ def main() -> int:
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=torch.float32).to(dtype)
 
+    # K1 through the op the model calls, at the serve phase's buckets (16 ..
+    # 512), the clamped 48, a 768 past the largest, and head_dim 16; each
+    # against use_pallas=False on the same inputs.
     k1_err = 0.0
-    cases = [(16, 2, 128, s, dt, 64, 64)
-             for s in (16, 48, 128, 512, 768)
+    cases = [(16, 2, 128, s, dt)
+             for s in (16, 32, 48, 64, 128, 256, 512, 768)
              for dt in (torch.bfloat16, torch.float32)]
-    cases += [(4, 2, 16, s, dt, 64, 64)
+    cases += [(4, 2, 16, s, dt)
               for s in (16, 48, 128) for dt in (torch.bfloat16, torch.float32)]
-    cases += [(4, 2, 16, 48, torch.float32, bq, bk)
-              for bq, bk in ((16, 16), (32, 32), (48, 16))]
-    for hq, hkv, d, s, dt, bq, bk in cases:
-        q, k, v = rand((hq, s, d), dt), rand((hkv, s, d), dt), rand((hkv, s, d), dt)
-        out, kc, vc = pf.prefill_flash(q, k, v, group=hq // hkv,
-                                       block_q=bq, block_k=bk)
+    for hq, hkv, d, s, dt in cases:
+        q = rand((1, s, hq, d), dt)
+        k, v = rand((1, s, hkv, d), dt), rand((1, s, hkv, d), dt)
+        before = pf.LAUNCHES["prefill_flash"]
+        out, kc, vc = ops.prefill_attention(q, k, v)
         torch.cuda.synchronize()
-        ref, _, _ = prefill_ref(q, k, v, group=hq // hkv)
-        name = f"K1 Hq={hq} Hkv={hkv} D={d} S={s} {str(dt)[6:]} blocks={bq}/{bk}"
+        ref, kr, vr = ops.prefill_attention(q, k, v, use_pallas=False)
+        name = f"K1 Hq={hq} Hkv={hkv} D={d} S={s} {str(dt)[6:]}"
+        if pf.LAUNCHES["prefill_flash"] != before + 1:
+            fail(f"{name}: prefill_attention did not launch K1")
         err = check_close(torch, name, out, ref, str(dt)[6:])
-        if kc is not k or vc is not v:
-            fail(f"{name}: same-dtype cache must be the inputs themselves")
+        if not (torch.equal(kc, kr) and torch.equal(vc, vr)):
+            fail(f"{name}: same-dtype cache differs from the inputs")
         k1_err = max(k1_err, err)
         print(f"[kernels] {name}: max abs err {err:.3e}", flush=True)
 
@@ -258,6 +295,8 @@ def main() -> int:
         "ms": time_ms(torch, lambda: pf.cache_cast(k32, v32, torch.bfloat16)),
         "plain_ms": time_ms(torch, lambda: cache_cast_ref(k32, v32,
                                                           torch.bfloat16)),
+        "library_ms": time_ms(torch, lambda: (k32.to(torch.bfloat16),
+                                              v32.to(torch.bfloat16))),
         "bound_ms": 1e3 * k2_bytes / HBM_BYTES_PER_S,
     }
     print(f"[kernels] K2 f32->bf16 (2, 128, 128) x2: {json.dumps(k2)}",
@@ -300,9 +339,9 @@ def main() -> int:
     print(f"[model] prefill L={L} (bucket {bucket}): logits max abs err "
           f"{model_err:.3e}, greedy first token {tok_k} on both paths",
           flush=True)
+    model_launches = dict(pf.LAUNCHES)
     del params, lk, lp, ck, cp, kcache
     torch.cuda.empty_cache()
-    model_launches = dict(pf.LAUNCHES)
 
     # ------------------------------------------------ 5. serve (main path)
     cfg = get_config("qwen2-1.5b")
@@ -314,16 +353,19 @@ def main() -> int:
                 max_new_tokens=16)
         for i, n in enumerate(lengths)
     ]
-    k1_before = pf.LAUNCHES["prefill_flash"]
     cluster = Cluster("fast=2.0^prefill,slow=1.0x4^decode")
     torch.cuda.synchronize()
-    with wall_split(DecodeEngine, ("prefill", "insert", "step")) as spent:
+    for key in pf.LAUNCHES:
+        pf.LAUNCHES[key] = 0
+    with wall_split(DecodeEngine, ("prefill", "insert", "step")) as spent, \
+            keep_inputs(ops, "_prefill_call") as seen:
         t0 = time.perf_counter()
         rep = cluster.serve(ServeJob(requests, model=model, params=params,
                                      max_seq=1024))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    k1_serve = pf.LAUNCHES["prefill_flash"] - k1_before
+    serve_launches = dict(pf.LAUNCHES)
+    k1_serve = serve_launches["prefill_flash"]
     m = rep.metrics
     for r in requests:
         if not r.done or len(r.out_tokens) != 16:
@@ -347,27 +389,44 @@ def main() -> int:
         f"{name} {n} calls {sec:.3f} s" for name, (n, sec) in spent.items())
         + f", the rest (control plane) {wall_s - engine_s:.3f} s", flush=True)
 
-    launches = dict(pf.LAUNCHES)
+    # K1 against its plain version on the inputs the serve path gave it.
+    buckets = sorted(key[0][1] for key in seen)
+    if buckets != [16, 32, 64, 128, 256, 512]:
+        fail(f"serve: K1 saw buckets {buckets}, expected 16 .. 512")
+    for (qs, _, dt), (q, k, v, group) in sorted(seen.items(),
+                                                key=lambda kv: kv[0][0]):
+        name = f"K1 on serve inputs q {qs} {str(dt)[6:]}"
+        out, _, _ = pf.prefill_flash(q, k, v, group=group)
+        torch.cuda.synchronize()
+        ref, _, _ = prefill_ref(q, k, v, group=group)
+        err = check_close(torch, name, out, ref, str(dt)[6:])
+        k1_err = max(k1_err, err)
+        print(f"[serve] {name}: max abs err {err:.3e}", flush=True)
+
+    by_path = {key: {"model": model_launches[key],
+                     "serve": serve_launches[key]} for key in pf.LAUNCHES}
+    launches = {key: sum(n.values()) for key, n in by_path.items()}
     for key, n in launches.items():
         if n == 0:
             fail(f"kernel {key} was not launched on the main path")
-    print(f"[main path] launches: model phase {json.dumps(model_launches)}, "
-          f"model + serve {json.dumps(launches)}", flush=True)
+    print(f"[main path] launches by phase: {json.dumps(by_path)}", flush=True)
 
     src = "src/repro_torch/kernels/prefill/csrc/prefill.cu"
     kernels = {"kernels": [
         {"name": "prefill_flash", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/prefill/prefill.py:119",
-         "launches": launches["prefill_flash"], "max_abs_err": k1_err,
+         "launches": launches["prefill_flash"],
+         "launches_by_path": by_path["prefill_flash"], "max_abs_err": k1_err,
          "ms": k1_row["ms"], "plain_ms": k1_row["plain_ms"],
          "bound_ms": k1_row["bound_ms"], "bound_by": k1_row["bound_by"],
          "library_ms": k1_row["library_ms"]},
         {"name": "cache_cast", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/prefill/prefill.py:145",
-         "launches": launches["cache_cast"], "max_abs_err": k2_err,
+         "launches": launches["cache_cast"],
+         "launches_by_path": by_path["cache_cast"], "max_abs_err": k2_err,
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": k2["library_ms"]},
     ]}
     print(f"[card] {card}")
     print(json.dumps(kernels))

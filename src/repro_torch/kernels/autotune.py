@@ -10,7 +10,8 @@ shapes share tiles; an unswept shape falls back to the op's built-in
 defaults).  The backend is the torch device: ``cpu`` or ``cuda:<card
 name>``.  The port keeps its own registry file beside this module and never
 reads or writes the JAX package's.  The JAX compile-cache half has no
-counterpart: PyTorch runs eagerly.
+counterpart: PyTorch runs eagerly.  No op of the port consults it yet: the
+CUDA prefill kernel has one compiled tile, and the registry is empty.
 """
 
 from __future__ import annotations

@@ -18,7 +18,7 @@
 // the tensor cores, so its own limit is the CUDA-core FMA rate and the
 // shared-memory reads feeding it; it is far from the bound and is meant to
 // be right first.  What the design does about it: one block per (q-head
-// row, tile of up to 64 query rows) gives 16 x S/64 blocks at the serve
+// row, tile of 64 query rows) gives 16 x S/64 blocks at the serve
 // shapes; the loop over K/V tiles stops at the diagonal (the causal half is
 // never loaded); each K/V tile is staged once in shared memory and reused by
 // all 64 query rows (and the same K/V rows serve all `group` q heads from
@@ -40,8 +40,8 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows a block holds (block_q <= kBQ)
-constexpr int kBK = 64;        // keys a K/V tile holds (block_k <= kBK)
+constexpr int kBQ = 64;        // query rows a block holds
+constexpr int kBK = 64;        // keys a K/V tile holds
 constexpr int kThreads = 128;  // 16 x 8 threads; each owns 8 rows
 constexpr float kNegInf = -1e30f;
 
@@ -73,7 +73,7 @@ constexpr size_t flash_smem_bytes() {
                           kBQ * (kBK + 1) + 3 * kBQ);
 }
 
-// Grid (ceil(S / bq), B*Hq).  Thread t = (tx = t % 16, ty = t / 16) owns
+// Grid (ceil(S / kBQ), B*Hq).  Thread t = (tx = t % 16, ty = t / 16) owns
 // rows ty*8 .. ty*8+7 of the tile; for scores it owns columns tx + 16 j
 // (j < 4), for the output columns tx + 16 j (j < D/16).  Row strides of
 // D+1 and kBK+1 floats keep the shared-memory reads free of bank
@@ -82,7 +82,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 prefill_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out, int S,
-                     int group, int bq, int bk, float scale) {
+                     int group, float scale) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
@@ -99,7 +99,7 @@ prefill_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = tid / 16;
   const int row_q = blockIdx.y;                 // b * Hq + h
   const int row_kv = row_q / group;             // b * Hkv + h / group
-  const int q0 = blockIdx.x * bq;
+  const int q0 = blockIdx.x * kBQ;
   const T* qp = q + (size_t)row_q * S * D;
   const T* kp = k + (size_t)row_kv * S * D;
   const T* vp = v + (size_t)row_kv * S * D;
@@ -109,7 +109,7 @@ prefill_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = idx / D, c = idx % D;
     const int qi = q0 + r;
     float val = 0.f;
-    if (r < bq && qi < S) val = to_f32(qp[(size_t)qi * D + c]) * scale;
+    if (qi < S) val = to_f32(qp[(size_t)qi * D + c]) * scale;
     Qs[r * (D + 1) + c] = val;
   }
   if (tid < kBQ) {
@@ -123,9 +123,9 @@ prefill_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
 
   // Causal: K/V tiles start at most at the tile's last valid query row.
-  const int q_last = min(q0 + bq, S) - 1;
-  for (int k0 = 0; k0 <= q_last; k0 += bk) {
-    const int kn = min(bk, S - k0);             // valid keys in this tile
+  const int q_last = min(q0 + kBQ, S) - 1;
+  for (int k0 = 0; k0 <= q_last; k0 += kBK) {
+    const int kn = min(kBK, S - k0);             // valid keys in this tile
     __syncthreads();                            // previous tile consumed
     for (int idx = tid; idx < kBK * D; idx += kThreads) {
       const int r = idx / D, c = idx % D;
@@ -212,7 +212,7 @@ prefill_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 8; ++i) {
     const int r = ty * 8 + i;
     const int qi = q0 + r;
-    if (r < bq && qi < S) {
+    if (qi < S) {
       const float l = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
       for (int j = 0; j < DJ; ++j)
@@ -223,8 +223,8 @@ prefill_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch_flash(const void* q, const void* k, const void* v,
-                         void* out, int bh, int S, int group, int bq, int bk,
-                         float scale, cudaStream_t stream) {
+                         void* out, int bh, int S, int group, float scale,
+                         cudaStream_t stream) {
   constexpr size_t smem = flash_smem_bytes<D>();
   // Above 48 KB of dynamic shared memory needs the opt-in, which is kept
   // per device: set it on every launch (a host-side attribute write).
@@ -232,32 +232,26 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v,
       prefill_flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + bq - 1) / bq, bh);
+  dim3 grid((S + kBQ - 1) / kBQ, bh);
   prefill_flash_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, group, bq, bk,
-      scale);
+      static_cast<const T*>(v), static_cast<T*>(out), S, group, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v,
                               void* out, int bh, int S, int D, int group,
-                              int bq, int bk, float scale,
-                              cudaStream_t stream) {
+                              float scale, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch_flash<T, 16>(q, k, v, out, bh, S, group, bq, bk, scale,
-                                 stream);
+      return launch_flash<T, 16>(q, k, v, out, bh, S, group, scale, stream);
     case 32:
-      return launch_flash<T, 32>(q, k, v, out, bh, S, group, bq, bk, scale,
-                                 stream);
+      return launch_flash<T, 32>(q, k, v, out, bh, S, group, scale, stream);
     case 64:
-      return launch_flash<T, 64>(q, k, v, out, bh, S, group, bq, bk, scale,
-                                 stream);
+      return launch_flash<T, 64>(q, k, v, out, bh, S, group, scale, stream);
     case 128:
-      return launch_flash<T, 128>(q, k, v, out, bh, S, group, bq, bk, scale,
-                                  stream);
+      return launch_flash<T, 128>(q, k, v, out, bh, S, group, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -304,25 +298,23 @@ cudaError_t dispatch_cast_out(const void* k, const void* v, void* kc,
 extern "C" {
 
 // q (bh, S, D), k/v (bh / group, S, D), out (bh, S, D), all contiguous and
-// of one dtype (0 f32, 1 bf16, 2 f16).  1 <= bq, bk <= 64.  Returns the
-// CUDA error of the launch (0 on success).
+// of one dtype (0 f32, 1 bf16, 2 f16).  Returns the CUDA error of the launch
+// (0 on success).
 int prefill_flash(const void* q, const void* k, const void* v, void* out,
-                  int bh, int S, int D, int group, int bq, int bk, float scale,
-                  int dtype, void* stream) {
-  if (bh < 1 || S < 1 || group < 1 || bh % group || bq < 1 || bq > kBQ ||
-      bk < 1 || bk > kBK)
+                  int bh, int S, int D, int group, float scale, int dtype,
+                  void* stream) {
+  if (bh < 1 || S < 1 || group < 1 || bh % group)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return dispatch_head_dim<float>(q, k, v, out, bh, S, D, group, bq, bk,
-                                      scale, st);
+      return dispatch_head_dim<float>(q, k, v, out, bh, S, D, group, scale,
+                                      st);
     case kBF16:
       return dispatch_head_dim<__nv_bfloat16>(q, k, v, out, bh, S, D, group,
-                                              bq, bk, scale, st);
+                                              scale, st);
     case kF16:
-      return dispatch_head_dim<__half>(q, k, v, out, bh, S, D, group, bq, bk,
-                                       scale, st);
+      return dispatch_head_dim<__half>(q, k, v, out, bh, S, D, group, scale, st);
     default:
       return cudaErrorInvalidValue;
   }

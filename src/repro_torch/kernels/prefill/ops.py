@@ -2,23 +2,19 @@
 
 Port of ``repro/kernels/prefill/ops.py``.  Callers (the bucketed
 ``DecodeEngine.prefill`` fast path) pad the prompt to a length bucket
-*before* projection, so Sq here is always the bucket size.  Block sizes
-come from the port's autotune registry under the ``prefill`` op key, capped
-at the CUDA tile (``MAX_BLOCK``).  Where the Pallas wrapper halves blocks
-until they divide S, the CUDA kernel masks the ragged edge instead, so a
-clamped bucket (``length_bucket(40, 48) == 48``) keeps its blocks.
+*before* projection, so Sq here is always the bucket size.  The Pallas
+wrapper fits its blocks to S (tuned or default, halved until they divide
+S); the CUDA kernel has one compiled 64 x 64 tile and masks the ragged edge
+instead, so every bucket, a clamped one (``length_bucket(40, 48) == 48``)
+included, runs the same launch and no block sizes are passed.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..autotune import lookup
-from .prefill import MAX_BLOCK
 from .prefill import prefill_flash as _prefill_call
 from .ref import prefill_ref as _prefill_ref
-
-_DEFAULT_BLOCKS = {"block_q": MAX_BLOCK, "block_k": MAX_BLOCK}
 
 #: Prompt-length bucket ladder: prompts are right-padded to the next power of
 #: two in [MIN_BUCKET, max_seq]; one prefill shape per rung.
@@ -42,8 +38,6 @@ def prefill_attention(
     v: torch.Tensor,  # (B, S, Hkv, D)
     *,
     cache_dtype: torch.dtype | None = None,
-    block_q: int | None = None,
-    block_k: int | None = None,
     use_pallas: bool | None = None,
 ):
     """Fused causal prefill attention.  Returns
@@ -64,21 +58,8 @@ def prefill_attention(
     qf = q.transpose(1, 2).reshape(b * hq, s, d).contiguous()
     kf = k.transpose(1, 2).reshape(b * hkv, s, d).contiguous()
     vf = v.transpose(1, 2).reshape(b * hkv, s, d).contiguous()
-    if not use_pallas:
-        out, kc, vc = _prefill_ref(qf, kf, vf, cache_dtype=cache_dtype,
-                                   group=rep)
-    else:
-        if block_q is None or block_k is None:
-            tuned = {**_DEFAULT_BLOCKS,
-                     **lookup("prefill", {"sq": s, "skv": s, "d": d},
-                              q.device)}
-            block_q = block_q if block_q is not None else tuned["block_q"]
-            block_k = block_k if block_k is not None else tuned["block_k"]
-        out, kc, vc = _prefill_call(
-            qf, kf, vf, block_q=min(block_q, s, MAX_BLOCK),
-            block_k=min(block_k, s, MAX_BLOCK), cache_dtype=cache_dtype,
-            group=rep,
-        )
+    run = _prefill_call if use_pallas else _prefill_ref
+    out, kc, vc = run(qf, kf, vf, cache_dtype=cache_dtype, group=rep)
     return (
         out.reshape(b, hq, s, d).transpose(1, 2),
         kc.reshape(b, hkv, s, d).transpose(1, 2),

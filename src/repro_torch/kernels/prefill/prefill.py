@@ -36,8 +36,6 @@ LAUNCHES: dict[str, int] = {"prefill_flash": 0, "cache_cast": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (16, 32, 64, 128)
-#: The kernel's tile holds at most this many query rows / keys.
-MAX_BLOCK = 64
 
 
 @functools.lru_cache(maxsize=1)
@@ -45,8 +43,8 @@ def load_library() -> ctypes.CDLL:
     """Build (first use only) and load the prefill kernel library."""
     lib = ctypes.CDLL(build_library("prefill", SOURCES))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.prefill_flash.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
-                                  i32, ctypes.c_float, i32, vp]
+    lib.prefill_flash.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
+                                  ctypes.c_float, i32, vp]
     lib.prefill_flash.restype = i32
     lib.prefill_cache_cast.argtypes = [vp, vp, vp, vp, ctypes.c_int64, i32,
                                        i32, vp]
@@ -101,16 +99,13 @@ def prefill_flash(
     k: torch.Tensor,   # (B*Hkv, S, D)   Hkv = Hq // group
     v: torch.Tensor,   # (B*Hkv, S, D)
     *,
-    block_q: int = MAX_BLOCK,
-    block_k: int = MAX_BLOCK,
     cache_dtype: torch.dtype | None = None,
     group: int = 1,
 ):
     """Fused bucketed prefill: returns (out, k_cache, v_cache).
 
-    ``block_q``/``block_k`` (at most ``MAX_BLOCK``) are the query rows one
-    thread block holds and the keys per K/V tile; S need not divide them —
-    the kernel masks the ragged edge.  ``cache_dtype`` (default: input
+    The kernel works in tiles of 64 query rows and 64 keys; S need not
+    divide them — it masks the ragged edge.  ``cache_dtype`` (default: input
     dtype) is the storage dtype of the emitted handoff tensors."""
     bh, sq, d = q.shape
     bhkv, skv, _ = k.shape
@@ -131,16 +126,12 @@ def prefill_flash(
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
     if d not in _HEAD_DIMS:
         raise ValueError(f"head dim {d} not compiled (one of {_HEAD_DIMS})")
-    if not (1 <= block_q <= MAX_BLOCK and 1 <= block_k <= MAX_BLOCK):
-        raise ValueError(f"blocks ({block_q}, {block_k}) outside "
-                         f"[1, {MAX_BLOCK}]")
     out = torch.empty_like(q)
     lib = load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.prefill_flash(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq, d,
-        group, block_q, block_k, 1.0 / (d ** 0.5), _DTYPE_CODES[q.dtype],
-        stream)
+        group, 1.0 / (d ** 0.5), _DTYPE_CODES[q.dtype], stream)
     _raise_on(lib, err, "prefill_flash")
     LAUNCHES["prefill_flash"] += 1
     if cdt == k.dtype:
