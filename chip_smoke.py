@@ -6,8 +6,9 @@
 Phases, each of which exits non-zero when it fails:
 
   1. device  — the card's name and power limit (``nvidia-smi``),
-  2. build   — the prefill kernel library from ``src/repro_torch/kernels/
-               prefill/csrc`` (nvcc, sm_90a), with its build seconds,
+  2. build   — the prefill and matmul kernel libraries from ``src/repro_torch/
+               kernels/{prefill,matmul}/csrc`` (one nvcc each, sm_90a, both
+               started together), with the build seconds,
   3. kernels — K1 (``prefill_flash``) and K2 (``cache_cast``) held against
                their plain torch versions on the card: K1 through
                ``prefill_attention``, the op the model calls, at every
@@ -26,19 +27,45 @@ Phases, each of which exits non-zero when it fails:
                is split into the engines' prefill, insert and step calls
                and the control plane around them.  The inputs K1 got on
                this path, one set per bucket, are kept and K1 is held
-               against its plain version on them afterwards.
+               against its plain version on them afterwards,
+  6. matmul  — K3 (``matmul``) through ``kernels.matmul.ops.matmul`` against
+               its plain version in f32 and bf16 at the shapes of the
+               reference's kernel sweep and the paper path's (2, 1000, 1000),
+               (1000, 1000, 1000) and (2, 4096, 4096); every 2-row slice of a
+               1000-square product and 64 seeded row offsets at n = 4096
+               equal K3's full product bit for bit; K3 timed at the three
+               path shapes beside its plain version, ``torch.matmul`` and
+               the card's bound,
+  7. paper   — the quickstart on the card: the paper's 9-machine fleet
+               multiplies two 1000-square f32 matrices three times through
+               ``Cluster.simulate(MatmulJob(..., matmul_fn=ops.matmul))``:
+               exactly 3 x 500 K3 launches, the product bitwise equal to
+               K3's single-device product and within the f32 tolerance of
+               ``torch.matmul``; again under ``kill:sp1@25%`` (bitwise
+               equal) and once at n = 4096 (2048 launches); the shares, the
+               host wall split and the Fig-3 table,
+  8. wallclock — the bench_wallclock flow: on fleet 4:3:2:1 the sim's
+               predicted speedup against the speedup the wall-clock backend
+               measures on the card, steady and under ``halve:w0@50%``
+               (within 0.35, the halved run below the steady one), then a
+               1000-square ``MatmulJob`` on that backend (``wallclock[1d]``,
+               bitwise equal to K3's product),
+  9. serve under the wall-clock backend — 4 requests of 8 new tokens through
+               phase 5's fleet with ``backend="wallclock"``.
 
-Phases 4 and 5 are the main path: the kernels' launch counts are set to 0
-just before each and read just after it; the ``kernels`` line gives each
-kernel's launches in all and by phase.  The next-to-last line is the
-``kernels`` JSON object; a line before it holds the card's name and power
-limit; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
-without the repository's ``src/repro_torch`` beside this file, it exits with
-code 2 and prints no result.  Imports neither JAX nor the JAX package.
+Phases 4, 5, 7, 8 and 9 are the main path: the kernels' launch counts are
+set to 0 just before each of their runs and read just after it; the
+``kernels`` line gives each kernel's launches in all and by run.  The
+next-to-last line is the ``kernels`` JSON object; a line before it holds the
+card's name and power limit; the last line is ``{"ok": true, "device":
+{...}}``.  Without CUDA, or without the repository's ``src/repro_torch``
+beside this file, it exits with code 2 and prints no result.  Imports
+neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -59,6 +86,10 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": (2e-2, 2e-2), "float32": (5e-4, 5e-5)}   # (rtol, atol)
 SEED = 0
 N_LAYERS = 28
+#: Side of the wall-clock backend's unit op ``tanh(h @ x)`` on the card: at
+#: 2048 one f32 product is about 17 GFLOP, far above a launch's cost, so the
+#: measured chains are device time (the default 96 is sized for a CPU).
+WALLCLOCK_SIDE = 2048
 
 
 def fail(msg: str) -> None:
@@ -170,6 +201,49 @@ def flash_bound_ms(bh: int, s: int, d: int, hkv_rows: int, itemsize: int,
                                        else "operations")
 
 
+def matmul_bound_ms(m: int, k: int, n: int, itemsize: int,
+                    dtype_name: str) -> tuple[float, str]:
+    """Least time for (m, k) @ (k, n): x and y read once, the product
+    written once; 2 m k n operations."""
+    nbytes = itemsize * (m * k + k * n + m * n)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * m * k * n / PEAK_OPS_PER_S[dtype_name]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+@contextlib.contextmanager
+def grain_split(client_cls, matmul_fn):
+    """Host seconds spent in ``matmul_fn`` (K3's launches: checks, output
+    allocation, the launch) and in ``client_cls.matmul_block`` (one grain:
+    its launch plus the wait for the card) while the block runs.  Yields
+    the timed ``matmul_fn`` to hand to the job and the running totals."""
+    spent = {"launches": 0, "launch_s": 0.0, "grains": 0, "grain_s": 0.0}
+    saved = client_cls.__dict__["matmul_block"]
+
+    def timed_fn(x, y):
+        t = time.perf_counter()
+        try:
+            return matmul_fn(x, y)
+        finally:
+            spent["launches"] += 1
+            spent["launch_s"] += time.perf_counter() - t
+
+    def timed_block(*args):
+        t = time.perf_counter()
+        try:
+            return saved.__func__(*args)
+        finally:
+            spent["grains"] += 1
+            spent["grain_s"] += time.perf_counter() - t
+
+    client_cls.matmul_block = staticmethod(timed_block)
+    try:
+        yield timed_fn, spent
+    finally:
+        client_cls.matmul_block = saved
+
+
 def library_attention(torch, q, k, v):
     """PyTorch's own causal GQA attention on the same inputs, as a
     yardstick for K1 only (the port never calls it)."""
@@ -195,9 +269,14 @@ def main() -> int:
 
     import numpy as np
 
-    from repro_torch.cluster import Cluster, ServeJob
+    from repro_torch.cluster import Cluster, FleetSpec, MatmulJob, ServeJob, SimJob
     from repro_torch.configs import get_config
+    from repro_torch.configs.paper_matmul import config as paper_config
+    from repro_torch.core import ThinClient, WallclockBackend
     from repro_torch.kernels.build import BUILD_DIR
+    from repro_torch.kernels.matmul import matmul as mm
+    from repro_torch.kernels.matmul.ops import matmul as k3_matmul
+    from repro_torch.kernels.matmul.ref import matmul_ref
     from repro_torch.kernels.prefill import ops
     from repro_torch.kernels.prefill import prefill as pf
     from repro_torch.kernels.prefill.ref import cache_cast_ref, prefill_ref
@@ -214,19 +293,23 @@ def main() -> int:
 
     # ------------------------------------------------------------- 2. build
     t0 = time.perf_counter()
-    pf.load_library()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for built in [pool.submit(pf.load_library), pool.submit(mm.load_library)]:
+            built.result()
     build_s = time.perf_counter() - t0
-    print(f"[build] prefill kernels built and loaded in {build_s:.2f} s",
-          flush=True)
-    log = os.path.join(BUILD_DIR, "prefill.log")
-    if os.path.exists(log):          # absent when the library was cached
+    print(f"[build] prefill and matmul kernels built and loaded in "
+          f"{build_s:.2f} s", flush=True)
+    for lib in ("prefill", "matmul"):
+        log = os.path.join(BUILD_DIR, f"{lib}.log")
+        if not os.path.exists(log):          # absent when the library was cached
+            continue
         with open(log) as f:
             text = f.read()
         regs = [int(w) for w in re.findall(r"Used (\d+) registers", text)]
         spills = [int(w) for w in re.findall(r"(\d+) bytes spill stores", text)]
-        print(f"[build] ptxas: {len(regs)} kernels, registers per thread "
-              f"{min(regs)}..{max(regs)}, spill stores up to {max(spills)} "
-              "bytes", flush=True)
+        print(f"[build] ptxas {lib}: {len(regs)} kernels, registers per "
+              f"thread {min(regs)}..{max(regs)}, spill stores up to "
+              f"{max(spills)} bytes", flush=True)
 
     # ----------------------------------------------------------- 3. kernels
     gen = torch.Generator(device=dev)
@@ -302,9 +385,22 @@ def main() -> int:
     print(f"[kernels] K2 f32->bf16 (2, 128, 128) x2: {json.dumps(k2)}",
           flush=True)
 
+    # Launches of each main-path run, by run: every count is set to 0 just
+    # before the run and read just after it.
+    counters = (pf.LAUNCHES, mm.LAUNCHES)
+    by_path: dict[str, dict[str, int]] = {}
+
+    def zero_counts() -> None:
+        for c in counters:
+            for key in c:
+                c[key] = 0
+
+    def read_counts(path: str) -> dict[str, int]:
+        by_path[path] = {key: n for c in counters for key, n in c.items()}
+        return by_path[path]
+
     # ------------------------------------------------ 4. model (main path)
-    for key in pf.LAUNCHES:
-        pf.LAUNCHES[key] = 0
+    zero_counts()
     cfg32 = get_config("qwen2-1.5b", param_dtype="float32",
                        compute_dtype="float32", cache_dtype="bfloat16")
     model = Model(cfg32)
@@ -339,7 +435,7 @@ def main() -> int:
     print(f"[model] prefill L={L} (bucket {bucket}): logits max abs err "
           f"{model_err:.3e}, greedy first token {tok_k} on both paths",
           flush=True)
-    model_launches = dict(pf.LAUNCHES)
+    read_counts("model")
     del params, lk, lp, ck, cp, kcache
     torch.cuda.empty_cache()
 
@@ -355,8 +451,7 @@ def main() -> int:
     ]
     cluster = Cluster("fast=2.0^prefill,slow=1.0x4^decode")
     torch.cuda.synchronize()
-    for key in pf.LAUNCHES:
-        pf.LAUNCHES[key] = 0
+    zero_counts()
     with wall_split(DecodeEngine, ("prefill", "insert", "step")) as spent, \
             keep_inputs(ops, "_prefill_call") as seen:
         t0 = time.perf_counter()
@@ -364,8 +459,7 @@ def main() -> int:
                                      max_seq=1024))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    serve_launches = dict(pf.LAUNCHES)
-    k1_serve = serve_launches["prefill_flash"]
+    k1_serve = read_counts("serve")["prefill_flash"]
     m = rep.metrics
     for r in requests:
         if not r.done or len(r.out_tokens) != 16:
@@ -403,30 +497,267 @@ def main() -> int:
         k1_err = max(k1_err, err)
         print(f"[serve] {name}: max abs err {err:.3e}", flush=True)
 
-    by_path = {key: {"model": model_launches[key],
-                     "serve": serve_launches[key]} for key in pf.LAUNCHES}
-    launches = {key: sum(n.values()) for key, n in by_path.items()}
-    for key, n in launches.items():
-        if n == 0:
+    # ------------------------------------------------------------ 6. matmul
+    def unit_rand(shape, k, dtype=torch.float32):
+        # Entries of scale k**-0.25 give products of order one at any depth k.
+        return rand(shape, torch.float32).mul_(k ** -0.25).to(dtype)
+
+    # The reference's kernel sweep (tests/test_kernels.py), then the path's.
+    sweep = [(8, 128, 128), (256, 512, 256), (100, 70, 36), (1, 1, 1),
+             (513, 129, 257)]
+    sweep += [tuple(int(v) for v in np.random.default_rng(s).integers(1, 97, 3))
+              for s in range(14)]
+    sweep += [(1, 1, 1), (96, 96, 96), (1, 96, 1), (96, 1, 96), (95, 33, 17),
+              (64, 32, 96)]
+    path_shapes = [(2, 1000, 1000), (1000, 1000, 1000), (2, 4096, 4096)]
+    k3_err = {"float32": 0.0, "bfloat16": 0.0}
+    for mm_, kk, nn in sweep + path_shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt)[6:]
+            x, y = unit_rand((mm_, kk), kk, dt), unit_rand((kk, nn), kk, dt)
+            name = f"K3 ({mm_}, {kk}) @ ({kk}, {nn}) {dname}"
+            before = mm.LAUNCHES["matmul"]
+            out = k3_matmul(x, y)
+            torch.cuda.synchronize()
+            if mm.LAUNCHES["matmul"] != before + 1:
+                fail(f"{name}: ops.matmul did not launch K3")
+            if out.dtype != dt or tuple(out.shape) != (mm_, nn):
+                fail(f"{name}: got {out.dtype} {tuple(out.shape)}")
+            err = check_close(torch, name, out, matmul_ref(x, y), dname)
+            k3_err[dname] = max(k3_err[dname], err)
+            if (mm_, kk, nn) in path_shapes:
+                print(f"[matmul] {name}: max abs err {err:.3e}", flush=True)
+    print(f"[matmul] K3 against its plain version at {len(sweep + path_shapes)}"
+          f" shapes: max abs err f32 {k3_err['float32']:.3e}, bf16 "
+          f"{k3_err['bfloat16']:.3e}", flush=True)
+
+    # Row-slice invariance, bitwise: the TDA's 2-row grains.
+    x, y = unit_rand((1000, 1000), 1000), unit_rand((1000, 1000), 1000)
+    full = k3_matmul(x, y)
+    bad = [lo for lo in range(0, 1000, 2)
+           if not torch.equal(k3_matmul(x[lo:lo + 2], y), full[lo:lo + 2])]
+    x, y = unit_rand((4096, 4096), 4096), unit_rand((4096, 4096), 4096)
+    full = k3_matmul(x, y)
+    offsets = [int(o) for o in np.random.default_rng(SEED).integers(0, 4095, 64)]
+    bad += [lo for lo in offsets
+            if not torch.equal(k3_matmul(x[lo:lo + 2], y), full[lo:lo + 2])]
+    if bad:
+        fail(f"K3: 2-row slices at rows {bad[:8]} differ from the full product")
+    print("[matmul] K3 row slices: all 500 two-row slices of a 1000-square "
+          "product and 64 seeded offsets at n = 4096 bitwise equal to the "
+          "full product", flush=True)
+    del x, y, full
+
+    k3_rows = []
+    for mm_, kk, nn in path_shapes:
+        x, y = unit_rand((mm_, kk), kk), unit_rand((kk, nn), kk)
+        row = {
+            "shape": [mm_, kk, nn],
+            "ms": time_ms(torch, lambda: k3_matmul(x, y)),
+            # The plain version loops over k in Python: few, long calls.
+            "plain_ms": time_ms(torch, lambda: matmul_ref(x, y), iters=2,
+                                reps=3, warmup=1),
+            "library_ms": time_ms(torch, lambda: torch.matmul(x, y)),
+        }
+        row["bound_ms"], row["bound_by"] = matmul_bound_ms(mm_, kk, nn, 4,
+                                                           "float32")
+        k3_rows.append(row)
+        print(f"[matmul] {card}: K3 f32 ({mm_}, {kk}) @ ({kk}, {nn}): "
+              + json.dumps(row), flush=True)
+    del x, y
+
+    # ------------------------------------------------- 7. paper (main path)
+    paper = paper_config()
+    n = max(paper.sizes)
+    fleet = FleetSpec.from_perfs(paper.machines, prefix="sp")
+    a, b = unit_rand((n, n), n), unit_rand((n, n), n)
+    single = k3_matmul(a, b)           # K3's single-device product
+    torch.cuda.synchronize()
+    n_grains = -(-n // 2)
+    cluster = Cluster(fleet)
+    with grain_split(ThinClient, k3_matmul) as (k3_timed, spent):
+        zero_counts()
+        t0 = time.perf_counter()
+        rep = cluster.simulate(MatmulJob(a, b, n_jobs=3, matmul_fn=k3_timed))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        k3_paper = read_counts("paper")["matmul"]
+    if k3_paper != 3 * n_grains:
+        fail(f"paper: K3 launched {k3_paper} times, expected {3 * n_grains}")
+    if not torch.equal(rep.artifact, single):
+        fail("paper: the distributed product differs from K3's single-device "
+             "product")
+    paper_err = check_close(torch, "paper product vs torch.matmul",
+                            rep.artifact, a @ b, "float32")
+    print(f"[paper] {card}: {fleet}, n = {n} f32, 3 jobs: {k3_paper} K3 "
+          f"launches, product bitwise equal to K3's single-device product, "
+          f"max_abs_err vs torch.matmul {rep.metrics['max_abs_err']:.3e}; "
+          f"{wall_s:.3f} s wall; grains per provider "
+          f"{json.dumps(rep.shares())}; sim time per job "
+          f"{[round(p.sim_time_s, 4) for p in rep.phases]} s, quality "
+          f"{[round(p.quality, 4) for p in rep.phases]}", flush=True)
+    print(f"[paper] host wall split: K3 launches {spent['launches']} calls "
+          f"{spent['launch_s']:.3f} s, waits for the card "
+          f"{spent['grain_s'] - spent['launch_s']:.3f} s, the rest (control "
+          f"plane) {wall_s - spent['grain_s']:.3f} s", flush=True)
+
+    zero_counts()
+    rep = Cluster(fleet).simulate(MatmulJob(a, b, matmul_fn=k3_matmul),
+                                  scenario="kill:sp1@25%")
+    torch.cuda.synchronize()
+    k3_kill = read_counts("paper_kill")["matmul"]
+    if k3_kill != n_grains or not torch.equal(rep.artifact, single):
+        fail(f"paper under kill:sp1@25%: {k3_kill} K3 launches, bitwise "
+             f"equal {torch.equal(rep.artifact, single)}")
+    print(f"[paper] kill:sp1@25%: {k3_kill} K3 launches, product bitwise "
+          f"equal; grains per provider {json.dumps(rep.shares())}", flush=True)
+
+    n4 = 4096
+    a4, b4 = unit_rand((n4, n4), n4), unit_rand((n4, n4), n4)
+    single4 = k3_matmul(a4, b4)
+    torch.cuda.synchronize()
+    with grain_split(ThinClient, k3_matmul) as (k3_timed, spent):
+        zero_counts()
+        t0 = time.perf_counter()
+        rep = Cluster(fleet).simulate(MatmulJob(a4, b4, matmul_fn=k3_timed))
+        torch.cuda.synchronize()
+        wall4_s = time.perf_counter() - t0
+        k3_4096 = read_counts("paper_4096")["matmul"]
+    if k3_4096 != n4 // 2 or not torch.equal(rep.artifact, single4):
+        fail(f"paper n = {n4}: {k3_4096} K3 launches, bitwise equal "
+             f"{torch.equal(rep.artifact, single4)}")
+    check_close(torch, f"paper n = {n4} vs torch.matmul", rep.artifact,
+                a4 @ b4, "float32")
+    print(f"[paper] {card}: n = {n4} f32, 1 job: {k3_4096} K3 launches in "
+          f"{wall4_s:.3f} s wall, product bitwise equal to K3's, max_abs_err "
+          f"vs torch.matmul {rep.metrics['max_abs_err']:.3e}", flush=True)
+    print(f"[paper] n = {n4} host wall split: K3 launches {spent['launches']} "
+          f"calls {spent['launch_s']:.3f} s, waits for the card "
+          f"{spent['grain_s'] - spent['launch_s']:.3f} s, the rest (control "
+          f"plane) {wall4_s - spent['grain_s']:.3f} s", flush=True)
+    del a4, b4, single4, rep
+
+    def fig3(k: int, homogenize: bool) -> float:
+        return Cluster(fleet.take(k), homogenize=homogenize, adaptive=False,
+                       priors="spec").simulate(SimJob(size=800)).measured_speedup
+
+    het = [fig3(k, False) for k in range(1, len(fleet) + 1)]
+    hom = [fig3(k, True) for k in range(1, len(fleet) + 1)]
+    print("[paper] Fig-3 (size 800, sim clock): workers | equal-split | "
+          "homogenized", flush=True)
+    for k, (e, h) in enumerate(zip(het, hom, strict=True), start=1):
+        print(f"[paper] {k:7d} | {e:6.2f} | {h:6.2f}", flush=True)
+    print(f"[paper] max equal-split {max(het):.2f} (paper: 2.8), max "
+          f"homogenized {max(hom):.2f} (paper: 3.6)", flush=True)
+
+    # ----------------------------- 8. wallclock (the bench_wallclock flow)
+    spec = FleetSpec.parse("4:3:2:1", prefix="w")
+    band, measured = 0.35, {}
+    for label, sc in (("steady", None), ("halving", f"halve:{spec.names[0]}@50%")):
+        job = SimJob(size=96)
+        sim = Cluster(spec, priors="spec", default_profile="local").simulate(
+            job, scenario=sc)
+        wb = WallclockBackend(side=WALLCLOCK_SIDE)
+        t0 = time.perf_counter()
+        wc = Cluster(spec, priors="spec", backend=wb).simulate(job, scenario=sc)
+        wall_s = time.perf_counter() - t0
+        pred, meas = sim.predicted_speedup, wc.measured_speedup
+        rel_err = abs(meas - pred) / pred
+        measured[label] = meas
+        print(f"[wallclock] {card}: {label} [{sc or 'no fault'}] sim "
+              f"predicted {pred:.4f}x vs measured {meas:.4f}x (rel_err "
+              f"{rel_err:.4f}, band {band}); sim-measured "
+              f"{sim.measured_speedup:.4f}x; side {wb.side}, unit_s "
+              f"{wb.unit_s:.4e} s; {wall_s:.3f} s wall; "
+              f"{wc.metrics['wallclock']}", flush=True)
+        if wc.backend != "wallclock[1d]":
+            fail(f"wallclock: backend label {wc.backend}")
+        if rel_err > band:
+            fail(f"wallclock {label}: rel_err {rel_err:.4f} outside {band}")
+    if measured["halving"] >= measured["steady"]:
+        fail(f"wallclock: halved run measured {measured['halving']:.4f}x, "
+             f"not below the steady {measured['steady']:.4f}x")
+
+    wb = WallclockBackend(side=WALLCLOCK_SIDE)
+    zero_counts()
+    t0 = time.perf_counter()
+    rep = Cluster(spec, backend=wb).simulate(MatmulJob(a, b,
+                                                       matmul_fn=k3_matmul))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    k3_wc = read_counts("wallclock")["matmul"]
+    if rep.backend != "wallclock[1d]" or k3_wc != n_grains or \
+            not torch.equal(rep.artifact, single):
+        fail(f"wallclock MatmulJob: {rep.backend}, {k3_wc} K3 launches, "
+             f"bitwise equal {torch.equal(rep.artifact, single)}")
+    print(f"[wallclock] {card}: MatmulJob n = {n} on {rep.backend}: {k3_wc} "
+          f"K3 launches, product bitwise equal to K3's; measured speedup "
+          f"{rep.measured_speedup:.4f}x (predicted {rep.predicted_speedup:.4f}"
+          f"x); grains per worker {json.dumps(rep.shares())}; {wall_s:.3f} s "
+          f"wall; {rep.metrics['wallclock']}", flush=True)
+    del a, b, single, rep
+
+    # ------------------ 9. serve under the wall-clock backend (main path)
+    wc_requests = [
+        Request(rid=i, prompt=[int(t) for t in rng.integers(0, cfg.vocab_size, n)],
+                max_new_tokens=8)
+        for i, n in enumerate((20, 90, 150, 300))
+    ]
+    cluster = Cluster("fast=2.0^prefill,slow=1.0x4^decode", backend="wallclock")
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    rep = cluster.serve(ServeJob(wc_requests, model=model, params=params,
+                                 max_seq=1024))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    k1_wc = read_counts("serve_wallclock")["prefill_flash"]
+    for r in wc_requests:
+        if not r.done or len(r.out_tokens) != 8:
+            fail(f"serve wallclock: request {r.rid} done={r.done} with "
+                 f"{len(r.out_tokens)} tokens")
+    if rep.backend != "wallclock[1d]" or k1_wc != len(wc_requests) * N_LAYERS:
+        fail(f"serve wallclock: backend {rep.backend}, K1 launches {k1_wc}")
+    n_tok = sum(len(r.out_tokens) for r in wc_requests)
+    print(f"[serve-wallclock] {card}: {len(wc_requests)} requests, {n_tok} "
+          f"tokens in {wall_s:.3f} s wall -> {n_tok / wall_s:.2f} tokens/s "
+          f"on {rep.backend}; {rep.metrics['n_handoffs']} handoffs; K1 "
+          f"launches {k1_wc}", flush=True)
+
+    per_kernel = {key: {path: counts[key] for path, counts in by_path.items()}
+                  for key in by_path["model"]}
+    launches = {key: sum(n.values()) for key, n in per_kernel.items()}
+    for key, count in launches.items():
+        if count == 0:
             fail(f"kernel {key} was not launched on the main path")
-    print(f"[main path] launches by phase: {json.dumps(by_path)}", flush=True)
+    print(f"[main path] launches by run: {json.dumps(per_kernel)}", flush=True)
 
     src = "src/repro_torch/kernels/prefill/csrc/prefill.cu"
+    k3_row = k3_rows[0]
     kernels = {"kernels": [
         {"name": "prefill_flash", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/prefill/prefill.py:119",
          "launches": launches["prefill_flash"],
-         "launches_by_path": by_path["prefill_flash"], "max_abs_err": k1_err,
+         "launches_by_path": per_kernel["prefill_flash"], "max_abs_err": k1_err,
          "ms": k1_row["ms"], "plain_ms": k1_row["plain_ms"],
          "bound_ms": k1_row["bound_ms"], "bound_by": k1_row["bound_by"],
          "library_ms": k1_row["library_ms"]},
         {"name": "cache_cast", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/prefill/prefill.py:145",
          "launches": launches["cache_cast"],
-         "launches_by_path": by_path["cache_cast"], "max_abs_err": k2_err,
+         "launches_by_path": per_kernel["cache_cast"], "max_abs_err": k2_err,
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": "bytes",
          "library_ms": k2["library_ms"]},
+        {"name": "matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/matmul/csrc/matmul.cu",
+         "replaces": "src/repro/kernels/matmul/matmul.py:66",
+         "launches": launches["matmul"],
+         "launches_by_path": per_kernel["matmul"],
+         "max_abs_err": max(k3_err.values()), "shape": k3_row["shape"],
+         "ms": k3_row["ms"], "plain_ms": k3_row["plain_ms"],
+         "bound_ms": k3_row["bound_ms"], "bound_by": k3_row["bound_by"],
+         "library_ms": k3_row["library_ms"]},
     ]}
     print(f"[card] {card}")
     print(json.dumps(kernels))

@@ -1,4 +1,5 @@
-"""Core homogenization library — the paper's contribution (JAX-free copy).
+"""Core homogenization library — the paper's contribution (port of
+``repro.core``; the control plane is a JAX-free copy).
 
 Control-plane (pure Python, coordinator-side):
   homogenization  — scope lengths, N_H, overhead model, speedup (Eqs. 1-9)
@@ -6,10 +7,11 @@ Control-plane (pure Python, coordinator-side):
   scheduler       — grain plans with hysteresis + elastic replan
   runtime         — async event loop: per-worker grain queues, completion-
                     event heartbeats, mid-job re-homogenization + stealing
+  tda             — client/server/service-provider triangle, real execution
+                    (torch tensors on one device)
   simulate        — discrete-event heterogeneous cluster (paper §3 testbed)
-
-``tda`` (the client/server/provider triangle) and ``wallclock`` (the
-measured backend) come with the matmul slice of the port.
+  wallclock       — measured ExecutionBackend: grains run as real torch
+                    computations on the CUDA devices (wall-clock times)
 """
 
 from .homogenization import (
@@ -40,8 +42,10 @@ from .runtime import (
     SingleCoordinator,
     TimelineEvent,
 )
+from .wallclock import WallclockBackend, WallclockStats
 from .scheduler import GrainPlan, HomogenizedScheduler, should_replan
 from .simulate import PAPER_MACHINES, REF_SIZE, ClusterSim, JobResult, Machine
+from .tda import ServiceProvider, TDAServer, ThinClient
 
 __all__ = [
     "MAX_OVERHEAD_SLOPE",
@@ -66,6 +70,8 @@ __all__ = [
     "DispatchAuthority",
     "ExecutionBackend",
     "SimBackend",
+    "WallclockBackend",
+    "WallclockStats",
     "GrainExecutor",
     "GrainRecord",
     "JobContext",
@@ -78,4 +84,7 @@ __all__ = [
     "ClusterSim",
     "JobResult",
     "Machine",
+    "ServiceProvider",
+    "TDAServer",
+    "ThinClient",
 ]

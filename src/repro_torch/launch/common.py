@@ -1,10 +1,12 @@
 """Shared launcher plumbing: fleet-flag grammar, backend choice, env profile.
 
-Port of ``repro/launch/common.py`` with the same flags.  The XLA device
-pinning has no counterpart under PyTorch, and the tuned env profile
-(``launch/env.py``) and the wall-clock backend come with later port slices:
-asking for either raises ``NotImplementedError``.  The reference's
-description follows.
+Port of ``repro/launch/common.py`` with the same flags.  ``--devices`` is
+the number of CUDA devices the wall-clock backend round-robins over
+(``make_backend``); the XLA host-device pinning it drives in the reference
+has no counterpart under PyTorch, so nothing is written to the environment.
+The tuned env profile (``launch/env.py``) comes with a later port slice:
+asking for it raises ``NotImplementedError``.  The reference's description
+follows.
 
 The train and serve CLIs grew the same three fragments independently — a
 ``--fleet`` flag whose legacy alias (``--pods`` / ``--replicas``) predates
@@ -19,8 +21,8 @@ import argparse
 import os
 import warnings
 
-__all__ = ["add_fleet_arg", "add_backend_args", "add_trace_args",
-           "make_tracer", "export_trace", "apply_env"]
+__all__ = ["add_fleet_arg", "add_backend_args", "make_backend",
+           "add_trace_args", "make_tracer", "export_trace", "apply_env"]
 
 _warned_aliases: set[str] = set()
 
@@ -58,11 +60,26 @@ def add_backend_args(ap: argparse.ArgumentParser) -> None:
     Cluster facade, mirrored on every launcher."""
     ap.add_argument("--backend", choices=("sim", "wallclock"), default="sim",
                     help="execution backend: 'sim' (logical clock, modeled "
-                         "durations — default); 'wallclock' comes with the "
-                         "port's matmul slice and raises until then")
+                         "durations — default) or 'wallclock' (grains run "
+                         "as real torch computations on the CUDA devices; "
+                         "durations are measured)")
     ap.add_argument("--devices", type=int, default=None,
-                    help="device count for the wall-clock backend (comes "
-                         "with the port's matmul slice)")
+                    help="CUDA devices the wall-clock backend round-robins "
+                         "workers over (default: every visible device; "
+                         "more than are visible raises)")
+
+
+def make_backend(args: argparse.Namespace):
+    """The ``Cluster(backend=...)`` the flags ask for: 'sim', or for
+    ``--backend wallclock`` a ``WallclockBackend`` over the first
+    ``--devices`` CUDA devices (or over ``--device`` when that is not CUDA,
+    e.g. the CPU)."""
+    if getattr(args, "backend", "sim") != "wallclock":
+        return "sim"
+    from ..core.wallclock import WallclockBackend, wallclock_devices
+
+    return WallclockBackend(devices=wallclock_devices(
+        getattr(args, "device", None), getattr(args, "devices", None)))
 
 
 def add_trace_args(ap: argparse.ArgumentParser) -> None:

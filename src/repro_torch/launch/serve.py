@@ -3,9 +3,10 @@ homogenized dispatcher, driven through the declarative Cluster API.
 
 Port of ``repro/launch/serve.py`` with the same flags, plus ``--device``
 (default ``cuda``; ``--device cpu`` runs the port's plain kernel versions on
-the host).  ``--backend wallclock`` and ``--tuned`` raise until the port
-slices that bring them.  The reference launcher's deprecated pre-Cluster
-shims are not ported.
+the host).  ``--backend wallclock`` measures engine steps on the card
+(``--devices`` of them, all visible by default) and, as in the reference,
+refuses a scenario; ``--tuned`` raises until the port slice that brings it.
+The reference launcher's deprecated pre-Cluster shims are not ported.
 
 ``--fleet`` is the ``FleetSpec`` grammar (``[NAME=]PERFxSLOTS[@PROFILE]``,
 comma- or colon-separated — the old ``--replicas PERFxBATCH`` grammar is a
@@ -55,6 +56,7 @@ from .common import (
     add_trace_args,
     apply_env,
     export_trace,
+    make_backend,
     make_tracer,
 )
 
@@ -127,7 +129,7 @@ def main() -> None:
 
     requests = make_requests(args.requests, cfg.vocab_size, args.max_new)
     tracer = make_tracer(args)
-    cluster = Cluster(fleet, backend=args.backend, trace=tracer,
+    cluster = Cluster(fleet, backend=make_backend(args), trace=tracer,
                       device=args.device)
     names = ", ".join(f"{w.name}={w.perf:g}steps/s x{w.concurrency}slots"
                       for w in fleet.workers)
@@ -212,7 +214,7 @@ def main() -> None:
     export_trace(tracer, args)
 
     if args.compare_serial:
-        serial = Cluster(fleet, backend=args.backend,
+        serial = Cluster(fleet, backend=make_backend(args),
                          device=args.device).serve(
             ServeJob(make_requests(args.requests, cfg.vocab_size, args.max_new),
                      model=model, params=params, max_seq=args.max_seq,

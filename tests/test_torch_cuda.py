@@ -12,7 +12,11 @@ import dataclasses
 import pytest
 import torch
 
+from repro_torch.cluster import Cluster, MatmulJob
 from repro_torch.configs import get_config
+from repro_torch.kernels.matmul import matmul as mm
+from repro_torch.kernels.matmul.ops import matmul
+from repro_torch.kernels.matmul.ref import matmul_ref
 from repro_torch.kernels.prefill import prefill as pf
 from repro_torch.kernels.prefill.ops import prefill_attention
 from repro_torch.kernels.prefill.ref import prefill_ref
@@ -85,3 +89,48 @@ def test_prefill_op_layout_and_model_launches(dev):
     m.prefill(m.init(0), {"tokens": torch.zeros((1, 16), dtype=torch.long,
                                                 device=dev)})
     assert pf.LAUNCHES["prefill_flash"] == before + cfg.n_layers
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (2, 96, 70), (100, 70, 36),
+                                   (513, 129, 257), (2, 1000, 1000)])
+def test_matmul_kernel_matches_plain(dev, m, k, n, dtype):
+    x = _rand((m, k), dtype, dev, 10) * k ** -0.25
+    y = _rand((k, n), dtype, dev, 11) * k ** -0.25
+    before = mm.LAUNCHES["matmul"]
+    out = matmul(x.to(dtype), y.to(dtype))
+    assert mm.LAUNCHES["matmul"] == before + 1
+    assert out.dtype == dtype and out.shape == (m, n)
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(out.float(), matmul_ref(x.to(dtype),
+                                                       y.to(dtype)).float(),
+                               rtol=rtol, atol=atol)
+
+
+def test_matmul_kernel_row_slices_are_bitwise(dev):
+    x, y = _rand((130, 300), torch.float32, dev, 12), _rand(
+        (300, 200), torch.float32, dev, 13)
+    full = matmul(x, y)
+    for lo in range(0, 129):
+        assert torch.equal(matmul(x[lo:lo + 2], y), full[lo:lo + 2]), lo
+
+
+def test_matmul_kernel_raises_instead_of_falling_back(dev):
+    x = torch.zeros((4, 4), dtype=torch.float64, device=dev)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        mm.matmul(x, x)
+    x = torch.zeros((4, 4), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        mm.matmul(x.t(), x)
+
+
+def test_matmul_job_on_the_card_is_k3_bitwise(dev):
+    a = _rand((64, 48), torch.float32, dev, 14)
+    b = _rand((48, 40), torch.float32, dev, 15)
+    before = mm.LAUNCHES["matmul"]
+    rep = Cluster("2:1", device="cuda").simulate(MatmulJob(a, b,
+                                                           matmul_fn=matmul))
+    assert mm.LAUNCHES["matmul"] == before + 32
+    assert rep.artifact.device.type == "cuda"
+    assert torch.equal(rep.artifact, matmul(a, b))
+    assert rep.metrics["max_abs_err"] < 1e-4

@@ -1,5 +1,6 @@
 """The port stands alone: running it loads neither JAX nor the JAX package,
-and it never calls a library attention kernel in place of its own.
+and it never calls a library attention kernel or matrix product in place of
+its own kernels.
 
 Run-time checks happen in fresh subprocesses (this test process has JAX
 loaded for the parity tests); the source scan covers every module of
@@ -12,6 +13,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import tokenize
 
 import pytest
 
@@ -46,6 +48,21 @@ assert all(len(r.out_tokens) == 3 for r in reqs)
 """
 
 
+_MATMUL = """
+import numpy as np
+from repro_torch.cluster import Cluster, MatmulJob
+from repro_torch.kernels.matmul.ops import matmul
+
+rng = np.random.default_rng(0)
+a = rng.standard_normal((24, 8)).astype(np.float32)
+b = rng.standard_normal((8, 8)).astype(np.float32)
+rep = Cluster("2:1", backend="wallclock", device="cpu").simulate(
+    MatmulJob(a, b, matmul_fn=matmul))
+assert rep.backend == "wallclock[1d]", rep.backend
+assert rep.metrics["max_abs_err"] < 1e-5, rep.metrics
+"""
+
+
 def _run(code: str) -> list[str]:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code + _REPORT], cwd=ROOT,
@@ -56,6 +73,10 @@ def _run(code: str) -> list[str]:
 
 def test_port_serve_loads_no_jax_or_repro():
     assert _run(_SERVE) == []
+
+
+def test_port_wallclock_matmul_loads_no_jax_or_repro():
+    assert _run(_MATMUL) == []
 
 
 def test_import_chip_smoke_loads_no_jax_or_repro():
@@ -80,3 +101,29 @@ def test_source_imports_and_calls(path):
         assert not re.search(pattern, text, re.M), f"{path} {what}"
     if path != "chip_smoke.py":   # the smoke run times SDPA as a yardstick
         assert "scaled_dot_product_attention" not in text, path
+
+
+
+def _code_only(path: pathlib.Path) -> str:
+    """The source without its comments and string literals."""
+    if path.suffix == ".cu":
+        text = re.sub(r"/\*.*?\*/", " ", path.read_text(), flags=re.S)
+        return re.sub(r"//[^\n]*", " ", text)
+    with open(path, "rb") as f:
+        toks = tokenize.tokenize(f.readline)
+        skip = {tokenize.COMMENT, tokenize.STRING,
+                getattr(tokenize, "FSTRING_MIDDLE", tokenize.STRING)}
+        return " ".join(t.string for t in toks if t.type not in skip)
+
+
+@pytest.mark.parametrize(
+    "path", sorted(str(p.relative_to(ROOT))
+                   for p in (PORT / "kernels" / "matmul").rglob("*")
+                   if p.suffix in (".py", ".cu")))
+def test_matmul_kernel_route_has_no_library_product(path):
+    """K3's wrapper, op, plain version and CUDA source compute the product
+    themselves: no torch product, cuBLAS or CUTLASS GEMM stands in."""
+    code = _code_only(ROOT / path)
+    for pattern in (r"torch \. (matmul|mm|bmm|einsum|addmm)\b", r"[\w)\]] @",
+                    r"\. (matmul|mm) \(", r"(?i)cublas|cutlass"):
+        assert not re.search(pattern, code), f"{path}: {pattern}"

@@ -98,11 +98,14 @@ def test_simulate_matches_reference(scenario):
 
 
 def test_later_slices_raise_and_device_policy():
-    with pytest.raises(NotImplementedError, match="matmul slice"):
-        Cluster("2x1", backend="wallclock", device="cpu")
+    """MatmulJob and backend='wallclock' run (slice 2); train still raises,
+    naming its slice; without CUDA the default device raises."""
     c = Cluster("2x1,1x1", device="cpu")
-    with pytest.raises(NotImplementedError, match="matmul slice"):
-        c.simulate(MatmulJob(np.ones((4, 4)), np.ones((4, 4))))
+    a = np.arange(16, dtype=np.float32).reshape(4, 4)
+    rep = c.simulate(MatmulJob(a, np.eye(4, dtype=np.float32)))
+    assert torch.equal(rep.artifact, torch.from_numpy(a))
+    wc = Cluster("2x1", backend="wallclock", device="cpu")
+    assert wc.simulate(SimJob(size=4)).backend == "wallclock[1d]"
     with pytest.raises(NotImplementedError, match="training slice"):
         c.train(TrainJob(model=None, steps=1))
     if not torch.cuda.is_available():
