@@ -43,7 +43,9 @@ Phases, each of which exits non-zero when it fails:
                K3's single-device product and within the f32 tolerance of
                ``torch.matmul``; again under ``kill:sp1@25%`` (bitwise
                equal) and once at n = 4096 (2048 launches); the shares, the
-               host wall split and the Fig-3 table,
+               host wall split, the card's time in K3 on the path (CUDA
+               events around every launch) against the wall time, and the
+               Fig-3 table,
   8. wallclock — the bench_wallclock flow: on fleet 4:3:2:1 the sim's
                predicted speedup against the speedup the wall-clock backend
                measures on the card, steady and under ``halve:w0@50%``
@@ -216,18 +218,28 @@ def matmul_bound_ms(m: int, k: int, n: int, itemsize: int,
 def grain_split(client_cls, matmul_fn):
     """Host seconds spent in ``matmul_fn`` (K3's launches: checks, output
     allocation, the launch) and in ``client_cls.matmul_block`` (one grain:
-    its launch plus the wait for the card) while the block runs.  Yields
-    the timed ``matmul_fn`` to hand to the job and the running totals."""
-    spent = {"launches": 0, "launch_s": 0.0, "grains": 0, "grain_s": 0.0}
+    its launch plus the wait for the card) while the block runs, and the
+    card's time in each launch, between two CUDA events recorded around it
+    (read with ``device_s`` once the card is synchronized).  Yields the
+    timed ``matmul_fn`` to hand to the job and the running totals."""
+    import torch
+
+    spent = {"launches": 0, "launch_s": 0.0, "grains": 0, "grain_s": 0.0,
+             "events": []}
     saved = client_cls.__dict__["matmul_block"]
 
     def timed_fn(x, y):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
         t = time.perf_counter()
+        ev[0].record()
         try:
             return matmul_fn(x, y)
         finally:
+            ev[1].record()
             spent["launches"] += 1
             spent["launch_s"] += time.perf_counter() - t
+            spent["events"].append(ev)
 
     def timed_block(*args):
         t = time.perf_counter()
@@ -242,6 +254,12 @@ def grain_split(client_cls, matmul_fn):
         yield timed_fn, spent
     finally:
         client_cls.matmul_block = saved
+
+
+def device_s(spent) -> float:
+    """Card seconds inside the launches ``grain_split`` timed (call after a
+    synchronize)."""
+    return sum(a.elapsed_time(b) for a, b in spent["events"]) / 1e3
 
 
 def library_attention(torch, q, k, v):
@@ -600,6 +618,11 @@ def main() -> int:
           f"{spent['launch_s']:.3f} s, waits for the card "
           f"{spent['grain_s'] - spent['launch_s']:.3f} s, the rest (control "
           f"plane) {wall_s - spent['grain_s']:.3f} s", flush=True)
+    busy = device_s(spent)
+    print(f"[paper] {card}: card time in K3 (CUDA events around each of the "
+          f"{len(spent['events'])} launches) {busy:.4f} s of {wall_s:.4f} s "
+          f"wall: busy with K3 {busy / wall_s:.4f}, idle at most "
+          f"{1 - busy / wall_s:.4f}", flush=True)
 
     zero_counts()
     rep = Cluster(fleet).simulate(MatmulJob(a, b, matmul_fn=k3_matmul),
@@ -635,6 +658,11 @@ def main() -> int:
           f"calls {spent['launch_s']:.3f} s, waits for the card "
           f"{spent['grain_s'] - spent['launch_s']:.3f} s, the rest (control "
           f"plane) {wall4_s - spent['grain_s']:.3f} s", flush=True)
+    busy = device_s(spent)
+    print(f"[paper] {card}: n = {n4} card time in K3 (CUDA events around each "
+          f"of the {len(spent['events'])} launches) {busy:.4f} s of "
+          f"{wall4_s:.4f} s wall: busy with K3 {busy / wall4_s:.4f}, idle at "
+          f"most {1 - busy / wall4_s:.4f}", flush=True)
     del a4, b4, single4, rep
 
     def fig3(k: int, homogenize: bool) -> float:

@@ -195,21 +195,15 @@ class WallclockBackend(ExecutionBackend):
     # -- calibration ---------------------------------------------------------
     def _calibrate(self, reps: int) -> None:
         """Warm the unit op on every device and seed the unit-time EMA from
-        measured chains on device 0: the median of three chains of ``reps``
-        ops, so that one chain the host happened to stall does not set the
-        time scale of the whole run (the reference times one chain)."""
+        a measured chain on device 0."""
         for x in self._x:
             self._wait(self._op(x, x))
-        x = self._x[0]
-        per_op = []
-        for _ in range(3):
-            h = x
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                h = self._op(h, x)
-            self._wait(h)
-            per_op.append((time.perf_counter() - t0) / reps)
-        self._unit_s = max(sorted(per_op)[1], _MIN_DT)
+        h, x = self._x[0], self._x[0]
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            h = self._op(h, x)
+        self._wait(h)
+        self._unit_s = max((time.perf_counter() - t0) / reps, _MIN_DT)
 
     def _learn_unit(self, dt_per_op: float) -> None:
         a = self._unit_alpha

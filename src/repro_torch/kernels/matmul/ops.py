@@ -13,16 +13,9 @@ from __future__ import annotations
 import torch
 
 from .matmul import matmul as _matmul_call
-from .ref import matmul_ref
 
 
-def matmul(x: torch.Tensor, y: torch.Tensor, *,
-           use_pallas: bool | None = None) -> torch.Tensor:
-    """x @ y with an f32 accumulator, in x's dtype.
-
-    ``use_pallas`` keeps the reference's name for the kernel route: None or
-    True routes through the kernel wrapper (K3 on a CUDA tensor, the plain
-    version on a CPU one); False is the plain version on any device."""
-    if use_pallas is False:
-        return matmul_ref(x, y)
+def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x @ y with an f32 accumulator, in x's dtype: K3 on CUDA tensors, the
+    plain version (``ref.matmul_ref``) on CPU tensors."""
     return _matmul_call(x.contiguous(), y.contiguous())

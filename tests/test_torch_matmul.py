@@ -103,7 +103,7 @@ def test_plain_version_bf16_accumulates_in_f32():
 
 def test_dispatch_and_validation():
     x, y = (torch.from_numpy(a) for a in _inputs(1, 4, 3, 5))
-    assert torch.equal(matmul(x, y, use_pallas=False), matmul_ref(x, y))
+    assert torch.equal(matmul(x, y), matmul_ref(x, y))
     # A non-contiguous view takes the op's layout step.
     assert torch.equal(matmul(x.t().contiguous().t(), y), matmul_ref(x, y))
     with pytest.raises(ValueError, match="contraction"):

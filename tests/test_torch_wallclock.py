@@ -171,11 +171,15 @@ def test_wallclock_overlap_modes_measure(overlap):
 
 # ----------------------------------------------- sim-vs-wallclock agreement
 def test_tiny_fleet_sim_wallclock_agreement():
-    job = SimJob(size=48)
+    # The reference's band, at ten times its grains and a calibration chain
+    # of ~0.1 s: a short chain fits in one host time slice and a short job
+    # does not, so under a loaded host (``pytest -n 6``) the two would see
+    # different contention and the measured time scale would be off.
+    job = SimJob(size=480)
     sim = Cluster("2:1", priors="spec", default_profile="local",
                   device="cpu").simulate(job)
-    wc = Cluster("2:1", priors="spec", backend="wallclock",
-                 device="cpu").simulate(job)
+    wb = WallclockBackend(calibration_reps=1000, devices=CPU)
+    wc = Cluster("2:1", priors="spec", backend=wb, device="cpu").simulate(job)
     pred = sim.predicted_speedup
     assert pred == pytest.approx(1.5, rel=1e-3)  # N_H of a 2:1 fleet
     assert abs(wc.measured_speedup - pred) / pred < 0.5
