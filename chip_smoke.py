@@ -43,9 +43,9 @@ Phases, each of which exits non-zero when it fails:
                K3's single-device product and within the f32 tolerance of
                ``torch.matmul``; again under ``kill:sp1@25%`` (bitwise
                equal) and once at n = 4096 (2048 launches); the shares, the
-               host wall split, the card's time in K3 on the path (CUDA
-               events around every launch) against the wall time, and the
-               Fig-3 table,
+               host wall split, the card's busy share (a repeat of each run
+               under ``torch.profiler``: kernel time over wall time), and
+               the Fig-3 table,
   8. wallclock — the bench_wallclock flow: on fleet 4:3:2:1 the sim's
                predicted speedup against the speedup the wall-clock backend
                measures on the card, steady and under ``halve:w0@50%``
@@ -218,28 +218,18 @@ def matmul_bound_ms(m: int, k: int, n: int, itemsize: int,
 def grain_split(client_cls, matmul_fn):
     """Host seconds spent in ``matmul_fn`` (K3's launches: checks, output
     allocation, the launch) and in ``client_cls.matmul_block`` (one grain:
-    its launch plus the wait for the card) while the block runs, and the
-    card's time in each launch, between two CUDA events recorded around it
-    (read with ``device_s`` once the card is synchronized).  Yields the
-    timed ``matmul_fn`` to hand to the job and the running totals."""
-    import torch
-
-    spent = {"launches": 0, "launch_s": 0.0, "grains": 0, "grain_s": 0.0,
-             "events": []}
+    its launch plus the wait for the card) while the block runs.  Yields
+    the timed ``matmul_fn`` to hand to the job and the running totals."""
+    spent = {"launches": 0, "launch_s": 0.0, "grains": 0, "grain_s": 0.0}
     saved = client_cls.__dict__["matmul_block"]
 
     def timed_fn(x, y):
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
         t = time.perf_counter()
-        ev[0].record()
         try:
             return matmul_fn(x, y)
         finally:
-            ev[1].record()
             spent["launches"] += 1
             spent["launch_s"] += time.perf_counter() - t
-            spent["events"].append(ev)
 
     def timed_block(*args):
         t = time.perf_counter()
@@ -256,10 +246,34 @@ def grain_split(client_cls, matmul_fn):
         client_cls.matmul_block = saved
 
 
-def device_s(spent) -> float:
-    """Card seconds inside the launches ``grain_split`` timed (call after a
-    synchronize)."""
-    return sum(a.elapsed_time(b) for a, b in spent["events"]) / 1e3
+def card_busy(torch, run) -> tuple[float, float, float]:
+    """Run ``run()`` under ``torch.profiler`` with CUDA tracing; return its
+    host wall seconds (profiler overhead included), the card's seconds in
+    every kernel it ran and in K3 alone (kernel durations as CUPTI records
+    them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    rows = prof.key_averages()
+    busy = sum(r.self_device_time_total for r in rows) / 1e6
+    k3 = sum(r.self_device_time_total for r in rows
+             if "matmul_kernel" in r.key) / 1e6
+    return wall_s, busy, k3
+
+
+def print_busy(card, label, wall_s, busy_s, k3_s, unprofiled_s) -> None:
+    print(f"[paper] {card}: {label}, profiled repeat: {wall_s:.4f} s wall, "
+          f"card busy {busy_s:.4f} s (K3 {k3_s:.4f} s, other kernels "
+          f"{busy_s - k3_s:.4f} s): busy {busy_s / wall_s:.4f}, idle "
+          f"{1 - busy_s / wall_s:.4f}; the same kernel time over the "
+          f"unprofiled run's {unprofiled_s:.4f} s: busy "
+          f"{busy_s / unprofiled_s:.4f}, idle {1 - busy_s / unprofiled_s:.4f}",
+          flush=True)
 
 
 def library_attention(torch, q, k, v):
@@ -618,11 +632,9 @@ def main() -> int:
           f"{spent['launch_s']:.3f} s, waits for the card "
           f"{spent['grain_s'] - spent['launch_s']:.3f} s, the rest (control "
           f"plane) {wall_s - spent['grain_s']:.3f} s", flush=True)
-    busy = device_s(spent)
-    print(f"[paper] {card}: card time in K3 (CUDA events around each of the "
-          f"{len(spent['events'])} launches) {busy:.4f} s of {wall_s:.4f} s "
-          f"wall: busy with K3 {busy / wall_s:.4f}, idle at most "
-          f"{1 - busy / wall_s:.4f}", flush=True)
+    print_busy(card, f"n = {n}, 3 jobs", *card_busy(torch, lambda: Cluster(
+        fleet).simulate(MatmulJob(a, b, n_jobs=3, matmul_fn=k3_matmul))),
+        wall_s)
 
     zero_counts()
     rep = Cluster(fleet).simulate(MatmulJob(a, b, matmul_fn=k3_matmul),
@@ -658,11 +670,8 @@ def main() -> int:
           f"calls {spent['launch_s']:.3f} s, waits for the card "
           f"{spent['grain_s'] - spent['launch_s']:.3f} s, the rest (control "
           f"plane) {wall4_s - spent['grain_s']:.3f} s", flush=True)
-    busy = device_s(spent)
-    print(f"[paper] {card}: n = {n4} card time in K3 (CUDA events around each "
-          f"of the {len(spent['events'])} launches) {busy:.4f} s of "
-          f"{wall4_s:.4f} s wall: busy with K3 {busy / wall4_s:.4f}, idle at "
-          f"most {1 - busy / wall4_s:.4f}", flush=True)
+    print_busy(card, f"n = {n4}, 1 job", *card_busy(torch, lambda: Cluster(
+        fleet).simulate(MatmulJob(a4, b4, matmul_fn=k3_matmul))), wall4_s)
     del a4, b4, single4, rep
 
     def fig3(k: int, homogenize: bool) -> float:

@@ -111,14 +111,16 @@ def test_wallclock_repeats_emulate_heterogeneity():
     assert [wb.repeats(1.0, p, 1.0) for p in (4, 3, 2, 1)] == [3, 4, 6, 12]
     assert wb.time_scale(2.0) == pytest.approx(12 * wb.unit_s / 2.0)
     assert wb.grain_seconds(1.0, 1.0, 1.0) == pytest.approx(12 * wb.unit_s)
-    # The arithmetic is the reference's, at any cost, perf and reference.
-    ref = JaxWallclockBackend(calibration_reps=4)
+    # The arithmetic is the reference's, at any cost, perf and reference:
+    # the reference's methods, run on the port backend's own state (a JAX
+    # backend would calibrate JAX devices, tens of seconds under load).
+    ref = JaxWallclockBackend
     grid = [(c, p, r) for c in (0.5, 1.0, 2.0, 7.0) for p in (0.3, 1.0, 2.5, 4.0)
             for r in (None, 1.0, 3.0)]
-    assert [wb.repeats(*g) for g in grid] == [ref.repeats(*g) for g in grid]
+    assert [wb.repeats(*g) for g in grid] == [ref.repeats(wb, *g) for g in grid]
     for c in (0.5, 2.0, 96.0):
-        assert wb.time_scale(c) / wb.unit_s == pytest.approx(
-            ref.time_scale(c) / ref.unit_s, rel=1e-12)
+        assert wb.time_scale(c) == ref.time_scale(wb, c)
+        assert wb.grain_seconds(c, 2.5) == ref.grain_seconds(wb, c, 2.5)
 
 
 def test_wallclock_simulate_smoke():
@@ -171,19 +173,25 @@ def test_wallclock_overlap_modes_measure(overlap):
 
 # ----------------------------------------------- sim-vs-wallclock agreement
 def test_tiny_fleet_sim_wallclock_agreement():
-    # The reference's band, at ten times its grains and a calibration chain
-    # of ~0.1 s: a short chain fits in one host time slice and a short job
-    # does not, so under a loaded host (``pytest -n 6``) the two would see
-    # different contention and the measured time scale would be off.
+    # The reference's band and assertions, held by the median of three
+    # measured runs, each at ten times the reference's grains after a
+    # calibration chain of ~0.1 s.  A single run compares the host's load
+    # during its calibration chain with the load during its job; under
+    # ``pytest -n 6`` that load shifts between the two, and one run in a few
+    # dozen strays outside the band.
     job = SimJob(size=480)
     sim = Cluster("2:1", priors="spec", default_profile="local",
                   device="cpu").simulate(job)
-    wb = WallclockBackend(calibration_reps=1000, devices=CPU)
-    wc = Cluster("2:1", priors="spec", backend=wb, device="cpu").simulate(job)
+    runs = []
+    for _ in range(3):
+        wb = WallclockBackend(calibration_reps=1000, devices=CPU)
+        runs.append(Cluster("2:1", priors="spec", backend=wb,
+                            device="cpu").simulate(job).measured_speedup)
+    measured = sorted(runs)[1]
     pred = sim.predicted_speedup
     assert pred == pytest.approx(1.5, rel=1e-3)  # N_H of a 2:1 fleet
-    assert abs(wc.measured_speedup - pred) / pred < 0.5
-    assert wc.measured_speedup > 1.0            # beats the best solo worker
+    assert abs(measured - pred) / pred < 0.5, runs
+    assert measured > 1.0, runs                # beats the best solo worker
 
 
 # ------------------------------------------------------------- calibration
