@@ -6,9 +6,10 @@
 Phases, each of which exits non-zero when it fails:
 
   1. device  — the card's name and power limit (``nvidia-smi``),
-  2. build   — the prefill and matmul kernel libraries from ``src/repro_torch/
-               kernels/{prefill,matmul}/csrc`` (one nvcc each, sm_90a, both
-               started together), with the build seconds,
+  2. build   — the prefill, matmul and flash-attention kernel libraries
+               from ``src/repro_torch/kernels/{prefill,matmul,
+               flash_attention}/csrc`` (one nvcc each, sm_90a, all started
+               together), with the build seconds,
   3. kernels — K1 (``prefill_flash``) and K2 (``cache_cast``) held against
                their plain torch versions on the card: K1 through
                ``prefill_attention``, the op the model calls, at every
@@ -53,10 +54,35 @@ Phases, each of which exits non-zero when it fails:
                1000-square ``MatmulJob`` on that backend (``wallclock[1d]``,
                bitwise equal to K3's product),
   9. serve under the wall-clock backend — 4 requests of 8 new tokens through
-               phase 5's fleet with ``backend="wallclock"``.
+               phase 5's fleet with ``backend="wallclock"``,
+ 10. K4      — flash attention's forward (``flash_attention_fwd``) and its two
+               backward kernels (``flash_attention_bwd_dq``,
+               ``flash_attention_bwd_dkdv``) through the autograd function the
+               model calls, against the plain version (forward) and autograd
+               through it (backward), f32 and bf16, causal and not, at the
+               reference's kernel-test shapes, Sq != Skv, ragged S, the x30
+               logits and the training path's q (16, 1024, 128), k/v (2,
+               1024, 128); the backward bitwise equal over two runs; each
+               kernel timed at the path's shape beside the plain version,
+               PyTorch's SDPA (forward; backward) and the card's bound,
+ 11. train   — full-width Qwen2-1.5B training at seq 1024: one f32 grain's
+               loss and gradients on the kernel path against
+               ``use_pallas=False`` (loss rtol 1e-4, each gradient leaf
+               within relative Frobenius error 1e-3); the launcher's HDP flow
+               in bf16, ``Cluster("4:3:2:1").train`` for 3 steps of 8 grains
+               under ``halve:pod0@1:25%`` (losses finite; shares, migrations,
+               sim-clock step times; the host wall split into grain
+               gradients, combine, AdamW and control plane; peak memory; the
+               card's busy share and its 12 costliest kernels in a profiled
+               repeat of one step); the same
+               2 steps static and adaptive with bitwise-equal parameters (a
+               SHA-256 per leaf); 2 steps on the wall-clock backend.  K4's
+               launches equal the prediction in every run: per grain, 2 x 28
+               forwards (forward and remat recompute) and 28 of each
+               backward kernel.
 
-Phases 4, 5, 7, 8 and 9 are the main path: the kernels' launch counts are
-set to 0 just before each of their runs and read just after it; the
+Phases 4, 5, 7, 8, 9 and 11 are the main path: the kernels' launch counts
+are set to 0 just before each of their runs and read just after it; the
 ``kernels`` line gives each kernel's launches in all and by run.  The
 next-to-last line is the ``kernels`` JSON object; a line before it holds the
 card's name and power limit; the last line is ``{"ok": true, "device":
@@ -71,6 +97,8 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import gc
+import hashlib
 import json
 import os
 import re
@@ -86,8 +114,23 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 
 TOL = {"bfloat16": (2e-2, 2e-2), "float32": (5e-4, 5e-5)}   # (rtol, atol)
+#: K4's gradients against autograd through the plain version: f32 loosened
+#: from the forward's 5e-4 / 5e-5 (the backward sums 2-3 products per
+#: element in another order than autograd does); bf16 as the forward.
+GRAD_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-3, 1e-4)}
 SEED = 0
 N_LAYERS = 28
+#: The training phase: grains of one 1024-token sequence, 8 grains a step.
+TRAIN_SEQ = 1024
+TRAIN_GRAINS = 8
+K4_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkdv")
+#: K4's launches per grain of the training path, by kernel: per layer the
+#: forward runs twice (forward, then its recompute under remat) and each
+#: backward kernel once.
+K4_PER_GRAIN = {"flash_attention_fwd": 2 * N_LAYERS,
+                "flash_attention_bwd_dq": N_LAYERS,
+                "flash_attention_bwd_dkdv": N_LAYERS}
 #: Side of the wall-clock backend's unit op ``tanh(h @ x)`` on the card: at
 #: 2048 one f32 product is about 17 GFLOP, far above a launch's cost, so the
 #: measured chains are device time (the default 96 is sized for a CPU).
@@ -128,9 +171,9 @@ def time_ms(torch, fn, iters: int = 20, reps: int = 7,
     return sorted(per_call)[reps // 2]
 
 
-def check_close(torch, name, got, want, dtype_name) -> float:
-    rtol, atol = TOL[dtype_name]
-    g, w = got.float(), want.float()
+def check_close(torch, name, got, want, dtype_name, tol=TOL) -> float:
+    rtol, atol = tol[dtype_name]
+    g, w = got.detach().float(), want.detach().float()
     err = (g - w).abs()
     if not torch.isfinite(g).all():
         fail(f"{name}: non-finite values")
@@ -214,6 +257,78 @@ def matmul_bound_ms(m: int, k: int, n: int, itemsize: int,
                                        else "operations")
 
 
+def k4_bound_ms(bh: int, bhkv: int, sq: int, skv: int, d: int, itemsize: int,
+                dtype_name: str, causal: bool, part: str) -> tuple[float, str]:
+    """Least time for K4's forward (``part`` 'fwd') or one backward kernel
+    ('dq', 'dkdv'): each input read once, each output written once;
+    operations per visible (query, key) pair: 4 D for the forward (scores,
+    P V), 6 D for dQ (scores, dP, dS K), 8 D for dK/dV (scores, dP, P^T dO,
+    dS^T Q).  The row statistics (lse, rowsum(dO * O)) are f32."""
+    per_row = bh * (sum(min(i + 1, skv) for i in range(sq)) if causal
+                    else sq * skv)
+    q_elems, kv_elems, rows = bh * sq * d, bhkv * skv * d, bh * sq
+    nbytes, ops = {
+        "fwd": (itemsize * (2 * q_elems + 2 * kv_elems) + 4 * rows, 4),
+        "dq": (itemsize * (4 * q_elems + 2 * kv_elems) + 8 * rows, 6),
+        "dkdv": (itemsize * (2 * q_elems + 4 * kv_elems) + 8 * rows, 8),
+    }[part]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops * d * per_row / PEAK_OPS_PER_S[dtype_name]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+@contextlib.contextmanager
+def train_split(torch, loop):
+    """Calls and host seconds spent, while the block runs, in each grain
+    (``_GrainGradExecutor.execute``: the batch, forward, backward, and the
+    wait for the loss), in the combine (``_PrefixCombine.add``, nested in
+    the grain) and in AdamW (``adamw_update``), and the host seconds of each
+    training step (``HDPTrainer.step``).  The combine and AdamW only enqueue
+    their work, so their timed calls end in ``torch.cuda.synchronize()``."""
+    spent = {"grain": [0, 0.0], "combine": [0, 0.0], "adamw": [0, 0.0],
+             "steps": []}
+    saved = [(loop._GrainGradExecutor, "execute"),
+             (loop._PrefixCombine, "add"), (loop, "adamw_update"),
+             (loop.HDPTrainer, "step")]
+    saved = [(owner, name, getattr(owner, name)) for owner, name in saved]
+
+    def timed(key, fn, sync):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                if sync:
+                    torch.cuda.synchronize()
+                if key == "steps":
+                    spent["steps"].append(time.perf_counter() - t)
+                else:
+                    spent[key][0] += 1
+                    spent[key][1] += time.perf_counter() - t
+        return call
+
+    for (owner, name, fn), key, sync in zip(
+            saved, ("grain", "combine", "adamw", "steps"),
+            (False, True, True, False), strict=True):
+        setattr(owner, name, timed(key, fn, sync))
+    try:
+        yield spent
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def leaf_digests(torch, tree_leaves, tree) -> list[str]:
+    """A SHA-256 of each leaf's bytes, in leaf order."""
+    out = []
+    for leaf in tree_leaves(tree):
+        raw = leaf.detach().contiguous().reshape(-1).view(torch.uint8)
+        out.append(hashlib.sha256(raw.cpu().numpy()).hexdigest())
+    return out
+
+
 @contextlib.contextmanager
 def grain_split(client_cls, matmul_fn):
     """Host seconds spent in ``matmul_fn`` (K3's launches: checks, output
@@ -246,11 +361,13 @@ def grain_split(client_cls, matmul_fn):
         client_cls.matmul_block = saved
 
 
-def card_busy(torch, run) -> tuple[float, float, float]:
+def card_busy(torch, run, kernels=("matmul_kernel",),
+              top: int = 0) -> tuple[float, float, float]:
     """Run ``run()`` under ``torch.profiler`` with CUDA tracing; return its
     host wall seconds (profiler overhead included), the card's seconds in
-    every kernel it ran and in K3 alone (kernel durations as CUPTI records
-    them)."""
+    every kernel it ran and in the kernels whose names hold one of
+    ``kernels`` (K3 by default; kernel durations as CUPTI records them).
+    ``top`` > 0 also prints that many kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -261,14 +378,19 @@ def card_busy(torch, run) -> tuple[float, float, float]:
         wall_s = time.perf_counter() - t0
     rows = prof.key_averages()
     busy = sum(r.self_device_time_total for r in rows) / 1e6
-    k3 = sum(r.self_device_time_total for r in rows
-             if "matmul_kernel" in r.key) / 1e6
-    return wall_s, busy, k3
+    mine = sum(r.self_device_time_total for r in rows
+               if any(k in r.key for k in kernels)) / 1e6
+    ranked = sorted(rows, key=lambda r: -r.self_device_time_total)
+    for r in ranked[:top]:
+        print(f"[profile] {r.self_device_time_total / 1e6:.4f} s in {r.count} "
+              f"calls: {r.key[:110]}", flush=True)
+    return wall_s, busy, mine
 
 
-def print_busy(card, label, wall_s, busy_s, k3_s, unprofiled_s) -> None:
-    print(f"[paper] {card}: {label}, profiled repeat: {wall_s:.4f} s wall, "
-          f"card busy {busy_s:.4f} s (K3 {k3_s:.4f} s, other kernels "
+def print_busy(card, label, wall_s, busy_s, k3_s, unprofiled_s,
+               tag="paper", kernel="K3") -> None:
+    print(f"[{tag}] {card}: {label}, profiled repeat: {wall_s:.4f} s wall, "
+          f"card busy {busy_s:.4f} s ({kernel} {k3_s:.4f} s, other kernels "
           f"{busy_s - k3_s:.4f} s): busy {busy_s / wall_s:.4f}, idle "
           f"{1 - busy_s / wall_s:.4f}; the same kernel time over the "
           f"unprofiled run's {unprofiled_s:.4f} s: busy "
@@ -301,10 +423,20 @@ def main() -> int:
 
     import numpy as np
 
-    from repro_torch.cluster import Cluster, FleetSpec, MatmulJob, ServeJob, SimJob
+    from repro_torch.cluster import (
+        Cluster,
+        FleetSpec,
+        MatmulJob,
+        ServeJob,
+        SimJob,
+        TrainJob,
+    )
     from repro_torch.configs import get_config
     from repro_torch.configs.paper_matmul import config as paper_config
     from repro_torch.core import ThinClient, WallclockBackend
+    from repro_torch.data import GrainSpec, SyntheticSource, batch_from_grains
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.build import BUILD_DIR
     from repro_torch.kernels.matmul import matmul as mm
     from repro_torch.kernels.matmul.ops import matmul as k3_matmul
@@ -314,6 +446,9 @@ def main() -> int:
     from repro_torch.kernels.prefill.ref import cache_cast_ref, prefill_ref
     from repro_torch.models import Model
     from repro_torch.serve import DecodeEngine, Request
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train import make_grain_grad_fn
+    from repro_torch.tree import tree_leaves
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -325,13 +460,14 @@ def main() -> int:
 
     # ------------------------------------------------------------- 2. build
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for built in [pool.submit(pf.load_library), pool.submit(mm.load_library)]:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        for built in [pool.submit(pf.load_library), pool.submit(mm.load_library),
+                      pool.submit(fa.load_library)]:
             built.result()
     build_s = time.perf_counter() - t0
-    print(f"[build] prefill and matmul kernels built and loaded in "
-          f"{build_s:.2f} s", flush=True)
-    for lib in ("prefill", "matmul"):
+    print(f"[build] prefill, matmul and flash-attention kernels built and "
+          f"loaded in {build_s:.2f} s", flush=True)
+    for lib in ("prefill", "matmul", "flash_attention"):
         log = os.path.join(BUILD_DIR, f"{lib}.log")
         if not os.path.exists(log):          # absent when the library was cached
             continue
@@ -419,7 +555,7 @@ def main() -> int:
 
     # Launches of each main-path run, by run: every count is set to 0 just
     # before the run and read just after it.
-    counters = (pf.LAUNCHES, mm.LAUNCHES)
+    counters = (pf.LAUNCHES, mm.LAUNCHES, fa.LAUNCHES)
     by_path: dict[str, dict[str, int]] = {}
 
     def zero_counts() -> None:
@@ -761,6 +897,289 @@ def main() -> int:
           f"on {rep.backend}; {rep.metrics['n_handoffs']} handoffs; K1 "
           f"launches {k1_wc}", flush=True)
 
+    del cluster, rep, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 10. K4
+    # K4's forward and backward against their plain versions on the card
+    # (the forward directly, the backward against autograd through it): the
+    # reference's kernel-test shapes (tests/test_kernels.py: causal and not,
+    # GQA, the x30-magnitude logits), Sq != Skv both ways, ragged S, and
+    # the training path's q (16, 1024, 128), k/v (2, 1024, 128).
+    def k4_inputs(b, sq, skv, hq, hkv, d, dt, mag=1.0):
+        q = (rand((b * hq, sq, d), torch.float32) * mag).to(dt)
+        k = (rand((b * hkv, skv, d), torch.float32) * mag).to(dt)
+        return q, k, rand((b * hkv, skv, d), dt)
+
+    k4_err = {"fwd": 0.0, "dq": 0.0, "dkdv": 0.0}
+    k4_cases = [(2, 128, 128, 4, 2, 64, 1.0), (1, 256, 256, 2, 2, 32, 1.0),
+                (2, 64, 64, 4, 1, 16, 1.0), (1, 64, 64, 1, 1, 16, 30.0),
+                (1, 40, 72, 4, 2, 16, 1.0), (1, 130, 48, 4, 2, 64, 1.0),
+                (1, 100, 100, 4, 2, 16, 1.0), (1, 1024, 1024, 16, 2, 128, 1.0)]
+    n_checked = 0
+    for b, sq, skv, hq, hkv, d, mag in k4_cases:
+        for causal in (True, False):
+            for dt in (torch.float32, torch.bfloat16):
+                dname = str(dt)[6:]
+                name = (f"K4 b={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} D={d}"
+                        f"{' x30' if mag != 1.0 else ''} "
+                        f"{'causal' if causal else 'full'} {dname}")
+                group = hq // hkv
+                q, k, v = k4_inputs(b, sq, skv, hq, hkv, d, dt, mag)
+                dout = rand(q.shape, dt)
+                leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                before = dict(fa.LAUNCHES)
+                out = fa.flash_attention(*leaves, causal=causal, group=group)
+                grads = torch.autograd.grad(out, leaves, dout)
+                torch.cuda.synchronize()
+                if any(fa.LAUNCHES[n] != before[n] + 1 for n in K4_KERNELS):
+                    fail(f"{name}: the forward and backward did not launch "
+                         f"each K4 kernel once")
+                ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                ref = flash_attention_ref(*ref_leaves, causal=causal,
+                                          group=group)
+                ref_grads = torch.autograd.grad(ref, ref_leaves, dout)
+                k4_err["fwd"] = max(k4_err["fwd"], check_close(
+                    torch, f"{name} out", out, ref, dname))
+                k4_err["dq"] = max(k4_err["dq"], check_close(
+                    torch, f"{name} dq", grads[0], ref_grads[0], dname,
+                    GRAD_TOL))
+                for which, g, r in zip("kv", grads[1:], ref_grads[1:],
+                                       strict=True):
+                    k4_err["dkdv"] = max(k4_err["dkdv"], check_close(
+                        torch, f"{name} d{which}", g, r, dname, GRAD_TOL))
+                n_checked += 1
+    print(f"[k4] forward and backward against their plain versions in "
+          f"{n_checked} cases: max abs err out {k4_err['fwd']:.3e}, dq "
+          f"{k4_err['dq']:.3e}, dk/dv {k4_err['dkdv']:.3e}", flush=True)
+
+    # The path's shape: the backward twice on the same inputs, bitwise.
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = k4_inputs(1, TRAIN_SEQ, TRAIN_SEQ, 16, 2, 128, dt)
+        _, lse, out32 = fa.flash_attention_fwd(q, k, v, group=8)
+        dout = rand(q.shape, dt)
+        first = fa.flash_attention_bwd(q, k, v, out32, lse, dout, group=8)
+        again = fa.flash_attention_bwd(q, k, v, out32, lse, dout, group=8)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, again,
+                                                     strict=True)):
+            fail(f"K4 backward {dt}: two runs on the same inputs differ")
+    print("[k4] backward at q (16, 1024, 128), k/v (2, 1024, 128), bf16 and "
+          "f32: two runs bitwise equal (dq, dk, dv)", flush=True)
+
+    # Timings at the path's shape in bf16, beside the plain versions and
+    # PyTorch's SDPA (a yardstick only: the port never calls it).
+    q, k, v = k4_inputs(1, TRAIN_SEQ, TRAIN_SEQ, 16, 2, 128, torch.bfloat16)
+    _, lse, out32 = fa.flash_attention_fwd(q, k, v, group=8)
+    dout = rand(q.shape, torch.bfloat16)
+    _, drow = fa.flash_attention_bwd_dq(q, k, v, out32, lse, dout, group=8)
+    plain_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    plain_out = flash_attention_ref(*plain_leaves, group=8)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_leaves = [t[None].clone().requires_grad_(True) for t in (q, k, v)]
+    lib_out = sdpa(*lib_leaves, is_causal=True, enable_gqa=True)
+
+    def lib_fwd_bwd():
+        o = sdpa(*lib_leaves, is_causal=True, enable_gqa=True)
+        return torch.autograd.grad(o, lib_leaves, dout[None])
+
+    plain_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        plain_out, plain_leaves, dout, retain_graph=True))
+    lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, lib_leaves, dout[None], retain_graph=True))
+    k4_rows = {
+        "fwd": {"ms": time_ms(torch, lambda: fa.flash_attention_fwd(
+                    q, k, v, group=8)),
+                "plain_ms": time_ms(torch, lambda: flash_attention_ref(
+                    q, k, v, group=8)),
+                "library_ms": time_ms(torch, library_attention(torch, q, k,
+                                                               v))},
+        "dq": {"ms": time_ms(torch, lambda: fa.flash_attention_bwd_dq(
+                   q, k, v, out32, lse, dout, group=8)),
+               "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms},
+        "dkdv": {"ms": time_ms(torch, lambda: fa.flash_attention_bwd_dkdv(
+                     q, k, v, lse, dout, drow, group=8)),
+                 "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms},
+    }
+    for part, row in k4_rows.items():
+        row["bound_ms"], row["bound_by"] = k4_bound_ms(
+            16, 2, TRAIN_SEQ, TRAIN_SEQ, 128, 2, "bfloat16", True, part)
+        print(f"[k4] {card}: {part} bf16 q (16, 1024, 128) k/v (2, 1024, "
+              f"128) causal: " + json.dumps(row), flush=True)
+    bwd_ms = time_ms(torch, lambda: fa.flash_attention_bwd(
+        q, k, v, out32, lse, dout, group=8))
+    print(f"[k4] {card}: backward (dq then dk/dv) {bwd_ms:.5f} ms; plain "
+          f"backward {plain_bwd_ms:.5f} ms; SDPA backward {lib_bwd_ms:.5f} "
+          f"ms, SDPA forward+backward {time_ms(torch, lib_fwd_bwd):.5f} ms",
+          flush=True)
+    del q, k, v, out32, lse, dout, drow, plain_leaves, plain_out, lib_leaves
+    del lib_out, first, again
+
+    # ------------------------------------------- 11. train (the main path)
+    def check_k4_launches(path: str, n_grains: int) -> dict[str, int]:
+        counts = read_counts(path)
+        want = {n: c * n_grains for n, c in K4_PER_GRAIN.items()}
+        got = {n: counts[n] for n in K4_KERNELS}
+        if got != want:
+            fail(f"{path}: K4 launches {got}, predicted {want}")
+        return got
+
+    # 11.1 One grain of full-width Qwen2-1.5B in f32: loss and gradients on
+    # the kernel path against use_pallas=False on the card.
+    cfg32 = get_config("qwen2-1.5b", param_dtype="float32",
+                       compute_dtype="float32")
+    model = Model(cfg32)
+    plain = Model(dataclasses.replace(cfg32, use_pallas=False))
+    params = model.init(SEED)
+    spec = GrainSpec(1, TRAIN_SEQ, cfg32.vocab_size)
+    batch = batch_from_grains(SyntheticSource(spec, seed=SEED), 0, [0], spec,
+                              device=dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    (loss_k, _), grads_k = make_grain_grad_fn(model)(params, batch)
+    torch.cuda.synchronize()
+    grain_k_s = time.perf_counter() - t0
+    check_k4_launches("train_f32", 1)
+    t0 = time.perf_counter()
+    (loss_p, _), grads_p = make_grain_grad_fn(plain)(params, batch)
+    torch.cuda.synchronize()
+    grain_p_s = time.perf_counter() - t0
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    if not (loss_rel <= 1e-4 and torch.isfinite(loss_k)):
+        fail(f"train f32 grain: loss {float(loss_k)} on the kernel path vs "
+             f"{float(loss_p)} plain (rel err {loss_rel:.3e} > 1e-4)")
+    worst = (0.0, None)
+    for i, (gk, gp) in enumerate(zip(tree_leaves(grads_k),
+                                     tree_leaves(grads_p), strict=True)):
+        rel = float(torch.linalg.vector_norm((gk - gp).float())
+                    / torch.linalg.vector_norm(gp.float()).clamp_min(1e-30))
+        if not rel <= 1e-3:
+            fail(f"train f32 grain: gradient leaf {i} {tuple(gk.shape)} "
+                 f"relative Frobenius error {rel:.3e} > 1e-3")
+        if rel >= worst[0]:
+            worst = (rel, (i, tuple(gk.shape)))
+    print(f"[train] {card}: one f32 grain of {cfg32.name} (28 layers, "
+          f"d_model 1536, vocab 151936), seq {TRAIN_SEQ}: loss "
+          f"{float(loss_k):.6f} kernel path vs {float(loss_p):.6f} plain (rel "
+          f"err {loss_rel:.3e}); worst gradient leaf relative Frobenius "
+          f"error {worst[0]:.3e} (leaf {worst[1]}); K4 launches "
+          f"{json.dumps(by_path['train_f32'])}; host s with the wait: "
+          f"kernel path {grain_k_s:.3f}, plain {grain_p_s:.3f}", flush=True)
+    del model, plain, params, batch, grads_k, grads_p, loss_k, loss_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 11.2 The launcher's HDP flow in bf16: Cluster("4:3:2:1").train with a
+    # mid-step straggler, 3 steps of 8 grains.
+    cfg = get_config("qwen2-1.5b")
+    model = Model(cfg)
+    fleet = FleetSpec.parse("4:3:2:1", prefix="pod")
+    scenario = f"halve:{fleet.names[0]}@1:25%"
+
+    def train_job(steps: int) -> TrainJob:
+        return TrainJob(model, steps=steps, grains=TRAIN_GRAINS,
+                        seq_len=TRAIN_SEQ)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with train_split(torch, train_loop) as spent:
+        t0 = time.perf_counter()
+        rep = Cluster(fleet).train(train_job(3), scenario=scenario)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    n_hdp = 3 * TRAIN_GRAINS
+    check_k4_launches("train_hdp", n_hdp)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [p.metrics["loss"] for p in rep.phases]
+    if len(losses) != 3 or not all(np.isfinite(x) for x in losses):
+        fail(f"train hdp: losses {losses}")
+    for p in rep.phases:
+        print(f"[train] step {p.index}: loss {p.metrics['loss']:.6f}, grad "
+              f"norm {p.metrics['grad_norm']:.4f}, shares "
+              f"{json.dumps(dict(p.shares))}, migrated {p.n_migrated}, "
+              f"steals {p.metrics['n_steals']}, sim-clock step time "
+              f"{p.sim_time_s:.4f} s, quality {p.quality:.4f}", flush=True)
+    grain_s = spent["grain"][1] - spent["combine"][1]
+    rest_s = wall_s - spent["grain"][1] - spent["adamw"][1]
+    print(f"[train] {card}: {fleet} {scenario}, {len(rep.phases)} steps x "
+          f"{TRAIN_GRAINS} grains of bf16 {cfg.name} at seq {TRAIN_SEQ}: "
+          f"{wall_s:.3f} s wall ({n_hdp * TRAIN_SEQ / wall_s:.1f} tokens/s); "
+          f"K4 launches {json.dumps(by_path['train_hdp'])}; peak memory "
+          f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated)", flush=True)
+    print(f"[train] host wall split: grain gradients {spent['grain'][0]} "
+          f"calls {grain_s:.3f} s, combine {spent['combine'][0]} calls "
+          f"{spent['combine'][1]:.3f} s, AdamW {spent['adamw'][0]} calls "
+          f"{spent['adamw'][1]:.3f} s, the rest (control plane) "
+          f"{rest_s:.3f} s; per step {[round(x, 4) for x in spent['steps']]}"
+          f" s (the combine's and AdamW's calls end in a synchronize)",
+          flush=True)
+    step0_s = spent["steps"][0]
+    del rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    print_busy(card, "one step of 8 grains", *card_busy(
+        torch, lambda: Cluster(fleet).train(train_job(1)),
+        kernels=("flash_fwd_kernel", "flash_dq_kernel", "flash_dkdv_kernel"),
+        top=12), step0_s, tag="train", kernel="K4")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 11.3 The same 2 steps, static and adaptive: bitwise-equal parameters,
+    # compared by a hash of each leaf's bytes.
+    runs = {}
+    for adaptive in (False, True):
+        path = "train_adaptive" if adaptive else "train_static"
+        zero_counts()
+        rep = Cluster(fleet, adaptive=adaptive).train(train_job(2),
+                                                      scenario=scenario)
+        torch.cuda.synchronize()
+        check_k4_launches(path, 2 * TRAIN_GRAINS)
+        runs[adaptive] = {
+            "loss": [p.metrics["loss"] for p in rep.phases],
+            "grad_norm": [p.metrics["grad_norm"] for p in rep.phases],
+            "migrated": [p.n_migrated for p in rep.phases],
+            "shares": [dict(p.shares) for p in rep.phases],
+            "digests": leaf_digests(torch, tree_leaves,
+                                    rep.artifact.state.params),
+        }
+        del rep
+        gc.collect()
+        torch.cuda.empty_cache()
+    st, ad = runs[False], runs[True]
+    for key in ("loss", "grad_norm", "digests"):
+        if st[key] != ad[key]:
+            fail(f"train: static and adaptive {key} differ")
+    print(f"[train] static vs adaptive, 2 steps under {scenario}: all "
+          f"{len(ad['digests'])} parameter leaves bitwise equal (SHA-256), "
+          f"losses {ad['loss']} equal; shares static {st['shares']} "
+          f"(migrated {st['migrated']}), adaptive {ad['shares']} (migrated "
+          f"{ad['migrated']})", flush=True)
+
+    # 11.4 Two steps on the wall-clock backend.
+    zero_counts()
+    t0 = time.perf_counter()
+    rep = Cluster(fleet, backend="wallclock").train(train_job(2))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    check_k4_launches("train_wallclock", 2 * TRAIN_GRAINS)
+    losses = [p.metrics["loss"] for p in rep.phases]
+    if rep.backend != "wallclock[1d]" or not all(np.isfinite(x)
+                                                 for x in losses):
+        fail(f"train wallclock: backend {rep.backend}, losses {losses}")
+    busy = {w: round(t.busy_s, 4) for w, t in rep.worker_timelines.items()}
+    print(f"[train-wallclock] {card}: 2 steps on {rep.backend}: losses "
+          f"{losses}; event-clock step times "
+          f"{[round(p.sim_time_s, 4) for p in rep.phases]} s (the unit-op "
+          f"chains; each grain's measured gradient seconds go to its "
+          f"worker's busy time and heartbeats, as in the reference), busy s "
+          f"per worker {json.dumps(busy)}, shares "
+          f"{[dict(p.shares) for p in rep.phases]}; {wall_s:.3f} s wall",
+          flush=True)
+    del rep, model
+
     per_kernel = {key: {path: counts[key] for path, counts in by_path.items()}
                   for key in by_path["model"]}
     launches = {key: sum(n.values()) for key, n in per_kernel.items()}
@@ -795,6 +1214,19 @@ def main() -> int:
          "ms": k3_row["ms"], "plain_ms": k3_row["plain_ms"],
          "bound_ms": k3_row["bound_ms"], "bound_by": k3_row["bound_by"],
          "library_ms": k3_row["library_ms"]},
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:108",
+         "launches": launches[name], "launches_by_path": per_kernel[name],
+         "max_abs_err": k4_err[part], "shape": [[16, TRAIN_SEQ, 128],
+                                                [2, TRAIN_SEQ, 128]],
+         "ms": k4_rows[part]["ms"], "plain_ms": k4_rows[part]["plain_ms"],
+         "bound_ms": k4_rows[part]["bound_ms"],
+         "bound_by": k4_rows[part]["bound_by"],
+         "library_ms": k4_rows[part]["library_ms"]}
+        for name, part in zip(K4_KERNELS, ("fwd", "dq", "dkdv"), strict=True)
     ]}
     print(f"[card] {card}")
     print(json.dumps(kernels))

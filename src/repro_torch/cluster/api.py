@@ -1,12 +1,12 @@
 """The Cluster facade: one declarative entry point for sim, train and serve.
 
 Port of ``repro/cluster/api.py``: ``simulate`` (``SimJob`` and the
-paper's ``MatmulJob`` through the TDA triangle, the matrices on ``device``)
+paper's ``MatmulJob`` through the TDA triangle, the matrices on ``device``),
+``train`` (runtime-driven HDP, each grain's gradient on the model's device)
 and ``serve`` (wave and open-loop/disaggregated paths, driving the port's
 ``DecodeEngine``s on ``device``), on the sim clock or the measured
 wall-clock backend.  ``device`` is CUDA unless the caller asks for another.
-``train`` raises ``NotImplementedError`` naming the port slice that brings
-it.  The reference's description follows.
+The reference's description follows.
 
 The paper's promise is that homogenization is *transparent*: you describe
 your fleet once and the TDA machinery does the rest.  PRs 1-3 converged the
@@ -71,7 +71,7 @@ import numpy as np
 import torch
 
 from ..coord import CoordSpec, ShardedCoordinator
-from ..core.homogenization import predicted_speedup, scope_lengths
+from ..core.homogenization import OverheadModel, predicted_speedup, scope_lengths
 from ..core.performance import PerformanceTracker
 from ..core.runtime import AsyncRuntime, ExecutionBackend, SimBackend, SimWorker
 from ..core.simulate import ClusterSim
@@ -86,8 +86,6 @@ __all__ = ["SimJob", "MatmulJob", "TrainJob", "ServeJob", "Cluster"]
 
 _EPS = 1e-12
 
-_SLICE_TRAIN = ("HDP training comes with the port's training slice (kernel "
-                "K4 plus a backward kernel)")
 
 
 # --------------------------------------------------------------- job specs
@@ -620,8 +618,111 @@ class Cluster:
     # ================================================================= train
     def train(self, job: TrainJob, *,
               scenario: Scenario | str | None = None) -> RunReport:
-        """Train ``job.model`` with runtime-driven HDP across this fleet."""
-        raise NotImplementedError(_SLICE_TRAIN)
+        """Train ``job.model`` with runtime-driven HDP across this fleet.
+        Returns a RunReport whose phases are training steps; the live
+        ``HDPTrainer`` rides along as ``report.artifact`` (checkpoint
+        handles, ``plan_preview``, further steps)."""
+        from ..data.pipeline import GrainSpec
+        from ..train.loop import HDPConfig, HDPTrainer, Pod
+
+        if job.model.device.type != self.device.type:
+            raise ValueError(
+                f"TrainJob's model is on {job.model.device}, this Cluster "
+                f"runs on {self.device}; build both on one device"
+            )
+        sc = Scenario.parse(scenario)
+        self._reject_workload(sc, "train")
+        self._reject_roles("train")
+        vocab = job.vocab_size or job.model.cfg.vocab_size
+        measured = self._measured()
+        # Training grains are uniform cost 1.0 — the backend's reference.
+        scale = self._time_scale(1.0)
+        ovh_model = self._overhead_model()
+        if measured:
+            # No modeled per-step overhead on measured runs (see simulate);
+            # a huge slope makes the trainer's charged overhead negligible.
+            ovh_model = OverheadModel(m=1e15)
+        cfg = HDPConfig(
+            total_grains=job.grains,
+            grain_spec=GrainSpec(job.grain_size, job.seq_len, vocab),
+            homogenize=self.homogenize,
+            adaptive=self.adaptive,
+            compress_grads=job.compress_grads,
+            overhead=ovh_model,
+            ckpt_dir=job.ckpt_dir,
+            ckpt_every=job.ckpt_every,
+            replan_threshold=self.replan_threshold,
+            jitter=sc.jitter or job.jitter,
+            seed=job.seed,
+        )
+        trainer = HDPTrainer(
+            job.model, [Pod(w.name, w.perf) for w in self.fleet.workers],
+            cfg, opt_cfg=job.opt, authority=self._new_authority(),
+            backend=self._new_backend(), eta_mode=self.eta_mode,
+        )
+        trainer.runtime.tracer = self.tracer
+        if self.priors == "spec":
+            self._spec_priors(trainer.tracker, now_s=trainer.clock,
+                              scale=scale)
+        est_phase = scale * self._phase_estimate(
+            job.grains, 1.0, self.fleet.perfs)
+        ovh = ovh_model(job.grains)
+        # Phase-anchored scheduling: the trainer's step-start hook re-times
+        # each '@k:frac%' clause against step k's *true* start clock, so long
+        # runs never accumulate plan-estimate drift (phase index = training
+        # step; steps skipped by a checkpoint restore fire at the restart).
+        sched = sc.schedule(self.fleet, phase_s=est_phase,
+                            stride_s=est_phase + ovh,
+                            make_worker=lambda s: Pod(s.name, s.perf),
+                            coordinators=self._n_coordinators())
+        trainer.add_step_hook(
+            lambda step, clock: sched.phase_events(step, clock))
+        history = trainer.run(job.steps)
+
+        phases, spans = [], []
+        elapsed = 0.0
+        for rec in history:
+            phases.append(PhaseStats(
+                rec["step"], "step", float(job.grains), rec["step_time"],
+                rec["quality"], rec["n_migrated"], dict(rec["plan"]),
+                metrics={"loss": rec["loss"], "grad_norm": rec["grad_norm"],
+                         "tokens": rec["tokens"], "n_steals": rec["n_steals"],
+                         "overhead_s": ovh},
+            ))
+            spans.append((rec.get("worker_busy", {}),
+                          {w: f + elapsed
+                           for w, f in rec.get("worker_finish", {}).items()},
+                          dict(rec["plan"])))
+            elapsed += rec["step_time"]
+        if not phases:
+            raise ValueError(
+                f"TrainJob ran no steps (steps={job.steps}, trainer resumed at "
+                f"step {trainer.start_step}); raise steps past the restore point"
+            )
+        work = float(job.grains * len(phases))
+        total_s = sum(p.sim_time_s for p in phases)
+        pred, meas = self._speedups(
+            job.grains * scale, list(self.fleet.perfs),
+            phases[-1].sim_time_s,
+            overhead=None if measured else ovh_model, load=float(job.grains),
+        )
+        self._autoselect_profiles(trainer.tracker)
+        metrics = {"final_loss": history[-1]["loss"],
+                   "first_loss": history[0]["loss"],
+                   "start_step": trainer.start_step,
+                   "overhead_slope": ovh_model.m}
+        if self._auto_profiles:
+            metrics["auto_profiles"] = dict(self._auto_profiles)
+        return RunReport(
+            kind="train", fleet=self._declared_fleet, scenario=str(sc),
+            phases=tuple(phases), work_done=work, sim_time_s=total_s,
+            throughput=work / max(total_s, _EPS),
+            predicted_speedup=pred, measured_speedup=meas,
+            worker_timelines=merge_worker_timelines(spans),
+            metrics=metrics,
+            artifact=trainer, coord=self._coord_stats(trainer.runtime),
+            backend=self._backend_label(), telemetry=self._telemetry(),
+        )
 
     # ================================================================= serve
     def serve(self, job: ServeJob, *,

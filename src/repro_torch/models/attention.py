@@ -1,10 +1,12 @@
-"""GQA attention: prefill (returns cache) and decode.
+"""GQA attention: full-sequence (train), prefill (returns cache), decode.
 
 Port of ``repro/models/attention.py`` for the dense decoder.  Full (Sq, Skv)
 logits are only materialized when ``S <= cfg.attn_chunk``; beyond that the
 chunked path (a loop over query chunks with online softmax over key chunks)
-keeps the live logits block at ``attn_chunk^2``.  On CUDA the prefill goes
-through the hand-written bucketed prefill kernel (``kernels/prefill``).
+keeps the live logits block at ``attn_chunk^2``.  On CUDA the training
+attention goes through the hand-written flash-attention kernel K4 and its
+backward (``kernels/flash_attention``), the prefill through the bucketed
+prefill kernel (``kernels/prefill``).
 
 Decode reads a cache laid out (B, S, Hkv, Dh), as the reference does.
 """
@@ -15,6 +17,7 @@ import dataclasses
 
 import torch
 
+from ..kernels.flash_attention.ops import mha as flash_mha
 from ..kernels.prefill.ops import prefill_attention
 from .config import ModelConfig
 from .layers import apply_rope, dense_init, dtype_of, rms_norm
@@ -144,6 +147,23 @@ def _use_kernel(cfg: ModelConfig, x: torch.Tensor) -> bool:
     if cfg.use_pallas is None:
         return x.device.type == "cuda"
     return cfg.use_pallas
+
+
+def attention_train(
+    p: dict, cfg: ModelConfig, x: torch.Tensor, positions, *,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Full-sequence self-attention (training).  The kernel branch is
+    differentiable through K4's own backward kernels."""
+    q, k, v = _project_qkv(p, cfg, x, x, positions, positions)
+    if _use_kernel(cfg, x):
+        out = flash_mha(q, k, v, causal=causal, use_pallas=True)
+    elif q.shape[1] * k.shape[1] <= cfg.attn_chunk ** 2:
+        out = _sdpa_full(q, k, v, causal=causal)
+    else:
+        out = _sdpa_chunked(q, k, v, causal=causal, chunk=cfg.attn_chunk,
+                            chunk_k=cfg.attn_chunk_k)
+    return torch.einsum("bshd,hdm->bsm", out, p["wo"])
 
 
 def attention_prefill(

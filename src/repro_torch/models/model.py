@@ -1,15 +1,18 @@
-"""Model facade: init / prefill / decode for the dense token decoder.
+"""Model facade: init / loss / prefill / decode for the dense token decoder.
 
 Port of ``repro/models/model.py``.  Batch format (tokens mode):
-``{"tokens": (B,S) int}``.  Decode: ``decode_step(params, cache, inputs,
+``{"tokens": (B,S) int, "targets": (B,S) int, "loss_mask": (B,S) f32}``
+(``loss`` reads all three; ``prefill`` only the tokens).  ``loss_mask``
+carries the homogenization grain weights: the loss is the weighted token
+mean (sum w·ce / sum w).  Decode: ``decode_step(params, cache, inputs,
 pos)`` processes one token per slot against a fixed-capacity cache.
 
 Params are a nested dict of tensors laid out exactly like the reference's
 pytree (``models/bridge.py`` loads the reference's weights); ``init(seed)``
 draws the port's own random weights with a ``torch.Generator`` on the
 model's device (the two packages' random numbers differ from one seed).
-Training, enc-dec and embeds-input models raise ``NotImplementedError``
-naming the port slice that brings them.
+Enc-dec and embeds-input models raise ``NotImplementedError`` naming the
+port slice that brings them.
 """
 
 from __future__ import annotations
@@ -25,13 +28,17 @@ from .layers import (
     init_norm,
     lm_logits,
 )
-from .transformer import (
-    _LATER,
-    apply_stack,
-    check_layer,
-    init_stack,
-    init_stack_cache,
-)
+from .transformer import apply_stack, check_layer, init_stack, init_stack_cache
+
+
+def take_targets(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """``take_along_axis(logits, targets[..., None], -1)[..., 0]`` for
+    (B, S, V) logits.  Advanced indexing, whose backward on CUDA sums in a
+    fixed order (``torch.gather``'s scatter-add backward does not)."""
+    b, s = targets.shape
+    rows = torch.arange(b * s, device=logits.device)
+    return logits.reshape(b * s, -1)[rows, targets.reshape(-1).long()] \
+        .reshape(b, s)
 
 
 class Model:
@@ -57,8 +64,71 @@ class Model:
             "stack": init_stack(gen, cfg),
         }
 
+    # ----------------------------------------------------------------- train
+    def _embed(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
+        tokens = batch["tokens"]
+        x = embed_tokens(params["embed"], tokens, self.cfg)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[
+            None].expand(tokens.shape)
+        return x, positions
+
+    def hidden(self, params, batch, capacities=None):
+        """Final normed hidden states (pre-LM-head) + aux loss (0: the
+        dense decoder has no MoE balance term)."""
+        cfg = self.cfg
+        x, positions = self._embed(params, batch)
+        x, _ = apply_stack(params["stack"], cfg, x, mode="train",
+                           positions=positions, causal=True)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return apply_norm(cfg, params["final_norm"], x), aux
+
+    def logits(self, params, batch, capacities=None):
+        x, aux = self.hidden(params, batch, capacities)
+        return lm_logits(params["embed"], x, self.cfg), aux
+
+    def _chunked_ce(self, params, x, targets, w) -> torch.Tensor:
+        """Fused chunked cross-entropy: never materializes (B, S, V) —
+        sequence chunks of the hidden states hit the LM head one at a time
+        and reduce immediately to (logsumexp, target-logit) pairs."""
+        cfg = self.cfg
+        c = cfg.ce_chunk
+        s = x.shape[1]
+        pad = (-s) % c
+        if pad:
+            x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+            targets = torch.nn.functional.pad(targets, (0, pad))
+            w = torch.nn.functional.pad(w, (0, pad))
+        table = (params["embed"]["head"] if "head" in params["embed"]
+                 else params["embed"]["table"].T)
+        pad_vocab = None
+        if cfg.padded_vocab != cfg.vocab_size:
+            pad_vocab = torch.arange(cfg.padded_vocab,
+                                     device=x.device) >= cfg.vocab_size
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(0, s + pad, c):
+            lg = (x[:, i:i + c] @ table).float()
+            if pad_vocab is not None:
+                lg = lg.masked_fill(pad_vocab, -1e30)
+            lse = torch.logsumexp(lg, dim=-1)
+            tlog = take_targets(lg, targets[:, i:i + c])
+            total = total + torch.sum((lse - tlog) * w[:, i:i + c])
+        return total
+
     def loss(self, params, batch, capacities=None):
-        raise NotImplementedError(_LATER["train"])
+        """(loss, metrics): the loss_mask-weighted token mean of the
+        cross-entropy (plus the aux term), as the reference computes it."""
+        w = batch["loss_mask"].float()
+        wsum = torch.clamp(torch.sum(w), min=1.0)
+        if self.cfg.ce_chunk > 0:
+            x, aux = self.hidden(params, batch, capacities)
+            ce = self._chunked_ce(params, x, batch["targets"], w) / wsum
+        else:
+            logits, aux = self.logits(params, batch, capacities)
+            lp = torch.log_softmax(logits.float(), dim=-1)
+            nll = -take_targets(lp, batch["targets"])
+            ce = torch.sum(nll * w) / wsum
+        loss = ce + aux
+        return loss, {"loss": loss, "ce": ce, "aux": aux, "tokens": wsum}
 
     # ----------------------------------------------------------------- serve
     def init_cache(self, batch_size: int, seq: int) -> dict:

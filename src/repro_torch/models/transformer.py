@@ -5,11 +5,13 @@ Port of ``repro/models/transformer.py``.  The stack is ``prefix_pattern``
 ``layer_pattern``; stacked period params/caches carry a leading
 ``n_periods`` axis on every leaf, exactly as the reference lays them out, so
 bridged weights load as they are.  The reference's ``lax.scan`` over that
-axis becomes a Python loop.
+axis becomes a Python loop, and its ``jax.checkpoint`` of each period
+(``remat``) a ``torch.utils.checkpoint`` of each period.
 
-Modes: "prefill" (returns caches) and "decode" (consumes and returns caches,
-one token).  Mamba, MLA and MoE layers and ``mode="train"`` raise
-``NotImplementedError`` naming the port slice that brings them.
+Modes: "train" (no cache), "prefill" (returns caches) and "decode"
+(consumes and returns caches, one token).  Mamba, MLA and MoE layers, and
+``remat_policy="dots"``, raise ``NotImplementedError`` naming the port slice
+that brings them.
 """
 
 from __future__ import annotations
@@ -17,11 +19,14 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..tree import tree_flatten, tree_unflatten
 from .attention import (
     KVCache,
     attention_decode,
     attention_prefill,
+    attention_train,
     init_attention,
     init_kv_cache,
 )
@@ -37,8 +42,8 @@ _LATER = {
            "(MoE, MLA, enc-dec)",
     "cross": "enc-dec cross-attention comes with the port's remaining-configs "
              "slice (MoE, MLA, enc-dec)",
-    "train": "mode='train' comes with the port's training slice (kernel K4 "
-             "plus a backward kernel)",
+    "dots": "remat_policy='dots' (save the matmul outputs, recompute the "
+            "rest) comes with the port's distribution-and-tooling slice",
 }
 
 
@@ -73,20 +78,24 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, seq: int,
 def apply_layer(
     p: dict, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor, *,
     mode: str, positions=None, cache: dict | None = None, pos=None,
+    causal: bool = True,
 ):
-    """Returns (x, new_cache)."""
+    """Returns (x, new_cache); the cache is None in train mode."""
     check_layer(spec)
     h = apply_norm(cfg, p["norm1"], x)
-    if mode == "prefill":
+    c = None
+    if mode == "train":
+        a = attention_train(p["attn"], cfg, h, positions, causal=causal)
+    elif mode == "prefill":
         a, c = attention_prefill(p["attn"], cfg, h, positions)
     elif mode == "decode":
         a, c = attention_decode(p["attn"], cfg, h, cache["self"], pos)
     else:
-        raise NotImplementedError(_LATER["train"])
+        raise ValueError(f"mode must be train, prefill or decode: {mode!r}")
     x = x + a
     if spec.mlp == "dense":
         x = x + apply_mlp(p["mlp"], apply_norm(cfg, p["norm2"], x))
-    return x, {"self": c}
+    return x, (None if c is None else {"self": c})
 
 
 # -------------------------------------------------------------------- stack
@@ -139,14 +148,57 @@ def init_stack_cache(cfg: ModelConfig, batch: int, seq: int, device) -> dict:
     return out
 
 
+def _unbind(tree: Any) -> list:
+    """A stacked period pytree as one pytree per period.  ``unbind``'s
+    backward stacks the per-period gradients in one op, where indexing
+    period by period would add a zero-padded full-size gradient per
+    period."""
+    leaves, treedef = tree_flatten(tree)
+    parts = [leaf.unbind(0) for leaf in leaves]
+    return [tree_unflatten(treedef, [p[t] for p in parts])
+            for t in range(len(parts[0]))]
+
+
+def _apply_stack_train(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                       positions, causal: bool, remat: bool) -> torch.Tensor:
+    if remat and cfg.remat_policy == "dots":
+        raise NotImplementedError(_LATER["dots"])
+    for i, spec in enumerate(cfg.prefix_pattern):
+        x, _ = apply_layer(params["prefix"][i], cfg, spec, x, mode="train",
+                           positions=positions, causal=causal)
+
+    def body(h: torch.Tensor, per_params: dict) -> torch.Tensor:
+        for i, spec in enumerate(cfg.layer_pattern):
+            h, _ = apply_layer(per_params[f"pos{i}"], cfg, spec, h,
+                               mode="train", positions=positions,
+                               causal=causal)
+        return h
+
+    for per_params in _unbind(params["periods"]):
+        if remat:
+            # The reference's jax.checkpoint of the scan body: only the
+            # period's input is kept; its forward runs again in the backward.
+            x = checkpoint(body, x, per_params, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = body(x, per_params)
+    return x
+
+
 def apply_stack(
     params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     mode: str, positions=None, caches: dict | None = None, pos=None,
+    causal: bool = True, remat: bool = True,
 ):
-    """Returns (x, new_caches).  In decode mode the caches are updated in
-    place (see ``attention._cache_write``) and returned."""
+    """Returns (x, new_caches): None in train mode.  In decode mode the
+    caches are updated in place (see ``attention._cache_write``) and
+    returned.  ``remat`` (train mode) recomputes each period's forward in
+    the backward instead of keeping its activations."""
+    if mode == "train":
+        return _apply_stack_train(params, cfg, x, positions, causal,
+                                  remat), None
     if mode not in ("prefill", "decode"):
-        raise NotImplementedError(_LATER["train"])
+        raise ValueError(f"mode must be train, prefill or decode: {mode!r}")
     new_prefix = []
     for i, spec in enumerate(cfg.prefix_pattern):
         c = caches["prefix"][i] if caches is not None else None

@@ -1,0 +1,104 @@
+"""AdamW with cosine schedule and global-norm clipping.
+
+Port of ``repro/optim/adamw.py``.  Moments are f32 regardless of the param
+dtype (bf16 params update through an f32 delta); weight decay is decoupled
+and applies to leaves with ``ndim >= 2`` only (stacked period leaves count
+their period axis, as in the reference).  The state is a plain pytree
+``{"m", "step", "v"}`` whose leaves follow the params' leaf order
+(``repro_torch.tree``), so checkpoints cross-load with the reference's.
+
+``adamw_update`` writes the new moments into the given ``m`` and ``v``
+tensors, as the reference's jitted update reuses the donated optimizer
+state's buffers: at full width two copies of the f32 moments would not fit
+beside the gradients.  Each in-place step rounds exactly as the reference's
+expression does.  Params come back as new tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..tree import tree_flatten, tree_map, tree_unflatten
+
+__all__ = ["AdamWConfig", "lr_at", "init_opt_state", "global_norm",
+           "adamw_update"]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    peak_lr: float = 3e-4
+    min_lr: float = 3e-5
+    warmup_steps: int = 100
+    decay_steps: int = 10_000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+
+
+def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """The learning rate at ``step`` (an int tensor), in f32."""
+    step = step.to(torch.float32)
+    warm = cfg.peak_lr * step / max(cfg.warmup_steps, 1)
+    frac = torch.clamp(
+        (step - cfg.warmup_steps) / max(cfg.decay_steps - cfg.warmup_steps, 1),
+        0, 1)
+    cos = cfg.min_lr + 0.5 * (cfg.peak_lr - cfg.min_lr) * (
+        1 + torch.cos(math.pi * frac))
+    return torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def init_opt_state(params) -> dict:
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    device = tree_flatten(params)[0][0].device
+    return {
+        "m": tree_map(zeros, params),
+        "v": tree_map(zeros, params),
+        "step": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, summed in leaf order."""
+    total = 0
+    for leaf in tree_flatten(tree)[0]:
+        total = total + torch.sum(torch.square(leaf.to(torch.float32)))
+    return torch.sqrt(total)
+
+
+def adamw_update(grads, opt_state: dict, params, cfg: AdamWConfig):
+    """Returns (new_params, new_opt_state, stats)."""
+    step = opt_state["step"] + 1
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    lr = lr_at(cfg, step)
+    step_f = step.to(torch.float32)
+    b1c = 1 - cfg.b1 ** step_f
+    b2c = 1 - cfg.b2 ** step_f
+
+    def upd(g, m, v, p):
+        # m <- b1 m + (1 - b1) g and v <- b2 v + (1 - b2) g g, in place.
+        g = g.to(torch.float32) * scale
+        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+        if p.ndim >= 2:  # decay matrices only (norms/bias exempt), standard
+            delta = delta + cfg.weight_decay * p.to(torch.float32)
+        return (p.to(torch.float32) - lr * delta).to(p.dtype)
+
+    flat_p, treedef = tree_flatten(params)
+    flat_g = tree_flatten(grads)[0]
+    flat_m = tree_flatten(opt_state["m"])[0]
+    flat_v = tree_flatten(opt_state["v"])[0]
+    new_params = tree_unflatten(treedef, [
+        upd(g, m, v, p)
+        for g, m, v, p in zip(flat_g, flat_m, flat_v, flat_p, strict=True)])
+    stats = {"grad_norm": gnorm, "lr": lr}
+    return new_params, {"m": opt_state["m"], "v": opt_state["v"],
+                        "step": step}, stats

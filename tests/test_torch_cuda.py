@@ -12,8 +12,10 @@ import dataclasses
 import pytest
 import torch
 
-from repro_torch.cluster import Cluster, MatmulJob
+from repro_torch.cluster import Cluster, MatmulJob, TrainJob
 from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.matmul import matmul as mm
 from repro_torch.kernels.matmul.ops import matmul
 from repro_torch.kernels.matmul.ref import matmul_ref
@@ -21,6 +23,12 @@ from repro_torch.kernels.prefill import prefill as pf
 from repro_torch.kernels.prefill.ops import prefill_attention
 from repro_torch.kernels.prefill.ref import prefill_ref
 from repro_torch.models import Model
+from repro_torch.train import make_grain_grad_fn
+from repro_torch.tree import tree_leaves
+
+# One intra-op thread: a torch file on one test worker must not take every
+# core from the timing tests that run beside it.
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
 
@@ -134,3 +142,121 @@ def test_matmul_job_on_the_card_is_k3_bitwise(dev):
     assert rep.artifact.device.type == "cuda"
     assert torch.equal(rep.artifact, matmul(a, b))
     assert rep.metrics["max_abs_err"] < 1e-4
+
+
+# ------------------------------------------------------------ K4 (training)
+# (b, sq, skv, hq, hkv, d, magnitude): the reference's kernel-test shapes
+# (tests/test_kernels.py, the x30 logits too), Sq != Skv both ways, ragged
+# S, the path's GQA.
+K4_SHAPES = [(2, 128, 128, 4, 2, 64, 1.0), (1, 256, 256, 2, 2, 32, 1.0),
+             (2, 64, 64, 4, 1, 16, 1.0), (1, 64, 64, 1, 1, 16, 30.0),
+             (1, 100, 100, 4, 2, 16, 1.0), (1, 40, 72, 2, 1, 32, 1.0),
+             (1, 130, 48, 4, 2, 64, 1.0), (1, 300, 300, 16, 2, 128, 1.0)]
+
+
+def _k4_inputs(dev, b, sq, skv, hq, hkv, d, dtype, mag=1.0):
+    q = _rand((b * hq, sq, d), torch.float32, dev, 20) * mag
+    k = _rand((b * hkv, skv, d), torch.float32, dev, 21) * mag
+    v = _rand((b * hkv, skv, d), torch.float32, dev, 22)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,mag", K4_SHAPES)
+def test_flash_attention_fwd_bwd_match_plain(dev, b, sq, skv, hq, hkv, d, mag,
+                                             causal, dtype):
+    group = hq // hkv
+    q, k, v = _k4_inputs(dev, b, sq, skv, hq, hkv, d, dtype, mag)
+    dout = _rand(q.shape, torch.float32, dev, 23).to(dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention(*leaves, causal=causal, group=group)
+    grads = torch.autograd.grad(out, leaves, dout)
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+        "flash_attention_bwd_dkdv": 1}
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = flash_attention_ref(*ref_leaves, causal=causal, group=group)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, dout)
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
+    grtol, gatol = (1e-3, 1e-4) if dtype == torch.float32 else (rtol, atol)
+    for name, g, r in zip("qkv", grads, ref_grads, strict=True):
+        assert g.dtype == dtype, name
+        torch.testing.assert_close(g.float(), r.float(), rtol=grtol,
+                                   atol=gatol, msg=f"d{name}")
+
+
+def test_flash_attention_large_logits_and_bitwise_backward(dev):
+    """The reference's x30-magnitude case: no overflow in the online
+    softmax; and the backward gives the same bits on every run."""
+    q, k, v = _k4_inputs(dev, 1, 64, 64, 1, 1, 16, torch.float32, mag=30.0)
+    out, lse, out32 = fa.flash_attention_fwd(q, k, v)
+    assert out32 is out
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(out, flash_attention_ref(q, k, v),
+                               rtol=5e-4, atol=5e-5)
+    q, k, v = _k4_inputs(dev, 1, 300, 300, 16, 2, 128, torch.bfloat16)
+    out, lse, out32 = fa.flash_attention_fwd(q, k, v, group=8)
+    assert out32.dtype == torch.float32
+    torch.testing.assert_close(out32.to(torch.bfloat16), out, rtol=0, atol=0)
+    dout = _rand(q.shape, torch.float32, dev, 24).to(torch.bfloat16)
+    first = fa.flash_attention_bwd(q, k, v, out32, lse, dout, group=8)
+    for _ in range(3):
+        again = fa.flash_attention_bwd(q, k, v, out32, lse, dout, group=8)
+        for a, b in zip(first, again, strict=True):
+            assert torch.equal(a, b)
+
+
+def test_flash_attention_raises_instead_of_falling_back(dev):
+    q = torch.zeros((2, 16, 16), dtype=torch.float64, device=dev)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros((2, 16, 24), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros((2, 16, 16), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2), q, q)
+
+
+def test_train_grain_on_kernels_matches_plain_and_counts(dev):
+    """Reduced Qwen2 with padded q heads: one grain's loss and gradients on
+    the K4 path against use_pallas=False; K4 launches 2 forwards (forward
+    and recompute) and one of each backward kernel per layer."""
+    cfg = get_config("qwen2-1.5b", reduced=True, tp_pad_heads=8)
+    model = Model(dataclasses.replace(cfg, use_pallas=None))
+    plain = Model(dataclasses.replace(cfg, use_pallas=False))
+    params = model.init(0)
+    g = torch.Generator().manual_seed(25)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=g).to(dev)
+    batch = {"tokens": toks[:, :-1].int(), "targets": toks[:, 1:].int(),
+             "loss_mask": torch.ones((2, 64), device=dev)}
+    before = dict(fa.LAUNCHES)
+    (loss, _), grads = make_grain_grad_fn(model)(params, batch)
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_attention_fwd": 2 * cfg.n_layers,
+        "flash_attention_bwd_dq": cfg.n_layers,
+        "flash_attention_bwd_dkdv": cfg.n_layers}
+    (loss_p, _), grads_p = make_grain_grad_fn(plain)(params, batch)
+    torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0)
+    for a, b in zip(tree_leaves(grads), tree_leaves(grads_p), strict=True):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-5)
+
+
+def test_train_adaptive_and_static_are_bitwise_on_the_card(dev):
+    cfg = get_config("qwen2-1.5b", reduced=True, tp_pad_heads=8,
+                     param_dtype="bfloat16", compute_dtype="bfloat16")
+    model = Model(dataclasses.replace(cfg, use_pallas=None))
+
+    def run(adaptive):
+        rep = Cluster("4:3:2:1", adaptive=adaptive).train(
+            TrainJob(model, steps=2, grains=8, seq_len=64),
+            scenario="halve:w0@1:25%")
+        return rep, tree_leaves(rep.artifact.state.params)
+
+    (ra, pa), (rs, ps) = run(True), run(False)
+    assert [p.metrics["loss"] for p in ra.phases] == \
+        [p.metrics["loss"] for p in rs.phases]
+    assert all(torch.equal(a, b) for a, b in zip(pa, ps, strict=True))

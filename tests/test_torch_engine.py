@@ -25,6 +25,10 @@ from repro_torch.models import Model, ModelConfig, params_from_numpy
 from repro_torch.models import config as port_config
 from repro_torch.serve import DecodeEngine, Request
 
+# One intra-op thread: a torch file on one test worker must not take every
+# core from the timing tests that run beside it.
+torch.set_num_threads(1)
+
 
 def tiny_cfg(use_pallas: bool = False) -> JaxModelConfig:
     return JaxModelConfig(

@@ -63,8 +63,22 @@ assert rep.metrics["max_abs_err"] < 1e-5, rep.metrics
 """
 
 
+_TRAIN = """
+from repro_torch.cluster import Cluster, TrainJob
+from repro_torch.configs import get_config
+from repro_torch.models import Model
+
+cfg = get_config("qwen2-1.5b", reduced=True, use_pallas=True)
+rep = Cluster("2:1", device="cpu").train(
+    TrainJob(Model(cfg, device="cpu"), steps=2, grains=4, seq_len=8),
+    scenario="halve:w0@1:25%")
+assert rep.kind == "train" and len(rep.phases) == 2, rep.summary()
+"""
+
+
 def _run(code: str) -> list[str]:
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # One intra-op thread, as the in-process port tests pin it.
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code + _REPORT], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -77,6 +91,10 @@ def test_port_serve_loads_no_jax_or_repro():
 
 def test_port_wallclock_matmul_loads_no_jax_or_repro():
     assert _run(_MATMUL) == []
+
+
+def test_port_train_loads_no_jax_or_repro():
+    assert _run(_TRAIN) == []
 
 
 def test_import_chip_smoke_loads_no_jax_or_repro():
@@ -126,4 +144,19 @@ def test_matmul_kernel_route_has_no_library_product(path):
     code = _code_only(ROOT / path)
     for pattern in (r"torch \. (matmul|mm|bmm|einsum|addmm)\b", r"[\w)\]] @",
                     r"\. (matmul|mm) \(", r"(?i)cublas|cutlass"):
+        assert not re.search(pattern, code), f"{path}: {pattern}"
+
+
+@pytest.mark.parametrize(
+    "path", sorted(str(p.relative_to(ROOT))
+                   for p in (PORT / "kernels" / "flash_attention").rglob("*")
+                   if p.suffix in (".py", ".cu") and p.name != "ref.py"))
+def test_flash_attention_kernel_route_has_no_library_attention(path):
+    """K4's wrapper, op and CUDA source compute attention themselves: no
+    torch product, SDPA, cuDNN or cuBLAS call stands in.  (``ref.py`` is the
+    plain version, which the CUDA route never calls.)"""
+    code = _code_only(ROOT / path)
+    for pattern in (r"torch \. (matmul|mm|bmm|einsum|addmm|softmax)\b",
+                    r"[\w)\]] @", r"\. (matmul|mm|bmm) \(",
+                    r"(?i)cublas|cudnn|cutlass|scaled_dot_product"):
         assert not re.search(pattern, code), f"{path}: {pattern}"

@@ -18,6 +18,10 @@ from repro_torch.kernels.matmul import matmul as mm
 from repro_torch.kernels.matmul.ops import matmul
 from repro_torch.kernels.matmul.ref import matmul_ref
 
+# One intra-op thread: a torch file on one test worker must not take every
+# core from the timing tests that run beside it.
+torch.set_num_threads(1)
+
 TOL = {"float32": dict(rtol=5e-4, atol=5e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

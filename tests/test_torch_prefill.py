@@ -19,6 +19,10 @@ from repro_torch.kernels.autotune import device_backend, shape_bucket
 from repro_torch.kernels.prefill import prefill as pf
 from repro_torch.kernels.prefill.ops import length_bucket, prefill_attention
 
+# One intra-op thread: a torch file on one test worker must not take every
+# core from the timing tests that run beside it.
+torch.set_num_threads(1)
+
 RTOL, ATOL = 5e-4, 5e-5
 
 

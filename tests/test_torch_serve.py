@@ -28,6 +28,10 @@ from repro_torch.models import Model, ModelConfig, params_from_numpy
 from repro_torch.models import config as port_config
 from repro_torch.serve import Request
 
+# One intra-op thread: a torch file on one test worker must not take every
+# core from the timing tests that run beside it.
+torch.set_num_threads(1)
+
 FLEETS = ["fast=2.0^prefill,slow=1.0x4^decode", "a=2x2,b=1x2"]
 
 
@@ -97,17 +101,21 @@ def test_simulate_matches_reference(scenario):
         == (jrep.sim_time_s, jrep.predicted_speedup, jrep.measured_speedup)
 
 
-def test_later_slices_raise_and_device_policy():
-    """MatmulJob and backend='wallclock' run (slice 2); train still raises,
-    naming its slice; without CUDA the default device raises."""
+def test_later_slices_raise_and_device_policy(models):
+    """MatmulJob and backend='wallclock' run (slice 2); train runs (slice 3)
+    on the Cluster's device and refuses a model on another; without CUDA
+    the default device raises."""
     c = Cluster("2x1,1x1", device="cpu")
     a = np.arange(16, dtype=np.float32).reshape(4, 4)
     rep = c.simulate(MatmulJob(a, np.eye(4, dtype=np.float32)))
     assert torch.equal(rep.artifact, torch.from_numpy(a))
     wc = Cluster("2x1", backend="wallclock", device="cpu")
     assert wc.simulate(SimJob(size=4)).backend == "wallclock[1d]"
-    with pytest.raises(NotImplementedError, match="training slice"):
-        c.train(TrainJob(model=None, steps=1))
+    tm = models[2]
+    rep = c.train(TrainJob(tm, steps=1, grains=2, seq_len=4))
+    assert rep.kind == "train" and np.isfinite(rep.metrics["final_loss"])
+    with pytest.raises(ValueError, match="one device"):
+        c.train(TrainJob(Model(tm.cfg, device="meta"), steps=1))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Cluster("2x1")

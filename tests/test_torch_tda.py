@@ -42,6 +42,10 @@ from repro_torch.core import (
 from repro_torch.kernels.matmul import matmul as mm
 from repro_torch.kernels.matmul.ops import matmul as port_matmul
 
+# One intra-op thread: a torch file on one test worker must not take every
+# core from the timing tests that run beside it.
+torch.set_num_threads(1)
+
 F32 = dict(rtol=1e-5, atol=1e-5)   # two libraries' f32 summation orders
 
 
