@@ -365,9 +365,12 @@ def card_busy(torch, run, kernels=("matmul_kernel",),
               top: int = 0) -> tuple[float, float, float]:
     """Run ``run()`` under ``torch.profiler`` with CUDA tracing; return its
     host wall seconds (profiler overhead included), the card's seconds in
-    every kernel it ran and in the kernels whose names hold one of
-    ``kernels`` (K3 by default; kernel durations as CUPTI records them).
-    ``top`` > 0 also prints that many kernels with the most device time."""
+    every kernel (and copy) it ran and in the kernels whose names hold one
+    of ``kernels`` (K3 by default; durations as CUPTI records them).  Only
+    the device's own events are summed: a CPU op's row repeats the device
+    time of the kernels it launched.  ``top`` > 0 also prints that many
+    kernels with the most device time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -376,7 +379,8 @@ def card_busy(torch, run, kernels=("matmul_kernel",),
         run()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    rows = prof.key_averages()
+    rows = [r for r in prof.key_averages()
+            if r.device_type == DeviceType.CUDA]
     busy = sum(r.self_device_time_total for r in rows) / 1e6
     mine = sum(r.self_device_time_total for r in rows
                if any(k in r.key for k in kernels)) / 1e6
