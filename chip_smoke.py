@@ -6,10 +6,10 @@
 Phases, each of which exits non-zero when it fails:
 
   1. device  — the card's name and power limit (``nvidia-smi``),
-  2. build   — the prefill, matmul and flash-attention kernel libraries
-               from ``src/repro_torch/kernels/{prefill,matmul,
-               flash_attention}/csrc`` (one nvcc each, sm_90a, all started
-               together), with the build seconds,
+  2. build   — the prefill, matmul, flash-attention and SSD-scan kernel
+               libraries from ``src/repro_torch/kernels/{prefill,matmul,
+               flash_attention,mamba_scan}/csrc`` (one nvcc each, sm_90a, all
+               started together), with the build seconds,
   3. kernels — K1 (``prefill_flash``) and K2 (``cache_cast``) held against
                their plain torch versions on the card: K1 through
                ``prefill_attention``, the op the model calls, at every
@@ -79,9 +79,30 @@ Phases, each of which exits non-zero when it fails:
                SHA-256 per leaf); 2 steps on the wall-clock backend.  K4's
                launches equal the prediction in every run: per grain, 2 x 28
                forwards (forward and remat recompute) and 28 of each
-               backward kernel.
+               backward kernel,
+ 12. K5      — the SSD chunked scan (``ssd_scan``) through ``ssd``, the op
+               the model calls, against the same op with K5's plain version
+               in its place and against the sequential oracle, f32 and bf16,
+               at the reference's kernel-test shapes, chunks 16/32/64/96,
+               S = 90 and dt x 100 (finite); at the serving path's shape
+               (xdt (80, 512, 64), B/C (1, 512, 128), chunk 256) checked,
+               bitwise equal over two runs and timed beside its plain
+               version and the card's bound (no PyTorch call computes the
+               scan, so there is no library time),
+ 13. mamba model — full-width Mamba2-2.7B in f32 from ``Model.init(seed)``:
+               prefill of one prompt of length 100 (bucket 128) on the kernel
+               path against ``use_pallas=False``: logits within the f32
+               tolerance, greedy first tokens equal, every period's final
+               SSM state within tolerance, 64 K5 launches,
+ 14. mamba serve — full-width bf16 Mamba2-2.7B through phase 5's fleet:
+               phase 5's prompt lengths (tokens drawn from its vocabulary),
+               16 new tokens each: every request completes with 16 in-vocab
+               tokens, 8 handoffs, K5 launched exactly 8 x 64 times; the
+               host wall split, tokens/s and the card's busy share in a
+               profiled repeat; K5 held against its plain version on the
+               inputs it got from each bucket.
 
-Phases 4, 5, 7, 8, 9 and 11 are the main path: the kernels' launch counts
+Phases 4, 5, 7, 8, 9, 11, 13 and 14 are the main path: the kernels' launch counts
 are set to 0 just before each of their runs and read just after it; the
 ``kernels`` line gives each kernel's launches in all and by run.  The
 next-to-last line is the ``kernels`` JSON object; a line before it holds the
@@ -186,17 +207,18 @@ def check_close(torch, name, got, want, dtype_name, tol=TOL) -> float:
 
 @contextlib.contextmanager
 def keep_inputs(module, name):
-    """Wrap ``module.<name>(q, k, v, ...)`` while the block runs and keep a
-    copy of the first q, k, v it gets for each shape and dtype."""
+    """Wrap ``module.<name>(*tensors, **kwargs)`` while the block runs and
+    keep a copy of the first tensors and keyword arguments it gets for each
+    shape of its first two arguments and dtype of its first."""
     kept = {}
     saved = getattr(module, name)
 
     @functools.wraps(saved)
-    def call(q, k, v, *args, **kwargs):
-        key = (tuple(q.shape), tuple(k.shape), q.dtype)
+    def call(*args, **kwargs):
+        key = (tuple(args[0].shape), tuple(args[1].shape), args[0].dtype)
         if key not in kept:
-            kept[key] = (q.clone(), k.clone(), v.clone(), kwargs.get("group"))
-        return saved(q, k, v, *args, **kwargs)
+            kept[key] = (tuple(a.clone() for a in args), dict(kwargs))
+        return saved(*args, **kwargs)
 
     setattr(module, name, call)
     try:
@@ -253,6 +275,29 @@ def matmul_bound_ms(m: int, k: int, n: int, itemsize: int,
     nbytes = itemsize * (m * k + k * n + m * n)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = 2 * m * k * n / PEAK_OPS_PER_S[dtype_name]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def k5_bound_ms(bh: int, bg: int, s: int, p: int, n: int, chunk: int,
+                itemsize: int, dtype_name: str) -> tuple[float, str]:
+    """Least time for K5 on (BH, S, P) xdt with (BG, S, N) B and C: xdt,
+    la (f32), B and C read once, y and the f32 (BH, P, N) state written
+    once; 2 operations per multiply-add of the four products a chunk of
+    length c needs: the causal half of the Gram C Bᵀ (c (c + 1) / 2 pairs
+    of N, once per group: it does not depend on the head), its decayed
+    product with xdt (the same pairs, P wide, per head), the inter-chunk
+    term C h₀ᵀ and the state update (c P N each, per head).  The
+    elementwise decay terms are not counted."""
+    nbytes = itemsize * (2 * bh * s * p + 2 * bg * s * n) + 4 * bh * s \
+        + 4 * bh * p * n
+    ops = 0
+    for c0 in range(0, s, chunk):
+        c = min(chunk, s - c0)
+        pairs = c * (c + 1) // 2
+        ops += 2 * (bg * pairs * n + bh * pairs * p + 2 * bh * c * p * n)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[dtype_name]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -442,6 +487,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.build import BUILD_DIR
+    from repro_torch.kernels.mamba_scan import mamba_scan as k5
+    from repro_torch.kernels.mamba_scan import ops as mamba_ops
+    from repro_torch.kernels.mamba_scan.ref import ssd_scan_plain, ssd_scan_ref
     from repro_torch.kernels.matmul import matmul as mm
     from repro_torch.kernels.matmul.ops import matmul as k3_matmul
     from repro_torch.kernels.matmul.ref import matmul_ref
@@ -464,14 +512,14 @@ def main() -> int:
 
     # ------------------------------------------------------------- 2. build
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         for built in [pool.submit(pf.load_library), pool.submit(mm.load_library),
-                      pool.submit(fa.load_library)]:
+                      pool.submit(fa.load_library), pool.submit(k5.load_library)]:
             built.result()
     build_s = time.perf_counter() - t0
-    print(f"[build] prefill, matmul and flash-attention kernels built and "
-          f"loaded in {build_s:.2f} s", flush=True)
-    for lib in ("prefill", "matmul", "flash_attention"):
+    print(f"[build] prefill, matmul, flash-attention and SSD-scan kernels "
+          f"built and loaded in {build_s:.2f} s", flush=True)
+    for lib in ("prefill", "matmul", "flash_attention", "mamba_scan"):
         log = os.path.join(BUILD_DIR, f"{lib}.log")
         if not os.path.exists(log):          # absent when the library was cached
             continue
@@ -559,7 +607,7 @@ def main() -> int:
 
     # Launches of each main-path run, by run: every count is set to 0 just
     # before the run and read just after it.
-    counters = (pf.LAUNCHES, mm.LAUNCHES, fa.LAUNCHES)
+    counters = (pf.LAUNCHES, mm.LAUNCHES, fa.LAUNCHES, k5.LAUNCHES)
     by_path: dict[str, dict[str, int]] = {}
 
     def zero_counts() -> None:
@@ -659,12 +707,12 @@ def main() -> int:
     buckets = sorted(key[0][1] for key in seen)
     if buckets != [16, 32, 64, 128, 256, 512]:
         fail(f"serve: K1 saw buckets {buckets}, expected 16 .. 512")
-    for (qs, _, dt), (q, k, v, group) in sorted(seen.items(),
+    for (qs, _, dt), ((q, k, v), kw) in sorted(seen.items(),
                                                 key=lambda kv: kv[0][0]):
         name = f"K1 on serve inputs q {qs} {str(dt)[6:]}"
-        out, _, _ = pf.prefill_flash(q, k, v, group=group)
+        out, _, _ = pf.prefill_flash(q, k, v, group=kw["group"])
         torch.cuda.synchronize()
-        ref, _, _ = prefill_ref(q, k, v, group=group)
+        ref, _, _ = prefill_ref(q, k, v, group=kw["group"])
         err = check_close(torch, name, out, ref, str(dt)[6:])
         k1_err = max(k1_err, err)
         print(f"[serve] {name}: max abs err {err:.3e}", flush=True)
@@ -1183,6 +1231,236 @@ def main() -> int:
           f"{[dict(p.shares) for p in rep.phases]}; {wall_s:.3f} s wall",
           flush=True)
     del rep, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 12. K5
+    # ssd's kernel route against the same op with K5's plain version in
+    # K5's place, and against the sequential oracle: the reference's kernel
+    # test shapes (tests/test_kernels.py) in f32 and bf16, chunk invariance,
+    # a non-divisible S and the dt x 100 decay; then the serving path's
+    # shape, checked and timed.
+    def ssd_inputs(b, s, h, p, g, n, dt):
+        x = rand((b, s, h, p), dt)
+        dtv = (rand((b, s, h), torch.float32).abs() * 0.1 + 0.01).to(dt)
+        a = -rand((h,), torch.float32).abs() - 0.1
+        return (x, dtv, a, rand((b, s, g, n), dt), rand((b, s, g, n), dt),
+                rand((h,), torch.float32))
+
+    def ssd_flat(x, dtv, a, bm, cm):
+        """K5's inputs, B and C per group, and B and C repeated per head
+        (the plain version's interface)."""
+        b, s, h, p = x.shape
+        g, n = bm.shape[2], bm.shape[3]
+        xdt = (x * dtv[..., None]).transpose(1, 2).reshape(b * h, s, p)
+        la = (dtv * a[None, None, :]).transpose(1, 2).reshape(b * h, s)
+        bg, cg = (t.transpose(1, 2).reshape(b * g, s, n) for t in (bm, cm))
+        bf, cf = (torch.repeat_interleave(t, h // g, 0) for t in (bg, cg))
+        return xdt.contiguous(), la.contiguous(), bg, cg, bf, cf
+
+    def ssd_unflat(y, hf, x, d):
+        b, s, h, p = x.shape
+        y = y.reshape(b, h, s, p).transpose(1, 2) + \
+            x * d[None, None, :, None].to(x.dtype)
+        return y, hf.reshape(b, h, p, hf.shape[-1])
+
+    k5_err = 0.0
+    k5_cases = [(shape, 32, dt) for shape in ((2, 96, 4, 16, 2, 8),
+                                              (1, 64, 2, 8, 1, 16))
+                for dt in (torch.float32, torch.bfloat16)]
+    k5_cases += [((1, 96, 2, 8, 1, 4), chunk, torch.float32)
+                 for chunk in (16, 32, 64, 96)]
+    k5_cases += [((1, 90, 2, 8, 1, 4), 32, dt)
+                 for dt in (torch.float32, torch.bfloat16)]
+    for shape, chunk, dt in k5_cases:
+        dname = str(dt)[6:]
+        name = f"K5 (b, s, h, p, g, n) {shape} chunk {chunk} {dname}"
+        x, dtv, a, bm, cm, d = ssd_inputs(*shape, dt)
+        before = k5.LAUNCHES["ssd_scan"]
+        y, hf = mamba_ops.ssd(x, dtv, a, bm, cm, d, chunk=chunk)
+        torch.cuda.synchronize()
+        if k5.LAUNCHES["ssd_scan"] != before + 1:
+            fail(f"{name}: ssd did not launch K5")
+        xdt, la, _, _, bf, cf = ssd_flat(x, dtv, a, bm, cm)
+        ry, rh = ssd_unflat(*ssd_scan_plain(xdt, la, bf, cf, chunk=chunk),
+                            x, d)
+        gy, gh = ssd_unflat(*ssd_scan_ref(xdt, la, bf, cf), x, d)
+        err = max(check_close(torch, f"{name} y", y, ry, dname),
+                  check_close(torch, f"{name} state", hf, rh, dname))
+        check_close(torch, f"{name} y vs the sequential oracle", y, gy, dname)
+        check_close(torch, f"{name} state vs the sequential oracle", hf, gh,
+                    dname)
+        k5_err = max(k5_err, err)
+        print(f"[k5] {name}: max abs err {err:.3e} (plain version); within "
+              f"tolerance of the sequential oracle", flush=True)
+    x, dtv, a, bm, cm, d = ssd_inputs(1, 256, 2, 8, 1, 4, torch.float32)
+    y, hf = mamba_ops.ssd(x, dtv * 100.0, a, bm, cm, d, chunk=64)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(y).all() and torch.isfinite(hf).all()):
+        fail("K5 dt x 100: non-finite output")
+    print("[k5] dt x 100 (S 256, chunk 64): y and state finite", flush=True)
+
+    # The serving path's shape: 80 heads of P 64 on one group of N 128, S
+    # = 512 (the largest bucket) in chunks of 256.
+    K5_PATH = (1, 512, 80, 64, 1, 128)
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt)[6:]
+        x, dtv, a, bm, cm, _ = ssd_inputs(*K5_PATH, dt)
+        xdt, la, bg, cg, bf, cf = ssd_flat(x, dtv, a, bm, cm)
+        y, hf = k5.ssd_scan(xdt, la, bg, cg, chunk=256, rep=80)
+        again = k5.ssd_scan(xdt, la, bg, cg, chunk=256, rep=80)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, again[0]) and torch.equal(hf, again[1])):
+            fail(f"K5 path shape {dname}: two runs differ")
+        ry, rh = ssd_scan_plain(xdt, la, bf, cf, chunk=256)
+        err = max(check_close(torch, f"K5 path shape {dname} y", y, ry,
+                              dname),
+                  check_close(torch, f"K5 path shape {dname} state", hf, rh,
+                              dname))
+        k5_err = max(k5_err, err)
+        print(f"[k5] xdt (80, 512, 64), B/C (1, 512, 128), chunk 256 "
+              f"{dname}: max abs err {err:.3e}; two runs bitwise equal",
+              flush=True)
+    k5_row = {
+        "ms": time_ms(torch, lambda: k5.ssd_scan(xdt, la, bg, cg, chunk=256,
+                                                 rep=80)),
+        "plain_ms": time_ms(torch, lambda: ssd_scan_plain(xdt, la, bf, cf,
+                                                          chunk=256)),
+        "library_ms": None,     # no single PyTorch call computes the scan
+    }
+    k5_row["bound_ms"], k5_row["bound_by"] = k5_bound_ms(80, 1, 512, 64, 128,
+                                                         256, 2, "bfloat16")
+    print(f"[k5] {card}: bf16 xdt (80, 512, 64), B/C (1, 512, 128), chunk "
+          f"256: " + json.dumps(k5_row), flush=True)
+    del x, dtv, a, bm, cm, xdt, la, bg, cg, bf, cf, y, hf, again, ry, rh
+
+    # ----------------------------------- 13. mamba model, f32 (main path)
+    cfgm32 = get_config("mamba2-2.7b", param_dtype="float32",
+                        compute_dtype="float32")
+    model = Model(cfgm32)
+    plain = Model(dataclasses.replace(cfgm32, use_pallas=False))
+    n_mamba = cfgm32.n_layers
+    zero_counts()
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    print(f"[mamba-model] {cfgm32.name} f32 init on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    mrng = np.random.default_rng(SEED)
+    L, bucket = 100, 128
+    toks = np.zeros((1, bucket), np.int64)
+    toks[0, :L] = mrng.integers(0, cfgm32.vocab_size, L)
+    batch = {"tokens": torch.as_tensor(toks, device=dev)}
+    with torch.no_grad():
+        lk, ck = model.prefill(params, batch, last_pos=L - 1)
+        torch.cuda.synchronize()
+        k5_model = read_counts("mamba_model")["ssd_scan"]
+        lp, cp = plain.prefill(params, batch, last_pos=L - 1)
+    torch.cuda.synchronize()
+    if k5_model != n_mamba:
+        fail(f"mamba model: K5 launched {k5_model} times, expected "
+             f"{n_mamba}")
+    if tuple(lk.shape) != (1, 1, cfgm32.padded_vocab):
+        fail(f"mamba model: logits shape {tuple(lk.shape)}")
+    mamba_err = check_close(torch, "mamba prefill logits (kernel vs plain)",
+                            lk, lp, "float32")
+    sk, sp = ck["periods"]["pos0"]["self"], cp["periods"]["pos0"]["self"]
+    if tuple(sk.state.shape) != (n_mamba, 1, 80, 64, 128):
+        fail(f"mamba model: state shape {tuple(sk.state.shape)}")
+    state_err = [check_close(torch, f"mamba period {t} final state",
+                             sk.state[t], sp.state[t], "float32")
+                 for t in range(n_mamba)]
+    if not torch.equal(sk.conv, sp.conv):
+        fail("mamba model: conv windows differ (computed outside K5)")
+    tok_k = int(lk[0, 0, :cfgm32.vocab_size].argmax())
+    tok_p = int(lp[0, 0, :cfgm32.vocab_size].argmax())
+    if tok_k != tok_p:
+        fail(f"mamba model: greedy first tokens differ ({tok_k} vs {tok_p})")
+    print(f"[mamba-model] prefill L={L} (bucket {bucket}), {n_mamba} layers: "
+          f"logits max abs err {mamba_err:.3e}; every period's final state "
+          f"within tolerance (max abs err {max(state_err):.3e}, period "
+          f"{state_err.index(max(state_err))}); conv windows equal; greedy "
+          f"first token {tok_k} on both paths; K5 launches {k5_model}",
+          flush=True)
+    del model, plain, params, lk, lp, ck, cp, sk, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------ 14. mamba serve, bf16 (main path)
+    # Phase 5's fleet, prompt lengths and token budget on full-width bf16
+    # Mamba2-2.7B; the prompts are drawn from its vocabulary.
+    cfgm = get_config("mamba2-2.7b")
+    model = Model(cfgm)
+    params = model.init(SEED)
+    prompts = [[int(t) for t in mrng.integers(0, cfgm.vocab_size, n)]
+               for n in lengths]
+
+    def mamba_job() -> ServeJob:
+        return ServeJob([Request(rid=i, prompt=list(p), max_new_tokens=16)
+                         for i, p in enumerate(prompts)],
+                        model=model, params=params, max_seq=1024)
+
+    fleet_spec = "fast=2.0^prefill,slow=1.0x4^decode"
+    job = mamba_job()
+    torch.cuda.synchronize()
+    zero_counts()
+    with wall_split(DecodeEngine, ("prefill", "insert", "step")) as spent, \
+            keep_inputs(mamba_ops, "_ssd_kernel_call") as seen:
+        t0 = time.perf_counter()
+        rep = Cluster(fleet_spec).serve(job)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    k5_serve = read_counts("mamba_serve")["ssd_scan"]
+    m = rep.metrics
+    for r in job.requests:
+        if not r.done or len(r.out_tokens) != 16:
+            fail(f"mamba serve: request {r.rid} done={r.done} with "
+                 f"{len(r.out_tokens)} tokens")
+        if not all(0 <= t < cfgm.vocab_size for t in r.out_tokens):
+            fail(f"mamba serve: request {r.rid} emitted a token outside the "
+                 f"vocab")
+    if m.get("mode") != "disaggregated" or m["n_handoffs"] != len(prompts):
+        fail(f"mamba serve: mode {m.get('mode')}, {m.get('n_handoffs')} "
+             f"handoffs")
+    if k5_serve != len(prompts) * n_mamba:
+        fail(f"mamba serve: K5 launched {k5_serve} times, expected "
+             f"{len(prompts) * n_mamba}")
+    n_tok = sum(len(r.out_tokens) for r in job.requests)
+    split = {k: v["mean"] for k, v in m["ttft_split"].items() if k != "n"}
+    print(f"[mamba-serve] {card}: {len(prompts)} requests of bf16 "
+          f"{cfgm.name} ({n_mamba} layers, d_model {cfgm.d_model}), {n_tok} "
+          f"tokens in {wall_s:.3f} s wall -> {n_tok / wall_s:.2f} tokens/s; "
+          f"{m['n_handoffs']} handoffs; K5 launches {k5_serve}; TTFT split "
+          f"(sim-clock s, mean) {json.dumps(split)}", flush=True)
+    engine_s = sum(sec for _, sec in spent.values())
+    print("[mamba-serve] host wall split: " + ", ".join(
+        f"{name} {n} calls {sec:.3f} s" for name, (n, sec) in spent.items())
+        + f", the rest (control plane) {wall_s - engine_s:.3f} s", flush=True)
+
+    # K5 against its plain version on the inputs the serve path gave it.
+    buckets = sorted(key[0][1] for key in seen)
+    if buckets != [16, 32, 64, 128, 256, 512]:
+        fail(f"mamba serve: K5 saw buckets {buckets}, expected 16 .. 512")
+    for (xs, _, dt), ((xdt, la, bg, cg), kw) in sorted(
+            seen.items(), key=lambda kv: kv[0][0]):
+        name = f"K5 on serve inputs xdt {xs} {str(dt)[6:]} chunk {kw['chunk']}"
+        y, hf = k5.ssd_scan(xdt, la, bg, cg, **kw)
+        torch.cuda.synchronize()
+        ry, rh = ssd_scan_plain(
+            xdt, la, torch.repeat_interleave(bg, kw["rep"], 0),
+            torch.repeat_interleave(cg, kw["rep"], 0), chunk=kw["chunk"])
+        err = max(check_close(torch, f"{name} y", y, ry, str(dt)[6:]),
+                  check_close(torch, f"{name} state", hf, rh, str(dt)[6:]))
+        k5_err = max(k5_err, err)
+        print(f"[mamba-serve] {name}: max abs err {err:.3e}", flush=True)
+    del seen, rep, job
+    gc.collect()
+    torch.cuda.empty_cache()
+    print_busy(card, "8 requests x 16 tokens", *card_busy(
+        torch, lambda: Cluster(fleet_spec).serve(mamba_job()),
+        kernels=("ssd_scan_kernel",), top=8), wall_s, tag="mamba-serve",
+        kernel="K5")
+    del model, params
 
     per_kernel = {key: {path: counts[key] for path, counts in by_path.items()}
                   for key in by_path["model"]}
@@ -1231,6 +1509,16 @@ def main() -> int:
          "bound_by": k4_rows[part]["bound_by"],
          "library_ms": k4_rows[part]["library_ms"]}
         for name, part in zip(K4_KERNELS, ("fwd", "dq", "dkdv"), strict=True)
+    ] + [
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+         "replaces": "src/repro/kernels/mamba_scan/mamba_scan.py:85",
+         "launches": launches["ssd_scan"],
+         "launches_by_path": per_kernel["ssd_scan"], "max_abs_err": k5_err,
+         "shape": [[80, 512, 64], [1, 512, 128]],
+         "ms": k5_row["ms"], "plain_ms": k5_row["plain_ms"],
+         "bound_ms": k5_row["bound_ms"], "bound_by": k5_row["bound_by"],
+         "library_ms": k5_row["library_ms"]},
     ]}
     print(f"[card] {card}")
     print(json.dumps(kernels))

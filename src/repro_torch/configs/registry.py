@@ -1,6 +1,7 @@
 """Architecture registry of the port: ``--arch <id>`` resolution, holding
-only the architectures the port runs (dense GQA decoders).  The others join
-with the port slices that bring their layers (see ROADMAP.md)."""
+only the architectures the port runs (a dense GQA decoder and an SSD mamba
+stack).  The others join with the port slices that bring their layers (see
+ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from ..models.config import ModelConfig
 
 _MODULES = {
     "qwen2-1.5b": "qwen2_1_5b",
+    "mamba2-2.7b": "mamba2_2_7b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -1,0 +1,131 @@
+"""Mamba-2 SSD chunked scan, kernel K5: the mamba layers' prefill scan.
+
+Port of ``repro/kernels/mamba_scan/mamba_scan.py``.  The Pallas program
+becomes a hand-written CUDA kernel in ``csrc/mamba_scan.cu`` (see the note
+at its top for what bounds it on the card and how the design answers).  It
+reads B and C per group (``rep`` heads share a row), where the reference's
+kernel route repeats them per head, and it masks a last chunk shorter than
+``chunk``, where the reference's wrapper requires S to divide.
+
+Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor takes
+the plain version (``ref.ssd_scan_plain``, B and C repeated per head) — the
+port's counterpart of interpret mode.  There is no fallback from a failed
+launch.  The kernel has no backward (nor has the reference's): on CUDA it
+raises when autograd would need one.  ``LAUNCHES`` counts kernel launches
+(and nothing else), so a run can show its path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+
+import torch
+
+from ..build import build_library
+from .ref import ssd_scan_plain
+
+__all__ = ["ssd_scan", "LAUNCHES", "SOURCES", "load_library", "MAX_N"]
+
+SOURCES = [os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "csrc", "mamba_scan.cu")]
+
+#: Kernel launches by kernel name, since the counts were last set to 0.
+LAUNCHES: dict[str, int] = {"ssd_scan": 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: Widest state the kernel compiles (the state sum lives in registers).
+MAX_N = 128
+_INT_MAX = 2**31 - 1
+
+
+@functools.lru_cache(maxsize=1)
+def load_library() -> ctypes.CDLL:
+    """Build (first use only) and load the SSD-scan kernel library."""
+    lib = ctypes.CDLL(build_library("mamba_scan", SOURCES))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_scan.argtypes = [vp] * 6 + [i32] * 7 + [vp]
+    lib.ssd_scan.restype = i32
+    lib.ssd_scan_error_string.argtypes = [i32]
+    lib.ssd_scan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(xdt, la, b, c, rep: int) -> tuple[int, int, int, int]:
+    """Validate the shapes; return (bh, s, p, n)."""
+    if xdt.ndim != 3 or la.ndim != 2 or b.ndim != 3 or c.shape != b.shape:
+        raise ValueError(f"ssd_scan takes xdt (BH, S, P), la (BH, S) and b, "
+                         f"c (BH / rep, S, N); got {tuple(xdt.shape)}, "
+                         f"{tuple(la.shape)}, {tuple(b.shape)}, "
+                         f"{tuple(c.shape)}")
+    bh, s, p = xdt.shape
+    n = b.shape[-1]
+    if tuple(la.shape) != (bh, s):
+        raise ValueError(f"la {tuple(la.shape)} must be ({bh}, {s})")
+    if rep < 1 or bh != b.shape[0] * rep or b.shape[1] != s:
+        raise ValueError(f"b, c {tuple(b.shape)} must be ({bh} / rep {rep}, "
+                         f"{s}, N)")
+    if min(bh, s, p, n) < 1 or max(bh * s * p, b.shape[0] * s * n) > _INT_MAX:
+        raise ValueError("ssd_scan needs non-empty inputs below 2**31 "
+                         "elements")
+    return bh, s, p, n
+
+
+def ssd_scan(
+    xdt: torch.Tensor,   # (BH, S, P) — dt-premultiplied input
+    la: torch.Tensor,    # (BH, S)    — log decay dt*A (<= 0)
+    b: torch.Tensor,     # (BH / rep, S, N)
+    c: torch.Tensor,     # (BH / rep, S, N)
+    *,
+    chunk: int = 256,
+    rep: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y (BH, S, P) in xdt's dtype, final state (BH, P, N) f32),
+    from zero state.  Head row r reads row r // rep of b and c; ``rep=1``
+    is the reference's interface.  S need not divide ``chunk``."""
+    bh, s, p, n = _check(xdt, la, b, c, rep)
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    chunk = min(chunk, s)
+    if xdt.device.type == "cpu":
+        if rep > 1:
+            b = torch.repeat_interleave(b, rep, dim=0)
+            c = torch.repeat_interleave(c, rep, dim=0)
+        return ssd_scan_plain(xdt, la, b, c, chunk=chunk)
+    if xdt.device.type != "cuda":
+        raise ValueError(f"ssd_scan runs on cuda or cpu, not {xdt.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (xdt, la, b, c)):
+        raise NotImplementedError(
+            "K5 has no backward kernel (nor has the reference's Pallas "
+            "kernel): mamba training on the kernel route comes with a later "
+            "port slice; run it under torch.no_grad() or with "
+            "use_pallas=False")
+    for name, t in (("la", la), ("b", b), ("c", c)):
+        if t.device != xdt.device:
+            raise ValueError(f"{name} is on {t.device}, expected "
+                             f"{xdt.device}")
+    if xdt.dtype not in _DTYPE_CODES or b.dtype != xdt.dtype or \
+            c.dtype != xdt.dtype:
+        raise TypeError(f"K5 takes xdt, b and c of one dtype, f32 or bf16; "
+                        f"got {xdt.dtype}, {b.dtype}, {c.dtype}")
+    if not la.is_floating_point():
+        raise TypeError(f"la must be floating point, got {la.dtype}")
+    if n > MAX_N:
+        raise ValueError(f"state width N={n} above the compiled {MAX_N}")
+    lib = load_library()
+    xdt, b, c = xdt.contiguous(), b.contiguous(), c.contiguous()
+    la = la.to(torch.float32).contiguous()
+    y = torch.empty_like(xdt)
+    state = torch.empty((bh, p, n), dtype=torch.float32, device=xdt.device)
+    err = lib.ssd_scan(xdt.data_ptr(), la.data_ptr(), b.data_ptr(),
+                       c.data_ptr(), y.data_ptr(), state.data_ptr(), bh, s, p,
+                       n, chunk, rep, _DTYPE_CODES[xdt.dtype],
+                       torch.cuda.current_stream(xdt.device).cuda_stream)
+    if err != 0:
+        msg = lib.ssd_scan_error_string(err).decode()
+        raise RuntimeError(f"ssd_scan launch failed: CUDA error {err} "
+                           f"({msg})")
+    LAUNCHES["ssd_scan"] += 1
+    return y, state

@@ -7,6 +7,10 @@ maps leaves one to one and the two packages compute the same function.  The
 caller converts the JAX leaves with ``np.asarray`` (this package never
 imports JAX); bfloat16 leaves arrive as numpy's ``bfloat16`` extension
 dtype and are reinterpreted bit for bit.
+
+A ``dtype`` casts the floating leaves, except those the models keep in f32
+whatever ``param_dtype`` is (the mamba block's ``dt_bias``, ``a_log`` and
+``d_skip``): they come over as they are.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from .mamba import F32_LEAVES
 
 __all__ = ["params_from_numpy", "tensor_from_numpy"]
 
@@ -32,9 +38,12 @@ def tensor_from_numpy(arr, device, dtype: torch.dtype | None = None) -> torch.Te
 
 def params_from_numpy(tree: Any, device, dtype: torch.dtype | None = None) -> Any:
     """Map a nested dict/list of numpy arrays to the same structure of
-    tensors on ``device`` (floating leaves cast to ``dtype`` when given)."""
+    tensors on ``device`` (floating leaves cast to ``dtype`` when given,
+    but for ``F32_LEAVES``)."""
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+        return {k: params_from_numpy(v, device,
+                                     None if k in F32_LEAVES else dtype)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, device, dtype) for v in tree)
     return tensor_from_numpy(tree, device, dtype)

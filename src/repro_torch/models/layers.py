@@ -76,6 +76,13 @@ def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return rms_norm(x, p["scale"], cfg.norm_eps)
 
 
+def gated_rms_norm(x: torch.Tensor, gate: torch.Tensor, weight: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    """Mamba-2 output norm: RMSNorm(x * silu(z))."""
+    g = torch.nn.functional.silu(gate.float()).to(x.dtype)
+    return rms_norm(x * g, weight, eps)
+
+
 # ------------------------------------------------------------------------- RoPE
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,

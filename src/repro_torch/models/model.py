@@ -1,11 +1,14 @@
-"""Model facade: init / loss / prefill / decode for the dense token decoder.
+"""Model facade: init / loss / prefill / decode for token decoders whose
+layers are attention or mamba mixers (dense MLPs or none).
 
 Port of ``repro/models/model.py``.  Batch format (tokens mode):
 ``{"tokens": (B,S) int, "targets": (B,S) int, "loss_mask": (B,S) f32}``
 (``loss`` reads all three; ``prefill`` only the tokens).  ``loss_mask``
 carries the homogenization grain weights: the loss is the weighted token
 mean (sum w·ce / sum w).  Decode: ``decode_step(params, cache, inputs,
-pos)`` processes one token per slot against a fixed-capacity cache.
+pos)`` processes one token per slot against a fixed-capacity cache (a KV
+cache per attention layer; a conv window and SSM state per mamba layer,
+which ignore ``pos``).
 
 Params are a nested dict of tensors laid out exactly like the reference's
 pytree (``models/bridge.py`` loads the reference's weights); ``init(seed)``

@@ -9,13 +9,16 @@ axis becomes a Python loop, and its ``jax.checkpoint`` of each period
 (``remat``) a ``torch.utils.checkpoint`` of each period.
 
 Modes: "train" (no cache), "prefill" (returns caches) and "decode"
-(consumes and returns caches, one token).  Mamba, MLA and MoE layers, and
+(consumes and returns caches, one token).  Mixers: attention and mamba
+(``models/mamba.py``; its cache is a ``MambaCache`` of conv window and
+state, with no sequence axis).  MLA and MoE layers, and
 ``remat_policy="dots"``, raise ``NotImplementedError`` naming the port slice
 that brings them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -23,7 +26,6 @@ from torch.utils.checkpoint import checkpoint
 
 from ..tree import tree_flatten, tree_unflatten
 from .attention import (
-    KVCache,
     attention_decode,
     attention_prefill,
     attention_train,
@@ -32,10 +34,9 @@ from .attention import (
 )
 from .config import LayerSpec, ModelConfig
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
+from .mamba import init_mamba, init_mamba_cache, mamba_decode, mamba_train
 
 _LATER = {
-    "mamba": "mamba layers come with the port's mamba slice (kernel K5, "
-             "ssd_scan)",
     "mla": "MLA layers come with the port's remaining-configs slice "
            "(MoE, MLA, enc-dec)",
     "moe": "MoE layers come with the port's remaining-configs slice "
@@ -49,7 +50,7 @@ _LATER = {
 
 def check_layer(spec: LayerSpec) -> None:
     """Raise for a layer this slice of the port does not run."""
-    if spec.mixer != "attn":
+    if spec.mixer not in ("attn", "mamba"):
         raise NotImplementedError(_LATER[spec.mixer])
     if spec.mlp == "moe":
         raise NotImplementedError(_LATER["moe"])
@@ -60,8 +61,11 @@ def check_layer(spec: LayerSpec) -> None:
 # --------------------------------------------------------------------- layer init
 def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec) -> dict:
     check_layer(spec)
-    p: dict[str, Any] = {"norm1": init_norm(cfg, gen.device),
-                         "attn": init_attention(gen, cfg)}
+    p: dict[str, Any] = {"norm1": init_norm(cfg, gen.device)}
+    if spec.mixer == "attn":
+        p["attn"] = init_attention(gen, cfg)
+    else:
+        p["mamba"] = init_mamba(gen, cfg)
     if spec.mlp == "dense":
         p["norm2"] = init_norm(cfg, gen.device)
         p["mlp"] = init_mlp(gen, cfg)
@@ -71,6 +75,8 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec) -> dict:
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, seq: int,
                      device) -> dict:
     check_layer(spec)
+    if spec.mixer == "mamba":
+        return {"self": init_mamba_cache(cfg, batch, device)}
     return {"self": init_kv_cache(cfg, batch, seq, device)}
 
 
@@ -84,14 +90,20 @@ def apply_layer(
     check_layer(spec)
     h = apply_norm(cfg, p["norm1"], x)
     c = None
-    if mode == "train":
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be train, prefill or decode: {mode!r}")
+    if spec.mixer == "mamba":
+        if mode == "decode":
+            a, c = mamba_decode(p["mamba"], cfg, h, cache["self"])
+        else:
+            a, c = mamba_train(p["mamba"], cfg, h)
+            c = c if mode == "prefill" else None
+    elif mode == "train":
         a = attention_train(p["attn"], cfg, h, positions, causal=causal)
     elif mode == "prefill":
         a, c = attention_prefill(p["attn"], cfg, h, positions)
-    elif mode == "decode":
-        a, c = attention_decode(p["attn"], cfg, h, cache["self"], pos)
     else:
-        raise ValueError(f"mode must be train, prefill or decode: {mode!r}")
+        a, c = attention_decode(p["attn"], cfg, h, cache["self"], pos)
     x = x + a
     if spec.mlp == "dense":
         x = x + apply_mlp(p["mlp"], apply_norm(cfg, p["norm2"], x))
@@ -99,15 +111,21 @@ def apply_layer(
 
 
 # -------------------------------------------------------------------- stack
+def _fields(cache) -> dict[str, Any]:
+    """A cache dataclass's (``KVCache``, ``MambaCache``) tensors by name."""
+    return {f.name: getattr(cache, f.name) for f in dataclasses.fields(cache)}
+
+
 def _stack(items: list) -> Any:
-    """Stack per-period pytrees (dicts / KVCache of tensors) on a new
-    leading axis — the layout ``lax.scan`` gives the reference."""
+    """Stack per-period pytrees (dicts / cache dataclasses of tensors) on a
+    new leading axis — the layout ``lax.scan`` gives the reference."""
     first = items[0]
     if isinstance(first, dict):
         return {key: _stack([it[key] for it in items]) for key in first}
-    if isinstance(first, KVCache):
-        return KVCache(k=torch.stack([it.k for it in items]),
-                       v=torch.stack([it.v for it in items]))
+    if dataclasses.is_dataclass(first):
+        return type(first)(**{name: torch.stack([getattr(it, name)
+                                                 for it in items])
+                              for name in _fields(first)})
     return torch.stack(items)
 
 
@@ -115,8 +133,8 @@ def _index(tree: Any, i: int) -> Any:
     """Period ``i`` of a stacked pytree (views: writes reach the stack)."""
     if isinstance(tree, dict):
         return {key: _index(val, i) for key, val in tree.items()}
-    if isinstance(tree, KVCache):
-        return KVCache(k=tree.k[i], v=tree.v[i])
+    if dataclasses.is_dataclass(tree):
+        return type(tree)(**{name: t[i] for name, t in _fields(tree).items()})
     return tree[i]
 
 
@@ -140,10 +158,10 @@ def init_stack_cache(cfg: ModelConfig, batch: int, seq: int, device) -> dict:
     periods = {}
     for i, spec in enumerate(cfg.layer_pattern):
         single = init_layer_cache(cfg, spec, batch, seq, device)["self"]
-        shape = (cfg.n_periods,) + tuple(single.k.shape)
-        periods[f"pos{i}"] = {"self": KVCache(
-            k=torch.zeros(shape, dtype=single.k.dtype, device=device),
-            v=torch.zeros(shape, dtype=single.v.dtype, device=device))}
+        periods[f"pos{i}"] = {"self": type(single)(**{
+            name: torch.zeros((cfg.n_periods,) + tuple(t.shape),
+                              dtype=t.dtype, device=device)
+            for name, t in _fields(single).items()})}
     out["periods"] = periods
     return out
 

@@ -12,11 +12,13 @@ path token-by-token, which keeps a single decode shape per engine.
 
 The *bucketed prefill fast path* (``prefill``/``insert``) consumes a whole
 prompt in one call instead: prompts are right-padded to a power-of-two
-length bucket (one shape per bucket; on CUDA every layer's attention is the
-hand-written prefill kernel of ``kernels/prefill``), the true last-token logits sample the
-first output token, and the resulting ``KVHandoff`` — request + first token +
-batch-1 cache slice — can be ``insert()``-ed into a free slot of *any*
-engine, including a different replica (prefill/decode disaggregation).
+length bucket (one shape per bucket; on CUDA every attention layer runs the
+hand-written prefill kernel of ``kernels/prefill``, every mamba layer the
+SSD-scan kernel of ``kernels/mamba_scan``), the true last-token logits
+sample the first output token, and the resulting ``KVHandoff`` — request +
+first token + batch-1 cache slice — can be ``insert()``-ed into a free slot
+of *any* engine, including a different replica (prefill/decode
+disaggregation).
 
 The engine reports throughput heartbeats which the homogenized dispatcher
 (dispatch.py) consumes for cross-replica scope-length allotment.
@@ -32,6 +34,7 @@ import torch
 from ..core.performance import PerfReport
 from ..device import resolve_device
 from ..kernels.prefill.ops import length_bucket
+from ..models.attention import KVCache
 from ..models.model import Model
 
 
@@ -73,12 +76,17 @@ class KVHandoff:
 
 
 def _put(full, part, batch_axis: int, idx: int) -> None:
-    """Write the batch-1 ``part`` cache (seq = bucket) into lane ``idx`` of
-    ``full`` (seq = max_seq), in place, cast to the engine's cache dtype."""
-    for f, p in ((full.k, part.k), (full.v, part.v)):
+    """Write the batch-1 ``part`` cache into lane ``idx`` of ``full``, in
+    place, cast to the engine's cache dtype.  A ``KVCache``'s k and v cover
+    positions [0, bucket) of the lane (seq = max_seq); a ``MambaCache``'s
+    conv window and state have no sequence axis and are written whole."""
+    seq = isinstance(full, KVCache)
+    for field in dataclasses.fields(full):
+        f, p = getattr(full, field.name), getattr(part, field.name)
         sl = [slice(None)] * f.ndim
         sl[batch_axis] = slice(idx, idx + 1)
-        sl[batch_axis + 1] = slice(0, p.shape[batch_axis + 1])
+        if seq:
+            sl[batch_axis + 1] = slice(0, p.shape[batch_axis + 1])
         f[tuple(sl)] = p.to(f.dtype)
 
 
@@ -163,7 +171,13 @@ class DecodeEngine:
         right-padded to the bucket and the true last-token logits are read at
         ``last_pos = L - 1`` (causality keeps valid positions exact under end
         padding).  Stateless w.r.t. the slot pool — the produced ``KVHandoff``
-        is decoded wherever it gets ``insert``-ed."""
+        is decoded wherever it gets ``insert``-ed.
+
+        A mamba layer's conv window and state carry no position mask: the
+        handed-off ones have also consumed the pad tokens, so the decode
+        that follows differs from the teacher-forced one.  The reference
+        does the same, and the port keeps its behaviour (ROADMAP.md,
+        section 3)."""
         L = len(req.prompt)
         if L == 0:
             raise ValueError("prefill needs a non-empty prompt")

@@ -16,6 +16,9 @@ from repro_torch.cluster import Cluster, MatmulJob, TrainJob
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.mamba_scan import mamba_scan as k5
+from repro_torch.kernels.mamba_scan.ops import ssd
+from repro_torch.kernels.mamba_scan.ref import ssd_scan_plain, ssd_scan_ref
 from repro_torch.kernels.matmul import matmul as mm
 from repro_torch.kernels.matmul.ops import matmul
 from repro_torch.kernels.matmul.ref import matmul_ref
@@ -260,3 +263,118 @@ def test_train_adaptive_and_static_are_bitwise_on_the_card(dev):
     assert [p.metrics["loss"] for p in ra.phases] == \
         [p.metrics["loss"] for p in rs.phases]
     assert all(torch.equal(a, b) for a, b in zip(pa, ps, strict=True))
+
+
+# --------------------------------------------------------- K5 (SSD scan)
+def _ssd_inputs(dev, b, s, h, p, g, n, dtype, seed=30):
+    """The reference test's input recipe (tests/test_kernels.py), drawn on
+    the card: x, dt (softplus-sized, > 0), a < 0, B, C, D."""
+    x = _rand((b, s, h, p), dtype, dev, seed)
+    dt = (_rand((b, s, h), torch.float32, dev, seed + 1).abs() * 0.1
+          + 0.01).to(dtype)
+    a = -_rand((h,), torch.float32, dev, seed + 2).abs() - 0.1
+    bm, cm = (_rand((b, s, g, n), dtype, dev, seed + i) for i in (3, 4))
+    return x, dt, a, bm, cm, _rand((h,), torch.float32, dev, seed + 5)
+
+
+def _ssd_plain(x, dt, a, bm, cm, d, chunk):
+    """``ssd``'s kernel route with K5's plain version in place of K5."""
+    b, s, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    rep = h // g
+    xdt = (x * dt[..., None]).transpose(1, 2).reshape(b * h, s, p)
+    la = (dt * a[None, None, :]).transpose(1, 2).reshape(b * h, s)
+    bf, cf = (torch.repeat_interleave(t, rep, 2).transpose(1, 2)
+              .reshape(b * h, s, n) for t in (bm, cm))
+    y, hf = ssd_scan_plain(xdt, la, bf, cf, chunk=chunk)
+    y = y.reshape(b, h, s, p).transpose(1, 2) + \
+        x * d[None, None, :, None].to(x.dtype)
+    return y, hf.reshape(b, h, p, n), (xdt, la, bf, cf)
+
+
+# (b, s, h, p, g, n, chunk): the reference's kernel-test shapes, S = 90,
+# a ragged chunk, and the serving path's (80 heads of 64, N 128, chunk 256).
+K5_SHAPES = [(2, 96, 4, 16, 2, 8, 32), (1, 64, 2, 8, 1, 16, 32),
+             (1, 90, 2, 8, 1, 4, 32), (1, 100, 4, 64, 1, 128, 96),
+             (1, 512, 80, 64, 1, 128, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", K5_SHAPES)
+def test_ssd_scan_kernel_matches_plain(dev, b, s, h, p, g, n, chunk, dtype):
+    x, dt, a, bm, cm, d = _ssd_inputs(dev, b, s, h, p, g, n, dtype)
+    before = k5.LAUNCHES["ssd_scan"]
+    y, hf = ssd(x, dt, a, bm, cm, d, chunk=chunk)
+    assert k5.LAUNCHES["ssd_scan"] == before + 1
+    assert y.dtype == dtype and hf.dtype == torch.float32
+    ry, rh, flat = _ssd_plain(x, dt, a, bm, cm, d, chunk)
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(y.float(), ry.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(hf, rh, rtol=rtol, atol=atol)
+    if s <= 128:         # the sequential oracle loops over S in Python
+        gy, gh = ssd_scan_ref(*flat)
+        gy = gy.reshape(b, h, s, p).transpose(1, 2) + \
+            x * d[None, None, :, None].to(dtype)
+        torch.testing.assert_close(y.float(), gy.float(), rtol=rtol,
+                                   atol=atol)
+        torch.testing.assert_close(hf, gh.reshape(b, h, p, n), rtol=rtol,
+                                   atol=atol)
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 64, 96])
+def test_ssd_scan_kernel_chunk_invariance(dev, chunk):
+    x, dt, a, bm, cm, d = _ssd_inputs(dev, 1, 96, 2, 8, 1, 4, torch.float32)
+    y, hf = ssd(x, dt, a, bm, cm, d, chunk=chunk)
+    y96, h96 = ssd(x, dt, a, bm, cm, d, chunk=96)
+    torch.testing.assert_close(y, y96, rtol=5e-4, atol=5e-5)
+    torch.testing.assert_close(hf, h96, rtol=5e-4, atol=5e-5)
+
+
+def test_ssd_scan_kernel_decay_stability_and_bitwise(dev):
+    """dt x 100: every exp argument stays <= 0 and the output finite; two
+    runs on the same inputs give the same bits."""
+    x, dt, a, bm, cm, d = _ssd_inputs(dev, 1, 256, 2, 8, 1, 4, torch.float32)
+    y, hf = ssd(x, dt * 100.0, a, bm, cm, d, chunk=64)
+    assert torch.isfinite(y).all() and torch.isfinite(hf).all()
+    x, dt, a, bm, cm, d = _ssd_inputs(dev, 1, 512, 80, 64, 1, 128,
+                                      torch.bfloat16)
+    first = ssd(x, dt, a, bm, cm, d, chunk=256)
+    for _ in range(3):
+        again = ssd(x, dt, a, bm, cm, d, chunk=256)
+        assert all(torch.equal(u, v) for u, v in zip(first, again,
+                                                     strict=True))
+
+
+def test_ssd_scan_kernel_raises_instead_of_falling_back(dev):
+    xdt = torch.zeros((2, 16, 8), dtype=torch.float64, device=dev)
+    la = torch.zeros((2, 16), device=dev)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        k5.ssd_scan(xdt, la, xdt, xdt)
+    xdt = torch.zeros((2, 16, 8), device=dev)
+    bc = torch.zeros((2, 16, 256), device=dev)
+    with pytest.raises(ValueError, match="N=256"):
+        k5.ssd_scan(xdt, la, bc, bc)
+    xg = xdt.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        k5.ssd_scan(xg, la, xdt, xdt)
+
+
+def test_mamba_model_prefill_launches_k5_per_layer(dev):
+    """The reduced mamba2-2.7b on the card: a prefill launches K5 once a
+    layer and matches use_pallas=False; decode steps launch none."""
+    cfg = get_config("mamba2-2.7b", reduced=True)
+    model = Model(dataclasses.replace(cfg, use_pallas=None))
+    plain = Model(dataclasses.replace(cfg, use_pallas=False))
+    params = model.init(0)
+    toks = torch.arange(32, device=dev)[None] % cfg.vocab_size
+    before = k5.LAUNCHES["ssd_scan"]
+    with torch.no_grad():
+        logits, caches = model.prefill(params, {"tokens": toks}, last_pos=20)
+        assert k5.LAUNCHES["ssd_scan"] == before + cfg.n_layers
+        ref, ref_caches = plain.prefill(params, {"tokens": toks}, last_pos=20)
+        torch.testing.assert_close(logits, ref, rtol=5e-4, atol=5e-5)
+        torch.testing.assert_close(caches["periods"]["pos0"]["self"].state,
+                                   ref_caches["periods"]["pos0"]["self"].state,
+                                   rtol=5e-4, atol=5e-5)
+        model.decode_step(params, caches, toks[:, :1], 21)
+    assert k5.LAUNCHES["ssd_scan"] == before + cfg.n_layers

@@ -1,11 +1,15 @@
 """Port parity: ``repro_torch.serve.DecodeEngine`` against the JAX engine on
-bridged weights (the ``tiny-disagg`` model of ``test_disagg.py``), f32 on
-the CPU.
+bridged weights (the ``tiny-disagg`` model of ``test_disagg.py``, and the
+reduced ``mamba2-2.7b``), f32 on the CPU.
 
 Greedy tokens are equal on the teacher-forced (submit) path and on the
 bucketed prefill + insert path; within the port, prefill + insert
 reproduces the submit path, and re-inserting a retained handoff after
 ``cancel`` completes bitwise-identically (mirroring ``test_disagg.py``).
+For mamba the handoff carries a conv window and state that have also
+consumed the bucket's pad tokens, so there prefill + insert differs from
+the submit path, in the reference as in the port (the tokens of both paths
+are equal between the two packages).
 """
 
 import dataclasses
@@ -15,11 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jax_get_config
 from repro.models import LayerSpec
 from repro.models import Model as JaxModel
 from repro.models import ModelConfig as JaxModelConfig
 from repro.serve import DecodeEngine as JaxEngine
 from repro.serve import Request as JaxRequest
+from repro_torch.configs import get_config
 from repro_torch.kernels.prefill.ops import length_bucket
 from repro_torch.models import Model, ModelConfig, params_from_numpy
 from repro_torch.models import config as port_config
@@ -169,3 +175,103 @@ def test_engine_device_must_match_model():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             DecodeEngine(tm, tparams)
+
+
+# ------------------------------------------------------------------ mamba
+# The reduced mamba2-2.7b: every layer a Mamba-2 block, whose cache is a
+# conv window and an SSM state with no sequence axis.
+
+def mamba_models(use_pallas: bool = False):
+    jm = JaxModel(jax_get_config("mamba2-2.7b", reduced=True,
+                                 use_pallas=use_pallas))
+    jparams = jm.init(jax.random.key(0))
+    tm = Model(get_config("mamba2-2.7b", reduced=True, use_pallas=use_pallas),
+               device="cpu")
+    return jm, jparams, tm, params_from_numpy(
+        jax.tree.map(np.asarray, jparams), "cpu")
+
+
+MAMBA_PROMPTS = [list(np.random.default_rng(s).integers(0, 256, n))
+                 for s, n in ((1, 5), (2, 20), (3, 9))]
+
+
+def test_mamba_teacher_forced_tokens_equal_jax_with_slot_reuse():
+    """Three requests on two slots: the third reuses a freed slot lane,
+    whose conv window and state the engine does not reset (neither does
+    the reference's)."""
+    jm, jparams, tm, tparams = mamba_models()
+    jeng = JaxEngine(jm, jparams, max_batch=2, max_seq=64)
+    teng = engine(tm, tparams, max_batch=2, max_seq=64)
+    jreqs = [JaxRequest(i, list(p), 6) for i, p in enumerate(MAMBA_PROMPTS)]
+    treqs = [Request(i, list(p), 6) for i, p in enumerate(MAMBA_PROMPTS)]
+    for r in jreqs:
+        jeng.submit(r)
+    for r in treqs:
+        teng.submit(r)
+    jeng.run_until_drained()
+    teng.run_until_drained()
+    assert all(r.done and len(r.out_tokens) == 6 for r in treqs)
+    assert [r.out_tokens for r in treqs] == [r.out_tokens for r in jreqs]
+    assert (teng.steps, teng.tokens_out, teng.prompt_fed) == \
+        (jeng.steps, jeng.tokens_out, jeng.prompt_fed)
+    lanes = teng.caches["periods"]["pos0"]["self"]
+    jlanes = jeng.caches["periods"]["pos0"]["self"]
+    np.testing.assert_allclose(lanes.state.numpy(), np.asarray(jlanes.state),
+                               rtol=5e-4, atol=5e-5)
+    # The reused lane's old state has decayed away: a fresh engine gives
+    # the third request the same tokens.
+    fresh = Request(2, list(MAMBA_PROMPTS[2]), 6)
+    solo = engine(tm, tparams, max_batch=1, max_seq=64)
+    solo.submit(fresh)
+    solo.run_until_drained()
+    assert fresh.out_tokens == treqs[2].out_tokens
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_mamba_padded_handoff_diverges_from_submit_as_in_reference(use_pallas):
+    """The reference's padded-handoff fault, reproduced: a bucketed prefill
+    runs the conv and the SSM state over the pad tokens too, and the
+    handoff carries that state, so prefill + insert decodes other tokens
+    than the teacher-forced path.  The port's tokens equal the reference's
+    on both paths (ROADMAP.md, section 3)."""
+    jm, jparams, tm, tparams = mamba_models(use_pallas)
+    prompt = [int(t) for t in np.random.default_rng(0).integers(1, 255, 5)]
+
+    def run(make, req_cls, handoff: bool):
+        req = req_cls(0, list(prompt), 8)
+        dc = make(name="dc")
+        if handoff:
+            h = make(name="pf").prefill(req)
+            assert h.bucket == 16 and h.pos == 5
+            assert dc.insert(h) == 0
+        else:
+            dc.submit(req)
+        dc.run_until_drained()
+        return req.out_tokens
+
+    def jmake(name):
+        return JaxEngine(jm, jparams, max_batch=1, max_seq=64, name=name)
+
+    def tmake(name):
+        return engine(tm, tparams, max_batch=1, max_seq=64, name=name)
+
+    submit = [125, 120, 169, 186, 206, 91, 137, 142]
+    padded = [125, 14, 117, 101, 43, 158, 165, 5]
+    assert run(jmake, JaxRequest, False) == run(tmake, Request, False) == submit
+    assert run(jmake, JaxRequest, True) == run(tmake, Request, True) == padded
+
+
+def test_mamba_insert_writes_whole_lanes():
+    """A mamba handoff's conv window and state go to lane ``idx`` whole (no
+    sequence slice), cast to the engine's cache dtype; other lanes stay."""
+    _, _, tm, tparams = mamba_models()
+    pf = engine(tm, tparams, max_batch=1, max_seq=64)
+    dc = engine(tm, tparams, max_batch=3, max_seq=64)
+    dc.insert(pf.prefill(Request(0, [1, 2, 3], 4)))
+    h = pf.prefill(Request(1, list(range(1, 21)), 4))
+    assert dc.insert(h) == 1
+    full = dc.caches["periods"]["pos0"]["self"]
+    part = h.caches["periods"]["pos0"]["self"]
+    assert torch.equal(full.conv[:, 1:2], part.conv.to(full.conv.dtype))
+    assert torch.equal(full.state[:, 1:2], part.state)
+    assert not full.conv[:, 2].any() and not full.state[:, 2].any()

@@ -76,6 +76,27 @@ assert rep.kind == "train" and len(rep.phases) == 2, rep.summary()
 """
 
 
+_MAMBA = """
+import numpy as np
+from repro_torch.cluster import Cluster, ServeJob
+from repro_torch.configs import get_config
+from repro_torch.kernels.mamba_scan import mamba_scan, ops, ref
+from repro_torch.models import Model, mamba
+from repro_torch.serve import Request
+
+cfg = get_config("mamba2-2.7b", reduced=True, use_pallas=True)
+model = Model(cfg, device="cpu")
+params = model.init(0)
+rng = np.random.default_rng(0)
+reqs = [Request(i, [int(t) for t in rng.integers(0, cfg.vocab_size, 5 + 3 * i)], 3)
+        for i in range(3)]
+rep = Cluster("fast=2.0^prefill,slow=1.0x2^decode", device="cpu").serve(
+    ServeJob(reqs, model=model, params=params, max_seq=32))
+assert rep.metrics["n_handoffs"] == 3, rep.metrics
+assert all(len(r.out_tokens) == 3 for r in reqs)
+"""
+
+
 def _run(code: str) -> list[str]:
     # One intra-op thread, as the in-process port tests pin it.
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
@@ -95,6 +116,10 @@ def test_port_wallclock_matmul_loads_no_jax_or_repro():
 
 def test_port_train_loads_no_jax_or_repro():
     assert _run(_TRAIN) == []
+
+
+def test_port_mamba_serve_loads_no_jax_or_repro():
+    assert _run(_MAMBA) == []
 
 
 def test_import_chip_smoke_loads_no_jax_or_repro():
@@ -159,4 +184,20 @@ def test_flash_attention_kernel_route_has_no_library_attention(path):
     for pattern in (r"torch \. (matmul|mm|bmm|einsum|addmm|softmax)\b",
                     r"[\w)\]] @", r"\. (matmul|mm|bmm) \(",
                     r"(?i)cublas|cudnn|cutlass|scaled_dot_product"):
+        assert not re.search(pattern, code), f"{path}: {pattern}"
+
+
+@pytest.mark.parametrize(
+    "path", sorted(str(p.relative_to(ROOT))
+                   for p in (PORT / "kernels" / "mamba_scan").rglob("*")
+                   if p.suffix == ".cu" or p.name == "mamba_scan.py"))
+def test_mamba_scan_kernel_route_has_no_library_product(path):
+    """K5's wrapper and CUDA source compute the scan themselves: no torch
+    product, cuBLAS or CUTLASS call stands in.  (``ref.py`` holds the plain
+    version and ``ops.py`` the plain grouped path, which the CUDA route
+    never calls.)"""
+    code = _code_only(ROOT / path)
+    for pattern in (r"torch \. (matmul|mm|bmm|einsum|addmm|cumsum)\b",
+                    r"[\w)\]] @", r"\. (matmul|mm|bmm) \(",
+                    r"(?i)cublas|cudnn|cutlass"):
         assert not re.search(pattern, code), f"{path}: {pattern}"

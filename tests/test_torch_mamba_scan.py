@@ -1,0 +1,238 @@
+"""Port parity: the SSD scan (``repro_torch.kernels.mamba_scan``) against the
+JAX package's on the same numpy inputs, on the CPU.
+
+Mirrors ``tests/test_kernels.py``'s SSD cases: the port's ``ssd`` on the
+plain grouped path (``use_pallas=False``) against the reference's, and on
+the kernel route (``use_pallas=True``: K5's wrapper, which takes its plain
+version on the CPU) against the reference's Pallas kernel in interpret
+mode; both shapes in f32 and bf16, chunk invariance, a non-divisible S,
+the ``h0`` continuation and the ``dt x 100`` decay stability.  K5's plain
+version and the sequential oracle are held against the reference's
+``ssd_scan(interpret=True)`` and ``ssd_scan_ref``.  Tolerances are the
+reference's (``tests/test_kernels.py:20-23``): f32 rtol 5e-4 / atol 5e-5,
+bf16 2e-2.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.mamba_scan.mamba_scan import ssd_scan as jax_ssd_scan
+from repro.kernels.mamba_scan.ops import ssd as jax_ssd
+from repro.kernels.mamba_scan.ops import ssd_chunked_jnp
+from repro.kernels.mamba_scan.ref import ssd_scan_ref as jax_scan_ref
+from repro_torch.kernels.mamba_scan import mamba_scan as k5
+from repro_torch.kernels.mamba_scan.ops import ssd, ssd_chunked
+from repro_torch.kernels.mamba_scan.ref import ssd_scan_plain, ssd_scan_ref
+from repro_torch.models.bridge import tensor_from_numpy
+
+# One intra-op thread: a torch file on one test worker must not take every
+# core from the timing tests that run beside it.
+torch.set_num_threads(1)
+
+SHAPES = [(2, 96, 4, 16, 2, 8), (1, 64, 2, 8, 1, 16)]
+
+
+def _tol(dtype):
+    # The reference's own tolerances (tests/test_kernels.py:20-23).
+    return dict(rtol=2e-2, atol=2e-2) if dtype == jnp.bfloat16 else \
+        dict(rtol=5e-4, atol=5e-5)
+
+
+def _close(out, ref, dtype):
+    out = out.float().numpy() if isinstance(out, torch.Tensor) else out
+    np.testing.assert_allclose(np.asarray(out, np.float32),
+                               np.asarray(ref, np.float32), **_tol(dtype))
+
+
+def _t(arr) -> torch.Tensor:
+    return tensor_from_numpy(np.asarray(arr), "cpu")
+
+
+def _inputs(b, s, h, p, g, n, dtype=jnp.float32, seed=0):
+    """The reference test's inputs (``_ssd_inputs``), as JAX arrays and as
+    the same values in torch tensors."""
+    r = np.random.default_rng(seed)
+    j = (
+        jnp.asarray(r.standard_normal((b, s, h, p)), dtype),
+        jnp.asarray(np.abs(r.standard_normal((b, s, h))) * 0.1 + 0.01, dtype),
+        jnp.asarray(-np.abs(r.standard_normal(h)) - 0.1, jnp.float32),
+        jnp.asarray(r.standard_normal((b, s, g, n)), dtype),
+        jnp.asarray(r.standard_normal((b, s, g, n)), dtype),
+        jnp.asarray(r.standard_normal(h), jnp.float32),
+    )
+    return j, tuple(_t(x) for x in j)
+
+
+def _flat(x, dt, a, bm, cm):
+    """(xdt, la, b, c) of the kernel's (BH, S, .) layout, B and C repeated
+    per head (torch tensors)."""
+    b, s, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    rep = h // g
+    xdt = (x * dt[..., None]).transpose(1, 2).reshape(b * h, s, p)
+    la = (dt * a[None, None, :]).transpose(1, 2).reshape(b * h, s)
+    bf = torch.repeat_interleave(bm, rep, 2).transpose(1, 2).reshape(b * h, s, n)
+    cf = torch.repeat_interleave(cm, rep, 2).transpose(1, 2).reshape(b * h, s, n)
+    return xdt, la, bf, cf
+
+
+def _gold(x, dt, a, bm, cm, d):
+    """The port's sequential oracle with the D skip: (y, state)."""
+    b, s, h, p = x.shape
+    n = bm.shape[3]
+    y, hf = ssd_scan_ref(*_flat(x, dt, a, bm, cm))
+    y = y.reshape(b, h, s, p).transpose(1, 2) + x * d[None, None, :, None]
+    return y, hf.reshape(b, h, p, n)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("b,s,h,p,g,n", SHAPES)
+def test_ssd_matches_reference_and_naive_scan(b, s, h, p, g, n, use_pallas,
+                                              dtype):
+    jin, tin = _inputs(b, s, h, p, g, n, dtype)
+    jy, jh = jax_ssd(*jin, chunk=32, use_pallas=use_pallas,
+                     interpret=True if use_pallas else None)
+    y, hf = ssd(*tin, chunk=32, use_pallas=use_pallas)
+    assert y.dtype == tin[0].dtype and hf.dtype == torch.float32
+    assert tuple(y.shape) == (b, s, h, p) and tuple(hf.shape) == (b, h, p, n)
+    _close(y, jy, dtype)
+    _close(hf, jh, dtype)
+    gy, gh = _gold(*tin)
+    _close(y, gy.float().numpy(), dtype)
+    _close(hf, gh.numpy(), dtype)
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 64, 96])
+def test_ssd_chunk_size_invariance(chunk):
+    jin, tin = _inputs(1, 96, 2, 8, 1, 4)
+    jy, _ = jax_ssd(*jin, chunk=chunk, use_pallas=True, interpret=True)
+    y, _ = ssd(*tin, chunk=chunk, use_pallas=True)
+    _close(y, jy, jnp.float32)
+    _close(y, _gold(*tin)[0].numpy(), jnp.float32)
+    yp, _ = ssd(*tin, chunk=chunk, use_pallas=False)
+    _close(yp, jy, jnp.float32)
+
+
+def test_ssd_nondivisible_seq():
+    """S = 90 with chunk 32: the reference pads with la = 0, xdt = 0; K5's
+    plain version takes the short last chunk as it is."""
+    jin, tin = _inputs(1, 90, 2, 8, 1, 4)
+    jy, jh = jax_ssd(*jin, chunk=32, use_pallas=True, interpret=True)
+    for use_pallas in (True, False):
+        y, hf = ssd(*tin, chunk=32, use_pallas=use_pallas)
+        _close(y, jy, jnp.float32)
+        _close(hf, jh, jnp.float32)
+        _close(y, _gold(*tin)[0].numpy(), jnp.float32)
+
+
+def test_ssd_state_continuation():
+    """Splitting a sequence and carrying h0 equals the unsplit scan, and
+    the reference's split run."""
+    jin, tin = _inputs(1, 64, 2, 8, 1, 4)
+    x, dt, a, bm, cm, d = tin
+    gy, gh = _gold(*tin)
+    y1, h1 = ssd(x[:, :32], dt[:, :32], a, bm[:, :32], cm[:, :32], d,
+                 chunk=16, use_pallas=False)
+    y2, h2 = ssd(x[:, 32:], dt[:, 32:], a, bm[:, 32:], cm[:, 32:], d,
+                 chunk=16, use_pallas=False, h0=h1)
+    _close(torch.cat([y1, y2], dim=1), gy.numpy(), jnp.float32)
+    _close(h2, gh.numpy(), jnp.float32)
+    jx, jdt, ja, jb, jc, jd = jin
+    _, jh1 = jax_ssd(jx[:, :32], jdt[:, :32], ja, jb[:, :32], jc[:, :32], jd,
+                     chunk=16, use_pallas=False)
+    jy2, jh2 = jax_ssd(jx[:, 32:], jdt[:, 32:], ja, jb[:, 32:], jc[:, 32:],
+                       jd, chunk=16, use_pallas=False, h0=jh1)
+    _close(y2, jy2, jnp.float32)
+    _close(h2, jh2, jnp.float32)
+
+
+def test_kernel_route_with_h0_raises_as_reference():
+    jin, tin = _inputs(1, 32, 2, 8, 1, 4)
+    h0 = torch.zeros((1, 2, 8, 4))
+    with pytest.raises(NotImplementedError, match="zero state"):
+        ssd(*tin, chunk=16, use_pallas=True, h0=h0)
+    with pytest.raises(NotImplementedError, match="zero state"):
+        jax_ssd(*jin, chunk=16, use_pallas=True, interpret=True,
+                h0=jnp.zeros((1, 2, 8, 4)))
+
+
+@pytest.mark.parametrize("seed", [0, 3, 2**31])
+@pytest.mark.parametrize("s", [33, 48, 64, 100])
+def test_ssd_property_chunked_equals_sequential(s, seed):
+    jin, tin = _inputs(1, s, 2, 8, 2, 4, seed=seed)
+    y, _ = ssd(*tin, chunk=32, use_pallas=False)
+    _close(y, _gold(*tin)[0].numpy(), jnp.float32)
+    yk, _ = ssd(*tin, chunk=32, use_pallas=True)
+    _close(yk, y.numpy(), jnp.float32)
+    jy, _ = jax_ssd(*jin, chunk=32, use_pallas=False)
+    _close(y, jy, jnp.float32)
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_ssd_decay_stability(use_pallas):
+    """Long sequences with strong decay stay finite, as in the reference."""
+    _, (x, dt, a, bm, cm, d) = _inputs(1, 256, 2, 8, 1, 4)
+    y, h = ssd(x, dt * 100.0, a, bm, cm, d, chunk=64, use_pallas=use_pallas)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n", SHAPES)
+def test_plain_k5_and_oracle_match_reference_kernel(b, s, h, p, g, n, dtype):
+    """K5's plain version against the reference's Pallas ``ssd_scan`` in
+    interpret mode, and the sequential oracles against each other, on the
+    kernel's (B*H, S, .) layout."""
+    _, tin = _inputs(b, s, h, p, g, n, dtype)
+    xdt, la, bf, cf = _flat(*tin[:5])
+    j = [jnp.asarray(np.asarray(t.float()), dtype) for t in (xdt, bf, cf)]
+    jla = jnp.asarray(la.numpy())
+    jy, jh = jax_ssd_scan(j[0], jla, j[1], j[2], chunk=32, interpret=True)
+    y, hf = ssd_scan_plain(xdt, la, bf, cf, chunk=32)
+    assert y.dtype == xdt.dtype and hf.dtype == torch.float32
+    _close(y, jy, dtype)
+    _close(hf, jh, dtype)
+    ry, rh = jax_scan_ref(j[0], jla, j[1], j[2])
+    gy, gh = ssd_scan_ref(xdt, la, bf, cf)
+    assert gy.dtype == xdt.dtype
+    _close(gy, ry, dtype)
+    _close(gh, rh, dtype)
+
+
+def test_k5_wrapper_reads_b_c_per_group_on_the_cpu():
+    """``rep`` > 1: the wrapper's grouped B/C give the same result as the
+    repeated rows, and ``chunk`` need not divide S."""
+    _, (x, dt, a, bm, cm, _) = _inputs(2, 40, 4, 8, 2, 4)
+    xdt, la, bf, cf = _flat(x, dt, a, bm, cm)
+    bg = bm.transpose(1, 2).reshape(4, 40, 4)
+    cg = cm.transpose(1, 2).reshape(4, 40, 4)
+    before = dict(k5.LAUNCHES)
+    y, hf = k5.ssd_scan(xdt, la, bg, cg, chunk=16, rep=2)
+    ry, rh = ssd_scan_plain(xdt, la, bf, cf, chunk=16)
+    assert torch.equal(y, ry) and torch.equal(hf, rh)
+    assert k5.LAUNCHES == before            # the plain version is no launch
+    with pytest.raises(ValueError, match="rep"):
+        k5.ssd_scan(xdt, la, bg, cg, rep=3)
+
+
+def test_ssd_chunked_matches_reference():
+    jin, tin = _inputs(2, 50, 2, 8, 1, 4)
+    xdt, la, bf, cf = _flat(*tin[:5])
+    h0 = torch.as_tensor(np.random.default_rng(5).standard_normal((4, 8, 4)),
+                         dtype=torch.float32)
+    y, hf = ssd_chunked(xdt, la, bf, cf, chunk=16, h0=h0)
+    jy, jh = ssd_chunked_jnp(*(jnp.asarray(t.numpy()) for t in (xdt, la, bf, cf)),
+                             chunk=16, h0=jnp.asarray(h0.numpy()))
+    _close(y, jy, jnp.float32)
+    _close(hf, jh, jnp.float32)
+
+
+def test_chunk_none_takes_the_fallback():
+    """An unswept shape bucket keeps the built-in chunk of 128."""
+    _, tin = _inputs(1, 200, 2, 8, 1, 4)
+    for use_pallas in (True, False):
+        y, hf = ssd(*tin, chunk=None, use_pallas=use_pallas)
+        y128, h128 = ssd(*tin, chunk=128, use_pallas=use_pallas)
+        assert torch.equal(y, y128) and torch.equal(hf, h128)

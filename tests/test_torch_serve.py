@@ -4,12 +4,14 @@ weights and the same requests, on the CPU.
 
 Fleets: the disaggregated ``fast=2.0^prefill,slow=1.0x4^decode`` (prefill
 kernel path, KV handoffs, TTFT split) and one mixed fleet (admission
-waves).  Per-request tokens, shares, handoffs, the sim clock and the TTFT
-split are equal — the copied control plane makes the same scheduling
-decisions as the original.  ``simulate(SimJob)`` is compared the same way.
+waves); the disaggregated fleet also serves the reduced ``mamba2-2.7b``,
+and the serve launcher runs it with ``--device cpu``.  Per-request tokens,
+shares, handoffs, the sim clock and the TTFT split are equal — the copied
+control plane makes the same scheduling decisions as the original.  ``simulate(SimJob)`` is compared the same way.
 """
 
 import dataclasses
+import sys
 
 import jax
 import numpy as np
@@ -19,11 +21,13 @@ import torch
 from repro.cluster import Cluster as JaxCluster
 from repro.cluster import ServeJob as JaxServeJob
 from repro.cluster import SimJob as JaxSimJob
+from repro.configs import get_config as jax_get_config
 from repro.models import LayerSpec
 from repro.models import Model as JaxModel
 from repro.models import ModelConfig as JaxModelConfig
 from repro.serve import Request as JaxRequest
 from repro_torch.cluster import Cluster, MatmulJob, ServeJob, SimJob, TrainJob
+from repro_torch.configs import get_config
 from repro_torch.models import Model, ModelConfig, params_from_numpy
 from repro_torch.models import config as port_config
 from repro_torch.serve import Request
@@ -119,3 +123,48 @@ def test_later_slices_raise_and_device_policy(models):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Cluster("2x1")
+
+
+@pytest.fixture(scope="module")
+def mamba_models():
+    jm = JaxModel(jax_get_config("mamba2-2.7b", reduced=True))
+    jparams = jm.init(jax.random.key(0))
+    tm = Model(get_config("mamba2-2.7b", reduced=True), device="cpu")
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    return jm, jparams, tm, tparams
+
+
+def test_mamba_disaggregated_serve_matches_reference(mamba_models):
+    """The reduced mamba2-2.7b through the disaggregated fleet: every
+    request prefills in one bucketed call (K5's route), hands its conv
+    window and state off, and decodes; tokens, handoffs and the sim clock
+    equal the reference's."""
+    jm, jparams, tm, tparams = mamba_models
+    fleet = FLEETS[0]
+    prompts = [[int(t) for t in p] for p in _prompts()]
+    jreqs = [JaxRequest(i, list(p), 5) for i, p in enumerate(prompts)]
+    treqs = [Request(i, list(p), 5) for i, p in enumerate(prompts)]
+    jrep = JaxCluster(fleet).serve(
+        JaxServeJob(jreqs, model=jm, params=jparams, max_seq=64))
+    trep = Cluster(fleet, device="cpu").serve(
+        ServeJob(treqs, model=tm, params=tparams, max_seq=64))
+    assert all(r.done and len(r.out_tokens) == 5 for r in treqs)
+    assert [r.out_tokens for r in treqs] == [r.out_tokens for r in jreqs]
+    assert trep.sim_time_s == jrep.sim_time_s
+    assert _phase_view(trep) == _phase_view(jrep)
+    for key in ("mode", "n_handoffs", "ttft_split", "role_shares",
+                "n_requests"):
+        assert trep.metrics.get(key) == jrep.metrics.get(key), key
+    assert trep.metrics["n_handoffs"] == len(prompts)
+
+
+def test_launch_serve_mamba_on_cpu(monkeypatch, capsys):
+    from repro_torch.launch.serve import main
+
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", "mamba2-2.7b", "--device", "cpu", "--requests",
+        "3", "--max-new", "3", "--max-seq", "32", "--fleet",
+        "fast=2.0^prefill,slow=1.0x2^decode"])
+    main()
+    out = capsys.readouterr().out
+    assert "served 3 requests" in out and "3 KV handoffs" in out
