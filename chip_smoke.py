@@ -62,9 +62,15 @@ Phases, each of which exits non-zero when it fails:
                through it (backward), f32 and bf16, causal and not, at the
                reference's kernel-test shapes, Sq != Skv, ragged S, the x30
                logits and the training path's q (16, 1024, 128), k/v (2,
-               1024, 128); the backward bitwise equal over two runs; each
-               kernel timed at the path's shape beside the plain version,
-               PyTorch's SDPA (forward; backward) and the card's bound,
+               1024, 128), then at tile edges (Sq and Skv of 1, 17, 63, 65,
+               127 and 129, group 1, 2, 4 and 8, D 16 to 128; their bf16
+               gradients against autograd through the plain version in f32
+               on the same values); the backward bitwise equal over two
+               runs; the bf16 tensor-core kernels' registers, spills and
+               shared memory from the build's ``-Xptxas -v`` report and
+               their ``HMMA`` count from ``cuobjdump -sass``; each kernel
+               timed at the path's shape beside the plain version, PyTorch's
+               SDPA (forward; backward) and the card's bound,
  11. train   — full-width Qwen2-1.5B training at seq 1024: one f32 grain's
                loss and gradients on the kernel path against
                ``use_pallas=False`` (loss rtol 1e-4, each gradient leaf
@@ -152,6 +158,11 @@ K4_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
 K4_PER_GRAIN = {"flash_attention_fwd": 2 * N_LAYERS,
                 "flash_attention_bwd_dq": N_LAYERS,
                 "flash_attention_bwd_dkdv": N_LAYERS}
+#: K4's device kernels in bf16, by name: the forward and dK/dV on the tensor
+#: cores (dK/dV per q head, then the sum over the group), dQ on the CUDA
+#: cores.
+K4_BF16_KERNELS = ("flash_fwd_mma_kernel", "flash_dq_kernel",
+                   "flash_dkdv_mma_kernel", "flash_dkdv_reduce_kernel")
 #: Side of the wall-clock backend's unit op ``tanh(h @ x)`` on the card: at
 #: 2048 one f32 product is about 17 GFLOP, far above a launch's cost, so the
 #: measured chains are device time (the default 96 is sized for a CPU).
@@ -447,6 +458,49 @@ def print_busy(card, label, wall_s, busy_s, k3_s, unprofiled_s,
           flush=True)
 
 
+def kernel_build_report(log_text: str, sass_text: str,
+                        names: tuple[str, ...]) -> dict[str, dict]:
+    """Per instantiation of the kernels in ``names`` (``name<D>``): registers,
+    spill bytes and stack frame from an ``nvcc -Xptxas -v`` report, and the
+    count of ``HMMA`` (tensor-core) instructions in its SASS from
+    ``cuobjdump -sass``."""
+    def key(mangled):
+        for n in names:
+            if n in mangled:
+                d = re.search(n + r"ILi(\d+)E", mangled)
+                return f"{n}<{d.group(1)}>" if d else n
+        return None
+
+    report, cur = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = key(m.group(1))
+            if cur:
+                report[cur] = {"hmma": 0}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            report[cur].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[cur]["registers"] = int(m.group(1))
+    cur = None
+    for line in sass_text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = key(m.group(1))
+            continue
+        if cur in report and re.search(r"\bHMMA\b", line):
+            report[cur]["hmma"] += 1
+    return report
+
+
 def library_attention(torch, q, k, v):
     """PyTorch's own causal GQA attention on the same inputs, as a
     yardstick for K1 only (the port never calls it)."""
@@ -486,7 +540,7 @@ def main() -> int:
     from repro_torch.data import GrainSpec, SyntheticSource, batch_from_grains
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.build import BUILD_DIR
+    from repro_torch.kernels.build import BUILD_DIR, nvcc_path
     from repro_torch.kernels.mamba_scan import mamba_scan as k5
     from repro_torch.kernels.mamba_scan import ops as mamba_ops
     from repro_torch.kernels.mamba_scan.ref import ssd_scan_plain, ssd_scan_ref
@@ -519,12 +573,14 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"[build] prefill, matmul, flash-attention and SSD-scan kernels "
           f"built and loaded in {build_s:.2f} s", flush=True)
+    build_logs = {}
     for lib in ("prefill", "matmul", "flash_attention", "mamba_scan"):
         log = os.path.join(BUILD_DIR, f"{lib}.log")
         if not os.path.exists(log):          # absent when the library was cached
             continue
         with open(log) as f:
             text = f.read()
+        build_logs[lib] = text
         regs = [int(w) for w in re.findall(r"Used (\d+) registers", text)]
         spills = [int(w) for w in re.findall(r"(\d+) bytes spill stores", text)]
         print(f"[build] ptxas {lib}: {len(regs)} kernels, registers per "
@@ -964,13 +1020,51 @@ def main() -> int:
         k = (rand((b * hkv, skv, d), torch.float32) * mag).to(dt)
         return q, k, rand((b * hkv, skv, d), dt)
 
+    # The bf16 tensor-core kernels as built: registers, spills, shared
+    # memory, and HMMA instructions in their SASS.
+    if "flash_attention" not in build_logs:
+        fail("K4: no ptxas report (the flash-attention library was not built "
+             "by this run)")
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(nvcc_path()), "cuobjdump"), "-sass",
+         fa.load_library()._name], capture_output=True, text=True,
+        timeout=300, check=True).stdout
+    k4_build = kernel_build_report(
+        build_logs["flash_attention"], sass,
+        ("flash_fwd_mma_kernel", "flash_dkdv_mma_kernel",
+         "flash_dkdv_reduce_kernel"))
+    for name, info in sorted(k4_build.items()):
+        head_dim = re.search(r"<(\d+)>", name)
+        info["smem_bytes"] = int(fa.load_library().flash_attention_smem_bytes(
+            0 if "fwd" in name else 2, int(head_dim.group(1)), 1)) \
+            if head_dim else 0
+        print(f"[k4] build {name}: {json.dumps(info)}", flush=True)
+    for name in ("flash_fwd_mma_kernel<128>", "flash_dkdv_mma_kernel<128>"):
+        if k4_build.get(name, {}).get("hmma", 0) == 0:
+            fail(f"K4: {name} has no HMMA instruction in its SASS")
+
     k4_err = {"fwd": 0.0, "dq": 0.0, "dkdv": 0.0}
     k4_cases = [(2, 128, 128, 4, 2, 64, 1.0), (1, 256, 256, 2, 2, 32, 1.0),
                 (2, 64, 64, 4, 1, 16, 1.0), (1, 64, 64, 1, 1, 16, 30.0),
                 (1, 40, 72, 4, 2, 16, 1.0), (1, 130, 48, 4, 2, 64, 1.0),
                 (1, 100, 100, 4, 2, 16, 1.0), (1, 1024, 1024, 16, 2, 128, 1.0)]
+    # Tile edges of the 64-row tiles and 32-query steps: every Sq and Skv of
+    # 1, 17, 63, 65, 127 and 129, Sq above and below Skv, groups 1 to 8, and
+    # every compiled D.  Their bf16 gradients are held against autograd
+    # through the plain version in f32 on the same bf16 values: on bf16
+    # leaves the plain version rounds each q head's dK and dV to bf16 before
+    # summing the group, which at Skv = 1 and group 8 alone misses the exact
+    # gradient by more than the tolerance
+    # (tests/test_torch_flash_attention.py shows it).
+    k4_edge_cases = [(1, 1, 1, 1, 1, 16, 1.0), (1, 1, 129, 2, 1, 32, 1.0),
+                     (1, 129, 1, 8, 1, 64, 1.0), (1, 17, 17, 2, 1, 128, 1.0),
+                     (2, 63, 65, 4, 2, 32, 1.0), (1, 65, 63, 8, 1, 16, 1.0),
+                     (1, 127, 129, 8, 1, 128, 1.0),
+                     (1, 129, 127, 2, 2, 64, 1.0),
+                     (1, 65, 127, 2, 1, 16, 1.0), (1, 129, 17, 4, 2, 128, 1.0)]
     n_checked = 0
-    for b, sq, skv, hq, hkv, d, mag in k4_cases:
+    for b, sq, skv, hq, hkv, d, mag in k4_cases + k4_edge_cases:
+        exact_grads = (b, sq, skv, hq, hkv, d, mag) in k4_edge_cases
         for causal in (True, False):
             for dt in (torch.float32, torch.bfloat16):
                 dname = str(dt)[6:]
@@ -992,6 +1086,13 @@ def main() -> int:
                 ref = flash_attention_ref(*ref_leaves, causal=causal,
                                           group=group)
                 ref_grads = torch.autograd.grad(ref, ref_leaves, dout)
+                if exact_grads:
+                    ref_leaves = [t.float().requires_grad_(True)
+                                  for t in (q, k, v)]
+                    ref_grads = torch.autograd.grad(
+                        flash_attention_ref(*ref_leaves, causal=causal,
+                                            group=group),
+                        ref_leaves, dout.float())
                 k4_err["fwd"] = max(k4_err["fwd"], check_close(
                     torch, f"{name} out", out, ref, dname))
                 k4_err["dq"] = max(k4_err["dq"], check_close(
@@ -1003,7 +1104,8 @@ def main() -> int:
                         torch, f"{name} d{which}", g, r, dname, GRAD_TOL))
                 n_checked += 1
     print(f"[k4] forward and backward against their plain versions in "
-          f"{n_checked} cases: max abs err out {k4_err['fwd']:.3e}, dq "
+          f"{n_checked} cases ({4 * len(k4_edge_cases)} at tile edges): max "
+          f"abs err out {k4_err['fwd']:.3e}, dq "
           f"{k4_err['dq']:.3e}, dk/dv {k4_err['dkdv']:.3e}", flush=True)
 
     # The path's shape: the backward twice on the same inputs, bitwise.
@@ -1054,6 +1156,10 @@ def main() -> int:
                      q, k, v, lse, dout, drow, group=8)),
                  "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms},
     }
+    k4_rows["fwd"]["build"] = k4_build["flash_fwd_mma_kernel<128>"]
+    k4_rows["dkdv"]["build"] = {
+        n: k4_build[n] for n in ("flash_dkdv_mma_kernel<128>",
+                                 "flash_dkdv_reduce_kernel")}
     for part, row in k4_rows.items():
         row["bound_ms"], row["bound_by"] = k4_bound_ms(
             16, 2, TRAIN_SEQ, TRAIN_SEQ, 128, 2, "bfloat16", True, part)
@@ -1174,7 +1280,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print_busy(card, "one step of 8 grains", *card_busy(
         torch, lambda: Cluster(fleet).train(train_job(1)),
-        kernels=("flash_fwd_kernel", "flash_dq_kernel", "flash_dkdv_kernel"),
+        kernels=K4_BF16_KERNELS,
         top=12), step0_s, tag="train", kernel="K4")
     gc.collect()
     torch.cuda.empty_cache()
@@ -1507,7 +1613,8 @@ def main() -> int:
          "ms": k4_rows[part]["ms"], "plain_ms": k4_rows[part]["plain_ms"],
          "bound_ms": k4_rows[part]["bound_ms"],
          "bound_by": k4_rows[part]["bound_by"],
-         "library_ms": k4_rows[part]["library_ms"]}
+         "library_ms": k4_rows[part]["library_ms"],
+         "build": k4_rows[part].get("build")}
         for name, part in zip(K4_KERNELS, ("fwd", "dq", "dkdv"), strict=True)
     ] + [
         {"name": "ssd_scan", "route": "cuda",

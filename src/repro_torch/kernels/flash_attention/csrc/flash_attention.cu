@@ -7,22 +7,24 @@
 // _flash_kernel: online-softmax attention, causal or not, Sq may differ from
 // Skv, the causal mask is top-left aligned (query i sees key j iff i >= j,
 // both counted from 0), GQA by dividing the q-head row by `group` (K/V are
-// never repeated), f32 scores and accumulator, q pre-scaled by 1/sqrt(D) in
-// f32, masked scores -1e30 (not -inf), the row sum floored at 1e-30, out in
-// q's dtype.  Beside `out` it writes each query row's log-sum-exp (f32,
-// (B*Hq, Sq)) for the backward; the TPU kernel keeps its row statistics in
-// VMEM only.
+// never repeated), f32 scores and accumulator, the scores scaled by
+// 1/sqrt(D) in f32, masked scores -1e30 (not -inf), the row sum floored at
+// 1e-30, out in q's dtype.  Beside `out` it writes each query row's
+// log-sum-exp (f32, (B*Hq, Sq), natural log of the scaled scores) for the
+// backward; the TPU kernel keeps its row statistics in VMEM only.
 //
 // The reference has no backward kernel (JAX differentiates its plain path).
 // On the card the training path may not fall back to the plain version, so
-// the backward is two kernels here:
+// the backward is two entry points here:
 //   `flash_attention_bwd_dq`   one block per (q-head row, 64-query tile):
 //                              D_i = rowsum(dO_i * O_i) (written out for the
 //                              second kernel), then dQ over the K/V tiles;
-//   `flash_attention_bwd_dkdv` one block per (kv-head row, 32-key tile):
-//                              dK and dV over the group's q heads in a fixed
-//                              order, and over the q tiles in ascending
-//                              order.
+//   `flash_attention_bwd_dkdv` bf16: one block per (q-head row, 64-key
+//                              tile), then the sum over the group's q heads
+//                              in head order (below); f32: one block per
+//                              (kv-head row, 32-key tile), over the group's
+//                              q heads in a fixed order; both over the q
+//                              tiles in ascending order.
 // Both recompute P = exp(s - lse) from q, k and the saved log-sum-exp with
 // the forward's mask.  The row term takes the forward's output before its
 // rounding to bf16 (the forward writes an f32 copy for it), as autograd
@@ -36,24 +38,62 @@
 // 2 KV heads, D = 128, S = 1024 in bf16) the least time of the forward is
 // about 0.004 ms, by bf16 tensor-core operations (4 D per visible
 // (query, key) pair, 8.4 M pairs); the backward needs 2.5x the operations.
-// This first version does the arithmetic with f32 FMAs out of shared memory
-// on the CUDA cores, so its own limit is the CUDA-core FMA rate and the
-// shared-memory reads feeding it; it is far from the bound and is meant to
-// be right first (the tensor cores are later work).  What the design does
-// about it: each K/V tile (forward, dQ) or Q/dO tile (dK/dV) is staged once
-// in shared memory and reused by every row of the block; each thread keeps
-// its share of the output tile in registers, so running sums never go back
-// to device memory; causal loops stop at the diagonal, so the masked half
-// is never loaded.  The TPU grid's sequential axis becomes that in-block
-// loop.  Ragged Sq / Skv edges are masked (loads read 0, stores skipped)
-// where the Pallas wrapper halves its blocks until they divide S.
 //
-// Row strides of D+1 and tile+1 floats keep shared-memory reads free of
-// bank conflicts.
+// bf16 inputs take tensor-core kernels (`flash_fwd_mma_kernel`,
+// `flash_dkdv_mma_kernel`), FA2-style on `mma.sync.m16n8k16` with bf16
+// operands and f32 accumulators:
+//   - each warp owns 16 rows of the block's tile (forward: query rows of a
+//     64-query tile; dK/dV: key rows of a 64-key tile), so every product
+//     (S = Q K^T and O += P V; S^T = K Q^T, dP^T = V dO^T, dV += P^T dO and
+//     dK += dS^T Q) keeps that warp's rows as its M and needs nothing from
+//     another warp: a score tile's accumulator fragment is, element for
+//     element, the A fragment of the product that follows, so P, P^T and
+//     dS^T never leave registers;
+//   - the forward keeps its Q fragments in registers for the whole loop;
+//     the online softmax is in registers, its row max and sum reduced over
+//     the 4 threads of a row by shuffles;
+//   - tiles stay bf16 in shared memory, rows padded by 16 bytes so that
+//     `ldmatrix` reads are free of bank conflicts (`.trans` where the
+//     product wants the tile's columns: V, and Q and dO in the dK/dV
+//     products), staged by `cp.async` 16 bytes a thread into two buffers,
+//     so the next tile's load overlaps this tile's products;
+//   - the scale is applied to the f32 scores (never to a bf16 q: at the
+//     x30-logit case scores near 900 would move by tenths);
+//   - P (forward), P^T and dS^T (dK/dV) enter their products as two bf16
+//     terms, hi = bf16(x) and lo = bf16(x - hi), which keeps 16 bits of
+//     each (a second product with the same B fragments): with P rounded
+//     once, the output that feeds the dQ kernel's row term moves dQ past
+//     the bf16 tolerance at the x30 logits, dS^T rounded once does the same
+//     to dK (tests/test_torch_flash_attention.py models both), and with
+//     P^T rounded once dV at the training path's shape used most of it;
+//   - dK/dV without atomics and with enough blocks for 132 SMs: one block
+//     per (q-head row, 64-key tile), 8x the blocks of one per KV head at
+//     group 8.  Each block writes its head's f32 partial dK and dV into
+//     scratch; `flash_dkdv_reduce_kernel` sums the group's partials in head
+//     order and rounds once (group 1 writes its result directly);
+//   - causal tiles past the diagonal are never loaded, the mask is applied
+//     only to tiles that cross the diagonal or the ragged edge, and the
+//     heaviest causal tiles (forward: the last query tiles; dK/dV: the
+//     first key tiles) are launched first.
+// f32 inputs keep the CUDA-core kernels (`flash_fwd_kernel`,
+// `flash_dkdv_kernel`): the tensor cores take f32 only as TF32, which the
+// port keeps off.  The dQ kernel (`flash_dq_kernel`) runs on the CUDA cores
+// for both types: f32 FMAs out of shared memory, its own limit the FMA rate
+// and the shared-memory reads feeding it; each K/V tile is staged once and
+// reused by every row of the block, each thread keeps its share of the
+// output tile in registers, and causal loops stop at the diagonal.  The TPU
+// grid's sequential axis becomes that in-block loop.  Ragged Sq / Skv edges
+// are masked (loads read 0, stores skipped) where the Pallas wrapper halves
+// its blocks until they divide S.
+//
+// In the CUDA-core kernels, row strides of D+1 and tile+1 floats keep
+// shared-memory reads free of bank conflicts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -104,10 +144,10 @@ constexpr size_t fwd_smem_bytes() {
 // Grid (ceil(Sq / kBQ), B*Hq).  Thread t = (tx = t % 16, ty = t / 16) owns
 // query rows ty*8 .. ty*8+7 of the tile; for scores it owns key columns
 // tx + 16 j (j < 4), for the output columns tx + 16 j (j < D/16).
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ out32, float* __restrict__ lse, int Sq,
                  int Skv, int group, float scale, int causal) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
@@ -127,10 +167,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row_q = blockIdx.y;                 // b * Hq + h
   const int row_kv = row_q / group;             // b * Hkv + h / group
   const int q0 = blockIdx.x * kBQ;
-  const T* kp = k + (size_t)row_kv * Skv * D;
-  const T* vp = v + (size_t)row_kv * Skv * D;
+  const float* kp = k + (size_t)row_kv * Skv * D;
+  const float* vp = v + (size_t)row_kv * Skv * D;
 
-  stage<T, D>(Qs, q + (size_t)row_q * Sq * D, q0, kBQ, Sq, scale);
+  stage<float, D>(Qs, q + (size_t)row_q * Sq * D, q0, kBQ, Sq, scale);
   if (tid < kBQ) {
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
@@ -238,7 +278,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < DJ; ++j) {
         const size_t off = ooff + (size_t)qi * D + tx + 16 * j;
         const float o = acc[i][j] / l;
-        out[off] = from_f32<T>(o);
+        out[off] = o;
         if (out32 != nullptr) out32[off] = o;
       }
     }
@@ -404,13 +444,13 @@ constexpr size_t dkdv_smem_bytes() {
 // tx + 16 j (j < D/16).  dV = sum_i P_ij dO_i and dK = sum_i dS_ij q_i scale,
 // summed over the group's q heads h = 0 .. group-1, then the q tiles in
 // ascending order, then the rows of each tile in ascending order.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
+flash_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ drow,
-                  T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv,
-                  int group, float scale, int causal) {
+                  float* __restrict__ dk, float* __restrict__ dv, int Sq,
+                  int Skv, int group, float scale, int causal) {
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
   float* Ks = smem;
@@ -430,8 +470,8 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kn = min(kBKV, Skv - k0);
   const size_t kvoff = (size_t)row_kv * Skv * D;
 
-  stage<T, D>(Ks, k + kvoff, k0, kBKV, Skv, 1.f);
-  stage<T, D>(Vs, v + kvoff, k0, kBKV, Skv, 1.f);
+  stage<float, D>(Ks, k + kvoff, k0, kBKV, Skv, 1.f);
+  stage<float, D>(Vs, v + kvoff, k0, kBKV, Skv, 1.f);
 
   float ak[4][DJ], av[4][DJ];
 #pragma unroll
@@ -447,8 +487,8 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int q0 = q_start; q0 < Sq; q0 += kBQ) {
       const int qn = min(kBQ, Sq - q0);
       __syncthreads();                          // previous tile consumed
-      stage<T, D>(Qs, q + qoff, q0, kBQ, Sq, scale);
-      stage<T, D>(dOs, dout + qoff, q0, kBQ, Sq, 1.f);
+      stage<float, D>(Qs, q + qoff, q0, kBQ, Sq, scale);
+      stage<float, D>(dOs, dout + qoff, q0, kBQ, Sq, 1.f);
       if (tid < kBQ) {
         const int qi = q0 + tid;
         lse_s[tid] = qi < Sq ? lse[(size_t)row_q * Sq + qi] : 0.f;
@@ -526,10 +566,535 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const size_t off = kvoff + (size_t)(k0 + r) * D;
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
-        dk[off + tx + 16 * j] = from_f32<T>(ak[i][j]);
-        dv[off + tx + 16 * j] = from_f32<T>(av[i][j]);
+        dk[off + tx + 16 * j] = ak[i][j];
+        dv[off + tx + 16 * j] = av[i][j];
       }
     }
+  }
+}
+
+// ============================================= bf16 on the tensor cores
+constexpr int kMmaBQ = 64;     // query rows a forward block holds (16 a warp)
+constexpr int kMmaBK = 64;     // keys a forward K/V tile holds
+constexpr int kDkvBK = 64;     // keys a dK/dV block owns (16 a warp)
+constexpr int kDkvBQ = 32;     // queries a dK/dV step takes
+constexpr float kLog2e = 1.4426950408889634f;
+
+typedef __nv_bfloat16 bf16;
+
+// Row stride, in bf16 elements, of a tile in shared memory: D plus 16
+// bytes, so the 8 rows an `ldmatrix` reads fall in distinct bank groups.
+template <int D>
+__device__ __forceinline__ constexpr int row_stride() { return D + 8; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; 0 bytes read (zero fill) when
+// !valid.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row-major fragment) * b (16x8 bf16).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x0, x1) as one bf16 pair, x0 in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
+  return bits(__floats2bfloat162_rn(x0, x1));
+}
+
+// (x0, x1) as two bf16 pairs whose sum keeps 16 bits of each:
+// hi = bf16(x), lo = bf16(x - hi).
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// An accumulator fragment pair (n-tiles j and j + 1 of 8 columns, 16 rows)
+// is, element for element, the A fragment of 16 rows x 16 k of the next
+// product: here as its hi and lo bf16 terms.
+__device__ __forceinline__ void acc_to_a_split(const float (&c0)[4],
+                                               const float (&c1)[4],
+                                               uint32_t (&hi)[4],
+                                               uint32_t (&lo)[4]) {
+  split_bf16(c0[0], c0[1], hi[0], lo[0]);
+  split_bf16(c0[2], c0[3], hi[1], lo[1]);
+  split_bf16(c1[0], c1[1], hi[2], lo[2]);
+  split_bf16(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// Address of lane `lane`'s row for an x4 `ldmatrix` of a 16x16 block at
+// (r0, c0) of a tile of row stride S: the A fragment (rows r0..r0+15 and
+// columns c0..c0+15 in the order m16n8k16 takes them), and, with `.trans`,
+// the B fragments of two n-tiles of 8 columns from a K x N tile.
+template <int S>
+__device__ __forceinline__ uint32_t frag_a_addr(const bf16* tile, int r0,
+                                                int c0, int lane) {
+  return smem_addr(tile + (r0 + (lane % 16)) * S + c0 + (lane / 16) * 8);
+}
+
+// Address for the B fragments of two n-tiles (rows n0..n0+15 of an N x K
+// tile, k columns c0..c0+15): registers 0, 1 for n-tile n0, 2, 3 for n0+8.
+template <int S>
+__device__ __forceinline__ uint32_t frag_b_addr(const bf16* tile, int n0,
+                                                int c0, int lane) {
+  return smem_addr(tile + (n0 + (lane % 8) + (lane / 16) * 8) * S + c0 +
+                   ((lane / 8) % 2) * 8);
+}
+
+// Stage rows [r0, r0 + ROWS) of a (rows, D) bf16 matrix into a shared tile
+// of row stride D + 8 with cp.async; rows at or past `valid` read 0.
+template <int ROWS, int D>
+__device__ __forceinline__ void stage_async(bf16* dst, const bf16* src,
+                                            int r0, int valid) {
+  constexpr int kChunks = D / 8;                  // 16-byte chunks a row
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
+    const int r = c / kChunks, col = (c % kChunks) * 8;
+    const bool ok = r0 + r < valid;
+    cp_async16(smem_addr(dst + r * row_stride<D>() + col),
+               src + (size_t)(ok ? r0 + r : 0) * D + col, ok);
+  }
+}
+
+// ---------------------------------------------------------- forward, bf16
+template <int D>
+constexpr size_t fwd_mma_smem_bytes() {
+  // Q (kMmaBQ rows) | K, V (2 buffers of kMmaBK rows each), bf16
+  return sizeof(bf16) * (kMmaBQ + 4 * kMmaBK) * (D + 8);
+}
+
+// Grid (B*Hq, ceil(Sq / kMmaBQ)); query tile gridDim.y - 1 - blockIdx.y, so
+// the causal tiles with the most keys start first.  Warp w owns query rows
+// q0 + 16 w .. q0 + 16 w + 15; lane (g = lane / 4, t = lane % 4) holds rows
+// g and g + 8 of them, columns 2 t, 2 t + 1 of every 8-column n-tile.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ out,
+                     float* __restrict__ out32, float* __restrict__ lse,
+                     int Sq, int Skv, int group, float scale, int causal) {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int S = row_stride<D>();
+  constexpr int KS = D / 16;                      // k-steps over the head dim
+  constexpr int NT = kMmaBK / 8;                  // score n-tiles
+  constexpr int DT = D / 8;                       // output n-tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + kMmaBQ * S;
+  bf16* Vs = Ks + 2 * kMmaBK * S;
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int row_q = blockIdx.x;                   // b * Hq + h
+  const int row_kv = row_q / group;               // b * Hkv + h / group
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kMmaBQ;
+  const int r0 = q0 + warp * 16 + g;              // this lane's rows r0, r0 + 8
+  const bf16* kp = k + (size_t)row_kv * Skv * D;
+  const bf16* vp = v + (size_t)row_kv * Skv * D;
+  // Causal: no key past the tile's last valid query row is visible.
+  const int k_end = causal ? min(Skv, min(q0 + kMmaBQ, Sq)) : Skv;
+  const int n_kt = (k_end + kMmaBK - 1) / kMmaBK;
+
+  stage_async<kMmaBQ, D>(Qs, q + (size_t)row_q * Sq * D, q0, Sq);
+  stage_async<kMmaBK, D>(Ks, kp, 0, Skv);
+  stage_async<kMmaBK, D>(Vs, vp, 0, Skv);
+  cp_async_commit();
+
+  uint32_t qf[KS][4];
+  float o[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};                // row max, raw score units
+  float l[2] = {0.f, 0.f};                        // this lane's row sum shares
+  const float sl2 = scale * kLog2e;
+
+  for (int t = 0; t < n_kt; ++t) {
+    const int k0 = t * kMmaBK;
+    const bf16* Kt = Ks + (t & 1) * kMmaBK * S;
+    const bf16* Vt = Vs + (t & 1) * kMmaBK * S;
+    if (t + 1 < n_kt) {                           // prefetch the next tile
+      const int nb = ((t + 1) & 1) * kMmaBK * S;
+      stage_async<kMmaBK, D>(Ks + nb, kp, k0 + kMmaBK, Skv);
+      stage_async<kMmaBK, D>(Vs + nb, vp, k0 + kMmaBK, Skv);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        ldsm_x4(qf[ks], frag_a_addr<S>(Qs, warp * 16, ks * 16, lane));
+    }
+
+    // S = Q K^T (raw, unscaled), 16 rows x 64 keys a warp.
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, frag_b_addr<S>(Kt, np * 16, ks * 16, lane));
+        mma_bf16(s[2 * np], qf[ks], b[0], b[1]);
+        mma_bf16(s[2 * np + 1], qf[ks], b[2], b[3]);
+      }
+    }
+    if (k0 + kMmaBK > Skv || (causal && k0 + kMmaBK - 1 > q0)) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = k0 + j * 8 + 2 * t4 + (e & 1);
+          const int qi = r0 + (e >> 1) * 8;
+          if (kj >= Skv || (causal && kj > qi)) s[j][e] = kNegInf;
+        }
+    }
+
+    // Online softmax in registers; a row's 4 lanes share its max by
+    // shuffles, and keep their own shares of its sum until the end.
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = exp2f((m[i] - mx[i]) * sl2);
+      m[i] = mx[i];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f((s[j][e] - m[e >> 1]) * sl2);
+        s[j][e] = p;
+        rs[e >> 1] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+
+    // O += P V, P as hi + lo bf16 A fragments straight from the scores.
+#pragma unroll
+    for (int kk = 0; kk < kMmaBK / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      acc_to_a_split(s[2 * kk], s[2 * kk + 1], ph, pl);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, frag_a_addr<S>(Vt, kk * 16, dp * 16, lane));
+        mma_bf16(o[2 * dp], ph, b[0], b[1]);
+        mma_bf16(o[2 * dp], pl, b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], ph, b[2], b[3]);
+        mma_bf16(o[2 * dp + 1], pl, b[2], b[3]);
+      }
+    }
+    __syncthreads();                              // this buffer consumed
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = fmaxf(l[i], 1e-30f);
+    const int qi = r0 + i * 8;
+    if (qi >= Sq) continue;
+    const size_t base = ((size_t)row_q * Sq + qi) * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      const float o0 = o[j][2 * i] / l[i], o1 = o[j][2 * i + 1] / l[i];
+      *reinterpret_cast<__nv_bfloat162*>(out + base + j * 8) =
+          __floats2bfloat162_rn(o0, o1);
+      if (out32 != nullptr)
+        *reinterpret_cast<float2*>(out32 + base + j * 8) = make_float2(o0, o1);
+    }
+    if (t4 == 0) lse[(size_t)row_q * Sq + qi] = m[i] * scale + logf(l[i]);
+  }
+}
+
+// ------------------------------------------------------------ dK/dV, bf16
+template <int D>
+constexpr size_t dkdv_mma_smem_bytes() {
+  // K, V (kDkvBK rows) | Q, dO (2 buffers of kDkvBQ rows each), bf16 |
+  // lse, Drow (2 buffers of kDkvBQ), f32
+  return sizeof(bf16) * (2 * kDkvBK + 4 * kDkvBQ) * (D + 8) +
+         sizeof(float) * 4 * kDkvBQ;
+}
+
+// Grid (B*Hq, ceil(Skv / kDkvBK)); key tile blockIdx.y, so the causal tiles
+// with the most queries start first.  Warp w owns keys k0 + 16 w ..
+// k0 + 16 w + 15, the M of all four products: S^T = K Q^T and
+// dP^T = V dO^T (16 keys x 32 queries), then dV += P^T dO and
+// dK += dS^T Q (16 keys x D).  The block's q-head row contributes
+// dV_h = sum_i P_ij dO_i and dK_h = scale * sum_i dS_ij q_i over the q
+// tiles in ascending order; with group 1 that is the result (rounded to
+// bf16 into dk, dv), else it goes to the f32 partials (dk_part, dv_part,
+// (B*Hq, Skv, D)) that `flash_dkdv_reduce_kernel` sums.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ drow,
+                      float* __restrict__ dk_part,
+                      float* __restrict__ dv_part, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int Sq, int Skv, int group,
+                      float scale, int causal) {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int S = row_stride<D>();
+  constexpr int KS = D / 16;
+  constexpr int NT = kDkvBQ / 8;                  // score n-tiles (queries)
+  constexpr int DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + kDkvBK * S;
+  bf16* Qs = Vs + kDkvBK * S;                     // 2 buffers
+  bf16* dOs = Qs + 2 * kDkvBQ * S;                // 2 buffers
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * kDkvBQ * S);
+  float* d_s = lse_s + 2 * kDkvBQ;
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int row_q = blockIdx.x;
+  const int row_kv = row_q / group;
+  const int k0 = blockIdx.y * kDkvBK;
+  const int kr = k0 + warp * 16 + g;              // this lane's keys kr, kr + 8
+  const size_t kvoff = (size_t)row_kv * Skv * D;
+  const bf16* qp = q + (size_t)row_q * Sq * D;
+  const bf16* dop = dout + (size_t)row_q * Sq * D;
+  const float* lp = lse + (size_t)row_q * Sq;
+  const float* dp = drow + (size_t)row_q * Sq;
+  // Causal: query rows before the block's first key see none of its keys.
+  const int q_start = causal ? (k0 / kDkvBQ) * kDkvBQ : 0;
+  const int n_steps = q_start < Sq ? (Sq - q_start + kDkvBQ - 1) / kDkvBQ : 0;
+
+  auto stage_q = [&](int buf, int qs) {
+    stage_async<kDkvBQ, D>(Qs + buf * kDkvBQ * S, qp, qs, Sq);
+    stage_async<kDkvBQ, D>(dOs + buf * kDkvBQ * S, dop, qs, Sq);
+    const int i = threadIdx.x % kDkvBQ, qi = qs + i;
+    if (threadIdx.x < kDkvBQ)
+      cp_async4(smem_addr(lse_s + buf * kDkvBQ + i), lp + (qi < Sq ? qi : 0),
+                qi < Sq);
+    else if (threadIdx.x < 2 * kDkvBQ)
+      cp_async4(smem_addr(d_s + buf * kDkvBQ + i), dp + (qi < Sq ? qi : 0),
+                qi < Sq);
+  };
+
+  stage_async<kDkvBK, D>(Ks, k + kvoff, k0, Skv);
+  stage_async<kDkvBK, D>(Vs, v + kvoff, k0, Skv);
+  if (n_steps > 0) stage_q(0, q_start);
+  cp_async_commit();
+
+  float ak[DT][4], av[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ak[j][e] = av[j][e] = 0.f;
+
+  for (int it = 0; it < n_steps; ++it) {
+    const int q0 = q_start + it * kDkvBQ;
+    const int buf = it & 1;
+    const bf16* Qt = Qs + buf * kDkvBQ * S;
+    const bf16* dOt = dOs + buf * kDkvBQ * S;
+    if (it + 1 < n_steps) {
+      stage_q(buf ^ 1, q0 + kDkvBQ);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T, 16 keys x 32 queries a warp.
+    float s[NT][4], pd[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = pd[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t ka[4], va[4];
+      ldsm_x4(ka, frag_a_addr<S>(Ks, warp * 16, ks * 16, lane));
+      ldsm_x4(va, frag_a_addr<S>(Vs, warp * 16, ks * 16, lane));
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, frag_b_addr<S>(Qt, np * 16, ks * 16, lane));
+        mma_bf16(s[2 * np], ka, b[0], b[1]);
+        mma_bf16(s[2 * np + 1], ka, b[2], b[3]);
+        ldsm_x4(b, frag_b_addr<S>(dOt, np * 16, ks * 16, lane));
+        mma_bf16(pd[2 * np], va, b[0], b[1]);
+        mma_bf16(pd[2 * np + 1], va, b[2], b[3]);
+      }
+    }
+    // P^T = exp(s scale - lse) under the forward's mask; dS^T = P^T (dP^T -
+    // Drow).
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * t4 + (e & 1);
+        const int qi = q0 + c;
+        const int kj = kr + (e >> 1) * 8;
+        const bool ok = qi < Sq && (!causal || qi >= kj);
+        const float p =
+            ok ? expf(fmaf(s[j][e], scale, -lse_s[buf * kDkvBQ + c])) : 0.f;
+        s[j][e] = p;
+        pd[j][e] = p * (pd[j][e] - d_s[buf * kDkvBQ + c]);
+      }
+
+    // dV += P^T dO, then dK += dS^T Q, each A as hi + lo (one pair live at
+    // a time: the accumulators hold 4 D registers a lane).
+#pragma unroll
+    for (int kk = 0; kk < kDkvBQ / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+      acc_to_a_split(s[2 * kk], s[2 * kk + 1], hi, lo);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, frag_a_addr<S>(dOt, kk * 16, np * 16, lane));
+        mma_bf16(av[2 * np], hi, b[0], b[1]);
+        mma_bf16(av[2 * np], lo, b[0], b[1]);
+        mma_bf16(av[2 * np + 1], hi, b[2], b[3]);
+        mma_bf16(av[2 * np + 1], lo, b[2], b[3]);
+      }
+      acc_to_a_split(pd[2 * kk], pd[2 * kk + 1], hi, lo);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, frag_a_addr<S>(Qt, kk * 16, np * 16, lane));
+        mma_bf16(ak[2 * np], hi, b[0], b[1]);
+        mma_bf16(ak[2 * np], lo, b[0], b[1]);
+        mma_bf16(ak[2 * np + 1], hi, b[2], b[3]);
+        mma_bf16(ak[2 * np + 1], lo, b[2], b[3]);
+      }
+    }
+    __syncthreads();                              // this buffer consumed
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kj = kr + i * 8;
+    if (kj >= Skv) continue;
+    const size_t col = 2 * t4;
+    if (group == 1) {
+      const size_t base = kvoff + (size_t)kj * D + col;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + base + j * 8) =
+            __floats2bfloat162_rn(ak[j][2 * i] * scale,
+                                  ak[j][2 * i + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + base + j * 8) =
+            __floats2bfloat162_rn(av[j][2 * i], av[j][2 * i + 1]);
+      }
+    } else {
+      const size_t base = ((size_t)row_q * Skv + kj) * D + col;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        *reinterpret_cast<float2*>(dk_part + base + j * 8) =
+            make_float2(ak[j][2 * i] * scale, ak[j][2 * i + 1] * scale);
+        *reinterpret_cast<float2*>(dv_part + base + j * 8) =
+            make_float2(av[j][2 * i], av[j][2 * i + 1]);
+      }
+    }
+  }
+}
+
+// dk[r] = bf16(sum over h = 0 .. group-1 of dk_part[r * group + h]), the
+// heads in ascending order, and the same for dv: 4 elements a thread.
+__global__ void __launch_bounds__(256)
+flash_dkdv_reduce_kernel(const float* __restrict__ dk_part,
+                         const float* __restrict__ dv_part,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         int rows_kv, int row_elems, int group) {
+  const size_t n4 = (size_t)rows_kv * row_elems / 4;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t e = 4 * i;
+    const size_t r = e / row_elems, off = e % row_elems;
+    float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+    for (int h = 0; h < group; ++h) {
+      const size_t src = (r * group + h) * row_elems + off;
+      const float4 a = *reinterpret_cast<const float4*>(dk_part + src);
+      const float4 b = *reinterpret_cast<const float4*>(dv_part + src);
+      sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+      sv.x += b.x; sv.y += b.y; sv.z += b.z; sv.w += b.w;
+    }
+    __nv_bfloat162* k2 = reinterpret_cast<__nv_bfloat162*>(dk + e);
+    __nv_bfloat162* v2 = reinterpret_cast<__nv_bfloat162*>(dv + e);
+    k2[0] = __floats2bfloat162_rn(sk.x, sk.y);
+    k2[1] = __floats2bfloat162_rn(sk.z, sk.w);
+    v2[0] = __floats2bfloat162_rn(sv.x, sv.y);
+    v2[1] = __floats2bfloat162_rn(sv.z, sv.w);
   }
 }
 
@@ -553,6 +1118,7 @@ struct Args {
   void* o2;
   float* lse;
   float* drow;
+  float* part;      // dK/dV, bf16, group > 1: the per-head f32 partials
   int bh, sq, skv, group, causal;
   float scale;
   cudaStream_t stream;
@@ -560,39 +1126,93 @@ struct Args {
 
 enum Which { kFwd = 0, kDq = 1, kDkdv = 2 };
 
+// The tensor-core kernels' grids put the tile index in y.
+constexpr int kMaxGridY = 65535;
+
+template <int D>
+cudaError_t launch_fwd_mma(const Args& a) {
+  constexpr size_t smem = fwd_mma_smem_bytes<D>();
+  const int n_qt = (a.sq + kMmaBQ - 1) / kMmaBQ;
+  if (n_qt > kMaxGridY) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(flash_fwd_mma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_mma_kernel<D><<<dim3(a.bh, n_qt), kThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o0), a.out32, a.lse,
+      a.sq, a.skv, a.group, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+// The dK/dV kernel, then (group > 1) the reduction of its partials.
+template <int D>
+cudaError_t launch_dkdv_mma(const Args& a) {
+  constexpr size_t smem = dkdv_mma_smem_bytes<D>();
+  const int n_kt = (a.skv + kDkvBK - 1) / kDkvBK;
+  if (n_kt > kMaxGridY || (a.group > 1 && a.part == nullptr))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(flash_dkdv_mma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  float* dk_part = a.part;
+  float* dv_part = a.part == nullptr ? nullptr
+                                     : a.part + (size_t)a.bh * a.skv * D;
+  bf16* dk = static_cast<bf16*>(a.o1);
+  bf16* dv = static_cast<bf16*>(a.o2);
+  flash_dkdv_mma_kernel<D><<<dim3(a.bh, n_kt), kThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
+      a.drow, dk_part, dv_part, dk, dv, a.sq, a.skv, a.group, a.scale,
+      a.causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.group == 1) return err;
+  const int rows_kv = a.bh / a.group;
+  const size_t n4 = (size_t)rows_kv * a.skv * D / 4;
+  const int blocks = (int)((n4 + 255) / 256 < 4096 ? (n4 + 255) / 256 : 4096);
+  flash_dkdv_reduce_kernel<<<blocks, 256, 0, a.stream>>>(
+      dk_part, dv_part, dk, dv, rows_kv, a.skv * D, a.group);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch(int which, const Args& a) {
-  cudaError_t err;
-  if (which == kFwd) {
-    constexpr size_t smem = fwd_smem_bytes<D>();
-    err = allow_smem(flash_fwd_kernel<T, D>, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((a.sq + kBQ - 1) / kBQ, a.bh);
-    flash_fwd_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), static_cast<T*>(a.o0), a.out32, a.lse,
-        a.sq, a.skv, a.group, a.scale, a.causal);
-  } else if (which == kDq) {
-    constexpr size_t smem = dq_smem_bytes<D>();
-    err = allow_smem(flash_dq_kernel<T, D>, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((a.sq + kBQ - 1) / kBQ, a.bh);
-    flash_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), a.out32,
-        static_cast<const T*>(a.dout), a.lse, a.drow, static_cast<T*>(a.o0),
-        a.sq, a.skv, a.group, a.scale, a.causal);
-  } else {
-    constexpr size_t smem = dkdv_smem_bytes<D>();
-    err = allow_smem(flash_dkdv_kernel<T, D>, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((a.skv + kBKV - 1) / kBKV, a.bh / a.group);
-    flash_dkdv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-        a.drow, static_cast<T*>(a.o1), static_cast<T*>(a.o2), a.sq, a.skv,
-        a.group, a.scale, a.causal);
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (which == kFwd) return launch_fwd_mma<D>(a);
+    if (which == kDkdv) return launch_dkdv_mma<D>(a);
   }
+  cudaError_t err;
+  if constexpr (std::is_same<T, float>::value) {
+    if (which == kFwd) {
+      constexpr size_t smem = fwd_smem_bytes<D>();
+      err = allow_smem(flash_fwd_kernel<D>, smem);
+      if (err != cudaSuccess) return err;
+      dim3 grid((a.sq + kBQ - 1) / kBQ, a.bh);
+      flash_fwd_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+          static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+          static_cast<const float*>(a.v), static_cast<float*>(a.o0), a.out32,
+          a.lse, a.sq, a.skv, a.group, a.scale, a.causal);
+      return cudaGetLastError();
+    }
+    if (which == kDkdv) {
+      constexpr size_t smem = dkdv_smem_bytes<D>();
+      err = allow_smem(flash_dkdv_kernel<D>, smem);
+      if (err != cudaSuccess) return err;
+      dim3 grid((a.skv + kBKV - 1) / kBKV, a.bh / a.group);
+      flash_dkdv_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+          static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+          static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+          a.lse, a.drow, static_cast<float*>(a.o1), static_cast<float*>(a.o2),
+          a.sq, a.skv, a.group, a.scale, a.causal);
+      return cudaGetLastError();
+    }
+  }
+  constexpr size_t smem = dq_smem_bytes<D>();
+  err = allow_smem(flash_dq_kernel<T, D>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.sq + kBQ - 1) / kBQ, a.bh);
+  flash_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.out32, static_cast<const T*>(a.dout),
+      a.lse, a.drow, static_cast<T*>(a.o0), a.sq, a.skv, a.group, a.scale,
+      a.causal);
   return cudaGetLastError();
 }
 
@@ -612,9 +1232,18 @@ cudaError_t dispatch(int which, int d, int dtype, const Args& a) {
     return cudaErrorInvalidValue;
   switch (dtype) {
     case kF32: return dispatch_head_dim<float>(which, d, a);
-    case kBF16: return dispatch_head_dim<__nv_bfloat16>(which, d, a);
+    case kBF16: return dispatch_head_dim<bf16>(which, d, a);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <int D>
+long long smem_bytes(int which, int dtype) {
+  if (dtype == kBF16 && which == kFwd) return fwd_mma_smem_bytes<D>();
+  if (dtype == kBF16 && which == kDkdv) return dkdv_mma_smem_bytes<D>();
+  if (which == kFwd) return fwd_smem_bytes<D>();
+  if (which == kDkdv) return dkdv_smem_bytes<D>();
+  return dq_smem_bytes<D>();
 }
 
 }  // namespace
@@ -622,17 +1251,17 @@ cudaError_t dispatch(int which, int d, int dtype, const Args& a) {
 extern "C" {
 
 // q (bh, Sq, D), k/v (bh / group, Skv, D), out (bh, Sq, D), all contiguous
-// and of one dtype (0 f32, 1 bf16); lse (bh, Sq) f32.  `out32`, when not
-// NULL, receives the output in f32 before its rounding to `out`'s dtype:
-// the backward's row term rowsum(dO * O) takes O unrounded, as autograd
-// through the plain version does.  Each entry point returns the CUDA error
-// of its launch (0 on success).
+// and of one dtype (0 f32, 1 bf16; bf16 pointers 16-byte aligned); lse
+// (bh, Sq) f32.  `out32`, when not NULL, receives the output in f32 before
+// its rounding to `out`'s dtype: the backward's row term rowsum(dO * O)
+// takes O unrounded, as autograd through the plain version does.  Each
+// entry point returns the CUDA error of its launches (0 on success).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* out, float* out32, float* lse, int bh, int sq,
                         int skv, int d, int group, float scale, int causal,
                         int dtype, void* stream) {
   Args a{q, k, v, out32, nullptr, out, nullptr, nullptr, lse, nullptr,
-         bh, sq, skv, group, causal, scale,
+         nullptr, bh, sq, skv, group, causal, scale,
          static_cast<cudaStream_t>(stream)};
   return dispatch(kFwd, d, dtype, a);
 }
@@ -646,21 +1275,38 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                            int sq, int skv, int d, int group, float scale,
                            int causal, int dtype, void* stream) {
   Args a{q, k, v, const_cast<float*>(out32), dout, dq, nullptr, nullptr,
-         const_cast<float*>(lse), drow, bh, sq, skv, group, causal, scale,
-         static_cast<cudaStream_t>(stream)};
+         const_cast<float*>(lse), drow, nullptr, bh, sq, skv, group, causal,
+         scale, static_cast<cudaStream_t>(stream)};
   return dispatch(kDq, d, dtype, a);
 }
 
 // dk, dv (bh / group, Skv, D) in k's dtype, from drow of the dQ kernel.
+// `part` is scratch of 2 * bh * Skv * D floats for bf16 with group > 1
+// (the per-head partials of dK, then dV), else unused and may be NULL.
 int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,
-                             const float* drow, void* dk, void* dv, int bh,
-                             int sq, int skv, int d, int group, float scale,
-                             int causal, int dtype, void* stream) {
+                             const float* drow, void* dk, void* dv,
+                             float* part, int bh, int sq, int skv, int d,
+                             int group, float scale, int causal, int dtype,
+                             void* stream) {
   Args a{q, k, v, nullptr, dout, nullptr, dk, dv, const_cast<float*>(lse),
-         const_cast<float*>(drow), bh, sq, skv, group, causal, scale,
+         const_cast<float*>(drow), part, bh, sq, skv, group, causal, scale,
          static_cast<cudaStream_t>(stream)};
   return dispatch(kDkdv, d, dtype, a);
+}
+
+// Dynamic shared memory, in bytes, of the kernel that `which` (0 forward,
+// 1 dQ, 2 dK/dV) launches for head dim d and dtype; -1 if none.
+long long flash_attention_smem_bytes(int which, int d, int dtype) {
+  if (which < kFwd || which > kDkdv || (dtype != kF32 && dtype != kBF16))
+    return -1;
+  switch (d) {
+    case 16: return smem_bytes<16>(which, dtype);
+    case 32: return smem_bytes<32>(which, dtype);
+    case 64: return smem_bytes<64>(which, dtype);
+    case 128: return smem_bytes<128>(which, dtype);
+    default: return -1;
+  }
 }
 
 const char* flash_attention_error_string(int err) {

@@ -4,9 +4,12 @@ Port of ``repro/kernels/flash_attention/flash_attention.py``.  The Pallas
 program becomes a hand-written CUDA kernel in ``csrc/flash_attention.cu``
 (see the note at its top for what bounds it on the card and how the design
 answers), which also writes each query row's log-sum-exp.  The reference
-has no backward kernel; here two CUDA kernels compute dQ, and dK with dV,
-from the saved log-sum-exp, without atomics, so a gradient is the same bits
-on every run.  ``flash_attention`` is a ``torch.autograd.Function`` whose
+has no backward kernel; here CUDA kernels compute dQ, and dK with dV, from
+the saved log-sum-exp, without atomics, so a gradient is the same bits on
+every run.  bf16 inputs take tensor-core kernels for the forward and for
+dK/dV (the latter per q head into f32 scratch that this wrapper allocates,
+then summed over the group in head order); f32 inputs, and dQ, run on the
+CUDA cores.  ``flash_attention`` is a ``torch.autograd.Function`` whose
 forward and backward are those kernels.
 
 Dispatch: a CUDA tensor launches the kernels or raises; a CPU tensor takes
@@ -52,10 +55,12 @@ def load_library() -> ctypes.CDLL:
     shape = [i32, i32, i32, i32, i32, f32, i32, i32, vp]
     lib.flash_attention_fwd.argtypes = [vp] * 6 + shape
     lib.flash_attention_bwd_dq.argtypes = [vp] * 8 + shape
-    lib.flash_attention_bwd_dkdv.argtypes = [vp] * 8 + shape
+    lib.flash_attention_bwd_dkdv.argtypes = [vp] * 9 + shape
     for fn in (lib.flash_attention_fwd, lib.flash_attention_bwd_dq,
                lib.flash_attention_bwd_dkdv):
         fn.restype = i32
+    lib.flash_attention_smem_bytes.argtypes = [i32, i32, i32]
+    lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
     lib.flash_attention_error_string.argtypes = [i32]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -103,6 +108,9 @@ def _check_cuda(tensors: dict[str, torch.Tensor], d: int) -> None:
                             f"{name} is {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"K4 needs contiguous inputs; {name} is not")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"K4's bf16 kernels copy 16-byte rows; {name} "
+                             f"does not start on a 16-byte boundary")
     if d not in _HEAD_DIMS:
         raise ValueError(f"head dim {d} not compiled (one of {_HEAD_DIMS})")
 
@@ -168,9 +176,13 @@ def flash_attention_bwd_dkdv(q, k, v, lse, dout, drow, *, causal: bool = True,
     bh, sq, skv, d = _check_bwd(q, k, v, lse, dout, group)
     _check_f32("drow", drow, (bh, sq), q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    # The bf16 kernel's per-q-head f32 partials of dK, then dV.
+    part = torch.empty((2, bh, skv, d), dtype=torch.float32, device=q.device) \
+        if q.dtype == torch.bfloat16 and group > 1 else None
     _launch("flash_attention_bwd_dkdv", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), dout.data_ptr(), lse.data_ptr(), drow.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), bh, sq, skv, d, group,
+            dk.data_ptr(), dv.data_ptr(),
+            None if part is None else part.data_ptr(), bh, sq, skv, d, group,
             1.0 / (d ** 0.5), int(causal), _DTYPE_CODES[q.dtype], _stream(q))
     return dk, dv
 
@@ -216,8 +228,10 @@ def flash_attention(
 ) -> torch.Tensor:
     """Differentiable flash attention, (B*Hq, Sq, D) in q's dtype.
 
-    The kernels work in tiles of 64 query rows and 64 (backward: 32) keys;
-    Sq and Skv need not divide them — the ragged edge is masked."""
+    The kernels work in tiles of 64 query rows and 64 keys, except dK/dV:
+    blocks of 64 keys over steps of 32 queries in bf16, of 32 keys over
+    64-query tiles in f32.  Sq and Skv need not divide them — the ragged
+    edge is masked."""
     _check(q, k, v, group)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, group=group)

@@ -212,6 +212,91 @@ def test_flash_attention_large_logits_and_bitwise_backward(dev):
             assert torch.equal(a, b)
 
 
+# Tile edges of the bf16 kernels' 64-row tiles and 32-query steps: Sq and
+# Skv of 1, 17, 63, 65, 127 and 129, Sq above and below Skv, groups 1, 2, 4
+# and 8, every compiled D.
+K4_EDGE_SHAPES = [(1, 1, 1, 1, 1, 16), (1, 1, 129, 2, 1, 32),
+                  (1, 129, 1, 8, 1, 64), (1, 17, 17, 2, 1, 128),
+                  (2, 63, 65, 4, 2, 32), (1, 65, 63, 8, 1, 16),
+                  (1, 127, 129, 8, 1, 128), (1, 129, 127, 2, 2, 64),
+                  (1, 65, 127, 2, 1, 16), (1, 129, 17, 4, 2, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d", K4_EDGE_SHAPES)
+def test_flash_attention_tile_edges_match_plain(dev, b, sq, skv, hq, hkv, d,
+                                                causal, dtype):
+    """The forward against the plain version; the gradients against
+    autograd through the plain version in f32 on the same values (on bf16
+    leaves it rounds each q head's dK, dV before the group sum, which alone
+    misses the exact gradient at Skv = 1, group 8: see
+    test_torch_flash_attention.py)."""
+    group = hq // hkv
+    q, k, v = _k4_inputs(dev, b, sq, skv, hq, hkv, d, dtype)
+    dout = _rand(q.shape, torch.float32, dev, 23).to(dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=causal, group=group)
+    grads = torch.autograd.grad(out, leaves, dout)
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(
+        out.float(), flash_attention_ref(q, k, v, causal=causal,
+                                         group=group).float(),
+        rtol=rtol, atol=atol)
+    ref_leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+    ref_grads = torch.autograd.grad(
+        flash_attention_ref(*ref_leaves, causal=causal, group=group),
+        ref_leaves, dout.float())
+    grtol, gatol = (1e-3, 1e-4) if dtype == torch.float32 else (rtol, atol)
+    for name, g, r in zip("qkv", grads, ref_grads, strict=True):
+        assert g.dtype == dtype, name
+        torch.testing.assert_close(g.float(), r, rtol=grtol, atol=gatol,
+                                   msg=f"d{name}")
+
+
+def test_flash_attention_path_shape_bf16_matches_plain_and_is_bitwise(dev):
+    """The training path's q (16, 1024, 128), k/v (2, 1024, 128), bf16,
+    causal: forward and backward against the plain version and autograd
+    through it, one launch of each kernel; the backward the same bits over
+    repeated runs."""
+    q, k, v = _k4_inputs(dev, 1, 1024, 1024, 16, 2, 128, torch.bfloat16)
+    dout = _rand(q.shape, torch.float32, dev, 26).to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention(*leaves, group=8)
+    grads = torch.autograd.grad(out, leaves, dout)
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+        "flash_attention_bwd_dkdv": 1}
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = flash_attention_ref(*ref_leaves, group=8)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, dout)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
+    for name, g, r in zip("qkv", grads, ref_grads, strict=True):
+        torch.testing.assert_close(g.float(), r.float(), rtol=2e-2,
+                                   atol=2e-2, msg=f"d{name}")
+    _, lse, out32 = fa.flash_attention_fwd(q, k, v, group=8)
+    torch.testing.assert_close(out32.to(torch.bfloat16), out.detach(),
+                               rtol=0, atol=0)
+    first = fa.flash_attention_bwd(q, k, v, out32, lse, dout, group=8)
+    for _ in range(3):
+        again = fa.flash_attention_bwd(q, k, v, out32, lse, dout, group=8)
+        for a, b in zip(first, again, strict=True):
+            assert torch.equal(a, b)
+
+
+def test_flash_attention_bf16_needs_16_byte_aligned_inputs(dev):
+    """The bf16 kernels copy rows 16 bytes at a time: an input that starts
+    off a 16-byte boundary raises instead of launching."""
+    flat = torch.zeros(2 * 16 * 16 + 1, dtype=torch.bfloat16, device=dev)
+    q = flat[1:].view(2, 16, 16)
+    assert q.is_contiguous()
+    k = torch.zeros((2, 16, 16), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(q, k, k)
+
+
 def test_flash_attention_raises_instead_of_falling_back(dev):
     q = torch.zeros((2, 16, 16), dtype=torch.float64, device=dev)
     with pytest.raises(TypeError, match="f32 or bf16"):
