@@ -13,10 +13,14 @@ Phases, each of which exits non-zero when it fails:
   3. kernels — K1 (``prefill_flash``) and K2 (``cache_cast``) held against
                their plain torch versions on the card: K1 through
                ``prefill_attention``, the op the model calls, at every
-               bucket the serve phase pads to (and 48, 768, head_dim 16);
-               then both timed at the serve path's shapes beside the plain
-               version, PyTorch's own call for the same function, and the
-               card's bound,
+               bucket the serve phase pads to (and 48, 768, head_dim 16),
+               and in bf16 at tile edges (S of 1, 17, 63, 65, 127 and 129,
+               group 1, 2, 4 and 8, D 16 to 128); K1's bf16 tensor-core
+               kernel's registers, spills and shared memory from the
+               build's ``-Xptxas -v`` report and its ``HMMA`` count from
+               ``cuobjdump -sass`` (no spill, HMMA > 0); then both timed at
+               the serve path's shapes beside the plain version, PyTorch's
+               own call for the same function, and the card's bound,
   4. model   — full-width Qwen2-1.5B in f32 from ``Model.init(seed)``:
                prefill logits on the kernel path against ``use_pallas=False``
                for one prompt of length 100 (bucket 128), greedy first tokens
@@ -66,9 +70,10 @@ Phases, each of which exits non-zero when it fails:
                127 and 129, group 1, 2, 4 and 8, D 16 to 128; their bf16
                gradients against autograd through the plain version in f32
                on the same values); the backward bitwise equal over two
-               runs; the bf16 tensor-core kernels' registers, spills and
-               shared memory from the build's ``-Xptxas -v`` report and
-               their ``HMMA`` count from ``cuobjdump -sass``; each kernel
+               runs; the bf16 tensor-core kernels' (forward, dQ, dK/dV)
+               registers, spills and shared memory from the build's
+               ``-Xptxas -v`` report and their ``HMMA`` count from
+               ``cuobjdump -sass`` (no spill, HMMA > 0); each kernel
                timed at the path's shape beside the plain version, PyTorch's
                SDPA (forward; backward) and the card's bound,
  11. train   — full-width Qwen2-1.5B training at seq 1024: one f32 grain's
@@ -158,10 +163,9 @@ K4_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
 K4_PER_GRAIN = {"flash_attention_fwd": 2 * N_LAYERS,
                 "flash_attention_bwd_dq": N_LAYERS,
                 "flash_attention_bwd_dkdv": N_LAYERS}
-#: K4's device kernels in bf16, by name: the forward and dK/dV on the tensor
-#: cores (dK/dV per q head, then the sum over the group), dQ on the CUDA
-#: cores.
-K4_BF16_KERNELS = ("flash_fwd_mma_kernel", "flash_dq_kernel",
+#: K4's device kernels in bf16, by name: the forward, dQ and dK/dV on the
+#: tensor cores (dK/dV per q head, then the sum over the group).
+K4_BF16_KERNELS = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
                    "flash_dkdv_mma_kernel", "flash_dkdv_reduce_kernel")
 #: Side of the wall-clock backend's unit op ``tanh(h @ x)`` on the card: at
 #: 2048 one f32 product is about 17 GFLOP, far above a launch's cost, so the
@@ -501,6 +505,31 @@ def kernel_build_report(log_text: str, sass_text: str,
     return report
 
 
+def build_report(build_logs, lib, path, names, smem_bytes) -> dict[str, dict]:
+    """``kernel_build_report`` of the kernels in ``names`` from library
+    ``lib`` (built at ``path`` by this run), with each instantiation's
+    dynamic shared memory (``smem_bytes(name, head_dim)``) added; fails if
+    one of them spills or an instantiation at D = 128 has no ``HMMA``."""
+    if lib not in build_logs:
+        fail(f"no ptxas report for {lib} (the library was not built by this "
+             f"run)")
+    from repro_torch.kernels.build import nvcc_path
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(nvcc_path()), "cuobjdump"), "-sass",
+         path], capture_output=True, text=True, timeout=300, check=True).stdout
+    report = kernel_build_report(build_logs[lib], sass, names)
+    for name, info in sorted(report.items()):
+        head_dim = re.search(r"<(\d+)>", name)
+        info["smem_bytes"] = smem_bytes(name, int(head_dim.group(1))) \
+            if head_dim else 0
+        if info.get("spill_stores", 1) or info.get("spill_loads", 1):
+            fail(f"{name} spills registers: {json.dumps(info)}")
+    for n in names:
+        if f"{n}<128>" in report and report[f"{n}<128>"]["hmma"] == 0:
+            fail(f"{n}<128> has no HMMA instruction in its SASS")
+    return report
+
+
 def library_attention(torch, q, k, v):
     """PyTorch's own causal GQA attention on the same inputs, as a
     yardstick for K1 only (the port never calls it)."""
@@ -540,7 +569,7 @@ def main() -> int:
     from repro_torch.data import GrainSpec, SyntheticSource, batch_from_grains
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.build import BUILD_DIR, nvcc_path
+    from repro_torch.kernels.build import BUILD_DIR
     from repro_torch.kernels.mamba_scan import mamba_scan as k5
     from repro_torch.kernels.mamba_scan import ops as mamba_ops
     from repro_torch.kernels.mamba_scan.ref import ssd_scan_plain, ssd_scan_ref
@@ -617,6 +646,35 @@ def main() -> int:
         err = check_close(torch, name, out, ref, str(dt)[6:])
         if not (torch.equal(kc, kr) and torch.equal(vc, vr)):
             fail(f"{name}: same-dtype cache differs from the inputs")
+        k1_err = max(k1_err, err)
+        print(f"[kernels] {name}: max abs err {err:.3e}", flush=True)
+
+    # K1's bf16 tensor-core kernel as built, then at the edges of its 64-row
+    # tiles: S of 1, 17, 63, 65, 127 and 129, groups 1 to 8, every D.
+    k1_build = build_report(
+        build_logs, "prefill", pf.load_library()._name,
+        ("prefill_flash_mma_kernel",),
+        # the forward's body and shared memory, from the header K4 shares
+        lambda name, d: int(fa.load_library().flash_attention_smem_bytes(
+            0, d, 1)))
+    for name, info in sorted(k1_build.items()):
+        print(f"[kernels] build {name}: {json.dumps(info)}", flush=True)
+    if "prefill_flash_mma_kernel<128>" not in k1_build:
+        fail("K1: no prefill_flash_mma_kernel<128> in the ptxas report")
+    for s, hq, hkv, d in ((1, 1, 1, 16), (17, 2, 1, 128), (63, 4, 2, 32),
+                          (65, 8, 1, 16), (127, 8, 1, 128), (129, 2, 2, 64),
+                          (65, 4, 1, 64), (129, 16, 2, 128)):
+        q = rand((1, s, hq, d), torch.bfloat16)
+        k, v = rand((1, s, hkv, d), torch.bfloat16), rand((1, s, hkv, d),
+                                                          torch.bfloat16)
+        before = pf.LAUNCHES["prefill_flash"]
+        out, _, _ = ops.prefill_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref, _, _ = ops.prefill_attention(q, k, v, use_pallas=False)
+        name = f"K1 tile edge Hq={hq} Hkv={hkv} D={d} S={s} bfloat16"
+        if pf.LAUNCHES["prefill_flash"] != before + 1:
+            fail(f"{name}: prefill_attention did not launch K1")
+        err = check_close(torch, name, out, ref, "bfloat16")
         k1_err = max(k1_err, err)
         print(f"[kernels] {name}: max abs err {err:.3e}", flush=True)
 
@@ -1022,26 +1080,16 @@ def main() -> int:
 
     # The bf16 tensor-core kernels as built: registers, spills, shared
     # memory, and HMMA instructions in their SASS.
-    if "flash_attention" not in build_logs:
-        fail("K4: no ptxas report (the flash-attention library was not built "
-             "by this run)")
-    sass = subprocess.run(
-        [os.path.join(os.path.dirname(nvcc_path()), "cuobjdump"), "-sass",
-         fa.load_library()._name], capture_output=True, text=True,
-        timeout=300, check=True).stdout
-    k4_build = kernel_build_report(
-        build_logs["flash_attention"], sass,
-        ("flash_fwd_mma_kernel", "flash_dkdv_mma_kernel",
-         "flash_dkdv_reduce_kernel"))
+    k4_build = build_report(
+        build_logs, "flash_attention", fa.load_library()._name,
+        K4_BF16_KERNELS,
+        lambda name, d: int(fa.load_library().flash_attention_smem_bytes(
+            K4_BF16_KERNELS.index(name.split("<")[0]), d, 1)))
     for name, info in sorted(k4_build.items()):
-        head_dim = re.search(r"<(\d+)>", name)
-        info["smem_bytes"] = int(fa.load_library().flash_attention_smem_bytes(
-            0 if "fwd" in name else 2, int(head_dim.group(1)), 1)) \
-            if head_dim else 0
         print(f"[k4] build {name}: {json.dumps(info)}", flush=True)
-    for name in ("flash_fwd_mma_kernel<128>", "flash_dkdv_mma_kernel<128>"):
-        if k4_build.get(name, {}).get("hmma", 0) == 0:
-            fail(f"K4: {name} has no HMMA instruction in its SASS")
+    for name in K4_BF16_KERNELS[:3]:
+        if f"{name}<128>" not in k4_build:
+            fail(f"K4: no {name}<128> in the ptxas report")
 
     k4_err = {"fwd": 0.0, "dq": 0.0, "dkdv": 0.0}
     k4_cases = [(2, 128, 128, 4, 2, 64, 1.0), (1, 256, 256, 2, 2, 32, 1.0),
@@ -1157,6 +1205,7 @@ def main() -> int:
                  "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms},
     }
     k4_rows["fwd"]["build"] = k4_build["flash_fwd_mma_kernel<128>"]
+    k4_rows["dq"]["build"] = k4_build["flash_dq_mma_kernel<128>"]
     k4_rows["dkdv"]["build"] = {
         n: k4_build[n] for n in ("flash_dkdv_mma_kernel<128>",
                                  "flash_dkdv_reduce_kernel")}
@@ -1585,7 +1634,8 @@ def main() -> int:
          "launches_by_path": per_kernel["prefill_flash"], "max_abs_err": k1_err,
          "ms": k1_row["ms"], "plain_ms": k1_row["plain_ms"],
          "bound_ms": k1_row["bound_ms"], "bound_by": k1_row["bound_by"],
-         "library_ms": k1_row["library_ms"]},
+         "library_ms": k1_row["library_ms"],
+         "build": k1_build["prefill_flash_mma_kernel<128>"]},
         {"name": "cache_cast", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/prefill/prefill.py:145",
          "launches": launches["cache_cast"],

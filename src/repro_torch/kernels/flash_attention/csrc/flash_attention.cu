@@ -40,32 +40,41 @@
 // (query, key) pair, 8.4 M pairs); the backward needs 2.5x the operations.
 //
 // bf16 inputs take tensor-core kernels (`flash_fwd_mma_kernel`,
-// `flash_dkdv_mma_kernel`), FA2-style on `mma.sync.m16n8k16` with bf16
-// operands and f32 accumulators:
-//   - each warp owns 16 rows of the block's tile (forward: query rows of a
-//     64-query tile; dK/dV: key rows of a 64-key tile), so every product
-//     (S = Q K^T and O += P V; S^T = K Q^T, dP^T = V dO^T, dV += P^T dO and
+// `flash_dq_mma_kernel`, `flash_dkdv_mma_kernel`), FA2-style on
+// `mma.sync.m16n8k16` with bf16 operands and f32 accumulators; the tile
+// helpers and the forward's body are in mma_tiles.cuh, which K1's
+// prefill.cu shares:
+//   - each warp owns 16 rows of the block's tile (forward and dQ: query
+//     rows of a 64-query tile; dK/dV: key rows of a 64-key tile), so every
+//     product (S = Q K^T and O += P V; S = Q K^T, dP = dO V^T and
+//     dQ += dS K; S^T = K Q^T, dP^T = V dO^T, dV += P^T dO and
 //     dK += dS^T Q) keeps that warp's rows as its M and needs nothing from
 //     another warp: a score tile's accumulator fragment is, element for
-//     element, the A fragment of the product that follows, so P, P^T and
-//     dS^T never leave registers;
+//     element, the A fragment of the product that follows, so P, dS, P^T
+//     and dS^T never leave registers;
 //   - the forward keeps its Q fragments in registers for the whole loop;
-//     the online softmax is in registers, its row max and sum reduced over
-//     the 4 threads of a row by shuffles;
+//     the dQ kernel reads Q's and dO's again for each K/V tile (beside dQ's,
+//     S's and dP's accumulators, 64 f32 each at D = 128, they would not fit
+//     in 255 registers); the online softmax is in registers, its row max
+//     and sum reduced over the 4 threads of a row by shuffles;
 //   - tiles stay bf16 in shared memory, rows padded by 16 bytes so that
 //     `ldmatrix` reads are free of bank conflicts (`.trans` where the
-//     product wants the tile's columns: V, and Q and dO in the dK/dV
-//     products), staged by `cp.async` 16 bytes a thread into two buffers,
-//     so the next tile's load overlaps this tile's products;
+//     product wants the tile's columns: V in P V, K in dS K, and Q and dO
+//     in the dK/dV products), staged by `cp.async` 16 bytes a thread into
+//     two buffers, so the next tile's load overlaps this tile's products;
 //   - the scale is applied to the f32 scores (never to a bf16 q: at the
 //     x30-logit case scores near 900 would move by tenths);
-//   - P (forward), P^T and dS^T (dK/dV) enter their products as two bf16
-//     terms, hi = bf16(x) and lo = bf16(x - hi), which keeps 16 bits of
-//     each (a second product with the same B fragments): with P rounded
-//     once, the output that feeds the dQ kernel's row term moves dQ past
-//     the bf16 tolerance at the x30 logits, dS^T rounded once does the same
-//     to dK (tests/test_torch_flash_attention.py models both), and with
-//     P^T rounded once dV at the training path's shape used most of it;
+//   - P (forward), dS (dQ), P^T and dS^T (dK/dV) enter their products as
+//     two bf16 terms, hi = bf16(x) and lo = bf16(x - hi), which keeps 16
+//     bits of each (a second product with the same B fragments): with P
+//     rounded once, the output that feeds the dQ kernel's row term moves dQ
+//     past the bf16 tolerance at the x30 logits, dS rounded once does the
+//     same to dQ at the x30 logits with GQA, dS^T rounded once to dK
+//     (tests/test_torch_flash_attention.py models them), and with P^T
+//     rounded once dV at the training path's shape used most of it;
+//   - the dQ kernel's row term Drow = rowsum(dO * O) is summed by one thread
+//     a row in ascending head-dim order, as the f32 dQ kernel sums it, so
+//     dK/dV gets the same bits from either;
 //   - dK/dV without atomics and with enough blocks for 132 SMs: one block
 //     per (q-head row, 64-key tile), 8x the blocks of one per KV head at
 //     group 8.  Each block writes its head's f32 partial dK and dV into
@@ -73,62 +82,46 @@
 //     order and rounds once (group 1 writes its result directly);
 //   - causal tiles past the diagonal are never loaded, the mask is applied
 //     only to tiles that cross the diagonal or the ragged edge, and the
-//     heaviest causal tiles (forward: the last query tiles; dK/dV: the
-//     first key tiles) are launched first.
+//     heaviest causal tiles (forward and dQ: the last query tiles; dK/dV:
+//     the first key tiles) are launched first.
 // f32 inputs keep the CUDA-core kernels (`flash_fwd_kernel`,
-// `flash_dkdv_kernel`): the tensor cores take f32 only as TF32, which the
-// port keeps off.  The dQ kernel (`flash_dq_kernel`) runs on the CUDA cores
-// for both types: f32 FMAs out of shared memory, its own limit the FMA rate
-// and the shared-memory reads feeding it; each K/V tile is staged once and
-// reused by every row of the block, each thread keeps its share of the
-// output tile in registers, and causal loops stop at the diagonal.  The TPU
-// grid's sequential axis becomes that in-block loop.  Ragged Sq / Skv edges
-// are masked (loads read 0, stores skipped) where the Pallas wrapper halves
-// its blocks until they divide S.
+// `flash_dq_kernel`, `flash_dkdv_kernel`): the tensor cores take f32 only as
+// TF32, which the port keeps off.  They do f32 FMAs out of shared memory,
+// their own limit the FMA rate and the shared-memory reads feeding it; each
+// K/V tile is staged once and reused by every row of the block, each thread
+// keeps its share of the output tile in registers, and causal loops stop at
+// the diagonal.  The TPU grid's sequential axis becomes that in-block loop.
+// Ragged Sq / Skv edges are masked (loads read 0, stores skipped) where the
+// Pallas wrapper halves its blocks until they divide S.
 //
 // In the CUDA-core kernels, row strides of D+1 and tile+1 floats keep
 // shared-memory reads free of bank conflicts.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "mma_tiles.cuh"   // kThreads (128: 16 x 8 threads here), kNegInf
 
 namespace {
 
 constexpr int kBQ = 64;        // query rows a forward / dQ block holds
 constexpr int kBK = 64;        // keys a forward / dQ K/V tile holds
 constexpr int kBKV = 32;       // keys a dK/dV block owns
-constexpr int kThreads = 128;  // 16 x 8 threads
-constexpr float kNegInf = -1e30f;
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 // Stage rows [r0, r0 + n_rows) of a (rows, D) matrix into shared memory with
 // a row stride of D + 1, times `mul`; rows past `valid` read 0.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, int r0,
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* src, int r0,
                                       int n_rows, int valid, float mul) {
   for (int idx = threadIdx.x; idx < n_rows * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
     const int gr = r0 + r;
     float val = 0.f;
-    if (gr < valid) val = to_f32(src[(size_t)gr * D + c]) * mul;
+    if (gr < valid) val = src[(size_t)gr * D + c] * mul;
     dst[r * (D + 1) + c] = val;
   }
 }
@@ -170,7 +163,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kp = k + (size_t)row_kv * Skv * D;
   const float* vp = v + (size_t)row_kv * Skv * D;
 
-  stage<float, D>(Qs, q + (size_t)row_q * Sq * D, q0, kBQ, Sq, scale);
+  stage<D>(Qs, q + (size_t)row_q * Sq * D, q0, kBQ, Sq, scale);
   if (tid < kBQ) {
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
@@ -191,8 +184,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float kv = 0.f, vv = 0.f;
       if (r < kn) {
         const size_t off = (size_t)(k0 + r) * D + c;
-        kv = to_f32(kp[off]);
-        vv = to_f32(vp[off]);
+        kv = kp[off];
+        vv = vp[off];
       }
       Ks[r * (D + 1) + c] = kv;
       Vs[r * D + c] = vv;
@@ -300,13 +293,13 @@ constexpr size_t dq_smem_bytes() {
 // s = (q * scale) . k, P = exp(s - lse), dP = dO . v and
 // dS = P * (dP - Drow): dQ = scale * sum_j dS_ij k_j, summed over the K/V
 // tiles in ascending order.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const float* __restrict__ out32,
-                const T* __restrict__ dout, const float* __restrict__ lse,
-                float* __restrict__ drow, T* __restrict__ dq, int Sq, int Skv,
-                int group, float scale, int causal) {
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ out32,
+                const float* __restrict__ dout, const float* __restrict__ lse,
+                float* __restrict__ drow, float* __restrict__ dq, int Sq,
+                int Skv, int group, float scale, int causal) {
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -324,12 +317,12 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row_kv = row_q / group;
   const int q0 = blockIdx.x * kBQ;
   const size_t qoff = (size_t)row_q * Sq * D;
-  const T* kp = k + (size_t)row_kv * Skv * D;
-  const T* vp = v + (size_t)row_kv * Skv * D;
+  const float* kp = k + (size_t)row_kv * Skv * D;
+  const float* vp = v + (size_t)row_kv * Skv * D;
 
-  stage<T, D>(Qs, q + qoff, q0, kBQ, Sq, scale);
-  stage<T, D>(dOs, dout + qoff, q0, kBQ, Sq, 1.f);
-  stage<float, D>(Ks, out32 + qoff, q0, kBQ, Sq, 1.f);  // O, in K's buffer
+  stage<D>(Qs, q + qoff, q0, kBQ, Sq, scale);
+  stage<D>(dOs, dout + qoff, q0, kBQ, Sq, 1.f);
+  stage<D>(Ks, out32 + qoff, q0, kBQ, Sq, 1.f);  // O, in K's buffer
   __syncthreads();
   if (tid < kBQ) {
     // Drow_i = sum_d dO_id O_id, in ascending d.
@@ -357,8 +350,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float kv = 0.f, vv = 0.f;
       if (r < kn) {
         const size_t off = (size_t)(k0 + r) * D + c;
-        kv = to_f32(kp[off]);
-        vv = to_f32(vp[off]);
+        kv = kp[off];
+        vv = vp[off];
       }
       Ks[r * (D + 1) + c] = kv;
       Vs[r * (D + 1) + c] = vv;
@@ -417,14 +410,14 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dqp = dq + qoff;
+  float* dqp = dq + qoff;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int qi = q0 + ty * 8 + i;
     if (qi < Sq) {
 #pragma unroll
       for (int j = 0; j < DJ; ++j)
-        dqp[(size_t)qi * D + tx + 16 * j] = from_f32<T>(acc[i][j] * scale);
+        dqp[(size_t)qi * D + tx + 16 * j] = acc[i][j] * scale;
     }
   }
 }
@@ -470,8 +463,8 @@ flash_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kn = min(kBKV, Skv - k0);
   const size_t kvoff = (size_t)row_kv * Skv * D;
 
-  stage<float, D>(Ks, k + kvoff, k0, kBKV, Skv, 1.f);
-  stage<float, D>(Vs, v + kvoff, k0, kBKV, Skv, 1.f);
+  stage<D>(Ks, k + kvoff, k0, kBKV, Skv, 1.f);
+  stage<D>(Vs, v + kvoff, k0, kBKV, Skv, 1.f);
 
   float ak[4][DJ], av[4][DJ];
 #pragma unroll
@@ -487,8 +480,8 @@ flash_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int q0 = q_start; q0 < Sq; q0 += kBQ) {
       const int qn = min(kBQ, Sq - q0);
       __syncthreads();                          // previous tile consumed
-      stage<float, D>(Qs, q + qoff, q0, kBQ, Sq, scale);
-      stage<float, D>(dOs, dout + qoff, q0, kBQ, Sq, 1.f);
+      stage<D>(Qs, q + qoff, q0, kBQ, Sq, scale);
+      stage<D>(dOs, dout + qoff, q0, kBQ, Sq, 1.f);
       if (tid < kBQ) {
         const int qi = q0 + tid;
         lse_s[tid] = qi < Sq ? lse[(size_t)row_q * Sq + qi] : 0.f;
@@ -574,191 +567,122 @@ flash_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ============================================= bf16 on the tensor cores
-constexpr int kMmaBQ = 64;     // query rows a forward block holds (16 a warp)
-constexpr int kMmaBK = 64;     // keys a forward K/V tile holds
+// The tile helpers and the forward's body are in mma_tiles.cuh.
 constexpr int kDkvBK = 64;     // keys a dK/dV block owns (16 a warp)
 constexpr int kDkvBQ = 32;     // queries a dK/dV step takes
-constexpr float kLog2e = 1.4426950408889634f;
-
-typedef __nv_bfloat16 bf16;
-
-// Row stride, in bf16 elements, of a tile in shared memory: D plus 16
-// bytes, so the 8 rows an `ldmatrix` reads fall in distinct bank groups.
-template <int D>
-__device__ __forceinline__ constexpr int row_stride() { return D + 8; }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; 0 bytes read (zero fill) when
-// !valid.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row-major fragment) * b (16x8 bf16).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x0, x1) as one bf16 pair, x0 in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
-  return bits(__floats2bfloat162_rn(x0, x1));
-}
-
-// (x0, x1) as two bf16 pairs whose sum keeps 16 bits of each:
-// hi = bf16(x), lo = bf16(x - hi).
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
-}
-
-// An accumulator fragment pair (n-tiles j and j + 1 of 8 columns, 16 rows)
-// is, element for element, the A fragment of 16 rows x 16 k of the next
-// product: here as its hi and lo bf16 terms.
-__device__ __forceinline__ void acc_to_a_split(const float (&c0)[4],
-                                               const float (&c1)[4],
-                                               uint32_t (&hi)[4],
-                                               uint32_t (&lo)[4]) {
-  split_bf16(c0[0], c0[1], hi[0], lo[0]);
-  split_bf16(c0[2], c0[3], hi[1], lo[1]);
-  split_bf16(c1[0], c1[1], hi[2], lo[2]);
-  split_bf16(c1[2], c1[3], hi[3], lo[3]);
-}
-
-// Address of lane `lane`'s row for an x4 `ldmatrix` of a 16x16 block at
-// (r0, c0) of a tile of row stride S: the A fragment (rows r0..r0+15 and
-// columns c0..c0+15 in the order m16n8k16 takes them), and, with `.trans`,
-// the B fragments of two n-tiles of 8 columns from a K x N tile.
-template <int S>
-__device__ __forceinline__ uint32_t frag_a_addr(const bf16* tile, int r0,
-                                                int c0, int lane) {
-  return smem_addr(tile + (r0 + (lane % 16)) * S + c0 + (lane / 16) * 8);
-}
-
-// Address for the B fragments of two n-tiles (rows n0..n0+15 of an N x K
-// tile, k columns c0..c0+15): registers 0, 1 for n-tile n0, 2, 3 for n0+8.
-template <int S>
-__device__ __forceinline__ uint32_t frag_b_addr(const bf16* tile, int n0,
-                                                int c0, int lane) {
-  return smem_addr(tile + (n0 + (lane % 8) + (lane / 16) * 8) * S + c0 +
-                   ((lane / 8) % 2) * 8);
-}
-
-// Stage rows [r0, r0 + ROWS) of a (rows, D) bf16 matrix into a shared tile
-// of row stride D + 8 with cp.async; rows at or past `valid` read 0.
-template <int ROWS, int D>
-__device__ __forceinline__ void stage_async(bf16* dst, const bf16* src,
-                                            int r0, int valid) {
-  constexpr int kChunks = D / 8;                  // 16-byte chunks a row
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const bool ok = r0 + r < valid;
-    cp_async16(smem_addr(dst + r * row_stride<D>() + col),
-               src + (size_t)(ok ? r0 + r : 0) * D + col, ok);
-  }
-}
 
 // ---------------------------------------------------------- forward, bf16
-template <int D>
-constexpr size_t fwd_mma_smem_bytes() {
-  // Q (kMmaBQ rows) | K, V (2 buffers of kMmaBK rows each), bf16
-  return sizeof(bf16) * (kMmaBQ + 4 * kMmaBK) * (D + 8);
-}
-
-// Grid (B*Hq, ceil(Sq / kMmaBQ)); query tile gridDim.y - 1 - blockIdx.y, so
-// the causal tiles with the most keys start first.  Warp w owns query rows
-// q0 + 16 w .. q0 + 16 w + 15; lane (g = lane / 4, t = lane % 4) holds rows
-// g and g + 8 of them, columns 2 t, 2 t + 1 of every 8-column n-tile.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
                      float* __restrict__ out32, float* __restrict__ lse,
                      int Sq, int Skv, int group, float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  attention_fwd_mma<D>(smem_raw, q, k, v, out, out32, lse, Sq, Skv, group,
+                       scale, causal);
+}
+
+// --------------------------------------------------------------- dQ, bf16
+template <int D>
+constexpr size_t dq_mma_smem_bytes() {
+  // Q, dO (kMmaBQ rows) | K, V (2 buffers of kMmaBK rows each), bf16 |
+  // lse (in log2 units), Drow (kMmaBQ each), f32
+  return sizeof(bf16) * (2 * kMmaBQ + 4 * kMmaBK) * (D + 8) +
+         sizeof(float) * 2 * kMmaBQ;
+}
+
+// Grid (B*Hq, ceil(Sq / kMmaBQ)), the forward's: query tile gridDim.y - 1 -
+// blockIdx.y, warp w owns query rows q0 + 16 w .. q0 + 16 w + 15, the M of
+// all three products.  Per K/V tile: S = Q K^T and dP = dO V^T (16 rows x
+// 64 keys a warp, Q's and dO's A fragments read again by `ldmatrix` for
+// every tile: kept, they would not fit in registers beside dQ's, S's and
+// dP's accumulators), P = exp(S scale - lse) under the forward's mask,
+// dS = P (dP - Drow), then dQ += dS K with dS as hi + lo bf16 A fragments
+// straight from the accumulators and K read by `ldmatrix.trans`, as V in
+// the forward's P V.  After the last tile dQ x scale, rounded once.
+// Drow_i = sum_d dO_id O_id is summed by one thread a row in ascending d
+// with fmaf, the CUDA-core kernel's order, so the dK/dV kernel gets the
+// same bits from either; written to `drow`.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v,
+                    const float* __restrict__ out32,
+                    const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ drow,
+                    bf16* __restrict__ dq, int Sq, int Skv, int group,
+                    float scale, int causal) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int S = row_stride<D>();
-  constexpr int KS = D / 16;                      // k-steps over the head dim
-  constexpr int NT = kMmaBK / 8;                  // score n-tiles
-  constexpr int DT = D / 8;                       // output n-tiles
+  constexpr int KS = D / 16;
+  constexpr int NT = kMmaBK / 8;                  // score n-tiles (keys)
+  constexpr int DT = D / 8;                       // dQ n-tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + kMmaBQ * S;
-  bf16* Vs = Ks + 2 * kMmaBK * S;
+  bf16* dOs = Qs + kMmaBQ * S;
+  bf16* Ks = dOs + kMmaBQ * S;                    // 2 buffers
+  bf16* Vs = Ks + 2 * kMmaBK * S;                 // 2 buffers
+  float* lse_s = reinterpret_cast<float*>(Vs + 2 * kMmaBK * S);
+  float* d_s = lse_s + kMmaBQ;
 
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, t4 = lane % 4;
-  const int row_q = blockIdx.x;                   // b * Hq + h
-  const int row_kv = row_q / group;               // b * Hkv + h / group
+  const int row_q = blockIdx.x;
+  const int row_kv = row_q / group;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kMmaBQ;
   const int r0 = q0 + warp * 16 + g;              // this lane's rows r0, r0 + 8
+  const size_t qoff = (size_t)row_q * Sq * D;
   const bf16* kp = k + (size_t)row_kv * Skv * D;
   const bf16* vp = v + (size_t)row_kv * Skv * D;
-  // Causal: no key past the tile's last valid query row is visible.
   const int k_end = causal ? min(Skv, min(q0 + kMmaBQ, Sq)) : Skv;
   const int n_kt = (k_end + kMmaBK - 1) / kMmaBK;
 
-  stage_async<kMmaBQ, D>(Qs, q + (size_t)row_q * Sq * D, q0, Sq);
+  stage_async<kMmaBQ, D>(Qs, q + qoff, q0, Sq);
+  stage_async<kMmaBQ, D>(dOs, dout + qoff, q0, Sq);
   stage_async<kMmaBK, D>(Ks, kp, 0, Skv);
   stage_async<kMmaBK, D>(Vs, vp, 0, Skv);
   cp_async_commit();
 
-  uint32_t qf[KS][4];
-  float o[DT][4];
+  // The row terms, from device memory while the copies run: Drow, and lse
+  // in log2 units for exp2.  Rows past Sq keep 0 (their dO is 0, so their
+  // dS is 0, and they are not stored).
+  if (threadIdx.x < kMmaBQ) {
+    const int qi = q0 + threadIdx.x;
+    float acc = 0.f, l2 = 0.f;
+    if (qi < Sq) {
+      const uint4* gr = reinterpret_cast<const uint4*>(dout + qoff +
+                                                       (size_t)qi * D);
+      const float4* orow = reinterpret_cast<const float4*>(out32 + qoff +
+                                                           (size_t)qi * D);
+      // 8 bf16 of dO a 16-byte load, each widened exactly (its bits are
+      // the top half of the f32's), element 0 in the low half of word 0.
+#pragma unroll 4
+      for (int c = 0; c < D / 8; ++c) {
+        const uint4 gv = gr[c];
+        const float4 oa = orow[2 * c], ob = orow[2 * c + 1];
+        acc = fmaf(__uint_as_float(gv.x << 16), oa.x, acc);
+        acc = fmaf(__uint_as_float(gv.x & 0xffff0000u), oa.y, acc);
+        acc = fmaf(__uint_as_float(gv.y << 16), oa.z, acc);
+        acc = fmaf(__uint_as_float(gv.y & 0xffff0000u), oa.w, acc);
+        acc = fmaf(__uint_as_float(gv.z << 16), ob.x, acc);
+        acc = fmaf(__uint_as_float(gv.z & 0xffff0000u), ob.y, acc);
+        acc = fmaf(__uint_as_float(gv.w << 16), ob.z, acc);
+        acc = fmaf(__uint_as_float(gv.w & 0xffff0000u), ob.w, acc);
+      }
+      drow[(size_t)row_q * Sq + qi] = acc;
+      l2 = lse[(size_t)row_q * Sq + qi] * kLog2e;
+    }
+    d_s[threadIdx.x] = acc;
+    lse_s[threadIdx.x] = l2;
+  }
+
+  float acc[DT][4];
 #pragma unroll
   for (int j = 0; j < DT; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf};                // row max, raw score units
-  float l[2] = {0.f, 0.f};                        // this lane's row sum shares
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float lse_r[2], d_r[2];
   const float sl2 = scale * kLog2e;
 
   for (int t = 0; t < n_kt; ++t) {
@@ -777,83 +701,62 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     if (t == 0) {
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        ldsm_x4(qf[ks], frag_a_addr<S>(Qs, warp * 16, ks * 16, lane));
+      for (int i = 0; i < 2; ++i) {
+        lse_r[i] = lse_s[warp * 16 + g + 8 * i];
+        d_r[i] = d_s[warp * 16 + g + 8 * i];
+      }
     }
 
-    // S = Q K^T (raw, unscaled), 16 rows x 64 keys a warp.
-    float s[NT][4];
+    // S = Q K^T and dP = dO V^T, 16 rows x 64 keys a warp.
+    float s[NT][4], dp[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qa[4], ga[4];
+      ldsm_x4(qa, frag_a_addr<S>(Qs, warp * 16, ks * 16, lane));
+      ldsm_x4(ga, frag_a_addr<S>(dOs, warp * 16, ks * 16, lane));
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t b[4];
         ldsm_x4(b, frag_b_addr<S>(Kt, np * 16, ks * 16, lane));
-        mma_bf16(s[2 * np], qf[ks], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], b[2], b[3]);
+        mma_bf16(s[2 * np], qa, b[0], b[1]);
+        mma_bf16(s[2 * np + 1], qa, b[2], b[3]);
+        ldsm_x4(b, frag_b_addr<S>(Vt, np * 16, ks * 16, lane));
+        mma_bf16(dp[2 * np], ga, b[0], b[1]);
+        mma_bf16(dp[2 * np + 1], ga, b[2], b[3]);
       }
     }
-    if (k0 + kMmaBK > Skv || (causal && k0 + kMmaBK - 1 > q0)) {
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kj = k0 + j * 8 + 2 * t4 + (e & 1);
-          const int qi = r0 + (e >> 1) * 8;
-          if (kj >= Skv || (causal && kj > qi)) s[j][e] = kNegInf;
-        }
-    }
-
-    // Online softmax in registers; a row's 4 lanes share its max by
-    // shuffles, and keep their own shares of its sum until the end.
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      alpha[i] = exp2f((m[i] - mx[i]) * sl2);
-      m[i] = mx[i];
-    }
+    // dS = P (dP - Drow), P = exp2(S scale log2(e) - lse log2(e)), 0 where
+    // the forward masked (only tiles that cross the diagonal or the edge).
+    const bool edge = k0 + kMmaBK > Skv || (causal && k0 + kMmaBK - 1 > q0);
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = exp2f((s[j][e] - m[e >> 1]) * sl2);
-        s[j][e] = p;
-        rs[e >> 1] += p;
+        const int kj = k0 + j * 8 + 2 * t4 + (e & 1);
+        const int qi = r0 + (e >> 1) * 8;
+        const bool ok = !edge || (kj < Skv && (!causal || kj <= qi));
+        const float p =
+            ok ? exp2f(fmaf(s[j][e], sl2, -lse_r[e >> 1])) : 0.f;
+        s[j][e] = p * (dp[j][e] - d_r[e >> 1]);
       }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
 
-    // O += P V, P as hi + lo bf16 A fragments straight from the scores.
+    // dQ += dS K, dS as hi + lo bf16 A fragments.
 #pragma unroll
     for (int kk = 0; kk < kMmaBK / 16; ++kk) {
-      uint32_t ph[4], pl[4];
-      acc_to_a_split(s[2 * kk], s[2 * kk + 1], ph, pl);
+      uint32_t hi[4], lo[4];
+      acc_to_a_split(s[2 * kk], s[2 * kk + 1], hi, lo);
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int np = 0; np < D / 16; ++np) {
         uint32_t b[4];
-        ldsm_x4_trans(b, frag_a_addr<S>(Vt, kk * 16, dp * 16, lane));
-        mma_bf16(o[2 * dp], ph, b[0], b[1]);
-        mma_bf16(o[2 * dp], pl, b[0], b[1]);
-        mma_bf16(o[2 * dp + 1], ph, b[2], b[3]);
-        mma_bf16(o[2 * dp + 1], pl, b[2], b[3]);
+        ldsm_x4_trans(b, frag_a_addr<S>(Kt, kk * 16, np * 16, lane));
+        mma_bf16(acc[2 * np], hi, b[0], b[1]);
+        mma_bf16(acc[2 * np], lo, b[0], b[1]);
+        mma_bf16(acc[2 * np + 1], hi, b[2], b[3]);
+        mma_bf16(acc[2 * np + 1], lo, b[2], b[3]);
       }
     }
     __syncthreads();                              // this buffer consumed
@@ -861,21 +764,14 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    l[i] = fmaxf(l[i], 1e-30f);
     const int qi = r0 + i * 8;
     if (qi >= Sq) continue;
-    const size_t base = ((size_t)row_q * Sq + qi) * D + 2 * t4;
+    const size_t base = qoff + (size_t)qi * D + 2 * t4;
 #pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      const float o0 = o[j][2 * i] / l[i], o1 = o[j][2 * i + 1] / l[i];
-      *reinterpret_cast<__nv_bfloat162*>(out + base + j * 8) =
-          __floats2bfloat162_rn(o0, o1);
-      if (out32 != nullptr)
-        *reinterpret_cast<float2*>(out32 + base + j * 8) = make_float2(o0, o1);
-    }
-    if (t4 == 0) lse[(size_t)row_q * Sq + qi] = m[i] * scale + logf(l[i]);
+    for (int j = 0; j < DT; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dq + base + j * 8) =
+          __floats2bfloat162_rn(acc[j][2 * i] * scale,
+                                acc[j][2 * i + 1] * scale);
   }
 }
 
@@ -1143,6 +1039,21 @@ cudaError_t launch_fwd_mma(const Args& a) {
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dq_mma(const Args& a) {
+  constexpr size_t smem = dq_mma_smem_bytes<D>();
+  const int n_qt = (a.sq + kMmaBQ - 1) / kMmaBQ;
+  if (n_qt > kMaxGridY) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(flash_dq_mma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  flash_dq_mma_kernel<D><<<dim3(a.bh, n_qt), kThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), a.out32,
+      static_cast<const bf16*>(a.dout), a.lse, a.drow,
+      static_cast<bf16*>(a.o0), a.sq, a.skv, a.group, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
 // The dK/dV kernel, then (group > 1) the reduction of its partials.
 template <int D>
 cudaError_t launch_dkdv_mma(const Args& a) {
@@ -1176,10 +1087,10 @@ template <typename T, int D>
 cudaError_t launch(int which, const Args& a) {
   if constexpr (std::is_same<T, bf16>::value) {
     if (which == kFwd) return launch_fwd_mma<D>(a);
-    if (which == kDkdv) return launch_dkdv_mma<D>(a);
-  }
-  cudaError_t err;
-  if constexpr (std::is_same<T, float>::value) {
+    if (which == kDq) return launch_dq_mma<D>(a);
+    return launch_dkdv_mma<D>(a);
+  } else {
+    cudaError_t err;
     if (which == kFwd) {
       constexpr size_t smem = fwd_smem_bytes<D>();
       err = allow_smem(flash_fwd_kernel<D>, smem);
@@ -1203,17 +1114,17 @@ cudaError_t launch(int which, const Args& a) {
           a.sq, a.skv, a.group, a.scale, a.causal);
       return cudaGetLastError();
     }
+    constexpr size_t smem = dq_smem_bytes<D>();
+    err = allow_smem(flash_dq_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((a.sq + kBQ - 1) / kBQ, a.bh);
+    flash_dq_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), a.out32,
+        static_cast<const float*>(a.dout), a.lse, a.drow,
+        static_cast<float*>(a.o0), a.sq, a.skv, a.group, a.scale, a.causal);
+    return cudaGetLastError();
   }
-  constexpr size_t smem = dq_smem_bytes<D>();
-  err = allow_smem(flash_dq_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.sq + kBQ - 1) / kBQ, a.bh);
-  flash_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.out32, static_cast<const T*>(a.dout),
-      a.lse, a.drow, static_cast<T*>(a.o0), a.sq, a.skv, a.group, a.scale,
-      a.causal);
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -1240,6 +1151,7 @@ cudaError_t dispatch(int which, int d, int dtype, const Args& a) {
 template <int D>
 long long smem_bytes(int which, int dtype) {
   if (dtype == kBF16 && which == kFwd) return fwd_mma_smem_bytes<D>();
+  if (dtype == kBF16 && which == kDq) return dq_mma_smem_bytes<D>();
   if (dtype == kBF16 && which == kDkdv) return dkdv_mma_smem_bytes<D>();
   if (which == kFwd) return fwd_smem_bytes<D>();
   if (which == kDkdv) return dkdv_smem_bytes<D>();
@@ -1251,7 +1163,8 @@ long long smem_bytes(int which, int dtype) {
 extern "C" {
 
 // q (bh, Sq, D), k/v (bh / group, Skv, D), out (bh, Sq, D), all contiguous
-// and of one dtype (0 f32, 1 bf16; bf16 pointers 16-byte aligned); lse
+// and of one dtype (0 f32, 1 bf16; bf16 pointers, and out32 for the bf16
+// dQ kernel, 16-byte aligned); lse
 // (bh, Sq) f32.  `out32`, when not NULL, receives the output in f32 before
 // its rounding to `out`'s dtype: the backward's row term rowsum(dO * O)
 // takes O unrounded, as autograd through the plain version does.  Each

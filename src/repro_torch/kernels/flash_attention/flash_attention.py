@@ -6,11 +6,12 @@ program becomes a hand-written CUDA kernel in ``csrc/flash_attention.cu``
 answers), which also writes each query row's log-sum-exp.  The reference
 has no backward kernel; here CUDA kernels compute dQ, and dK with dV, from
 the saved log-sum-exp, without atomics, so a gradient is the same bits on
-every run.  bf16 inputs take tensor-core kernels for the forward and for
-dK/dV (the latter per q head into f32 scratch that this wrapper allocates,
-then summed over the group in head order); f32 inputs, and dQ, run on the
-CUDA cores.  ``flash_attention`` is a ``torch.autograd.Function`` whose
-forward and backward are those kernels.
+every run.  bf16 inputs take tensor-core kernels for the forward, dQ and
+dK/dV (the last per q head into f32 scratch that this wrapper allocates,
+then summed over the group in head order), built from the tile code in
+``csrc/mma_tiles.cuh`` that K1 shares; f32 inputs run on the CUDA cores.
+``flash_attention`` is a ``torch.autograd.Function`` whose forward and
+backward are those kernels.
 
 Dispatch: a CUDA tensor launches the kernels or raises; a CPU tensor takes
 the plain version (``ref.flash_attention_ref``, differentiated by autograd)
@@ -32,10 +33,12 @@ from .ref import flash_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkdv", "LAUNCHES",
-           "SOURCES", "load_library"]
+           "SOURCES", "HEADERS", "load_library"]
 
-SOURCES = [os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "csrc", "flash_attention.cu")]
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+SOURCES = [os.path.join(_CSRC, "flash_attention.cu")]
+#: The bf16 tile code, shared with K1 (``kernels/prefill/csrc/prefill.cu``).
+HEADERS = [os.path.join(_CSRC, "mma_tiles.cuh")]
 
 #: Kernel launches by kernel name, since the counts were last set to 0.
 LAUNCHES: dict[str, int] = {"flash_attention_fwd": 0,
@@ -50,7 +53,7 @@ _INT_MAX = 2**31 - 1
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
     """Build (first use only) and load the flash-attention kernel library."""
-    lib = ctypes.CDLL(build_library("flash_attention", SOURCES))
+    lib = ctypes.CDLL(build_library("flash_attention", SOURCES, HEADERS))
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     shape = [i32, i32, i32, i32, i32, f32, i32, i32, vp]
     lib.flash_attention_fwd.argtypes = [vp] * 6 + shape
@@ -160,6 +163,9 @@ def flash_attention_bwd_dq(q, k, v, out32, lse, dout, *, causal: bool = True,
     rowsum(dO * O) is the dK/dV kernel's input."""
     bh, sq, skv, d = _check_bwd(q, k, v, lse, dout, group)
     _check_f32("out32", out32, q.shape, q.device)
+    if q.dtype == torch.bfloat16 and out32.data_ptr() % 16:
+        raise ValueError("K4's bf16 dQ kernel reads out32 16 bytes at a "
+                         "time; it does not start on a 16-byte boundary")
     dq = torch.empty_like(q)
     drow = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     _launch("flash_attention_bwd_dq", q.data_ptr(), k.data_ptr(),

@@ -13,20 +13,32 @@
 // What bounds it on the card: at the serve path's shapes (16 q heads, 2 KV
 // heads, D = 128, S up to 512 in bf16) the least time is about a
 // microsecond, and bytes (q, k, v read once, out written once) and bf16
-// tensor-core operations weigh about the same there.  This first version
-// does the arithmetic with plain f32 FMAs out of shared memory instead of
-// the tensor cores, so its own limit is the CUDA-core FMA rate and the
-// shared-memory reads feeding it; it is far from the bound and is meant to
-// be right first.  What the design does about it: one block per (q-head
-// row, tile of 64 query rows) gives 16 x S/64 blocks at the serve
-// shapes; the loop over K/V tiles stops at the diagonal (the causal half is
-// never loaded); each K/V tile is staged once in shared memory and reused by
-// all 64 query rows (and the same K/V rows serve all `group` q heads from
-// L2); each thread keeps an 8 x (D/16) accumulator in registers, so the
-// running output never goes back to device memory.  The TPU grid's
-// sequential K axis becomes that in-block loop.  S need not divide the tile
-// (the bucket is not a power of two when it is clamped to max_seq): the
-// ragged edge is masked, never padded.
+// tensor-core operations weigh about the same there.
+//
+// bf16 (the serve path) takes `prefill_flash_mma_kernel`: K4's bf16 forward
+// on the tensor cores (the body in
+// ../../flash_attention/csrc/mma_tiles.cuh, design notes at the top of
+// flash_attention.cu), causal with Sq == Skv == S, without the log-sum-exp
+// and the f32 copy of the output that K4's backward needs.  One difference
+// from the reference: it scales the f32 scores by 1/sqrt(D) instead of q
+// (a bf16 q cannot take the scale without rounding; at the x30 logits
+// scores near 900 would move by tenths).  At S = 512 its 16 x 8 blocks
+// are one wave on 132 SMs, the heaviest causal tiles first.
+//
+// f32 and f16 keep `prefill_flash_kernel`, which does the arithmetic with
+// plain f32 FMAs out of shared memory (the tensor cores take f32 only as
+// TF32, which the port keeps off, and no path runs f16): q pre-scaled in
+// f32 as the reference does, its own limit the CUDA-core FMA rate and the
+// shared-memory reads feeding it.  One block per (q-head row, tile of 64
+// query rows); the loop over K/V tiles stops at the diagonal (the causal
+// half is never loaded); each K/V tile is staged once in shared memory and
+// reused by all 64 query rows (and the same K/V rows serve all `group` q
+// heads from L2); each thread keeps an 8 x (D/16) accumulator in
+// registers, so the running output never goes back to device memory.
+//
+// In both, the TPU grid's sequential K axis becomes the in-block loop, and
+// S need not divide the tile (the bucket is not a power of two when it is
+// clamped to max_seq): the ragged edge is masked, never padded.
 //
 // K2 `prefill_cache_cast` replaces repro/kernels/prefill/prefill.py::
 // prefill_flash / _cache_kernel: K and V written once in the cache dtype
@@ -38,12 +50,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "mma_tiles.cuh"   // kThreads (128: 16 x 8 threads here), kNegInf
+
 namespace {
 
 constexpr int kBQ = 64;        // query rows a block holds
 constexpr int kBK = 64;        // keys a K/V tile holds
-constexpr int kThreads = 128;  // 16 x 8 threads; each owns 8 rows
-constexpr float kNegInf = -1e30f;
 
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
@@ -239,19 +253,60 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// Grid (B*Hq, ceil(S / kMmaBQ)); see attention_fwd_mma.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+prefill_flash_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ out,
+                         int S, int group, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  attention_fwd_mma<D>(smem_raw, q, k, v, out, nullptr, nullptr, S, S, group,
+                       scale, 1);
+}
+
+template <int D>
+cudaError_t launch_flash_mma(const void* q, const void* k, const void* v,
+                             void* out, int bh, int S, int group, float scale,
+                             cudaStream_t stream) {
+  constexpr size_t smem = fwd_mma_smem_bytes<D>();
+  const int n_qt = (S + kMmaBQ - 1) / kMmaBQ;
+  if (n_qt > 65535) return cudaErrorInvalidValue;   // grid y
+  cudaError_t err = cudaFuncSetAttribute(
+      prefill_flash_mma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  prefill_flash_mma_kernel<D><<<dim3(bh, n_qt), kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), S, group, scale);
+  return cudaGetLastError();
+}
+
+// bf16 on the tensor cores, f32 and f16 on the CUDA cores.
+template <typename T, int D>
+cudaError_t launch_by_type(const void* q, const void* k, const void* v,
+                           void* out, int bh, int S, int group, float scale,
+                           cudaStream_t stream) {
+  if constexpr (std::is_same<T, bf16>::value)
+    return launch_flash_mma<D>(q, k, v, out, bh, S, group, scale, stream);
+  else
+    return launch_flash<T, D>(q, k, v, out, bh, S, group, scale, stream);
+}
+
 template <typename T>
 cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v,
                               void* out, int bh, int S, int D, int group,
                               float scale, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch_flash<T, 16>(q, k, v, out, bh, S, group, scale, stream);
+      return launch_by_type<T, 16>(q, k, v, out, bh, S, group, scale, stream);
     case 32:
-      return launch_flash<T, 32>(q, k, v, out, bh, S, group, scale, stream);
+      return launch_by_type<T, 32>(q, k, v, out, bh, S, group, scale, stream);
     case 64:
-      return launch_flash<T, 64>(q, k, v, out, bh, S, group, scale, stream);
+      return launch_by_type<T, 64>(q, k, v, out, bh, S, group, scale, stream);
     case 128:
-      return launch_flash<T, 128>(q, k, v, out, bh, S, group, scale, stream);
+      return launch_by_type<T, 128>(q, k, v, out, bh, S, group, scale,
+                                    stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -298,8 +353,8 @@ cudaError_t dispatch_cast_out(const void* k, const void* v, void* kc,
 extern "C" {
 
 // q (bh, S, D), k/v (bh / group, S, D), out (bh, S, D), all contiguous and
-// of one dtype (0 f32, 1 bf16, 2 f16).  Returns the CUDA error of the launch
-// (0 on success).
+// of one dtype (0 f32, 1 bf16, 2 f16; bf16 pointers 16-byte aligned).
+// Returns the CUDA error of the launch (0 on success).
 int prefill_flash(const void* q, const void* k, const void* v, void* out,
                   int bh, int S, int D, int group, float scale, int dtype,
                   void* stream) {

@@ -1,11 +1,14 @@
 """Bucketed prefill kernels: causal flash attention + fused cache cast.
 
 Port of ``repro/kernels/prefill/prefill.py``.  The two Pallas programs
-become two hand-written CUDA kernels in ``csrc/prefill.cu`` (see the note
-at its top for what bounds them on the card and how the design answers):
+become hand-written CUDA kernels in ``csrc/prefill.cu`` (see the note at
+its top for what bounds them on the card and how the design answers):
 
   1. ``prefill_flash`` — the online-softmax causal flash recurrence,
-     GQA-native (q-head row // group picks the K/V row, no repeat),
+     GQA-native (q-head row // group picks the K/V row, no repeat): bf16 on
+     the tensor cores (K4's bf16 forward, from the tile code in
+     ``kernels/flash_attention/csrc/mma_tiles.cuh``), f32 and f16 on the
+     CUDA cores,
   2. ``cache_cast`` — the KV-handoff tensors written in the *cache* dtype,
      launched only when that differs from the input dtype.
 
@@ -26,10 +29,14 @@ import torch
 from ..build import build_library
 from .ref import cache_cast_ref, prefill_ref
 
-__all__ = ["prefill_flash", "cache_cast", "LAUNCHES", "SOURCES", "load_library"]
+__all__ = ["prefill_flash", "cache_cast", "LAUNCHES", "SOURCES", "HEADERS",
+           "load_library"]
 
-SOURCES = [os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "csrc", "prefill.cu")]
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SOURCES = [os.path.join(_HERE, "csrc", "prefill.cu")]
+#: K4's bf16 tile code, whose forward body the bf16 kernel wraps.
+HEADERS = [os.path.join(os.path.dirname(_HERE), "flash_attention", "csrc",
+                        "mma_tiles.cuh")]
 
 #: Kernel launches by kernel name, since the last ``LAUNCHES.clear()``.
 LAUNCHES: dict[str, int] = {"prefill_flash": 0, "cache_cast": 0}
@@ -41,7 +48,7 @@ _HEAD_DIMS = (16, 32, 64, 128)
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
     """Build (first use only) and load the prefill kernel library."""
-    lib = ctypes.CDLL(build_library("prefill", SOURCES))
+    lib = ctypes.CDLL(build_library("prefill", SOURCES, HEADERS))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.prefill_flash.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
                                   ctypes.c_float, i32, vp]
@@ -104,8 +111,8 @@ def prefill_flash(
 ):
     """Fused bucketed prefill: returns (out, k_cache, v_cache).
 
-    The kernel works in tiles of 64 query rows and 64 keys; S need not
-    divide them — it masks the ragged edge.  ``cache_dtype`` (default: input
+    The kernels work in tiles of 64 query rows and 64 keys; S need not
+    divide them — they mask the ragged edge.  ``cache_dtype`` (default: input
     dtype) is the storage dtype of the emitted handoff tensors."""
     bh, sq, d = q.shape
     bhkv, skv, _ = k.shape
@@ -120,6 +127,9 @@ def prefill_flash(
         raise ValueError(f"prefill_flash runs on cuda or cpu, not {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_cuda(name, t, q.device)
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"K1's bf16 kernel copies 16-byte rows; {name} "
+                             f"does not start on a 16-byte boundary")
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
     if v.shape != k.shape:

@@ -51,6 +51,20 @@ def _rand(shape, dtype, dev, seed=0):
     return torch.randn(shape, generator=g, device=dev).to(dtype)
 
 
+def _device_kernels(run) -> set[str]:
+    """Names of the device kernels that ``run()`` launches, from
+    ``torch.profiler``'s CUDA events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hq,hkv,d,s", [(2, 2, 16, 32), (4, 2, 16, 48),
                                         (16, 2, 128, 100), (8, 1, 64, 300)])
@@ -64,6 +78,51 @@ def test_prefill_flash_matches_plain(dev, hq, hkv, d, s, dtype):
     rtol, atol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
     assert kc is k and vc is v
+
+
+# Tile edges of K1's 64-row tiles in bf16 (the tensor-core kernel): S of 1,
+# 17, 63, 65, 127 and 129, groups 1, 2, 4 and 8, every compiled D.
+K1_EDGE_SHAPES = [(1, 1, 1, 16), (17, 2, 1, 128), (63, 4, 2, 32),
+                  (65, 8, 1, 16), (127, 8, 1, 128), (129, 2, 2, 64),
+                  (65, 4, 1, 64), (129, 16, 2, 128)]
+
+
+@pytest.mark.parametrize("s,hq,hkv,d", K1_EDGE_SHAPES)
+def test_prefill_flash_bf16_tile_edges_match_plain(dev, s, hq, hkv, d):
+    q = _rand((hq, s, d), torch.bfloat16, dev, 1)
+    k = _rand((hkv, s, d), torch.bfloat16, dev, 2)
+    v = _rand((hkv, s, d), torch.bfloat16, dev, 3)
+    before = pf.LAUNCHES["prefill_flash"]
+    out, _, _ = pf.prefill_flash(q, k, v, group=hq // hkv)
+    assert pf.LAUNCHES["prefill_flash"] == before + 1
+    ref, _, _ = prefill_ref(q, k, v, group=hq // hkv)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_prefill_flash_bf16_needs_16_byte_aligned_inputs(dev):
+    """The bf16 kernel copies rows 16 bytes at a time: an input that starts
+    off a 16-byte boundary raises instead of launching."""
+    flat = torch.zeros(4 * 16 * 16 + 1, dtype=torch.bfloat16, device=dev)
+    q = flat[1:].view(4, 16, 16)
+    assert q.is_contiguous()
+    k = torch.zeros((2, 16, 16), dtype=torch.bfloat16, device=dev)
+    before = dict(pf.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        pf.prefill_flash(q, k, k, group=2)
+    assert pf.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype,kernel", [
+    (torch.bfloat16, "prefill_flash_mma_kernel"),
+    (torch.float32, "prefill_flash_kernel")])
+def test_prefill_flash_launches_the_kernel_of_its_dtype(dev, dtype, kernel):
+    """bf16 on the tensor cores, f32 on the CUDA cores."""
+    q = _rand((16, 128, 128), dtype, dev, 1)
+    k, v = _rand((2, 128, 128), dtype, dev, 2), _rand((2, 128, 128), dtype,
+                                                      dev, 3)
+    names = _device_kernels(lambda: pf.prefill_flash(q, k, v, group=8))
+    assert [n for n in names if "prefill_flash" in n and kernel + "<" in n], \
+        names
 
 
 def test_cache_cast_is_bitwise_and_counted(dev):
@@ -286,6 +345,34 @@ def test_flash_attention_path_shape_bf16_matches_plain_and_is_bitwise(dev):
             assert torch.equal(a, b)
 
 
+def test_flash_dq_path_shape_bitwise_and_row_term(dev):
+    """The bf16 dQ kernel at the training path's shape: the same bits over
+    repeated runs, and its row term rowsum(dO * O) (the dK/dV kernel's
+    input) within f32 tolerance of torch's on the forward's f32 output."""
+    q, k, v = _k4_inputs(dev, 1, 1024, 1024, 16, 2, 128, torch.bfloat16)
+    dout = _rand(q.shape, torch.float32, dev, 27).to(torch.bfloat16)
+    _, lse, out32 = fa.flash_attention_fwd(q, k, v, group=8)
+    dq, drow = fa.flash_attention_bwd_dq(q, k, v, out32, lse, dout, group=8)
+    assert dq.dtype == torch.bfloat16 and drow.dtype == torch.float32
+    torch.testing.assert_close(drow, (dout.float() * out32).sum(-1),
+                               rtol=5e-4, atol=5e-5)
+    for _ in range(3):
+        again = fa.flash_attention_bwd_dq(q, k, v, out32, lse, dout, group=8)
+        assert torch.equal(dq, again[0]) and torch.equal(drow, again[1])
+
+
+@pytest.mark.parametrize("dtype,kernel", [
+    (torch.bfloat16, "flash_dq_mma_kernel"), (torch.float32, "flash_dq_kernel")])
+def test_flash_dq_launches_the_kernel_of_its_dtype(dev, dtype, kernel):
+    """bf16 on the tensor cores, f32 on the CUDA cores."""
+    q, k, v = _k4_inputs(dev, 1, 128, 128, 16, 2, 128, dtype)
+    dout = _rand(q.shape, torch.float32, dev, 28).to(dtype)
+    _, lse, out32 = fa.flash_attention_fwd(q, k, v, group=8)
+    names = _device_kernels(lambda: fa.flash_attention_bwd_dq(
+        q, k, v, out32, lse, dout, group=8))
+    assert [n for n in names if kernel + "<" in n], names
+
+
 def test_flash_attention_bf16_needs_16_byte_aligned_inputs(dev):
     """The bf16 kernels copy rows 16 bytes at a time: an input that starts
     off a 16-byte boundary raises instead of launching."""
@@ -295,6 +382,11 @@ def test_flash_attention_bf16_needs_16_byte_aligned_inputs(dev):
     k = torch.zeros((2, 16, 16), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_attention(q, k, k)
+    _, lse, out32 = fa.flash_attention_fwd(k, k, k)
+    flat = torch.zeros(out32.numel() + 1, device=dev)
+    off32 = flat[1:].view(out32.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_bwd_dq(k, k, k, off32, lse, k)
 
 
 def test_flash_attention_raises_instead_of_falling_back(dev):
