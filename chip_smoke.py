@@ -20,7 +20,8 @@ Phases, each of which exits non-zero when it fails:
                build's ``-Xptxas -v`` report and its ``HMMA`` count from
                ``cuobjdump -sass`` (no spill, HMMA > 0); then both timed at
                the serve path's shapes beside the plain version, PyTorch's
-               own call for the same function, and the card's bound,
+               own call for the same function, and the card's bound (K1 and
+               SDPA also by their kernels' device time, ``device_ms``),
   4. model   — full-width Qwen2-1.5B in f32 from ``Model.init(seed)``:
                prefill logits on the kernel path against ``use_pallas=False``
                for one prompt of length 100 (bucket 128), greedy first tokens
@@ -75,7 +76,8 @@ Phases, each of which exits non-zero when it fails:
                ``-Xptxas -v`` report and their ``HMMA`` count from
                ``cuobjdump -sass`` (no spill, HMMA > 0); each kernel
                timed at the path's shape beside the plain version, PyTorch's
-               SDPA (forward; backward) and the card's bound,
+               SDPA (forward; backward) and the card's bound, and by its
+               kernels' device time beside SDPA's,
  11. train   — full-width Qwen2-1.5B training at seq 1024: one f32 grain's
                loss and gradients on the kernel path against
                ``use_pallas=False`` (loss rtol 1e-4, each gradient leaf
@@ -205,6 +207,27 @@ def time_ms(torch, fn, iters: int = 20, reps: int = 7,
         end.synchronize()
         per_call.append(start.elapsed_time(end) / iters)
     return sorted(per_call)[reps // 2]
+
+
+def device_ms(torch, fn, iters: int = 20, warmup: int = 5) -> float:
+    """Device milliseconds per call: the durations of the kernels (and
+    copies) that ``iters`` calls launch, as CUPTI records them through
+    ``torch.profiler``, over ``iters``.  Unlike ``time_ms`` it leaves out
+    the host's gaps between launches, which set ``time_ms`` where a call's
+    host work outlasts its kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(r.self_device_time_total for r in prof.key_averages()
+               if r.device_type == DeviceType.CUDA) / 1e3 / iters
 
 
 def check_close(torch, name, got, want, dtype_name, tol=TOL) -> float:
@@ -448,6 +471,10 @@ def card_busy(torch, run, kernels=("matmul_kernel",),
     for r in ranked[:top]:
         print(f"[profile] {r.self_device_time_total / 1e6:.4f} s in {r.count} "
               f"calls: {r.key[:110]}", flush=True)
+    for r in ranked if top else ():
+        if any(k in r.key for k in kernels):
+            print(f"[profile] of those: {r.self_device_time_total / 1e6:.4f} s "
+                  f"in {r.count} calls: {r.key[:80]}", flush=True)
     return wall_s, busy, mine
 
 
@@ -509,7 +536,8 @@ def build_report(build_logs, lib, path, names, smem_bytes) -> dict[str, dict]:
     """``kernel_build_report`` of the kernels in ``names`` from library
     ``lib`` (built at ``path`` by this run), with each instantiation's
     dynamic shared memory (``smem_bytes(name, head_dim)``) added; fails if
-    one of them spills or an instantiation at D = 128 has no ``HMMA``."""
+    one of them is missing (a template at D = 128), spills, or has no
+    ``HMMA`` at D = 128."""
     if lib not in build_logs:
         fail(f"no ptxas report for {lib} (the library was not built by this "
              f"run)")
@@ -525,8 +553,11 @@ def build_report(build_logs, lib, path, names, smem_bytes) -> dict[str, dict]:
         if info.get("spill_stores", 1) or info.get("spill_loads", 1):
             fail(f"{name} spills registers: {json.dumps(info)}")
     for n in names:
-        if f"{n}<128>" in report and report[f"{n}<128>"]["hmma"] == 0:
-            fail(f"{n}<128> has no HMMA instruction in its SASS")
+        key = f"{n}<128>" if f"{n}<128>" in report else n
+        if key not in report:
+            fail(f"no {n} (or {n}<128>) in the ptxas report of {lib}")
+        if key != n and report[key]["hmma"] == 0:
+            fail(f"{key} has no HMMA instruction in its SASS")
     return report
 
 
@@ -659,8 +690,6 @@ def main() -> int:
             0, d, 1)))
     for name, info in sorted(k1_build.items()):
         print(f"[kernels] build {name}: {json.dumps(info)}", flush=True)
-    if "prefill_flash_mma_kernel<128>" not in k1_build:
-        fail("K1: no prefill_flash_mma_kernel<128> in the ptxas report")
     for s, hq, hkv, d in ((1, 1, 1, 16), (17, 2, 1, 128), (63, 4, 2, 32),
                           (65, 8, 1, 16), (127, 8, 1, 128), (129, 2, 2, 64),
                           (65, 4, 1, 64), (129, 16, 2, 128)):
@@ -695,11 +724,15 @@ def main() -> int:
     for s in (16, 32, 64, 128, 256, 512):
         q = rand((16, s, 128), torch.bfloat16)
         k, v = rand((2, s, 128), torch.bfloat16), rand((2, s, 128), torch.bfloat16)
+        lib = library_attention(torch, q, k, v)
         row = {
             "S": s,
             "ms": time_ms(torch, lambda: pf.prefill_flash(q, k, v, group=8)),
             "plain_ms": time_ms(torch, lambda: prefill_ref(q, k, v, group=8)),
-            "library_ms": time_ms(torch, library_attention(torch, q, k, v)),
+            "library_ms": time_ms(torch, lib),
+            "device_ms": device_ms(torch, lambda: pf.prefill_flash(
+                q, k, v, group=8)),
+            "library_device_ms": device_ms(torch, lib),
         }
         row["bound_ms"], row["bound_by"] = flash_bound_ms(16, s, 128, 2, 2,
                                                           "bfloat16")
@@ -1087,9 +1120,6 @@ def main() -> int:
             K4_BF16_KERNELS.index(name.split("<")[0]), d, 1)))
     for name, info in sorted(k4_build.items()):
         print(f"[k4] build {name}: {json.dumps(info)}", flush=True)
-    for name in K4_BF16_KERNELS[:3]:
-        if f"{name}<128>" not in k4_build:
-            fail(f"K4: no {name}<128> in the ptxas report")
 
     k4_err = {"fwd": 0.0, "dq": 0.0, "dkdv": 0.0}
     k4_cases = [(2, 128, 128, 4, 2, 64, 1.0), (1, 256, 256, 2, 2, 32, 1.0),
@@ -1204,6 +1234,19 @@ def main() -> int:
                      q, k, v, lse, dout, drow, group=8)),
                  "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms},
     }
+    lib_bwd_device_ms = device_ms(torch, lambda: torch.autograd.grad(
+        lib_out, lib_leaves, dout[None], retain_graph=True))
+    for part, fn, lib_ms in (
+            ("fwd", lambda: fa.flash_attention_fwd(q, k, v, group=8),
+             device_ms(torch, library_attention(torch, q, k, v))),
+            ("dq", lambda: fa.flash_attention_bwd_dq(q, k, v, out32, lse, dout,
+                                                     group=8),
+             lib_bwd_device_ms),
+            ("dkdv", lambda: fa.flash_attention_bwd_dkdv(q, k, v, lse, dout,
+                                                         drow, group=8),
+             lib_bwd_device_ms)):
+        k4_rows[part]["device_ms"] = device_ms(torch, fn)
+        k4_rows[part]["library_device_ms"] = lib_ms
     k4_rows["fwd"]["build"] = k4_build["flash_fwd_mma_kernel<128>"]
     k4_rows["dq"]["build"] = k4_build["flash_dq_mma_kernel<128>"]
     k4_rows["dkdv"]["build"] = {
@@ -1634,7 +1677,8 @@ def main() -> int:
          "launches_by_path": per_kernel["prefill_flash"], "max_abs_err": k1_err,
          "ms": k1_row["ms"], "plain_ms": k1_row["plain_ms"],
          "bound_ms": k1_row["bound_ms"], "bound_by": k1_row["bound_by"],
-         "library_ms": k1_row["library_ms"],
+         "library_ms": k1_row["library_ms"], "device_ms": k1_row["device_ms"],
+         "library_device_ms": k1_row["library_device_ms"],
          "build": k1_build["prefill_flash_mma_kernel<128>"]},
         {"name": "cache_cast", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/prefill/prefill.py:145",
@@ -1664,6 +1708,8 @@ def main() -> int:
          "bound_ms": k4_rows[part]["bound_ms"],
          "bound_by": k4_rows[part]["bound_by"],
          "library_ms": k4_rows[part]["library_ms"],
+         "device_ms": k4_rows[part]["device_ms"],
+         "library_device_ms": k4_rows[part]["library_device_ms"],
          "build": k4_rows[part].get("build")}
         for name, part in zip(K4_KERNELS, ("fwd", "dq", "dkdv"), strict=True)
     ] + [

@@ -7,9 +7,8 @@ header's directory; a header is never compiled on its own).  The library
 lands in ``kernels/_build/`` (listed in ``.gitignore``) under a name keyed
 by the sources' and headers' content and the compiler flags, so an edited
 source or header is rebuilt and an unchanged one is loaded as it is.  The
-compiler's
-``-Xptxas -v`` report (registers, shared memory, spills per kernel) is kept
-beside the library as ``<name>.log``.
+compiler's ``-Xptxas -v`` report (registers, shared memory, spills per
+kernel) is kept beside the library as ``<name>.log``.
 """
 
 from __future__ import annotations
