@@ -2,7 +2,7 @@
 """``chip_smoke.py``'s phase 5 serve alone, from a given checkout, to compare
 two checkouts on one card.
 
-    python3 scripts/serve_ab.py SRC [REPEATS]
+    python3 scripts/serve_ab.py SRC [REPEATS] [--after-profiler]
 
 Imports ``repro_torch`` from ``SRC`` (a checkout's ``src`` directory),
 serves full-width bf16 Qwen2-1.5B (weights from seed 0) to 8 requests of
@@ -11,8 +11,11 @@ serves full-width bf16 Qwen2-1.5B (weights from seed 0) to 8 requests of
 ``REPEATS`` times (default 2), and prints for each timed run the host wall
 (ended by ``torch.cuda.synchronize()``), tokens/s and the host seconds spent
 in the engines' prefill and step calls.  Run it from each checkout in turns
-(parent, change, change, parent), each in its own process.  Needs a CUDA
-device.
+(parent, change, change, parent), each in its own process.  With
+``--after-profiler`` a ``torch.profiler`` session with CUDA tracing (one
+small kernel) runs first, as ``chip_smoke.py``'s timings before phase 5
+do, to show whether such a session changes the serve's host time.  Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -21,9 +24,10 @@ import sys
 import time
 
 
-def main(src: str, repeats: int) -> None:
+def main(src: str, repeats: int, after_profiler: bool) -> None:
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     sys.path.insert(0, src)
     from repro_torch.cluster import Cluster, ServeJob
@@ -51,6 +55,11 @@ def main(src: str, repeats: int) -> None:
 
     for name in spent:
         setattr(DecodeEngine, name, timed(name))
+    if after_profiler:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            torch.ones(8, device="cuda").mul_(2)
+            torch.cuda.synchronize()
     for run in range(repeats + 1):
         requests = [Request(rid=i, prompt=p, max_new_tokens=16)
                     for i, p in enumerate(prompts)]
@@ -63,6 +72,8 @@ def main(src: str, repeats: int) -> None:
         wall = time.perf_counter() - t0
         n_tok = sum(len(r.out_tokens) for r in requests)
         label = "warm-up" if run == 0 else f"run {run}"
+        if after_profiler:
+            label += " after a profiler session"
         print(f"{src} {label}: {n_tok} tokens in {wall:.3f} s wall -> "
               f"{n_tok / wall:.2f} tokens/s; prefill {spent['prefill']:.3f} s, "
               f"step {spent['step']:.3f} s ({torch.cuda.get_device_name(0)})",
@@ -70,6 +81,8 @@ def main(src: str, repeats: int) -> None:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) not in (2, 3):
+    args = [a for a in sys.argv[1:] if a != "--after-profiler"]
+    if len(args) not in (1, 2):
         sys.exit(__doc__)
-    main(sys.argv[1], int(sys.argv[2]) if len(sys.argv) == 3 else 2)
+    main(args[0], int(args[1]) if len(args) == 2 else 2,
+         "--after-profiler" in sys.argv)
