@@ -21,7 +21,8 @@ Phases, each of which exits non-zero when it fails:
                ``cuobjdump -sass`` (no spill, HMMA > 0); then both timed at
                the serve path's shapes beside the plain version, PyTorch's
                own call for the same function, and the card's bound (K1 and
-               SDPA also by their kernels' device time, ``device_ms``),
+               SDPA also by their kernels' device time, ``device_ms``,
+               taken in phase 10, after the serve phases),
   4. model   — full-width Qwen2-1.5B in f32 from ``Model.init(seed)``:
                prefill logits on the kernel path against ``use_pallas=False``
                for one prompt of length 100 (bucket 128), greedy first tokens
@@ -685,9 +686,7 @@ def main() -> int:
     k1_build = build_report(
         build_logs, "prefill", pf.load_library()._name,
         ("prefill_flash_mma_kernel",),
-        # the forward's body and shared memory, from the header K4 shares
-        lambda name, d: int(fa.load_library().flash_attention_smem_bytes(
-            0, d, 1)))
+        lambda name, d: int(pf.load_library().prefill_smem_bytes(d, 1)))
     for name, info in sorted(k1_build.items()):
         print(f"[kernels] build {name}: {json.dumps(info)}", flush=True)
     for s, hq, hkv, d in ((1, 1, 1, 16), (17, 2, 1, 128), (63, 4, 2, 32),
@@ -720,7 +719,9 @@ def main() -> int:
           flush=True)
 
     # Timings at the serve path's shapes: Hq=16, Hkv=2, D=128, bf16.
-    sweep = []
+    # Their device times come after the serve phases (phase 10): the serve's
+    # wall is not taken after a profiler session.
+    k1_sweep, k1_inputs = [], []
     for s in (16, 32, 64, 128, 256, 512):
         q = rand((16, s, 128), torch.bfloat16)
         k, v = rand((2, s, 128), torch.bfloat16), rand((2, s, 128), torch.bfloat16)
@@ -730,16 +731,14 @@ def main() -> int:
             "ms": time_ms(torch, lambda: pf.prefill_flash(q, k, v, group=8)),
             "plain_ms": time_ms(torch, lambda: prefill_ref(q, k, v, group=8)),
             "library_ms": time_ms(torch, lib),
-            "device_ms": device_ms(torch, lambda: pf.prefill_flash(
-                q, k, v, group=8)),
-            "library_device_ms": device_ms(torch, lib),
         }
         row["bound_ms"], row["bound_by"] = flash_bound_ms(16, s, 128, 2, 2,
                                                           "bfloat16")
-        sweep.append(row)
+        k1_sweep.append(row)
+        k1_inputs.append((q, k, v))
         print(f"[kernels] K1 bf16 Hq=16 Hkv=2 D=128 S={s}: "
               + json.dumps(row), flush=True)
-    k1_row = sweep[-1]
+    k1_row = k1_sweep[-1]
     k2_bytes = 2 * k32.numel() * (4 + 2)
     k2 = {
         "ms": time_ms(torch, lambda: pf.cache_cast(k32, v32, torch.bfloat16)),
@@ -1101,6 +1100,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --------------------------------------------------------------- 10. K4
+    # First phase 3's K1 sweep by device time, beside SDPA's.
+    for row, (q, k, v) in zip(k1_sweep, k1_inputs):
+        row["device_ms"] = device_ms(torch, lambda: pf.prefill_flash(
+            q, k, v, group=8))
+        row["library_device_ms"] = device_ms(
+            torch, library_attention(torch, q, k, v))
+        print(f"[k4] K1 bf16 Hq=16 Hkv=2 D=128 S={row['S']} by device time: "
+              f"{row['device_ms']:.6f} ms, SDPA {row['library_device_ms']:.6f}"
+              f" ms", flush=True)
+    del k1_inputs
+
     # K4's forward and backward against their plain versions on the card
     # (the forward directly, the backward against autograd through it): the
     # reference's kernel-test shapes (tests/test_kernels.py: causal and not,

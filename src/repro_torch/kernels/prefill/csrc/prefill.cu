@@ -293,6 +293,12 @@ cudaError_t launch_by_type(const void* q, const void* k, const void* v,
     return launch_flash<T, D>(q, k, v, out, bh, S, group, scale, stream);
 }
 
+// The dynamic shared memory a launch of the dtype's kernel asks for.
+template <int D>
+size_t smem_bytes(int dtype) {
+  return dtype == kBF16 ? fwd_mma_smem_bytes<D>() : flash_smem_bytes<D>();
+}
+
 template <typename T>
 cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v,
                               void* out, int bh, int S, int D, int group,
@@ -389,6 +395,19 @@ int prefill_cache_cast(const void* k, const void* v, void* kc, void* vc,
       return dispatch_cast_out<__half>(k, v, kc, vc, n, out_dtype, st);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory of prefill_flash's kernel for head_dim d and dtype
+// (codes as above), in bytes; -1 for an unsupported d or dtype.
+long long prefill_smem_bytes(int d, int dtype) {
+  if (dtype != kF32 && dtype != kBF16 && dtype != kF16) return -1;
+  switch (d) {
+    case 16: return smem_bytes<16>(dtype);
+    case 32: return smem_bytes<32>(dtype);
+    case 64: return smem_bytes<64>(dtype);
+    case 128: return smem_bytes<128>(dtype);
+    default: return -1;
   }
 }
 

@@ -56,6 +56,8 @@ def load_library() -> ctypes.CDLL:
     lib.prefill_cache_cast.argtypes = [vp, vp, vp, vp, ctypes.c_int64, i32,
                                        i32, vp]
     lib.prefill_cache_cast.restype = i32
+    lib.prefill_smem_bytes.argtypes = [i32, i32]
+    lib.prefill_smem_bytes.restype = ctypes.c_longlong
     lib.prefill_error_string.argtypes = [i32]
     lib.prefill_error_string.restype = ctypes.c_char_p
     return lib
