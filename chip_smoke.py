@@ -21,8 +21,8 @@ Phases, each of which exits non-zero when it fails:
                ``cuobjdump -sass`` (no spill, HMMA > 0); then both timed at
                the serve path's shapes beside the plain version, PyTorch's
                own call for the same function, and the card's bound (K1 and
-               SDPA also by their kernels' device time, ``device_ms``,
-               taken in phase 10, after the serve phases),
+               SDPA, K2 and ``.to`` also by their kernels' device time,
+               ``device_ms``, taken in phase 15, after the serve phases),
   4. model   — full-width Qwen2-1.5B in f32 from ``Model.init(seed)``:
                prefill logits on the kernel path against ``use_pallas=False``
                for one prompt of length 100 (bucket 128), greedy first tokens
@@ -40,9 +40,13 @@ Phases, each of which exits non-zero when it fails:
                reference's kernel sweep and the paper path's (2, 1000, 1000),
                (1000, 1000, 1000) and (2, 4096, 4096); every 2-row slice of a
                1000-square product and 64 seeded row offsets at n = 4096
-               equal K3's full product bit for bit; K3 timed at the three
-               path shapes beside its plain version, ``torch.matmul`` and
-               the card's bound,
+               equal K3's full product bit for bit (the slices run the
+               8-column strip tile for M <= 16, the full products the
+               64 x 64 tile); both tiles' registers, shared memory and
+               spills from the build's ``-Xptxas -v`` report (a spill
+               fails); K3 timed at the three path shapes beside its plain
+               version, ``torch.matmul`` and the card's bound (device times
+               in phase 15),
   7. paper   — the quickstart on the card: the paper's 9-machine fleet
                multiplies two 1000-square f32 matrices three times through
                ``Cluster.simulate(MatmulJob(..., matmul_fn=ops.matmul))``:
@@ -77,8 +81,11 @@ Phases, each of which exits non-zero when it fails:
                ``-Xptxas -v`` report and their ``HMMA`` count from
                ``cuobjdump -sass`` (no spill, HMMA > 0); each kernel
                timed at the path's shape beside the plain version, PyTorch's
-               SDPA (forward; backward) and the card's bound, and by its
-               kernels' device time beside SDPA's,
+               SDPA (forward; backward) and the card's bound, in bf16 and,
+               for the f32 route (``flash_fwd_kernel``, ``flash_dq_kernel``,
+               ``flash_dkdv_kernel``), in f32 beside SDPA in f32 with TF32
+               off and the f32 bound at 67 TFLOP/s (device times in phase
+               15),
  11. train   — full-width Qwen2-1.5B training at seq 1024: one f32 grain's
                loss and gradients on the kernel path against
                ``use_pallas=False`` (loss rtol 1e-4, each gradient leaf
@@ -99,10 +106,15 @@ Phases, each of which exits non-zero when it fails:
                in its place and against the sequential oracle, f32 and bf16,
                at the reference's kernel-test shapes, chunks 16/32/64/96,
                S = 90 and dt x 100 (finite); at the serving path's shape
-               (xdt (80, 512, 64), B/C (1, 512, 128), chunk 256) checked,
-               bitwise equal over two runs and timed beside its plain
-               version and the card's bound (no PyTorch call computes the
-               scan, so there is no library time),
+               (xdt (80, 512, 64), B/C (1, 512, 128), chunk 256) checked and
+               bitwise equal over two runs; the bf16 tensor-core kernel at
+               the edges of its tiles (S of 1 to 257, P of 8 to 72, N of 4
+               to 128, groups of 1 to 80 heads), its own output against the
+               plain version and the sequential oracle; its registers,
+               spills, shared memory and ``HMMA`` count (no spill, HMMA >
+               0); timed at the path's shape beside its plain version and
+               the card's bound (no PyTorch call computes the scan, so
+               there is no library time; device time in phase 15),
  13. mamba model — full-width Mamba2-2.7B in f32 from ``Model.init(seed)``:
                prefill of one prompt of length 100 (bucket 128) on the kernel
                path against ``use_pallas=False``: logits within the f32
@@ -114,7 +126,17 @@ Phases, each of which exits non-zero when it fails:
                tokens, 8 handoffs, K5 launched exactly 8 x 64 times; the
                host wall split, tokens/s and the card's busy share in a
                profiled repeat; K5 held against its plain version on the
-               inputs it got from each bucket.
+               inputs it got from each bucket,
+ 15. device  — each kernel's device time (the profiler's kernel durations)
+               beside PyTorch's call for the same function: K1 and SDPA at
+               phase 3's sweep, K2 and ``.to``, K3 and ``torch.matmul`` at
+               the three path shapes, K4's kernels in bf16 and f32 and
+               SDPA's forward and backward, K5; after every serve phase, so
+               no profiler session of these precedes phases 5 and 14, and
+               in a process of its own (``chip_smoke.py --device-times``,
+               seeded inputs of the same shapes): after the serve and
+               training phases the profiler loses most events of the
+               kernels launched through ctypes.
 
 Phases 4, 5, 7, 8, 9, 11, 13 and 14 are the main path: the kernels' launch counts
 are set to 0 just before each of their runs and read just after it; the
@@ -445,7 +467,7 @@ def grain_split(client_cls, matmul_fn):
         client_cls.matmul_block = saved
 
 
-def card_busy(torch, run, kernels=("matmul_kernel",),
+def card_busy(torch, run, kernels=("matmul_kernel", "matmul_strip_kernel"),
               top: int = 0) -> tuple[float, float, float]:
     """Run ``run()`` under ``torch.profiler`` with CUDA tracing; return its
     host wall seconds (profiler overhead included), the card's seconds in
@@ -492,15 +514,22 @@ def print_busy(card, label, wall_s, busy_s, k3_s, unprofiled_s,
 
 def kernel_build_report(log_text: str, sass_text: str,
                         names: tuple[str, ...]) -> dict[str, dict]:
-    """Per instantiation of the kernels in ``names`` (``name<D>``): registers,
-    spill bytes and stack frame from an ``nvcc -Xptxas -v`` report, and the
-    count of ``HMMA`` (tensor-core) instructions in its SASS from
-    ``cuobjdump -sass``."""
+    """Per instantiation of the kernels in ``names`` (``name<D>`` for an
+    int template argument, ``name<float>`` or ``name<bf16>`` for a dtype):
+    registers, static shared memory, spill bytes and stack frame from an
+    ``nvcc -Xptxas -v`` report, and the count of ``HMMA`` (tensor-core)
+    instructions in its SASS from ``cuobjdump -sass``."""
     def key(mangled):
         for n in names:
             if n in mangled:
                 d = re.search(n + r"ILi(\d+)E", mangled)
-                return f"{n}<{d.group(1)}>" if d else n
+                if d:
+                    return f"{n}<{d.group(1)}>"
+                if re.search(n + r"IfE", mangled):
+                    return f"{n}<float>"
+                if re.search(n + r"I13__nv_bfloat16E", mangled):
+                    return f"{n}<bf16>"
+                return n
         return None
 
     report, cur = {}, None
@@ -522,6 +551,9 @@ def kernel_build_report(log_text: str, sass_text: str,
         m = re.search(r"Used (\d+) registers", line)
         if m:
             report[cur]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            report[cur]["static_smem_bytes"] = int(m.group(1))
     cur = None
     for line in sass_text.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -533,12 +565,16 @@ def kernel_build_report(log_text: str, sass_text: str,
     return report
 
 
-def build_report(build_logs, lib, path, names, smem_bytes) -> dict[str, dict]:
+def build_report(build_logs, lib, path, names, smem_bytes,
+                 main=None) -> dict[str, dict]:
     """``kernel_build_report`` of the kernels in ``names`` from library
     ``lib`` (built at ``path`` by this run), with each instantiation's
-    dynamic shared memory (``smem_bytes(name, head_dim)``) added; fails if
-    one of them is missing (a template at D = 128), spills, or has no
-    ``HMMA`` at D = 128."""
+    dynamic shared memory (``smem_bytes(name, int argument)``) added; fails
+    if one of them spills, or if the instantiation the path runs is
+    missing or, for a tensor-core kernel, has no ``HMMA``.  ``main`` maps a
+    name to that instantiation and whether it must hold ``HMMA``; by
+    default ``name<128>`` (the head dim) with ``HMMA``, else ``name``
+    without."""
     if lib not in build_logs:
         fail(f"no ptxas report for {lib} (the library was not built by this "
              f"run)")
@@ -554,10 +590,11 @@ def build_report(build_logs, lib, path, names, smem_bytes) -> dict[str, dict]:
         if info.get("spill_stores", 1) or info.get("spill_loads", 1):
             fail(f"{name} spills registers: {json.dumps(info)}")
     for n in names:
-        key = f"{n}<128>" if f"{n}<128>" in report else n
+        key, hmma = (main or {}).get(n) or (
+            (f"{n}<128>", True) if f"{n}<128>" in report else (n, False))
         if key not in report:
-            fail(f"no {n} (or {n}<128>) in the ptxas report of {lib}")
-        if key != n and report[key]["hmma"] == 0:
+            fail(f"no {key} in the ptxas report of {lib}")
+        if hmma and report[key]["hmma"] == 0:
             fail(f"{key} has no HMMA instruction in its SASS")
     return report
 
@@ -568,6 +605,85 @@ def library_attention(torch, q, k, v):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q4, k4, v4 = q[None], k[None], v[None]
     return lambda: sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)
+
+
+def device_times() -> dict[str, dict[str, float]]:
+    """Phase 15, run in a process of its own: each kernel's device time
+    (``device_ms``) and that of PyTorch's call for the same function, on
+    seeded inputs of the shapes the main path gives it, keyed as the rows
+    of ``main`` are."""
+    import torch
+
+    sys.path.insert(0, SRC)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.mamba_scan import mamba_scan as k5
+    from repro_torch.kernels.matmul.ops import matmul as k3_matmul
+    from repro_torch.kernels.prefill import prefill as pf
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(dtype)
+
+    def pair(fn, lib_fn):
+        return {"device_ms": device_ms(torch, fn),
+                "library_device_ms": device_ms(torch, lib_fn)}
+
+    out = {}
+    for s in (16, 32, 64, 128, 256, 512):
+        q = rand((16, s, 128), torch.bfloat16)
+        k, v = rand((2, s, 128), torch.bfloat16), rand((2, s, 128),
+                                                      torch.bfloat16)
+        out[f"k1_{s}"] = pair(lambda: pf.prefill_flash(q, k, v, group=8),
+                              library_attention(torch, q, k, v))
+    k32, v32 = rand((2, 128, 128), torch.float32), rand((2, 128, 128),
+                                                        torch.float32)
+    out["k2"] = pair(lambda: pf.cache_cast(k32, v32, torch.bfloat16),
+                     lambda: (k32.to(torch.bfloat16), v32.to(torch.bfloat16)))
+    for m, kk, n in ((2, 1000, 1000), (1000, 1000, 1000), (2, 4096, 4096)):
+        x = rand((m, kk), torch.float32).mul_(kk ** -0.25)
+        y = rand((kk, n), torch.float32).mul_(kk ** -0.25)
+        out[f"k3_{m}_{kk}_{n}"] = pair(lambda: k3_matmul(x, y),
+                                       lambda: torch.matmul(x, y))
+        del x, y
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for dname, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        q = rand((16, TRAIN_SEQ, 128), dt)
+        k, v = rand((2, TRAIN_SEQ, 128), dt), rand((2, TRAIN_SEQ, 128), dt)
+        dout = rand(q.shape, dt)
+        _, lse, out32 = fa.flash_attention_fwd(q, k, v, group=8)
+        _, drow = fa.flash_attention_bwd_dq(q, k, v, out32, lse, dout,
+                                            group=8)
+        leaves = [t[None].clone().requires_grad_(True) for t in (q, k, v)]
+        lib_out = sdpa(*leaves, is_causal=True, enable_gqa=True)
+        lib_bwd = device_ms(torch, lambda: torch.autograd.grad(
+            lib_out, leaves, dout[None], retain_graph=True))
+        out[f"k4_fwd_{dname}"] = pair(
+            lambda: fa.flash_attention_fwd(q, k, v, group=8),
+            library_attention(torch, q, k, v))
+        out[f"k4_dq_{dname}"] = {
+            "device_ms": device_ms(torch, lambda: fa.flash_attention_bwd_dq(
+                q, k, v, out32, lse, dout, group=8)),
+            "library_device_ms": lib_bwd}
+        out[f"k4_dkdv_{dname}"] = {
+            "device_ms": device_ms(torch, lambda: fa.flash_attention_bwd_dkdv(
+                q, k, v, lse, dout, drow, group=8)),
+            "library_device_ms": lib_bwd}
+    # K5 at the serving path's shape, with phase 12's input recipe.
+    x = rand((80, 512, 64), torch.float32)
+    dtv = rand((80, 512), torch.float32).abs() * 0.1 + 0.01
+    xdt = (x * dtv[..., None]).to(torch.bfloat16)
+    la = dtv * -(rand((80,), torch.float32).abs() + 0.1)[:, None]
+    bg, cg = rand((1, 512, 128), torch.bfloat16), rand((1, 512, 128),
+                                                       torch.bfloat16)
+    out["k5"] = {"device_ms": device_ms(torch, lambda: k5.ssd_scan(
+        xdt, la, bg, cg, chunk=256, rep=80))}
+    return out
 
 
 def main() -> int:
@@ -721,7 +837,7 @@ def main() -> int:
     # Timings at the serve path's shapes: Hq=16, Hkv=2, D=128, bf16.
     # Their device times come after the serve phases (phase 10): the serve's
     # wall is not taken after a profiler session.
-    k1_sweep, k1_inputs = [], []
+    k1_sweep = []
     for s in (16, 32, 64, 128, 256, 512):
         q = rand((16, s, 128), torch.bfloat16)
         k, v = rand((2, s, 128), torch.bfloat16), rand((2, s, 128), torch.bfloat16)
@@ -735,7 +851,6 @@ def main() -> int:
         row["bound_ms"], row["bound_by"] = flash_bound_ms(16, s, 128, 2, 2,
                                                           "bfloat16")
         k1_sweep.append(row)
-        k1_inputs.append((q, k, v))
         print(f"[kernels] K1 bf16 Hq=16 Hkv=2 D=128 S={s}: "
               + json.dumps(row), flush=True)
     k1_row = k1_sweep[-1]
@@ -913,6 +1028,15 @@ def main() -> int:
           "product and 64 seeded offsets at n = 4096 bitwise equal to the "
           "full product", flush=True)
     del x, y, full
+
+    # K3's two tiles as built: registers, static shared memory, spills.
+    k3_build = build_report(
+        build_logs, "matmul", mm.load_library()._name,
+        ("matmul_strip_kernel", "matmul_kernel"), lambda name, d: 0,
+        main={n: (f"{n}<float>", False) for n in ("matmul_strip_kernel",
+                                                  "matmul_kernel")})
+    for name, info in sorted(k3_build.items()):
+        print(f"[matmul] build {name}: {json.dumps(info)}", flush=True)
 
     k3_rows = []
     for mm_, kk, nn in path_shapes:
@@ -1100,17 +1224,6 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --------------------------------------------------------------- 10. K4
-    # First phase 3's K1 sweep by device time, beside SDPA's.
-    for row, (q, k, v) in zip(k1_sweep, k1_inputs):
-        row["device_ms"] = device_ms(torch, lambda: pf.prefill_flash(
-            q, k, v, group=8))
-        row["library_device_ms"] = device_ms(
-            torch, library_attention(torch, q, k, v))
-        print(f"[k4] K1 bf16 Hq=16 Hkv=2 D=128 S={row['S']} by device time: "
-              f"{row['device_ms']:.6f} ms, SDPA {row['library_device_ms']:.6f}"
-              f" ms", flush=True)
-    del k1_inputs
-
     # K4's forward and backward against their plain versions on the card
     # (the forward directly, the backward against autograd through it): the
     # reference's kernel-test shapes (tests/test_kernels.py: causal and not,
@@ -1244,19 +1357,6 @@ def main() -> int:
                      q, k, v, lse, dout, drow, group=8)),
                  "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms},
     }
-    lib_bwd_device_ms = device_ms(torch, lambda: torch.autograd.grad(
-        lib_out, lib_leaves, dout[None], retain_graph=True))
-    for part, fn, lib_ms in (
-            ("fwd", lambda: fa.flash_attention_fwd(q, k, v, group=8),
-             device_ms(torch, library_attention(torch, q, k, v))),
-            ("dq", lambda: fa.flash_attention_bwd_dq(q, k, v, out32, lse, dout,
-                                                     group=8),
-             lib_bwd_device_ms),
-            ("dkdv", lambda: fa.flash_attention_bwd_dkdv(q, k, v, lse, dout,
-                                                         drow, group=8),
-             lib_bwd_device_ms)):
-        k4_rows[part]["device_ms"] = device_ms(torch, fn)
-        k4_rows[part]["library_device_ms"] = lib_ms
     k4_rows["fwd"]["build"] = k4_build["flash_fwd_mma_kernel<128>"]
     k4_rows["dq"]["build"] = k4_build["flash_dq_mma_kernel<128>"]
     k4_rows["dkdv"]["build"] = {
@@ -1275,6 +1375,43 @@ def main() -> int:
           flush=True)
     del q, k, v, out32, lse, dout, drow, plain_leaves, plain_out, lib_leaves
     del lib_out, first, again
+
+    # K4's f32 route (the f32 grain check's kernels: flash_fwd_kernel,
+    # flash_dq_kernel, flash_dkdv_kernel) at the same shape, beside SDPA in
+    # f32 with TF32 off and the f32 bound at 67 TFLOP/s.
+    q, k, v = k4_inputs(1, TRAIN_SEQ, TRAIN_SEQ, 16, 2, 128, torch.float32)
+    _, lse, out32 = fa.flash_attention_fwd(q, k, v, group=8)
+    dout = rand(q.shape, torch.float32)
+    _, drow = fa.flash_attention_bwd_dq(q, k, v, out32, lse, dout, group=8)
+    lib_leaves = [t[None].clone().requires_grad_(True) for t in (q, k, v)]
+    lib_out = sdpa(*lib_leaves, is_causal=True, enable_gqa=True)
+    plain_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    plain_out = flash_attention_ref(*plain_leaves, group=8)
+    plain_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        plain_out, plain_leaves, dout, retain_graph=True), iters=5, reps=3)
+    lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, lib_leaves, dout[None], retain_graph=True))
+    k4_f32 = {
+        "fwd": {"ms": time_ms(torch, lambda: fa.flash_attention_fwd(
+                    q, k, v, group=8), iters=5),
+                "plain_ms": time_ms(torch, lambda: flash_attention_ref(
+                    q, k, v, group=8), iters=5, reps=3),
+                "library_ms": time_ms(torch, library_attention(torch, q, k,
+                                                               v))},
+        "dq": {"ms": time_ms(torch, lambda: fa.flash_attention_bwd_dq(
+                   q, k, v, out32, lse, dout, group=8), iters=5),
+               "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms},
+        "dkdv": {"ms": time_ms(torch, lambda: fa.flash_attention_bwd_dkdv(
+                     q, k, v, lse, dout, drow, group=8), iters=5),
+                 "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms},
+    }
+    for part, row in k4_f32.items():
+        row["bound_ms"], row["bound_by"] = k4_bound_ms(
+            16, 2, TRAIN_SEQ, TRAIN_SEQ, 128, 4, "float32", True, part)
+        print(f"[k4] {card}: {part} f32 q (16, 1024, 128) k/v (2, 1024, 128) "
+              f"causal: " + json.dumps(row), flush=True)
+    del q, k, v, out32, lse, dout, drow, lib_leaves, lib_out, plain_leaves
+    del plain_out
 
     # ------------------------------------------- 11. train (the main path)
     def check_k4_launches(path: str, n_grains: int) -> dict[str, int]:
@@ -1529,6 +1666,53 @@ def main() -> int:
         print(f"[k5] xdt (80, 512, 64), B/C (1, 512, 128), chunk 256 "
               f"{dname}: max abs err {err:.3e}; two runs bitwise equal",
               flush=True)
+    # K5's bf16 kernel at the edges of its tiles (128-row query and 64-row
+    # key tiles, a 64-column P tile, N padded to 32, 64 or 128, chunks cut
+    # short, groups of 1 to 80 heads): its own output, before the op adds
+    # the D skip, against the plain version and the sequential oracle.
+    # (b, s, h, p, g, n, chunk)
+    for b_, s_, h_, p_, g_, n_, chunk in (
+            (1, 1, 80, 64, 1, 128, 256), (1, 17, 2, 8, 2, 16, 16),
+            (1, 63, 4, 16, 2, 32, 32), (1, 65, 8, 32, 1, 64, 64),
+            (1, 255, 80, 64, 1, 128, 256), (1, 257, 4, 64, 2, 128, 256),
+            (2, 65, 2, 24, 2, 48, 32), (1, 257, 8, 40, 1, 100, 128),
+            (1, 129, 2, 72, 1, 128, 64), (1, 90, 4, 8, 2, 4, 32)):
+        name = (f"K5 bf16 tile edge (b, s, h, p, g, n) ({b_}, {s_}, {h_}, "
+                f"{p_}, {g_}, {n_}) chunk {chunk}")
+        e_x, e_dt, e_a, e_b, e_c, _ = ssd_inputs(b_, s_, h_, p_, g_, n_,
+                                                 torch.bfloat16)
+        e_xdt, e_la, e_bg, e_cg, e_bf, e_cf = ssd_flat(e_x, e_dt, e_a, e_b,
+                                                       e_c)
+        before = k5.LAUNCHES["ssd_scan"]
+        y, hf = k5.ssd_scan(e_xdt, e_la, e_bg, e_cg, chunk=chunk,
+                            rep=h_ // g_)
+        torch.cuda.synchronize()
+        if k5.LAUNCHES["ssd_scan"] != before + 1:
+            fail(f"{name}: ssd_scan did not launch K5")
+        ry, rh = ssd_scan_plain(e_xdt, e_la, e_bf, e_cf, chunk=chunk)
+        gy, gh = ssd_scan_ref(e_xdt, e_la, e_bf, e_cf)
+        err = max(check_close(torch, f"{name} y", y, ry, "bfloat16"),
+                  check_close(torch, f"{name} state", hf, rh, "bfloat16"))
+        check_close(torch, f"{name} y vs the sequential oracle", y, gy,
+                    "bfloat16")
+        check_close(torch, f"{name} state vs the sequential oracle", hf, gh,
+                    "bfloat16")
+        k5_err = max(k5_err, err)
+        print(f"[k5] {name}: max abs err {err:.3e} (plain version); within "
+              f"tolerance of the sequential oracle", flush=True)
+    del e_x, e_dt, e_a, e_b, e_c, e_xdt, e_la, e_bg, e_cg, e_bf, e_cf
+
+    # K5's bf16 tensor-core kernel as built.
+    k5_build = build_report(
+        build_logs, "mamba_scan", k5.load_library()._name,
+        ("ssd_scan_mma_kernel",),
+        lambda name, nb: int(k5.load_library().ssd_scan_smem_bytes(
+            1, 16 * nb, 256)),
+        main={"ssd_scan_mma_kernel": ("ssd_scan_mma_kernel<8>", True)})
+    for name, info in sorted(k5_build.items()):
+        print(f"[k5] build {name} (shared memory at chunk 256): "
+              f"{json.dumps(info)}", flush=True)
+
     k5_row = {
         "ms": time_ms(torch, lambda: k5.ssd_scan(xdt, la, bg, cg, chunk=256,
                                                  rep=80)),
@@ -1538,6 +1722,7 @@ def main() -> int:
     }
     k5_row["bound_ms"], k5_row["bound_by"] = k5_bound_ms(80, 1, 512, 64, 128,
                                                          256, 2, "bfloat16")
+    k5_row["build"] = k5_build["ssd_scan_mma_kernel<8>"]
     print(f"[k5] {card}: bf16 xdt (80, 512, 64), B/C (1, 512, 128), chunk "
           f"256: " + json.dumps(k5_row), flush=True)
     del x, dtv, a, bm, cm, xdt, la, bg, cg, bf, cf, y, hf, again, ry, rh
@@ -1666,9 +1851,45 @@ def main() -> int:
     torch.cuda.empty_cache()
     print_busy(card, "8 requests x 16 tokens", *card_busy(
         torch, lambda: Cluster(fleet_spec).serve(mamba_job()),
-        kernels=("ssd_scan_kernel",), top=8), wall_s, tag="mamba-serve",
-        kernel="K5")
+        kernels=("ssd_scan_kernel", "ssd_scan_mma_kernel"), top=8), wall_s,
+        tag="mamba-serve", kernel="K5")
     del model, params
+
+    # ------------------------------------------------------ 15. device times
+    # Each kernel's device time (the profiler's kernel durations, which
+    # leave out the host's gaps between launches) beside PyTorch's call for
+    # the same function, after every serve phase, in a process of its own:
+    # after this run's serve and training phases the profiler loses most of
+    # the events of kernels launched through ctypes.
+    dev_times = json.loads(subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--device-times"],
+        capture_output=True, text=True, timeout=600,
+        check=True).stdout.strip().splitlines()[-1])
+    for row in k1_sweep:
+        row.update(dev_times[f"k1_{row['S']}"])
+    k2.update(dev_times["k2"])
+    for row in k3_rows:
+        row.update(dev_times["k3_{}_{}_{}".format(*row["shape"])])
+    for dname, rows in (("bf16", k4_rows), ("f32", k4_f32)):
+        for part, row in rows.items():
+            row.update(dev_times[f"k4_{part}_{dname}"])
+    k5_row.update(dev_times["k5"])
+    for s, row in zip((16, 32, 64, 128, 256, 512), k1_sweep, strict=True):
+        print(f"[device] K1 bf16 Hq=16 Hkv=2 D=128 S={s}: "
+              f"{row['device_ms']:.6f} ms, SDPA {row['library_device_ms']:.6f}"
+              f" ms", flush=True)
+    print(f"[device] K2 f32->bf16 (2, 128, 128) x2: {k2['device_ms']:.6f} ms, "
+          f".to {k2['library_device_ms']:.6f} ms", flush=True)
+    for row in k3_rows:
+        print(f"[device] K3 f32 {row['shape']}: {row['device_ms']:.6f} ms, "
+              f"torch.matmul {row['library_device_ms']:.6f} ms", flush=True)
+    for dname, rows in (("bf16", k4_rows), ("f32", k4_f32)):
+        for part, row in rows.items():
+            print(f"[device] K4 {part} {dname} q (16, 1024, 128) k/v (2, "
+                  f"1024, 128): {row['device_ms']:.6f} ms, SDPA "
+                  f"{row['library_device_ms']:.6f} ms", flush=True)
+    print(f"[device] K5 bf16 xdt (80, 512, 64), B/C (1, 512, 128): "
+          f"{k5_row['device_ms']:.6f} ms", flush=True)
 
     per_kernel = {key: {path: counts[key] for path, counts in by_path.items()}
                   for key in by_path["model"]}
@@ -1696,7 +1917,8 @@ def main() -> int:
          "launches_by_path": per_kernel["cache_cast"], "max_abs_err": k2_err,
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": "bytes",
-         "library_ms": k2["library_ms"]},
+         "library_ms": k2["library_ms"], "device_ms": k2["device_ms"],
+         "library_device_ms": k2["library_device_ms"]},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/matmul/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul/matmul.py:66",
@@ -1705,7 +1927,10 @@ def main() -> int:
          "max_abs_err": max(k3_err.values()), "shape": k3_row["shape"],
          "ms": k3_row["ms"], "plain_ms": k3_row["plain_ms"],
          "bound_ms": k3_row["bound_ms"], "bound_by": k3_row["bound_by"],
-         "library_ms": k3_row["library_ms"]},
+         "library_ms": k3_row["library_ms"], "device_ms": k3_row["device_ms"],
+         "library_device_ms": k3_row["library_device_ms"],
+         "at_path_shapes": k3_rows,
+         "build": k3_build["matmul_strip_kernel<float>"]},
     ] + [
         {"name": name, "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -1720,7 +1945,7 @@ def main() -> int:
          "library_ms": k4_rows[part]["library_ms"],
          "device_ms": k4_rows[part]["device_ms"],
          "library_device_ms": k4_rows[part]["library_device_ms"],
-         "build": k4_rows[part].get("build")}
+         "build": k4_rows[part].get("build"), "f32": k4_f32[part]}
         for name, part in zip(K4_KERNELS, ("fwd", "dq", "dkdv"), strict=True)
     ] + [
         {"name": "ssd_scan", "route": "cuda",
@@ -1731,7 +1956,8 @@ def main() -> int:
          "shape": [[80, 512, 64], [1, 512, 128]],
          "ms": k5_row["ms"], "plain_ms": k5_row["plain_ms"],
          "bound_ms": k5_row["bound_ms"], "bound_by": k5_row["bound_by"],
-         "library_ms": k5_row["library_ms"]},
+         "library_ms": k5_row["library_ms"], "device_ms": k5_row["device_ms"],
+         "build": k5_row["build"]},
     ]}
     print(f"[card] {card}")
     print(json.dumps(kernels))
@@ -1741,4 +1967,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--device-times"]:
+        print(json.dumps(device_times()))
+        sys.exit(0)
     sys.exit(main())

@@ -1,8 +1,13 @@
 """Mamba-2 SSD chunked scan, kernel K5: the mamba layers' prefill scan.
 
 Port of ``repro/kernels/mamba_scan/mamba_scan.py``.  The Pallas program
-becomes a hand-written CUDA kernel in ``csrc/mamba_scan.cu`` (see the note
-at its top for what bounds it on the card and how the design answers).  It
+becomes hand-written CUDA kernels in ``csrc/mamba_scan.cu`` (see the notes
+there for what bounds them on the card and how the designs answer): bf16
+inputs take ``ssd_scan_mma_kernel``, its four products on the tensor cores
+from the tile helpers K1 and K4 share
+(``../flash_attention/csrc/mma_tiles.cuh``), with the f32 decayed scores,
+``xdt`` times its decays and the carried state entering as hi + lo bf16
+terms; f32 inputs take ``ssd_scan_kernel``, f32 FMAs on the CUDA cores.  It
 reads B and C per group (``rep`` heads share a row), where the reference's
 kernel route repeats them per head, and it masks a last chunk shorter than
 ``chunk``, where the reference's wrapper requires S to divide.
@@ -26,10 +31,14 @@ import torch
 from ..build import build_library
 from .ref import ssd_scan_plain
 
-__all__ = ["ssd_scan", "LAUNCHES", "SOURCES", "load_library", "MAX_N"]
+__all__ = ["ssd_scan", "LAUNCHES", "SOURCES", "HEADERS", "load_library",
+           "MAX_N"]
 
-SOURCES = [os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "csrc", "mamba_scan.cu")]
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SOURCES = [os.path.join(_HERE, "csrc", "mamba_scan.cu")]
+#: The bf16 tile header K1 and K4 share, included by the bf16 kernel.
+HEADERS = [os.path.join(os.path.dirname(_HERE), "flash_attention", "csrc",
+                        "mma_tiles.cuh")]
 
 #: Kernel launches by kernel name, since the counts were last set to 0.
 LAUNCHES: dict[str, int] = {"ssd_scan": 0}
@@ -43,10 +52,12 @@ _INT_MAX = 2**31 - 1
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
     """Build (first use only) and load the SSD-scan kernel library."""
-    lib = ctypes.CDLL(build_library("mamba_scan", SOURCES))
+    lib = ctypes.CDLL(build_library("mamba_scan", SOURCES, HEADERS))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.ssd_scan.argtypes = [vp] * 6 + [i32] * 7 + [vp]
     lib.ssd_scan.restype = i32
+    lib.ssd_scan_smem_bytes.argtypes = [i32, i32, i32]
+    lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
     lib.ssd_scan_error_string.argtypes = [i32]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -114,8 +125,14 @@ def ssd_scan(
         raise TypeError(f"la must be floating point, got {la.dtype}")
     if n > MAX_N:
         raise ValueError(f"state width N={n} above the compiled {MAX_N}")
-    lib = load_library()
     xdt, b, c = xdt.contiguous(), b.contiguous(), c.contiguous()
+    if xdt.dtype == torch.bfloat16:
+        for name, t in (("xdt", xdt), ("b", b), ("c", c)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"K5's bf16 kernel copies 16-byte pieces; "
+                                 f"{name} does not start on a 16-byte "
+                                 f"boundary")
+    lib = load_library()
     la = la.to(torch.float32).contiguous()
     y = torch.empty_like(xdt)
     state = torch.empty((bh, p, n), dtype=torch.float32, device=xdt.device)

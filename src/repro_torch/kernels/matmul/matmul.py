@@ -3,9 +3,11 @@
 Port of ``repro/kernels/matmul/matmul.py``.  The Pallas program becomes a
 hand-written CUDA kernel in ``csrc/matmul.cu`` (see the note at its top for
 what bounds it on the card, how the design answers, and why its rows are
-bitwise independent of how the product is sliced).  It has one compiled
-64 x 64 tile and masks ragged edges itself, so any shape runs without
-padding and no block sizes are passed.
+bitwise independent of how the product is sliced).  It has two compiled
+tiles, chosen by M inside the launch: 8-column strips for M <= 16 (the
+TDA's 2- and 3-row grains) and 64 x 64 tiles above; both run the same
+multiply-add chain per output element.  It masks ragged edges itself, so
+any shape runs without padding and no block sizes are passed.
 
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor takes
 the plain version (``ref.py``), the port's counterpart of interpret mode.

@@ -2,10 +2,11 @@
 
 Port of ``repro/kernels/matmul/ops.py``.  The Pallas wrapper pads x and y to
 MXU-aligned tiles, picks its blocks by shape bucket (autotune registry or
-256/256/512) and slices the result back.  The CUDA kernel has one compiled
-tile and masks the ragged edges itself, so nothing is padded and no block
-sizes are taken: a K-reduction order that followed the shape would break
-the bitwise row-slice invariance the TDA's 2-row grains rely on.
+256/256/512) and slices the result back.  The CUDA kernel picks its tile by
+M itself, runs one k-order chain per output element in either, and masks
+the ragged edges, so nothing is padded and no block sizes are taken: a
+K-reduction order that followed the shape would break the bitwise
+row-slice invariance the TDA's 2-row grains rely on.
 """
 
 from __future__ import annotations

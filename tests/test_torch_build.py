@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.mamba_scan import mamba_scan as k5
 from repro_torch.kernels.prefill import prefill as pf
 
 torch.set_num_threads(1)
@@ -58,3 +59,14 @@ def test_k1_and_k4_libraries_are_keyed_by_the_shared_header(wrapper):
         build.library_path("x", wrapper.SOURCES)
     assert hdr not in build.compile_args("x.so", wrapper.SOURCES,
                                          wrapper.HEADERS)
+
+
+def test_k5_library_is_keyed_by_the_shared_header():
+    """K5's bf16 kernel takes its tile helpers from the same header: its
+    source includes it by name and its library key covers it."""
+    assert k5.HEADERS == fa.HEADERS
+    (src,) = k5.SOURCES
+    with open(src) as f:
+        assert f'#include "{os.path.basename(k5.HEADERS[0])}"' in f.read()
+    assert build.library_path("x", k5.SOURCES, k5.HEADERS) != \
+        build.library_path("x", k5.SOURCES)

@@ -185,6 +185,48 @@ def test_matmul_kernel_row_slices_are_bitwise(dev):
         assert torch.equal(matmul(x[lo:lo + 2], y), full[lo:lo + 2]), lo
 
 
+# K3's two tiles: 8-column strips for M <= 16 (the TDA's grains), 64 x 64
+# above.  Ragged N of 37 (no row on a 16-byte boundary: plain loads) and
+# 1000 (16-byte rows: cp.async) at K of 1, 31, 32, 33 (ragged and exact K
+# tiles), 1000 and 4096 (the path's depths).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [37, 1000])
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 1000, 4096])
+@pytest.mark.parametrize("m", [1, 2, 3, 16])
+def test_matmul_strip_tile_matches_plain(dev, m, k, n, dtype):
+    x = (_rand((m, k), torch.float32, dev, 16) * k ** -0.25).to(dtype)
+    y = (_rand((k, n), torch.float32, dev, 17) * k ** -0.25).to(dtype)
+    out = matmul(x, y)
+    assert out.dtype == dtype and out.shape == (m, n)
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(out.float(), matmul_ref(x, y).float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(1000, 1000), (96, 37), (33, 200)])
+def test_matmul_strip_rows_equal_the_64_tile_rows_bitwise(dev, k, n, dtype):
+    """Slices of 1 to 16 rows (the strip tile) equal the rows of the full
+    130-row product (the 64 x 64 tile) bit for bit."""
+    x = _rand((130, k), torch.float32, dev, 18).to(dtype)
+    y = _rand((k, n), torch.float32, dev, 19).to(dtype)
+    full = matmul(x, y)
+    for rows in (1, 2, 3, 16):
+        for lo in (0, 1, 63, 64, 130 - rows):
+            assert torch.equal(matmul(x[lo:lo + rows], y),
+                               full[lo:lo + rows]), (rows, lo)
+
+
+@pytest.mark.parametrize("m,kernel", [(2, "matmul_strip_kernel"),
+                                      (16, "matmul_strip_kernel"),
+                                      (17, "matmul_kernel<")])
+def test_matmul_launches_the_tile_of_its_m(dev, m, kernel):
+    x = _rand((m, 256), torch.float32, dev, 20)
+    y = _rand((256, 256), torch.float32, dev, 21)
+    names = _device_kernels(lambda: matmul(x, y))
+    assert [n for n in names if kernel in n], names
+
+
 def test_matmul_kernel_raises_instead_of_falling_back(dev):
     x = torch.zeros((4, 4), dtype=torch.float64, device=dev)
     with pytest.raises(TypeError, match="f32 or bf16"):
@@ -464,8 +506,9 @@ def _ssd_plain(x, dt, a, bm, cm, d, chunk):
     bf, cf = (torch.repeat_interleave(t, rep, 2).transpose(1, 2)
               .reshape(b * h, s, n) for t in (bm, cm))
     y, hf = ssd_scan_plain(xdt, la, bf, cf, chunk=chunk)
-    y = y.reshape(b, h, s, p).transpose(1, 2) + \
-        x * d[None, None, :, None].to(x.dtype)
+    y = y.reshape(b, h, s, p).transpose(1, 2)
+    if d is not None:
+        y = y + x * d[None, None, :, None].to(x.dtype)
     return y, hf.reshape(b, h, p, n), (xdt, la, bf, cf)
 
 
@@ -520,6 +563,64 @@ def test_ssd_scan_kernel_decay_stability_and_bitwise(dev):
         again = ssd(x, dt, a, bm, cm, d, chunk=256)
         assert all(torch.equal(u, v) for u, v in zip(first, again,
                                                      strict=True))
+
+
+# K5's bf16 kernel (the tensor cores) at the edges of its tiles: S of 1, 17,
+# 63, 65, 255 and 257 (128-row query and 64-row key tiles, chunks cut
+# short), P of 8 to 72 (a 64-column P tile, two at 72), N of 4 to 128
+# (padded to 32, 64 or 128; N = 4 has no row on a 16-byte boundary), rep of
+# 1, 2, 8 and 80.  (b, s, h, p, g, n, chunk).
+K5_EDGES = [(1, 1, 80, 64, 1, 128, 256), (1, 17, 2, 8, 2, 16, 16),
+            (1, 63, 4, 16, 2, 32, 32), (1, 65, 8, 32, 1, 64, 64),
+            (1, 255, 80, 64, 1, 128, 256), (1, 257, 4, 64, 2, 128, 256),
+            (2, 65, 2, 24, 2, 48, 32), (1, 257, 8, 40, 1, 100, 128),
+            (1, 129, 2, 72, 1, 128, 64), (1, 90, 4, 8, 2, 4, 32)]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", K5_EDGES)
+def test_ssd_scan_bf16_tile_edges_match_plain_and_oracle(dev, b, s, h, p, g,
+                                                         n, chunk):
+    """K5's own output (before the op adds the D skip, whose bf16 sum can
+    cancel y down to a few ulps of its size) against its plain version and
+    the sequential oracle."""
+    x, dt, a, bm, cm, _ = _ssd_inputs(dev, b, s, h, p, g, n, torch.bfloat16)
+    _, _, (xdt, la, bf, cf) = _ssd_plain(x, dt, a, bm, cm, None, chunk)
+    bg, cg = (t.transpose(1, 2).reshape(b * g, s, n) for t in (bm, cm))
+    before = k5.LAUNCHES["ssd_scan"]
+    y, hf = k5.ssd_scan(xdt, la, bg, cg, chunk=chunk, rep=h // g)
+    assert k5.LAUNCHES["ssd_scan"] == before + 1
+    rtol, atol = TOL[torch.bfloat16]
+    for want_y, want_h in (ssd_scan_plain(xdt, la, bf, cf, chunk=chunk),
+                           ssd_scan_ref(xdt, la, bf, cf)):
+        torch.testing.assert_close(y.float(), want_y.float(), rtol=rtol,
+                                   atol=atol)
+        torch.testing.assert_close(hf, want_h, rtol=rtol, atol=atol)
+
+
+def test_ssd_scan_bf16_needs_16_byte_aligned_inputs(dev):
+    """The bf16 kernel copies 16-byte pieces: an input that starts off a
+    16-byte boundary raises instead of launching."""
+    flat = torch.zeros(2 * 16 * 8 + 1, dtype=torch.bfloat16, device=dev)
+    xdt = flat[1:].view(2, 16, 8)
+    assert xdt.is_contiguous()
+    la = torch.zeros((2, 16), device=dev)
+    bc = torch.zeros((2, 16, 16), dtype=torch.bfloat16, device=dev)
+    before = k5.LAUNCHES["ssd_scan"]
+    with pytest.raises(ValueError, match="16-byte"):
+        k5.ssd_scan(xdt, la, bc, bc)
+    assert k5.LAUNCHES["ssd_scan"] == before
+    k5.ssd_scan(xdt.clone(), la, bc, bc)
+    assert k5.LAUNCHES["ssd_scan"] == before + 1
+
+
+@pytest.mark.parametrize("dtype,kernel", [
+    (torch.bfloat16, "ssd_scan_mma_kernel"), (torch.float32,
+                                              "ssd_scan_kernel<")])
+def test_ssd_scan_launches_the_kernel_of_its_dtype(dev, dtype, kernel):
+    """bf16 on the tensor cores, f32 on the CUDA cores."""
+    x, dt, a, bm, cm, d = _ssd_inputs(dev, 1, 64, 4, 64, 1, 128, dtype)
+    names = _device_kernels(lambda: ssd(x, dt, a, bm, cm, d, chunk=32))
+    assert [n for n in names if kernel in n], names
 
 
 def test_ssd_scan_kernel_raises_instead_of_falling_back(dev):

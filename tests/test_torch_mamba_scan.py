@@ -8,9 +8,11 @@ version on the CPU) against the reference's Pallas kernel in interpret
 mode; both shapes in f32 and bf16, chunk invariance, a non-divisible S,
 the ``h0`` continuation and the ``dt x 100`` decay stability.  K5's plain
 version and the sequential oracle are held against the reference's
-``ssd_scan(interpret=True)`` and ``ssd_scan_ref``.  Tolerances are the
-reference's (``tests/test_kernels.py:20-23``): f32 rtol 5e-4 / atol 5e-5,
-bf16 2e-2.
+``ssd_scan(interpret=True)`` and ``ssd_scan_ref``.  A plain-torch model
+of K5's bf16 tensor-core arithmetic is held against the reference's
+chunked scan and Pallas kernel, and shows which of its f32 operands must
+enter the bf16 products as two terms.  Tolerances are the reference's
+(``tests/test_kernels.py:20-23``): f32 rtol 5e-4 / atol 5e-5, bf16 2e-2.
 """
 
 import jax.numpy as jnp
@@ -24,7 +26,11 @@ from repro.kernels.mamba_scan.ops import ssd_chunked_jnp
 from repro.kernels.mamba_scan.ref import ssd_scan_ref as jax_scan_ref
 from repro_torch.kernels.mamba_scan import mamba_scan as k5
 from repro_torch.kernels.mamba_scan.ops import ssd, ssd_chunked
-from repro_torch.kernels.mamba_scan.ref import ssd_scan_plain, ssd_scan_ref
+from repro_torch.kernels.mamba_scan.ref import (
+    prefix_sum,
+    ssd_scan_plain,
+    ssd_scan_ref,
+)
 from repro_torch.models.bridge import tensor_from_numpy
 
 # One intra-op thread: a torch file on one test worker must not take every
@@ -236,3 +242,137 @@ def test_chunk_none_takes_the_fallback():
         y, hf = ssd(*tin, chunk=None, use_pallas=use_pallas)
         y128, h128 = ssd(*tin, chunk=128, use_pallas=use_pallas)
         assert torch.equal(y, y128) and torch.equal(hf, h128)
+
+
+# ------------------------------------------ K5's bf16 kernel, its rounding
+# A plain-torch model of the arithmetic of K5's bf16 kernel
+# (csrc/mamba_scan.cu, ``ssd_scan_mma_kernel``): every product has bf16
+# operands and an f32 sum; B, C and xdt arrive in bf16, so the Gram C Bᵀ
+# and the xdt operand are exact; the three f32 operands, the decayed scores
+# S, xdt ⊙ exp(cum_last - cum) and the carried state h0, enter as two bf16
+# terms (hi = bf16(v), lo = bf16(v - hi)).  Per chunk: y = exp(cum) (C
+# h0ᵀ) first, then S xdt over 64-key tiles; h = exp(cum_last) h0, then (xdt
+# w)ᵀ B over 64-key tiles.  The prefix sum is ``prefix_sum``'s.
+K5_TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+def _split(v):
+    hi = v.to(torch.bfloat16).float()
+    return hi + (v - hi).to(torch.bfloat16).float()
+
+
+def _once(v):
+    return v.to(torch.bfloat16).float()
+
+
+def _k5_bf16_model(xdt, la, b, c, *, chunk, round_s=_split,
+                   round_xw=_split, round_h=_split):
+    """(y in bf16, state f32) as K5's bf16 kernel forms them, on the
+    (BH, S, .) layout with B and C per head."""
+    bh, s, p = xdt.shape
+    h = torch.zeros((bh, p, b.shape[-1]))
+    y = torch.empty((bh, s, p))
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, min(c0 + chunk, s))
+        x, bm, cm = xdt[:, sl].float(), b[:, sl].float(), c[:, sl].float()
+        cum = prefix_sum(la[:, sl].float())
+        n_c = cum.shape[1]
+        causal = torch.ones((n_c, n_c), dtype=torch.bool).tril()
+        scores = torch.where(causal, (cm @ bm.transpose(1, 2)) * torch.exp(
+            torch.clamp_max(cum[:, :, None] - cum[:, None, :], 0.0)), 0.0)
+        yc = torch.exp(cum)[..., None] * (cm @ round_h(h).transpose(1, 2))
+        xw = x * torch.exp(cum[:, -1:] - cum)[..., None]
+        h = torch.exp(cum[:, -1])[:, None, None] * h
+        for j0 in range(0, n_c, 64):
+            kt = slice(j0, j0 + 64)
+            yc = yc + round_s(scores[:, :, kt]) @ x[:, kt]
+            h = h + round_xw(xw[:, kt]).transpose(1, 2) @ bm[:, kt]
+        y[:, sl] = yc
+    return y.to(xdt.dtype), h
+
+
+def _k5_case(bh, s, p, n, seed, la_floor=None):
+    """bf16 (xdt, la, b, c) on the kernel's layout, drawn as the reference
+    test draws them (``_inputs``); with ``la_floor`` dt is scaled so that
+    the steepest step's la = dt A is ``la_floor``."""
+    r = np.random.default_rng(seed)
+    x = r.standard_normal((bh, s, p)).astype(np.float32)
+    dt = (np.abs(r.standard_normal((bh, s))) * 0.1 + 0.01).astype(
+        np.float32)
+    a = (-np.abs(r.standard_normal(bh)) - 0.1).astype(np.float32)
+    if la_floor is not None:
+        dt *= np.float32(la_floor / (dt * a[:, None]).min())
+    bc = [torch.from_numpy(r.standard_normal((bh, s, n)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(2)]
+    xdt = torch.from_numpy(x * dt[..., None]).to(torch.bfloat16)
+    return xdt, torch.from_numpy(dt * a[:, None]), bc[0], bc[1]
+
+
+def _jax_chunked(xdt, la, b, c, chunk):
+    """The reference's chunked scan in f32 on the same values: (y rounded
+    to bf16, state)."""
+    jy, jh = ssd_chunked_jnp(*(jnp.asarray(t.float().numpy()) for t in
+                               (xdt, la, b, c)), chunk=chunk)
+    return (torch.from_numpy(np.array(jy)).to(torch.bfloat16),
+            torch.from_numpy(np.array(jh)))
+
+
+def _k5_margin(got, want):
+    """Max over both outputs and their elements of |got - want| - (atol +
+    rtol |want|): <= 0 within the bf16 tolerance."""
+    return max(float(((g.float() - w.float()).abs() - (
+        K5_TOL["atol"] + K5_TOL["rtol"] * w.float().abs())).max())
+        for g, w in zip(got, want, strict=True))
+
+
+# (bh, s, p, n, chunk, la_floor): the reference's kernel-test shapes, the
+# serving path's chunk of 256 at S = 512 with P 64 and N 128 (4 heads), a
+# short last chunk, and la down to -50 a step.
+K5_MODEL_CASES = [(8, 96, 16, 8, 32, None), (2, 64, 8, 16, 32, None),
+                  (4, 512, 64, 128, 256, None), (4, 512, 64, 128, 256, -50.0),
+                  (4, 300, 64, 128, 256, None), (4, 300, 64, 128, 256, -50.0)]
+
+
+@pytest.mark.parametrize("bh,s,p,n,chunk,la_floor", K5_MODEL_CASES)
+def test_k5_bf16_model_matches_reference_chunked_scan(bh, s, p, n, chunk,
+                                                      la_floor):
+    xdt, la, b, c = _k5_case(bh, s, p, n, 0, la_floor)
+    got = _k5_bf16_model(xdt, la, b, c, chunk=chunk)
+    assert got[0].dtype == torch.bfloat16 and torch.isfinite(
+        got[0].float()).all()
+    assert _k5_margin(got, _jax_chunked(xdt, la, b, c, chunk)) <= 0
+    # And the port's plain version, which the card holds K5 against.
+    assert _k5_margin(got, ssd_scan_plain(xdt, la, b, c, chunk=chunk)) <= 0
+
+
+@pytest.mark.parametrize("la_floor", [None, -50.0])
+def test_k5_bf16_model_matches_reference_pallas_kernel(la_floor):
+    """Against the reference's Pallas ``_ssd_kernel`` in interpret mode at
+    chunk 256, S = 512, P 64, N 128."""
+    xdt, la, b, c = _k5_case(2, 512, 64, 128, 1, la_floor)
+    jy, jh = jax_ssd_scan(*(jnp.asarray(t.float().numpy()) for t in
+                            (xdt, la, b, c)), chunk=256, interpret=True)
+    want = (torch.from_numpy(np.array(jy)).to(torch.bfloat16),
+            torch.from_numpy(np.array(jh)))
+    assert _k5_margin(_k5_bf16_model(xdt, la, b, c, chunk=256), want) <= 0
+
+
+@pytest.mark.parametrize("operand", ["scores", "xdt_w", "h0"])
+def test_k5_takes_each_f32_operand_as_hi_plus_lo(operand):
+    """Why K5's bf16 kernel splits S, xdt ⊙ w and h0 into hi + lo: each
+    rounded to bf16 once (the others split) puts the serving path's shape
+    outside the bf16 tolerance for some of seeds 0-2, with the reference
+    test's decays or with la down to -50 a step, where the kernel's
+    rounding stays inside for all of them."""
+    once = {"scores": dict(round_s=_once), "xdt_w": dict(round_xw=_once),
+            "h0": dict(round_h=_once)}[operand]
+    worst_once = worst_split = -1.0
+    for la_floor in (None, -50.0):
+        for seed in range(3):
+            xdt, la, b, c = _k5_case(8, 512, 64, 128, seed, la_floor)
+            want = _jax_chunked(xdt, la, b, c, 256)
+            worst_once = max(worst_once, _k5_margin(_k5_bf16_model(
+                xdt, la, b, c, chunk=256, **once), want))
+            worst_split = max(worst_split, _k5_margin(_k5_bf16_model(
+                xdt, la, b, c, chunk=256), want))
+    assert worst_once > 0 >= worst_split, (worst_once, worst_split)
