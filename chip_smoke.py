@@ -1323,95 +1323,70 @@ def main() -> int:
     print("[k4] backward at q (16, 1024, 128), k/v (2, 1024, 128), bf16 and "
           "f32: two runs bitwise equal (dq, dk, dv)", flush=True)
 
-    # Timings at the path's shape in bf16, beside the plain versions and
-    # PyTorch's SDPA (a yardstick only: the port never calls it).
-    q, k, v = k4_inputs(1, TRAIN_SEQ, TRAIN_SEQ, 16, 2, 128, torch.bfloat16)
-    _, lse, out32 = fa.flash_attention_fwd(q, k, v, group=8)
-    dout = rand(q.shape, torch.bfloat16)
-    _, drow = fa.flash_attention_bwd_dq(q, k, v, out32, lse, dout, group=8)
-    plain_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    plain_out = flash_attention_ref(*plain_leaves, group=8)
+    # Timings at the path's shape, in bf16 and on the f32 route (the f32
+    # grain check's flash_fwd_kernel, flash_dq_kernel, flash_dkdv_kernel),
+    # beside the plain versions, PyTorch's SDPA (a yardstick only: the port
+    # never calls it; TF32 off) and the bound at the type's peak.
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_leaves = [t[None].clone().requires_grad_(True) for t in (q, k, v)]
-    lib_out = sdpa(*lib_leaves, is_causal=True, enable_gqa=True)
+    k4_timed = {}
+    for dt, dname, itemsize in ((torch.bfloat16, "bf16", 2),
+                                (torch.float32, "f32", 4)):
+        q, k, v = k4_inputs(1, TRAIN_SEQ, TRAIN_SEQ, 16, 2, 128, dt)
+        _, lse, out32 = fa.flash_attention_fwd(q, k, v, group=8)
+        dout = rand(q.shape, dt)
+        _, drow = fa.flash_attention_bwd_dq(q, k, v, out32, lse, dout,
+                                            group=8)
+        plain_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        plain_out = flash_attention_ref(*plain_leaves, group=8)
+        lib_leaves = [t[None].clone().requires_grad_(True) for t in (q, k, v)]
+        lib_out = sdpa(*lib_leaves, is_causal=True, enable_gqa=True)
 
-    def lib_fwd_bwd():
-        o = sdpa(*lib_leaves, is_causal=True, enable_gqa=True)
-        return torch.autograd.grad(o, lib_leaves, dout[None])
+        def lib_fwd_bwd():
+            o = sdpa(*lib_leaves, is_causal=True, enable_gqa=True)
+            return torch.autograd.grad(o, lib_leaves, dout[None])
 
-    plain_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
-        plain_out, plain_leaves, dout, retain_graph=True))
-    lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
-        lib_out, lib_leaves, dout[None], retain_graph=True))
-    k4_rows = {
-        "fwd": {"ms": time_ms(torch, lambda: fa.flash_attention_fwd(
-                    q, k, v, group=8)),
-                "plain_ms": time_ms(torch, lambda: flash_attention_ref(
-                    q, k, v, group=8)),
-                "library_ms": time_ms(torch, library_attention(torch, q, k,
-                                                               v))},
-        "dq": {"ms": time_ms(torch, lambda: fa.flash_attention_bwd_dq(
-                   q, k, v, out32, lse, dout, group=8)),
-               "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms},
-        "dkdv": {"ms": time_ms(torch, lambda: fa.flash_attention_bwd_dkdv(
-                     q, k, v, lse, dout, drow, group=8)),
-                 "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms},
-    }
+        plain_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+            plain_out, plain_leaves, dout, retain_graph=True))
+        lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, lib_leaves, dout[None], retain_graph=True))
+        rows = {
+            "fwd": {"ms": time_ms(torch, lambda: fa.flash_attention_fwd(
+                        q, k, v, group=8)),
+                    "plain_ms": time_ms(torch, lambda: flash_attention_ref(
+                        q, k, v, group=8)),
+                    "library_ms": time_ms(torch, library_attention(
+                        torch, q, k, v))},
+            "dq": {"ms": time_ms(torch, lambda: fa.flash_attention_bwd_dq(
+                       q, k, v, out32, lse, dout, group=8)),
+                   "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms},
+            "dkdv": {"ms": time_ms(torch, lambda: fa.flash_attention_bwd_dkdv(
+                         q, k, v, lse, dout, drow, group=8)),
+                     "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms},
+        }
+        for part, row in rows.items():
+            row["bound_ms"], row["bound_by"] = k4_bound_ms(
+                16, 2, TRAIN_SEQ, TRAIN_SEQ, 128, itemsize,
+                {"bf16": "bfloat16", "f32": "float32"}[dname], True, part)
+        k4_timed[dname] = rows
+        bwd_ms = time_ms(torch, lambda: fa.flash_attention_bwd(
+            q, k, v, out32, lse, dout, group=8))
+        print(f"[k4] {card}: {dname} backward (dq then dk/dv) {bwd_ms:.5f} "
+              f"ms; plain backward {plain_bwd_ms:.5f} ms; SDPA backward "
+              f"{lib_bwd_ms:.5f} ms, SDPA forward+backward "
+              f"{time_ms(torch, lib_fwd_bwd):.5f} ms", flush=True)
+        del q, k, v, out32, lse, dout, drow, plain_leaves, plain_out
+        del lib_leaves, lib_out
+    del first, again
+    k4_rows, k4_f32 = k4_timed["bf16"], k4_timed["f32"]
     k4_rows["fwd"]["build"] = k4_build["flash_fwd_mma_kernel<128>"]
     k4_rows["dq"]["build"] = k4_build["flash_dq_mma_kernel<128>"]
     k4_rows["dkdv"]["build"] = {
         n: k4_build[n] for n in ("flash_dkdv_mma_kernel<128>",
                                  "flash_dkdv_reduce_kernel")}
-    for part, row in k4_rows.items():
-        row["bound_ms"], row["bound_by"] = k4_bound_ms(
-            16, 2, TRAIN_SEQ, TRAIN_SEQ, 128, 2, "bfloat16", True, part)
-        print(f"[k4] {card}: {part} bf16 q (16, 1024, 128) k/v (2, 1024, "
-              f"128) causal: " + json.dumps(row), flush=True)
-    bwd_ms = time_ms(torch, lambda: fa.flash_attention_bwd(
-        q, k, v, out32, lse, dout, group=8))
-    print(f"[k4] {card}: backward (dq then dk/dv) {bwd_ms:.5f} ms; plain "
-          f"backward {plain_bwd_ms:.5f} ms; SDPA backward {lib_bwd_ms:.5f} "
-          f"ms, SDPA forward+backward {time_ms(torch, lib_fwd_bwd):.5f} ms",
-          flush=True)
-    del q, k, v, out32, lse, dout, drow, plain_leaves, plain_out, lib_leaves
-    del lib_out, first, again
-
-    # K4's f32 route (the f32 grain check's kernels: flash_fwd_kernel,
-    # flash_dq_kernel, flash_dkdv_kernel) at the same shape, beside SDPA in
-    # f32 with TF32 off and the f32 bound at 67 TFLOP/s.
-    q, k, v = k4_inputs(1, TRAIN_SEQ, TRAIN_SEQ, 16, 2, 128, torch.float32)
-    _, lse, out32 = fa.flash_attention_fwd(q, k, v, group=8)
-    dout = rand(q.shape, torch.float32)
-    _, drow = fa.flash_attention_bwd_dq(q, k, v, out32, lse, dout, group=8)
-    lib_leaves = [t[None].clone().requires_grad_(True) for t in (q, k, v)]
-    lib_out = sdpa(*lib_leaves, is_causal=True, enable_gqa=True)
-    plain_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    plain_out = flash_attention_ref(*plain_leaves, group=8)
-    plain_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
-        plain_out, plain_leaves, dout, retain_graph=True), iters=5, reps=3)
-    lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
-        lib_out, lib_leaves, dout[None], retain_graph=True))
-    k4_f32 = {
-        "fwd": {"ms": time_ms(torch, lambda: fa.flash_attention_fwd(
-                    q, k, v, group=8), iters=5),
-                "plain_ms": time_ms(torch, lambda: flash_attention_ref(
-                    q, k, v, group=8), iters=5, reps=3),
-                "library_ms": time_ms(torch, library_attention(torch, q, k,
-                                                               v))},
-        "dq": {"ms": time_ms(torch, lambda: fa.flash_attention_bwd_dq(
-                   q, k, v, out32, lse, dout, group=8), iters=5),
-               "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms},
-        "dkdv": {"ms": time_ms(torch, lambda: fa.flash_attention_bwd_dkdv(
-                     q, k, v, lse, dout, drow, group=8), iters=5),
-                 "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms},
-    }
-    for part, row in k4_f32.items():
-        row["bound_ms"], row["bound_by"] = k4_bound_ms(
-            16, 2, TRAIN_SEQ, TRAIN_SEQ, 128, 4, "float32", True, part)
-        print(f"[k4] {card}: {part} f32 q (16, 1024, 128) k/v (2, 1024, 128) "
-              f"causal: " + json.dumps(row), flush=True)
-    del q, k, v, out32, lse, dout, drow, lib_leaves, lib_out, plain_leaves
-    del plain_out
+    for dname, rows in k4_timed.items():
+        for part, row in rows.items():
+            print(f"[k4] {card}: {part} {dname} q (16, 1024, 128) k/v (2, "
+                  f"1024, 128) causal: " + json.dumps(row), flush=True)
 
     # ------------------------------------------- 11. train (the main path)
     def check_k4_launches(path: str, n_grains: int) -> dict[str, int]:

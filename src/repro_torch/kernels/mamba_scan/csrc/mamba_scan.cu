@@ -82,19 +82,14 @@ constexpr int kMaxN = 128;
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
+// `ssd_scan_kernel` is written for an input type T; f32 is the one it is
+// built for (bf16 takes `ssd_scan_mma_kernel`).
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;

@@ -161,9 +161,15 @@ def test_prefill_op_layout_and_model_launches(dev):
     assert pf.LAUNCHES["prefill_flash"] == before + cfg.n_layers
 
 
+# The 64 x 64 tile's shapes, then K3's 8-column strip tile (M <= 16, the
+# TDA's grains) at K of 1, 31, 32, 33 (ragged and exact K tiles), 1000 and
+# 4096 (the path's depths) and ragged N of 37 (no row on a 16-byte
+# boundary: plain loads) and 1000 (16-byte rows: cp.async).
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [(1, 1, 1), (2, 96, 70), (100, 70, 36),
-                                   (513, 129, 257), (2, 1000, 1000)])
+                                   (513, 129, 257), (2, 1000, 1000)] + [
+    (m, k, n) for m in (1, 2, 3, 16) for k in (1, 31, 32, 33, 1000, 4096)
+    for n in (37, 1000)])
 def test_matmul_kernel_matches_plain(dev, m, k, n, dtype):
     x = _rand((m, k), dtype, dev, 10) * k ** -0.25
     y = _rand((k, n), dtype, dev, 11) * k ** -0.25
@@ -183,24 +189,6 @@ def test_matmul_kernel_row_slices_are_bitwise(dev):
     full = matmul(x, y)
     for lo in range(0, 129):
         assert torch.equal(matmul(x[lo:lo + 2], y), full[lo:lo + 2]), lo
-
-
-# K3's two tiles: 8-column strips for M <= 16 (the TDA's grains), 64 x 64
-# above.  Ragged N of 37 (no row on a 16-byte boundary: plain loads) and
-# 1000 (16-byte rows: cp.async) at K of 1, 31, 32, 33 (ragged and exact K
-# tiles), 1000 and 4096 (the path's depths).
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [37, 1000])
-@pytest.mark.parametrize("k", [1, 31, 32, 33, 1000, 4096])
-@pytest.mark.parametrize("m", [1, 2, 3, 16])
-def test_matmul_strip_tile_matches_plain(dev, m, k, n, dtype):
-    x = (_rand((m, k), torch.float32, dev, 16) * k ** -0.25).to(dtype)
-    y = (_rand((k, n), torch.float32, dev, 17) * k ** -0.25).to(dtype)
-    out = matmul(x, y)
-    assert out.dtype == dtype and out.shape == (m, n)
-    rtol, atol = TOL[dtype]
-    torch.testing.assert_close(out.float(), matmul_ref(x, y).float(),
-                               rtol=rtol, atol=atol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
