@@ -76,16 +76,21 @@ Phases, each of which exits non-zero when it fails:
                127 and 129, group 1, 2, 4 and 8, D 16 to 128; their bf16
                gradients against autograd through the plain version in f32
                on the same values); the backward bitwise equal over two
-               runs; the bf16 tensor-core kernels' (forward, dQ, dK/dV)
-               registers, spills and shared memory from the build's
-               ``-Xptxas -v`` report and their ``HMMA`` count from
-               ``cuobjdump -sass`` (no spill, HMMA > 0); each kernel
-               timed at the path's shape beside the plain version, PyTorch's
-               SDPA (forward; backward) and the card's bound, in bf16 and,
-               for the f32 route (``flash_fwd_kernel``, ``flash_dq_kernel``,
-               ``flash_dkdv_kernel``), in f32 beside SDPA in f32 with TF32
-               off and the f32 bound at 67 TFLOP/s (device times in phase
-               15),
+               runs; the kernels' registers, spills and shared memory from
+               the build's ``-Xptxas -v`` report and their ``HMMA`` count
+               from ``cuobjdump -sass``, bf16 (forward, dQ, dK/dV on the
+               tensor cores, the reduction) and f32 (``flash_fwd_kernel``
+               on the CUDA cores, ``flash_dq_tf32_kernel`` and
+               ``flash_dkdv_tf32_kernel`` with three TF32 products a
+               product, ``flash_dkdv_reduce_kernel<float>``): a spill fails,
+               so does no HMMA in a tensor-core kernel; each kernel timed at
+               the path's shape beside the plain version, PyTorch's SDPA
+               (forward; backward) and the card's bound, in bf16 and in f32
+               beside SDPA in f32 with TF32 off (the f32 backward's bound:
+               its score chain at 67 TFLOP/s, its other products three times
+               over at the TF32 rate; also every operation at 67 TFLOP/s as
+               earlier runs counted; device times in phase 15, dK/dV's with
+               its reduction),
  11. train   — full-width Qwen2-1.5B training at seq 1024: one f32 grain's
                loss and gradients on the kernel path against
                ``use_pallas=False`` (loss rtol 1e-4, each gradient leaf
@@ -166,9 +171,11 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
-#: H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and ops/s by type.
+#: H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and ops/s by type
+#: (``tf32``: the tensor cores' TF32 rate).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12,
+                  "tf32": 495e12}
 
 TOL = {"bfloat16": (2e-2, 2e-2), "float32": (5e-4, 5e-5)}   # (rtol, atol)
 #: K4's gradients against autograd through the plain version: f32 loosened
@@ -188,10 +195,18 @@ K4_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
 K4_PER_GRAIN = {"flash_attention_fwd": 2 * N_LAYERS,
                 "flash_attention_bwd_dq": N_LAYERS,
                 "flash_attention_bwd_dkdv": N_LAYERS}
-#: K4's device kernels in bf16, by name: the forward, dQ and dK/dV on the
-#: tensor cores (dK/dV per q head, then the sum over the group).
+#: K4's device kernels by dtype, by name: in bf16 the forward, dQ and dK/dV
+#: on the tensor cores; in f32 the forward on the CUDA cores, dQ and dK/dV
+#: with their products on the tensor cores as three TF32 products; in both
+#: dK/dV per q head, then the sum over the group into the dtype.
 K4_BF16_KERNELS = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
                    "flash_dkdv_mma_kernel", "flash_dkdv_reduce_kernel")
+K4_F32_KERNELS = ("flash_fwd_kernel", "flash_dq_tf32_kernel",
+                  "flash_dkdv_tf32_kernel", "flash_dkdv_reduce_kernel")
+#: The ``which`` argument of ``flash_attention_smem_bytes`` by kernel.
+K4_WHICH = {"flash_fwd_mma_kernel": 0, "flash_dq_mma_kernel": 1,
+            "flash_dkdv_mma_kernel": 2, "flash_fwd_kernel": 0,
+            "flash_dq_tf32_kernel": 1, "flash_dkdv_tf32_kernel": 2}
 #: Side of the wall-clock backend's unit op ``tanh(h @ x)`` on the card: at
 #: 2048 one f32 product is about 17 GFLOP, far above a launch's cost, so the
 #: measured chains are device time (the default 96 is sized for a CPU).
@@ -364,12 +379,21 @@ def k5_bound_ms(bh: int, bg: int, s: int, p: int, n: int, chunk: int,
 
 
 def k4_bound_ms(bh: int, bhkv: int, sq: int, skv: int, d: int, itemsize: int,
-                dtype_name: str, causal: bool, part: str) -> tuple[float, str]:
+                dtype_name: str, causal: bool, part: str,
+                tf32x3: bool = False) -> tuple[float, str]:
     """Least time for K4's forward (``part`` 'fwd') or one backward kernel
     ('dq', 'dkdv'): each input read once, each output written once;
     operations per visible (query, key) pair: 4 D for the forward (scores,
     P V), 6 D for dQ (scores, dP, dS K), 8 D for dK/dV (scores, dP, P^T dO,
-    dS^T Q).  The row statistics (lse, rowsum(dO * O)) are f32."""
+    dS^T Q), at the type's peak.  The row statistics (lse, rowsum(dO * O))
+    are f32.
+
+    ``tf32x3`` counts the f32 backward as its kernels run it: the score
+    chain (2 D a pair) in f32 FMAs at 67 TFLOP/s, and the other products
+    (4 D for dQ, 6 D for dK/dV) on the tensor cores as three TF32 products
+    each, so 3x their operations at 495 TFLOP/s.  The two units run at
+    once, so the operations' time is the larger of the two, and the bound
+    the larger of that and the bytes' time."""
     per_row = bh * (sum(min(i + 1, skv) for i in range(sq)) if causal
                     else sq * skv)
     q_elems, kv_elems, rows = bh * sq * d, bhkv * skv * d, bh * sq
@@ -379,7 +403,11 @@ def k4_bound_ms(bh: int, bhkv: int, sq: int, skv: int, d: int, itemsize: int,
         "dkdv": (itemsize * (2 * q_elems + 4 * kv_elems) + 8 * rows, 8),
     }[part]
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops * d * per_row / PEAK_OPS_PER_S[dtype_name]
+    if tf32x3 and part != "fwd":
+        t_ops = max(2 * d * per_row / PEAK_OPS_PER_S["float32"],
+                    3 * (ops - 2) * d * per_row / PEAK_OPS_PER_S["tf32"])
+    else:
+        t_ops = ops * d * per_row / PEAK_OPS_PER_S[dtype_name]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1234,13 +1262,30 @@ def main() -> int:
         k = (rand((b * hkv, skv, d), torch.float32) * mag).to(dt)
         return q, k, rand((b * hkv, skv, d), dt)
 
-    # The bf16 tensor-core kernels as built: registers, spills, shared
-    # memory, and HMMA instructions in their SASS.
-    k4_build = build_report(
-        build_logs, "flash_attention", fa.load_library()._name,
-        K4_BF16_KERNELS,
-        lambda name, d: int(fa.load_library().flash_attention_smem_bytes(
-            K4_BF16_KERNELS.index(name.split("<")[0]), d, 1)))
+    # The kernels as built, bf16 and f32: registers, spills, shared memory,
+    # and HMMA instructions in their SASS (a spill fails; so does no HMMA in
+    # a kernel whose products run on the tensor cores: all but the f32
+    # forward and the reductions).  The f32 forward, on the CUDA cores and
+    # not redesigned, is reported without that check: it spills 4 bytes at
+    # D = 128, as it did before the backward's redesign.
+    k4_build = {}
+    for dtype_code, names in ((1, K4_BF16_KERNELS), (0, K4_F32_KERNELS)):
+        reduce_key = "flash_dkdv_reduce_kernel<{}>".format(
+            "bf16" if dtype_code else "float")
+        checked = names[1:] if dtype_code == 0 else names
+        k4_build.update(build_report(
+            build_logs, "flash_attention", fa.load_library()._name, checked,
+            lambda name, d, c=dtype_code: int(
+                fa.load_library().flash_attention_smem_bytes(
+                    K4_WHICH[name.split("<")[0]], d, c)),
+            main={"flash_dkdv_reduce_kernel": (reduce_key, False)}))
+    fwd32 = kernel_build_report(build_logs["flash_attention"], "",
+                                ("flash_fwd_kernel",))
+    for name, info in fwd32.items():
+        info.pop("hmma")
+        info["smem_bytes"] = int(fa.load_library().flash_attention_smem_bytes(
+            0, int(name.split("<")[1][:-1]), 0))
+        k4_build[name] = info
     for name, info in sorted(k4_build.items()):
         print(f"[k4] build {name}: {json.dumps(info)}", flush=True)
 
@@ -1366,7 +1411,13 @@ def main() -> int:
         for part, row in rows.items():
             row["bound_ms"], row["bound_by"] = k4_bound_ms(
                 16, 2, TRAIN_SEQ, TRAIN_SEQ, 128, itemsize,
-                {"bf16": "bfloat16", "f32": "float32"}[dname], True, part)
+                {"bf16": "bfloat16", "f32": "float32"}[dname], True, part,
+                tf32x3=dname == "f32")
+            if dname == "f32" and part != "fwd":
+                # Every operation at the f32 FMA rate, as PRs 13-17 counted.
+                row["bound_ms_f32_fma"] = k4_bound_ms(
+                    16, 2, TRAIN_SEQ, TRAIN_SEQ, 128, itemsize, "float32",
+                    True, part)[0]
         k4_timed[dname] = rows
         bwd_ms = time_ms(torch, lambda: fa.flash_attention_bwd(
             q, k, v, out32, lse, dout, group=8))
@@ -1378,11 +1429,13 @@ def main() -> int:
         del lib_leaves, lib_out
     del first, again
     k4_rows, k4_f32 = k4_timed["bf16"], k4_timed["f32"]
-    k4_rows["fwd"]["build"] = k4_build["flash_fwd_mma_kernel<128>"]
-    k4_rows["dq"]["build"] = k4_build["flash_dq_mma_kernel<128>"]
-    k4_rows["dkdv"]["build"] = {
-        n: k4_build[n] for n in ("flash_dkdv_mma_kernel<128>",
-                                 "flash_dkdv_reduce_kernel")}
+    for rows, names, out_type in ((k4_rows, K4_BF16_KERNELS, "bf16"),
+                                  (k4_f32, K4_F32_KERNELS, "float")):
+        rows["fwd"]["build"] = {names[0]: k4_build[f"{names[0]}<128>"]}
+        rows["dq"]["build"] = {names[1]: k4_build[f"{names[1]}<128>"]}
+        rows["dkdv"]["build"] = {
+            names[2]: k4_build[f"{names[2]}<128>"],
+            names[3]: k4_build[f"{names[3]}<{out_type}>"]}
     for dname, rows in k4_timed.items():
         for part, row in rows.items():
             print(f"[k4] {card}: {part} {dname} q (16, 1024, 128) k/v (2, "
@@ -1863,6 +1916,12 @@ def main() -> int:
             print(f"[device] K4 {part} {dname} q (16, 1024, 128) k/v (2, "
                   f"1024, 128): {row['device_ms']:.6f} ms, SDPA "
                   f"{row['library_device_ms']:.6f} ms", flush=True)
+    for dname, rows in (("bf16", k4_rows), ("f32", k4_f32)):
+        print(f"[device] K4 {dname} backward, dQ + dK/dV (with its "
+              f"reduction): "
+              f"{rows['dq']['device_ms'] + rows['dkdv']['device_ms']:.6f} ms, "
+              f"SDPA's whole backward {rows['dq']['library_device_ms']:.6f} "
+              f"ms", flush=True)
     print(f"[device] K5 bf16 xdt (80, 512, 64), B/C (1, 512, 128): "
           f"{k5_row['device_ms']:.6f} ms", flush=True)
 
@@ -1920,7 +1979,9 @@ def main() -> int:
          "library_ms": k4_rows[part]["library_ms"],
          "device_ms": k4_rows[part]["device_ms"],
          "library_device_ms": k4_rows[part]["library_device_ms"],
-         "build": k4_rows[part].get("build"), "f32": k4_f32[part]}
+         "build": k4_rows[part].get("build"), "f32": k4_f32[part],
+         "device_kernels": {"bfloat16": list(k4_rows[part]["build"]),
+                            "float32": list(k4_f32[part]["build"])}}
         for name, part in zip(K4_KERNELS, ("fwd", "dq", "dkdv"), strict=True)
     ] + [
         {"name": "ssd_scan", "route": "cuda",

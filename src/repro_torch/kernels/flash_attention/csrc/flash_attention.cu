@@ -19,12 +19,10 @@
 //   `flash_attention_bwd_dq`   one block per (q-head row, 64-query tile):
 //                              D_i = rowsum(dO_i * O_i) (written out for the
 //                              second kernel), then dQ over the K/V tiles;
-//   `flash_attention_bwd_dkdv` bf16: one block per (q-head row, 64-key
-//                              tile), then the sum over the group's q heads
-//                              in head order (below); f32: one block per
-//                              (kv-head row, 32-key tile), over the group's
-//                              q heads in a fixed order; both over the q
-//                              tiles in ascending order.
+//   `flash_attention_bwd_dkdv` one block per (q-head row, 64-key tile),
+//                              over the q tiles in ascending order, then
+//                              the sum over the group's q heads in head
+//                              order (below).
 // Both recompute P = exp(s - lse) from q, k and the saved log-sum-exp with
 // the forward's mask.  The row term takes the forward's output before its
 // rounding to bf16 (the forward writes an f32 copy for it), as autograd
@@ -84,18 +82,33 @@
 //     only to tiles that cross the diagonal or the ragged edge, and the
 //     heaviest causal tiles (forward and dQ: the last query tiles; dK/dV:
 //     the first key tiles) are launched first.
-// f32 inputs keep the CUDA-core kernels (`flash_fwd_kernel`,
-// `flash_dq_kernel`, `flash_dkdv_kernel`): the tensor cores take f32 only as
-// TF32, which the port keeps off.  They do f32 FMAs out of shared memory,
-// their own limit the FMA rate and the shared-memory reads feeding it; each
-// K/V tile is staged once and reused by every row of the block, each thread
-// keeps its share of the output tile in registers, and causal loops stop at
-// the diagonal.  The TPU grid's sequential axis becomes that in-block loop.
-// Ragged Sq / Skv edges are masked (loads read 0, stores skipped) where the
-// Pallas wrapper halves its blocks until they divide S.
-//
-// In the CUDA-core kernels, row strides of D+1 and tile+1 floats keep
-// shared-memory reads free of bank conflicts.
+// f32 inputs: the forward (`flash_fwd_kernel`) keeps f32 FMAs on the CUDA
+// cores, out of shared memory (rows padded to D+1 floats, tiles to 65, so
+// reads are free of bank conflicts); each K/V tile is staged once and
+// reused by every row of the block, each thread keeps its share of the
+// output tile in registers, and causal loops stop at the diagonal.  The
+// backward (`flash_dq_tf32_kernel`, `flash_dkdv_tf32_kernel`, then
+// `flash_dkdv_reduce_kernel<float>` for group > 1) has the bf16 kernels'
+// grids and warp layout, and runs its products on the tensor cores as
+// three TF32 products each (`mma.sync.m16n8k8`, hi = tf32(x) and
+// lo = tf32(x - hi) of every operand: lo hi + hi lo + hi hi).  TF32 itself
+// stays off (`allow_tf32` False): one TF32 product misses the f32
+// gradient tolerance by orders of magnitude, three fit it.  The scores
+// are not such a product: at the x30 logits (scores near 900) three TF32
+// products move a score by about 1e-4, P no longer matches the forward's
+// log-sum-exp, and dV misses the tolerance.  So every f32 kernel computes
+// its scores with one function, `score_chain` (q * scale rounded to f32,
+// then one fmaf per head-dim element in ascending order, as
+// `ref.py::scores_ref` does), on the CUDA cores, each backward lane at the
+// positions its accumulator fragments own; the backward's scores are the
+// forward's bit for bit.  tests/test_torch_flash_attention.py models this
+// arithmetic against the reference.  What bounds the f32 backward: the
+// score chain (2 D operations a visible pair, at 67 TFLOP/s) and the
+// products (three times 4 D or 6 D, at 495 TFLOP/s) can run at once, so
+// the chain's FMAs set the least time.  The TPU grid's sequential axis
+// becomes an in-block loop.  Ragged Sq / Skv edges are masked (loads read
+// 0, stores skipped) where the Pallas wrapper halves its blocks until they
+// divide S.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -106,9 +119,8 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows a forward / dQ block holds
-constexpr int kBK = 64;        // keys a forward / dQ K/V tile holds
-constexpr int kBKV = 32;       // keys a dK/dV block owns
+constexpr int kBQ = 64;        // query rows an f32 forward block holds
+constexpr int kBK = 64;        // keys an f32 forward K/V tile holds
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
@@ -123,6 +135,51 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int r0,
     float val = 0.f;
     if (gr < valid) val = src[(size_t)gr * D + c] * mul;
     dst[r * (D + 1) + c] = val;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(float (&dst)[VEC], const float* p) {
+  if constexpr (VEC == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    dst[0] = x.x;
+    dst[1] = x.y;
+    dst[2] = x.z;
+    dst[3] = x.w;
+  } else {
+    static_assert(VEC == 1, "VEC is 1 or 4");
+    dst[0] = *p;
+  }
+}
+
+// The f32 score chain, one definition for every f32 kernel of this file,
+// so that the backward recomputes the forward's scores bit for bit:
+// s[i][j] = the sum over d = 0 .. D-1, in ascending order, one fmaf each
+// from 0, of row(i)[d] * col(j)[d], where one side is q * scale rounded to
+// f32 (as staged) and the other k.  fmaf(a, b, c) is fmaf(b, a, c), so the
+// dK/dV kernel, with k as its rows, gets the same bits.  `row(i)` and
+// `col(j)` give shared-memory rows; VEC is the width of the reads (1, or 4
+// on 16-byte aligned rows), which leaves the chain's order as it is.
+template <int D, int VEC, int NR, int NC, typename Row, typename Col>
+__device__ __forceinline__ void score_chain(float (&s)[NR][NC], Row row,
+                                            Col col) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) s[i][j] = 0.f;
+  for (int d = 0; d < D; d += VEC) {
+    float rv[NR][VEC], cv[NC][VEC];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) load_vec<VEC>(rv[i], row(i) + d);
+#pragma unroll
+    for (int j = 0; j < NC; ++j) load_vec<VEC>(cv[j], col(j) + d);
+#pragma unroll
+    for (int x = 0; x < VEC; ++x)
+#pragma unroll
+      for (int i = 0; i < NR; ++i)
+#pragma unroll
+        for (int j = 0; j < NC; ++j)
+          s[i][j] = fmaf(rv[i][x], cv[j][x], s[i][j]);
   }
 }
 
@@ -193,21 +250,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
     float s[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[8], kv[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) qv[i] = Qs[(ty * 8 + i) * (D + 1) + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
+    score_chain<D, 1>(
+        s, [&](int i) { return Qs + (ty * 8 + i) * (D + 1); },
+        [&](int j) { return Ks + (tx + 16 * j) * (D + 1); });
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int r = ty * 8 + i;
@@ -281,287 +326,519 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 }
 
-// ------------------------------------------------------------- backward: dQ
+// ------------------------------------------------ f32 backward: TF32 x 3
+// The products run on the tensor cores as `mma.sync.m16n8k8` with TF32
+// operands and f32 accumulators, each as three products (lo hi, hi lo,
+// hi hi) of the operands' terms hi = tf32(x) and lo = tf32(x - hi), which
+// keep about 21 bits of each operand; the scores stay on the CUDA cores,
+// computed by `score_chain` as the forward computes them.  Each warp owns
+// 16 rows of the block's tile, the M of every product.  In TF32 an
+// accumulator fragment is not the next product's A fragment as it is in
+// bf16 (lane (g, t) holds columns 2t, 2t + 1 of rows g, g + 8; an A
+// fragment columns t, t + 4): the second product instead takes its k
+// index in the order k = t <-> 2t, k = t + 4 <-> 2t + 1, in its A fragment
+// (straight from the accumulator's registers) and in its B fragment (read
+// from shared memory at those rows), which sums the same 8 terms.  So P,
+// dS, P^T and dS^T never leave registers, at no cost.
+constexpr int kTfBQ = 64;      // dQ: query rows a block holds (16 a warp pair)
+constexpr int kTfBK = 64;      // dQ: keys a K/V tile holds (32 a warp)
+constexpr int kTfDqThreads = 256;  // dQ: 8 warps
+constexpr int kTfKB = 64;      // dK/dV: keys a block owns (16 a warp)
+constexpr int kTfQS = 64;      // dK/dV: queries a step takes
+
+// Row stride, in floats, of an f32 tile staged by `stage_f32_async`: rows
+// of 16-byte multiples for `cp.async` and float4 reads; the extra 4 floats
+// put the rows an `mma` fragment reads (8 rows x 4 columns, or 4 rows x 8
+// columns) in 32 distinct banks.
 template <int D>
-constexpr size_t dq_smem_bytes() {
-  // Q, dO, K, V (each 64 x D+1) | dS (kBQ x kBK+1) | lse, Drow
-  return sizeof(float) * (2 * kBQ * (D + 1) + 2 * kBK * (D + 1) +
-                          kBQ * (kBK + 1) + 2 * kBQ);
+__device__ __forceinline__ constexpr int f32_stride() { return D + 4; }
+
+// Stage rows [r0, r0 + ROWS) of a (rows, D) f32 matrix into a shared tile
+// of row stride D + 4 with cp.async; rows at or past `valid` read 0.
+template <int ROWS, int D, int THREADS = kThreads>
+__device__ __forceinline__ void stage_f32_async(float* dst, const float* src,
+                                                int r0, int valid) {
+  constexpr int kChunks = D / 4;                  // 16-byte chunks a row
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += THREADS) {
+    const int r = c / kChunks, col = (c % kChunks) * 4;
+    const bool ok = r0 + r < valid;
+    cp_async16(smem_addr(dst + r * f32_stride<D>() + col),
+               src + (size_t)(ok ? r0 + r : 0) * D + col, ok);
+  }
 }
 
-// Grid (ceil(Sq / kBQ), B*Hq); the thread layout of the forward.  With
-// s = (q * scale) . k, P = exp(s - lse), dP = dO . v and
-// dS = P * (dP - Drow): dQ = scale * sum_j dS_ij k_j, summed over the K/V
-// tiles in ascending order.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ out32,
-                const float* __restrict__ dout, const float* __restrict__ lse,
-                float* __restrict__ drow, float* __restrict__ dq, int Sq,
-                int Skv, int group, float scale, int causal) {
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + kBQ * (D + 1);
-  float* Ks = dOs + kBQ * (D + 1);
-  float* Vs = Ks + kBK * (D + 1);
-  float* dSs = Vs + kBK * (D + 1);
-  float* lse_s = dSs + kBQ * (kBK + 1);
-  float* d_s = lse_s + kBQ;
+// Rows [0, ROWS) of a staged f32 tile times `mul`, in place: q * scale
+// rounded to f32, as `stage` forms it for the forward.
+template <int ROWS, int D, int THREADS = kThreads>
+__device__ __forceinline__ void scale_tile(float* t, float mul) {
+  constexpr int kChunks = D / 4;
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += THREADS) {
+    float4* p = reinterpret_cast<float4*>(t + (c / kChunks) * f32_stride<D>() +
+                                          (c % kChunks) * 4);
+    float4 x = *p;
+    x.x *= mul;
+    x.y *= mul;
+    x.z *= mul;
+    x.w *= mul;
+    *p = x;
+  }
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int row_q = blockIdx.y;
+// x rounded to nearest, ties away from zero, to 10 mantissa bits, as
+// `cvt.rna.tf32.f32` rounds a finite x, by two integer ops on its bits
+// (half an ulp added to the magnitude, the low 13 bits cleared), which on
+// the card ran faster than the `cvt`.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x as two TF32 terms: hi = tf32(x), lo = tf32(x - hi) (x - hi is exact).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c (16x8 f32) += a (16x8 TF32, row-major fragment) * b (8x8 TF32).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b as three TF32 products, the small terms first.
+__device__ __forceinline__ void mma_tf32x3(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(c, al, bh[0], bh[1]);
+  mma_tf32(c, ah, bl[0], bl[1]);
+  mma_tf32(c, ah, bh[0], bh[1]);
+}
+
+// The A fragment's terms of rows r, r + 8 and columns c, c + 4 of a
+// row-major f32 tile (`p` at (r, c), row stride SF).
+template <int SF>
+__device__ __forceinline__ void frag_a_tf32(const float* p, uint32_t (&hi)[4],
+                                            uint32_t (&lo)[4]) {
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[8 * SF], hi[1], lo[1]);
+  split_tf32(p[4], hi[2], lo[2]);
+  split_tf32(p[8 * SF + 4], hi[3], lo[3]);
+}
+
+// The A fragment's terms of an accumulator fragment pair taken in the
+// permuted k order: k = t is column 2t (c[0], c[2] for rows g, g + 8),
+// k = t + 4 column 2t + 1 (c[1], c[3]).
+__device__ __forceinline__ void acc_to_a_tf32(const float (&c)[4],
+                                              uint32_t (&hi)[4],
+                                              uint32_t (&lo)[4]) {
+  split_tf32(c[0], hi[0], lo[0]);
+  split_tf32(c[2], hi[1], lo[1]);
+  split_tf32(c[1], hi[2], lo[2]);
+  split_tf32(c[3], hi[3], lo[3]);
+}
+
+// The terms of the B fragment (k x n = 8 x 8) b0 = p[0], b1 = p[off1]:
+// `p` at row n = g, column k = t of a tile whose rows are n (off1 = 4), or
+// at row k = 2t, column n = g of a tile whose rows are k in the permuted
+// order (off1 = one row).
+__device__ __forceinline__ void frag_b_tf32(const float* p, int off1,
+                                            uint32_t (&hi)[2],
+                                            uint32_t (&lo)[2]) {
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[off1], hi[1], lo[1]);
+}
+
+// ------------------------------------------------------- f32 backward: dQ
+template <int D>
+constexpr size_t dq_tf32_smem_bytes() {
+  // q * scale, dO (kTfBQ rows) | K, V (2 buffers of kTfBK rows each) |
+  // lse, Drow (kTfBQ each)
+  return sizeof(float) * ((2 * kTfBQ + 4 * kTfBK) * (D + 4) + 2 * kTfBQ);
+}
+
+// Grid (B*Hq, ceil(Sq / kTfBQ)) of 8 warps, query tile gridDim.y - 1 -
+// blockIdx.y (the causal tiles with the most keys start first).  Warps w
+// and w + 4 own query rows q0 + 16 w .. q0 + 16 w + 15 (lane (g, t): rows
+// g and g + 8 of them), w the first 32 keys of each K/V tile and w + 4 the
+// last 32, so each scheduler has two warps.  Per K/V tile: s by `score_chain` at the lane's accumulator positions
+// (keys 8 j + 2 t, 8 j + 2 t + 1 of the warp's half), dP = dO V^T,
+// P = exp(s - lse) under the forward's mask, dS = P (dP - Drow),
+// dQ += dS K.  After the last tile, each slice's sum over the first halves
+// plus its sum over the second halves, times scale.  With
+// s = (q * scale) . k that is dQ = scale * sum_j dS_ij k_j.  Drow_i =
+// sum_d dO_id O_id by one thread a row in ascending d with fmaf (the dK/dV
+// kernel's input, written to `drow`).
+template <int D>
+__global__ void __launch_bounds__(kTfDqThreads, 1)
+flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ out32,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse, float* __restrict__ drow,
+                     float* __restrict__ dq, int Sq, int Skv, int group,
+                     float scale, int causal) {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int SF = f32_stride<D>();
+  constexpr int NT = kTfBK / 16;                  // a warp's score n-tiles
+  constexpr int DT = D / 8;                       // dQ n-tiles
+  constexpr int T = kTfDqThreads;
+  extern __shared__ __align__(16) float smf[];
+  float* Qs = smf;
+  float* dOs = Qs + kTfBQ * SF;
+  float* Ks = dOs + kTfBQ * SF;                   // 2 buffers
+  float* Vs = Ks + 2 * kTfBK * SF;                // 2 buffers
+  float* lse_s = Vs + 2 * kTfBK * SF;
+  float* d_s = lse_s + kTfBQ;
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int wr = (warp % 4) * 16 + g;             // this lane's rows wr, wr + 8
+  const int kh = (warp / 4) * (kTfBK / 2);        // the warp's keys kh .. kh + 31
+  const int row_q = blockIdx.x;
   const int row_kv = row_q / group;
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTfBQ;
   const size_t qoff = (size_t)row_q * Sq * D;
   const float* kp = k + (size_t)row_kv * Skv * D;
   const float* vp = v + (size_t)row_kv * Skv * D;
+  const int k_end = causal ? min(Skv, min(q0 + kTfBQ, Sq)) : Skv;
+  const int n_kt = (k_end + kTfBK - 1) / kTfBK;
 
-  stage<D>(Qs, q + qoff, q0, kBQ, Sq, scale);
-  stage<D>(dOs, dout + qoff, q0, kBQ, Sq, 1.f);
-  stage<D>(Ks, out32 + qoff, q0, kBQ, Sq, 1.f);  // O, in K's buffer
-  __syncthreads();
-  if (tid < kBQ) {
-    // Drow_i = sum_d dO_id O_id, in ascending d.
-    float acc = 0.f;
-    for (int d = 0; d < D; ++d)
-      acc = fmaf(dOs[tid * (D + 1) + d], Ks[tid * (D + 1) + d], acc);
-    d_s[tid] = acc;
-    const int qi = q0 + tid;
-    lse_s[tid] = qi < Sq ? lse[(size_t)row_q * Sq + qi] : 0.f;
-    if (qi < Sq) drow[(size_t)row_q * Sq + qi] = acc;
-  }
+  stage_f32_async<kTfBQ, D, T>(Qs, q + qoff, q0, Sq);
+  stage_f32_async<kTfBQ, D, T>(dOs, dout + qoff, q0, Sq);
+  stage_f32_async<kTfBK, D, T>(Ks, kp, 0, Skv);
+  stage_f32_async<kTfBK, D, T>(Vs, vp, 0, Skv);
+  cp_async_commit();
 
-  float acc[8][DJ];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  const int k_end = causal ? min(Skv, min(q0 + kBQ, Sq)) : Skv;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    const int kn = min(kBK, Skv - k0);
-    __syncthreads();                            // O / previous tile consumed
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D;
-      float kv = 0.f, vv = 0.f;
-      if (r < kn) {
-        const size_t off = (size_t)(k0 + r) * D + c;
-        kv = kp[off];
-        vv = vp[off];
-      }
-      Ks[r * (D + 1) + c] = kv;
-      Vs[r * (D + 1) + c] = vv;
-    }
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[8], gv[8], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        qv[i] = Qs[(ty * 8 + i) * (D + 1) + d];
-        gv[i] = dOs[(ty * 8 + i) * (D + 1) + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * (D + 1) + d];
-        vv[j] = Vs[(tx + 16 * j) * (D + 1) + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = ty * 8 + i;
-      const int qi = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const bool ok = c < kn && (!causal || qi >= k0 + c);
-        const float p = ok ? expf(s[i][j] - lse_s[r]) : 0.f;
-        dSs[r * (kBK + 1) + c] = p * (dp[i][j] - d_s[r]);
-      }
-    }
-    __syncthreads();
-
-    for (int kk = 0; kk < kn; ++kk) {
-      float sv[8], kv[DJ];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) sv[i] = dSs[(ty * 8 + i) * (kBK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kv[j] = Ks[kk * (D + 1) + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(sv[i], kv[j], acc[i][j]);
-    }
-  }
-
-  float* dqp = dq + qoff;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int qi = q0 + ty * 8 + i;
+  // The row terms, from device memory while the copies run.  Rows past Sq
+  // keep 0 (their dO is 0, so their dS is 0, and they are not stored).
+  if (threadIdx.x < kTfBQ) {
+    const int qi = q0 + threadIdx.x;
+    float acc = 0.f, l = 0.f;
     if (qi < Sq) {
-#pragma unroll
-      for (int j = 0; j < DJ; ++j)
-        dqp[(size_t)qi * D + tx + 16 * j] = acc[i][j] * scale;
+      const float4* gr =
+          reinterpret_cast<const float4*>(dout + qoff + (size_t)qi * D);
+      const float4* orow =
+          reinterpret_cast<const float4*>(out32 + qoff + (size_t)qi * D);
+#pragma unroll 4
+      for (int c = 0; c < D / 4; ++c) {
+        const float4 a = gr[c], o = orow[c];
+        acc = fmaf(a.x, o.x, acc);
+        acc = fmaf(a.y, o.y, acc);
+        acc = fmaf(a.z, o.z, acc);
+        acc = fmaf(a.w, o.w, acc);
+      }
+      drow[(size_t)row_q * Sq + qi] = acc;
+      l = lse[(size_t)row_q * Sq + qi];
     }
+    d_s[threadIdx.x] = acc;
+    lse_s[threadIdx.x] = l;
+  }
+
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float lse_r[2], d_r[2];
+
+  for (int t = 0; t < n_kt; ++t) {
+    const int k0 = t * kTfBK;
+    const float* Kt = Ks + (t & 1) * kTfBK * SF;
+    const float* Vt = Vs + (t & 1) * kTfBK * SF;
+    if (t + 1 < n_kt) {                           // prefetch the next tile
+      const int nb = ((t + 1) & 1) * kTfBK * SF;
+      stage_f32_async<kTfBK, D, T>(Ks + nb, kp, k0 + kTfBK, Skv);
+      stage_f32_async<kTfBK, D, T>(Vs + nb, vp, k0 + kTfBK, Skv);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (t == 0) {
+      scale_tile<kTfBQ, D, T>(Qs, scale);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        lse_r[i] = lse_s[wr + 8 * i];
+        d_r[i] = d_s[wr + 8 * i];
+      }
+    }
+
+    // s at the lane's accumulator positions: s[i][2 j + c] is row
+    // wr + 8 i, key k0 + kh + 8 j + 2 t + c.
+    float s[2][2 * NT];
+    score_chain<D, 4>(
+        s, [&](int i) { return Qs + (wr + 8 * i) * SF; },
+        [&](int j) {
+          return Kt + (kh + 8 * (j >> 1) + 2 * t4 + (j & 1)) * SF;
+        });
+
+    // dP = dO V^T, 16 rows x 32 keys a warp.
+    float dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
+#pragma unroll 2
+    for (int ks = 0; ks < D / 8; ++ks) {
+      uint32_t ah[4], al[4];
+      frag_a_tf32<SF>(dOs + wr * SF + ks * 8 + t4, ah, al);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t bh[2], bl[2];
+        frag_b_tf32(Vt + (kh + 8 * j + g) * SF + ks * 8 + t4, 4, bh, bl);
+        mma_tf32x3(dp[j], ah, al, bh, bl);
+      }
+    }
+
+    // dS = P (dP - Drow), P = exp(s - lse), 0 where the forward masked
+    // (only tiles that cross the diagonal or the edge); into dp.
+    const bool edge = k0 + kTfBK > Skv || (causal && k0 + kTfBK - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int kj = k0 + kh + 8 * j + 2 * t4 + (e & 1);
+        const int qi = q0 + wr + 8 * i;
+        const bool ok = !edge || (kj < Skv && (!causal || kj <= qi));
+        const float p = ok ? expf(s[i][2 * j + (e & 1)] - lse_r[i]) : 0.f;
+        dp[j][e] = p * (dp[j][e] - d_r[i]);
+      }
+
+    // dQ += dS K: dS's A fragments from dp in the permuted k order, K's B
+    // fragments from rows k0 + kh + 8 kk + 2 t and + 1.
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      uint32_t ah[4], al[4];
+      acc_to_a_tf32(dp[kk], ah, al);
+      const float* kb = Kt + (kh + 8 * kk + 2 * t4) * SF + g;
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        uint32_t bh[2], bl[2];
+        frag_b_tf32(kb + 8 * n, SF, bh, bl);
+        mma_tf32x3(acc[n], ah, al, bh, bl);
+      }
+    }
+    __syncthreads();                              // this buffer consumed
+  }
+
+  // Warps 4-7 hand their sums over the second halves to warps 0-3 through
+  // the K buffers (free after the last barrier), which add them to theirs.
+  float* red = Ks + (warp % 4) * DT * 4 * 32 + lane;
+  if (warp >= 4) {
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[(n * 4 + e) * 32] = acc[n][e];
+  }
+  __syncthreads();
+  if (warp >= 4) return;
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += red[(n * 4 + e) * 32];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + wr + 8 * i;
+    if (qi >= Sq) continue;
+    float* dst = dq + qoff + (size_t)qi * D + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2(acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
   }
 }
 
-// ---------------------------------------------------------- backward: dK/dV
+// ---------------------------------------------------- f32 backward: dK/dV
 template <int D>
-constexpr size_t dkdv_smem_bytes() {
-  // K, V (kBKV x D+1) | Q, dO (kBQ x D+1) | P^T, dS^T (kBKV x kBQ+1) |
-  // lse, Drow
-  return sizeof(float) * (2 * kBKV * (D + 1) + 2 * kBQ * (D + 1) +
-                          2 * kBKV * (kBQ + 1) + 2 * kBQ);
+constexpr size_t dkdv_tf32_smem_bytes() {
+  // K, V (kTfKB rows) | q * scale, dO (2 buffers of kTfQS rows each) |
+  // lse, Drow (2 buffers of kTfQS each)
+  return sizeof(float) * ((2 * kTfKB + 4 * kTfQS) * (D + 4) + 4 * kTfQS);
 }
 
-// Grid (ceil(Skv / kBKV), B*Hkv).  Thread t = (tx = t % 16, ty = t / 16)
-// owns key rows ty*4 .. ty*4+3 of the block; for the score tile it owns
-// query columns tx + 16 j (j < 4), for dK and dV the head-dim columns
-// tx + 16 j (j < D/16).  dV = sum_i P_ij dO_i and dK = sum_i dS_ij q_i scale,
-// summed over the group's q heads h = 0 .. group-1, then the q tiles in
-// ascending order, then the rows of each tile in ascending order.
+// Grid (B*Hq, ceil(Skv / kTfKB)); key tile blockIdx.y, so the causal tiles
+// with the most queries start first.  Warp w owns keys k0 + 16 w ..
+// k0 + 16 w + 15, lane (g, t) keys g and g + 8 of them, the M of every
+// product.  Steps of 64 queries: each step reads and splits the warp's V
+// fragments again, and shorter steps (16 queries, two blocks an SM) were
+// slower on the card.  Per step: s^T by `score_chain` (k as its rows:
+// the same bits as the forward's q-side chain), dP^T = V dO^T, P^T and
+// dS^T = P^T (dP^T - Drow) under the forward's mask, dV += P^T dO and
+// dK += dS^T (q * scale).  The block's q-head row contributes
+// dV_h = sum_i P_ij dO_i and dK_h = sum_i dS_ij q_i scale over the steps in
+// ascending order; with group 1 that is the result, else it goes to the
+// f32 partials (dk_part, dv_part, (B*Hq, Skv, D)) that
+// `flash_dkdv_reduce_kernel` sums in head order.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ drow,
-                  float* __restrict__ dk, float* __restrict__ dv, int Sq,
-                  int Skv, int group, float scale, int causal) {
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kBKV * (D + 1);
-  float* Qs = Vs + kBKV * (D + 1);
-  float* dOs = Qs + kBQ * (D + 1);
-  float* PT = dOs + kBQ * (D + 1);
-  float* dST = PT + kBKV * (kBQ + 1);
-  float* lse_s = dST + kBKV * (kBQ + 1);
-  float* d_s = lse_s + kBQ;
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dkdv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ drow,
+                       float* __restrict__ dk_part,
+                       float* __restrict__ dv_part, float* __restrict__ dk,
+                       float* __restrict__ dv, int Sq, int Skv, int group,
+                       float scale, int causal) {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int SF = f32_stride<D>();
+  constexpr int NT = kTfQS / 8;                   // score n-tiles (queries)
+  constexpr int DT = D / 8;
+  extern __shared__ __align__(16) float smf[];
+  float* Ks = smf;
+  float* Vs = Ks + kTfKB * SF;
+  float* Qs = Vs + kTfKB * SF;                    // 2 buffers
+  float* dOs = Qs + 2 * kTfQS * SF;               // 2 buffers
+  float* lse_s = dOs + 2 * kTfQS * SF;            // 2 buffers
+  float* d_s = lse_s + 2 * kTfQS;                 // 2 buffers
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int row_kv = blockIdx.y;
-  const int k0 = blockIdx.x * kBKV;
-  const int kn = min(kBKV, Skv - k0);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int wr = warp * 16 + g;                   // this lane's keys, in the tile
+  const int row_q = blockIdx.x;
+  const int row_kv = row_q / group;
+  const int k0 = blockIdx.y * kTfKB;
   const size_t kvoff = (size_t)row_kv * Skv * D;
-
-  stage<D>(Ks, k + kvoff, k0, kBKV, Skv, 1.f);
-  stage<D>(Vs, v + kvoff, k0, kBKV, Skv, 1.f);
-
-  float ak[4][DJ], av[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) ak[i][j] = av[i][j] = 0.f;
-
+  const float* qp = q + (size_t)row_q * Sq * D;
+  const float* dop = dout + (size_t)row_q * Sq * D;
+  const float* lp = lse + (size_t)row_q * Sq;
+  const float* rp = drow + (size_t)row_q * Sq;
   // Causal: query rows before the block's first key see none of its keys.
-  const int q_start = causal ? (k0 / kBQ) * kBQ : 0;
-  for (int h = 0; h < group; ++h) {
-    const int row_q = row_kv * group + h;
-    const size_t qoff = (size_t)row_q * Sq * D;
-    for (int q0 = q_start; q0 < Sq; q0 += kBQ) {
-      const int qn = min(kBQ, Sq - q0);
-      __syncthreads();                          // previous tile consumed
-      stage<D>(Qs, q + qoff, q0, kBQ, Sq, scale);
-      stage<D>(dOs, dout + qoff, q0, kBQ, Sq, 1.f);
-      if (tid < kBQ) {
-        const int qi = q0 + tid;
-        lse_s[tid] = qi < Sq ? lse[(size_t)row_q * Sq + qi] : 0.f;
-        d_s[tid] = qi < Sq ? drow[(size_t)row_q * Sq + qi] : 0.f;
-      }
-      __syncthreads();
+  const int q_start = causal ? (k0 / kTfQS) * kTfQS : 0;
+  const int n_steps = q_start < Sq ? (Sq - q_start + kTfQS - 1) / kTfQS : 0;
 
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        float kv[4], vv[4], qv[4], gv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = Ks[(ty * 4 + i) * (D + 1) + d];
-          vv[i] = Vs[(ty * 4 + i) * (D + 1) + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qv[j] = Qs[(tx + 16 * j) * (D + 1) + d];
-          gv[j] = dOs[(tx + 16 * j) * (D + 1) + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-            dp[i][j] = fmaf(vv[i], gv[j], dp[i][j]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
-        const int kj = k0 + r;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = tx + 16 * j;
-          const bool ok = r < kn && c < qn && (!causal || q0 + c >= kj);
-          const float p = ok ? expf(s[i][j] - lse_s[c]) : 0.f;
-          PT[r * (kBQ + 1) + c] = p;
-          dST[r * (kBQ + 1) + c] = p * (dp[i][j] - d_s[c]);
-        }
-      }
-      __syncthreads();
+  auto stage_q = [&](int buf, int qs) {
+    stage_f32_async<kTfQS, D>(Qs + buf * kTfQS * SF, qp, qs, Sq);
+    stage_f32_async<kTfQS, D>(dOs + buf * kTfQS * SF, dop, qs, Sq);
+    const int i = threadIdx.x % kTfQS, qi = qs + i;
+    if (threadIdx.x < kTfQS)
+      cp_async4(smem_addr(lse_s + buf * kTfQS + i), lp + (qi < Sq ? qi : 0),
+                qi < Sq);
+    else if (threadIdx.x < 2 * kTfQS)
+      cp_async4(smem_addr(d_s + buf * kTfQS + i), rp + (qi < Sq ? qi : 0),
+                qi < Sq);
+  };
 
-      for (int c = 0; c < qn; ++c) {
-        float pv[4], sv[4], gv[DJ], qv[DJ];
+  stage_f32_async<kTfKB, D>(Ks, k + kvoff, k0, Skv);
+  stage_f32_async<kTfKB, D>(Vs, v + kvoff, k0, Skv);
+  if (n_steps > 0) stage_q(0, q_start);
+  cp_async_commit();
+
+  float ak[DT][4], av[DT][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = PT[(ty * 4 + i) * (kBQ + 1) + c];
-          sv[i] = dST[(ty * 4 + i) * (kBQ + 1) + c];
-        }
+  for (int j = 0; j < DT; ++j)
 #pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          gv[j] = dOs[c * (D + 1) + tx + 16 * j];
-          qv[j] = Qs[c * (D + 1) + tx + 16 * j];
-        }
+    for (int e = 0; e < 4; ++e) ak[j][e] = av[j][e] = 0.f;
+
+  for (int it = 0; it < n_steps; ++it) {
+    const int q0 = q_start + it * kTfQS;
+    const int buf = it & 1;
+    float* Qt = Qs + buf * kTfQS * SF;
+    const float* dOt = dOs + buf * kTfQS * SF;
+    const float* lt = lse_s + buf * kTfQS;
+    const float* dt = d_s + buf * kTfQS;
+    if (it + 1 < n_steps) {
+      stage_q(buf ^ 1, q0 + kTfQS);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    scale_tile<kTfQS, D>(Qt, scale);
+    __syncthreads();
+
+    // s^T at the lane's accumulator positions: s[i][2 j + c] is key
+    // k0 + wr + 8 i, query q0 + 8 j + 2 t + c.
+    float s[2][2 * NT];
+    score_chain<D, 4>(
+        s, [&](int i) { return Ks + (wr + 8 * i) * SF; },
+        [&](int j) { return Qt + (8 * (j >> 1) + 2 * t4 + (j & 1)) * SF; });
+
+    // dP^T = V dO^T, 16 keys x 64 queries a warp.
+    float pd[NT][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int j = 0; j < DJ; ++j) {
-            av[i][j] = fmaf(pv[i], gv[j], av[i][j]);
-            ak[i][j] = fmaf(sv[i], qv[j], ak[i][j]);
-          }
+      for (int e = 0; e < 4; ++e) pd[j][e] = 0.f;
+#pragma unroll 2
+    for (int ks = 0; ks < D / 8; ++ks) {
+      uint32_t ah[4], al[4];
+      frag_a_tf32<SF>(Vs + wr * SF + ks * 8 + t4, ah, al);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t bh[2], bl[2];
+        frag_b_tf32(dOt + (8 * j + g) * SF + ks * 8 + t4, 4, bh, bl);
+        mma_tf32x3(pd[j], ah, al, bh, bl);
       }
     }
+
+    // P^T = exp(s - lse) under the forward's mask, into the score
+    // accumulator layout; dS^T = P^T (dP^T - Drow), into pd.
+    float pt[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t4 + (e & 1);
+        const int qi = q0 + c;
+        const int kj = k0 + wr + 8 * (e >> 1);
+        const bool ok = qi < Sq && (!causal || qi >= kj);
+        const float p = ok ? expf(s[e >> 1][2 * j + (e & 1)] - lt[c]) : 0.f;
+        pt[j][e] = p;
+        pd[j][e] = p * (pd[j][e] - dt[c]);
+      }
+
+    // dV += P^T dO, then dK += dS^T (q * scale), the A fragments from pt
+    // and pd in the permuted k order, the B fragments from query rows
+    // q0 + 8 kk + 2 t and + 1.
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      uint32_t ah[4], al[4];
+      acc_to_a_tf32(pt[kk], ah, al);
+      const float* gb = dOt + (8 * kk + 2 * t4) * SF + g;
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        uint32_t bh[2], bl[2];
+        frag_b_tf32(gb + 8 * n, SF, bh, bl);
+        mma_tf32x3(av[n], ah, al, bh, bl);
+      }
+      acc_to_a_tf32(pd[kk], ah, al);
+      const float* qb = Qt + (8 * kk + 2 * t4) * SF + g;
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        uint32_t bh[2], bl[2];
+        frag_b_tf32(qb + 8 * n, SF, bh, bl);
+        mma_tf32x3(ak[n], ah, al, bh, bl);
+      }
+    }
+    __syncthreads();                              // this buffer consumed
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (r < kn) {
-      const size_t off = kvoff + (size_t)(k0 + r) * D;
+  for (int i = 0; i < 2; ++i) {
+    const int kj = k0 + wr + 8 * i;
+    if (kj >= Skv) continue;
+    const size_t base = (group == 1 ? kvoff + (size_t)kj * D
+                                    : ((size_t)row_q * Skv + kj) * D) +
+                        2 * t4;
+    float* kd = group == 1 ? dk : dk_part;
+    float* vd = group == 1 ? dv : dv_part;
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        dk[off + tx + 16 * j] = ak[i][j];
-        dv[off + tx + 16 * j] = av[i][j];
-      }
+    for (int n = 0; n < DT; ++n) {
+      *reinterpret_cast<float2*>(kd + base + 8 * n) =
+          make_float2(ak[n][2 * i], ak[n][2 * i + 1]);
+      *reinterpret_cast<float2*>(vd + base + 8 * n) =
+          make_float2(av[n][2 * i], av[n][2 * i + 1]);
     }
   }
 }
@@ -965,13 +1242,15 @@ flash_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// dk[r] = bf16(sum over h = 0 .. group-1 of dk_part[r * group + h]), the
-// heads in ascending order, and the same for dv: 4 elements a thread.
+// dk[r] = the sum over h = 0 .. group-1 of dk_part[r * group + h], the
+// heads in ascending order, rounded once to T (bf16 or f32), and the same
+// for dv: 4 elements a thread.
+template <typename T>
 __global__ void __launch_bounds__(256)
 flash_dkdv_reduce_kernel(const float* __restrict__ dk_part,
                          const float* __restrict__ dv_part,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv,
-                         int rows_kv, int row_elems, int group) {
+                         T* __restrict__ dk, T* __restrict__ dv, int rows_kv,
+                         int row_elems, int group) {
   const size_t n4 = (size_t)rows_kv * row_elems / 4;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
        i += (size_t)gridDim.x * blockDim.x) {
@@ -985,12 +1264,17 @@ flash_dkdv_reduce_kernel(const float* __restrict__ dk_part,
       sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
       sv.x += b.x; sv.y += b.y; sv.z += b.z; sv.w += b.w;
     }
-    __nv_bfloat162* k2 = reinterpret_cast<__nv_bfloat162*>(dk + e);
-    __nv_bfloat162* v2 = reinterpret_cast<__nv_bfloat162*>(dv + e);
-    k2[0] = __floats2bfloat162_rn(sk.x, sk.y);
-    k2[1] = __floats2bfloat162_rn(sk.z, sk.w);
-    v2[0] = __floats2bfloat162_rn(sv.x, sv.y);
-    v2[1] = __floats2bfloat162_rn(sv.z, sv.w);
+    if constexpr (std::is_same<T, float>::value) {
+      *reinterpret_cast<float4*>(dk + e) = sk;
+      *reinterpret_cast<float4*>(dv + e) = sv;
+    } else {
+      __nv_bfloat162* k2 = reinterpret_cast<__nv_bfloat162*>(dk + e);
+      __nv_bfloat162* v2 = reinterpret_cast<__nv_bfloat162*>(dv + e);
+      k2[0] = __floats2bfloat162_rn(sk.x, sk.y);
+      k2[1] = __floats2bfloat162_rn(sk.z, sk.w);
+      v2[0] = __floats2bfloat162_rn(sv.x, sv.y);
+      v2[1] = __floats2bfloat162_rn(sv.z, sv.w);
+    }
   }
 }
 
@@ -1014,7 +1298,7 @@ struct Args {
   void* o2;
   float* lse;
   float* drow;
-  float* part;      // dK/dV, bf16, group > 1: the per-head f32 partials
+  float* part;      // dK/dV, group > 1: the per-head f32 partials
   int bh, sq, skv, group, causal;
   float scale;
   cudaStream_t stream;
@@ -1054,75 +1338,83 @@ cudaError_t launch_dq_mma(const Args& a) {
   return cudaGetLastError();
 }
 
-// The dK/dV kernel, then (group > 1) the reduction of its partials.
 template <int D>
-cudaError_t launch_dkdv_mma(const Args& a) {
-  constexpr size_t smem = dkdv_mma_smem_bytes<D>();
-  const int n_kt = (a.skv + kDkvBK - 1) / kDkvBK;
+cudaError_t launch_dq_tf32(const Args& a) {
+  constexpr size_t smem = dq_tf32_smem_bytes<D>();
+  const int n_qt = (a.sq + kTfBQ - 1) / kTfBQ;
+  if (n_qt > kMaxGridY) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(flash_dq_tf32_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  flash_dq_tf32_kernel<D><<<dim3(a.bh, n_qt), kTfDqThreads, smem,
+                            a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.out32,
+      static_cast<const float*>(a.dout), a.lse, a.drow,
+      static_cast<float*>(a.o0), a.sq, a.skv, a.group, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+// The dK/dV kernel of the dtype (bf16: tensor-core bf16; f32: TF32 x 3),
+// then (group > 1) the reduction of its per-head partials.
+template <typename T, int D>
+cudaError_t launch_dkdv(const Args& a) {
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  constexpr int kb = kBf16 ? kDkvBK : kTfKB;
+  constexpr size_t smem =
+      kBf16 ? dkdv_mma_smem_bytes<D>() : dkdv_tf32_smem_bytes<D>();
+  const int n_kt = (a.skv + kb - 1) / kb;
   if (n_kt > kMaxGridY || (a.group > 1 && a.part == nullptr))
     return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(flash_dkdv_mma_kernel<D>, smem);
-  if (err != cudaSuccess) return err;
   float* dk_part = a.part;
   float* dv_part = a.part == nullptr ? nullptr
                                      : a.part + (size_t)a.bh * a.skv * D;
-  bf16* dk = static_cast<bf16*>(a.o1);
-  bf16* dv = static_cast<bf16*>(a.o2);
-  flash_dkdv_mma_kernel<D><<<dim3(a.bh, n_kt), kThreads, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
-      a.drow, dk_part, dv_part, dk, dv, a.sq, a.skv, a.group, a.scale,
-      a.causal);
+  T* dk = static_cast<T*>(a.o1);
+  T* dv = static_cast<T*>(a.o2);
+  const dim3 grid(a.bh, n_kt);
+  cudaError_t err;
+  if constexpr (kBf16) {
+    err = allow_smem(flash_dkdv_mma_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    flash_dkdv_mma_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        a.lse, a.drow, dk_part, dv_part, dk, dv, a.sq, a.skv, a.group,
+        a.scale, a.causal);
+  } else {
+    err = allow_smem(flash_dkdv_tf32_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    flash_dkdv_tf32_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        a.lse, a.drow, dk_part, dv_part, dk, dv, a.sq, a.skv, a.group,
+        a.scale, a.causal);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess || a.group == 1) return err;
   const int rows_kv = a.bh / a.group;
   const size_t n4 = (size_t)rows_kv * a.skv * D / 4;
   const int blocks = (int)((n4 + 255) / 256 < 4096 ? (n4 + 255) / 256 : 4096);
-  flash_dkdv_reduce_kernel<<<blocks, 256, 0, a.stream>>>(
+  flash_dkdv_reduce_kernel<T><<<blocks, 256, 0, a.stream>>>(
       dk_part, dv_part, dk, dv, rows_kv, a.skv * D, a.group);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch(int which, const Args& a) {
+  if (which == kDkdv) return launch_dkdv<T, D>(a);
   if constexpr (std::is_same<T, bf16>::value) {
     if (which == kFwd) return launch_fwd_mma<D>(a);
-    if (which == kDq) return launch_dq_mma<D>(a);
-    return launch_dkdv_mma<D>(a);
+    return launch_dq_mma<D>(a);
   } else {
-    cudaError_t err;
-    if (which == kFwd) {
-      constexpr size_t smem = fwd_smem_bytes<D>();
-      err = allow_smem(flash_fwd_kernel<D>, smem);
-      if (err != cudaSuccess) return err;
-      dim3 grid((a.sq + kBQ - 1) / kBQ, a.bh);
-      flash_fwd_kernel<D><<<grid, kThreads, smem, a.stream>>>(
-          static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-          static_cast<const float*>(a.v), static_cast<float*>(a.o0), a.out32,
-          a.lse, a.sq, a.skv, a.group, a.scale, a.causal);
-      return cudaGetLastError();
-    }
-    if (which == kDkdv) {
-      constexpr size_t smem = dkdv_smem_bytes<D>();
-      err = allow_smem(flash_dkdv_kernel<D>, smem);
-      if (err != cudaSuccess) return err;
-      dim3 grid((a.skv + kBKV - 1) / kBKV, a.bh / a.group);
-      flash_dkdv_kernel<D><<<grid, kThreads, smem, a.stream>>>(
-          static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-          static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-          a.lse, a.drow, static_cast<float*>(a.o1), static_cast<float*>(a.o2),
-          a.sq, a.skv, a.group, a.scale, a.causal);
-      return cudaGetLastError();
-    }
-    constexpr size_t smem = dq_smem_bytes<D>();
-    err = allow_smem(flash_dq_kernel<D>, smem);
+    if (which == kDq) return launch_dq_tf32<D>(a);
+    constexpr size_t smem = fwd_smem_bytes<D>();
+    cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
     if (err != cudaSuccess) return err;
     dim3 grid((a.sq + kBQ - 1) / kBQ, a.bh);
-    flash_dq_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+    flash_fwd_kernel<D><<<grid, kThreads, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), a.out32,
-        static_cast<const float*>(a.dout), a.lse, a.drow,
-        static_cast<float*>(a.o0), a.sq, a.skv, a.group, a.scale, a.causal);
+        static_cast<const float*>(a.v), static_cast<float*>(a.o0), a.out32,
+        a.lse, a.sq, a.skv, a.group, a.scale, a.causal);
     return cudaGetLastError();
   }
 }
@@ -1154,8 +1446,8 @@ long long smem_bytes(int which, int dtype) {
   if (dtype == kBF16 && which == kDq) return dq_mma_smem_bytes<D>();
   if (dtype == kBF16 && which == kDkdv) return dkdv_mma_smem_bytes<D>();
   if (which == kFwd) return fwd_smem_bytes<D>();
-  if (which == kDkdv) return dkdv_smem_bytes<D>();
-  return dq_smem_bytes<D>();
+  if (which == kDkdv) return dkdv_tf32_smem_bytes<D>();
+  return dq_tf32_smem_bytes<D>();
 }
 
 }  // namespace
@@ -1163,8 +1455,8 @@ long long smem_bytes(int which, int dtype) {
 extern "C" {
 
 // q (bh, Sq, D), k/v (bh / group, Skv, D), out (bh, Sq, D), all contiguous
-// and of one dtype (0 f32, 1 bf16; bf16 pointers, and out32 for the bf16
-// dQ kernel, 16-byte aligned); lse
+// and of one dtype (0 f32, 1 bf16; bf16 pointers, and for the backward
+// every input and out32, 16-byte aligned); lse
 // (bh, Sq) f32.  `out32`, when not NULL, receives the output in f32 before
 // its rounding to `out`'s dtype: the backward's row term rowsum(dO * O)
 // takes O unrounded, as autograd through the plain version does.  Each
@@ -1194,8 +1486,8 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
 }
 
 // dk, dv (bh / group, Skv, D) in k's dtype, from drow of the dQ kernel.
-// `part` is scratch of 2 * bh * Skv * D floats for bf16 with group > 1
-// (the per-head partials of dK, then dV), else unused and may be NULL.
+// `part` is scratch of 2 * bh * Skv * D floats for group > 1 (the per-head
+// partials of dK, then dV), else unused and may be NULL.
 int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,
                              const float* drow, void* dk, void* dv,

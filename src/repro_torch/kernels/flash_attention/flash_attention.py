@@ -7,9 +7,12 @@ answers), which also writes each query row's log-sum-exp.  The reference
 has no backward kernel; here CUDA kernels compute dQ, and dK with dV, from
 the saved log-sum-exp, without atomics, so a gradient is the same bits on
 every run.  bf16 inputs take tensor-core kernels for the forward, dQ and
-dK/dV (the last per q head into f32 scratch that this wrapper allocates,
-then summed over the group in head order), built from the tile code in
-``csrc/mma_tiles.cuh`` that K1 shares; f32 inputs run on the CUDA cores.
+dK/dV, built from the tile code in ``csrc/mma_tiles.cuh`` that K1 shares.
+f32 inputs take a forward on the CUDA cores and a backward whose products
+run on the tensor cores as three TF32 products each, with the scores
+recomputed by the forward's own f32 chain.  In both dtypes dK/dV goes per
+q head into f32 scratch that this wrapper allocates, then is summed over
+the group in head order.
 ``flash_attention`` is a ``torch.autograd.Function`` whose forward and
 backward are those kernels.
 
@@ -98,7 +101,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return bh, sq, skv, d
 
 
-def _check_cuda(tensors: dict[str, torch.Tensor], d: int) -> None:
+def _check_cuda(tensors: dict[str, torch.Tensor], d: int,
+                backward: bool = False) -> None:
+    """Device, dtype, contiguity and head dim; 16-byte aligned starts for
+    the kernels that copy rows 16 bytes at a time (bf16, and the f32
+    backward)."""
     first = next(iter(tensors.values()))
     if first.device.type != "cuda":
         raise ValueError(f"K4's kernels take CUDA tensors, got {first.device}")
@@ -111,9 +118,9 @@ def _check_cuda(tensors: dict[str, torch.Tensor], d: int) -> None:
                             f"{name} is {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"K4 needs contiguous inputs; {name} is not")
-        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
-            raise ValueError(f"K4's bf16 kernels copy 16-byte rows; {name} "
-                             f"does not start on a 16-byte boundary")
+        if (t.dtype == torch.bfloat16 or backward) and t.data_ptr() % 16:
+            raise ValueError(f"K4's {t.dtype} kernels copy 16-byte rows; "
+                             f"{name} does not start on a 16-byte boundary")
     if d not in _HEAD_DIMS:
         raise ValueError(f"head dim {d} not compiled (one of {_HEAD_DIMS})")
 
@@ -149,7 +156,7 @@ def _check_f32(name: str, t: torch.Tensor, shape, dev) -> None:
 
 def _check_bwd(q, k, v, lse, dout, group):
     bh, sq, skv, d = _check(q, k, v, group)
-    _check_cuda({"q": q, "k": k, "v": v, "dout": dout}, d)
+    _check_cuda({"q": q, "k": k, "v": v, "dout": dout}, d, backward=True)
     if dout.shape != q.shape:
         raise ValueError(f"dout {tuple(dout.shape)} must be q's shape")
     _check_f32("lse", lse, (bh, sq), q.device)
@@ -163,9 +170,9 @@ def flash_attention_bwd_dq(q, k, v, out32, lse, dout, *, causal: bool = True,
     rowsum(dO * O) is the dK/dV kernel's input."""
     bh, sq, skv, d = _check_bwd(q, k, v, lse, dout, group)
     _check_f32("out32", out32, q.shape, q.device)
-    if q.dtype == torch.bfloat16 and out32.data_ptr() % 16:
-        raise ValueError("K4's bf16 dQ kernel reads out32 16 bytes at a "
-                         "time; it does not start on a 16-byte boundary")
+    if out32.data_ptr() % 16:
+        raise ValueError("K4's dQ kernels read out32 16 bytes at a time; it "
+                         "does not start on a 16-byte boundary")
     dq = torch.empty_like(q)
     drow = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     _launch("flash_attention_bwd_dq", q.data_ptr(), k.data_ptr(),
@@ -182,9 +189,9 @@ def flash_attention_bwd_dkdv(q, k, v, lse, dout, drow, *, causal: bool = True,
     bh, sq, skv, d = _check_bwd(q, k, v, lse, dout, group)
     _check_f32("drow", drow, (bh, sq), q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    # The bf16 kernel's per-q-head f32 partials of dK, then dV.
-    part = torch.empty((2, bh, skv, d), dtype=torch.float32, device=q.device) \
-        if q.dtype == torch.bfloat16 and group > 1 else None
+    # The per-q-head f32 partials of dK, then dV, summed over the group.
+    part = torch.empty((2, bh, skv, d), dtype=torch.float32,
+                       device=q.device) if group > 1 else None
     _launch("flash_attention_bwd_dkdv", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), dout.data_ptr(), lse.data_ptr(), drow.data_ptr(),
             dk.data_ptr(), dv.data_ptr(),
@@ -218,9 +225,13 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out32, lse = ctx.saved_tensors
+        # The backward kernels copy 16-byte rows: a view that starts off a
+        # 16-byte boundary is copied to one that does not.
+        q, k, v, dout = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+                         else t.clone(memory_format=torch.contiguous_format)
+                         for t in (q, k, v, dout))
         dq, dk, dv = flash_attention_bwd(
-            q, k, v, out32, lse, dout.contiguous(), causal=ctx.causal,
-            group=ctx.group)
+            q, k, v, out32, lse, dout, causal=ctx.causal, group=ctx.group)
         return dq, dk, dv, None, None
 
 
@@ -235,9 +246,8 @@ def flash_attention(
     """Differentiable flash attention, (B*Hq, Sq, D) in q's dtype.
 
     The kernels work in tiles of 64 query rows and 64 keys, except dK/dV:
-    blocks of 64 keys over steps of 32 queries in bf16, of 32 keys over
-    64-query tiles in f32.  Sq and Skv need not divide them — the ragged
-    edge is masked."""
+    blocks of 64 keys over steps of 32 queries.  Sq and Skv need not divide
+    them — the ragged edge is masked."""
     _check(q, k, v, group)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, group=group)

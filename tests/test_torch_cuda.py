@@ -375,6 +375,58 @@ def test_flash_attention_path_shape_bf16_matches_plain_and_is_bitwise(dev):
             assert torch.equal(a, b)
 
 
+def test_flash_attention_path_shape_f32_matches_plain_and_is_bitwise(dev):
+    """The training path's q (16, 1024, 128), k/v (2, 1024, 128), f32,
+    causal (the f32 grain check's shape): forward and backward against the
+    plain version and autograd through it at the f32 tolerances, one launch
+    of each kernel; the backward the same bits over repeated runs."""
+    q, k, v = _k4_inputs(dev, 1, 1024, 1024, 16, 2, 128, torch.float32)
+    dout = _rand(q.shape, torch.float32, dev, 29)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention(*leaves, group=8)
+    grads = torch.autograd.grad(out, leaves, dout)
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+        "flash_attention_bwd_dkdv": 1}
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = flash_attention_ref(*ref_leaves, group=8)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, dout)
+    torch.testing.assert_close(out, ref, rtol=5e-4, atol=5e-5)
+    for name, g, r in zip("qkv", grads, ref_grads, strict=True):
+        assert g.dtype == torch.float32, name
+        torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-4,
+                                   msg=f"d{name}")
+    _, lse, out32 = fa.flash_attention_fwd(q, k, v, group=8)
+    first = fa.flash_attention_bwd(q, k, v, out32, lse, dout, group=8)
+    for _ in range(3):
+        again = fa.flash_attention_bwd(q, k, v, out32, lse, dout, group=8)
+        for a, b in zip(first, again, strict=True):
+            assert torch.equal(a, b)
+
+
+def test_flash_attention_f32_backward_needs_16_byte_aligned_inputs(dev):
+    """The f32 backward kernels copy rows 16 bytes at a time: an input that
+    starts off a 16-byte boundary raises instead of launching; the
+    autograd function copies such a view first."""
+    k = torch.randn((2, 16, 16), device=dev)
+    _, lse, out32 = fa.flash_attention_fwd(k, k, k)
+    flat = torch.randn(k.numel() + 1, device=dev)
+    off = flat[1:].view(k.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_bwd_dq(off, k, k, out32, lse, k)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_bwd_dkdv(k, k, k, lse, off, lse)
+    leaves = [t.clone().requires_grad_(True) for t in (off, k, k)]
+    grads = torch.autograd.grad(fa.flash_attention(*leaves), leaves,
+                                torch.ones_like(k))
+    ref_leaves = [t.clone().requires_grad_(True) for t in (off, k, k)]
+    ref_grads = torch.autograd.grad(flash_attention_ref(*ref_leaves),
+                                    ref_leaves, torch.ones_like(k))
+    for g, r in zip(grads, ref_grads, strict=True):
+        torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-4)
+
+
 def test_flash_dq_path_shape_bitwise_and_row_term(dev):
     """The bf16 dQ kernel at the training path's shape: the same bits over
     repeated runs, and its row term rowsum(dO * O) (the dK/dV kernel's
@@ -392,15 +444,39 @@ def test_flash_dq_path_shape_bitwise_and_row_term(dev):
 
 
 @pytest.mark.parametrize("dtype,kernel", [
-    (torch.bfloat16, "flash_dq_mma_kernel"), (torch.float32, "flash_dq_kernel")])
+    (torch.bfloat16, "flash_dq_mma_kernel"),
+    (torch.float32, "flash_dq_tf32_kernel")])
 def test_flash_dq_launches_the_kernel_of_its_dtype(dev, dtype, kernel):
-    """bf16 on the tensor cores, f32 on the CUDA cores."""
+    """bf16 on the tensor cores in bf16, f32 as three TF32 products."""
     q, k, v = _k4_inputs(dev, 1, 128, 128, 16, 2, 128, dtype)
     dout = _rand(q.shape, torch.float32, dev, 28).to(dtype)
     _, lse, out32 = fa.flash_attention_fwd(q, k, v, group=8)
     names = _device_kernels(lambda: fa.flash_attention_bwd_dq(
         q, k, v, out32, lse, dout, group=8))
     assert [n for n in names if kernel + "<" in n], names
+
+
+@pytest.mark.parametrize("dtype,kernel,out_type", [
+    (torch.bfloat16, "flash_dkdv_mma_kernel", "__nv_bfloat16"),
+    (torch.float32, "flash_dkdv_tf32_kernel", "float")])
+def test_flash_dkdv_launches_the_kernel_of_its_dtype(dev, dtype, kernel,
+                                                     out_type):
+    """The dK/dV kernel of the dtype, then for group 8 the head-order
+    reduction of its per-head partials into the dtype; none for group 1."""
+    for hkv, group in ((2, 8), (16, 1)):
+        q, k, v = _k4_inputs(dev, 1, 128, 128, 16, hkv, 128, dtype)
+        dout = _rand(q.shape, torch.float32, dev, 28).to(dtype)
+        _, lse, out32 = fa.flash_attention_fwd(q, k, v, group=group)
+        _, drow = fa.flash_attention_bwd_dq(q, k, v, out32, lse, dout,
+                                            group=group)
+        names = _device_kernels(lambda: fa.flash_attention_bwd_dkdv(
+            q, k, v, lse, dout, drow, group=group))
+        assert [n for n in names if kernel + "<" in n], names
+        reduce = [n for n in names if "flash_dkdv_reduce_kernel<" in n]
+        if group == 1:
+            assert not reduce, names
+        else:
+            assert reduce and all(out_type in n for n in reduce), names
 
 
 def test_flash_attention_bf16_needs_16_byte_aligned_inputs(dev):
