@@ -203,10 +203,6 @@ K4_BF16_KERNELS = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
                    "flash_dkdv_mma_kernel", "flash_dkdv_reduce_kernel")
 K4_F32_KERNELS = ("flash_fwd_kernel", "flash_dq_tf32_kernel",
                   "flash_dkdv_tf32_kernel", "flash_dkdv_reduce_kernel")
-#: The ``which`` argument of ``flash_attention_smem_bytes`` by kernel.
-K4_WHICH = {"flash_fwd_mma_kernel": 0, "flash_dq_mma_kernel": 1,
-            "flash_dkdv_mma_kernel": 2, "flash_fwd_kernel": 0,
-            "flash_dq_tf32_kernel": 1, "flash_dkdv_tf32_kernel": 2}
 #: Side of the wall-clock backend's unit op ``tanh(h @ x)`` on the card: at
 #: 2048 one f32 product is about 17 GFLOP, far above a launch's cost, so the
 #: measured chains are device time (the default 96 is sized for a CPU).
@@ -1275,9 +1271,9 @@ def main() -> int:
         checked = names[1:] if dtype_code == 0 else names
         k4_build.update(build_report(
             build_logs, "flash_attention", fa.load_library()._name, checked,
-            lambda name, d, c=dtype_code: int(
+            lambda name, d, c=dtype_code, n=names: int(
                 fa.load_library().flash_attention_smem_bytes(
-                    K4_WHICH[name.split("<")[0]], d, c)),
+                    n.index(name.split("<")[0]), d, c)),
             main={"flash_dkdv_reduce_kernel": (reduce_key, False)}))
     fwd32 = kernel_build_report(build_logs["flash_attention"], "",
                                 ("flash_fwd_kernel",))
@@ -1979,9 +1975,7 @@ def main() -> int:
          "library_ms": k4_rows[part]["library_ms"],
          "device_ms": k4_rows[part]["device_ms"],
          "library_device_ms": k4_rows[part]["library_device_ms"],
-         "build": k4_rows[part].get("build"), "f32": k4_f32[part],
-         "device_kernels": {"bfloat16": list(k4_rows[part]["build"]),
-                            "float32": list(k4_f32[part]["build"])}}
+         "build": k4_rows[part].get("build"), "f32": k4_f32[part]}
         for name, part in zip(K4_KERNELS, ("fwd", "dq", "dkdv"), strict=True)
     ] + [
         {"name": "ssd_scan", "route": "cuda",

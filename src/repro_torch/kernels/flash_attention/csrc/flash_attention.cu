@@ -340,9 +340,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // (straight from the accumulator's registers) and in its B fragment (read
 // from shared memory at those rows), which sums the same 8 terms.  So P,
 // dS, P^T and dS^T never leave registers, at no cost.
-constexpr int kTfBQ = 64;      // dQ: query rows a block holds (16 a warp pair)
-constexpr int kTfBK = 64;      // dQ: keys a K/V tile holds (32 a warp)
-constexpr int kTfDqThreads = 256;  // dQ: 8 warps
+constexpr int kTfBQ = 64;      // dQ: query rows a block holds (16 a warp)
+constexpr int kTfBK = 64;      // dQ: keys a K/V tile holds
 constexpr int kTfKB = 64;      // dK/dV: keys a block owns (16 a warp)
 constexpr int kTfQS = 64;      // dK/dV: queries a step takes
 
@@ -355,11 +354,11 @@ __device__ __forceinline__ constexpr int f32_stride() { return D + 4; }
 
 // Stage rows [r0, r0 + ROWS) of a (rows, D) f32 matrix into a shared tile
 // of row stride D + 4 with cp.async; rows at or past `valid` read 0.
-template <int ROWS, int D, int THREADS = kThreads>
+template <int ROWS, int D>
 __device__ __forceinline__ void stage_f32_async(float* dst, const float* src,
                                                 int r0, int valid) {
   constexpr int kChunks = D / 4;                  // 16-byte chunks a row
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += THREADS) {
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
     const int r = c / kChunks, col = (c % kChunks) * 4;
     const bool ok = r0 + r < valid;
     cp_async16(smem_addr(dst + r * f32_stride<D>() + col),
@@ -369,10 +368,10 @@ __device__ __forceinline__ void stage_f32_async(float* dst, const float* src,
 
 // Rows [0, ROWS) of a staged f32 tile times `mul`, in place: q * scale
 // rounded to f32, as `stage` forms it for the forward.
-template <int ROWS, int D, int THREADS = kThreads>
+template <int ROWS, int D>
 __device__ __forceinline__ void scale_tile(float* t, float mul) {
   constexpr int kChunks = D / 4;
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += THREADS) {
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
     float4* p = reinterpret_cast<float4*>(t + (c / kChunks) * f32_stride<D>() +
                                           (c % kChunks) * 4);
     float4 x = *p;
@@ -461,20 +460,18 @@ constexpr size_t dq_tf32_smem_bytes() {
   return sizeof(float) * ((2 * kTfBQ + 4 * kTfBK) * (D + 4) + 2 * kTfBQ);
 }
 
-// Grid (B*Hq, ceil(Sq / kTfBQ)) of 8 warps, query tile gridDim.y - 1 -
-// blockIdx.y (the causal tiles with the most keys start first).  Warps w
-// and w + 4 own query rows q0 + 16 w .. q0 + 16 w + 15 (lane (g, t): rows
-// g and g + 8 of them), w the first 32 keys of each K/V tile and w + 4 the
-// last 32, so each scheduler has two warps.  Per K/V tile: s by `score_chain` at the lane's accumulator positions
-// (keys 8 j + 2 t, 8 j + 2 t + 1 of the warp's half), dP = dO V^T,
-// P = exp(s - lse) under the forward's mask, dS = P (dP - Drow),
-// dQ += dS K.  After the last tile, each slice's sum over the first halves
-// plus its sum over the second halves, times scale.  With
-// s = (q * scale) . k that is dQ = scale * sum_j dS_ij k_j.  Drow_i =
-// sum_d dO_id O_id by one thread a row in ascending d with fmaf (the dK/dV
-// kernel's input, written to `drow`).
+// Grid (B*Hq, ceil(Sq / kTfBQ)), query tile gridDim.y - 1 - blockIdx.y (the
+// causal tiles with the most keys start first); warp w owns query rows
+// q0 + 16 w .. q0 + 16 w + 15, lane (g, t) rows g and g + 8 of them.  Per
+// K/V tile of 64 keys: s by `score_chain` at the lane's accumulator
+// positions (keys 8 j + 2 t, 8 j + 2 t + 1), dP = dO V^T, P = exp(s - lse)
+// under the forward's mask, dS = P (dP - Drow), dQ += dS K; after the last
+// tile dQ x scale.  With s = (q * scale) . k that is
+// dQ = scale * sum_j dS_ij k_j, over the K/V tiles in ascending order.
+// Drow_i = sum_d dO_id O_id by one thread a row in ascending d with fmaf
+// (the dK/dV kernel's input, written to `drow`).
 template <int D>
-__global__ void __launch_bounds__(kTfDqThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ out32,
@@ -484,9 +481,8 @@ flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      float scale, int causal) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int SF = f32_stride<D>();
-  constexpr int NT = kTfBK / 16;                  // a warp's score n-tiles
+  constexpr int NT = kTfBK / 8;                   // score n-tiles (keys)
   constexpr int DT = D / 8;                       // dQ n-tiles
-  constexpr int T = kTfDqThreads;
   extern __shared__ __align__(16) float smf[];
   float* Qs = smf;
   float* dOs = Qs + kTfBQ * SF;
@@ -497,8 +493,7 @@ flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, t4 = lane % 4;
-  const int wr = (warp % 4) * 16 + g;             // this lane's rows wr, wr + 8
-  const int kh = (warp / 4) * (kTfBK / 2);        // the warp's keys kh .. kh + 31
+  const int wr = warp * 16 + g;                   // this lane's rows wr, wr + 8
   const int row_q = blockIdx.x;
   const int row_kv = row_q / group;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTfBQ;
@@ -508,10 +503,10 @@ flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k_end = causal ? min(Skv, min(q0 + kTfBQ, Sq)) : Skv;
   const int n_kt = (k_end + kTfBK - 1) / kTfBK;
 
-  stage_f32_async<kTfBQ, D, T>(Qs, q + qoff, q0, Sq);
-  stage_f32_async<kTfBQ, D, T>(dOs, dout + qoff, q0, Sq);
-  stage_f32_async<kTfBK, D, T>(Ks, kp, 0, Skv);
-  stage_f32_async<kTfBK, D, T>(Vs, vp, 0, Skv);
+  stage_f32_async<kTfBQ, D>(Qs, q + qoff, q0, Sq);
+  stage_f32_async<kTfBQ, D>(dOs, dout + qoff, q0, Sq);
+  stage_f32_async<kTfBK, D>(Ks, kp, 0, Skv);
+  stage_f32_async<kTfBK, D>(Vs, vp, 0, Skv);
   cp_async_commit();
 
   // The row terms, from device memory while the copies run.  Rows past Sq
@@ -552,8 +547,8 @@ flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* Vt = Vs + (t & 1) * kTfBK * SF;
     if (t + 1 < n_kt) {                           // prefetch the next tile
       const int nb = ((t + 1) & 1) * kTfBK * SF;
-      stage_f32_async<kTfBK, D, T>(Ks + nb, kp, k0 + kTfBK, Skv);
-      stage_f32_async<kTfBK, D, T>(Vs + nb, vp, k0 + kTfBK, Skv);
+      stage_f32_async<kTfBK, D>(Ks + nb, kp, k0 + kTfBK, Skv);
+      stage_f32_async<kTfBK, D>(Vs + nb, vp, k0 + kTfBK, Skv);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -561,7 +556,7 @@ flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
     if (t == 0) {
-      scale_tile<kTfBQ, D, T>(Qs, scale);
+      scale_tile<kTfBQ, D>(Qs, scale);
       __syncthreads();
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -571,15 +566,13 @@ flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 
     // s at the lane's accumulator positions: s[i][2 j + c] is row
-    // wr + 8 i, key k0 + kh + 8 j + 2 t + c.
+    // wr + 8 i, key k0 + 8 j + 2 t + c.
     float s[2][2 * NT];
     score_chain<D, 4>(
         s, [&](int i) { return Qs + (wr + 8 * i) * SF; },
-        [&](int j) {
-          return Kt + (kh + 8 * (j >> 1) + 2 * t4 + (j & 1)) * SF;
-        });
+        [&](int j) { return Kt + (8 * (j >> 1) + 2 * t4 + (j & 1)) * SF; });
 
-    // dP = dO V^T, 16 rows x 32 keys a warp.
+    // dP = dO V^T, 16 rows x 64 keys a warp.
     float dp[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -592,7 +585,7 @@ flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         uint32_t bh[2], bl[2];
-        frag_b_tf32(Vt + (kh + 8 * j + g) * SF + ks * 8 + t4, 4, bh, bl);
+        frag_b_tf32(Vt + (8 * j + g) * SF + ks * 8 + t4, 4, bh, bl);
         mma_tf32x3(dp[j], ah, al, bh, bl);
       }
     }
@@ -605,7 +598,7 @@ flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1;
-        const int kj = k0 + kh + 8 * j + 2 * t4 + (e & 1);
+        const int kj = k0 + 8 * j + 2 * t4 + (e & 1);
         const int qi = q0 + wr + 8 * i;
         const bool ok = !edge || (kj < Skv && (!causal || kj <= qi));
         const float p = ok ? expf(s[i][2 * j + (e & 1)] - lse_r[i]) : 0.f;
@@ -613,12 +606,12 @@ flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
 
     // dQ += dS K: dS's A fragments from dp in the permuted k order, K's B
-    // fragments from rows k0 + kh + 8 kk + 2 t and + 1.
+    // fragments from rows k0 + 8 kk + 2 t and + 1.
 #pragma unroll
     for (int kk = 0; kk < NT; ++kk) {
       uint32_t ah[4], al[4];
       acc_to_a_tf32(dp[kk], ah, al);
-      const float* kb = Kt + (kh + 8 * kk + 2 * t4) * SF + g;
+      const float* kb = Kt + (8 * kk + 2 * t4) * SF + g;
 #pragma unroll
       for (int n = 0; n < DT; ++n) {
         uint32_t bh[2], bl[2];
@@ -629,21 +622,6 @@ flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();                              // this buffer consumed
   }
 
-  // Warps 4-7 hand their sums over the second halves to warps 0-3 through
-  // the K buffers (free after the last barrier), which add them to theirs.
-  float* red = Ks + (warp % 4) * DT * 4 * 32 + lane;
-  if (warp >= 4) {
-#pragma unroll
-    for (int n = 0; n < DT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) red[(n * 4 + e) * 32] = acc[n][e];
-  }
-  __syncthreads();
-  if (warp >= 4) return;
-#pragma unroll
-  for (int n = 0; n < DT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] += red[(n * 4 + e) * 32];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int qi = q0 + wr + 8 * i;
@@ -702,7 +680,7 @@ flash_dkdv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, t4 = lane % 4;
-  const int wr = warp * 16 + g;                   // this lane's keys, in the tile
+  const int wr = warp * 16 + g;                   // this lane's keys wr, wr + 8
   const int row_q = blockIdx.x;
   const int row_kv = row_q / group;
   const int k0 = blockIdx.y * kTfKB;
@@ -1345,8 +1323,7 @@ cudaError_t launch_dq_tf32(const Args& a) {
   if (n_qt > kMaxGridY) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(flash_dq_tf32_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  flash_dq_tf32_kernel<D><<<dim3(a.bh, n_qt), kTfDqThreads, smem,
-                            a.stream>>>(
+  flash_dq_tf32_kernel<D><<<dim3(a.bh, n_qt), kThreads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), a.out32,
       static_cast<const float*>(a.dout), a.lse, a.drow,

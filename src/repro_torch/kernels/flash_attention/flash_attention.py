@@ -246,8 +246,8 @@ def flash_attention(
     """Differentiable flash attention, (B*Hq, Sq, D) in q's dtype.
 
     The kernels work in tiles of 64 query rows and 64 keys, except dK/dV:
-    blocks of 64 keys over steps of 32 queries.  Sq and Skv need not divide
-    them — the ragged edge is masked."""
+    blocks of 64 keys over steps of 32 queries (bf16) or 64 (f32).  Sq and
+    Skv need not divide them — the ragged edge is masked."""
     _check(q, k, v, group)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, group=group)

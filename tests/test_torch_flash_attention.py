@@ -401,9 +401,8 @@ def test_bf16_oracle_misses_exact_gradient_at_one_key_group_8():
 # the four products dP = dO V^T, dQ = scale dS K, dV = P^T dO and
 # dK = dS^T (q scale) on the tensor cores as three TF32 products each
 # (lo hi, hi lo, hi hi, with hi = tf32(x) and lo = tf32(x - hi)), summed
-# 8 terms an `mma.sync.m16n8k8` and rounded to f32 once per product; dQ as
-# the sum over the first halves of the 64-key tiles plus the sum over the
-# second halves; dK and dV per q head, summed over the group in head order.  Beside it, the
+# 8 terms an `mma.sync.m16n8k8` and rounded to f32 once per product; dK
+# and dV per q head, summed over the group in head order.  Beside it, the
 # arithmetic of the kernels it replaces: every product one FMA chain.  The
 # model is held against ``jax.grad`` of the reference's plain path and
 # autograd through the port's plain version at GRAD_TOL: it has to fit
@@ -495,11 +494,7 @@ def _f32_model(q, k, v, dout, causal, group, products="tf32x3",
     n = 3 if products == "tf32x3" else 1
     dp = _mma(dout, vf.transpose(1, 2), n)
     ds = p * (dp - drow[..., None])
-    # dQ: a sum over the first 32 keys of every 64-key tile, plus one over
-    # the last 32 (two warps a row slice).
-    first = torch.arange(k.shape[1]) % 64 < 32
-    dq = (_mma(ds[..., first], kf[:, first], n)
-          + _mma(ds[..., ~first], kf[:, ~first], n)) * scale
+    dq = _mma(ds, kf, n) * scale
     dv = _heads_sum(_mma(p.transpose(1, 2), dout, n), group)
     dk = _heads_sum(_mma(ds.transpose(1, 2), qs, n), group)
     return dq, dk, dv
