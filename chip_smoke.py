@@ -375,8 +375,7 @@ def k5_bound_ms(bh: int, bg: int, s: int, p: int, n: int, chunk: int,
 
 
 def k4_bound_ms(bh: int, bhkv: int, sq: int, skv: int, d: int, itemsize: int,
-                dtype_name: str, causal: bool, part: str,
-                tf32x3: bool = False) -> tuple[float, str]:
+                dtype_name: str, causal: bool, part: str) -> tuple[float, str]:
     """Least time for K4's forward (``part`` 'fwd') or one backward kernel
     ('dq', 'dkdv'): each input read once, each output written once;
     operations per visible (query, key) pair: 4 D for the forward (scores,
@@ -384,12 +383,14 @@ def k4_bound_ms(bh: int, bhkv: int, sq: int, skv: int, d: int, itemsize: int,
     dS^T Q), at the type's peak.  The row statistics (lse, rowsum(dO * O))
     are f32.
 
-    ``tf32x3`` counts the f32 backward as its kernels run it: the score
-    chain (2 D a pair) in f32 FMAs at 67 TFLOP/s, and the other products
-    (4 D for dQ, 6 D for dK/dV) on the tensor cores as three TF32 products
-    each, so 3x their operations at 495 TFLOP/s.  The two units run at
-    once, so the operations' time is the larger of the two, and the bound
-    the larger of that and the bytes' time."""
+    The f32 backward is counted as its kernels run it: the score chain
+    (2 D a pair) in f32 FMAs at 67 TFLOP/s, and the other products (4 D
+    for dQ, 6 D for dK/dV) on the tensor cores as three TF32 products each,
+    so 3x their operations at 495 TFLOP/s.  The two units run at once, so
+    the operations' time is the larger of the two, and the bound the larger
+    of that and the bytes' time.  Counted all at 67 TFLOP/s instead, as
+    when the f32 backward ran on the CUDA cores, the path's shape gives
+    dQ 0.0963 ms and dK/dV 0.1283 ms: 3x and 3.3x this bound."""
     per_row = bh * (sum(min(i + 1, skv) for i in range(sq)) if causal
                     else sq * skv)
     q_elems, kv_elems, rows = bh * sq * d, bhkv * skv * d, bh * sq
@@ -399,7 +400,7 @@ def k4_bound_ms(bh: int, bhkv: int, sq: int, skv: int, d: int, itemsize: int,
         "dkdv": (itemsize * (2 * q_elems + 4 * kv_elems) + 8 * rows, 8),
     }[part]
     t_bytes = nbytes / HBM_BYTES_PER_S
-    if tf32x3 and part != "fwd":
+    if dtype_name == "float32" and part != "fwd":
         t_ops = max(2 * d * per_row / PEAK_OPS_PER_S["float32"],
                     3 * (ops - 2) * d * per_row / PEAK_OPS_PER_S["tf32"])
     else:
@@ -1365,9 +1366,9 @@ def main() -> int:
           "f32: two runs bitwise equal (dq, dk, dv)", flush=True)
 
     # Timings at the path's shape, in bf16 and on the f32 route (the f32
-    # grain check's flash_fwd_kernel, flash_dq_kernel, flash_dkdv_kernel),
-    # beside the plain versions, PyTorch's SDPA (a yardstick only: the port
-    # never calls it; TF32 off) and the bound at the type's peak.
+    # grain check's flash_fwd_kernel, flash_dq_tf32_kernel and
+    # flash_dkdv_tf32_kernel), beside the plain versions, PyTorch's SDPA (a
+    # yardstick only: the port never calls it; TF32 off) and the bound.
     sdpa = torch.nn.functional.scaled_dot_product_attention
     k4_timed = {}
     for dt, dname, itemsize in ((torch.bfloat16, "bf16", 2),
@@ -1407,13 +1408,7 @@ def main() -> int:
         for part, row in rows.items():
             row["bound_ms"], row["bound_by"] = k4_bound_ms(
                 16, 2, TRAIN_SEQ, TRAIN_SEQ, 128, itemsize,
-                {"bf16": "bfloat16", "f32": "float32"}[dname], True, part,
-                tf32x3=dname == "f32")
-            if dname == "f32" and part != "fwd":
-                # Every operation at the f32 FMA rate, as PRs 13-17 counted.
-                row["bound_ms_f32_fma"] = k4_bound_ms(
-                    16, 2, TRAIN_SEQ, TRAIN_SEQ, 128, itemsize, "float32",
-                    True, part)[0]
+                {"bf16": "bfloat16", "f32": "float32"}[dname], True, part)
         k4_timed[dname] = rows
         bwd_ms = time_ms(torch, lambda: fa.flash_attention_bwd(
             q, k, v, out32, lse, dout, group=8))

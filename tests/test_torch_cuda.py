@@ -8,7 +8,9 @@ interpret mode).  On the machine with the card:
 """
 
 import dataclasses
+import hashlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -403,6 +405,69 @@ def test_flash_attention_path_shape_f32_matches_plain_and_is_bitwise(dev):
         again = fa.flash_attention_bwd(q, k, v, out32, lse, dout, group=8)
         for a, b in zip(first, again, strict=True):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("seed", range(20))
+def test_flash_attention_f32_x30_logits_match_autograd(dev, seed, causal):
+    """The reference's x30-logit case (1 x 64 x 64, D = 16, q and k times
+    30) at numpy seeds 0-19, drawn as tests/test_torch_flash_attention.py
+    draws them for the CPU model of the f32 backward.  Scores in the
+    thousands leave GRAD_TOL almost no room, and the model sums each
+    8-term TF32 product exactly before one rounding, which the tensor
+    cores need not do; so the kernels' own gradients are held against
+    autograd through the plain version on the same values, on the card
+    and on the CPU."""
+    r = np.random.default_rng(seed)
+    q, k, v, dout = (
+        torch.from_numpy((r.standard_normal((1, 64, 1, 16)) * mag)
+                         .astype(np.float32).reshape(1, 64, 16))
+        for mag in (30.0, 30.0, 1.0, 1.0))
+    leaves = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+    grads = torch.autograd.grad(fa.flash_attention(*leaves, causal=causal),
+                                leaves, dout.to(dev))
+    for where in (dev, torch.device("cpu")):
+        ref_leaves = [t.to(where).requires_grad_(True) for t in (q, k, v)]
+        ref_grads = torch.autograd.grad(
+            flash_attention_ref(*ref_leaves, causal=causal), ref_leaves,
+            dout.to(where))
+        for name, g, want in zip("qkv", grads, ref_grads, strict=True):
+            torch.testing.assert_close(g.cpu(), want.cpu(), rtol=1e-3,
+                                       atol=1e-4, msg=f"d{name} on {where}")
+
+
+# SHA-256 of the f32 forward's out and lse on inputs from a CUDA generator
+# seeded 0, drawn in order (q, k, v for each case): the training path's
+# shape, the x30 logits and a ragged GQA shape.  The kernel computed these
+# bits before its score loop became the chain that the f32 backward
+# recomputes the scores by, and computes them after.  They are the bits of
+# one build (nvcc for sm_90a): a new toolkit, or a deliberate change of
+# the forward's arithmetic, moves them, and then they are taken anew.
+K4_F32_FWD_DIGESTS = [
+    (((16, 1024, 128), (2, 1024, 128), 8, True, 1.0),
+     "d25cb412f0a337ef00d45f0c81e5c14420f72621608a4796ae9cee38f8b2468d",
+     "c7b4d73eff72297b3410a4c72313ae92a2d149a5cd40470adf27f927425f7253"),
+    (((1, 64, 16), (1, 64, 16), 1, True, 30.0),
+     "33ae574626a6d56c27afd70abb2313a6d5946dc5c6e1c9a1ce67087d0a5546d8",
+     "6b7a14c61727b15d253c2af1949b819c7e3b21751e271541915ac3693a16f4ec"),
+    (((4, 129, 64), (2, 127, 64), 2, False, 1.0),
+     "c54f32b451bd93349a2618f9c1616ef6acbe982688e89b01f1718141de3231c0",
+     "2287c98f70d97508a8ae56e284e00d19e6817d2497b8682df2bdd95eb827b848"),
+]
+
+
+def test_flash_attention_f32_forward_keeps_its_bits(dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    for (qs, ks, group, causal, mag), *want in K4_F32_FWD_DIGESTS:
+        q = torch.randn(qs, generator=gen, device=dev) * mag
+        k = torch.randn(ks, generator=gen, device=dev) * mag
+        v = torch.randn(ks, generator=gen, device=dev)
+        out, lse, _ = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                             group=group)
+        got = [hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+               for t in (out, lse)]
+        assert got == want, (qs, ks)
 
 
 def test_flash_attention_f32_backward_needs_16_byte_aligned_inputs(dev):
