@@ -18,10 +18,12 @@ Phases, each of which exits non-zero when it fails:
                group 1, 2, 4 and 8, D 16 to 128); K1's bf16 tensor-core
                kernel's registers, spills and shared memory from the
                build's ``-Xptxas -v`` report and its ``HMMA`` count from
-               ``cuobjdump -sass`` (no spill, HMMA > 0); then both timed at
-               the serve path's shapes beside the plain version, PyTorch's
-               own call for the same function, and the card's bound (K1 and
-               SDPA, K2 and ``.to`` also by their kernels' device time,
+               ``cuobjdump -sass`` (no spill, HMMA > 0), and its f32 kernel's
+               (K4's f32 forward body; no spill); then both timed at the
+               serve path's shapes beside the plain version, PyTorch's own
+               call for the same function, and the card's bound, and K1 in
+               f32 at phase 4's shape beside SDPA in f32 (K1 and SDPA, K2
+               and ``.to`` also by their kernels' device time,
                ``device_ms``, taken in phase 15, after the serve phases),
   4. model   — full-width Qwen2-1.5B in f32 from ``Model.init(seed)``:
                prefill logits on the kernel path against ``use_pallas=False``
@@ -79,8 +81,9 @@ Phases, each of which exits non-zero when it fails:
                runs; the kernels' registers, spills and shared memory from
                the build's ``-Xptxas -v`` report and their ``HMMA`` count
                from ``cuobjdump -sass``, bf16 (forward, dQ, dK/dV on the
-               tensor cores, the reduction) and f32 (``flash_fwd_kernel``
-               on the CUDA cores, ``flash_dq_tf32_kernel`` and
+               tensor cores, the reduction) and f32 (``flash_fwd_f32_kernel``
+               on the CUDA cores, the body K1's f32 kernel shares,
+               ``flash_dq_tf32_kernel`` and
                ``flash_dkdv_tf32_kernel`` with three TF32 products a
                product, ``flash_dkdv_reduce_kernel<float>``): a spill fails,
                so does no HMMA in a tensor-core kernel; each kernel timed at
@@ -119,7 +122,9 @@ Phases, each of which exits non-zero when it fails:
                spills, shared memory and ``HMMA`` count (no spill, HMMA >
                0); timed at the path's shape beside its plain version and
                the card's bound (no PyTorch call computes the scan, so
-               there is no library time; device time in phase 15),
+               there is no library time; device time in phase 15), and its
+               f32 kernel at phase 13's shape (xdt (80, 128, 64), B/C (1,
+               128, 128), chunk 256),
  13. mamba model — full-width Mamba2-2.7B in f32 from ``Model.init(seed)``:
                prefill of one prompt of length 100 (bucket 128) on the kernel
                path against ``use_pallas=False``: logits within the f32
@@ -134,14 +139,18 @@ Phases, each of which exits non-zero when it fails:
                inputs it got from each bucket,
  15. device  — each kernel's device time (the profiler's kernel durations)
                beside PyTorch's call for the same function: K1 and SDPA at
-               phase 3's sweep, K2 and ``.to``, K3 and ``torch.matmul`` at
-               the three path shapes, K4's kernels in bf16 and f32 and
-               SDPA's forward and backward, K5; after every serve phase, so
+               phase 3's sweep and in f32 at phase 4's shape, K2 and
+               ``.to``, K3 and ``torch.matmul`` at the three path shapes,
+               K4's kernels in bf16 and f32 and SDPA's forward and
+               backward, K5 in bf16 and in f32 at phase 13's shape; after
+               every serve phase, so
                no profiler session of these precedes phases 5 and 14, and
                in a process of its own (``chip_smoke.py --device-times``,
-               seeded inputs of the same shapes): after the serve and
-               training phases the profiler loses most events of the
-               kernels launched through ctypes.
+               seeded inputs of the same shapes).  Every profiler session
+               starts its launches 20 ms in (``PROFILE_LEAD_S``): the
+               profiler drops device events stamped before the session
+               began, and CUPTI's stamps read early, the more so the
+               longer a process has loaded the card.
 
 Phases 4, 5, 7, 8, 9, 11, 13 and 14 are the main path: the kernels' launch counts
 are set to 0 just before each of their runs and read just after it; the
@@ -196,13 +205,28 @@ K4_PER_GRAIN = {"flash_attention_fwd": 2 * N_LAYERS,
                 "flash_attention_bwd_dq": N_LAYERS,
                 "flash_attention_bwd_dkdv": N_LAYERS}
 #: K4's device kernels by dtype, by name: in bf16 the forward, dQ and dK/dV
-#: on the tensor cores; in f32 the forward on the CUDA cores, dQ and dK/dV
+#: on the tensor cores; in f32 the forward on the CUDA cores (the body K1's
+#: f32 kernel shares), dQ and dK/dV
 #: with their products on the tensor cores as three TF32 products; in both
 #: dK/dV per q head, then the sum over the group into the dtype.
 K4_BF16_KERNELS = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
                    "flash_dkdv_mma_kernel", "flash_dkdv_reduce_kernel")
-K4_F32_KERNELS = ("flash_fwd_kernel", "flash_dq_tf32_kernel",
+K4_F32_KERNELS = ("flash_fwd_f32_kernel", "flash_dq_tf32_kernel",
                   "flash_dkdv_tf32_kernel", "flash_dkdv_reduce_kernel")
+#: K1 in f32 at phase 4's shape (bucket 128, Qwen2-1.5B's 16 padded q heads
+#: over 2 KV heads, D 128): (q heads, KV heads, S, D).
+K1_F32_SHAPE = (16, 2, 128, 128)
+#: K5 in f32 at phase 13's shape (bucket 128, Mamba2-2.7B's 80 heads of 64,
+#: one group of N 128): (heads, groups, S, P, N, chunk).
+K5_F32_SHAPE = (80, 1, 128, 64, 128, 256)
+#: Host seconds between the start of a profiler session and the first
+#: launch it must record.  The profiler drops device events stamped before
+#: its session began, and the card's kernel timestamps, brought to the
+#: host's clock by CUPTI, read early: by up to a millisecond in a young
+#: process, by tens of milliseconds after a minute of load
+#: (scripts/profiler_probe.py).  Every session here starts its launches
+#: this long after it, in a young process for the device times (phase 15).
+PROFILE_LEAD_S = 0.02
 #: Side of the wall-clock backend's unit op ``tanh(h @ x)`` on the card: at
 #: 2048 one f32 product is about 17 GFLOP, far above a launch's cost, so the
 #: measured chains are device time (the default 96 is sized for a CPU).
@@ -248,7 +272,8 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 5) -> float:
     copies) that ``iters`` calls launch, as CUPTI records them through
     ``torch.profiler``, over ``iters``.  Unlike ``time_ms`` it leaves out
     the host's gaps between launches, which set ``time_ms`` where a call's
-    host work outlasts its kernels."""
+    host work outlasts its kernels.  The first call starts PROFILE_LEAD_S
+    after the session does."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -257,6 +282,7 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 5) -> float:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_LEAD_S)
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -383,7 +409,9 @@ def k4_bound_ms(bh: int, bhkv: int, sq: int, skv: int, d: int, itemsize: int,
     dS^T Q), at the type's peak.  The row statistics (lse, rowsum(dO * O))
     are f32.
 
-    The f32 backward is counted as its kernels run it: the score chain
+    The f32 forward is counted as its kernel runs it: both products (the
+    score chain and P V, 2 D each) as f32 FMAs at 67 TFLOP/s.  The f32
+    backward is counted as its kernels run it: the score chain
     (2 D a pair) in f32 FMAs at 67 TFLOP/s, and the other products (4 D
     for dQ, 6 D for dK/dV) on the tensor cores as three TF32 products each,
     so 3x their operations at 495 TFLOP/s.  The two units run at once, so
@@ -506,6 +534,7 @@ def card_busy(torch, run, kernels=("matmul_kernel", "matmul_strip_kernel"),
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_LEAD_S)
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -540,13 +569,18 @@ def print_busy(card, label, wall_s, busy_s, k3_s, unprofiled_s,
 def kernel_build_report(log_text: str, sass_text: str,
                         names: tuple[str, ...]) -> dict[str, dict]:
     """Per instantiation of the kernels in ``names`` (``name<D>`` for an
-    int template argument, ``name<float>`` or ``name<bf16>`` for a dtype):
+    int template argument, ``name<float>`` or ``name<bf16>`` for a dtype,
+    ``name<float, D>`` or ``name<half, D>`` for both):
     registers, static shared memory, spill bytes and stack frame from an
     ``nvcc -Xptxas -v`` report, and the count of ``HMMA`` (tensor-core)
     instructions in its SASS from ``cuobjdump -sass``."""
     def key(mangled):
         for n in names:
             if n in mangled:
+                d = re.search(n + r"I(f|6__half)Li(\d+)E", mangled)
+                if d:
+                    t = "float" if d.group(1) == "f" else "half"
+                    return f"{n}<{t}, {d.group(2)}>"
                 d = re.search(n + r"ILi(\d+)E", mangled)
                 if d:
                     return f"{n}<{d.group(1)}>"
@@ -609,7 +643,7 @@ def build_report(build_logs, lib, path, names, smem_bytes,
          path], capture_output=True, text=True, timeout=300, check=True).stdout
     report = kernel_build_report(build_logs[lib], sass, names)
     for name, info in sorted(report.items()):
-        head_dim = re.search(r"<(\d+)>", name)
+        head_dim = re.search(r"(\d+)>$", name)
         info["smem_bytes"] = smem_bytes(name, int(head_dim.group(1))) \
             if head_dim else 0
         if info.get("spill_stores", 1) or info.get("spill_loads", 1):
@@ -666,6 +700,12 @@ def device_times() -> dict[str, dict[str, float]]:
                                                       torch.bfloat16)
         out[f"k1_{s}"] = pair(lambda: pf.prefill_flash(q, k, v, group=8),
                               library_attention(torch, q, k, v))
+    hq, hkv, s1, d1 = K1_F32_SHAPE
+    q = rand((hq, s1, d1), torch.float32)
+    k, v = rand((hkv, s1, d1), torch.float32), rand((hkv, s1, d1),
+                                                   torch.float32)
+    out["k1_f32"] = pair(lambda: pf.prefill_flash(q, k, v, group=hq // hkv),
+                         library_attention(torch, q, k, v))
     k32, v32 = rand((2, 128, 128), torch.float32), rand((2, 128, 128),
                                                         torch.float32)
     out["k2"] = pair(lambda: pf.cache_cast(k32, v32, torch.bfloat16),
@@ -708,6 +748,15 @@ def device_times() -> dict[str, dict[str, float]]:
                                                        torch.bfloat16)
     out["k5"] = {"device_ms": device_ms(torch, lambda: k5.ssd_scan(
         xdt, la, bg, cg, chunk=256, rep=80))}
+    # K5 in f32 at phase 13's shape.
+    h, g, s5, p5, n5, chunk = K5_F32_SHAPE
+    dtv = rand((h, s5), torch.float32).abs() * 0.1 + 0.01
+    xdt = rand((h, s5, p5), torch.float32) * dtv[..., None]
+    la = dtv * -(rand((h,), torch.float32).abs() + 0.1)[:, None]
+    bg, cg = rand((g, s5, n5), torch.float32), rand((g, s5, n5),
+                                                   torch.float32)
+    out["k5_f32"] = {"device_ms": device_ms(torch, lambda: k5.ssd_scan(
+        xdt, la, bg, cg, chunk=chunk, rep=h // g))}
     return out
 
 
@@ -830,6 +879,15 @@ def main() -> int:
         lambda name, d: int(pf.load_library().prefill_smem_bytes(d, 1)))
     for name, info in sorted(k1_build.items()):
         print(f"[kernels] build {name}: {json.dumps(info)}", flush=True)
+    # K1's f32/f16 kernel, K4's f32 forward body (f32_tiles.cuh): no spill.
+    k1_f32_key = "prefill_flash_f32_kernel<float, 128>"
+    k1_f32_build = build_report(
+        build_logs, "prefill", pf.load_library()._name,
+        ("prefill_flash_f32_kernel",),
+        lambda name, d: int(pf.load_library().prefill_smem_bytes(d, 0)),
+        main={"prefill_flash_f32_kernel": (k1_f32_key, False)})
+    for name, info in sorted(k1_f32_build.items()):
+        print(f"[kernels] build {name}: {json.dumps(info)}", flush=True)
     for s, hq, hkv, d in ((1, 1, 1, 16), (17, 2, 1, 128), (63, 4, 2, 32),
                           (65, 8, 1, 16), (127, 8, 1, 128), (129, 2, 2, 64),
                           (65, 4, 1, 64), (129, 16, 2, 128)):
@@ -879,6 +937,23 @@ def main() -> int:
         print(f"[kernels] K1 bf16 Hq=16 Hkv=2 D=128 S={s}: "
               + json.dumps(row), flush=True)
     k1_row = k1_sweep[-1]
+    hq, hkv, s1, d1 = K1_F32_SHAPE
+    q = rand((hq, s1, d1), torch.float32)
+    k, v = rand((hkv, s1, d1), torch.float32), rand((hkv, s1, d1),
+                                                   torch.float32)
+    k1_f32 = {
+        "shape": [[hq, s1, d1], [hkv, s1, d1]],
+        "ms": time_ms(torch, lambda: pf.prefill_flash(q, k, v,
+                                                      group=hq // hkv)),
+        "plain_ms": time_ms(torch, lambda: prefill_ref(q, k, v,
+                                                       group=hq // hkv)),
+        "library_ms": time_ms(torch, library_attention(torch, q, k, v)),
+        "build": k1_f32_build[k1_f32_key]}
+    k1_f32["bound_ms"], k1_f32["bound_by"] = flash_bound_ms(hq, s1, d1, hkv,
+                                                            4, "float32")
+    print(f"[kernels] K1 f32 Hq={hq} Hkv={hkv} D={d1} S={s1}: "
+          + json.dumps({n: x for n, x in k1_f32.items() if n != "build"}),
+          flush=True)
     k2_bytes = 2 * k32.numel() * (4 + 2)
     k2 = {
         "ms": time_ms(torch, lambda: pf.cache_cast(k32, v32, torch.bfloat16)),
@@ -1262,27 +1337,19 @@ def main() -> int:
     # The kernels as built, bf16 and f32: registers, spills, shared memory,
     # and HMMA instructions in their SASS (a spill fails; so does no HMMA in
     # a kernel whose products run on the tensor cores: all but the f32
-    # forward and the reductions).  The f32 forward, on the CUDA cores and
-    # not redesigned, is reported without that check: it spills 4 bytes at
-    # D = 128, as it did before the backward's redesign.
+    # forward, whose products are f32 FMAs, and the reductions).
     k4_build = {}
     for dtype_code, names in ((1, K4_BF16_KERNELS), (0, K4_F32_KERNELS)):
         reduce_key = "flash_dkdv_reduce_kernel<{}>".format(
             "bf16" if dtype_code else "float")
-        checked = names[1:] if dtype_code == 0 else names
         k4_build.update(build_report(
-            build_logs, "flash_attention", fa.load_library()._name, checked,
+            build_logs, "flash_attention", fa.load_library()._name, names,
             lambda name, d, c=dtype_code, n=names: int(
                 fa.load_library().flash_attention_smem_bytes(
                     n.index(name.split("<")[0]), d, c)),
-            main={"flash_dkdv_reduce_kernel": (reduce_key, False)}))
-    fwd32 = kernel_build_report(build_logs["flash_attention"], "",
-                                ("flash_fwd_kernel",))
-    for name, info in fwd32.items():
-        info.pop("hmma")
-        info["smem_bytes"] = int(fa.load_library().flash_attention_smem_bytes(
-            0, int(name.split("<")[1][:-1]), 0))
-        k4_build[name] = info
+            main={"flash_dkdv_reduce_kernel": (reduce_key, False),
+                  "flash_fwd_f32_kernel": ("flash_fwd_f32_kernel<128>",
+                                           False)}))
     for name, info in sorted(k4_build.items()):
         print(f"[k4] build {name}: {json.dumps(info)}", flush=True)
 
@@ -1366,7 +1433,7 @@ def main() -> int:
           "f32: two runs bitwise equal (dq, dk, dv)", flush=True)
 
     # Timings at the path's shape, in bf16 and on the f32 route (the f32
-    # grain check's flash_fwd_kernel, flash_dq_tf32_kernel and
+    # grain check's flash_fwd_f32_kernel, flash_dq_tf32_kernel and
     # flash_dkdv_tf32_kernel), beside the plain versions, PyTorch's SDPA (a
     # yardstick only: the port never calls it; TF32 off) and the bound.
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1745,6 +1812,22 @@ def main() -> int:
     print(f"[k5] {card}: bf16 xdt (80, 512, 64), B/C (1, 512, 128), chunk "
           f"256: " + json.dumps(k5_row), flush=True)
     del x, dtv, a, bm, cm, xdt, la, bg, cg, bf, cf, y, hf, again, ry, rh
+    # K5's f32 kernel at phase 13's shape (its device time in phase 15).
+    h5, g5, s5, p5, n5, c5 = K5_F32_SHAPE
+    x, dtv, a, bm, cm, _ = ssd_inputs(1, s5, h5, p5, g5, n5, torch.float32)
+    xdt, la, bg, cg, bf, cf = ssd_flat(x, dtv, a, bm, cm)
+    k5_f32 = {
+        "shape": [[h5, s5, p5], [g5, s5, n5]], "chunk": c5,
+        "ms": time_ms(torch, lambda: k5.ssd_scan(xdt, la, bg, cg, chunk=c5,
+                                                 rep=h5 // g5)),
+        "plain_ms": time_ms(torch, lambda: ssd_scan_plain(xdt, la, bf, cf,
+                                                          chunk=c5)),
+        "library_ms": None}
+    k5_f32["bound_ms"], k5_f32["bound_by"] = k5_bound_ms(
+        h5, g5, s5, p5, n5, c5, 4, "float32")
+    print(f"[k5] {card}: f32 xdt ({h5}, {s5}, {p5}), B/C ({g5}, {s5}, {n5}), "
+          f"chunk {c5}: " + json.dumps(k5_f32), flush=True)
+    del x, dtv, a, bm, cm, xdt, la, bg, cg, bf, cf
 
     # ----------------------------------- 13. mamba model, f32 (main path)
     cfgm32 = get_config("mamba2-2.7b", param_dtype="float32",
@@ -1877,9 +1960,8 @@ def main() -> int:
     # ------------------------------------------------------ 15. device times
     # Each kernel's device time (the profiler's kernel durations, which
     # leave out the host's gaps between launches) beside PyTorch's call for
-    # the same function, after every serve phase, in a process of its own:
-    # after this run's serve and training phases the profiler loses most of
-    # the events of kernels launched through ctypes.
+    # the same function, after every serve phase, in a process of its own
+    # on seeded inputs of the path's shapes.
     dev_times = json.loads(subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--device-times"],
         capture_output=True, text=True, timeout=600,
@@ -1893,6 +1975,8 @@ def main() -> int:
         for part, row in rows.items():
             row.update(dev_times[f"k4_{part}_{dname}"])
     k5_row.update(dev_times["k5"])
+    k1_f32.update(dev_times["k1_f32"])
+    k5_f32.update(dev_times["k5_f32"])
     for s, row in zip((16, 32, 64, 128, 256, 512), k1_sweep, strict=True):
         print(f"[device] K1 bf16 Hq=16 Hkv=2 D=128 S={s}: "
               f"{row['device_ms']:.6f} ms, SDPA {row['library_device_ms']:.6f}"
@@ -1915,6 +1999,12 @@ def main() -> int:
               f"ms", flush=True)
     print(f"[device] K5 bf16 xdt (80, 512, 64), B/C (1, 512, 128): "
           f"{k5_row['device_ms']:.6f} ms", flush=True)
+    print(f"[device] K1 f32 q {k1_f32['shape'][0]}, k/v "
+          f"{k1_f32['shape'][1]}: {k1_f32['device_ms']:.6f} ms, SDPA f32 "
+          f"{k1_f32['library_device_ms']:.6f} ms", flush=True)
+    print(f"[device] K5 f32 xdt {k5_f32['shape'][0]}, B/C "
+          f"{k5_f32['shape'][1]}: {k5_f32['device_ms']:.6f} ms (bound "
+          f"{k5_f32['bound_ms']:.6f} ms)", flush=True)
 
     per_kernel = {key: {path: counts[key] for path, counts in by_path.items()}
                   for key in by_path["model"]}
@@ -1935,7 +2025,7 @@ def main() -> int:
          "bound_ms": k1_row["bound_ms"], "bound_by": k1_row["bound_by"],
          "library_ms": k1_row["library_ms"], "device_ms": k1_row["device_ms"],
          "library_device_ms": k1_row["library_device_ms"],
-         "build": k1_build["prefill_flash_mma_kernel<128>"]},
+         "build": k1_build["prefill_flash_mma_kernel<128>"], "f32": k1_f32},
         {"name": "cache_cast", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/prefill/prefill.py:145",
          "launches": launches["cache_cast"],
@@ -1982,7 +2072,7 @@ def main() -> int:
          "ms": k5_row["ms"], "plain_ms": k5_row["plain_ms"],
          "bound_ms": k5_row["bound_ms"], "bound_by": k5_row["bound_by"],
          "library_ms": k5_row["library_ms"], "device_ms": k5_row["device_ms"],
-         "build": k5_row["build"]},
+         "build": k5_row["build"], "f32": k5_f32},
     ]}
     print(f"[card] {card}")
     print(json.dumps(kernels))

@@ -82,11 +82,16 @@
 //     only to tiles that cross the diagonal or the ragged edge, and the
 //     heaviest causal tiles (forward and dQ: the last query tiles; dK/dV:
 //     the first key tiles) are launched first.
-// f32 inputs: the forward (`flash_fwd_kernel`) keeps f32 FMAs on the CUDA
-// cores, out of shared memory (rows padded to D+1 floats, tiles to 65, so
-// reads are free of bank conflicts); each K/V tile is staged once and
-// reused by every row of the block, each thread keeps its share of the
-// output tile in registers, and causal loops stop at the diagonal.  The
+// f32 inputs: the forward (`flash_fwd_f32_kernel`) wraps the f32 body in
+// f32_tiles.cuh, which K1's f32 and f16 prefill wraps too: both products
+// (scores and P V) as f32 FMAs on the CUDA cores, 8 warps a block of 64
+// query rows, each lane a 4 x 4 block of the score tile and a 4 x D/16
+// block of the output, read 16 bytes at a time from rows padded to D + 4
+// floats; K/V staged by `cp.async` into two buffers; the row max by
+// shuffles, P through shared memory for P V and each row's series sum; the
+// heaviest causal tiles first.  Its arithmetic, listed at the top of that
+// header, is the one the backward's P = exp(s - lse) rests on, and
+// `test_flash_attention_f32_forward_keeps_its_bits` holds its bits.  The
 // backward (`flash_dq_tf32_kernel`, `flash_dkdv_tf32_kernel`, then
 // `flash_dkdv_reduce_kernel<float>` for group > 1) has the bf16 kernels'
 // grids and warp layout, and runs its products on the tensor cores as
@@ -115,215 +120,24 @@
 
 #include <type_traits>
 
-#include "mma_tiles.cuh"   // kThreads (128: 16 x 8 threads here), kNegInf
+#include "f32_tiles.cuh"   // score_chain, the f32 forward; mma_tiles.cuh
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows an f32 forward block holds
-constexpr int kBK = 64;        // keys an f32 forward K/V tile holds
-
 enum DType { kF32 = 0, kBF16 = 1 };
 
-// Stage rows [r0, r0 + n_rows) of a (rows, D) matrix into shared memory with
-// a row stride of D + 1, times `mul`; rows past `valid` read 0.
+// ------------------------------------------------------------ forward, f32
+// Grid (B*Hq, ceil(Sq / kFwdBQ)); see attention_fwd_f32 in f32_tiles.cuh.
 template <int D>
-__device__ __forceinline__ void stage(float* dst, const float* src, int r0,
-                                      int n_rows, int valid, float mul) {
-  for (int idx = threadIdx.x; idx < n_rows * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
-    const int gr = r0 + r;
-    float val = 0.f;
-    if (gr < valid) val = src[(size_t)gr * D + c] * mul;
-    dst[r * (D + 1) + c] = val;
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void load_vec(float (&dst)[VEC], const float* p) {
-  if constexpr (VEC == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    dst[0] = x.x;
-    dst[1] = x.y;
-    dst[2] = x.z;
-    dst[3] = x.w;
-  } else {
-    static_assert(VEC == 1, "VEC is 1 or 4");
-    dst[0] = *p;
-  }
-}
-
-// The f32 score chain, one definition for every f32 kernel of this file,
-// so that the backward recomputes the forward's scores bit for bit:
-// s[i][j] = the sum over d = 0 .. D-1, in ascending order, one fmaf each
-// from 0, of row(i)[d] * col(j)[d], where one side is q * scale rounded to
-// f32 (as staged) and the other k.  fmaf(a, b, c) is fmaf(b, a, c), so the
-// dK/dV kernel, with k as its rows, gets the same bits.  `row(i)` and
-// `col(j)` give shared-memory rows; VEC is the width of the reads (1, or 4
-// on 16-byte aligned rows), which leaves the chain's order as it is.
-template <int D, int VEC, int NR, int NC, typename Row, typename Col>
-__device__ __forceinline__ void score_chain(float (&s)[NR][NC], Row row,
-                                            Col col) {
-#pragma unroll
-  for (int i = 0; i < NR; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) s[i][j] = 0.f;
-  for (int d = 0; d < D; d += VEC) {
-    float rv[NR][VEC], cv[NC][VEC];
-#pragma unroll
-    for (int i = 0; i < NR; ++i) load_vec<VEC>(rv[i], row(i) + d);
-#pragma unroll
-    for (int j = 0; j < NC; ++j) load_vec<VEC>(cv[j], col(j) + d);
-#pragma unroll
-    for (int x = 0; x < VEC; ++x)
-#pragma unroll
-      for (int i = 0; i < NR; ++i)
-#pragma unroll
-        for (int j = 0; j < NC; ++j)
-          s[i][j] = fmaf(rv[i][x], cv[j][x], s[i][j]);
-  }
-}
-
-// ------------------------------------------------------------------ forward
-template <int D>
-constexpr size_t fwd_smem_bytes() {
-  // Q (kBQ x D+1) | K (kBK x D+1) | V (kBK x D) | P (kBQ x kBK+1) | m,l,alpha
-  return sizeof(float) * (kBQ * (D + 1) + kBK * (D + 1) + kBK * D +
-                          kBQ * (kBK + 1) + 3 * kBQ);
-}
-
-// Grid (ceil(Sq / kBQ), B*Hq).  Thread t = (tx = t % 16, ty = t / 16) owns
-// query rows ty*8 .. ty*8+7 of the tile; for scores it owns key columns
-// tx + 16 j (j < 4), for the output columns tx + 16 j (j < D/16).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out,
-                 float* __restrict__ out32, float* __restrict__ lse, int Sq,
-                 int Skv, int group, float scale, int causal) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kBQ * (D + 1);
-  float* Vs = Ks + kBK * (D + 1);
-  float* Ps = Vs + kBK * D;
-  float* m_s = Ps + kBQ * (kBK + 1);
-  float* l_s = m_s + kBQ;
-  float* a_s = l_s + kBQ;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int row_q = blockIdx.y;                 // b * Hq + h
-  const int row_kv = row_q / group;             // b * Hkv + h / group
-  const int q0 = blockIdx.x * kBQ;
-  const float* kp = k + (size_t)row_kv * Skv * D;
-  const float* vp = v + (size_t)row_kv * Skv * D;
-
-  stage<D>(Qs, q + (size_t)row_q * Sq * D, q0, kBQ, Sq, scale);
-  if (tid < kBQ) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-  float acc[8][DJ];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  // Causal: no key past the tile's last valid query row is visible.
-  const int k_end = causal ? min(Skv, min(q0 + kBQ, Sq)) : Skv;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    const int kn = min(kBK, Skv - k0);          // valid keys in this tile
-    __syncthreads();                            // previous tile consumed
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D;
-      float kv = 0.f, vv = 0.f;
-      if (r < kn) {
-        const size_t off = (size_t)(k0 + r) * D + c;
-        kv = kp[off];
-        vv = vp[off];
-      }
-      Ks[r * (D + 1) + c] = kv;
-      Vs[r * D + c] = vv;
-    }
-    __syncthreads();
-
-    float s[8][4];
-    score_chain<D, 1>(
-        s, [&](int i) { return Qs + (ty * 8 + i) * (D + 1); },
-        [&](int j) { return Ks + (tx + 16 * j) * (D + 1); });
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = ty * 8 + i;
-      const int qi = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const bool ok = c < kn && (!causal || qi >= k0 + c);
-        Ps[r * (kBK + 1) + c] = ok ? s[i][j] : kNegInf;
-      }
-    }
-    __syncthreads();
-
-    // Online softmax: one thread per query row.
-    if (tid < kBQ) {
-      float* pr = Ps + tid * (kBK + 1);
-      const float m_prev = m_s[tid];
-      float m_new = m_prev;
-      for (int c = 0; c < kBK; ++c) m_new = fmaxf(m_new, pr[c]);
-      float sum = 0.f;
-      for (int c = 0; c < kBK; ++c) {
-        const float p = expf(pr[c] - m_new);
-        pr[c] = p;
-        sum += p;
-      }
-      const float alpha = expf(m_prev - m_new);
-      l_s[tid] = l_s[tid] * alpha + sum;
-      m_s[tid] = m_new;
-      a_s[tid] = alpha;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float alpha = a_s[ty * 8 + i];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
-    }
-    for (int kk = 0; kk < kn; ++kk) {
-      float pv[8], vv[DJ];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) pv[i] = Ps[(ty * 8 + i) * (kBK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = Vs[kk * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-  }
-
-  __syncthreads();                              // l_s, m_s final for every row
-  const size_t ooff = (size_t)row_q * Sq * D;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = ty * 8 + i;
-    const int qi = q0 + r;
-    if (qi < Sq) {
-      const float l = fmaxf(l_s[r], 1e-30f);
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const size_t off = ooff + (size_t)qi * D + tx + 16 * j;
-        const float o = acc[i][j] / l;
-        out[off] = o;
-        if (out32 != nullptr) out32[off] = o;
-      }
-    }
-  }
-  if (tid < kBQ && q0 + tid < Sq)
-    lse[(size_t)row_q * Sq + q0 + tid] =
-        m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ out32, float* __restrict__ lse,
+                     int Sq, int Skv, int group, float scale, int causal,
+                     int async_copy) {
+  extern __shared__ __align__(16) float smf[];
+  attention_fwd_f32<float, D>(smf, q, k, v, out, out32, lse, Sq, Skv, group,
+                              scale, causal, async_copy);
 }
 
 // ------------------------------------------------ f32 backward: TF32 x 3
@@ -344,44 +158,6 @@ constexpr int kTfBQ = 64;      // dQ: query rows a block holds (16 a warp)
 constexpr int kTfBK = 64;      // dQ: keys a K/V tile holds
 constexpr int kTfKB = 64;      // dK/dV: keys a block owns (16 a warp)
 constexpr int kTfQS = 64;      // dK/dV: queries a step takes
-
-// Row stride, in floats, of an f32 tile staged by `stage_f32_async`: rows
-// of 16-byte multiples for `cp.async` and float4 reads; the extra 4 floats
-// put the rows an `mma` fragment reads (8 rows x 4 columns, or 4 rows x 8
-// columns) in 32 distinct banks.
-template <int D>
-__device__ __forceinline__ constexpr int f32_stride() { return D + 4; }
-
-// Stage rows [r0, r0 + ROWS) of a (rows, D) f32 matrix into a shared tile
-// of row stride D + 4 with cp.async; rows at or past `valid` read 0.
-template <int ROWS, int D>
-__device__ __forceinline__ void stage_f32_async(float* dst, const float* src,
-                                                int r0, int valid) {
-  constexpr int kChunks = D / 4;                  // 16-byte chunks a row
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 4;
-    const bool ok = r0 + r < valid;
-    cp_async16(smem_addr(dst + r * f32_stride<D>() + col),
-               src + (size_t)(ok ? r0 + r : 0) * D + col, ok);
-  }
-}
-
-// Rows [0, ROWS) of a staged f32 tile times `mul`, in place: q * scale
-// rounded to f32, as `stage` forms it for the forward.
-template <int ROWS, int D>
-__device__ __forceinline__ void scale_tile(float* t, float mul) {
-  constexpr int kChunks = D / 4;
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
-    float4* p = reinterpret_cast<float4*>(t + (c / kChunks) * f32_stride<D>() +
-                                          (c % kChunks) * 4);
-    float4 x = *p;
-    x.x *= mul;
-    x.y *= mul;
-    x.z *= mul;
-    x.w *= mul;
-    *p = x;
-  }
-}
 
 // x rounded to nearest, ties away from zero, to 10 mantissa bits, as
 // `cvt.rna.tf32.f32` rounds a finite x, by two integer ops on its bits
@@ -1316,6 +1092,25 @@ cudaError_t launch_dq_mma(const Args& a) {
   return cudaGetLastError();
 }
 
+// The f32 forward (f32_tiles.cuh's body): q, k and v staged by cp.async
+// when all three start on a 16-byte boundary, else by plain loads.
+template <int D>
+cudaError_t launch_fwd_f32(const Args& a) {
+  constexpr size_t smem = fwd_f32_smem_bytes<D>();
+  const int n_qt = (a.sq + kFwdBQ - 1) / kFwdBQ;
+  if (n_qt > kMaxGridY) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(flash_fwd_f32_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const int aligned = ((reinterpret_cast<uintptr_t>(a.q) |
+                        reinterpret_cast<uintptr_t>(a.k) |
+                        reinterpret_cast<uintptr_t>(a.v)) % 16) == 0;
+  flash_fwd_f32_kernel<D><<<dim3(a.bh, n_qt), kFwdThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o0), a.out32,
+      a.lse, a.sq, a.skv, a.group, a.scale, a.causal, aligned);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_dq_tf32(const Args& a) {
   constexpr size_t smem = dq_tf32_smem_bytes<D>();
@@ -1383,16 +1178,8 @@ cudaError_t launch(int which, const Args& a) {
     if (which == kFwd) return launch_fwd_mma<D>(a);
     return launch_dq_mma<D>(a);
   } else {
-    if (which == kDq) return launch_dq_tf32<D>(a);
-    constexpr size_t smem = fwd_smem_bytes<D>();
-    cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((a.sq + kBQ - 1) / kBQ, a.bh);
-    flash_fwd_kernel<D><<<grid, kThreads, smem, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<float*>(a.o0), a.out32,
-        a.lse, a.sq, a.skv, a.group, a.scale, a.causal);
-    return cudaGetLastError();
+    if (which == kFwd) return launch_fwd_f32<D>(a);
+    return launch_dq_tf32<D>(a);
   }
 }
 
@@ -1422,7 +1209,7 @@ long long smem_bytes(int which, int dtype) {
   if (dtype == kBF16 && which == kFwd) return fwd_mma_smem_bytes<D>();
   if (dtype == kBF16 && which == kDq) return dq_mma_smem_bytes<D>();
   if (dtype == kBF16 && which == kDkdv) return dkdv_mma_smem_bytes<D>();
-  if (which == kFwd) return fwd_smem_bytes<D>();
+  if (which == kFwd) return fwd_f32_smem_bytes<D>();
   if (which == kDkdv) return dkdv_tf32_smem_bytes<D>();
   return dq_tf32_smem_bytes<D>();
 }

@@ -8,9 +8,11 @@ has no backward kernel; here CUDA kernels compute dQ, and dK with dV, from
 the saved log-sum-exp, without atomics, so a gradient is the same bits on
 every run.  bf16 inputs take tensor-core kernels for the forward, dQ and
 dK/dV, built from the tile code in ``csrc/mma_tiles.cuh`` that K1 shares.
-f32 inputs take a forward on the CUDA cores and a backward whose products
-run on the tensor cores as three TF32 products each, with the scores
-recomputed by the forward's own f32 chain.  In both dtypes dK/dV goes per
+f32 inputs take the f32 forward body in ``csrc/f32_tiles.cuh`` (f32 FMAs
+on the CUDA cores), which K1's f32 and f16 route shares, and a backward
+whose products run on the tensor cores as three TF32 products each, with
+the scores recomputed by the forward's own f32 chain (``score_chain``, in
+the same header).  In both dtypes dK/dV goes per
 q head into f32 scratch that this wrapper allocates, then is summed over
 the group in head order.
 ``flash_attention`` is a ``torch.autograd.Function`` whose forward and
@@ -40,8 +42,10 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = [os.path.join(_CSRC, "flash_attention.cu")]
-#: The bf16 tile code, shared with K1 (``kernels/prefill/csrc/prefill.cu``).
-HEADERS = [os.path.join(_CSRC, "mma_tiles.cuh")]
+#: The bf16 tile code and the f32 forward body with the f32 score chain,
+#: both shared with K1 (``kernels/prefill/csrc/prefill.cu``).
+HEADERS = [os.path.join(_CSRC, "mma_tiles.cuh"),
+           os.path.join(_CSRC, "f32_tiles.cuh")]
 
 #: Kernel launches by kernel name, since the counts were last set to 0.
 LAUNCHES: dict[str, int] = {"flash_attention_fwd": 0,

@@ -25,16 +25,14 @@
 // scores near 900 would move by tenths).  At S = 512 its 16 x 8 blocks
 // are one wave on 132 SMs, the heaviest causal tiles first.
 //
-// f32 and f16 keep `prefill_flash_kernel`, which does the arithmetic with
-// plain f32 FMAs out of shared memory (the tensor cores take f32 only as
-// TF32, which the port keeps off, and no path runs f16): q pre-scaled in
-// f32 as the reference does, its own limit the CUDA-core FMA rate and the
-// shared-memory reads feeding it.  One block per (q-head row, tile of 64
-// query rows); the loop over K/V tiles stops at the diagonal (the causal
-// half is never loaded); each K/V tile is staged once in shared memory and
-// reused by all 64 query rows (and the same K/V rows serve all `group` q
-// heads from L2); each thread keeps an 8 x (D/16) accumulator in
-// registers, so the running output never goes back to device memory.
+// f32 and f16 take `prefill_flash_f32_kernel`: K4's f32 forward on the
+// CUDA cores (the body in ../../flash_attention/csrc/f32_tiles.cuh, which
+// lists its arithmetic and design), causal with Sq == Skv == S, without the
+// log-sum-exp; f16 staged to f32 by plain loads (no path runs f16), f32 by
+// `cp.async`.  Both products are plain f32 FMAs (the tensor cores take f32
+// only as TF32, which the port keeps off), q pre-scaled in f32 as the
+// reference does, so its output is K4's f32 `out` bit for bit; its limit
+// is the CUDA-core FMA rate.
 //
 // In both, the TPU grid's sequential K axis becomes the in-block loop, and
 // S need not divide the tile (the bucket is not a power of two when it is
@@ -52,204 +50,46 @@
 
 #include <type_traits>
 
-#include "mma_tiles.cuh"   // kThreads (128: 16 x 8 threads here), kNegInf
+#include "f32_tiles.cuh"   // the f32 forward, to_f32; mma_tiles.cuh
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows a block holds
-constexpr int kBK = 64;        // keys a K/V tile holds
-
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
-}
-
-template <int D>
-constexpr size_t flash_smem_bytes() {
-  // Q (kBQ x D+1) | K (kBK x D+1) | V (kBK x D) | P (kBQ x kBK+1) | m,l,alpha
-  return sizeof(float) * (kBQ * (D + 1) + kBK * (D + 1) + kBK * D +
-                          kBQ * (kBK + 1) + 3 * kBQ);
-}
-
-// Grid (ceil(S / kBQ), B*Hq).  Thread t = (tx = t % 16, ty = t / 16) owns
-// rows ty*8 .. ty*8+7 of the tile; for scores it owns columns tx + 16 j
-// (j < 4), for the output columns tx + 16 j (j < D/16).  Row strides of
-// D+1 and kBK+1 floats keep the shared-memory reads free of bank
-// conflicts.
+// Grid (B*Hq, ceil(S / kFwdBQ)); see attention_fwd_f32.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-prefill_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out, int S,
-                     int group, float scale) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kBQ * (D + 1);
-  float* Vs = Ks + kBK * (D + 1);
-  float* Ps = Vs + kBK * D;
-  float* m_s = Ps + kBQ * (kBK + 1);
-  float* l_s = m_s + kBQ;
-  float* a_s = l_s + kBQ;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int row_q = blockIdx.y;                 // b * Hq + h
-  const int row_kv = row_q / group;             // b * Hkv + h / group
-  const int q0 = blockIdx.x * kBQ;
-  const T* qp = q + (size_t)row_q * S * D;
-  const T* kp = k + (size_t)row_kv * S * D;
-  const T* vp = v + (size_t)row_kv * S * D;
-  T* op = out + (size_t)row_q * S * D;
-
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
-    const int qi = q0 + r;
-    float val = 0.f;
-    if (qi < S) val = to_f32(qp[(size_t)qi * D + c]) * scale;
-    Qs[r * (D + 1) + c] = val;
-  }
-  if (tid < kBQ) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-  float acc[8][DJ];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  // Causal: K/V tiles start at most at the tile's last valid query row.
-  const int q_last = min(q0 + kBQ, S) - 1;
-  for (int k0 = 0; k0 <= q_last; k0 += kBK) {
-    const int kn = min(kBK, S - k0);             // valid keys in this tile
-    __syncthreads();                            // previous tile consumed
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D;
-      float kv = 0.f, vv = 0.f;
-      if (r < kn) {
-        const size_t off = (size_t)(k0 + r) * D + c;
-        kv = to_f32(kp[off]);
-        vv = to_f32(vp[off]);
-      }
-      Ks[r * (D + 1) + c] = kv;
-      Vs[r * D + c] = vv;
-    }
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[8], kv[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) qv[i] = Qs[(ty * 8 + i) * (D + 1) + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = ty * 8 + i;
-      const int qi = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const bool ok = c < kn && qi >= k0 + c;
-        Ps[r * (kBK + 1) + c] = ok ? s[i][j] : kNegInf;
-      }
-    }
-    __syncthreads();
-
-    // Online softmax: one thread per query row.
-    if (tid < kBQ) {
-      float* pr = Ps + tid * (kBK + 1);
-      const float m_prev = m_s[tid];
-      float m_new = m_prev;
-      for (int c = 0; c < kBK; ++c) m_new = fmaxf(m_new, pr[c]);
-      float sum = 0.f;
-      for (int c = 0; c < kBK; ++c) {
-        const float p = expf(pr[c] - m_new);
-        pr[c] = p;
-        sum += p;
-      }
-      const float alpha = expf(m_prev - m_new);
-      l_s[tid] = l_s[tid] * alpha + sum;
-      m_s[tid] = m_new;
-      a_s[tid] = alpha;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float alpha = a_s[ty * 8 + i];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
-    }
-    for (int kk = 0; kk < kn; ++kk) {
-      float pv[8], vv[DJ];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) pv[i] = Ps[(ty * 8 + i) * (kBK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = Vs[kk * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-  }
-
-  __syncthreads();                              // l_s final for every row
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = ty * 8 + i;
-    const int qi = q0 + r;
-    if (qi < S) {
-      const float l = fmaxf(l_s[r], 1e-30f);
-#pragma unroll
-      for (int j = 0; j < DJ; ++j)
-        op[(size_t)qi * D + tx + 16 * j] = from_f32<T>(acc[i][j] / l);
-    }
-  }
+__global__ void __launch_bounds__(kFwdThreads, 1)
+prefill_flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, T* __restrict__ out, int S,
+                         int group, float scale, int async_copy) {
+  extern __shared__ __align__(16) float smf[];
+  attention_fwd_f32<T, D>(smf, q, k, v, out, nullptr, nullptr, S, S, group,
+                          scale, 1, async_copy);
 }
 
+// f32 inputs that start on a 16-byte boundary are staged by cp.async.
 template <typename T, int D>
-cudaError_t launch_flash(const void* q, const void* k, const void* v,
-                         void* out, int bh, int S, int group, float scale,
-                         cudaStream_t stream) {
-  constexpr size_t smem = flash_smem_bytes<D>();
+cudaError_t launch_flash_f32(const void* q, const void* k, const void* v,
+                             void* out, int bh, int S, int group, float scale,
+                             cudaStream_t stream) {
+  constexpr size_t smem = fwd_f32_smem_bytes<D>();
+  const int n_qt = (S + kFwdBQ - 1) / kFwdBQ;
+  if (n_qt > 65535) return cudaErrorInvalidValue;   // grid y
   // Above 48 KB of dynamic shared memory needs the opt-in, which is kept
   // per device: set it on every launch (a host-side attribute write).
   cudaError_t err = cudaFuncSetAttribute(
-      prefill_flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      prefill_flash_f32_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + kBQ - 1) / kBQ, bh);
-  prefill_flash_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  const int aligned = std::is_same<T, float>::value &&
+                      ((reinterpret_cast<uintptr_t>(q) |
+                        reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v)) % 16) == 0;
+  prefill_flash_f32_kernel<T, D><<<dim3(bh, n_qt), kFwdThreads, smem,
+                                   stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, group, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), S, group, scale,
+      aligned);
   return cudaGetLastError();
 }
 
@@ -290,13 +130,14 @@ cudaError_t launch_by_type(const void* q, const void* k, const void* v,
   if constexpr (std::is_same<T, bf16>::value)
     return launch_flash_mma<D>(q, k, v, out, bh, S, group, scale, stream);
   else
-    return launch_flash<T, D>(q, k, v, out, bh, S, group, scale, stream);
+    return launch_flash_f32<T, D>(q, k, v, out, bh, S, group, scale,
+                                  stream);
 }
 
 // The dynamic shared memory a launch of the dtype's kernel asks for.
 template <int D>
 size_t smem_bytes(int dtype) {
-  return dtype == kBF16 ? fwd_mma_smem_bytes<D>() : flash_smem_bytes<D>();
+  return dtype == kBF16 ? fwd_mma_smem_bytes<D>() : fwd_f32_smem_bytes<D>();
 }
 
 template <typename T>

@@ -8,7 +8,7 @@ its top for what bounds them on the card and how the design answers):
      GQA-native (q-head row // group picks the K/V row, no repeat): bf16 on
      the tensor cores (K4's bf16 forward, from the tile code in
      ``kernels/flash_attention/csrc/mma_tiles.cuh``), f32 and f16 on the
-     CUDA cores,
+     CUDA cores (K4's f32 forward body, in ``f32_tiles.cuh`` beside it),
   2. ``cache_cast`` — the KV-handoff tensors written in the *cache* dtype,
      launched only when that differs from the input dtype.
 
@@ -34,9 +34,10 @@ __all__ = ["prefill_flash", "cache_cast", "LAUNCHES", "SOURCES", "HEADERS",
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", "prefill.cu")]
-#: K4's bf16 tile code, whose forward body the bf16 kernel wraps.
+#: K4's bf16 tile code and f32 tile code, whose forward bodies the bf16
+#: and the f32/f16 kernels wrap.
 HEADERS = [os.path.join(os.path.dirname(_HERE), "flash_attention", "csrc",
-                        "mma_tiles.cuh")]
+                        name) for name in ("mma_tiles.cuh", "f32_tiles.cuh")]
 
 #: Kernel launches by kernel name, since the last ``LAUNCHES.clear()``.
 LAUNCHES: dict[str, int] = {"prefill_flash": 0, "cache_cast": 0}

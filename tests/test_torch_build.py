@@ -46,25 +46,40 @@ def test_header_is_on_the_include_path_not_the_compile_line(tmp_path):
     assert list(build.ARCH_FLAGS) == args[:len(build.ARCH_FLAGS)]
 
 
+def _included(src: str) -> set[str]:
+    """The names a source or header includes in quotes."""
+    with open(src) as f:
+        return {line.split('"')[1] for line in f
+                if line.startswith('#include "')}
+
+
 @pytest.mark.parametrize("wrapper", [pf, fa], ids=["prefill", "flash"])
 def test_k1_and_k4_libraries_are_keyed_by_the_shared_header(wrapper):
-    """Both wrappers name the bf16 tile header; it exists, each source
-    includes it by name, and the key of each library covers it."""
-    (hdr,) = wrapper.HEADERS
-    assert hdr == fa.HEADERS[0] and os.path.isfile(hdr)
+    """Both wrappers name the two shared headers, the bf16 tile code and the
+    f32 forward body; they exist, each source includes the f32 header by
+    name and that one the bf16 header, and the key of each library covers
+    each of them."""
+    assert wrapper.HEADERS == fa.HEADERS
+    mma, f32 = wrapper.HEADERS
+    assert os.path.basename(mma) == "mma_tiles.cuh"
+    assert os.path.basename(f32) == "f32_tiles.cuh"
     (src,) = wrapper.SOURCES
-    with open(src) as f:
-        assert f'#include "{os.path.basename(hdr)}"' in f.read()
-    assert build.library_path("x", wrapper.SOURCES, wrapper.HEADERS) != \
-        build.library_path("x", wrapper.SOURCES)
-    assert hdr not in build.compile_args("x.so", wrapper.SOURCES,
-                                         wrapper.HEADERS)
+    assert "f32_tiles.cuh" in _included(src)
+    assert "mma_tiles.cuh" in _included(f32)
+    key = build.library_path("x", wrapper.SOURCES, wrapper.HEADERS)
+    for hdr in wrapper.HEADERS:
+        assert os.path.isfile(hdr)
+        assert key != build.library_path(
+            "x", wrapper.SOURCES, [h for h in wrapper.HEADERS if h != hdr])
+        assert hdr not in build.compile_args("x.so", wrapper.SOURCES,
+                                             wrapper.HEADERS)
 
 
 def test_k5_library_is_keyed_by_the_shared_header():
-    """K5's bf16 kernel takes its tile helpers from the same header: its
-    source includes it by name and its library key covers it."""
-    assert k5.HEADERS == fa.HEADERS
+    """K5's bf16 kernel takes its tile helpers from the same bf16 header
+    (and not the f32 one): its source includes it by name and its library
+    key covers it."""
+    assert k5.HEADERS == fa.HEADERS[:1]
     (src,) = k5.SOURCES
     with open(src) as f:
         assert f'#include "{os.path.basename(k5.HEADERS[0])}"' in f.read()

@@ -53,14 +53,25 @@ def _rand(shape, dtype, dev, seed=0):
     return torch.randn(shape, generator=g, device=dev).to(dtype)
 
 
+#: Host seconds between the start of a profiler session and the first
+#: launch it must record, as ``chip_smoke.PROFILE_LEAD_S``: the profiler
+#: drops device events stamped before its session began, and CUPTI's
+#: stamps of the card's kernels read early (scripts/profiler_probe.py).
+PROFILE_LEAD_S = 0.02
+
+
 def _device_kernels(run) -> set[str]:
     """Names of the device kernels that ``run()`` launches, from
-    ``torch.profiler``'s CUDA events."""
+    ``torch.profiler``'s CUDA events; ``run()`` starts PROFILE_LEAD_S after
+    the session does."""
+    import time
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_LEAD_S)
         run()
         torch.cuda.synchronize()
     return {e.key for e in prof.key_averages()
@@ -114,9 +125,79 @@ def test_prefill_flash_bf16_needs_16_byte_aligned_inputs(dev):
     assert pf.LAUNCHES == before
 
 
+# Tile edges of the f32 forward body's 64-row tiles and 4-key steps, which
+# K1's f32 and f16 kernel shares with K4's f32 forward: S of 1, 17, 63, 65,
+# 127, 129 and 1024, groups 1, 2, 4 and 8, every compiled D.  (s, hq, hkv, d)
+K1_F32_EDGE_SHAPES = [(1, 1, 1, 16), (17, 2, 1, 128), (63, 4, 2, 32),
+                      (65, 8, 1, 16), (127, 8, 1, 128), (129, 2, 2, 64),
+                      (1024, 8, 1, 64), (1024, 4, 1, 32), (127, 16, 2, 128)]
+
+
+@pytest.mark.parametrize("s,hq,hkv,d", K1_F32_EDGE_SHAPES)
+def test_prefill_flash_f32_and_f16_tile_edges(dev, s, hq, hkv, d):
+    """K1 in f32 against its plain version; in f16 (staged to f32 exactly,
+    the same f32 body, one rounding) bit for bit the f32 kernel's output on
+    the same values, rounded to f16; and in f32 bit for bit K4's f32
+    forward on the same causal inputs, since the two share one body."""
+    group = hq // hkv
+    q = _rand((hq, s, d), torch.float16, dev, 1)
+    k = _rand((hkv, s, d), torch.float16, dev, 2)
+    v = _rand((hkv, s, d), torch.float16, dev, 3)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    before = pf.LAUNCHES["prefill_flash"]
+    out32, _, _ = pf.prefill_flash(q32, k32, v32, group=group)
+    out16, _, _ = pf.prefill_flash(q, k, v, group=group)
+    assert pf.LAUNCHES["prefill_flash"] == before + 2
+    ref, _, _ = prefill_ref(q32, k32, v32, group=group)
+    torch.testing.assert_close(out32, ref, rtol=5e-4, atol=5e-5)
+    assert out16.dtype == torch.float16
+    assert torch.equal(out16, out32.to(torch.float16))
+    k4_out, _, _ = fa.flash_attention_fwd(q32, k32, v32, causal=True,
+                                          group=group)
+    assert torch.equal(out32, k4_out)
+
+
+def test_prefill_flash_f32_path_shape_is_k4_bitwise(dev):
+    """Phase 4's shape, q (16, 128, 128), k/v (2, 128, 128), group 8,
+    causal, f32: K1's output is K4's f32 out bit for bit, and within the f32
+    tolerance of the plain version."""
+    q = _rand((16, 128, 128), torch.float32, dev, 4)
+    k = _rand((2, 128, 128), torch.float32, dev, 5)
+    v = _rand((2, 128, 128), torch.float32, dev, 6)
+    out, _, _ = pf.prefill_flash(q, k, v, group=8)
+    k4_out, _, _ = fa.flash_attention_fwd(q, k, v, group=8)
+    assert torch.equal(out, k4_out)
+    ref, _, _ = prefill_ref(q, k, v, group=8)
+    torch.testing.assert_close(out, ref, rtol=5e-4, atol=5e-5)
+
+
+def test_f32_forward_off_a_16_byte_boundary_keeps_its_bits(dev):
+    """f32 inputs that start off a 16-byte boundary are staged by plain
+    loads instead of cp.async: K1's and K4's outputs (and K4's lse) are the
+    bits of the same values on aligned storage."""
+    q = _rand((4, 129, 64), torch.float32, dev, 7)
+    k = _rand((2, 129, 64), torch.float32, dev, 8)
+    v = _rand((2, 129, 64), torch.float32, dev, 9)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, device=dev)
+        off = flat[1:].view(t.shape)
+        off.copy_(t)
+        assert off.is_contiguous() and off.data_ptr() % 16
+        return off
+
+    qs, ks, vs = shifted(q), shifted(k), shifted(v)
+    for causal in (True, False):
+        want = fa.flash_attention_fwd(q, k, v, causal=causal, group=2)
+        got = fa.flash_attention_fwd(qs, ks, vs, causal=causal, group=2)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(pf.prefill_flash(qs, ks, vs, group=2)[0],
+                       pf.prefill_flash(q, k, v, group=2)[0])
+
+
 @pytest.mark.parametrize("dtype,kernel", [
     (torch.bfloat16, "prefill_flash_mma_kernel"),
-    (torch.float32, "prefill_flash_kernel")])
+    (torch.float32, "prefill_flash_f32_kernel")])
 def test_prefill_flash_launches_the_kernel_of_its_dtype(dev, dtype, kernel):
     """bf16 on the tensor cores, f32 on the CUDA cores."""
     q = _rand((16, 128, 128), dtype, dev, 1)
@@ -345,6 +426,40 @@ def test_flash_attention_tile_edges_match_plain(dev, b, sq, skv, hq, hkv, d,
                                    msg=f"d{name}")
 
 
+# The f32 forward alone at its tile edges, Sq and Skv of 1 to 1024 (the
+# backward's edges are above): out against the plain version and lse
+# against the log-sum-exp of the plain version's scores.
+# (b, sq, skv, hq, hkv, d)
+K4_F32_FWD_EDGE_SHAPES = [(1, 1024, 1024, 8, 1, 64), (1, 1024, 129, 4, 2, 16),
+                          (1, 65, 1024, 2, 1, 128), (2, 1024, 63, 2, 2, 32),
+                          (1, 17, 1024, 4, 1, 128), (1, 127, 65, 8, 1, 32)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d", K4_F32_FWD_EDGE_SHAPES)
+def test_flash_attention_f32_forward_tile_edges(dev, b, sq, skv, hq, hkv, d,
+                                                causal):
+    from repro_torch.kernels.flash_attention.ref import scores_ref
+
+    group = hq // hkv
+    q, k, v = _k4_inputs(dev, b, sq, skv, hq, hkv, d, torch.float32)
+    before = fa.LAUNCHES["flash_attention_fwd"]
+    out, lse, out32 = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                             group=group)
+    assert fa.LAUNCHES["flash_attention_fwd"] == before + 1
+    assert out32 is out
+    torch.testing.assert_close(
+        out, flash_attention_ref(q, k, v, causal=causal, group=group),
+        rtol=5e-4, atol=5e-5)
+    s = scores_ref(q, torch.repeat_interleave(k, group, 0))
+    if causal:
+        qi = torch.arange(sq, device=dev)[:, None]
+        s = torch.where(qi >= torch.arange(skv, device=dev)[None, :], s,
+                        float("-inf"))
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=5e-4,
+                               atol=5e-5)
+
+
 def test_flash_attention_path_shape_bf16_matches_plain_and_is_bitwise(dev):
     """The training path's q (16, 1024, 128), k/v (2, 1024, 128), bf16,
     causal: forward and backward against the plain version and autograd
@@ -506,6 +621,17 @@ def test_flash_dq_path_shape_bitwise_and_row_term(dev):
     for _ in range(3):
         again = fa.flash_attention_bwd_dq(q, k, v, out32, lse, dout, group=8)
         assert torch.equal(dq, again[0]) and torch.equal(drow, again[1])
+
+
+@pytest.mark.parametrize("dtype,kernel", [
+    (torch.bfloat16, "flash_fwd_mma_kernel"),
+    (torch.float32, "flash_fwd_f32_kernel")])
+def test_flash_fwd_launches_the_kernel_of_its_dtype(dev, dtype, kernel):
+    """bf16 on the tensor cores, f32 on the CUDA cores (the body K1's f32
+    kernel shares)."""
+    q, k, v = _k4_inputs(dev, 1, 128, 128, 16, 2, 128, dtype)
+    names = _device_kernels(lambda: fa.flash_attention_fwd(q, k, v, group=8))
+    assert [n for n in names if kernel + "<" in n], names
 
 
 @pytest.mark.parametrize("dtype,kernel", [
