@@ -22,8 +22,10 @@ Phases, each of which exits non-zero when it fails:
                (K4's f32 forward body; no spill); then both timed at the
                serve path's shapes beside the plain version, PyTorch's own
                call for the same function, and the card's bound, and K1 in
-               f32 at phase 4's shape beside SDPA in f32 (K1 and SDPA, K2
-               and ``.to`` also by their kernels' device time,
+               f32 at phase 4's shape beside SDPA in f32, and K2 also at k
+               and v (2, 32768, 128), 100.7 MB, bit for bit ``.to``, its
+               registers and spills for every pair of types (no spill) (K1
+               and SDPA, K2 and ``.to`` also by their kernels' device time,
                ``device_ms``, taken in phase 15, after the serve phases),
   4. model   — full-width Qwen2-1.5B in f32 from ``Model.init(seed)``:
                prefill logits on the kernel path against ``use_pallas=False``
@@ -115,15 +117,17 @@ Phases, each of which exits non-zero when it fails:
                at the reference's kernel-test shapes, chunks 16/32/64/96,
                S = 90 and dt x 100 (finite); at the serving path's shape
                (xdt (80, 512, 64), B/C (1, 512, 128), chunk 256) checked and
-               bitwise equal over two runs; the bf16 tensor-core kernel at
-               the edges of its tiles (S of 1 to 257, P of 8 to 72, N of 4
-               to 128, groups of 1 to 80 heads), its own output against the
-               plain version and the sequential oracle; its registers,
-               spills, shared memory and ``HMMA`` count (no spill, HMMA >
-               0); timed at the path's shape beside its plain version and
-               the card's bound (no PyTorch call computes the scan, so
-               there is no library time; device time in phase 15), and its
-               f32 kernel at phase 13's shape (xdt (80, 128, 64), B/C (1,
+               bitwise equal over two runs (f32 also against the sequential
+               oracle); both kernels at the edges of their tiles (S of 1 to
+               257, P of 8 to 72, N of 4 to 128, groups of 1 to 80 heads;
+               f32 also P 10 and N 7), their own output against the plain
+               version and the sequential oracle; their registers, spills
+               and shared memory and the bf16 kernel's ``HMMA`` count (no
+               spill, HMMA > 0 in bf16); timed at the path's shape beside
+               its plain version and the card's bound (no PyTorch call
+               computes the scan, so there is no library time; device time
+               in phase 15), and its f32 kernel (``ssd_scan_f32_kernel``,
+               f32 FMAs) at phase 13's shape (xdt (80, 128, 64), B/C (1,
                128, 128), chunk 256),
  13. mamba model — full-width Mamba2-2.7B in f32 from ``Model.init(seed)``:
                prefill of one prompt of length 100 (bucket 128) on the kernel
@@ -140,8 +144,8 @@ Phases, each of which exits non-zero when it fails:
  15. device  — each kernel's device time (the profiler's kernel durations)
                beside PyTorch's call for the same function: K1 and SDPA at
                phase 3's sweep and in f32 at phase 4's shape, K2 and
-               ``.to``, K3 and ``torch.matmul`` at the three path shapes,
-               K4's kernels in bf16 and f32 and SDPA's forward and
+               ``.to`` at both shapes, K3 and ``torch.matmul`` at the three
+               path shapes, K4's kernels in bf16 and f32 and SDPA's forward and
                backward, K5 in bf16 and in f32 at phase 13's shape; after
                every serve phase, so
                no profiler session of these precedes phases 5 and 14, and
@@ -219,6 +223,9 @@ K1_F32_SHAPE = (16, 2, 128, 128)
 #: K5 in f32 at phase 13's shape (bucket 128, Mamba2-2.7B's 80 heads of 64,
 #: one group of N 128): (heads, groups, S, P, N, chunk).
 K5_F32_SHAPE = (80, 1, 128, 64, 128, 256)
+#: K2 at a long prompt's shape, where the bytes outweigh a launch: k and v
+#: (2 KV heads, 32768 tokens, D 128), f32 -> bf16, 100.7 MB moved.
+K2_LARGE_SHAPE = (2, 32768, 128)
 #: Host seconds between the start of a profiler session and the first
 #: launch it must record.  The profiler drops device events stamped before
 #: its session began, and the card's kernel timestamps, brought to the
@@ -381,19 +388,22 @@ def k5_bound_ms(bh: int, bg: int, s: int, p: int, n: int, chunk: int,
                 itemsize: int, dtype_name: str) -> tuple[float, str]:
     """Least time for K5 on (BH, S, P) xdt with (BG, S, N) B and C: xdt,
     la (f32), B and C read once, y and the f32 (BH, P, N) state written
-    once; 2 operations per multiply-add of the four products a chunk of
-    length c needs: the causal half of the Gram C Bᵀ (c (c + 1) / 2 pairs
-    of N, once per group: it does not depend on the head), its decayed
-    product with xdt (the same pairs, P wide, per head), the inter-chunk
-    term C h₀ᵀ and the state update (c P N each, per head).  The
-    elementwise decay terms are not counted."""
+    once; 2 operations per multiply-add of the products a chunk of length c
+    needs: the causal half of the Gram C Bᵀ (c (c + 1) / 2 pairs of N, once
+    per group: it does not depend on the head), its decayed product with
+    xdt (the same pairs, P wide, per head), the state update (c P N per
+    head) and, after the first chunk, the inter-chunk term C h₀ᵀ (c P N per
+    head; the first chunk's h₀ is 0, so no program needs it there), at the
+    type's peak (f32: FMAs at 67 TFLOP/s, as the f32 kernel runs them).
+    The elementwise decay terms are not counted."""
     nbytes = itemsize * (2 * bh * s * p + 2 * bg * s * n) + 4 * bh * s \
         + 4 * bh * p * n
     ops = 0
     for c0 in range(0, s, chunk):
         c = min(chunk, s - c0)
         pairs = c * (c + 1) // 2
-        ops += 2 * (bg * pairs * n + bh * pairs * p + 2 * bh * c * p * n)
+        ops += 2 * (bg * pairs * n + bh * pairs * p
+                    + (2 if c0 else 1) * bh * c * p * n)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[dtype_name]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -570,7 +580,8 @@ def kernel_build_report(log_text: str, sass_text: str,
                         names: tuple[str, ...]) -> dict[str, dict]:
     """Per instantiation of the kernels in ``names`` (``name<D>`` for an
     int template argument, ``name<float>`` or ``name<bf16>`` for a dtype,
-    ``name<float, D>`` or ``name<half, D>`` for both):
+    ``name<float, D>`` or ``name<half, D>`` for both, ``name<float, bf16>``
+    and the like for two dtypes):
     registers, static shared memory, spill bytes and stack frame from an
     ``nvcc -Xptxas -v`` report, and the count of ``HMMA`` (tensor-core)
     instructions in its SASS from ``cuobjdump -sass``."""
@@ -584,6 +595,13 @@ def kernel_build_report(log_text: str, sass_text: str,
                 d = re.search(n + r"ILi(\d+)E", mangled)
                 if d:
                     return f"{n}<{d.group(1)}>"
+                types = {"f": "float", "6__half": "half",
+                         "13__nv_bfloat16": "bf16"}
+                d = re.search(n + r"I(f|6__half|13__nv_bfloat16)"
+                              r"(f|6__half|13__nv_bfloat16|S1_)E", mangled)
+                if d:
+                    t_in = types[d.group(1)]
+                    return f"{n}<{t_in}, {types.get(d.group(2), t_in)}>"
                 if re.search(n + r"IfE", mangled):
                     return f"{n}<float>"
                 if re.search(n + r"I13__nv_bfloat16E", mangled):
@@ -710,6 +728,12 @@ def device_times() -> dict[str, dict[str, float]]:
                                                         torch.float32)
     out["k2"] = pair(lambda: pf.cache_cast(k32, v32, torch.bfloat16),
                      lambda: (k32.to(torch.bfloat16), v32.to(torch.bfloat16)))
+    kl, vl = rand(K2_LARGE_SHAPE, torch.float32), rand(K2_LARGE_SHAPE,
+                                                       torch.float32)
+    out["k2_large"] = pair(lambda: pf.cache_cast(kl, vl, torch.bfloat16),
+                           lambda: (kl.to(torch.bfloat16),
+                                    vl.to(torch.bfloat16)))
+    del kl, vl
     for m, kk, n in ((2, 1000, 1000), (1000, 1000, 1000), (2, 4096, 4096)):
         x = rand((m, kk), torch.float32).mul_(kk ** -0.25)
         y = rand((kk, n), torch.float32).mul_(kk ** -0.25)
@@ -916,6 +940,24 @@ def main() -> int:
                  float((vc.float() - vr.float()).abs().max()))
     print("[kernels] K2 (2, 128, 128) f32->bf16: bitwise equal to .to()",
           flush=True)
+    # K2 as built, every pair of types (a spill fails).
+    k2_build = build_report(
+        build_logs, "prefill", pf.load_library()._name, ("cache_cast_kernel",),
+        lambda name, d: 0,
+        main={"cache_cast_kernel": ("cache_cast_kernel<float, bf16>", False)})
+    for name, info in sorted(k2_build.items()):
+        print(f"[kernels] build {name}: {json.dumps(info)}", flush=True)
+    kl, vl = rand(K2_LARGE_SHAPE, torch.float32), rand(K2_LARGE_SHAPE,
+                                                       torch.float32)
+    klc, vlc = pf.cache_cast(kl, vl, torch.bfloat16)
+    torch.cuda.synchronize()
+    if not (torch.equal(klc, kl.to(torch.bfloat16))
+            and torch.equal(vlc, vl.to(torch.bfloat16))):
+        fail(f"K2 f32->bf16 at {K2_LARGE_SHAPE} is not bitwise equal to "
+             f".to(bfloat16)")
+    del klc, vlc
+    print(f"[kernels] K2 {K2_LARGE_SHAPE} f32->bf16: bitwise equal to .to()",
+          flush=True)
 
     # Timings at the serve path's shapes: Hq=16, Hkv=2, D=128, bf16.
     # Their device times come after the serve phases (phase 10): the serve's
@@ -965,6 +1007,18 @@ def main() -> int:
     }
     print(f"[kernels] K2 f32->bf16 (2, 128, 128) x2: {json.dumps(k2)}",
           flush=True)
+    k2_large = {
+        "shape": list(K2_LARGE_SHAPE),
+        "ms": time_ms(torch, lambda: pf.cache_cast(kl, vl, torch.bfloat16)),
+        "plain_ms": time_ms(torch, lambda: cache_cast_ref(kl, vl,
+                                                          torch.bfloat16)),
+        "library_ms": time_ms(torch, lambda: (kl.to(torch.bfloat16),
+                                              vl.to(torch.bfloat16))),
+        "bound_ms": 1e3 * 2 * kl.numel() * (4 + 2) / HBM_BYTES_PER_S,
+        "bound_by": "bytes"}
+    print(f"[kernels] K2 f32->bf16 {K2_LARGE_SHAPE} x2: "
+          f"{json.dumps(k2_large)}", flush=True)
+    del kl, vl
 
     # Launches of each main-path run, by run: every count is set to 0 just
     # before the run and read just after it.
@@ -1748,25 +1802,38 @@ def main() -> int:
                               dname),
                   check_close(torch, f"K5 path shape {dname} state", hf, rh,
                               dname))
+        oracle = ""
+        if dt == torch.float32:
+            gy, gh = ssd_scan_ref(xdt, la, bf, cf)
+            check_close(torch, "K5 path shape f32 y vs the sequential "
+                        "oracle", y, gy, dname)
+            check_close(torch, "K5 path shape f32 state vs the sequential "
+                        "oracle", hf, gh, dname)
+            oracle = "; within tolerance of the sequential oracle"
+            del gy, gh
         k5_err = max(k5_err, err)
         print(f"[k5] xdt (80, 512, 64), B/C (1, 512, 128), chunk 256 "
-              f"{dname}: max abs err {err:.3e}; two runs bitwise equal",
-              flush=True)
-    # K5's bf16 kernel at the edges of its tiles (128-row query and 64-row
-    # key tiles, a 64-column P tile, N padded to 32, 64 or 128, chunks cut
-    # short, groups of 1 to 80 heads): its own output, before the op adds
-    # the D skip, against the plain version and the sequential oracle.
-    # (b, s, h, p, g, n, chunk)
-    for b_, s_, h_, p_, g_, n_, chunk in (
+              f"{dname}: max abs err {err:.3e}; two runs bitwise equal"
+              f"{oracle}", flush=True)
+    # K5's kernels at the edges of their tiles (bf16: 128-row query and
+    # 64-row key tiles; f32: 64-row query and key tiles; both: a 64-column P
+    # tile, N padded to 32, 64 or 128, chunks cut short, groups of 1 to 80
+    # heads; f32 also P = 10 and N = 7, staged by plain loads): their own
+    # output, before the op adds the D skip, against the plain version and
+    # the sequential oracle.  (b, s, h, p, g, n, chunk)
+    k5_edges = [(1, 70, 2, 10, 1, 7, 32, torch.float32)]
+    k5_edges += [edge + (dt,) for dt in (torch.bfloat16, torch.float32)
+                 for edge in (
             (1, 1, 80, 64, 1, 128, 256), (1, 17, 2, 8, 2, 16, 16),
             (1, 63, 4, 16, 2, 32, 32), (1, 65, 8, 32, 1, 64, 64),
             (1, 255, 80, 64, 1, 128, 256), (1, 257, 4, 64, 2, 128, 256),
             (2, 65, 2, 24, 2, 48, 32), (1, 257, 8, 40, 1, 100, 128),
-            (1, 129, 2, 72, 1, 128, 64), (1, 90, 4, 8, 2, 4, 32)):
-        name = (f"K5 bf16 tile edge (b, s, h, p, g, n) ({b_}, {s_}, {h_}, "
-                f"{p_}, {g_}, {n_}) chunk {chunk}")
-        e_x, e_dt, e_a, e_b, e_c, _ = ssd_inputs(b_, s_, h_, p_, g_, n_,
-                                                 torch.bfloat16)
+            (1, 129, 2, 72, 1, 128, 64), (1, 90, 4, 8, 2, 4, 32))]
+    for b_, s_, h_, p_, g_, n_, chunk, dt in k5_edges:
+        dname = str(dt)[6:]
+        name = (f"K5 {dname} tile edge (b, s, h, p, g, n) ({b_}, {s_}, "
+                f"{h_}, {p_}, {g_}, {n_}) chunk {chunk}")
+        e_x, e_dt, e_a, e_b, e_c, _ = ssd_inputs(b_, s_, h_, p_, g_, n_, dt)
         e_xdt, e_la, e_bg, e_cg, e_bf, e_cf = ssd_flat(e_x, e_dt, e_a, e_b,
                                                        e_c)
         before = k5.LAUNCHES["ssd_scan"]
@@ -1777,24 +1844,26 @@ def main() -> int:
             fail(f"{name}: ssd_scan did not launch K5")
         ry, rh = ssd_scan_plain(e_xdt, e_la, e_bf, e_cf, chunk=chunk)
         gy, gh = ssd_scan_ref(e_xdt, e_la, e_bf, e_cf)
-        err = max(check_close(torch, f"{name} y", y, ry, "bfloat16"),
-                  check_close(torch, f"{name} state", hf, rh, "bfloat16"))
+        err = max(check_close(torch, f"{name} y", y, ry, dname),
+                  check_close(torch, f"{name} state", hf, rh, dname))
         check_close(torch, f"{name} y vs the sequential oracle", y, gy,
-                    "bfloat16")
+                    dname)
         check_close(torch, f"{name} state vs the sequential oracle", hf, gh,
-                    "bfloat16")
+                    dname)
         k5_err = max(k5_err, err)
         print(f"[k5] {name}: max abs err {err:.3e} (plain version); within "
               f"tolerance of the sequential oracle", flush=True)
     del e_x, e_dt, e_a, e_b, e_c, e_xdt, e_la, e_bg, e_cg, e_bf, e_cf
 
-    # K5's bf16 tensor-core kernel as built.
+    # K5's kernels as built: bf16 on the tensor cores (its template
+    # argument the padded N / 16), f32 on the CUDA cores (the padded N).
     k5_build = build_report(
         build_logs, "mamba_scan", k5.load_library()._name,
-        ("ssd_scan_mma_kernel",),
-        lambda name, nb: int(k5.load_library().ssd_scan_smem_bytes(
-            1, 16 * nb, 256)),
-        main={"ssd_scan_mma_kernel": ("ssd_scan_mma_kernel<8>", True)})
+        ("ssd_scan_mma_kernel", "ssd_scan_f32_kernel"),
+        lambda name, arg: int(k5.load_library().ssd_scan_smem_bytes(
+            *((1, 16 * arg) if "mma" in name else (0, arg)), 256)),
+        main={"ssd_scan_mma_kernel": ("ssd_scan_mma_kernel<8>", True),
+              "ssd_scan_f32_kernel": ("ssd_scan_f32_kernel<128>", False)})
     for name, info in sorted(k5_build.items()):
         print(f"[k5] build {name} (shared memory at chunk 256): "
               f"{json.dumps(info)}", flush=True)
@@ -1822,11 +1891,12 @@ def main() -> int:
                                                  rep=h5 // g5)),
         "plain_ms": time_ms(torch, lambda: ssd_scan_plain(xdt, la, bf, cf,
                                                           chunk=c5)),
-        "library_ms": None}
+        "library_ms": None, "build": k5_build["ssd_scan_f32_kernel<128>"]}
     k5_f32["bound_ms"], k5_f32["bound_by"] = k5_bound_ms(
         h5, g5, s5, p5, n5, c5, 4, "float32")
     print(f"[k5] {card}: f32 xdt ({h5}, {s5}, {p5}), B/C ({g5}, {s5}, {n5}), "
-          f"chunk {c5}: " + json.dumps(k5_f32), flush=True)
+          f"chunk {c5}: " + json.dumps({k: v for k, v in k5_f32.items()
+                                        if k != "build"}), flush=True)
     del x, dtv, a, bm, cm, xdt, la, bg, cg, bf, cf
 
     # ----------------------------------- 13. mamba model, f32 (main path)
@@ -1953,7 +2023,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print_busy(card, "8 requests x 16 tokens", *card_busy(
         torch, lambda: Cluster(fleet_spec).serve(mamba_job()),
-        kernels=("ssd_scan_kernel", "ssd_scan_mma_kernel"), top=8), wall_s,
+        kernels=("ssd_scan_f32_kernel", "ssd_scan_mma_kernel"), top=8), wall_s,
         tag="mamba-serve", kernel="K5")
     del model, params
 
@@ -1969,6 +2039,7 @@ def main() -> int:
     for row in k1_sweep:
         row.update(dev_times[f"k1_{row['S']}"])
     k2.update(dev_times["k2"])
+    k2_large.update(dev_times["k2_large"])
     for row in k3_rows:
         row.update(dev_times["k3_{}_{}_{}".format(*row["shape"])])
     for dname, rows in (("bf16", k4_rows), ("f32", k4_f32)):
@@ -1983,6 +2054,12 @@ def main() -> int:
               f" ms", flush=True)
     print(f"[device] K2 f32->bf16 (2, 128, 128) x2: {k2['device_ms']:.6f} ms, "
           f".to {k2['library_device_ms']:.6f} ms", flush=True)
+    k2_share = k2_large["bound_ms"] / k2_large["device_ms"]
+    print(f"[device] K2 f32->bf16 {K2_LARGE_SHAPE} x2: "
+          f"{k2_large['device_ms']:.6f} ms, .to "
+          f"{k2_large['library_device_ms']:.6f} ms (bound "
+          f"{k2_large['bound_ms']:.6f} ms, {k2_share:.3f} of it)",
+          flush=True)
     for row in k3_rows:
         print(f"[device] K3 f32 {row['shape']}: {row['device_ms']:.6f} ms, "
               f"torch.matmul {row['library_device_ms']:.6f} ms", flush=True)
@@ -2033,7 +2110,8 @@ def main() -> int:
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": "bytes",
          "library_ms": k2["library_ms"], "device_ms": k2["device_ms"],
-         "library_device_ms": k2["library_device_ms"]},
+         "library_device_ms": k2["library_device_ms"], "large": k2_large,
+         "build": k2_build["cache_cast_kernel<float, bf16>"]},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/matmul/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul/matmul.py:66",

@@ -14,32 +14,18 @@
 //
 // What bounds it on the card: at the serving path's shape (80 heads, P 64,
 // one group of N 128, S 512 in chunks of 256, bf16) the function moves
-// 13.5 MB (xdt and y 5.2 MB each, the f32 state 2.6 MB) and needs 2.0 GFLOP
+// 13.5 MB (xdt and y 5.2 MB each, the f32 state 2.6 MB) and needs 1.7 GFLOP
 // (the causal half of each chunk's Gram once per group, its decayed
-// product with xdt, the inter-chunk term and the state update per head),
-// so its bound is bytes: about 0.004 ms at 3.35 TB/s.
+// product with xdt and the state update per head; the inter-chunk term per
+// head after the first chunk), so its bound is bytes: about 0.004 ms at
+// 3.35 TB/s.
 //
 // Two kernels, chosen by dtype:
 //   * bf16 (the serve path): `ssd_scan_mma_kernel`, the four products on
 //     the tensor cores; its design is noted where it is defined, below.
-//   * f32 (the f32 model check, with TF32 off): `ssd_scan_kernel`, below,
-//     f32 FMAs out of shared memory on the CUDA cores.  It forms the Gram
-//     once per head and P tile (160 times at the path's shape: 5.5 GFLOP
-//     of FMAs), so its own limit is the CUDA-core FMA rate and the
-//     shared-memory reads feeding it.  What its design does about it:
-//     - The TPU kernel forms a chunk's whole (c, c) Gram in VMEM; at
-//       c = 256 that is 256 KB in f32, more than an SM's shared memory.
-//       Here a block walks 64-row query tiles and, inside each, the 64-row
-//       key tiles up to the diagonal (tiles above it are never loaded),
-//       forming one 64 x 64 score tile at a time in shared memory.
-//     - One block per (B*H row) would give 80 blocks for 132 SMs.  Row p of
-//       the state depends only on column p of xdt, so a block owns a
-//       (row, 32-column P tile): 160 blocks at the path's shape, two
-//       resident on each SM.  Each P tile forms the score tiles again.
-//     - The state never leaves shared memory between chunks.  The new
-//       state's sum is taken in registers while the last query tile walks
-//       the key tiles, which it loads anyway.  Row strides of N+1, 33 and
-//       65 floats keep the shared-memory reads free of bank conflicts.
+//   * f32 (the f32 model check, with TF32 off): `ssd_scan_f32_kernel`,
+//     the four products as f32 FMAs on the CUDA cores; its design is noted
+//     where it is defined, below.
 // Both kernels:
 //   * The chunk axis (the TPU grid's sequential axis) is a loop inside the
 //     block, which carries the state.
@@ -61,6 +47,8 @@
 //   * A last chunk shorter than `chunk` (S not divisible by it) is masked:
 //     rows past its end read 0 and are not written, which computes what the
 //     reference's padding with la = 0 and xdt = 0 does.
+//   * The first chunk skips the inter-chunk term: the state entering it is
+//     exactly 0.
 //   * Every output element is owned by one thread and summed in a fixed
 //     order (no atomics), so two runs give the same bits.
 
@@ -68,150 +56,342 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// The bf16 tile helpers (cp.async, ldmatrix, mma.sync, hi + lo splits),
-// shared with K1 and K4.
+// The tile helpers (cp.async, ldmatrix, mma.sync, hi + lo splits), shared
+// with K1 and K4: the bf16 kernel's, and the f32 kernel's copies.
 #include "mma_tiles.cuh"
 
 namespace {
 
-constexpr int kTI = 64;        // query rows of a tile
-constexpr int kTJ = 64;        // key rows of a tile
-constexpr int kTP = 32;        // P columns (state rows) a block owns
-constexpr int kScanThreads = 256;  // 16 x 16 threads
 constexpr int kMaxN = 128;
 
 enum DType { kF32 = 0, kBF16 = 1 };
-
-// `ssd_scan_kernel` is written for an input type T; f32 is the one it is
-// built for (bf16 takes `ssd_scan_mma_kernel`).
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
 
 __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
 }
 
-// Bytes of dynamic shared memory for state width n and chunk length chunk.
-size_t smem_bytes(int n, int chunk) {
-  const int ns = n + 1;
-  const size_t floats = (size_t)kTI * ns          // C tile
-                        + (size_t)kTJ * ns        // B tile
-                        + (size_t)kTJ * (kTP + 1) // xdt tile
-                        + (size_t)kTI * (kTJ + 1) // score tile
-                        + (size_t)kTP * ns        // state
-                        + 3 * (size_t)round_up(chunk, kTJ);  // cum, e^cum, w
+// ------------------------------------------------------------------------
+// f32: `ssd_scan_f32_kernel`, the four products as f32 FMAs.
+//
+// Why not the tensor cores: as three TF32 products each (hi = tf32(x),
+// lo = tf32(x - hi); lo hi + hi lo + hi hi), the products keep about 21
+// bits of each operand, and where la reaches -50 a step small outputs are
+// sums of terms in the thousands: the CPU model in
+// tests/test_torch_mamba_scan.py misses the reference's Pallas kernel by
+// more than the f32 tolerance there (S = 300, chunk 256), and one TF32
+// product misses it at the serving path's shape, where the FMA chains hold
+// both.  So each output is one chain of fmaf in ascending k from 0, in the
+// order the kernel this one replaced summed it:
+//   G_ij = C_i . B_j over n;  S_ij = G_ij * expf(fminf(cum_i - cum_j, 0)),
+//   0 above the diagonal and past the chunk's end;
+//   acc_i = S_i . xdt over the chunk's keys (64-key tiles in order);
+//   y_i = fmaf(expf(cum_i), C_i . h0, acc_i) after the first chunk, acc_i
+//   in it;  hc = (xdt * w)^T B over the keys, w = expf(cum_last - cum_j),
+//   xdt * w rounded to f32;  h = fmaf(expf(cum_last), h, hc).
+//
+// What bounds it: at phase 13's shape of chip_smoke.py (80 heads of P 64,
+// one group of N 128, S 128 in one chunk, f32) the block's FMAs:
+// 3.4 M a head row (the Gram's three 64 x 64 tiles up to the diagonal,
+// 1.57 M, formed whole; their product with xdt, 0.79 M; the state update,
+// 1.05 M), 272 M in all: 0.008 ms at the card's 67 TFLOP/s, 0.013 ms on 80
+// SMs at 128 FMAs a clock.  What the design does about it:
+//   * Grid (B*H, ceil(P / 64)): a block owns one head row and 64 P columns
+//     (all of them at the path's P = 64: 80 blocks, one an SM at 189,696 B
+//     of shared memory at chunk 256, and 52 of 132 SMs idle).  Splitting P
+//     into two tiles of 32 would fill more SMs but form each chunk's Gram
+//     twice: 160 blocks at one an SM run in two waves, 2.5 M FMAs a block,
+//     so the slowest SM does 5.0 M against 3.4 M.
+//   * 16 x 16 threads.  Each forms a 4 x 4 block of the 64 x 64 score tile
+//     (rows ty + 16 r, keys tx + 16 c) and a 4 x 4 block of the output
+//     (rows ty + 16 r, P columns 4 tx .. 4 tx + 3), and owns 4 P columns x
+//     N / 16 state columns of the state.  Every product is a register
+//     outer product fed 16 bytes at a time from shared memory: 8 reads of
+//     16 bytes for 64 FMAs (Gram, S xdt, C h0), 3 for 32 (state).  Rows of
+//     C and B are padded to N + 4 floats, so the 8 rows a quarter warp
+//     reads at once fall in distinct banks; the rest read one row at once.
+//   * B and xdt arrive by cp.async into two buffers, the next key tile's
+//     (or the next query tile's first) in flight while this one is used;
+//     C's next query tile is staged as soon as the Gram has read this one.
+//     Inputs off a 16-byte boundary, or with P or N not a multiple of 4,
+//     are staged by plain loads, chosen at launch.
+//   * Warp 0 takes the chunk's prefix sum (f64, index order, one thread)
+//     while warps 1-7 stage its first tiles; its lanes widen la to f64 and
+//     round the sums back, so the one thread's chain is its adds alone.
+//   * The state stays in shared memory, transposed (N rows of P), where the
+//     next chunk's inter-chunk term reads it; the chunk's new sum stays in
+//     registers until the chunk's end.
+//   * Tiles above the diagonal are never loaded.
+// What holds it there (scripts/k5_f32_timeline.py, an H100 at 700 W): the
+// shared-memory reads.  A warp's 16-byte read takes four of the SM's cycles
+// (128 bytes a cycle) however many of its lanes share an address, so 8 such
+// reads for 64 FMAs a lane ask twice the cycles of the FMAs: the Gram of a
+// 64 x 64 tile takes about 11,000 cycles, its product with xdt 3,700, the
+// state update 7,600, where their FMAs take 4,100, 2,000 and 4,100 (a
+// warp instruction a cycle on each of 4 schedulers).  Larger
+// register blocks (8 x 8) would halve the reads but take a 128 x 128 tile
+// at this block size, past the shared memory.
+constexpr int kF32Threads = 256;         // 16 x 16
+constexpr int kF32TI = 64;               // query rows of a tile
+constexpr int kF32TJ = 64;               // keys of a key tile
+constexpr int kF32PT = 64;               // P columns a block owns
+constexpr int kF32CP = kF32PT / 16;      // P columns a thread owns
+constexpr int kF32SX = kF32PT + 4;       // row stride of the xdt tiles and h
+constexpr int kF32SS = kF32TJ + 4;       // row stride of the score tile
+static_assert(kF32TI == kF32TJ, "a query tile sees the key tiles up to it");
+
+// Bytes of dynamic shared memory at padded state width np and chunk length
+// chunk: C (one query tile), B and xdt (two key tiles each), the scores,
+// the state, a key tile's w and the chunk's cum.
+size_t f32_smem_bytes(int np, int chunk) {
+  const size_t sf = np + 4;
+  const size_t floats = kF32TI * sf + 2 * kF32TJ * sf + 2 * kF32TJ * kF32SX
+                        + kF32TI * kF32SS + (size_t)np * kF32SX + kF32TJ
+                        + round_up(chunk, kF32TJ);
   return floats * sizeof(float);
 }
 
-// Stage rows [r0, r0 + n_rows) of the chunk (absolute rows c0 + r) of a
-// (S, width) matrix, columns [col0, col0 + cols), into shared memory with
-// row stride `stride`; rows at or past `valid` and columns at or past
-// `width` read 0.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, int row0,
-                                      int n_rows, int valid, int col0,
-                                      int cols, int width, int stride) {
-  for (int idx = threadIdx.x; idx < n_rows * cols; idx += kScanThreads) {
-    const int r = idx / cols, c = idx % cols;
-    float v = 0.f;
-    if (r < valid && col0 + c < width)
-      v = to_f32(src[(size_t)(row0 + r) * width + col0 + c]);
-    dst[r * stride + c] = v;
+// Rows [0, ROWS) of a tile of row stride `stride` (floats) from the rows of
+// a row-major f32 matrix of leading dimension `ld` starting at `src`,
+// columns [col0, col0 + COLS) of it, by thread t of nt; rows at or past
+// `valid` and columns at or past `width` read 0.  With a 16-byte aligned
+// base and ld a multiple of 4, each 16-byte piece lies wholly inside or
+// outside `width` and goes by cp.async; else plain loads and stores.
+template <int ROWS, int COLS>
+__device__ __forceinline__ void stage_f32(float* dst, int stride,
+                                          const float* src, int ld, int valid,
+                                          int col0, int width, bool aligned,
+                                          int t, int nt) {
+  if (aligned && ld % 4 == 0) {
+    constexpr int kPieces = COLS / 4;
+    for (int i = t; i < ROWS * kPieces; i += nt) {
+      const int r = i / kPieces, c = (i % kPieces) * 4;
+      const bool ok = r < valid && col0 + c < width;
+      cp_async16(smem_addr(dst + r * stride + c),
+                 ok ? src + (size_t)r * ld + col0 + c : src, ok);
+    }
+  } else {
+    for (int i = t; i < ROWS * COLS; i += nt) {
+      const int r = i / COLS, c = i % COLS;
+      const bool ok = r < valid && col0 + c < width;
+      dst[r * stride + c] = ok ? src[(size_t)r * ld + col0 + c] : 0.f;
+    }
   }
 }
 
-// Grid (B*H, ceil(P / kTP)).  Thread t = (tx = t % 16, ty = t / 16) owns:
-//   score tile entries (ty + 16 r, tx + 16 c), r, c < 4;
-//   output entries (query ty + 16 r, column tx + 16 c), r < 4, c < 2;
-//   state entries (column ty + 16 a, state index tx + 16 b), a < 2, b < NB.
-template <typename T, int NB>
-__global__ void __launch_bounds__(kScanThreads)
-ssd_scan_kernel(const T* __restrict__ xdt, const float* __restrict__ la,
-                const T* __restrict__ bmat, const T* __restrict__ cmat,
-                T* __restrict__ y, float* __restrict__ state, int S, int P,
-                int N, int chunk, int rep) {
-  extern __shared__ float smem[];
-  const int ns = N + 1;
-  constexpr int xs = kTP + 1, ss = kTJ + 1;
-  float* Cs = smem;
-  float* Bs = Cs + kTI * ns;
-  float* Xs = Bs + kTJ * ns;
-  float* Ss = Xs + kTJ * xs;
-  float* Hs = Ss + kTI * ss;
-  float* cum = Hs + kTP * ns;
-  const int cpad = round_up(chunk, kTJ);
-  float* ecum = cum + cpad;     // exp(cum_i), 0 past the chunk's end
-  float* wlast = ecum + cpad;   // exp(cum_last - cum_j), 0 past the end
+// W consecutive floats of shared memory, 16 bytes at a time (8 for W = 2).
+template <int W>
+__device__ __forceinline__ void load_row(float (&d)[W], const float* p) {
+  static_assert(W == 2 || W % 4 == 0, "rows are read 8 or 16 bytes a time");
+  if constexpr (W == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    d[0] = x.x;
+    d[1] = x.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; i += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + i);
+      d[i] = x.x;
+      d[i + 1] = x.y;
+      d[i + 2] = x.z;
+      d[i + 3] = x.w;
+    }
+  }
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+// W consecutive floats to device memory, 16 bytes at a time (8 for W = 2).
+template <int W>
+__device__ __forceinline__ void store_row(float* p, const float (&d)[W]) {
+  static_assert(W == 2 || W % 4 == 0, "rows are written 8 or 16 bytes a time");
+  if constexpr (W == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(d[0], d[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; i += 4)
+      *reinterpret_cast<float4*>(p + i) =
+          make_float4(d[i], d[i + 1], d[i + 2], d[i + 3]);
+  }
+}
+
+// out[r][q] += sum over k < 4 (in order) of a[r][k] * b[k][q]: one step of
+// four k of a register outer product, each output's FMAs in ascending k.
+template <int R, int Q>
+__device__ __forceinline__ void fma4(float (&out)[R][Q], const float (&a)[R][4],
+                                     const float (&b)[4][Q]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int q = 0; q < Q; ++q) out[r][q] = fmaf(a[r][k], b[k][q], out[r][q]);
+}
+
+// cum[0, n) = the inclusive prefix sum of la[0, n), taken in f64 in index
+// order by one thread and rounded to f32 once, by warp 0 (`scratch`: room
+// for kPrefixPiece doubles).  Its lanes widen la to f64 and round the sums
+// back, so the one thread's chain is its f64 adds alone.
+constexpr int kPrefixPiece = 512;
+
+__device__ __forceinline__ void prefix_sum_f64(float* cum, const float* la,
+                                               int n, double* scratch) {
+  const int lane = threadIdx.x;
+  double run = 0.0;
+  for (int i0 = 0; i0 < n; i0 += kPrefixPiece) {
+    const int len = min(kPrefixPiece, n - i0);
+    for (int i = lane; i < len; i += 32) scratch[i] = (double)la[i0 + i];
+    __syncwarp();
+    if (lane == 0) {
+      int i = 0;
+      for (; i + 8 <= len; i += 8) {
+        double v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = scratch[i + e];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          run += v[e];
+          v[e] = run;
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) scratch[i + e] = v[e];
+      }
+      for (; i < len; ++i) {
+        run += scratch[i];
+        scratch[i] = run;
+      }
+    }
+    __syncwarp();
+    for (int i = lane; i < len; i += 32) cum[i0 + i] = (float)scratch[i];
+    __syncwarp();
+  }
+}
+
+// Grid (B*H, ceil(P / kF32PT)); NP is N padded to 32, 64 or 128.
+template <int NP>
+__global__ void __launch_bounds__(kF32Threads, 1)
+ssd_scan_f32_kernel(const float* __restrict__ xdt, const float* __restrict__ la,
+                    const float* __restrict__ bmat,
+                    const float* __restrict__ cmat, float* __restrict__ y,
+                    float* __restrict__ state, int S, int P, int N, int chunk,
+                    int rep, int aligned) {
+  constexpr int SF = NP + 4;            // row stride of the C and B tiles
+  constexpr int CP = kF32CP;
+  constexpr int NV = NP / 16;           // state columns a thread owns
+  extern __shared__ __align__(16) float smf[];
+  float* Cs = smf;                           // kF32TI x SF
+  float* Bs = Cs + kF32TI * SF;              // 2 x kF32TJ x SF
+  float* Xs = Bs + 2 * kF32TJ * SF;          // 2 x kF32TJ x kF32SX
+  float* Ss = Xs + 2 * kF32TJ * kF32SX;      // kF32TI x kF32SS
+  float* Hs = Ss + kF32TI * kF32SS;          // the state: NP rows n of P
+  float* wl = Hs + NP * kF32SX;              // w of a key tile's keys
+  float* cum = wl + kF32TJ;                  // the chunk's cum
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int row = blockIdx.x;          // b * H + h
   const int grow = row / rep;          // b * G + h / rep
-  const int p0 = blockIdx.y * kTP;
-  const T* xp = xdt + (size_t)row * S * P;
+  const int p0 = blockIdx.y * kF32PT;
+  const float* xp = xdt + (size_t)row * S * P;
   const float* lp = la + (size_t)row * S;
-  const T* bp = bmat + (size_t)grow * S * N;
-  const T* cp = cmat + (size_t)grow * S * N;
+  const float* bp = bmat + (size_t)grow * S * N;
+  const float* cp = cmat + (size_t)grow * S * N;
+  // This thread's state: hs[v * kF32SX + q] is (P column p0 + CP tx + q,
+  // state column NV ty + v).
+  float* hs = Hs + ty * NV * kF32SX + tx * CP;
 
-  for (int idx = tid; idx < kTP * ns; idx += kScanThreads) Hs[idx] = 0.f;
+  // B and xdt rows [j0, j0 + kF32TJ) of the chunk at c0 into buffer buf;
+  // C rows [i0, i0 + kF32TI); by thread t of nt.
+  auto stage_keys = [&](int c0, int clen, int j0, int buf, int t, int nt) {
+    stage_f32<kF32TJ, NP>(Bs + buf * kF32TJ * SF, SF,
+                          bp + (size_t)(c0 + j0) * N, N, clen - j0, 0, N,
+                          aligned, t, nt);
+    stage_f32<kF32TJ, kF32PT>(Xs + buf * kF32TJ * kF32SX, kF32SX,
+                              xp + (size_t)(c0 + j0) * P, P, clen - j0, p0, P,
+                              aligned, t, nt);
+  };
+  auto stage_queries = [&](int c0, int clen, int i0, int t, int nt) {
+    stage_f32<kF32TI, NP>(Cs, SF, cp + (size_t)(c0 + i0) * N, N, clen - i0,
+                          0, N, aligned, t, nt);
+  };
+
+  // Warp 0 takes each chunk's prefix sum from its start, while warps 1-7
+  // stage the chunk's first tiles (and zero the state); the score tile is
+  // free until the first Gram, so it lends its room.
+  constexpr int kStagers = kF32Threads - 32;
+  if (tid >= 32)
+    for (int i = tid - 32; i < NP * kF32SX; i += kStagers) Hs[i] = 0.f;
 
   for (int c0 = 0; c0 < S; c0 += chunk) {
     const int clen = min(chunk, S - c0);
-    for (int i = tid; i < clen; i += kScanThreads) cum[i] = lp[c0 + i];
-    __syncthreads();
-    if (tid == 0) {     // the prefix sum, in index order, in f64
-      double run = 0.0;
-      for (int i = 0; i < clen; ++i) {
-        run += (double)cum[i];
-        cum[i] = (float)run;
-      }
+    if (tid < 32) {
+      prefix_sum_f64(cum, lp + c0, clen, reinterpret_cast<double*>(Ss));
+    } else {
+      stage_queries(c0, clen, 0, tid - 32, kStagers);
+      stage_keys(c0, clen, 0, 0, tid - 32, kStagers);
     }
-    __syncthreads();
-    const float last = cum[clen - 1];
-    for (int i = tid; i < cpad; i += kScanThreads) {
-      const bool in = i < clen;
-      ecum[i] = in ? expf(cum[i]) : 0.f;
-      wlast[i] = in ? expf(last - cum[i]) : 0.f;
-    }
-    float hc[2][NB];
+    cp_async_commit();
+    float hc[CP][NV];                  // this chunk's (xdt w)^T B
 #pragma unroll
-    for (int a = 0; a < 2; ++a)
+    for (int q = 0; q < CP; ++q)
 #pragma unroll
-      for (int b = 0; b < NB; ++b) hc[a][b] = 0.f;
+      for (int v = 0; v < NV; ++v) hc[q][v] = 0.f;
 
-    for (int i0 = 0; i0 < clen; i0 += kTI) {
-      const bool final_tile = i0 + kTI >= clen;
-      stage<T>(Cs, cp, c0 + i0, kTI, clen - i0, 0, N, N, ns);
-      float acc[4][2];
+    int step = 0;                      // (query tile, key tile) steps
+    for (int i0 = 0; i0 < clen; i0 += kF32TI) {
+      const bool final_tile = i0 + kF32TI >= clen;
+      float acc[4][CP], dot[4][CP];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[r][0] = acc[r][1] = 0.f;
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int q = 0; q < CP; ++q) acc[r][q] = dot[r][q] = 0.f;
 
-      for (int j0 = 0; j0 <= i0; j0 += kTJ) {
-        __syncthreads();               // tiles of the last step are read
-        stage<T>(Bs, bp, c0 + j0, kTJ, clen - j0, 0, N, N, ns);
-        stage<T>(Xs, xp, c0 + j0, kTJ, clen - j0, p0, kTP, P, xs);
-        __syncthreads();
-        // Scores of this (query tile, key tile): (C_i . B_j) * decay, j <= i.
+      for (int j0 = 0; j0 <= i0; j0 += kF32TJ, ++step) {
+        const float* Bt = Bs + (step & 1) * kF32TJ * SF;
+        const float* Xt = Xs + (step & 1) * kF32TJ * kF32SX;
+        cp_async_wait<0>();
+        __syncthreads();     // this step's tiles and cum in; the last step's
+                             // reads done
+        if (j0 < i0)         // the next key tile, or the next query tile's
+          stage_keys(c0, clen, j0 + kF32TJ, (step + 1) & 1, tid,   // first
+                     kF32Threads);
+        else if (!final_tile)
+          stage_keys(c0, clen, 0, (step + 1) & 1, tid, kF32Threads);
+        cp_async_commit();
+        if (final_tile && tid < kF32TJ) {
+          const int j = j0 + tid;
+          wl[tid] = j < clen ? expf(cum[clen - 1] - cum[j]) : 0.f;
+        }
+        if (j0 == 0 && c0 > 0) {
+          // The inter-chunk term's product C h0^T.
+#pragma unroll 2
+          for (int n = 0; n < NP; n += 4) {
+            float cv[4][4], hv[4][CP];
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              load_row(cv[r], Cs + (ty + 16 * r) * SF + n);
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              load_row(hv[k], Hs + (n + k) * kF32SX + tx * CP);
+            fma4(dot, cv, hv);
+          }
+        }
+        // Scores of this (query tile, key tile): (C_i . B_j) * decay.
         float g[4][4];
 #pragma unroll
         for (int r = 0; r < 4; ++r)
 #pragma unroll
           for (int c = 0; c < 4; ++c) g[r][c] = 0.f;
-#pragma unroll 4
-        for (int n = 0; n < N; ++n) {
-          float cv[4], bv[4];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) cv[r] = Cs[(ty + 16 * r) * ns + n];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) bv[c] = Bs[(tx + 16 * c) * ns + n];
+#pragma unroll 1
+        for (int n = 0; n < NP; n += 4) {
+          float cv[4][4], bv[4][4], bt[4][4];
 #pragma unroll
           for (int r = 0; r < 4; ++r)
+            load_row(cv[r], Cs + (ty + 16 * r) * SF + n);
 #pragma unroll
-            for (int c = 0; c < 4; ++c) g[r][c] = fmaf(cv[r], bv[c], g[r][c]);
+          for (int c = 0; c < 4; ++c)
+            load_row(bv[c], Bt + (tx + 16 * c) * SF + n);
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) bt[k][c] = bv[c][k];
+          fma4(g, cv, bt);
         }
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
@@ -222,118 +402,113 @@ ssd_scan_kernel(const T* __restrict__ xdt, const float* __restrict__ la,
             float sv = 0.f;
             if (j <= i && i < clen)
               sv = g[r][c] * expf(fminf(cum[i] - cum[j], 0.f));
-            Ss[(ty + 16 * r) * ss + tx + 16 * c] = sv;
+            Ss[(ty + 16 * r) * kF32SS + tx + 16 * c] = sv;
           }
         }
-        __syncthreads();
-        // Intra-chunk term: acc += S_tile @ xdt_tile.
-        for (int j = 0; j < kTJ; ++j) {
-          const float x0 = Xs[j * xs + tx], x1 = Xs[j * xs + tx + 16];
+        __syncthreads();     // the scores and w written; C read
+        if (j0 == i0 && !final_tile) {
+          stage_queries(c0, clen, i0 + kF32TI, tid, kF32Threads);
+          cp_async_commit();
+        }
+        // Intra-chunk term: acc += S_tile xdt_tile.
+#pragma unroll 2
+        for (int j = 0; j < kF32TJ; j += 4) {
+          float sv[4][4], xv[4][CP];
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float sv = Ss[(ty + 16 * r) * ss + j];
-            acc[r][0] = fmaf(sv, x0, acc[r][0]);
-            acc[r][1] = fmaf(sv, x1, acc[r][1]);
-          }
+          for (int r = 0; r < 4; ++r)
+            load_row(sv[r], Ss + (ty + 16 * r) * kF32SS + j);
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            load_row(xv[k], Xt + (j + k) * kF32SX + tx * CP);
+          fma4(acc, sv, xv);
         }
         // The last query tile sees every key tile: the state's new sum.
         if (final_tile) {
-          for (int j = 0; j < kTJ; ++j) {
-            const float w = wlast[j0 + j];
-            const float xw0 = Xs[j * xs + ty] * w;
-            const float xw1 = Xs[j * xs + ty + 16] * w;
+#pragma unroll 2
+          for (int j = 0; j < kF32TJ; ++j) {
+            const float w = wl[j];
+            float xv[CP], bv[NV];
+            load_row(xv, Xt + j * kF32SX + tx * CP);
+            load_row(bv, Bt + j * SF + ty * NV);
 #pragma unroll
-            for (int b = 0; b < NB; ++b) {
-              const int n = tx + 16 * b;
-              const float bv = n < N ? Bs[j * ns + n] : 0.f;
-              hc[0][b] = fmaf(xw0, bv, hc[0][b]);
-              hc[1][b] = fmaf(xw1, bv, hc[1][b]);
+            for (int q = 0; q < CP; ++q) {
+              const float xw = xv[q] * w;
+#pragma unroll
+              for (int v = 0; v < NV; ++v) hc[q][v] = fmaf(xw, bv[v], hc[q][v]);
             }
           }
         }
       }
-      // Inter-chunk term from the state entering the chunk, then y.
-      float dot[4][2];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) dot[r][0] = dot[r][1] = 0.f;
-#pragma unroll 4
-      for (int n = 0; n < N; ++n) {
-        const float h0 = Hs[tx * ns + n], h1 = Hs[(tx + 16) * ns + n];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float cv = Cs[(ty + 16 * r) * ns + n];
-          dot[r][0] = fmaf(cv, h0, dot[r][0]);
-          dot[r][1] = fmaf(cv, h1, dot[r][1]);
-        }
-      }
+      // y, with the inter-chunk term after the first chunk.
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int i = i0 + ty + 16 * r;
         if (i >= clen) continue;
-        const float e = ecum[i];
+        float out[CP];
+        const float e = c0 > 0 ? expf(cum[i]) : 0.f;
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int p = p0 + tx + 16 * c;
-          if (p < P)
-            y[((size_t)row * S + c0 + i) * P + p] =
-                from_f32<T>(acc[r][c] + e * dot[r][c]);
+        for (int q = 0; q < CP; ++q)
+          out[q] = c0 > 0 ? fmaf(e, dot[r][q], acc[r][q]) : acc[r][q];
+        const int pc = p0 + tx * CP;
+        float* yr = y + ((size_t)row * S + c0 + i) * P + pc;
+        if (P % CP == 0 && pc < P) {
+          store_row(yr, out);
+        } else {
+#pragma unroll
+          for (int q = 0; q < CP; ++q)
+            if (pc + q < P) yr[q] = out[q];
         }
       }
-      __syncthreads();                 // Cs and Hs are read
     }
-    const float decay = expf(last);
+    // h = exp(cum_last) h + hc, each thread its own entries.
+    const float decay = expf(cum[clen - 1]);
 #pragma unroll
-    for (int a = 0; a < 2; ++a)
+    for (int q = 0; q < CP; ++q)
 #pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        const int n = tx + 16 * b;
-        if (n < N) {
-          float* h = Hs + (ty + 16 * a) * ns + n;
-          *h = decay * *h + hc[a][b];
-        }
-      }
-    __syncthreads();
+      for (int v = 0; v < NV; ++v)
+        hs[v * kF32SX + q] = fmaf(decay, hs[v * kF32SX + q], hc[q][v]);
+    __syncthreads();         // the state, cum and the tiles are read
   }
-  for (int idx = tid; idx < kTP * N; idx += kScanThreads) {
-    const int pl = idx / N, n = idx % N;
-    if (p0 + pl < P)
-      state[((size_t)row * P + p0 + pl) * N + n] = Hs[pl * ns + n];
+  // The final state from its transposed copy: a warp writes 8 rows of P,
+  // 4 threads a row, four consecutive n a thread at a time (16 bytes where
+  // N allows), so its reads of the copy fall at most two to a bank.
+  static_assert(kF32PT == 8 * (kF32Threads / 32), "8 rows of P a warp");
+  const int pl = 8 * (tid / 32) + (tid % 32) / 4;
+  if (p0 + pl < P) {
+    float* dst = state + ((size_t)row * P + p0 + pl) * N;
+    for (int n = 4 * (tid % 4); n < N; n += 16) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = Hs[(n + e) * kF32SX + pl];
+      if (N % 4 == 0) {
+        store_row(dst + n, v);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (n + e < N) dst[n + e] = v[e];
+      }
+    }
   }
 }
 
-template <typename T, int NB>
-cudaError_t launch(const void* xdt, const float* la, const void* b,
-                   const void* c, void* y, float* state, int bh, int s,
-                   int p, int n, int chunk, int rep, cudaStream_t stream) {
-  const size_t smem = smem_bytes(n, chunk);
+template <int NP>
+cudaError_t launch_f32(const void* xdt, const float* la, const void* b,
+                       const void* c, void* y, float* state, int bh, int s,
+                       int p, int n, int chunk, int rep, cudaStream_t stream) {
+  const size_t smem = f32_smem_bytes(NP, chunk);
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<T, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_scan_f32_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(bh, (p + kTP - 1) / kTP);
-  ssd_scan_kernel<T, NB><<<grid, kScanThreads, smem, stream>>>(
-      static_cast<const T*>(xdt), la, static_cast<const T*>(b),
-      static_cast<const T*>(c), static_cast<T*>(y), state, s, p, n, chunk,
-      rep);
+  const int aligned = (reinterpret_cast<uintptr_t>(xdt) |
+                       reinterpret_cast<uintptr_t>(b) |
+                       reinterpret_cast<uintptr_t>(c)) % 16 == 0;
+  dim3 grid(bh, (p + kF32PT - 1) / kF32PT);
+  ssd_scan_f32_kernel<NP><<<grid, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(xdt), la, static_cast<const float*>(b),
+      static_cast<const float*>(c), static_cast<float*>(y), state, s, p, n,
+      chunk, rep, aligned);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_n(const void* xdt, const float* la, const void* b,
-                       const void* c, void* y, float* state, int bh, int s,
-                       int p, int n, int chunk, int rep,
-                       cudaStream_t stream) {
-  if (n <= 16)
-    return launch<T, 1>(xdt, la, b, c, y, state, bh, s, p, n, chunk, rep,
-                        stream);
-  if (n <= 32)
-    return launch<T, 2>(xdt, la, b, c, y, state, bh, s, p, n, chunk, rep,
-                        stream);
-  if (n <= 64)
-    return launch<T, 4>(xdt, la, b, c, y, state, bh, s, p, n, chunk, rep,
-                        stream);
-  return launch<T, 8>(xdt, la, b, c, y, state, bh, s, p, n, chunk, rep,
-                      stream);
 }
 
 // ------------------------------------------------------------------------
@@ -747,8 +922,17 @@ int ssd_scan(const void* xdt, const float* la, const void* b, const void* c,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return dispatch_n<float>(xdt, la, b, c, y, state, bh, s, p, n, chunk,
-                               rep, st);
+      switch (mma_nb(n)) {
+        case 2:
+          return launch_f32<32>(xdt, la, b, c, y, state, bh, s, p, n, chunk,
+                                rep, st);
+        case 4:
+          return launch_f32<64>(xdt, la, b, c, y, state, bh, s, p, n, chunk,
+                                rep, st);
+        default:
+          return launch_f32<128>(xdt, la, b, c, y, state, bh, s, p, n, chunk,
+                                 rep, st);
+      }
     case kBF16:
       if (reinterpret_cast<uintptr_t>(xdt) % 16 ||
           reinterpret_cast<uintptr_t>(b) % 16 ||
@@ -766,7 +950,7 @@ int ssd_scan(const void* xdt, const float* la, const void* b, const void* c,
 long long ssd_scan_smem_bytes(int dtype, int n, int chunk) {
   if (n < 1 || n > kMaxN || chunk < 1) return -1;
   return (long long)(dtype == kBF16 ? mma_smem_bytes(mma_nb(n), chunk)
-                                    : smem_bytes(n, chunk));
+                                    : f32_smem_bytes(16 * mma_nb(n), chunk));
 }
 
 const char* ssd_scan_error_string(int err) {

@@ -7,8 +7,10 @@ inputs take ``ssd_scan_mma_kernel``, its four products on the tensor cores
 from the tile helpers K1 and K4 share
 (``../flash_attention/csrc/mma_tiles.cuh``), with the f32 decayed scores,
 ``xdt`` times its decays and the carried state entering as hi + lo bf16
-terms; f32 inputs take ``ssd_scan_kernel``, f32 FMAs on the CUDA cores.  It
-reads B and C per group (``rep`` heads share a row), where the reference's
+terms; f32 inputs take ``ssd_scan_f32_kernel``, f32 FMAs on the CUDA cores
+fed 16 bytes at a time, each output one FMA chain in ascending order (f32
+inputs off a 16-byte boundary are staged by plain loads).  It reads B and C
+per group (``rep`` heads share a row), where the reference's
 kernel route repeats them per head, and it masks a last chunk shorter than
 ``chunk``, where the reference's wrapper requires S to divide.
 
@@ -36,7 +38,8 @@ __all__ = ["ssd_scan", "LAUNCHES", "SOURCES", "HEADERS", "load_library",
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", "mamba_scan.cu")]
-#: The bf16 tile header K1 and K4 share, included by the bf16 kernel.
+#: The tile header K1 and K4 share: the bf16 kernel's tile helpers, and
+#: the copy helpers both kernels stage with.
 HEADERS = [os.path.join(os.path.dirname(_HERE), "flash_attention", "csrc",
                         "mma_tiles.cuh")]
 

@@ -76,9 +76,9 @@ def test_k1_and_k4_libraries_are_keyed_by_the_shared_header(wrapper):
 
 
 def test_k5_library_is_keyed_by_the_shared_header():
-    """K5's bf16 kernel takes its tile helpers from the same bf16 header
-    (and not the f32 one): its source includes it by name and its library
-    key covers it."""
+    """K5's kernels take their tile and copy helpers from the same bf16
+    header (and not the f32 one): its source includes it by name and its
+    library key covers it."""
     assert k5.HEADERS == fa.HEADERS[:1]
     (src,) = k5.SOURCES
     with open(src) as f:

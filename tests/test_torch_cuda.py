@@ -220,6 +220,40 @@ def test_cache_cast_is_bitwise_and_counted(dev):
     assert torch.equal(vc, v.to(torch.bfloat16))
 
 
+def _shifted(t):
+    """A contiguous copy of ``t`` that starts one element past an aligned
+    allocation, so off every 4-, 8- and 16-byte boundary its element size
+    allows."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    off = flat[1:].view(t.shape)
+    off.copy_(t)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    return off
+
+
+_CAST_TYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+@pytest.mark.parametrize("layout", ["path", "ragged", "unaligned"])
+@pytest.mark.parametrize("src", _CAST_TYPES, ids=str)
+@pytest.mark.parametrize("dst", _CAST_TYPES, ids=str)
+def test_cache_cast_is_bitwise_to(dev, layout, src, dst):
+    """K2 is ``.to`` bit for bit for every pair of types it takes: at the
+    model path's shape (four-element pieces), at an element count that is
+    not a multiple of 4 (a scalar tail), and on views off a 16-byte
+    boundary (the scalar route)."""
+    shape = (2, 37, 5) if layout == "ragged" else (2, 128, 128)
+    k, v = (_rand(shape, torch.float32, dev, seed).mul_(300).to(src)
+            for seed in (11, 12))
+    if layout == "unaligned":
+        k, v = _shifted(k), _shifted(v)
+    before = pf.LAUNCHES["cache_cast"]
+    kc, vc = pf.cache_cast(k, v, dst)
+    assert pf.LAUNCHES["cache_cast"] == before + 1
+    assert kc.dtype == dst and torch.equal(kc, k.to(dst))
+    assert vc.dtype == dst and torch.equal(vc, v.to(dst))
+
+
 def test_cuda_tensor_raises_instead_of_falling_back(dev):
     q = torch.zeros((2, 16, 16), dtype=torch.float64, device=dev)
     with pytest.raises(TypeError, match="not supported"):
@@ -852,6 +886,59 @@ def test_ssd_scan_bf16_tile_edges_match_plain_and_oracle(dev, b, s, h, p, g,
         torch.testing.assert_close(hf, want_h, rtol=rtol, atol=atol)
 
 
+# The f32 kernel at the same edges (64-row query and key tiles, a 64-column
+# P tile, N padded to 32, 64 or 128), and with P = 10 and N = 7, whose rows
+# are staged by plain loads and y stored an element at a time.
+K5_F32_EDGES = K5_EDGES + [(1, 70, 2, 10, 1, 7, 32)]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", K5_F32_EDGES)
+def test_ssd_scan_f32_tile_edges_match_plain_and_oracle(dev, b, s, h, p, g, n,
+                                                        chunk):
+    """K5's f32 kernel's own output at the edges of its tiles against its
+    plain version and the sequential oracle at the f32 tolerance."""
+    x, dt, a, bm, cm, _ = _ssd_inputs(dev, b, s, h, p, g, n, torch.float32)
+    _, _, (xdt, la, bf, cf) = _ssd_plain(x, dt, a, bm, cm, None, chunk)
+    bg, cg = (t.transpose(1, 2).reshape(b * g, s, n) for t in (bm, cm))
+    before = k5.LAUNCHES["ssd_scan"]
+    y, hf = k5.ssd_scan(xdt, la, bg, cg, chunk=chunk, rep=h // g)
+    assert k5.LAUNCHES["ssd_scan"] == before + 1
+    rtol, atol = TOL[torch.float32]
+    for want_y, want_h in (ssd_scan_plain(xdt, la, bf, cf, chunk=chunk),
+                           ssd_scan_ref(xdt, la, bf, cf)):
+        torch.testing.assert_close(y, want_y, rtol=rtol, atol=atol)
+        torch.testing.assert_close(hf, want_h, rtol=rtol, atol=atol)
+
+
+def test_ssd_scan_f32_off_a_16_byte_boundary_keeps_its_bits(dev):
+    """f32 inputs that start off a 16-byte boundary are staged by plain
+    loads instead of cp.async: the output is the bits of the same values on
+    aligned storage (three chunks, so the inter-chunk term runs too)."""
+    x, dt, a, bm, cm, _ = _ssd_inputs(dev, 1, 129, 4, 64, 1, 128,
+                                      torch.float32)
+    _, _, (xdt, la, _, _) = _ssd_plain(x, dt, a, bm, cm, None, 64)
+    bg, cg = (t.transpose(1, 2).reshape(1, 129, 128).contiguous()
+              for t in (bm, cm))
+    want = k5.ssd_scan(xdt.contiguous(), la, bg, cg, chunk=64, rep=4)
+    got = k5.ssd_scan(_shifted(xdt), la, _shifted(bg), _shifted(cg),
+                      chunk=64, rep=4)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_ssd_scan_f32_path_shape_is_bitwise(dev):
+    """The f32 kernel at the serving path's shape (two chunks of 256): two
+    runs on the same inputs give the same bits."""
+    x, dt, a, bm, cm, _ = _ssd_inputs(dev, 1, 512, 80, 64, 1, 128,
+                                      torch.float32)
+    _, _, (xdt, la, _, _) = _ssd_plain(x, dt, a, bm, cm, None, 256)
+    bg, cg = (t.transpose(1, 2).reshape(1, 512, 128) for t in (bm, cm))
+    first = k5.ssd_scan(xdt, la, bg, cg, chunk=256, rep=80)
+    for _ in range(3):
+        again = k5.ssd_scan(xdt, la, bg, cg, chunk=256, rep=80)
+        assert all(torch.equal(u, v) for u, v in zip(first, again,
+                                                     strict=True))
+
+
 def test_ssd_scan_bf16_needs_16_byte_aligned_inputs(dev):
     """The bf16 kernel copies 16-byte pieces: an input that starts off a
     16-byte boundary raises instead of launching."""
@@ -870,7 +957,7 @@ def test_ssd_scan_bf16_needs_16_byte_aligned_inputs(dev):
 
 @pytest.mark.parametrize("dtype,kernel", [
     (torch.bfloat16, "ssd_scan_mma_kernel"), (torch.float32,
-                                              "ssd_scan_kernel<")])
+                                              "ssd_scan_f32_kernel<")])
 def test_ssd_scan_launches_the_kernel_of_its_dtype(dev, dtype, kernel):
     """bf16 on the tensor cores, f32 on the CUDA cores."""
     x, dt, a, bm, cm, d = _ssd_inputs(dev, 1, 64, 4, 64, 1, 128, dtype)

@@ -11,7 +11,9 @@ version and the sequential oracle are held against the reference's
 ``ssd_scan(interpret=True)`` and ``ssd_scan_ref``.  A plain-torch model
 of K5's bf16 tensor-core arithmetic is held against the reference's
 chunked scan and Pallas kernel, and shows which of its f32 operands must
-enter the bf16 products as two terms.  Tolerances are the reference's
+enter the bf16 products as two terms; a model of K5's f32 kernel (one FMA
+chain an output) is held against both at the f32 tolerance, and shows why
+its products stay off the tensor cores.  Tolerances are the reference's
 (``tests/test_kernels.py:20-23``): f32 rtol 5e-4 / atol 5e-5, bf16 2e-2.
 """
 
@@ -291,10 +293,14 @@ def _k5_bf16_model(xdt, la, b, c, *, chunk, round_s=_split,
     return y.to(xdt.dtype), h
 
 
-def _k5_case(bh, s, p, n, seed, la_floor=None):
-    """bf16 (xdt, la, b, c) on the kernel's layout, drawn as the reference
-    test draws them (``_inputs``); with ``la_floor`` dt is scaled so that
-    the steepest step's la = dt A is ``la_floor``."""
+def _k5_case(bh, s, p, n, seed, la_floor=None, dtype=torch.bfloat16,
+             exact_cum=False):
+    """(xdt, la, b, c) on the kernel's layout, xdt, b and c in ``dtype``,
+    drawn as the reference test draws them (``_inputs``); with ``la_floor``
+    dt is scaled so that the steepest step's la = dt A is ``la_floor``.
+    ``exact_cum`` rounds la to a multiple of 2^-8, so that every prefix sum
+    (at most 512 x 50 < 2^15 in size) is exact in f32 whatever the order of
+    its adds."""
     r = np.random.default_rng(seed)
     x = r.standard_normal((bh, s, p)).astype(np.float32)
     dt = (np.abs(r.standard_normal((bh, s))) * 0.1 + 0.01).astype(
@@ -303,25 +309,28 @@ def _k5_case(bh, s, p, n, seed, la_floor=None):
     if la_floor is not None:
         dt *= np.float32(la_floor / (dt * a[:, None]).min())
     bc = [torch.from_numpy(r.standard_normal((bh, s, n)).astype(
-        np.float32)).to(torch.bfloat16) for _ in range(2)]
-    xdt = torch.from_numpy(x * dt[..., None]).to(torch.bfloat16)
-    return xdt, torch.from_numpy(dt * a[:, None]), bc[0], bc[1]
+        np.float32)).to(dtype) for _ in range(2)]
+    xdt = torch.from_numpy(x * dt[..., None]).to(dtype)
+    la = dt * a[:, None]
+    if exact_cum:
+        la = np.round(la * 256) / 256
+    return xdt, torch.from_numpy(la), bc[0], bc[1]
 
 
 def _jax_chunked(xdt, la, b, c, chunk):
     """The reference's chunked scan in f32 on the same values: (y rounded
-    to bf16, state)."""
+    to xdt's dtype, state)."""
     jy, jh = ssd_chunked_jnp(*(jnp.asarray(t.float().numpy()) for t in
                                (xdt, la, b, c)), chunk=chunk)
-    return (torch.from_numpy(np.array(jy)).to(torch.bfloat16),
+    return (torch.from_numpy(np.array(jy)).to(xdt.dtype),
             torch.from_numpy(np.array(jh)))
 
 
-def _k5_margin(got, want):
+def _k5_margin(got, want, tol=K5_TOL):
     """Max over both outputs and their elements of |got - want| - (atol +
-    rtol |want|): <= 0 within the bf16 tolerance."""
+    rtol |want|): <= 0 within the tolerance (by default bf16's)."""
     return max(float(((g.float() - w.float()).abs() - (
-        K5_TOL["atol"] + K5_TOL["rtol"] * w.float().abs())).max())
+        tol["atol"] + tol["rtol"] * w.float().abs())).max())
         for g, w in zip(got, want, strict=True))
 
 
@@ -376,3 +385,173 @@ def test_k5_takes_each_f32_operand_as_hi_plus_lo(operand):
             worst_split = max(worst_split, _k5_margin(_k5_bf16_model(
                 xdt, la, b, c, chunk=256), want))
     assert worst_once > 0 >= worst_split, (worst_once, worst_split)
+
+
+# ------------------------------------------- K5's f32 kernel, its rounding
+# A plain-torch model of the arithmetic of K5's f32 kernel
+# (csrc/mamba_scan.cu, ``ssd_scan_f32_kernel``), products="fma": each
+# output of the four products (the Gram C Bᵀ, the decayed scores S times
+# xdt, C h0ᵀ and (xdt ⊙ w)ᵀ B) is one chain of f32 fused multiply-adds in
+# ascending k from 0; the decays expf(min(cum_i - cum_j, 0)) of
+# ``prefix_sum``'s f32 cum times the f32 Gram; w = exp(cum_last - cum_j)
+# times xdt rounded to f32.  Per chunk: y = S xdt, plus fma(exp(cum),
+# C h0ᵀ, ·) after the first chunk (where h0 is 0 and the kernel skips the
+# product); h = fma(exp(cum_last), h0, (xdt w)ᵀ B).  Beside it the route
+# the kernel did not take: the products on the tensor cores as three TF32
+# products each (products="tf32x3": lo hi, hi lo, hi hi, with hi = tf32(x)
+# and lo = tf32(x - hi), summed 8 terms an `mma.sync.m16n8k8` and rounded
+# to f32 once per product), or as one (products="tf32", TF32 itself).
+K5_F32_TOL = dict(rtol=5e-4, atol=5e-5)
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: round to nearest, ties away from zero, to 10
+    mantissa bits, by integer ops on the f32 bits (as
+    ``tests/test_torch_flash_attention.py`` models it)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _fma_chain(a, b, acc=None):
+    """acc + (..., M, K) @ (..., K, N), each output one f32 fused
+    multiply-add chain in ascending k (each product exact in f64, one
+    rounding to f32 a step)."""
+    out = torch.zeros((*a.shape[:-1], b.shape[-1]), dtype=torch.float64) \
+        if acc is None else acc.double()
+    ad, bd = a.double(), b.double()
+    for k in range(a.shape[-1]):
+        out = (out + ad[..., :, k, None] * bd[..., None, k, :]).float() \
+            .double()
+    return out.float()
+
+
+def _mma_chain(a, b, acc=None, n_terms=3):
+    """acc + (..., M, K) @ (..., K, N) in f32 as an `mma.sync.m16n8k8` chain
+    takes it: per step of 8 k, each TF32 term product (lo hi, hi lo, hi hi;
+    or hi hi alone for ``n_terms`` 1) summed exactly and added to the f32
+    accumulator with one rounding."""
+    ah, bh = _tf32(a), _tf32(b)
+    pairs = [(_tf32(a - ah), bh), (ah, _tf32(b - bh)), (ah, bh)] \
+        if n_terms == 3 else [(ah, bh)]
+    out = torch.zeros((*a.shape[:-1], b.shape[-1]), dtype=torch.float64) \
+        if acc is None else acc.double()
+    for k0 in range(0, a.shape[-1], 8):
+        for x, y in pairs:
+            out = (out + x[..., k0:k0 + 8].double()
+                   @ y[..., k0:k0 + 8, :].double()).float().double()
+    return out.float()
+
+
+def _fma(a, b, c):
+    """fmaf(a, b, c) elementwise: the product exact in f64, one rounding."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _k5_f32_model(xdt, la, b, c, *, chunk, products="fma"):
+    """(y f32, state f32) as K5's f32 kernel forms them (``products``
+    "fma"), or on the tensor cores ("tf32x3", "tf32"), on the (BH, S, .)
+    layout with B and C per head."""
+    prod = {"fma": _fma_chain, "tf32x3": _mma_chain,
+            "tf32": lambda a, b_, acc=None: _mma_chain(a, b_, acc, 1)}[
+        products]
+    bh, s, p = xdt.shape
+    h = torch.zeros((bh, p, b.shape[-1]))
+    y = torch.empty((bh, s, p))
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, min(c0 + chunk, s))
+        x, bm, cm = xdt[:, sl].float(), b[:, sl].float(), c[:, sl].float()
+        cum = prefix_sum(la[:, sl].float())
+        n_c = cum.shape[1]
+        causal = torch.ones((n_c, n_c), dtype=torch.bool).tril()
+        gram = prod(cm, bm.transpose(1, 2))
+        scores = torch.where(causal, gram * torch.exp(torch.clamp_max(
+            cum[:, :, None] - cum[:, None, :], 0.0)), 0.0)
+        yc = prod(scores, x)
+        if c0 > 0:
+            yc = _fma(torch.exp(cum)[..., None], prod(cm, h.transpose(1, 2)),
+                      yc)
+        xw = x * torch.exp(cum[:, -1:] - cum)[..., None]
+        h = _fma(torch.exp(cum[:, -1])[:, None, None], h,
+                 prod(xw.transpose(1, 2), bm))
+        y[:, sl] = yc
+    return y, h
+
+
+def _jax_pallas(xdt, la, b, c, chunk):
+    """The reference's Pallas ``ssd_scan`` in interpret mode on the same
+    values, S padded to a multiple of the chunk with la = 0 and xdt = 0 (as
+    the reference's ``ops.py`` pads): (y, state)."""
+    s = xdt.shape[1]
+    pad = (-s) % min(chunk, s)
+    ts = [torch.nn.functional.pad(t.float(), (0, 0, 0, pad)) for t in
+          (xdt, b, c)]
+    lp = torch.nn.functional.pad(la.float(), (0, pad))
+    jy, jh = jax_ssd_scan(jnp.asarray(ts[0].numpy()), jnp.asarray(lp.numpy()),
+                          jnp.asarray(ts[1].numpy()),
+                          jnp.asarray(ts[2].numpy()), chunk=chunk,
+                          interpret=True)
+    return (torch.from_numpy(np.array(jy))[:, :s],
+            torch.from_numpy(np.array(jh)))
+
+
+# K5_MODEL_CASES and phase 13's shape: S = 128 at chunk 256 (one chunk).
+# With la down to -50 a step the prefix sums reach the thousands, where the
+# reference's f32 cumsum rounds them in its own order (one ulp is about
+# 2.4e-4 there) and the port's f64 prefix sum once: there the port's plain
+# version misses the reference by as much as the model does, so those cases
+# are held against the reference with la on a grid where every prefix sum
+# is exact (``exact_cum``), and with la as drawn against the plain version,
+# which shares the port's prefix sum.
+K5_F32_MODEL_CASES = K5_MODEL_CASES + [(4, 128, 64, 128, 256, None),
+                                       (4, 128, 64, 128, 256, -50.0)]
+
+
+@pytest.mark.parametrize("bh,s,p,n,chunk,la_floor", K5_F32_MODEL_CASES)
+def test_k5_f32_model_matches_reference_chunked_scan(bh, s, p, n, chunk,
+                                                     la_floor):
+    xdt, la, b, c = _k5_case(bh, s, p, n, 0, la_floor, torch.float32,
+                             exact_cum=la_floor is not None)
+    got = _k5_f32_model(xdt, la, b, c, chunk=chunk)
+    assert got[0].dtype == torch.float32 and torch.isfinite(got[0]).all()
+    assert _k5_margin(got, _jax_chunked(xdt, la, b, c, chunk),
+                      K5_F32_TOL) <= 0
+    # And the port's plain version, which the card holds K5 against, on la
+    # as drawn.
+    xdt, la, b, c = _k5_case(bh, s, p, n, 0, la_floor, torch.float32)
+    assert _k5_margin(_k5_f32_model(xdt, la, b, c, chunk=chunk),
+                      ssd_scan_plain(xdt, la, b, c, chunk=chunk),
+                      K5_F32_TOL) <= 0
+
+
+@pytest.mark.parametrize("bh,s,p,n,chunk,la_floor", K5_F32_MODEL_CASES)
+def test_k5_f32_model_matches_reference_pallas_kernel(bh, s, p, n, chunk,
+                                                      la_floor):
+    """Against the reference's Pallas ``_ssd_kernel`` in interpret mode."""
+    xdt, la, b, c = _k5_case(bh, s, p, n, 1, la_floor, torch.float32,
+                             exact_cum=la_floor is not None)
+    assert _k5_margin(_k5_f32_model(xdt, la, b, c, chunk=chunk),
+                      _jax_pallas(xdt, la, b, c, chunk), K5_F32_TOL) <= 0
+
+
+def test_k5_f32_products_on_the_tensor_cores_miss():
+    """Why K5's f32 kernel keeps its products on f32 FMAs: as three TF32
+    products each, a short last chunk with la down to -50 a step (S = 300,
+    chunk 256, on the exact grid, seed 1) misses the reference's Pallas
+    kernel by more than the f32 tolerance (small outputs of large terms:
+    the split keeps about 21 bits of each operand), and as one TF32 product
+    the serving path's shape misses it; the FMA chains hold both."""
+    xdt, la, b, c = _k5_case(4, 300, 64, 128, 1, -50.0, torch.float32,
+                             exact_cum=True)
+    want = _jax_pallas(xdt, la, b, c, 256)
+    margins = {products: _k5_margin(_k5_f32_model(
+        xdt, la, b, c, chunk=256, products=products), want, K5_F32_TOL)
+        for products in ("fma", "tf32x3")}
+    xdt, la, b, c = _k5_case(4, 512, 64, 128, 0)
+    xdt, b, c = xdt.float(), b.float(), c.float()
+    want = _jax_pallas(xdt, la, b, c, 256)
+    margins["tf32"] = _k5_margin(_k5_f32_model(
+        xdt, la, b, c, chunk=256, products="tf32"), want, K5_F32_TOL)
+    margins["fma_512"] = _k5_margin(_k5_f32_model(xdt, la, b, c, chunk=256),
+                                    want, K5_F32_TOL)
+    assert margins["tf32x3"] > 0 and margins["tf32"] > 0, margins
+    assert margins["fma"] <= 0 and margins["fma_512"] <= 0, margins
