@@ -15,7 +15,9 @@ Phases, each of which exits non-zero when it fails:
                ``prefill_attention``, the op the model calls, at every
                bucket the serve phase pads to (and 48, 768, head_dim 16),
                and in bf16 at tile edges (S of 1, 17, 63, 65, 127 and 129,
-               group 1, 2, 4 and 8, D 16 to 128); K1's bf16 tensor-core
+               group 1, 2, 4 and 8, D 16 to 128), and at the new serves'
+               groups (1: 16 heads, 4: 32 over 8, 48: one KV head; S 129
+               and 512, bf16 and f32, timed at S 512); K1's bf16 tensor-core
                kernel's registers, spills and shared memory from the
                build's ``-Xptxas -v`` report and its ``HMMA`` count from
                ``cuobjdump -sass`` (no spill, HMMA > 0), and its f32 kernel's
@@ -77,7 +79,7 @@ Phases, each of which exits non-zero when it fails:
                reference's kernel-test shapes, Sq != Skv, ragged S, the x30
                logits and the training path's q (16, 1024, 128), k/v (2,
                1024, 128), then at tile edges (Sq and Skv of 1, 17, 63, 65,
-               127 and 129, group 1, 2, 4 and 8, D 16 to 128; their bf16
+               127 and 129, group 1, 2, 4, 8 and 48, D 16 to 128; their bf16
                gradients against autograd through the plain version in f32
                on the same values); the backward bitwise equal over two
                runs; the kernels' registers, spills and shared memory from
@@ -128,7 +130,10 @@ Phases, each of which exits non-zero when it fails:
                computes the scan, so there is no library time; device time
                in phase 15), and its f32 kernel (``ssd_scan_f32_kernel``,
                f32 FMAs) at phase 13's shape (xdt (80, 128, 64), B/C (1,
-               128, 128), chunk 256),
+               128, 128), chunk 256); at Jamba's shape (xdt (128, 512, 64),
+               B/C (1, 512, 16), chunk 256; N 16 pads to 32 in bf16) in
+               bf16 and f32 against its plain version, bitwise over two
+               runs, bf16 timed,
  13. mamba model — full-width Mamba2-2.7B in f32 from ``Model.init(seed)``:
                prefill of one prompt of length 100 (bucket 128) on the kernel
                path against ``use_pallas=False``: logits within the f32
@@ -141,12 +146,57 @@ Phases, each of which exits non-zero when it fails:
                host wall split, tokens/s and the card's busy share in a
                profiled repeat; K5 held against its plain version on the
                inputs it got from each bucket,
+ 16. moe model — Qwen1.5-MoE (``qwen2-moe-a2.7b``) in f32 at its published
+               widths, depth cut to 4 of 24 layers (14.3 B parameters are
+               57 GB in f32), from ``Model.init(seed)``: prefill of one
+               prompt of length 100 (bucket 128) on the kernel path (K1 in
+               f32, the cache stored in bf16 by K2) against
+               ``use_pallas=False``: logits within the f32 tolerance, the
+               bf16 caches within the bf16 tolerance of the plain route's,
+               greedy first tokens equal, K1 and K2 once a layer; one
+               layer's ``apply_moe`` with capacities that drop nothing
+               against ``apply_moe_dense`` within the f32 tolerance,
+ 17. moe serve — full-width bf16 Qwen1.5-MoE, all 24 layers (60 routed
+               experts of 1408, top-4, a shared expert of 5632; the router
+               in f32), through phase 5's fleet, prompt lengths and token
+               budget: every request completes with 16 in-vocab tokens, 8
+               handoffs, K1 once a layer a prefill (8 x 24, group 1); the
+               host wall split, tokens/s, the card's busy share in a
+               profiled repeat; K1 held against its plain version on the
+               inputs it got,
+ 18. moe capacity — the flow of ``examples/moe_homogenized.py`` on one
+               full-width bf16 Qwen1.5-MoE layer and 4096 tokens: uniform
+               capacities, capacities homogenized over the example's expert
+               perfs (repeated over the 60 experts) and over a skewed
+               router's observed top-1 load (``capacity_per_expert``); for
+               each, the assignments dropped and the largest over the
+               smallest expert finish time (capacity over perf, or over the
+               observed load); ``apply_moe``'s device time under each in
+               phase 15; homogenized capacities must even out the finish
+               times,
+ 19. qwen3 serve — full-width bf16 Qwen3-8B (36 layers, ``qk_norm``, K1 at
+               group 4) through phase 5's fleet, as phase 17,
+ 20. granite cut — Granite-34B in bf16 at its published widths, depth cut
+               to 16 of 88 layers (93.9 GB whole): prompts of 100 and 500
+               tokens prefilled into one ``DecodeEngine`` and decoded to 8
+               tokens each; K1 at group 48 (one KV head for 48 q heads)
+               once a layer a prefill, held against its plain version on
+               the inputs it got,
+ 21. jamba cut — Jamba-v0.1 in bf16 at its published widths, depth cut to
+               one period of 8 layers (102.9 GB whole): as phase 20, with
+               K5 (128 heads of 64, N 16) once a mamba layer a prefill and
+               K1 (group 4) once, each held against its plain version on
+               the inputs it got;
+               phases 16-21 run after phase 14 and before phase 15; each
+               frees its model at its end and prints its peak memory,
  15. device  — each kernel's device time (the profiler's kernel durations)
                beside PyTorch's call for the same function: K1 and SDPA at
                phase 3's sweep and in f32 at phase 4's shape, K2 and
                ``.to`` at both shapes, K3 and ``torch.matmul`` at the three
                path shapes, K4's kernels in bf16 and f32 and SDPA's forward and
-               backward, K5 in bf16 and in f32 at phase 13's shape; after
+               backward, K5 in bf16 and in f32 at phase 13's shape, K1 at
+               the new groups, K5 at Jamba's shape, ``apply_moe`` under
+               phase 18's three capacity sets; after
                every serve phase, so
                no profiler session of these precedes phases 5 and 14, and
                in a process of its own (``chip_smoke.py --device-times``,
@@ -156,9 +206,10 @@ Phases, each of which exits non-zero when it fails:
                began, and CUPTI's stamps read early, the more so the
                longer a process has loaded the card.
 
-Phases 4, 5, 7, 8, 9, 11, 13 and 14 are the main path: the kernels' launch counts
-are set to 0 just before each of their runs and read just after it; the
-``kernels`` line gives each kernel's launches in all and by run.  The
+Phases 4, 5, 7, 8, 9, 11, 13, 14, 16, 17, 19, 20 and 21 are the main path:
+the kernels' launch counts are set to 0 just before each of their runs and
+read just after it; the ``kernels`` line gives each kernel's launches in all
+and by run.  A line before the card's holds the whole run's wall time.  The
 next-to-last line is the ``kernels`` JSON object; a line before it holds the
 card's name and power limit; the last line is ``{"ok": true, "device":
 {...}}``.  Without CUDA, or without the repository's ``src/repro_torch``
@@ -238,6 +289,23 @@ PROFILE_LEAD_S = 0.02
 #: 2048 one f32 product is about 17 GFLOP, far above a launch's cost, so the
 #: measured chains are device time (the default 96 is sized for a CPU).
 WALLCLOCK_SIDE = 2048
+#: K1 at the new serves' groups, bf16 at S = 512, D 128: (q heads, KV
+#: heads) of Qwen1.5-MoE (group 1), Qwen3-8B and Jamba (group 4) and
+#: Granite-34B (group 48).
+K1_GROUP_SHAPES = ((16, 16), (32, 8), (48, 1))
+#: K5 at Jamba's shape: 128 SSD heads of 64 on one group of N 16 (padded to
+#: 32 in bf16), S = 512 (the largest bucket), chunk 256: (heads, groups, S,
+#: P, N, chunk).
+K5_JAMBA_SHAPE = (128, 1, 512, 64, 16, 256)
+#: Depth cuts at the published widths: Qwen1.5-MoE in f32 (14.3 B
+#: parameters are 57 GB in f32) and Granite-34B in bf16 (93.9 GB whole).
+MOE_F32_LAYERS = 4
+GRANITE_LAYERS = 16
+#: The moe_capacity phase: one full-width Qwen1.5-MoE layer in bf16 on
+#: MOE_TOKENS tokens, with the expert perfs of examples/moe_homogenized.py
+#: (8 experts, a 2.5x spread) repeated over the 60 experts.
+MOE_TOKENS = 4096
+MOE_EXAMPLE_PERFS = (1.0, 1.0, 0.9, 0.8, 0.7, 0.6, 0.5, 0.4)
 
 
 def fail(msg: str) -> None:
@@ -537,8 +605,11 @@ def card_busy(torch, run, kernels=("matmul_kernel", "matmul_strip_kernel"),
     every kernel (and copy) it ran and in the kernels whose names hold one
     of ``kernels`` (K3 by default; durations as CUPTI records them).  Only
     the device's own events are summed: a CPU op's row repeats the device
-    time of the kernels it launched.  ``top`` > 0 also prints that many
-    kernels with the most device time."""
+    time of the kernels it launched.  They are read from the session's raw
+    events: ``key_averages()`` gives the same sums, but over a serve's
+    events it takes far longer than the serve (``scripts/profiler_cost.py``
+    times both).  ``top`` > 0 also prints that many kernels with the most
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -549,19 +620,23 @@ def card_busy(torch, run, kernels=("matmul_kernel", "matmul_strip_kernel"),
         run()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    rows = [r for r in prof.key_averages()
-            if r.device_type == DeviceType.CUDA]
-    busy = sum(r.self_device_time_total for r in rows) / 1e6
-    mine = sum(r.self_device_time_total for r in rows
-               if any(k in r.key for k in kernels)) / 1e6
-    ranked = sorted(rows, key=lambda r: -r.self_device_time_total)
-    for r in ranked[:top]:
-        print(f"[profile] {r.self_device_time_total / 1e6:.4f} s in {r.count} "
-              f"calls: {r.key[:110]}", flush=True)
-    for r in ranked if top else ():
-        if any(k in r.key for k in kernels):
-            print(f"[profile] of those: {r.self_device_time_total / 1e6:.4f} s "
-                  f"in {r.count} calls: {r.key[:80]}", flush=True)
+    by_name: dict[str, list] = {}        # kernel name -> [calls, ns]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            row = by_name.setdefault(e.name(), [0, 0])
+            row[0] += 1
+            row[1] += e.duration_ns()
+    busy = sum(ns for _, ns in by_name.values()) / 1e9
+    mine = sum(ns for name, (_, ns) in by_name.items()
+               if any(k in name for k in kernels)) / 1e9
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    for name, (n, ns) in ranked[:top]:
+        print(f"[profile] {ns / 1e9:.4f} s in {n} calls: {name[:110]}",
+              flush=True)
+    for name, (n, ns) in ranked if top else ():
+        if any(k in name for k in kernels):
+            print(f"[profile] of those: {ns / 1e9:.4f} s in {n} calls: "
+                  f"{name[:80]}", flush=True)
     return wall_s, busy, mine
 
 
@@ -676,6 +751,41 @@ def build_report(build_logs, lib, path, names, smem_bytes,
     return report
 
 
+def moe_capacity_case(torch, dev):
+    """The moe_capacity phase's seeded inputs, the same in phase 15's
+    process: one full-width bf16 Qwen1.5-MoE layer (``init_moe``, its
+    router in f32), x of MOE_TOKENS tokens, the same layer with the
+    example's skewed router (``router + skew * arange(E)``, skew drawn at
+    0.02, its largest multiplier the example's 7), the perfs, the skewed
+    router's observed top-1 load, and the capacities: uniform, homogenized
+    over the perfs, and homogenized over the load (``capacity_per_expert``)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("qwen2-moe-a2.7b")
+    m = cfg.moe
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = moe.init_moe(gen, cfg)
+    x = (torch.randn((8, MOE_TOKENS // 8, cfg.d_model), generator=gen,
+                     device=dev) * 0.5).to(torch.bfloat16)
+    skew = torch.randn((cfg.d_model, m.n_routed), generator=gen,
+                       device=dev) * 0.02
+    ramp = torch.arange(m.n_routed, device=dev) * (7.0 / (m.n_routed - 1))
+    skewed = dict(params, router=params["router"] + skew * ramp)
+    perfs = np.resize(np.asarray(MOE_EXAMPLE_PERFS), m.n_routed)
+    top1 = torch.argmax(x.reshape(-1, cfg.d_model).float() @ skewed["router"],
+                        dim=-1)
+    load = np.maximum(np.bincount(top1.cpu().numpy(), minlength=m.n_routed),
+                      1).astype(float)
+    caps = {"uniform": moe.capacity_per_expert(MOE_TOKENS, m),
+            "perf": moe.capacity_per_expert(MOE_TOKENS, m, expert_perfs=perfs),
+            "load": moe.capacity_per_expert(MOE_TOKENS, m, expert_perfs=load)}
+    return cfg, params, skewed, x, perfs, load, caps
+
+
 def library_attention(torch, q, k, v):
     """PyTorch's own causal GQA attention on the same inputs, as a
     yardstick for K1 only (the port never calls it)."""
@@ -781,10 +891,36 @@ def device_times() -> dict[str, dict[str, float]]:
                                                    torch.float32)
     out["k5_f32"] = {"device_ms": device_ms(torch, lambda: k5.ssd_scan(
         xdt, la, bg, cg, chunk=chunk, rep=h // g))}
+    # K1 at the new serves' groups, and K5 at Jamba's shape in bf16.
+    for hq, hkv in K1_GROUP_SHAPES:
+        q = rand((hq, 512, 128), torch.bfloat16)
+        k, v = rand((hkv, 512, 128), torch.bfloat16), rand((hkv, 512, 128),
+                                                          torch.bfloat16)
+        out[f"k1_group_{hq // hkv}"] = pair(
+            lambda: pf.prefill_flash(q, k, v, group=hq // hkv),
+            library_attention(torch, q, k, v))
+    h, g, s5, p5, n5, chunk = K5_JAMBA_SHAPE
+    x = rand((h, s5, p5), torch.float32)
+    dtv = rand((h, s5), torch.float32).abs() * 0.1 + 0.01
+    xdt = (x * dtv[..., None]).to(torch.bfloat16)
+    la = dtv * -(rand((h,), torch.float32).abs() + 0.1)[:, None]
+    bg, cg = rand((g, s5, n5), torch.bfloat16), rand((g, s5, n5),
+                                                     torch.bfloat16)
+    out["k5_jamba"] = {"device_ms": device_ms(torch, lambda: k5.ssd_scan(
+        xdt, la, bg, cg, chunk=chunk, rep=h // g))}
+    del x, dtv, xdt, la, bg, cg
+    # apply_moe on the moe_capacity phase's layer under each capacity set.
+    from repro_torch.models.moe import apply_moe
+    cfg, params, skewed, x, _, _, caps = moe_capacity_case(torch, dev)
+    for key, p in (("uniform", params), ("perf", params), ("load", skewed)):
+        c = torch.as_tensor(caps[key], device=dev)
+        out[f"moe_{key}"] = {"device_ms": device_ms(
+            torch, lambda: apply_moe(p, cfg, x, c), iters=5)}
     return out
 
 
 def main() -> int:
+    smoke_t0 = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -879,6 +1015,8 @@ def main() -> int:
              for dt in (torch.bfloat16, torch.float32)]
     cases += [(4, 2, 16, s, dt)
               for s in (16, 48, 128) for dt in (torch.bfloat16, torch.float32)]
+    cases += [(hq, hkv, 128, s, dt) for hq, hkv in K1_GROUP_SHAPES
+              for s in (129, 512) for dt in (torch.bfloat16, torch.float32)]
     for hq, hkv, d, s, dt in cases:
         q = rand((1, s, hq, d), dt)
         k, v = rand((1, s, hkv, d), dt), rand((1, s, hkv, d), dt)
@@ -996,6 +1134,26 @@ def main() -> int:
     print(f"[kernels] K1 f32 Hq={hq} Hkv={hkv} D={d1} S={s1}: "
           + json.dumps({n: x for n, x in k1_f32.items() if n != "build"}),
           flush=True)
+    # K1 at the new serves' groups (1, 4, 48), bf16, S 512.
+    k1_groups = []
+    for hq, hkv in K1_GROUP_SHAPES:
+        q = rand((hq, 512, 128), torch.bfloat16)
+        k, v = rand((hkv, 512, 128), torch.bfloat16), rand((hkv, 512, 128),
+                                                          torch.bfloat16)
+        group = hq // hkv
+        row = {
+            "group": group, "shape": [[hq, 512, 128], [hkv, 512, 128]],
+            "ms": time_ms(torch, lambda: pf.prefill_flash(q, k, v,
+                                                          group=group)),
+            "plain_ms": time_ms(torch, lambda: prefill_ref(q, k, v,
+                                                           group=group)),
+            "library_ms": time_ms(torch, library_attention(torch, q, k, v)),
+        }
+        row["bound_ms"], row["bound_by"] = flash_bound_ms(hq, 512, 128, hkv,
+                                                          2, "bfloat16")
+        k1_groups.append(row)
+        print(f"[kernels] K1 bf16 Hq={hq} Hkv={hkv} D=128 S=512: "
+              + json.dumps(row), flush=True)
     k2_bytes = 2 * k32.numel() * (4 + 2)
     k2 = {
         "ms": time_ms(torch, lambda: pf.cache_cast(k32, v32, torch.bfloat16)),
@@ -1033,6 +1191,37 @@ def main() -> int:
     def read_counts(path: str) -> dict[str, int]:
         by_path[path] = {key: n for c in counters for key, n in c.items()}
         return by_path[path]
+
+    def k1_on_seen(tag: str, seen) -> float:
+        """K1 against its plain version on the inputs a path gave it."""
+        err = 0.0
+        for (qs, _, dt), ((q, k, v), kw) in sorted(seen.items(),
+                                                    key=lambda kv: kv[0][0]):
+            name = f"K1 on {tag} inputs q {qs} group {kw['group']} {str(dt)[6:]}"
+            out, _, _ = pf.prefill_flash(q, k, v, group=kw["group"])
+            torch.cuda.synchronize()
+            ref, _, _ = prefill_ref(q, k, v, group=kw["group"])
+            e = check_close(torch, name, out, ref, str(dt)[6:])
+            err = max(err, e)
+            print(f"[{tag}] {name}: max abs err {e:.3e}", flush=True)
+        return err
+
+    def k5_on_seen(tag: str, seen) -> float:
+        """K5 against its plain version on the inputs a path gave it."""
+        err = 0.0
+        for (xs, _, dt), ((xdt, la, bg, cg), kw) in sorted(
+                seen.items(), key=lambda kv: kv[0][0]):
+            name = f"K5 on {tag} inputs xdt {xs} {str(dt)[6:]} chunk {kw['chunk']}"
+            y, hf = k5.ssd_scan(xdt, la, bg, cg, **kw)
+            torch.cuda.synchronize()
+            ry, rh = ssd_scan_plain(
+                xdt, la, torch.repeat_interleave(bg, kw["rep"], 0),
+                torch.repeat_interleave(cg, kw["rep"], 0), chunk=kw["chunk"])
+            e = max(check_close(torch, f"{name} y", y, ry, str(dt)[6:]),
+                    check_close(torch, f"{name} state", hf, rh, str(dt)[6:]))
+            err = max(err, e)
+            print(f"[{tag}] {name}: max abs err {e:.3e}", flush=True)
+        return err
 
     # ------------------------------------------------ 4. model (main path)
     zero_counts()
@@ -1122,15 +1311,7 @@ def main() -> int:
     buckets = sorted(key[0][1] for key in seen)
     if buckets != [16, 32, 64, 128, 256, 512]:
         fail(f"serve: K1 saw buckets {buckets}, expected 16 .. 512")
-    for (qs, _, dt), ((q, k, v), kw) in sorted(seen.items(),
-                                                key=lambda kv: kv[0][0]):
-        name = f"K1 on serve inputs q {qs} {str(dt)[6:]}"
-        out, _, _ = pf.prefill_flash(q, k, v, group=kw["group"])
-        torch.cuda.synchronize()
-        ref, _, _ = prefill_ref(q, k, v, group=kw["group"])
-        err = check_close(torch, name, out, ref, str(dt)[6:])
-        k1_err = max(k1_err, err)
-        print(f"[serve] {name}: max abs err {err:.3e}", flush=True)
+    k1_err = max(k1_err, k1_on_seen("serve", seen))
 
     # ------------------------------------------------------------ 6. matmul
     def unit_rand(shape, k, dtype=torch.float32):
@@ -1414,18 +1595,20 @@ def main() -> int:
                 (1, 100, 100, 4, 2, 16, 1.0), (1, 1024, 1024, 16, 2, 128, 1.0)]
     # Tile edges of the 64-row tiles and 32-query steps: every Sq and Skv of
     # 1, 17, 63, 65, 127 and 129, Sq above and below Skv, groups 1 to 8, and
-    # every compiled D.  Their bf16 gradients are held against autograd
-    # through the plain version in f32 on the same bf16 values: on bf16
-    # leaves the plain version rounds each q head's dK and dV to bf16 before
-    # summing the group, which at Skv = 1 and group 8 alone misses the exact
-    # gradient by more than the tolerance
-    # (tests/test_torch_flash_attention.py shows it).
+    # every compiled D; and group 48 (Granite-34B's one KV head for 48 q
+    # heads, dK/dV's f32 partials of 48 heads a KV row).  Their bf16
+    # gradients are held against autograd through the plain version in f32
+    # on the same bf16 values: on bf16 leaves the plain version rounds each
+    # q head's dK and dV to bf16 before summing the group, which at Skv = 1
+    # and group 8 alone misses the exact gradient by more than the
+    # tolerance (tests/test_torch_flash_attention.py shows it).
     k4_edge_cases = [(1, 1, 1, 1, 1, 16, 1.0), (1, 1, 129, 2, 1, 32, 1.0),
                      (1, 129, 1, 8, 1, 64, 1.0), (1, 17, 17, 2, 1, 128, 1.0),
                      (2, 63, 65, 4, 2, 32, 1.0), (1, 65, 63, 8, 1, 16, 1.0),
                      (1, 127, 129, 8, 1, 128, 1.0),
                      (1, 129, 127, 2, 2, 64, 1.0),
-                     (1, 65, 127, 2, 1, 16, 1.0), (1, 129, 17, 4, 2, 128, 1.0)]
+                     (1, 65, 127, 2, 1, 16, 1.0), (1, 129, 17, 4, 2, 128, 1.0),
+                     (1, 128, 128, 48, 1, 128, 1.0), (1, 65, 129, 48, 1, 64, 1.0)]
     n_checked = 0
     for b, sq, skv, hq, hkv, d, mag in k4_cases + k4_edge_cases:
         exact_grads = (b, sq, skv, hq, hkv, d, mag) in k4_edge_cases
@@ -1898,6 +2081,42 @@ def main() -> int:
           f"chunk {c5}: " + json.dumps({k: v for k, v in k5_f32.items()
                                         if k != "build"}), flush=True)
     del x, dtv, a, bm, cm, xdt, la, bg, cg, bf, cf
+    # K5 at Jamba's shape (128 heads of 64, N 16), bf16 and f32: against
+    # its plain version, bitwise over two runs; bf16 timed.
+    hj, gj, sj, pj, nj, cj = K5_JAMBA_SHAPE
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt)[6:]
+        x, dtv, a, bm, cm, _ = ssd_inputs(1, sj, hj, pj, gj, nj, dt)
+        xdt, la, bg, cg, bf, cf = ssd_flat(x, dtv, a, bm, cm)
+        y, hf = k5.ssd_scan(xdt, la, bg, cg, chunk=cj, rep=hj // gj)
+        again = k5.ssd_scan(xdt, la, bg, cg, chunk=cj, rep=hj // gj)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, again[0]) and torch.equal(hf, again[1])):
+            fail(f"K5 Jamba shape {dname}: two runs differ")
+        ry, rh = ssd_scan_plain(xdt, la, bf, cf, chunk=cj)
+        err = max(check_close(torch, f"K5 Jamba shape {dname} y", y, ry,
+                              dname),
+                  check_close(torch, f"K5 Jamba shape {dname} state", hf, rh,
+                              dname))
+        k5_err = max(k5_err, err)
+        print(f"[k5] xdt ({hj}, {sj}, {pj}), B/C ({gj}, {sj}, {nj}), chunk "
+              f"{cj} {dname}: max abs err {err:.3e}; two runs bitwise equal",
+              flush=True)
+    k5_jamba = {
+        "shape": [[hj, sj, pj], [gj, sj, nj]], "chunk": cj,
+        "ms": time_ms(torch, lambda: k5.ssd_scan(xdt, la, bg, cg, chunk=cj,
+                                                 rep=hj // gj)),
+        "plain_ms": time_ms(torch, lambda: ssd_scan_plain(xdt, la, bf, cf,
+                                                          chunk=cj)),
+        "library_ms": None,
+        "build": k5_build["ssd_scan_mma_kernel<2>"]}     # N 16 pads to 32
+    k5_jamba["bound_ms"], k5_jamba["bound_by"] = k5_bound_ms(
+        hj, gj, sj, pj, nj, cj, 2, "bfloat16")
+    print(f"[k5] {card}: bf16 xdt ({hj}, {sj}, {pj}), B/C ({gj}, {sj}, "
+          f"{nj}), chunk {cj}: " + json.dumps(
+              {k: v for k, v in k5_jamba.items() if k != "build"}),
+          flush=True)
+    del x, dtv, a, bm, cm, xdt, la, bg, cg, bf, cf, y, hf, again, ry, rh
 
     # ----------------------------------- 13. mamba model, f32 (main path)
     cfgm32 = get_config("mamba2-2.7b", param_dtype="float32",
@@ -2006,18 +2225,7 @@ def main() -> int:
     buckets = sorted(key[0][1] for key in seen)
     if buckets != [16, 32, 64, 128, 256, 512]:
         fail(f"mamba serve: K5 saw buckets {buckets}, expected 16 .. 512")
-    for (xs, _, dt), ((xdt, la, bg, cg), kw) in sorted(
-            seen.items(), key=lambda kv: kv[0][0]):
-        name = f"K5 on serve inputs xdt {xs} {str(dt)[6:]} chunk {kw['chunk']}"
-        y, hf = k5.ssd_scan(xdt, la, bg, cg, **kw)
-        torch.cuda.synchronize()
-        ry, rh = ssd_scan_plain(
-            xdt, la, torch.repeat_interleave(bg, kw["rep"], 0),
-            torch.repeat_interleave(cg, kw["rep"], 0), chunk=kw["chunk"])
-        err = max(check_close(torch, f"{name} y", y, ry, str(dt)[6:]),
-                  check_close(torch, f"{name} state", hf, rh, str(dt)[6:]))
-        k5_err = max(k5_err, err)
-        print(f"[mamba-serve] {name}: max abs err {err:.3e}", flush=True)
+    k5_err = max(k5_err, k5_on_seen("mamba-serve", seen))
     del seen, rep, job
     gc.collect()
     torch.cuda.empty_cache()
@@ -2026,6 +2234,321 @@ def main() -> int:
         kernels=("ssd_scan_f32_kernel", "ssd_scan_mma_kernel"), top=8), wall_s,
         tag="mamba-serve", kernel="K5")
     del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phases 16-21 (run here, before phase 15's device times): the MoE,
+    # Qwen3, Granite and Jamba paths.  Each frees its model at its end and
+    # prints its peak memory.
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_map
+
+    def peak(tag: str) -> None:
+        """Free what the phase dropped; print its peak memory."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[{tag}] {card}: peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+              f"(torch.cuda.max_memory_allocated over the phase)", flush=True)
+
+    def init_model(tag: str, cfg, cut: str = ""):
+        """``Model(cfg).init(SEED)`` on the card, with its size printed."""
+        torch.cuda.reset_peak_memory_stats()
+        print(f"[{tag}] begins {time.perf_counter() - smoke_t0:.1f} s into the "
+              f"run, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
+              flush=True)
+        model = Model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(SEED)
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in tree_leaves(params))
+        nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        print(f"[{tag}] {cfg.name} {cfg.param_dtype}: {cfg.n_layers} layers, "
+              f"d_model {cfg.d_model}, {cfg.n_heads} q heads over "
+              f"{cfg.n_kv_heads} KV heads{cut}; {n / 1e9:.3f} B parameters, "
+              f"{nbytes / 1e9:.2f} GB, init on the card in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        return model, params
+
+    def n_mixers(cfg, mixer: str) -> int:
+        return sum(s.mixer == mixer for s in cfg.layer_pattern) * cfg.n_periods
+
+    def serve_fleet(tag: str, path: str, cfg, model, params):
+        """Phase 5's fleet, prompt lengths and token budget on ``model``
+        (prompts drawn from its vocabulary): every request completes with
+        16 in-vocab tokens, 8 handoffs, K1 once per attention layer per
+        prefill; the host wall split; K1 against its plain version on the
+        inputs the path gave it.  Returns (job factory, wall s, K1 err)."""
+        prng = np.random.default_rng(SEED)
+        prompts = [[int(t) for t in prng.integers(0, cfg.vocab_size, n)]
+                   for n in lengths]
+
+        def job() -> ServeJob:
+            return ServeJob([Request(rid=i, prompt=list(p), max_new_tokens=16)
+                             for i, p in enumerate(prompts)],
+                            model=model, params=params, max_seq=1024)
+
+        j = job()
+        torch.cuda.synchronize()
+        zero_counts()
+        with wall_split(DecodeEngine, ("prefill", "insert", "step")) as spent, \
+                keep_inputs(ops, "_prefill_call") as seen:
+            t0 = time.perf_counter()
+            rep = Cluster(fleet_spec).serve(j)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        k1 = read_counts(path)["prefill_flash"]
+        m = rep.metrics
+        for r in j.requests:
+            if not r.done or len(r.out_tokens) != 16:
+                fail(f"{tag}: request {r.rid} done={r.done} with "
+                     f"{len(r.out_tokens)} tokens")
+            if not all(0 <= t < cfg.vocab_size for t in r.out_tokens):
+                fail(f"{tag}: request {r.rid} emitted a token outside the "
+                     f"vocab")
+        if m.get("mode") != "disaggregated" or m["n_handoffs"] != len(prompts):
+            fail(f"{tag}: mode {m.get('mode')}, {m.get('n_handoffs')} "
+                 f"handoffs")
+        if k1 != len(prompts) * n_mixers(cfg, "attn"):
+            fail(f"{tag}: K1 launched {k1} times, expected "
+                 f"{len(prompts) * n_mixers(cfg, 'attn')}")
+        n_tok = sum(len(r.out_tokens) for r in j.requests)
+        group = cfg.n_q_heads // cfg.n_kv_heads
+        print(f"[{tag}] {card}: {len(prompts)} requests of bf16 {cfg.name} "
+              f"({cfg.n_layers} layers, d_model {cfg.d_model}), {n_tok} "
+              f"tokens in {wall_s:.3f} s wall -> {n_tok / wall_s:.2f} "
+              f"tokens/s; {m['n_handoffs']} handoffs; K1 launches {k1} at "
+              f"group {group} ({cfg.n_q_heads} q heads)", flush=True)
+        engine_s = sum(sec for _, sec in spent.values())
+        print(f"[{tag}] host wall split: " + ", ".join(
+            f"{name} {n} calls {sec:.3f} s" for name, (n, sec) in spent.items())
+            + f", the rest (control plane) {wall_s - engine_s:.3f} s",
+            flush=True)
+        err = k1_on_seen(tag, seen)
+        return job, wall_s, err
+
+    def engine_run(tag: str, path: str, cfg, model, params):
+        """Two prompts (100 and 500 tokens: buckets 128 and 512) prefilled
+        and inserted into one DecodeEngine, then decoded to 8 tokens each:
+        in-vocab tokens, K1 once per attention layer and K5 once per mamba
+        layer per prefill, both against their plain versions on the inputs
+        the path gave them.  Returns the largest K1 and K5 errors."""
+        prng = np.random.default_rng(SEED)
+        reqs = [Request(rid=i, prompt=[int(t) for t in prng.integers(
+            0, cfg.vocab_size, n)], max_new_tokens=8)
+            for i, n in enumerate((100, 500))]
+        engine = DecodeEngine(model, params, max_batch=len(reqs), max_seq=1024)
+        torch.cuda.synchronize()
+        zero_counts()
+        with wall_split(DecodeEngine, ("prefill", "insert", "step")) as spent, \
+                keep_inputs(ops, "_prefill_call") as seen1, \
+                keep_inputs(mamba_ops, "_ssd_kernel_call") as seen5:
+            t0 = time.perf_counter()
+            for r in reqs:
+                engine.insert(engine.prefill(r))
+            engine.run_until_drained()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        counts = read_counts(path)
+        for r in reqs:
+            if not r.done or len(r.out_tokens) != 8:
+                fail(f"{tag}: request {r.rid} done={r.done} with "
+                     f"{len(r.out_tokens)} tokens")
+            if not all(0 <= t < cfg.vocab_size for t in r.out_tokens):
+                fail(f"{tag}: request {r.rid} emitted a token outside the "
+                     f"vocab")
+        want = {"prefill_flash": len(reqs) * n_mixers(cfg, "attn"),
+                "ssd_scan": len(reqs) * n_mixers(cfg, "mamba")}
+        got = {key: counts[key] for key in want}
+        if got != want:
+            fail(f"{tag}: launches {got}, expected {want}")
+        group = cfg.n_q_heads // cfg.n_kv_heads
+        print(f"[{tag}] {card}: prefill + insert of prompts of 100 and 500 "
+              f"tokens, then {engine.steps} decode steps to 8 tokens each, "
+              f"in {wall_s:.3f} s wall; tokens {[r.out_tokens for r in reqs]}"
+              f"; K1 launches {got['prefill_flash']} at group {group}, K5 "
+              f"launches {got['ssd_scan']}", flush=True)
+        print(f"[{tag}] host wall split: " + ", ".join(
+            f"{name} {n} calls {sec:.3f} s" for name, (n, sec) in spent.items()),
+            flush=True)
+        return k1_on_seen(tag, seen1), k5_on_seen(tag, seen5)
+
+    # --------------------------------- 16. MoE model, f32 (main path)
+    # Qwen1.5-MoE at its published widths in f32, depth cut to
+    # MOE_F32_LAYERS of 24 layers (14.3 B parameters are 57 GB in f32):
+    # prefill logits and caches on the kernel route (K1 in f32; the cache
+    # stored in bf16, so K2 runs) against use_pallas=False; then one layer's
+    # capacity-routed apply_moe, with capacities that drop nothing, against
+    # the dropless apply_moe_dense.
+    cfgq32 = get_config("qwen2-moe-a2.7b", n_layers=MOE_F32_LAYERS,
+                        param_dtype="float32", compute_dtype="float32",
+                        cache_dtype="bfloat16")
+    model, params = init_model("moe-model", cfgq32, f" (cut from 24 to "
+                               f"{MOE_F32_LAYERS} layers)")
+    plain = Model(dataclasses.replace(cfgq32, use_pallas=False))
+    qrng = np.random.default_rng(SEED)
+    L, bucket = 100, 128
+    toks = np.zeros((1, bucket), np.int64)
+    toks[0, :L] = qrng.integers(0, cfgq32.vocab_size, L)
+    batch = {"tokens": torch.as_tensor(toks, device=dev)}
+    zero_counts()
+    with torch.no_grad():
+        lk, ck = model.prefill(params, batch, last_pos=L - 1)
+        torch.cuda.synchronize()
+        moe_counts = read_counts("moe_model")
+        lp, cp = plain.prefill(params, batch, last_pos=L - 1)
+    torch.cuda.synchronize()
+    want = {"prefill_flash": cfgq32.n_layers, "cache_cast": cfgq32.n_layers}
+    if {key: moe_counts[key] for key in want} != want:
+        fail(f"moe model: launches {moe_counts}, expected {want}")
+    if tuple(lk.shape) != (1, 1, cfgq32.padded_vocab):
+        fail(f"moe model: logits shape {tuple(lk.shape)}")
+    moe_err = check_close(torch, "moe prefill logits (kernel vs plain)", lk,
+                          lp, "float32")
+    kk, kp = ck["periods"]["pos0"]["self"], cp["periods"]["pos0"]["self"]
+    if kk.k.dtype != torch.bfloat16 or kp.k.dtype != torch.float32:
+        fail("moe model: the kernel branch must return the cache in the cache "
+             "dtype and the plain branch uncast")
+    cache_err = max(check_close(torch, f"moe prefill cache {name} (bf16 "
+                                f"kernel cache vs plain)", getattr(kk, name),
+                                getattr(kp, name).to(torch.bfloat16),
+                                "bfloat16")
+                    for name in ("k", "v"))
+    tok_k = int(lk[0, 0, :cfgq32.vocab_size].argmax())
+    tok_p = int(lp[0, 0, :cfgq32.vocab_size].argmax())
+    if tok_k != tok_p:
+        fail(f"moe model: greedy first tokens differ ({tok_k} vs {tok_p})")
+    print(f"[moe-model] prefill L={L} (bucket {bucket}), {MOE_F32_LAYERS} "
+          f"layers: logits max abs err {moe_err:.3e} (f32 tolerance); bf16 "
+          f"caches max abs err {cache_err:.3e} against the plain route's "
+          f"rounded to bf16 (bf16 tolerance); greedy first token {tok_k} on "
+          f"both paths; launches K1 {moe_counts['prefill_flash']}, K2 "
+          f"{moe_counts['cache_cast']}", flush=True)
+    del lk, lp, ck, cp, kk, kp
+    # apply_moe with capacities that drop nothing (capacity factor E / k:
+    # every expert can take every token) against apply_moe_dense, on layer
+    # 0's experts, f32, 128 tokens.
+    layer = tree_map(lambda t: t[0], params["stack"]["periods"]["pos0"]["moe"])
+    nodrop = dataclasses.replace(cfgq32, moe=dataclasses.replace(
+        cfgq32.moe, capacity_factor=cfgq32.moe.n_routed / cfgq32.moe.top_k))
+    xm = rand((1, 128, cfgq32.d_model), torch.float32) * 0.5
+    with torch.no_grad():
+        routed, aux = moe.apply_moe(layer, nodrop, xm)
+        dense, _ = moe.apply_moe_dense(layer, cfgq32, xm)
+    torch.cuda.synchronize()
+    moe_dense_err = check_close(torch, "apply_moe without drops vs "
+                                "apply_moe_dense", routed, dense, "float32")
+    print(f"[moe-model] one layer's apply_moe with capacities that drop "
+          f"nothing vs apply_moe_dense (60 experts, top-4, 128 tokens, f32): "
+          f"max abs err {moe_dense_err:.3e}; aux {float(aux):.6f}", flush=True)
+    del model, plain, params, layer, xm, routed, dense
+    peak("moe-model")
+
+    # ---------------------------------- 17. MoE serve, bf16 (main path)
+    # Qwen1.5-MoE at full width, all 24 layers, through phase 5's fleet.
+    cfgq = get_config("qwen2-moe-a2.7b")
+    model, params = init_model("moe-serve", cfgq)
+    if params["stack"]["periods"]["pos0"]["moe"]["router"].dtype != \
+            torch.float32:
+        fail("moe serve: the router must stay f32 under bf16 params")
+    moe_job, moe_wall, err = serve_fleet("moe-serve", "moe_serve", cfgq, model,
+                                         params)
+    k1_err = max(k1_err, err)
+    gc.collect()
+    print_busy(card, "8 requests x 16 tokens", *card_busy(
+        torch, lambda: Cluster(fleet_spec).serve(moe_job()),
+        kernels=("prefill_flash",), top=8), moe_wall, tag="moe-serve",
+        kernel="K1")
+    del model, params, moe_job
+    peak("moe-serve")
+
+    # ------------------ 18. MoE capacity (the paper's technique per expert)
+    # The flow of examples/moe_homogenized.py on one full-width bf16
+    # Qwen1.5-MoE layer and MOE_TOKENS tokens: capacities uniform and
+    # homogenized (capacity_per_expert over the example's perfs; over a
+    # skewed router's observed load), the tokens each drops and the largest
+    # over the smallest expert finish time (capacity over perf; on the
+    # skewed router the perf is the observed load, as a proxy); apply_moe
+    # under each (its device time in phase 15).
+    torch.cuda.reset_peak_memory_stats()
+    cfgc, p_moe, p_skew, x_moe, perfs, load, caps = moe_capacity_case(
+        torch, dev)
+    mc = cfgc.moe
+    cap_max = max((int(np.ceil(mc.capacity_factor * MOE_TOKENS * mc.top_k
+                               / mc.n_routed * 2)) + 7) // 8 * 8, 8)
+
+    def dropped(p, c) -> int:
+        """Assignments past min(capacity, cap_max) of their expert: ranks
+        run 0, 1, ... in token order, so an expert with n assignments keeps
+        min(n, capacity, cap_max)."""
+        _, _, experts = moe._route(p, mc, x_moe.reshape(-1, cfgc.d_model))
+        n = torch.bincount(experts.reshape(-1),
+                           minlength=mc.n_routed).cpu().numpy()
+        return int(np.maximum(n - np.minimum(c, cap_max), 0).sum())
+
+    capacity_rows = {}
+    for key, p, basis in (("uniform", p_moe, perfs), ("perf", p_moe, perfs),
+                          ("uniform_skewed", p_skew, load),
+                          ("load", p_skew, load)):
+        c = caps["uniform" if key == "uniform_skewed" else key]
+        ft = c / basis
+        with torch.no_grad():
+            out, aux = moe.apply_moe(p, cfgc, x_moe, c)
+        torch.cuda.synchronize()
+        if tuple(out.shape) != tuple(x_moe.shape) or \
+                not torch.isfinite(out).all():
+            fail(f"moe capacity {key}: output {tuple(out.shape)} not finite")
+        capacity_rows[key] = {
+            "capacities": [int(v) for v in c], "dropped": dropped(p, c),
+            "assignments": MOE_TOKENS * mc.top_k,
+            "finish_imbalance": float(ft.max() / ft.min()),
+            "worst_finish": float(ft.max()), "aux": float(aux)}
+        print(f"[moe-capacity] {key}: capacities {capacity_rows[key]['capacities']}; "
+              f"{capacity_rows[key]['dropped']} of {MOE_TOKENS * mc.top_k} "
+              f"assignments dropped; finish time (capacity / "
+              f"{'perf' if basis is perfs else 'observed load'}) largest over "
+              f"smallest {capacity_rows[key]['finish_imbalance']:.4f}, worst "
+              f"{capacity_rows[key]['worst_finish']:.2f}", flush=True)
+    if not (capacity_rows["perf"]["finish_imbalance"]
+            < capacity_rows["uniform"]["finish_imbalance"]):
+        fail("moe capacity: homogenized capacities do not even out the "
+             "finish times")
+    print(f"[moe-capacity] observed top-1 load of the skewed router: "
+          f"{[int(v) for v in load]}", flush=True)
+    del p_moe, p_skew, x_moe, out, p
+    peak("moe-capacity")
+
+    # ------------------------------- 19. Qwen3-8B serve, bf16 (main path)
+    # qk_norm on the card, K1 at group 4: full width, all 36 layers.
+    cfg3 = get_config("qwen3-8b")
+    model, params = init_model("qwen3-serve", cfg3)
+    _, _, err = serve_fleet("qwen3-serve", "qwen3_serve", cfg3, model, params)
+    k1_err = max(k1_err, err)
+    del model, params
+    peak("qwen3-serve")
+
+    # --------------------------- 20. Granite-34B, cut, bf16 (main path)
+    # Its published widths, depth cut to GRANITE_LAYERS of 88 layers (the
+    # whole model is 93.9 GB in bf16): K1 at group 48 (one KV head).
+    cfgg = get_config("granite-34b", n_layers=GRANITE_LAYERS)
+    model, params = init_model("granite-cut", cfgg, f" (cut from 88 to "
+                               f"{GRANITE_LAYERS} layers)")
+    err, _ = engine_run("granite-cut", "granite_cut", cfgg, model, params)
+    k1_err = max(k1_err, err)
+    del model, params
+    peak("granite-cut")
+
+    # --------------------------- 21. Jamba-v0.1, cut, bf16 (main path)
+    # Its published widths, depth cut to one period of 8 layers (the whole
+    # model is 102.9 GB in bf16): mamba (K5 at 128 heads of 64, N 16),
+    # attention (K1 at group 4) and MoE in one model.
+    cfgj = get_config("jamba-v0.1-52b", n_layers=8)
+    model, params = init_model("jamba-cut", cfgj, " (cut from 32 to 8 "
+                               "layers: one period)")
+    err1, err5 = engine_run("jamba-cut", "jamba_cut", cfgj, model, params)
+    k1_err, k5_err = max(k1_err, err1), max(k5_err, err5)
+    del model, params
+    peak("jamba-cut")
 
     # ------------------------------------------------------ 15. device times
     # Each kernel's device time (the profiler's kernel durations, which
@@ -2048,6 +2571,22 @@ def main() -> int:
     k5_row.update(dev_times["k5"])
     k1_f32.update(dev_times["k1_f32"])
     k5_f32.update(dev_times["k5_f32"])
+    for row in k1_groups:
+        row.update(dev_times[f"k1_group_{row['group']}"])
+        print(f"[device] K1 bf16 group {row['group']} q {row['shape'][0]}, "
+              f"k/v {row['shape'][1]}: {row['device_ms']:.6f} ms, SDPA "
+              f"{row['library_device_ms']:.6f} ms (bound "
+              f"{row['bound_ms']:.6f} ms)", flush=True)
+    k5_jamba.update(dev_times["k5_jamba"])
+    print(f"[device] K5 bf16 Jamba xdt {k5_jamba['shape'][0]}, B/C "
+          f"{k5_jamba['shape'][1]}: {k5_jamba['device_ms']:.6f} ms (bound "
+          f"{k5_jamba['bound_ms']:.6f} ms)", flush=True)
+    for key in ("uniform", "perf", "load"):
+        capacity_rows[key]["apply_moe_device_ms"] = \
+            dev_times[f"moe_{key}"]["device_ms"]
+        print(f"[device] apply_moe bf16, {MOE_TOKENS} tokens, {key} "
+              f"capacities: {dev_times[f'moe_{key}']['device_ms']:.6f} ms",
+              flush=True)
     for s, row in zip((16, 32, 64, 128, 256, 512), k1_sweep, strict=True):
         print(f"[device] K1 bf16 Hq=16 Hkv=2 D=128 S={s}: "
               f"{row['device_ms']:.6f} ms, SDPA {row['library_device_ms']:.6f}"
@@ -2102,7 +2641,8 @@ def main() -> int:
          "bound_ms": k1_row["bound_ms"], "bound_by": k1_row["bound_by"],
          "library_ms": k1_row["library_ms"], "device_ms": k1_row["device_ms"],
          "library_device_ms": k1_row["library_device_ms"],
-         "build": k1_build["prefill_flash_mma_kernel<128>"], "f32": k1_f32},
+         "build": k1_build["prefill_flash_mma_kernel<128>"], "f32": k1_f32,
+         "at_new_groups": k1_groups},
         {"name": "cache_cast", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/prefill/prefill.py:145",
          "launches": launches["cache_cast"],
@@ -2150,8 +2690,13 @@ def main() -> int:
          "ms": k5_row["ms"], "plain_ms": k5_row["plain_ms"],
          "bound_ms": k5_row["bound_ms"], "bound_by": k5_row["bound_by"],
          "library_ms": k5_row["library_ms"], "device_ms": k5_row["device_ms"],
-         "build": k5_row["build"], "f32": k5_f32},
+         "build": k5_row["build"], "f32": k5_f32, "jamba": k5_jamba},
     ]}
+    print(f"[moe-capacity] {card}: " + json.dumps(
+        {key: {k: v for k, v in row.items() if k != "capacities"}
+         for key, row in capacity_rows.items()}), flush=True)
+    print(f"[smoke] {card}: whole run {time.perf_counter() - smoke_t0:.1f} s "
+          f"wall, the kernels' build included", flush=True)
     print(f"[card] {card}")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

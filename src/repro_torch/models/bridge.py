@@ -10,7 +10,7 @@ dtype and are reinterpreted bit for bit.
 
 A ``dtype`` casts the floating leaves, except those the models keep in f32
 whatever ``param_dtype`` is (the mamba block's ``dt_bias``, ``a_log`` and
-``d_skip``): they come over as they are.
+``d_skip``, the MoE router): they come over as they are.
 """
 
 from __future__ import annotations
@@ -20,7 +20,11 @@ from typing import Any
 import numpy as np
 import torch
 
-from .mamba import F32_LEAVES
+from .mamba import F32_LEAVES as _MAMBA_F32
+from .moe import F32_LEAVES as _MOE_F32
+
+#: Leaves the models keep in f32 whatever ``param_dtype`` is.
+F32_LEAVES = _MAMBA_F32 + _MOE_F32
 
 __all__ = ["params_from_numpy", "tensor_from_numpy"]
 

@@ -1,5 +1,5 @@
 """Model facade: init / loss / prefill / decode for token decoders whose
-layers are attention or mamba mixers (dense MLPs or none).
+layers are attention or mamba mixers (dense MLPs, MoE or none).
 
 Port of ``repro/models/model.py``.  Batch format (tokens mode):
 ``{"tokens": (B,S) int, "targets": (B,S) int, "loss_mask": (B,S) f32}``
@@ -8,7 +8,9 @@ carries the homogenization grain weights: the loss is the weighted token
 mean (sum w·ce / sum w).  Decode: ``decode_step(params, cache, inputs,
 pos)`` processes one token per slot against a fixed-capacity cache (a KV
 cache per attention layer; a conv window and SSM state per mamba layer,
-which ignore ``pos``).
+which ignore ``pos``).  ``capacities`` are the MoE layers' per-expert
+capacities (``models/moe.py::capacity_per_expert``), for the loss and the
+prefill; the decode's dropless MoE takes none.
 
 Params are a nested dict of tensors laid out exactly like the reference's
 pytree (``models/bridge.py`` loads the reference's weights); ``init(seed)``
@@ -76,13 +78,14 @@ class Model:
         return x, positions
 
     def hidden(self, params, batch, capacities=None):
-        """Final normed hidden states (pre-LM-head) + aux loss (0: the
-        dense decoder has no MoE balance term)."""
+        """Final normed hidden states (pre-LM-head) + aux loss (the MoE
+        layers' load-balancing terms; 0 without MoE)."""
         cfg = self.cfg
         x, positions = self._embed(params, batch)
-        x, _ = apply_stack(params["stack"], cfg, x, mode="train",
-                           positions=positions, causal=True)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, _, aux = apply_stack(params["stack"], cfg, x, mode="train",
+                                positions=positions, causal=True,
+                                capacities=capacities)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
         return apply_norm(cfg, params["final_norm"], x), aux
 
     def logits(self, params, batch, capacities=None):
@@ -137,20 +140,23 @@ class Model:
     def init_cache(self, batch_size: int, seq: int) -> dict:
         return init_stack_cache(self.cfg, batch_size, seq, self.device)
 
-    def prefill(self, params, batch, last_pos: int | None = None):
+    def prefill(self, params, batch, capacities=None,
+                last_pos: int | None = None):
         """Full-prompt forward.  Returns (last-token logits (B,1,V), caches).
 
         ``last_pos`` selects which position's logits to return (default: the
         final one).  Bucketed prefill pads prompts to a fixed length on the
         right; causality keeps every valid position's activations exact, so
-        the true last-token logits live at ``last_pos = L - 1``, not -1."""
+        the true last-token logits live at ``last_pos = L - 1``, not -1.  The
+        MoE capacities count the pad tokens too, which rank after the real
+        ones, as in the reference."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = embed_tokens(params["embed"], tokens, cfg)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[
             None].expand(tokens.shape)
-        x, caches = apply_stack(params["stack"], cfg, x, mode="prefill",
-                                positions=positions)
+        x, caches, _ = apply_stack(params["stack"], cfg, x, mode="prefill",
+                                   positions=positions, capacities=capacities)
         if last_pos is None:
             x = x[:, -1:]
         else:
@@ -158,17 +164,20 @@ class Model:
         x = apply_norm(cfg, params["final_norm"], x)
         return lm_logits(params["embed"], x, cfg), caches
 
-    def decode_step(self, params, caches, inputs, pos):
+    def decode_step(self, params, caches, inputs, pos, capacities=None):
         """One-token decode.  ``inputs``: (B,1) tokens (or ``{"tokens":
         ...}``); ``pos``: scalar or per-slot (B,) positions.  Returns
         (logits (B,1,V), caches) — the caches are updated in place.  With
-        ``cfg.decode_sample`` the first element is the argmax tokens."""
+        ``cfg.decode_sample`` the first element is the argmax tokens.
+        ``capacities`` is passed on as the reference passes it; the
+        decode's MoE is dropless and takes none."""
         cfg = self.cfg
         tok = inputs["tokens"] if isinstance(inputs, dict) else inputs
         x = embed_tokens(params["embed"], tok, cfg)
-        x, caches = apply_stack(params["stack"], cfg, x, mode="decode",
-                                caches=caches, pos=torch.as_tensor(
-                                    pos, device=tok.device))
+        x, caches, _ = apply_stack(params["stack"], cfg, x, mode="decode",
+                                   caches=caches, pos=torch.as_tensor(
+                                       pos, device=tok.device),
+                                   capacities=capacities)
         x = apply_norm(cfg, params["final_norm"], x)
         logits = lm_logits(params["embed"], x, cfg)
         if cfg.decode_sample:

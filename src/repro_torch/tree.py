@@ -54,46 +54,50 @@ def _is_dataclass_instance(x) -> bool:
     return dataclasses.is_dataclass(x) and not isinstance(x, type)
 
 
+def _walk(node, leaves: list) -> TreeDef:
+    if node is None:
+        return TreeDef("none")
+    if isinstance(node, dict):
+        keys = tuple(sorted(node))
+        return TreeDef("dict", keys, tuple(_walk(node[k], leaves)
+                                           for k in keys))
+    if isinstance(node, (list, tuple)):
+        kind = "list" if isinstance(node, list) else "tuple"
+        return TreeDef(kind, None, tuple(_walk(c, leaves) for c in node))
+    if _is_dataclass_instance(node):
+        return TreeDef("dataclass", type(node), tuple(
+            _walk(getattr(node, f.name), leaves)
+            for f in dataclasses.fields(node)))
+    leaves.append(node)
+    return TreeDef("leaf")
+
+
 def tree_flatten(tree: Any) -> tuple[list, TreeDef]:
+    # Module-level recursion: a nested recursive function is a reference
+    # cycle that would keep ``leaves`` (and so every tensor in it) alive
+    # until the garbage collector runs.
     leaves: list = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(node) -> TreeDef:
-        if node is None:
-            return TreeDef("none")
-        if isinstance(node, dict):
-            keys = tuple(sorted(node))
-            return TreeDef("dict", keys, tuple(walk(node[k]) for k in keys))
-        if isinstance(node, (list, tuple)):
-            kind = "list" if isinstance(node, list) else "tuple"
-            return TreeDef(kind, None, tuple(walk(c) for c in node))
-        if _is_dataclass_instance(node):
-            return TreeDef("dataclass", type(node), tuple(
-                walk(getattr(node, f.name))
-                for f in dataclasses.fields(node)))
-        leaves.append(node)
-        return TreeDef("leaf")
 
-    return leaves, walk(tree)
+def _build(td: TreeDef, it) -> Any:
+    if td.kind == "leaf":
+        return next(it)
+    if td.kind == "none":
+        return None
+    kids = [_build(c, it) for c in td.children]
+    if td.kind == "dict":
+        return dict(zip(td.meta, kids))
+    if td.kind == "list":
+        return kids
+    if td.kind == "tuple":
+        return tuple(kids)
+    return td.meta(*kids)
 
 
 def tree_unflatten(treedef: TreeDef, leaves) -> Any:
     it = iter(leaves)
-
-    def build(td: TreeDef):
-        if td.kind == "leaf":
-            return next(it)
-        if td.kind == "none":
-            return None
-        kids = [build(c) for c in td.children]
-        if td.kind == "dict":
-            return dict(zip(td.meta, kids))
-        if td.kind == "list":
-            return kids
-        if td.kind == "tuple":
-            return tuple(kids)
-        return td.meta(*kids)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree holds")
     return out

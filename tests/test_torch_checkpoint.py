@@ -193,3 +193,31 @@ def test_hdp_restart_across_packages(tmp_path, first):
     rec = b.step(2)
     assert rec["plan"] == a.step(2)["plan"]
     assert np.isfinite(rec["loss"])
+
+
+def test_tree_helpers_hold_no_leaf_past_their_call():
+    """``tree_flatten``, ``tree_unflatten`` and ``tree_map`` build no
+    reference cycle: with the garbage collector off, a leaf goes as soon as
+    the caller drops it (a cycle would hold every flattened tensor of a
+    model until the collector runs)."""
+    import gc
+    import weakref
+
+    from repro_torch.models.transformer import init_stack
+    from repro_torch.tree import tree_map, tree_unflatten
+
+    cfg = port_cfg(jax_cfg())
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    gc.collect()
+    gc.disable()
+    try:
+        stack = init_stack(gen, cfg)
+        refs = [weakref.ref(t) for t in tree_leaves(stack)]
+        leaves, treedef = tree_flatten(stack)
+        again = tree_unflatten(treedef, leaves)
+        doubled = tree_map(lambda t: t * 2, again)
+        del stack, leaves, again, doubled
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()

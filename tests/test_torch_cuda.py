@@ -78,9 +78,14 @@ def _device_kernels(run) -> set[str]:
             if e.device_type == DeviceType.CUDA}
 
 
+# The last four: the MoE and dense serves' groups at D 128, group 1 (16
+# heads, Qwen1.5-MoE), 4 (32 over 8, Qwen3-8B and Jamba) and 48 (one KV
+# head, Granite-34B; also at a tile edge).
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hq,hkv,d,s", [(2, 2, 16, 32), (4, 2, 16, 48),
-                                        (16, 2, 128, 100), (8, 1, 64, 300)])
+                                        (16, 2, 128, 100), (8, 1, 64, 300),
+                                        (16, 16, 128, 512), (32, 8, 128, 512),
+                                        (48, 1, 128, 512), (48, 1, 128, 129)])
 def test_prefill_flash_matches_plain(dev, hq, hkv, d, s, dtype):
     q = _rand((hq, s, d), dtype, dev, 1)
     k, v = _rand((hkv, s, d), dtype, dev, 2), _rand((hkv, s, d), dtype, dev, 3)
@@ -420,12 +425,15 @@ def test_flash_attention_large_logits_and_bitwise_backward(dev):
 
 # Tile edges of the bf16 kernels' 64-row tiles and 32-query steps: Sq and
 # Skv of 1, 17, 63, 65, 127 and 129, Sq above and below Skv, groups 1, 2, 4
-# and 8, every compiled D.
+# and 8, every compiled D; and group 48 (Granite-34B's one KV head for 48 q
+# heads: dK/dV's f32 partials of 48 heads a KV row, summed by the
+# reduction).
 K4_EDGE_SHAPES = [(1, 1, 1, 1, 1, 16), (1, 1, 129, 2, 1, 32),
                   (1, 129, 1, 8, 1, 64), (1, 17, 17, 2, 1, 128),
                   (2, 63, 65, 4, 2, 32), (1, 65, 63, 8, 1, 16),
                   (1, 127, 129, 8, 1, 128), (1, 129, 127, 2, 2, 64),
-                  (1, 65, 127, 2, 1, 16), (1, 129, 17, 4, 2, 128)]
+                  (1, 65, 127, 2, 1, 16), (1, 129, 17, 4, 2, 128),
+                  (1, 128, 128, 48, 1, 128), (1, 65, 129, 48, 1, 64)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -802,10 +810,11 @@ def _ssd_plain(x, dt, a, bm, cm, d, chunk):
 
 
 # (b, s, h, p, g, n, chunk): the reference's kernel-test shapes, S = 90,
-# a ragged chunk, and the serving path's (80 heads of 64, N 128, chunk 256).
+# a ragged chunk, the Mamba2 serving path's (80 heads of 64, N 128, chunk
+# 256) and Jamba's (128 heads of 64, N 16, padded to 32 in bf16).
 K5_SHAPES = [(2, 96, 4, 16, 2, 8, 32), (1, 64, 2, 8, 1, 16, 32),
              (1, 90, 2, 8, 1, 4, 32), (1, 100, 4, 64, 1, 128, 96),
-             (1, 512, 80, 64, 1, 128, 256)]
+             (1, 512, 80, 64, 1, 128, 256), (1, 512, 128, 64, 1, 16, 256)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -998,3 +1007,56 @@ def test_mamba_model_prefill_launches_k5_per_layer(dev):
                                    rtol=5e-4, atol=5e-5)
         model.decode_step(params, caches, toks[:, :1], 21)
     assert k5.LAUNCHES["ssd_scan"] == before + cfg.n_layers
+
+
+# ------------------------------------------------------------------- MoE
+def test_moe_layer_on_the_card_matches_the_cpu(dev):
+    """One reduced-width MoE layer (8 experts of 32, top-2, a shared
+    expert) in f32: ``apply_moe`` (uniform and homogenized capacities that
+    drop tokens) and ``apply_moe_dense`` on the card against the same
+    weights and input on the CPU."""
+    from repro_torch.models import moe
+
+    cfg = get_config("qwen2-moe-a2.7b", reduced=True)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    p_cpu = moe.init_moe(gen, cfg)
+    p_dev = {k: (v.to(dev) if isinstance(v, torch.Tensor)
+                 else {kk: vv.to(dev) for kk, vv in v.items()})
+             for k, v in p_cpu.items()}
+    x = torch.randn((2, 24, cfg.d_model), generator=gen) * 0.5
+    caps = moe.capacity_per_expert(
+        48, dataclasses.replace(cfg.moe, capacity_factor=0.5),
+        expert_perfs=np.linspace(4.0, 0.5, cfg.moe.n_routed), round_to=1)
+    for capacities in (None, caps):
+        want, want_aux = moe.apply_moe(p_cpu, cfg, x, capacities)
+        got, aux = moe.apply_moe(p_dev, cfg, x.to(dev), capacities)
+        torch.testing.assert_close(got.cpu(), want, rtol=5e-4, atol=5e-5)
+        torch.testing.assert_close(aux.cpu(), want_aux, rtol=5e-4, atol=5e-5)
+    want, _ = moe.apply_moe_dense(p_cpu, cfg, x)
+    got, _ = moe.apply_moe_dense(p_dev, cfg, x.to(dev))
+    torch.testing.assert_close(got.cpu(), want, rtol=5e-4, atol=5e-5)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-v0.1-52b"])
+def test_moe_models_prefill_on_kernels_matches_plain(dev, arch):
+    """The reduced MoE model and the reduced Jamba on the card: a prefill
+    launches K1 once an attention layer and K5 once a mamba layer, and
+    matches use_pallas=False; a decode step launches neither."""
+    cfg = get_config(arch, reduced=True)
+    model = Model(dataclasses.replace(cfg, use_pallas=None))
+    plain = Model(dataclasses.replace(cfg, use_pallas=False))
+    params = model.init(0)
+    specs = cfg.layer_pattern * cfg.n_periods
+    n_attn = sum(s.mixer == "attn" for s in specs)
+    toks = torch.arange(32, device=dev)[None] % cfg.vocab_size
+    before = pf.LAUNCHES["prefill_flash"], k5.LAUNCHES["ssd_scan"]
+    with torch.no_grad():
+        logits, caches = model.prefill(params, {"tokens": toks}, last_pos=20)
+        after = pf.LAUNCHES["prefill_flash"], k5.LAUNCHES["ssd_scan"]
+        assert (after[0] - before[0], after[1] - before[1]) == (
+            n_attn, len(specs) - n_attn)
+        ref, _ = plain.prefill(params, {"tokens": toks}, last_pos=20)
+        torch.testing.assert_close(logits, ref, rtol=5e-4, atol=5e-5)
+        model.decode_step(params, caches, toks[:, :1], 21)
+    assert (pf.LAUNCHES["prefill_flash"], k5.LAUNCHES["ssd_scan"]) == after

@@ -555,3 +555,45 @@ def test_k5_f32_products_on_the_tensor_cores_miss():
                                     want, K5_F32_TOL)
     assert margins["tf32x3"] > 0 and margins["tf32"] > 0, margins
     assert margins["fma"] <= 0 and margins["fma_512"] <= 0, margins
+
+
+def _recurrence_f64(xdt, la, b, c):
+    """The sequential recurrence h_i = a_i h_{i-1} + xdt_i ⊗ B_i, y_i =
+    h_i·C_i, all in f64: (y, final state)."""
+    xdt, la, b, c = (t.double() for t in (xdt, la, b, c))
+    h = torch.zeros((xdt.shape[0], xdt.shape[2], b.shape[2]),
+                    dtype=torch.float64)
+    ys = []
+    for t in range(xdt.shape[1]):
+        h = torch.exp(la[:, t])[:, None, None] * h \
+            + xdt[:, t, :, None] * b[:, t, None, :]
+        ys.append(torch.einsum("bpn,bn->bp", h, c[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k5_f32_prefix_sum_diverges_from_reference_at_steep_decays(seed):
+    """The port takes the prefix sum of la in f64 and rounds once
+    (``ref.prefix_sum``); the reference's chunked scan takes it in f32.  On
+    xdt (4, 512, 64), N 128, chunk 256, with the steepest la a step set to
+    -1, -5 and -50 (the margin is max |port - reference| - (5e-5 + 5e-4
+    |reference|) over y and the state): at -1 the port holds the
+    reference's f32 tolerance; at -5 it misses it (by 9.9e-5 and 2.5e-4 on
+    seeds 0 and 1); at -50 both miss the f64 sequential recurrence, and the
+    port by less than the reference, so the reference's f32 cumsum sets the
+    limit, not the port.  A design difference, kept (ROADMAP.md, section
+    3)."""
+    margins = {}
+    for floor in (-1.0, -5.0, -50.0):
+        xdt, la, b, c = _k5_case(4, 512, 64, 128, seed, floor, torch.float32)
+        port = ssd_scan_plain(xdt, la, b, c, chunk=256)
+        ref = _jax_chunked(xdt, la, b, c, 256)
+        margins[floor] = _k5_margin(port, ref, K5_F32_TOL)
+        if floor == -50.0:
+            exact = _recurrence_f64(xdt, la, b, c)
+            margins["port_f64"] = _k5_margin(port, exact, K5_F32_TOL)
+            margins["ref_f64"] = _k5_margin(ref, exact, K5_F32_TOL)
+    assert margins[-1.0] <= 0, margins
+    assert margins[-5.0] > 0, margins
+    assert margins[-50.0] > 0, margins
+    assert 0 < margins["port_f64"] < margins["ref_f64"], margins

@@ -180,8 +180,8 @@ def test_remat_changes_no_bit_and_dots_policy_raises():
     outs = []
     for remat in (True, False):
         x = x0.clone().requires_grad_(True)
-        y, caches = apply_stack(params["stack"], cfg, x, mode="train",
-                                positions=pos, remat=remat)
+        y, caches, _ = apply_stack(params["stack"], cfg, x, mode="train",
+                                   positions=pos, remat=remat)
         assert caches is None
         outs.append((y, torch.autograd.grad(y.square().sum(), x)[0]))
     assert torch.equal(outs[0][0], outs[1][0])
