@@ -16,8 +16,10 @@ Phases, each of which exits non-zero when it fails:
                bucket the serve phase pads to (and 48, 768, head_dim 16),
                and in bf16 at tile edges (S of 1, 17, 63, 65, 127 and 129,
                group 1, 2, 4 and 8, D 16 to 128), and at the new serves'
-               groups (1: 16 heads, 4: 32 over 8, 48: one KV head; S 129
-               and 512, bf16 and f32, timed at S 512); K1's bf16 tensor-core
+               groups (1: 16 heads, 4: 32 over 8, 48: one KV head) and the
+               remaining configs' (Qwen2-VL's group 8, 32 q heads, D 128;
+               SeamlessM4T's group 1, D 64) (S 129 and 512, bf16 and f32,
+               timed at S 512); K1's bf16 tensor-core
                kernel's registers, spills and shared memory from the
                build's ``-Xptxas -v`` report and its ``HMMA`` count from
                ``cuobjdump -sass`` (no spill, HMMA > 0), and its f32 kernel's
@@ -97,7 +99,11 @@ Phases, each of which exits non-zero when it fails:
                its score chain at 67 TFLOP/s, its other products three times
                over at the TF32 rate; also every operation at 67 TFLOP/s as
                earlier runs counted; device times in phase 15, dK/dV's with
-               its reduction),
+               its reduction); then at SeamlessM4T-medium's shapes (16
+               heads of 64, non-causal: Sq = Skv = 512, and Sq 64 over Skv
+               512, the training cross-attention's), bf16 and f32, forward
+               and backward against the plain version and autograd at
+               GRAD_TOL, timed beside the plain version, SDPA and the bound,
  11. train   — full-width Qwen2-1.5B training at seq 1024: one f32 grain's
                loss and gradients on the kernel path against
                ``use_pallas=False`` (loss rtol 1e-4, each gradient leaf
@@ -186,16 +192,53 @@ Phases, each of which exits non-zero when it fails:
                one period of 8 layers (102.9 GB whole): as phase 20, with
                K5 (128 heads of 64, N 16) once a mamba layer a prefill and
                K1 (group 4) once, each held against its plain version on
-               the inputs it got;
-               phases 16-21 run after phase 14 and before phase 15; each
-               frees its model at its end and prints its peak memory,
+               the inputs it got,
+ 22. deepseek cut — DeepSeek-V2 in bf16 at its published widths (MLA:
+               128 heads, q_lora 1536, kv_lora 512, rope 64; 160 routed
+               experts top-6 and 2 shared), depth cut to the dense first
+               layer and 4 MoE layers (472 GB whole), through phase 5's
+               fleet, prompt lengths and token budget: 16 in-vocab tokens a
+               request, 8 handoffs of MLACaches (16 cache writes: the
+               prefix layer and the stacked periods), no kernel launched
+               (MLA is plain einsums, as in the reference); the handoff's
+               bytes a token against a GQA cache of the same heads; the
+               absorbed decode's logits at position 100 against the
+               decompressed prefill's over 101 tokens: printed in bf16 at
+               this cut, and held within the f32 tolerance (greedy tokens
+               equal) in f32 at the published widths cut to the dense first
+               layer and one MoE layer,
+ 23. qwen2-vl — Qwen2-VL-7B (embeds input, M-RoPE): in f32 cut to 4 of 28
+               layers, a prefill of seeded embeddings whose position
+               streams differ (4 text, an 8 x 8 image block, text) on the
+               kernel path (K1 in f32, group 8, D 128, once a layer)
+               against ``use_pallas=False``, logits within the f32
+               tolerance and greedy first tokens equal; then whole in bf16
+               (28 layers): four prompts prefilled (K1 once a layer each,
+               held against its plain version on the inputs it got) and 16
+               batched decode steps with embeds input, tokens/s,
+ 24. seamless — SeamlessM4T-medium (enc-dec, 12 + 12 layers, LayerNorm):
+               in f32 at full width and depth, ``encode`` of 512 seeded
+               frames (K4 non-causal once an encoder layer) and a prefill
+               of a 100-token target prompt (K1 at group 1, D 64, once a
+               decoder layer) against ``use_pallas=False``: encoder memory,
+               logits and cross caches within the f32 tolerance, greedy
+               first tokens equal; then in bf16 four requests, each a
+               prefill (which encodes) into a lane of one cache from
+               ``init_cache(4, max_seq, cross_seq=512)``, then 16 batched
+               decode steps; K4 and K1 held against their plain versions on
+               the inputs they got, tokens/s;
+               phases 16-24 run after phase 14 and before phase 15; each
+               frees its model at its end and prints its peak memory, and
+               phases 22-24 their seconds,
  15. device  — each kernel's device time (the profiler's kernel durations)
                beside PyTorch's call for the same function: K1 and SDPA at
                phase 3's sweep and in f32 at phase 4's shape, K2 and
                ``.to`` at both shapes, K3 and ``torch.matmul`` at the three
                path shapes, K4's kernels in bf16 and f32 and SDPA's forward and
                backward, K5 in bf16 and in f32 at phase 13's shape, K1 at
-               the new groups, K5 at Jamba's shape, ``apply_moe`` under
+               the new groups and the remaining configs' shapes, K4 at
+               SeamlessM4T's shapes in bf16 and f32 beside SDPA's forward
+               and backward, K5 at Jamba's shape, ``apply_moe`` under
                phase 18's three capacity sets; after
                every serve phase, so
                no profiler session of these precedes phases 5 and 14, and
@@ -206,7 +249,7 @@ Phases, each of which exits non-zero when it fails:
                began, and CUPTI's stamps read early, the more so the
                longer a process has loaded the card.
 
-Phases 4, 5, 7, 8, 9, 11, 13, 14, 16, 17, 19, 20 and 21 are the main path:
+Phases 4, 5, 7, 8, 9, 11, 13, 14, 16, 17 and 19-24 are the main path:
 the kernels' launch counts are set to 0 just before each of their runs and
 read just after it; the ``kernels`` line gives each kernel's launches in all
 and by run.  A line before the card's holds the whole run's wall time.  The
@@ -306,6 +349,29 @@ GRANITE_LAYERS = 16
 #: (8 experts, a 2.5x spread) repeated over the 60 experts.
 MOE_TOKENS = 4096
 MOE_EXAMPLE_PERFS = (1.0, 1.0, 0.9, 0.8, 0.7, 0.6, 0.5, 0.4)
+#: K1 on the remaining configs' prefill paths, bf16 at S = 512: Qwen2-VL's
+#: 28 q heads padded to 32 over 4 KV heads (group 8, D 128) and
+#: SeamlessM4T's decoder (16 heads, group 1, D 64): (q heads, KV heads, D).
+K1_REMAINING_SHAPES = ((32, 4, 128), (16, 16, 64))
+#: K4 at SeamlessM4T-medium's shapes (16 heads of 64), non-causal: the
+#: encoder's self-attention over 512 frames and the decoder's training
+#: cross-attention of 64 target tokens over them: (Sq, Skv).
+K4_SEAMLESS_SHAPES = ((512, 512), (64, 512))
+SEAMLESS_HEADS, SEAMLESS_D, SEAMLESS_FRAMES = 16, 64, 512
+#: Depth cuts at the published widths: DeepSeek-V2 in bf16 to its dense
+#: first layer and 4 MoE layers (236 B parameters are 472 GB in bf16), and
+#: Qwen2-VL's f32 check to 4 of 28 layers.
+DEEPSEEK_LAYERS = 5
+#: DeepSeek-V2's absorbed decode held against its decompressed prefill in
+#: f32 at the published widths, cut to the dense first layer and one MoE
+#: layer (21 GB in f32).
+DEEPSEEK_F32_LAYERS = 2
+QWEN2VL_F32_LAYERS = 4
+#: The remaining configs' runs: four prompts of phase 5's lengths, 16
+#: decode steps each, batched in one cache.
+REMAINING_LENGTHS = (20, 90, 300, 500)
+SEAMLESS_LENGTHS = (5, 20, 40, 90)
+DECODE_STEPS = 16
 
 
 def fail(msg: str) -> None:
@@ -909,6 +975,41 @@ def device_times() -> dict[str, dict[str, float]]:
     out["k5_jamba"] = {"device_ms": device_ms(torch, lambda: k5.ssd_scan(
         xdt, la, bg, cg, chunk=chunk, rep=h // g))}
     del x, dtv, xdt, la, bg, cg
+    # K1 on the remaining configs' prefill paths; K4 at SeamlessM4T's
+    # non-causal shapes, forward and backward, beside SDPA's.
+    for hq, hkv, d in K1_REMAINING_SHAPES:
+        q = rand((hq, 512, d), torch.bfloat16)
+        k, v = rand((hkv, 512, d), torch.bfloat16), rand((hkv, 512, d),
+                                                        torch.bfloat16)
+        out[f"k1_{hq}_{hkv}_{d}"] = pair(
+            lambda: pf.prefill_flash(q, k, v, group=hq // hkv),
+            library_attention(torch, q, k, v))
+    h, d = SEAMLESS_HEADS, SEAMLESS_D
+    for sq, skv in K4_SEAMLESS_SHAPES:
+        for dname, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            q = rand((h, sq, d), dt)
+            k, v = rand((h, skv, d), dt), rand((h, skv, d), dt)
+            dout = rand(q.shape, dt)
+            _, lse, out32 = fa.flash_attention_fwd(q, k, v, causal=False)
+            _, drow = fa.flash_attention_bwd_dq(q, k, v, out32, lse, dout,
+                                                causal=False)
+            leaves = [t[None].clone().requires_grad_(True) for t in (q, k, v)]
+            lib_out = sdpa(*leaves, is_causal=False)
+            lib_bwd = device_ms(torch, lambda: torch.autograd.grad(
+                lib_out, leaves, dout[None], retain_graph=True))
+            key = f"k4_seamless_{sq}_{skv}_{dname}"
+            out[f"{key}_fwd"] = pair(
+                lambda: fa.flash_attention_fwd(q, k, v, causal=False),
+                lambda: sdpa(q[None], k[None], v[None], is_causal=False))
+            out[f"{key}_dq"] = {
+                "device_ms": device_ms(torch, lambda: fa.flash_attention_bwd_dq(
+                    q, k, v, out32, lse, dout, causal=False)),
+                "library_device_ms": lib_bwd}
+            out[f"{key}_dkdv"] = {
+                "device_ms": device_ms(
+                    torch, lambda: fa.flash_attention_bwd_dkdv(
+                        q, k, v, lse, dout, drow, causal=False)),
+                "library_device_ms": lib_bwd}
     # apply_moe on the moe_capacity phase's layer under each capacity set.
     from repro_torch.models.moe import apply_moe
     cfg, params, skewed, x, _, _, caps = moe_capacity_case(torch, dev)
@@ -1006,20 +1107,32 @@ def main() -> int:
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=torch.float32).to(dtype)
 
+    # The remaining configs' kernel checks (K1 at their groups here, K4 at
+    # SeamlessM4T's shapes in phase 10) draw from a generator of their own:
+    # a check added here leaves every earlier check's inputs as they were.
+    gen_rc = torch.Generator(device=dev)
+    gen_rc.manual_seed(SEED)
+
+    def rand_rc(shape, dtype):
+        return torch.randn(shape, generator=gen_rc, device=dev,
+                           dtype=torch.float32).to(dtype)
+
     # K1 through the op the model calls, at the serve phase's buckets (16 ..
     # 512), the clamped 48, a 768 past the largest, and head_dim 16; each
     # against use_pallas=False on the same inputs.
     k1_err = 0.0
-    cases = [(16, 2, 128, s, dt)
+    cases = [(16, 2, 128, s, dt, rand)
              for s in (16, 32, 48, 64, 128, 256, 512, 768)
              for dt in (torch.bfloat16, torch.float32)]
-    cases += [(4, 2, 16, s, dt)
+    cases += [(4, 2, 16, s, dt, rand)
               for s in (16, 48, 128) for dt in (torch.bfloat16, torch.float32)]
-    cases += [(hq, hkv, 128, s, dt) for hq, hkv in K1_GROUP_SHAPES
+    cases += [(hq, hkv, 128, s, dt, rand) for hq, hkv in K1_GROUP_SHAPES
               for s in (129, 512) for dt in (torch.bfloat16, torch.float32)]
-    for hq, hkv, d, s, dt in cases:
-        q = rand((1, s, hq, d), dt)
-        k, v = rand((1, s, hkv, d), dt), rand((1, s, hkv, d), dt)
+    cases += [(hq, hkv, d, s, dt, rand_rc) for hq, hkv, d in K1_REMAINING_SHAPES
+              for s in (129, 512) for dt in (torch.bfloat16, torch.float32)]
+    for hq, hkv, d, s, dt, draw in cases:
+        q = draw((1, s, hq, d), dt)
+        k, v = draw((1, s, hkv, d), dt), draw((1, s, hkv, d), dt)
         before = pf.LAUNCHES["prefill_flash"]
         out, kc, vc = ops.prefill_attention(q, k, v)
         torch.cuda.synchronize()
@@ -1153,6 +1266,27 @@ def main() -> int:
                                                           2, "bfloat16")
         k1_groups.append(row)
         print(f"[kernels] K1 bf16 Hq={hq} Hkv={hkv} D=128 S=512: "
+              + json.dumps(row), flush=True)
+    # K1 on the remaining configs' prefill paths: Qwen2-VL (group 8, 32 q
+    # heads, D 128) and SeamlessM4T's decoder (group 1, D 64), bf16, S 512.
+    k1_remaining = []
+    for hq, hkv, d in K1_REMAINING_SHAPES:
+        q = rand_rc((hq, 512, d), torch.bfloat16)
+        k, v = rand_rc((hkv, 512, d), torch.bfloat16), rand_rc(
+            (hkv, 512, d), torch.bfloat16)
+        group = hq // hkv
+        row = {
+            "group": group, "shape": [[hq, 512, d], [hkv, 512, d]],
+            "ms": time_ms(torch, lambda: pf.prefill_flash(q, k, v,
+                                                          group=group)),
+            "plain_ms": time_ms(torch, lambda: prefill_ref(q, k, v,
+                                                           group=group)),
+            "library_ms": time_ms(torch, library_attention(torch, q, k, v)),
+        }
+        row["bound_ms"], row["bound_by"] = flash_bound_ms(hq, 512, d, hkv,
+                                                          2, "bfloat16")
+        k1_remaining.append(row)
+        print(f"[kernels] K1 bf16 Hq={hq} Hkv={hkv} D={d} S=512: "
               + json.dumps(row), flush=True)
     k2_bytes = 2 * k32.numel() * (4 + 2)
     k2 = {
@@ -1564,10 +1698,10 @@ def main() -> int:
     # reference's kernel-test shapes (tests/test_kernels.py: causal and not,
     # GQA, the x30-magnitude logits), Sq != Skv both ways, ragged S, and
     # the training path's q (16, 1024, 128), k/v (2, 1024, 128).
-    def k4_inputs(b, sq, skv, hq, hkv, d, dt, mag=1.0):
-        q = (rand((b * hq, sq, d), torch.float32) * mag).to(dt)
-        k = (rand((b * hkv, skv, d), torch.float32) * mag).to(dt)
-        return q, k, rand((b * hkv, skv, d), dt)
+    def k4_inputs(b, sq, skv, hq, hkv, d, dt, mag=1.0, draw=rand):
+        q = (draw((b * hq, sq, d), torch.float32) * mag).to(dt)
+        k = (draw((b * hkv, skv, d), torch.float32) * mag).to(dt)
+        return q, k, draw((b * hkv, skv, d), dt)
 
     # The kernels as built, bf16 and f32: registers, spills, shared memory,
     # and HMMA instructions in their SASS (a spill fails; so does no HMMA in
@@ -1735,6 +1869,81 @@ def main() -> int:
         for part, row in rows.items():
             print(f"[k4] {card}: {part} {dname} q (16, 1024, 128) k/v (2, "
                   f"1024, 128) causal: " + json.dumps(row), flush=True)
+
+    # K4 at SeamlessM4T-medium's shapes (16 heads of 64), non-causal: the
+    # encoder's Sq = Skv = 512 and the training cross-attention's Sq 64 over
+    # Skv 512; forward, dQ and dK/dV against the plain version and autograd
+    # through it, bf16 and f32; then timed beside the plain version, SDPA
+    # (non-causal) and the bound (device times in phase 15).
+    k4_seamless = {}
+    h, d = SEAMLESS_HEADS, SEAMLESS_D
+    for sq, skv in K4_SEAMLESS_SHAPES:
+        for dt, dname, itemsize in ((torch.bfloat16, "bf16", 2),
+                                    (torch.float32, "f32", 4)):
+            name = f"K4 seamless Sq={sq} Skv={skv} H={h} D={d} full {dname}"
+            q, k, v = k4_inputs(1, sq, skv, h, h, d, dt, draw=rand_rc)
+            dout = rand_rc(q.shape, dt)
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            before = dict(fa.LAUNCHES)
+            out = fa.flash_attention(*leaves, causal=False)
+            grads = torch.autograd.grad(out, leaves, dout)
+            torch.cuda.synchronize()
+            if any(fa.LAUNCHES[n] != before[n] + 1 for n in K4_KERNELS):
+                fail(f"{name}: the forward and backward did not launch each "
+                     f"K4 kernel once")
+            ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            ref = flash_attention_ref(*ref_leaves, causal=False)
+            ref_grads = torch.autograd.grad(ref, ref_leaves, dout)
+            dtn = str(dt)[6:]
+            errs = {"fwd": check_close(torch, f"{name} out", out, ref, dtn),
+                    "dq": check_close(torch, f"{name} dq", grads[0],
+                                      ref_grads[0], dtn, GRAD_TOL),
+                    "dkdv": max(check_close(torch, f"{name} d{w}", g, r, dtn,
+                                            GRAD_TOL)
+                                for w, g, r in zip("kv", grads[1:],
+                                                   ref_grads[1:],
+                                                   strict=True))}
+            for part, e in errs.items():
+                k4_err[part] = max(k4_err[part], e)
+            _, lse, out32 = fa.flash_attention_fwd(q, k, v, causal=False)
+            _, drow = fa.flash_attention_bwd_dq(q, k, v, out32, lse, dout,
+                                                causal=False)
+            plain_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            plain_out = flash_attention_ref(*plain_leaves, causal=False)
+            lib_leaves = [t[None].clone().requires_grad_(True)
+                          for t in (q, k, v)]
+            lib_out = sdpa(*lib_leaves, is_causal=False)
+            plain_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+                plain_out, plain_leaves, dout, retain_graph=True))
+            lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+                lib_out, lib_leaves, dout[None], retain_graph=True))
+            rows = {
+                "fwd": {"ms": time_ms(torch, lambda: fa.flash_attention_fwd(
+                            q, k, v, causal=False)),
+                        "plain_ms": time_ms(torch, lambda: flash_attention_ref(
+                            q, k, v, causal=False)),
+                        "library_ms": time_ms(torch, lambda: sdpa(
+                            q[None], k[None], v[None], is_causal=False))},
+                "dq": {"ms": time_ms(torch, lambda: fa.flash_attention_bwd_dq(
+                           q, k, v, out32, lse, dout, causal=False)),
+                       "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms},
+                "dkdv": {"ms": time_ms(
+                             torch, lambda: fa.flash_attention_bwd_dkdv(
+                                 q, k, v, lse, dout, drow, causal=False)),
+                         "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms},
+            }
+            for part, row in rows.items():
+                row["max_abs_err"] = errs[part]
+                row["bound_ms"], row["bound_by"] = k4_bound_ms(
+                    h, h, sq, skv, d, itemsize,
+                    {"bf16": "bfloat16", "f32": "float32"}[dname], False,
+                    part)
+                print(f"[k4] {card}: seamless {part} {dname} q ({h}, {sq}, "
+                      f"{d}) k/v ({h}, {skv}, {d}) non-causal: "
+                      + json.dumps(row), flush=True)
+            k4_seamless[f"{sq}_{skv}_{dname}"] = rows
+            del q, k, v, dout, leaves, out, grads, ref_leaves, ref, ref_grads
+            del out32, lse, drow, plain_leaves, plain_out, lib_leaves, lib_out
 
     # ------------------------------------------- 11. train (the main path)
     def check_k4_launches(path: str, n_grains: int) -> dict[str, int]:
@@ -2550,6 +2759,419 @@ def main() -> int:
     del model, params
     peak("jamba-cut")
 
+    # Phases 22-24: the remaining configs (MLA, embeds input with M-RoPE,
+    # enc-dec), each at its published widths, each timed, freed at its end
+    # and its peak memory printed.
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.prefill.ops import length_bucket
+    from repro_torch.models.mla import MLACache
+    from repro_torch.serve import engine as engine_mod
+
+    def fill_lane(cache: dict, caches: dict, lane: int) -> None:
+        """A prefill's batch-1 caches into lane ``lane`` of a decode cache,
+        as ``DecodeEngine.insert`` writes a handoff (``serve/engine._put``):
+        self and cross caches, periods (lane axis 1) and prefix layers (0)."""
+        for key, full in cache["periods"].items():
+            for kind, part in caches["periods"][key].items():
+                engine_mod._put(full[kind], part, 1, lane)
+        for full, part in zip(cache.get("prefix", ()),
+                              caches.get("prefix", ())):
+            for kind in part:
+                engine_mod._put(full[kind], part[kind], 0, lane)
+
+    def k4_on_seen(tag: str, seen) -> float:
+        """K4's forward against its plain version on the inputs a path gave
+        it."""
+        err = 0.0
+        for (qs, ks, dt), ((q, k, v), kw) in sorted(seen.items(),
+                                                     key=lambda kv: kv[0][0]):
+            name = (f"K4 on {tag} inputs q {qs} k {ks} "
+                    f"{'causal' if kw['causal'] else 'full'} {str(dt)[6:]}")
+            out, _, _ = fa.flash_attention_fwd(q, k, v, **kw)
+            torch.cuda.synchronize()
+            ref = flash_attention_ref(q, k, v, **kw)
+            e = check_close(torch, name, out, ref, str(dt)[6:])
+            err = max(err, e)
+            print(f"[{tag}] {name}: max abs err {e:.3e}", flush=True)
+        return err
+
+    def greedy(logits, vocab: int) -> list[int]:
+        return logits[:, -1, :vocab].float().argmax(-1).tolist()
+
+    # --------------------------- 22. DeepSeek-V2, cut, bf16 (main path)
+    # Its published widths (128 heads, MLA q_lora 1536 / kv_lora 512 / rope
+    # 64, 160 routed experts top-6 of 1536 and 2 shared), depth cut to the
+    # dense first layer and DEEPSEEK_LAYERS - 1 MoE layers, served through
+    # phase 5's fleet: each handoff carries MLACaches (the prefix layer's
+    # through lane axis 0).  MLA is plain einsums in the reference, and its
+    # q/k head dim of 192 is not one of K4's: no kernel runs on this path.
+    phase_t0 = time.perf_counter()
+    cfgd = get_config("deepseek-v2-236b", n_layers=DEEPSEEK_LAYERS)
+    model, params = init_model("deepseek-cut", cfgd, f" (cut from 60 to "
+                               f"{DEEPSEEK_LAYERS} layers: the dense first "
+                               f"layer and {DEEPSEEK_LAYERS - 1} MoE layers)")
+    puts = []
+    saved_put = engine_mod._put
+
+    def counting_put(full, part, batch_axis, idx):
+        puts.append(type(full).__name__)
+        return saved_put(full, part, batch_axis, idx)
+
+    engine_mod._put = counting_put
+    try:
+        serve_fleet("deepseek-cut", "deepseek_cut", cfgd,
+                    model, params)
+    finally:
+        engine_mod._put = saved_put
+    launched = {key: n for key, n in by_path["deepseek_cut"].items() if n}
+    if launched:
+        fail(f"deepseek cut: kernels launched on an MLA path: {launched}")
+    want_puts = len(lengths) * (1 + len(cfgd.layer_pattern))
+    if puts != ["MLACache"] * want_puts:
+        fail(f"deepseek cut: handoff cache writes {puts}, expected "
+             f"{want_puts} MLACache writes")
+    # The absorbed decode against the decompressed form: decode_step at
+    # position t after a prefill of t tokens, against a prefill's
+    # last-token logits over t + 1 tokens, both prefills with MoE
+    # capacities that drop nothing (the decode's MoE is dropless).  In bf16
+    # at this cut the two forms' roundings differ by about 1 % of a layer's
+    # output, and at the fourth MoE layer that moved token t's top-6
+    # experts (scripts/mla_absorbed_check.py), so the bf16 difference is
+    # printed, and the two forms are held together in f32 at the published
+    # widths, cut to the dense first layer and one MoE layer
+    # (DEEPSEEK_F32_LAYERS), within the f32 tolerance.
+    drng = np.random.default_rng(SEED)
+    t_pos = 100
+    toks = torch.as_tensor(drng.integers(0, cfgd.vocab_size, (1, t_pos + 1)),
+                           device=dev)
+
+    def absorbed_vs_decompressed(cfg, params):
+        """(decode_step logits at t_pos, prefill's over t_pos + 1 tokens,
+        the t_pos-token prefill's caches)."""
+        nodrop = Model(dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_routed / cfg.moe.top_k)))
+        with torch.no_grad():
+            whole, _ = nodrop.prefill(params, {"tokens": toks})
+            _, pre = nodrop.prefill(params, {"tokens": toks[:, :t_pos]})
+            cache = nodrop.init_cache(1, 2 * t_pos)
+            fill_lane(cache, pre, 0)
+            step, _ = nodrop.decode_step(params, cache, toks[:, t_pos:],
+                                         t_pos)
+        torch.cuda.synchronize()
+        return step, whole, pre
+
+    step, whole, pre = absorbed_vs_decompressed(cfgd, params)
+    bf16_diff = float((step - whole).abs().max())
+    # The handoff's bytes a token: the prefill's MLACache against a GQA
+    # cache of the same 128 heads (k and v of 128 each), per layer.
+    c0 = pre["prefix"][0]["self"]
+    if not isinstance(c0, MLACache):
+        fail(f"deepseek cut: the prefix layer's cache is {type(c0)}")
+    mla_bytes = (c0.c_kv.shape[-1] * c0.c_kv.element_size()
+                 + c0.k_rope.shape[-1] * c0.k_rope.element_size())
+    gqa_bytes = 2 * cfgd.n_kv_heads * cfgd.head_dim * c0.c_kv.element_size()
+    latent = (c0.c_kv.shape[-1], c0.k_rope.shape[-1], str(c0.c_kv.dtype)[6:])
+    del model, params, pre, c0, whole, step
+    peak("deepseek-cut")
+    cfgd32 = get_config("deepseek-v2-236b", n_layers=DEEPSEEK_F32_LAYERS,
+                        param_dtype="float32", compute_dtype="float32")
+    model, params = init_model("deepseek-f32", cfgd32, f" (cut from 60 to "
+                               f"{DEEPSEEK_F32_LAYERS} layers: the dense "
+                               f"first layer and one MoE layer)")
+    zero_counts()
+    step, whole, _ = absorbed_vs_decompressed(cfgd32, params)
+    launched = {key: n for key, n in read_counts("deepseek_f32").items() if n}
+    if launched:
+        fail(f"deepseek f32: kernels launched on an MLA path: {launched}")
+    absorbed_err = check_close(
+        torch, "deepseek f32: absorbed decode vs decompressed prefill logits",
+        step, whole, "float32")
+    tok_a, tok_d = greedy(step, cfgd.vocab_size), greedy(whole,
+                                                         cfgd.vocab_size)
+    if tok_a != tok_d:
+        fail(f"deepseek f32: greedy tokens differ ({tok_a} vs {tok_d})")
+    print(f"[deepseek-cut] {card}: no kernel runs on this path (MLA is plain "
+          f"einsums, as in the reference); {len(puts)} MLACache handoff "
+          f"writes ({len(lengths)} handoffs x {1 + len(cfgd.layer_pattern)}: "
+          f"the prefix layer and the stacked periods); handoff {mla_bytes} "
+          f"bytes a token a layer ({latent[0]} + {latent[1]} {latent[2]} "
+          f"values) against {gqa_bytes} for a GQA cache of "
+          f"{cfgd.n_kv_heads} heads of {cfgd.head_dim} "
+          f"({gqa_bytes / mla_bytes:.1f}x), {mla_bytes * cfgd.n_layers} bytes "
+          f"a token over the {cfgd.n_layers} layers; absorbed decode at "
+          f"position {t_pos} vs the decompressed prefill over {t_pos + 1} "
+          f"tokens: bf16 at {cfgd.n_layers} layers logits max abs diff "
+          f"{bf16_diff:.3e} (not held: rounding moves MoE routing), f32 at "
+          f"{DEEPSEEK_F32_LAYERS} layers {absorbed_err:.3e} (f32 tolerance), "
+          f"greedy token {tok_a[0]} on both; phase "
+          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+    del model, params, whole, step
+    peak("deepseek-f32")
+
+    # ------------- 23. Qwen2-VL, embeds input with M-RoPE (main path)
+    def vl_positions(n: int, bucket: int):
+        """(1, 3, bucket) M-RoPE ids of a prompt of ``n`` embeddings: 4 text
+        tokens, an 8 x 8 image block (one temporal id; h and w over its rows
+        and columns), then text from max + 1; pad positions go on counting.
+        A prompt shorter than that is text (three equal streams)."""
+        t, hh, w = [], [], []
+        if n >= 4 + 64:
+            t, hh, w = list(range(4)), list(range(4)), list(range(4))
+            for r in range(8):
+                for c in range(8):
+                    t.append(4), hh.append(4 + r), w.append(4 + c)
+        nxt = max(t + hh + w, default=-1) + 1
+        rest = list(range(nxt, nxt + bucket - len(t)))
+        return torch.tensor([[t + rest, hh + rest, w + rest]],
+                            dtype=torch.int32, device=dev)
+
+    # 23.1 f32 at the published widths, depth cut to QWEN2VL_F32_LAYERS:
+    # prefill on the kernel path (K1 in f32, group 8, D 128) against
+    # use_pallas=False, with streams that differ (an image block).
+    phase_t0 = time.perf_counter()
+    cfgv32 = get_config("qwen2-vl-7b", n_layers=QWEN2VL_F32_LAYERS,
+                        param_dtype="float32", compute_dtype="float32")
+    model, params = init_model("qwen2vl-model", cfgv32, f" (cut from 28 to "
+                               f"{QWEN2VL_F32_LAYERS} layers)")
+    plain = Model(dataclasses.replace(cfgv32, use_pallas=False))
+    vrng = np.random.default_rng(SEED)
+    L, bucket = 100, 128
+    emb = torch.zeros((1, bucket, cfgv32.d_model), device=dev)
+    emb[0, :L] = torch.as_tensor(vrng.standard_normal((L, cfgv32.d_model)),
+                                 dtype=torch.float32, device=dev)
+    vpos = vl_positions(L, bucket)
+    if torch.equal(vpos[0, 0], vpos[0, 1]):
+        fail("qwen2-vl model: the position streams do not differ")
+    batch = {"embeds": emb, "positions": vpos}
+    zero_counts()
+    with torch.no_grad():
+        lk, _ = model.prefill(params, batch, last_pos=L - 1)
+        torch.cuda.synchronize()
+        vl_counts = read_counts("qwen2vl_model")
+        lp, _ = plain.prefill(params, batch, last_pos=L - 1)
+    torch.cuda.synchronize()
+    if vl_counts["prefill_flash"] != cfgv32.n_layers:
+        fail(f"qwen2-vl model: K1 launched {vl_counts['prefill_flash']} "
+             f"times, expected {cfgv32.n_layers}")
+    vl_err = check_close(torch, "qwen2-vl prefill logits (kernel vs plain)",
+                         lk, lp, "float32")
+    tok_k, tok_p = greedy(lk, cfgv32.vocab_size), greedy(lp,
+                                                         cfgv32.vocab_size)
+    if tok_k != tok_p:
+        fail(f"qwen2-vl model: greedy first tokens differ ({tok_k} vs "
+             f"{tok_p})")
+    print(f"[qwen2vl-model] prefill of {L} embeddings (4 text, an 8 x 8 "
+          f"image block, text; bucket {bucket}), M-RoPE sections "
+          f"{cfgv32.mrope_sections}, {QWEN2VL_F32_LAYERS} layers: logits max "
+          f"abs err {vl_err:.3e} (f32 tolerance); greedy first token "
+          f"{tok_k[0]} on both paths; K1 launches "
+          f"{vl_counts['prefill_flash']} (f32, group "
+          f"{cfgv32.n_q_heads // cfgv32.n_kv_heads}, {cfgv32.n_q_heads} q "
+          f"heads, D {cfgv32.head_dim}); phase "
+          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+    del model, plain, params, emb, batch, lk, lp
+    peak("qwen2vl-model")
+
+    # 23.2 bf16, whole (28 layers): four prompts of embeddings prefilled
+    # (K1 once a layer each), their caches in one 4-lane cache, then
+    # DECODE_STEPS batched decode steps with embeds input (each new token's
+    # row of the embedding table; the (B, 3, 1) positions given are the
+    # M-RoPE continuation, which the decode does not read, as the
+    # reference).
+    phase_t0 = time.perf_counter()
+    cfgv = get_config("qwen2-vl-7b")
+    model, params = init_model("qwen2vl-serve", cfgv)
+    max_seq = 1024
+    prompts = [torch.as_tensor(vrng.standard_normal((n, cfgv.d_model)),
+                               dtype=torch.bfloat16, device=dev)
+               for n in REMAINING_LENGTHS]
+    table = params["embed"]["table"]
+    zero_counts()
+    with keep_inputs(ops, "_prefill_call") as seen, torch.no_grad():
+        t0 = time.perf_counter()
+        cache = model.init_cache(len(prompts), max_seq)
+        toks, nxt = [], []
+        for i, e in enumerate(prompts):
+            n = e.shape[0]
+            bucket = length_bucket(n, max_seq)
+            x = torch.zeros((1, bucket, cfgv.d_model), dtype=torch.bfloat16,
+                            device=dev)
+            x[0, :n] = e
+            p3 = vl_positions(n, bucket)
+            lg, c = model.prefill(params, {"embeds": x, "positions": p3},
+                                  last_pos=n - 1)
+            fill_lane(cache, c, i)
+            toks.append(greedy(lg, cfgv.vocab_size))
+            nxt.append(int(p3[0, :, :n].max()) + 1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pos = torch.as_tensor(REMAINING_LENGTHS, device=dev)
+        for step in range(DECODE_STEPS):
+            e = table[torch.as_tensor([t[-1] for t in toks], device=dev)]
+            p3 = (torch.as_tensor(nxt, device=dev) + step)[:, None, None] \
+                .expand(len(prompts), 3, 1)
+            lg, cache = model.decode_step(params, cache, {
+                "embeds": e[:, None], "positions": p3}, pos + step)
+            for t, nt in zip(toks, greedy(lg, cfgv.vocab_size), strict=True):
+                t.append(nt)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    vl_counts = read_counts("qwen2vl_serve")
+    want = len(prompts) * cfgv.n_layers
+    if vl_counts["prefill_flash"] != want:
+        fail(f"qwen2-vl serve: K1 launched {vl_counts['prefill_flash']} "
+             f"times, expected {want}")
+    for t in toks:
+        if len(t) != DECODE_STEPS + 1 or not all(
+                0 <= x < cfgv.vocab_size for x in t):
+            fail(f"qwen2-vl serve: tokens {t}")
+    n_tok = sum(len(t) for t in toks)
+    print(f"[qwen2vl-serve] {card}: {len(prompts)} prompts of "
+          f"{list(REMAINING_LENGTHS)} embeddings prefilled, then "
+          f"{DECODE_STEPS} batched decode steps with embeds input: {n_tok} "
+          f"tokens in {wall_s:.3f} s wall -> {n_tok / wall_s:.2f} tokens/s "
+          f"(prefills {prefill_s:.3f} s, decode steps "
+          f"{wall_s - prefill_s:.3f} s); K1 launches "
+          f"{vl_counts['prefill_flash']} at group "
+          f"{cfgv.n_q_heads // cfgv.n_kv_heads} ({cfgv.n_q_heads} q heads); "
+          f"first tokens {[t[:4] for t in toks]}", flush=True)
+    k1_err = max(k1_err, k1_on_seen("qwen2vl-serve", seen))
+    print(f"[qwen2vl] phase {time.perf_counter() - phase_t0:.1f} s",
+          flush=True)
+    del model, params, prompts, table, cache, seen, lg, c, x, e
+    peak("qwen2vl-serve")
+
+    # ------------------------ 24. SeamlessM4T-medium, enc-dec (main path)
+    # 24.1 f32 at full width and depth: encode SEAMLESS_FRAMES seeded frames
+    # (K4 non-causal, once an encoder layer), then prefill a target prompt
+    # (the prefill encodes again, as the reference's does; K1 at group 1,
+    # D 64, once a decoder layer) against use_pallas=False.
+    phase_t0 = time.perf_counter()
+    cfgs32 = get_config("seamless-m4t-medium", param_dtype="float32",
+                        compute_dtype="float32")
+    model, params = init_model("seamless-model", cfgs32, f" (encoder "
+                               f"{cfgs32.encoder.n_layers} layers, vocab "
+                               f"{cfgs32.vocab_size} padded to "
+                               f"{cfgs32.padded_vocab})")
+    plain = Model(dataclasses.replace(cfgs32, use_pallas=False))
+    srng = np.random.default_rng(SEED)
+    n_enc = cfgs32.encoder.n_layers
+    src = torch.as_tensor(srng.standard_normal(
+        (1, SEAMLESS_FRAMES, cfgs32.d_model)), dtype=torch.float32,
+        device=dev)
+    L, bucket = 100, 128
+    tgt = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
+    tgt[0, :L] = torch.as_tensor(srng.integers(0, cfgs32.vocab_size, L),
+                                 device=dev)
+    batch = {"src_embeds": src, "tgt_tokens": tgt}
+    zero_counts()
+    with torch.no_grad():
+        mem_k = model.encode(params, src)
+        torch.cuda.synchronize()
+        if fa.LAUNCHES["flash_attention_fwd"] != n_enc:
+            fail(f"seamless model: encode launched K4 "
+                 f"{fa.LAUNCHES['flash_attention_fwd']} times, expected "
+                 f"{n_enc}")
+        lk, ck = model.prefill(params, batch, last_pos=L - 1)
+        torch.cuda.synchronize()
+        s_counts = read_counts("seamless_model")
+        mem_p = plain.encode(params, src)
+        lp, cp = plain.prefill(params, batch, last_pos=L - 1)
+    torch.cuda.synchronize()
+    want = {"flash_attention_fwd": 2 * n_enc,
+            "prefill_flash": cfgs32.n_layers}
+    if {key: s_counts[key] for key in want} != want:
+        fail(f"seamless model: launches {s_counts}, expected {want}")
+    mem_err = check_close(torch, "seamless encoder memory (kernel vs plain)",
+                          mem_k, mem_p, "float32")
+    s_err = check_close(torch, "seamless prefill logits (kernel vs plain)",
+                        lk, lp, "float32")
+    cross_err = max(check_close(
+        torch, f"seamless cross cache {name} (kernel vs plain)",
+        getattr(ck["periods"]["pos0"]["cross"], name),
+        getattr(cp["periods"]["pos0"]["cross"], name), "float32")
+        for name in ("k", "v"))
+    tok_k, tok_p = greedy(lk, cfgs32.vocab_size), greedy(lp,
+                                                         cfgs32.vocab_size)
+    if tok_k != tok_p:
+        fail(f"seamless model: greedy first tokens differ ({tok_k} vs "
+             f"{tok_p})")
+    print(f"[seamless-model] encode of {SEAMLESS_FRAMES} frames: memory max "
+          f"abs err {mem_err:.3e}; prefill of {L} target tokens (bucket "
+          f"{bucket}): logits max abs err {s_err:.3e}, cross caches "
+          f"{cross_err:.3e} (f32 tolerance); greedy first token {tok_k[0]} "
+          f"on both paths; launches K4 forward "
+          f"{s_counts['flash_attention_fwd']} (non-causal, {n_enc} an "
+          f"encode), K1 {s_counts['prefill_flash']} (f32, group 1, D "
+          f"{cfgs32.head_dim}); phase {time.perf_counter() - phase_t0:.1f} s",
+          flush=True)
+    del model, plain, params, src, batch, mem_k, mem_p, lk, lp, ck, cp
+    peak("seamless-model")
+
+    # 24.2 bf16: four requests, each a prefill (which encodes its seeded
+    # frames) into lane i of one cache from init_cache(4, max_seq,
+    # cross_seq=SEAMLESS_FRAMES) (the cross cache the memory's exact
+    # length: a longer one would attend to its zero rows, as in the
+    # reference), then DECODE_STEPS batched decode steps.
+    phase_t0 = time.perf_counter()
+    cfgs = get_config("seamless-m4t-medium")
+    model, params = init_model("seamless-serve", cfgs)
+    srcs = [torch.as_tensor(srng.standard_normal(
+        (1, SEAMLESS_FRAMES, cfgs.d_model)), dtype=torch.bfloat16,
+        device=dev) for _ in SEAMLESS_LENGTHS]
+    prompts = [srng.integers(0, cfgs.vocab_size, n) for n in SEAMLESS_LENGTHS]
+    zero_counts()
+    with keep_inputs(ops, "_prefill_call") as seen1, \
+            keep_inputs(flash_ops, "_flash_call") as seen4, torch.no_grad():
+        t0 = time.perf_counter()
+        cache = model.init_cache(len(prompts), max_seq,
+                                 cross_seq=SEAMLESS_FRAMES)
+        toks = []
+        for i, (sx, pr) in enumerate(zip(srcs, prompts, strict=True)):
+            n = len(pr)
+            tgt = torch.zeros((1, length_bucket(n, max_seq)),
+                              dtype=torch.int64, device=dev)
+            tgt[0, :n] = torch.as_tensor(pr, device=dev)
+            lg, c = model.prefill(params, {"src_embeds": sx,
+                                           "tgt_tokens": tgt}, last_pos=n - 1)
+            fill_lane(cache, c, i)
+            toks.append(greedy(lg, cfgs.vocab_size))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pos = torch.as_tensor(SEAMLESS_LENGTHS, device=dev)
+        for step in range(DECODE_STEPS):
+            last = torch.as_tensor([[t[-1]] for t in toks], device=dev)
+            lg, cache = model.decode_step(params, cache, last, pos + step)
+            for t, nt in zip(toks, greedy(lg, cfgs.vocab_size), strict=True):
+                t.append(nt)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    s_counts = read_counts("seamless_serve")
+    want = {"flash_attention_fwd": len(prompts) * cfgs.encoder.n_layers,
+            "prefill_flash": len(prompts) * cfgs.n_layers}
+    if {key: s_counts[key] for key in want} != want:
+        fail(f"seamless serve: launches {s_counts}, expected {want}")
+    for t in toks:
+        if len(t) != DECODE_STEPS + 1 or not all(
+                0 <= x < cfgs.vocab_size for x in t):
+            fail(f"seamless serve: tokens {t}")
+    n_tok = sum(len(t) for t in toks)
+    print(f"[seamless-serve] {card}: {len(prompts)} requests ("
+          f"{SEAMLESS_FRAMES} frames each, target prompts of "
+          f"{list(SEAMLESS_LENGTHS)} tokens) prefilled, then {DECODE_STEPS} "
+          f"batched decode steps: {n_tok} tokens in {wall_s:.3f} s wall -> "
+          f"{n_tok / wall_s:.2f} tokens/s (prefills with their encodes "
+          f"{prefill_s:.3f} s, decode steps {wall_s - prefill_s:.3f} s); "
+          f"launches K4 forward {s_counts['flash_attention_fwd']} (non-causal"
+          f"), K1 {s_counts['prefill_flash']} (group 1, D {cfgs.head_dim}); "
+          f"first tokens {[t[:4] for t in toks]}", flush=True)
+    k1_err = max(k1_err, k1_on_seen("seamless-serve", seen1))
+    k4_err["fwd"] = max(k4_err["fwd"], k4_on_seen("seamless-serve", seen4))
+    print(f"[seamless] phase {time.perf_counter() - phase_t0:.1f} s",
+          flush=True)
+    del model, params, srcs, cache, seen1, seen4, lg, c
+    peak("seamless-serve")
+
     # ------------------------------------------------------ 15. device times
     # Each kernel's device time (the profiler's kernel durations, which
     # leave out the host's gaps between launches) beside PyTorch's call for
@@ -2577,6 +3199,21 @@ def main() -> int:
               f"k/v {row['shape'][1]}: {row['device_ms']:.6f} ms, SDPA "
               f"{row['library_device_ms']:.6f} ms (bound "
               f"{row['bound_ms']:.6f} ms)", flush=True)
+    for row in k1_remaining:
+        (hq, _, d), (hkv, _, _) = row["shape"]
+        row.update(dev_times[f"k1_{hq}_{hkv}_{d}"])
+        print(f"[device] K1 bf16 group {row['group']} q {row['shape'][0]}, "
+              f"k/v {row['shape'][1]}: {row['device_ms']:.6f} ms, SDPA "
+              f"{row['library_device_ms']:.6f} ms (bound "
+              f"{row['bound_ms']:.6f} ms)", flush=True)
+    for key, rows in k4_seamless.items():
+        for part, row in rows.items():
+            row.update(dev_times[f"k4_seamless_{key}_{part}"])
+            print(f"[device] K4 seamless {key} {part}: "
+                  f"{row['device_ms']:.6f} ms, SDPA "
+                  f"{'forward' if part == 'fwd' else 'whole backward'} "
+                  f"{row['library_device_ms']:.6f} ms (bound "
+                  f"{row['bound_ms']:.6f} ms)", flush=True)
     k5_jamba.update(dev_times["k5_jamba"])
     print(f"[device] K5 bf16 Jamba xdt {k5_jamba['shape'][0]}, B/C "
           f"{k5_jamba['shape'][1]}: {k5_jamba['device_ms']:.6f} ms (bound "
@@ -2642,7 +3279,7 @@ def main() -> int:
          "library_ms": k1_row["library_ms"], "device_ms": k1_row["device_ms"],
          "library_device_ms": k1_row["library_device_ms"],
          "build": k1_build["prefill_flash_mma_kernel<128>"], "f32": k1_f32,
-         "at_new_groups": k1_groups},
+         "at_new_groups": k1_groups, "at_remaining_configs": k1_remaining},
         {"name": "cache_cast", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/prefill/prefill.py:145",
          "launches": launches["cache_cast"],
@@ -2678,7 +3315,8 @@ def main() -> int:
          "library_ms": k4_rows[part]["library_ms"],
          "device_ms": k4_rows[part]["device_ms"],
          "library_device_ms": k4_rows[part]["library_device_ms"],
-         "build": k4_rows[part].get("build"), "f32": k4_f32[part]}
+         "build": k4_rows[part].get("build"), "f32": k4_f32[part],
+         "seamless": {key: rows[part] for key, rows in k4_seamless.items()}}
         for name, part in zip(K4_KERNELS, ("fwd", "dq", "dkdv"), strict=True)
     ] + [
         {"name": "ssd_scan", "route": "cuda",

@@ -100,8 +100,16 @@ def main() -> None:
         spec = GrainSpec(args.batch, args.seq, cfg.vocab_size)
         src = SyntheticSource(spec)
 
-        def batch_fn(step):
-            return batch_from_grains(src, step, [0], spec, device=model.device)
+        if cfg.input_mode != "tokens" or cfg.is_enc_dec:
+            from ..configs.shapes import train_batch_specs
+
+            def batch_fn(step):
+                return train_batch_specs(cfg, args.batch, args.seq,
+                                         device=model.device)
+        else:
+            def batch_fn(step):
+                return batch_from_grains(src, step, [0], spec,
+                                         device=model.device)
 
         _, hist = train_single(
             model, args.steps, batch_fn, opt_cfg=opt, ckpt_dir=args.ckpt,

@@ -1,6 +1,7 @@
 """GQA attention: full-sequence (train), prefill (returns cache), decode.
 
-Port of ``repro/models/attention.py`` for the dense decoder.  Full (Sq, Skv)
+Port of ``repro/models/attention.py``: self-attention, the encoder's
+non-causal attention and enc-dec cross-attention.  Full (Sq, Skv)
 logits are only materialized when ``S <= cfg.attn_chunk``; beyond that the
 chunked path (a loop over query chunks with online softmax over key chunks)
 keeps the live logits block at ``attn_chunk^2``.  On CUDA the training
@@ -52,7 +53,8 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def _project_qkv(p: dict, cfg: ModelConfig, xq: torch.Tensor,
-                 xkv: torch.Tensor, q_positions, kv_positions):
+                 xkv: torch.Tensor, q_positions, kv_positions,
+                 rope: bool = True):
     q = torch.einsum("bsd,dhk->bshk", xq, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", xkv, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", xkv, p["wv"])
@@ -61,8 +63,9 @@ def _project_qkv(p: dict, cfg: ModelConfig, xq: torch.Tensor,
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, q_positions, cfg.rope_theta, cfg.mrope_sections)
-    k = apply_rope(k, kv_positions, cfg.rope_theta, cfg.mrope_sections)
+    if rope:
+        q = apply_rope(q, q_positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_rope(k, kv_positions, cfg.rope_theta, cfg.mrope_sections)
     return q, k, v
 
 
@@ -151,11 +154,15 @@ def _use_kernel(cfg: ModelConfig, x: torch.Tensor) -> bool:
 
 def attention_train(
     p: dict, cfg: ModelConfig, x: torch.Tensor, positions, *,
-    causal: bool = True,
+    causal: bool = True, xkv: torch.Tensor | None = None, kv_positions=None,
+    rope: bool = True,
 ) -> torch.Tensor:
-    """Full-sequence self-attention (training).  The kernel branch is
-    differentiable through K4's own backward kernels."""
-    q, k, v = _project_qkv(p, cfg, x, x, positions, positions)
+    """Full-sequence attention (training, the encoder, cross-attention over
+    ``xkv``).  The kernel branch is differentiable through K4's own
+    backward kernels, causal or not, with Sq != Skv for cross-attention."""
+    xkv = x if xkv is None else xkv
+    kv_positions = positions if kv_positions is None else kv_positions
+    q, k, v = _project_qkv(p, cfg, x, xkv, positions, kv_positions, rope=rope)
     if _use_kernel(cfg, x):
         out = flash_mha(q, k, v, causal=causal, use_pallas=True)
     elif q.shape[1] * k.shape[1] <= cfg.attn_chunk ** 2:
@@ -226,20 +233,36 @@ def _cache_write(cache_arr: torch.Tensor, new: torch.Tensor,
 
 def attention_decode(
     p: dict, cfg: ModelConfig, x: torch.Tensor, cache: KVCache,
-    pos: torch.Tensor,
+    pos: torch.Tensor | None, *, cross: bool = False,
+    cross_len: int | torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """One-token decode.  x: (B,1,d).  pos: scalar or per-slot (B,) index.
 
-    Writes K/V at ``pos`` (in place, see ``_cache_write``) and attends over
-    cache[<= pos]."""
+    Self-attention writes K/V at ``pos`` (in place, see ``_cache_write``)
+    and attends over cache[<= pos].  Cross-attention (enc-dec) reads the
+    encoder memory's K/V from the cache, writes nothing and attends over
+    cache[< cross_len] (the whole cache when ``cross_len`` is None); its
+    query is not rope'd, and x may hold any number of tokens."""
     b = x.shape[0]
-    pos_b = _pos2d(pos, b)
-    q, k_t, v_t = _project_qkv(p, cfg, x, x, pos_b, pos_b)
-    k = _cache_write(cache.k, k_t, pos, cfg.cache_update)
-    v = _cache_write(cache.v, v_t, pos, cfg.cache_update)
-    valid = torch.arange(k.shape[1], device=x.device)[None, :] <= pos_b
+    if cross:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        if "bq" in p:
+            q = q + p["bq"]
+        if "q_norm" in p:
+            q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k, v = cache.k, cache.v
+        n = k.shape[1] if cross_len is None else cross_len
+        valid = torch.arange(k.shape[1], device=x.device) < torch.as_tensor(
+            n, device=x.device)
+    else:
+        pos_b = _pos2d(pos, b)
+        q, k_t, v_t = _project_qkv(p, cfg, x, x, pos_b, pos_b)
+        k = _cache_write(cache.k, k_t, pos, cfg.cache_update)
+        v = _cache_write(cache.v, v_t, pos, cfg.cache_update)
+        cache = KVCache(k=k, v=v)
+        valid = torch.arange(k.shape[1], device=x.device)[None, :] <= pos_b
     kv_mask = valid.expand(b, k.shape[1])
     out = _sdpa_full(
         q, k.to(x.dtype), v.to(x.dtype), causal=False, kv_mask=kv_mask
     )
-    return torch.einsum("bshd,hdm->bsm", out, p["wo"]), KVCache(k=k, v=v)
+    return torch.einsum("bshd,hdm->bsm", out, p["wo"]), cache

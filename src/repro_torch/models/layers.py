@@ -93,20 +93,30 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
 
 def apply_rope(
     x: torch.Tensor,           # (B, S, H, D)
-    positions: torch.Tensor,   # (B, S) int: per-slot positions
+    positions: torch.Tensor,   # (B, S) int, or (B, 3, S) for M-RoPE
     theta: float,
     mrope_sections: tuple[int, int, int] | None = None,
 ) -> torch.Tensor:
-    if mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE (qwen2-vl) comes with the port's remaining-configs slice "
-            "(ROADMAP: MoE, MLA, enc-dec and the remaining configs)"
-        )
     d = x.shape[-1]
-    if positions.ndim == 3:
-        positions = positions[:, 0]
     freqs = rope_freqs(d, theta, x.device)                    # (D/2,)
-    angles = positions[..., None].float() * freqs             # (B,S,D/2)
+    if mrope_sections is None:
+        if positions.ndim == 3:
+            positions = positions[:, 0]
+        angles = positions[..., None].float() * freqs         # (B,S,D/2)
+    else:
+        # M-RoPE (Qwen2-VL): the frequency pairs split across the (t, h, w)
+        # position streams: the first ``sections[0]`` pairs take the
+        # temporal id, and so on.  A (B, S) input is three equal streams.
+        if positions.ndim == 2:
+            positions = positions[:, None, :].expand(
+                positions.shape[0], 3, positions.shape[1])
+        sec = mrope_sections
+        assert sum(sec) == d // 2, (sec, d)
+        comp = torch.cat([torch.full((s,), i, dtype=torch.long,
+                                     device=x.device)
+                          for i, s in enumerate(sec)])        # (D/2,) stream
+        pos_sel = positions.float()[:, comp, :]               # (B,D/2,S)
+        angles = pos_sel.transpose(1, 2) * freqs[None, None, :]
     cos = torch.cos(angles)[:, :, None, :]                    # (B,S,1,D/2)
     sin = torch.sin(angles)[:, :, None, :]
     xf1, xf2 = x[..., : d // 2].float(), x[..., d // 2:].float()

@@ -1,23 +1,31 @@
-"""Model facade: init / loss / prefill / decode for token decoders whose
-layers are attention or mamba mixers (dense MLPs, MoE or none).
+"""Model facade: init / loss / prefill / decode / encode for every
+architecture family of the reference.
 
-Port of ``repro/models/model.py``.  Batch format (tokens mode):
-``{"tokens": (B,S) int, "targets": (B,S) int, "loss_mask": (B,S) f32}``
-(``loss`` reads all three; ``prefill`` only the tokens).  ``loss_mask``
+Port of ``repro/models/model.py``.  Batch formats:
+  tokens mode : {"tokens": (B,S) int, "targets": (B,S) int, "loss_mask": (B,S) f32}
+  embeds mode : {"embeds": (B,S,d), "positions": (B,S)|(B,3,S) int, "targets", "loss_mask"}
+  enc-dec     : {"src_embeds": (B,Ss,d), "tgt_tokens": (B,St) int, "targets", "loss_mask"}
+(``loss`` reads all of them; ``prefill`` only the inputs).  ``loss_mask``
 carries the homogenization grain weights: the loss is the weighted token
-mean (sum w·ce / sum w).  Decode: ``decode_step(params, cache, inputs,
-pos)`` processes one token per slot against a fixed-capacity cache (a KV
-cache per attention layer; a conv window and SSM state per mamba layer,
-which ignore ``pos``).  ``capacities`` are the MoE layers' per-expert
-capacities (``models/moe.py::capacity_per_expert``), for the loss and the
-prefill; the decode's dropless MoE takes none.
+mean (sum w·ce / sum w).  An enc-dec model runs its encoder
+(``encode``: ``ENC_PATTERN`` layers, non-causal) on the source embeddings,
+and its decoder layers (``dec_pattern``) cross-attend to that memory.
+
+Decode: ``decode_step(params, cache, inputs, pos)`` processes one token per
+slot against a fixed-capacity cache (a KV cache per attention layer, a
+latent cache per MLA layer, a conv window and SSM state per mamba layer,
+which ignore ``pos``; enc-dec decoder layers add the encoder memory's K/V,
+from ``init_cache(..., cross_seq=)`` filled by the prefill's).  As in the
+reference, the self-attention decode ropes with ``pos``: the ``(B, 3, 1)``
+positions of an embeds-mode decode input are not read.  ``capacities`` are
+the MoE layers' per-expert capacities (``models/moe.py::
+capacity_per_expert``), for the loss and the prefill; the decode's dropless
+MoE takes none.
 
 Params are a nested dict of tensors laid out exactly like the reference's
 pytree (``models/bridge.py`` loads the reference's weights); ``init(seed)``
 draws the port's own random weights with a ``torch.Generator`` on the
 model's device (the two packages' random numbers differ from one seed).
-Enc-dec and embeds-input models raise ``NotImplementedError`` naming the
-port slice that brings them.
 """
 
 from __future__ import annotations
@@ -25,15 +33,31 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
-from .config import ModelConfig
+from .config import LayerSpec, ModelConfig
 from .layers import (
     apply_norm,
+    dtype_of,
     embed_tokens,
     init_embedding,
     init_norm,
     lm_logits,
 )
-from .transformer import apply_stack, check_layer, init_stack, init_stack_cache
+from .transformer import apply_stack, init_stack, init_stack_cache
+
+ENC_PATTERN = (LayerSpec(mixer="attn", mlp="dense"),)
+
+
+def dec_pattern(cfg: ModelConfig) -> tuple[LayerSpec, ...]:
+    if not cfg.is_enc_dec:
+        return cfg.layer_pattern
+    return tuple(LayerSpec(mixer=s.mixer, mlp=s.mlp, cross_attn=True)
+                 for s in cfg.layer_pattern)
+
+
+def _arange_positions(x: torch.Tensor) -> torch.Tensor:
+    """0 .. S-1 for each row of a (B, S, ...) input."""
+    b, s = x.shape[:2]
+    return torch.arange(s, device=x.device)[None].expand(b, s)
 
 
 def take_targets(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -49,13 +73,6 @@ def take_targets(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 class Model:
     def __init__(self, cfg: ModelConfig, device: str | torch.device | None = None):
         self.cfg = cfg.validate()
-        if cfg.is_enc_dec or cfg.input_mode != "tokens":
-            raise NotImplementedError(
-                f"{cfg.name}: enc-dec and embeds-input models come with the "
-                "port's remaining-configs slice (MoE, MLA, enc-dec)"
-            )
-        for spec in cfg.prefix_pattern + cfg.layer_pattern:
-            check_layer(spec)
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------------ init
@@ -63,30 +80,61 @@ class Model:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         cfg = self.cfg
-        return {
+        params = {
             "embed": init_embedding(gen, cfg),
             "final_norm": init_norm(cfg, self.device),
-            "stack": init_stack(gen, cfg),
+            "stack": init_stack(gen, cfg, pattern=dec_pattern(cfg)),
         }
+        if cfg.is_enc_dec:
+            params["enc_stack"] = init_stack(
+                gen, cfg, pattern=ENC_PATTERN, prefix=(),
+                n_periods=cfg.encoder.n_layers)
+            params["enc_final_norm"] = init_norm(cfg, self.device)
+        return params
+
+    # ----------------------------------------------------------------- embed
+    def _embed(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.cfg
+        if cfg.is_enc_dec:
+            x = embed_tokens(params["embed"], batch["tgt_tokens"], cfg)
+            return x, _arange_positions(x)
+        if cfg.input_mode == "embeds":
+            return (batch["embeds"].to(dtype_of(cfg.compute_dtype)),
+                    batch["positions"])
+        x = embed_tokens(params["embed"], batch["tokens"], cfg)
+        return x, _arange_positions(x)
+
+    def encode(self, params, src_embeds: torch.Tensor) -> torch.Tensor:
+        """The encoder memory (B, Ss, d): non-causal ``ENC_PATTERN`` layers
+        over the source embeddings, then the encoder's final norm."""
+        cfg = self.cfg
+        x = src_embeds.to(dtype_of(cfg.compute_dtype))
+        x, _, _ = apply_stack(params["enc_stack"], cfg, x, mode="train",
+                              positions=_arange_positions(x), causal=False,
+                              pattern=ENC_PATTERN, prefix=())
+        return apply_norm(cfg, params["enc_final_norm"], x)
+
+    def _stack(self, params, batch, mode: str, capacities):
+        """The decoder stack over the batch's inputs (with the encoder
+        memory of an enc-dec model): (x, caches, aux)."""
+        cfg = self.cfg
+        x, positions = self._embed(params, batch)
+        memory = mem_pos = None
+        if cfg.is_enc_dec:
+            memory = self.encode(params, batch["src_embeds"])
+            mem_pos = _arange_positions(memory)
+        return apply_stack(params["stack"], cfg, x, mode=mode,
+                           positions=positions, causal=True,
+                           cross_memory=memory, mem_positions=mem_pos,
+                           capacities=capacities, pattern=dec_pattern(cfg))
 
     # ----------------------------------------------------------------- train
-    def _embed(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
-        tokens = batch["tokens"]
-        x = embed_tokens(params["embed"], tokens, self.cfg)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)[
-            None].expand(tokens.shape)
-        return x, positions
-
     def hidden(self, params, batch, capacities=None):
         """Final normed hidden states (pre-LM-head) + aux loss (the MoE
         layers' load-balancing terms; 0 without MoE)."""
-        cfg = self.cfg
-        x, positions = self._embed(params, batch)
-        x, _, aux = apply_stack(params["stack"], cfg, x, mode="train",
-                                positions=positions, causal=True,
-                                capacities=capacities)
+        x, _, aux = self._stack(params, batch, "train", capacities)
         aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
-        return apply_norm(cfg, params["final_norm"], x), aux
+        return apply_norm(self.cfg, params["final_norm"], x), aux
 
     def logits(self, params, batch, capacities=None):
         x, aux = self.hidden(params, batch, capacities)
@@ -137,8 +185,13 @@ class Model:
         return loss, {"loss": loss, "ce": ce, "aux": aux, "tokens": wsum}
 
     # ----------------------------------------------------------------- serve
-    def init_cache(self, batch_size: int, seq: int) -> dict:
-        return init_stack_cache(self.cfg, batch_size, seq, self.device)
+    def init_cache(self, batch_size: int, seq: int,
+                   cross_seq: int | None = None) -> dict:
+        """Zeroed decode caches; ``cross_seq`` sizes an enc-dec model's
+        cross caches (``seq`` by default)."""
+        return init_stack_cache(self.cfg, batch_size, seq, self.device,
+                                pattern=dec_pattern(self.cfg),
+                                cross_seq=cross_seq)
 
     def prefill(self, params, batch, capacities=None,
                 last_pos: int | None = None):
@@ -149,14 +202,11 @@ class Model:
         right; causality keeps every valid position's activations exact, so
         the true last-token logits live at ``last_pos = L - 1``, not -1.  The
         MoE capacities count the pad tokens too, which rank after the real
-        ones, as in the reference."""
+        ones, as in the reference.  An enc-dec model encodes
+        ``batch["src_embeds"]`` first and returns each decoder layer's
+        cross K/V in its caches."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = embed_tokens(params["embed"], tokens, cfg)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)[
-            None].expand(tokens.shape)
-        x, caches, _ = apply_stack(params["stack"], cfg, x, mode="prefill",
-                                   positions=positions, capacities=capacities)
+        x, caches, _ = self._stack(params, batch, "prefill", capacities)
         if last_pos is None:
             x = x[:, -1:]
         else:
@@ -166,18 +216,24 @@ class Model:
 
     def decode_step(self, params, caches, inputs, pos, capacities=None):
         """One-token decode.  ``inputs``: (B,1) tokens (or ``{"tokens":
-        ...}``); ``pos``: scalar or per-slot (B,) positions.  Returns
-        (logits (B,1,V), caches) — the caches are updated in place.  With
-        ``cfg.decode_sample`` the first element is the argmax tokens.
-        ``capacities`` is passed on as the reference passes it; the
-        decode's MoE is dropless and takes none."""
+        ...}``), or for an embeds-input model ``{"embeds": (B,1,d),
+        "positions": (B,1)|(B,3,1)}``; ``pos``: scalar or per-slot (B,)
+        positions.  Returns (logits (B,1,V), caches) — the caches are
+        updated in place.  With ``cfg.decode_sample`` the first element is
+        the argmax tokens.  ``capacities`` is passed on as the reference
+        passes it; the decode's dropless MoE takes none."""
         cfg = self.cfg
-        tok = inputs["tokens"] if isinstance(inputs, dict) else inputs
-        x = embed_tokens(params["embed"], tok, cfg)
-        x, caches, _ = apply_stack(params["stack"], cfg, x, mode="decode",
-                                   caches=caches, pos=torch.as_tensor(
-                                       pos, device=tok.device),
-                                   capacities=capacities)
+        if cfg.input_mode == "embeds" and not cfg.is_enc_dec:
+            x = inputs["embeds"].to(dtype_of(cfg.compute_dtype))
+            positions = inputs["positions"]
+        else:
+            tok = inputs["tokens"] if isinstance(inputs, dict) else inputs
+            x = embed_tokens(params["embed"], tok, cfg)
+            positions = None     # attention ropes with ``pos``
+        x, caches, _ = apply_stack(
+            params["stack"], cfg, x, mode="decode", positions=positions,
+            caches=caches, pos=torch.as_tensor(pos, device=x.device),
+            capacities=capacities, pattern=dec_pattern(cfg))
         x = apply_norm(cfg, params["final_norm"], x)
         logits = lm_logits(params["embed"], x, cfg)
         if cfg.decode_sample:

@@ -35,6 +35,7 @@ from ..core.performance import PerfReport
 from ..device import resolve_device
 from ..kernels.prefill.ops import length_bucket
 from ..models.attention import KVCache
+from ..models.mla import MLACache
 from ..models.model import Model
 
 
@@ -75,12 +76,19 @@ class KVHandoff:
     bucket: int
 
 
+#: Caches whose fields are laid out (batch, sequence, ...): a handoff's
+#: fields cover positions [0, bucket) of the lane.
+_SEQ_CACHES = (KVCache, MLACache)
+
+
 def _put(full, part, batch_axis: int, idx: int) -> None:
     """Write the batch-1 ``part`` cache into lane ``idx`` of ``full``, in
-    place, cast to the engine's cache dtype.  A ``KVCache``'s k and v cover
-    positions [0, bucket) of the lane (seq = max_seq); a ``MambaCache``'s
-    conv window and state have no sequence axis and are written whole."""
-    seq = isinstance(full, KVCache)
+    place, cast to the engine's cache dtype.  A ``KVCache``'s k and v and
+    an ``MLACache``'s latent and rope key cover positions [0, bucket) of
+    the lane (seq = max_seq); a ``MambaCache``'s conv window and state have
+    no sequence axis and are written whole.  The reference finds the same
+    axes by shape (``insert`` of ``repro/serve/engine.py``)."""
+    seq = isinstance(full, _SEQ_CACHES)
     for field in dataclasses.fields(full):
         f, p = getattr(full, field.name), getattr(part, field.name)
         sl = [slice(None)] * f.ndim

@@ -1060,3 +1060,117 @@ def test_moe_models_prefill_on_kernels_matches_plain(dev, arch):
         torch.testing.assert_close(logits, ref, rtol=5e-4, atol=5e-5)
         model.decode_step(params, caches, toks[:, :1], 21)
     assert (pf.LAUNCHES["prefill_flash"], k5.LAUNCHES["ssd_scan"]) == after
+
+
+# ------------------------------------------ the remaining configs' paths
+# K1 on Qwen2-VL's prefill (28 q heads padded to 32 over 4 KV heads: group
+# 8, D 128) and SeamlessM4T's decoder prefill (16 heads, group 1, D 64).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,d,s", [(32, 4, 128, 512), (32, 4, 128, 129),
+                                        (16, 16, 64, 512), (16, 16, 64, 100)])
+def test_prefill_flash_at_the_remaining_configs_groups(dev, hq, hkv, d, s,
+                                                       dtype):
+    q = _rand((hq, s, d), dtype, dev, 1)
+    k, v = _rand((hkv, s, d), dtype, dev, 2), _rand((hkv, s, d), dtype, dev, 3)
+    before = pf.LAUNCHES["prefill_flash"]
+    out, _, _ = pf.prefill_flash(q, k, v, group=hq // hkv)
+    assert pf.LAUNCHES["prefill_flash"] == before + 1
+    ref, _, _ = prefill_ref(q, k, v, group=hq // hkv)
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+# K4 at SeamlessM4T-medium's shapes (16 heads of 64), non-causal: the
+# encoder's self-attention (Sq = Skv = 512) and the decoder's training
+# cross-attention (Sq 64 over Skv 512).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,skv", [(512, 512), (64, 512)])
+def test_flash_attention_at_seamless_shapes_matches_plain(dev, sq, skv,
+                                                          dtype):
+    """Forward, dQ and dK/dV against the plain version and autograd
+    through it: the forward at the dtype's tolerance, the gradients at
+    GRAD_TOL (bf16 2e-2; f32 1e-3 / 1e-4); one launch of each kernel."""
+    q, k, v = _k4_inputs(dev, 1, sq, skv, 16, 16, 64, dtype)
+    dout = _rand(q.shape, dtype, dev, 31)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention(*leaves, causal=False)
+    grads = torch.autograd.grad(out, leaves, dout)
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+        "flash_attention_bwd_dkdv": 1}
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = flash_attention_ref(*ref_leaves, causal=False)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, dout)
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+    grtol, gatol = (1e-3, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
+    for name, g, r in zip("qkv", grads, ref_grads, strict=True):
+        torch.testing.assert_close(g.float(), r.float(), rtol=grtol,
+                                   atol=gatol, msg=f"d{name}")
+
+
+def test_remaining_configs_prefill_on_kernels_matches_plain(dev):
+    """The reduced Qwen2-VL (embeds input, M-RoPE streams that differ) and
+    SeamlessM4T on the card: a prefill launches K1 once a decoder layer
+    (and, for the enc-dec model, K4 once an encoder layer) and matches
+    use_pallas=False."""
+    for arch in ("qwen2-vl-7b", "seamless-m4t-medium"):
+        cfg = get_config(arch, reduced=True)
+        model = Model(dataclasses.replace(cfg, use_pallas=None))
+        plain = Model(dataclasses.replace(cfg, use_pallas=False))
+        params = model.init(0)
+        if cfg.is_enc_dec:
+            batch = {"src_embeds": _rand((1, 40, cfg.d_model), torch.float32,
+                                         dev, 4),
+                     "tgt_tokens": torch.arange(32, device=dev)[None]}
+            n_k4 = cfg.encoder.n_layers
+        else:
+            pos = torch.arange(32, device=dev)[None, None].repeat(1, 3, 1)
+            pos[0, 1, 4:13] = 4 + torch.arange(9, device=dev) // 3
+            pos[0, 2, 4:13] = 4 + torch.arange(9, device=dev) % 3
+            pos[0, 0, 4:13] = 4
+            batch = {"embeds": _rand((1, 32, cfg.d_model), torch.float32,
+                                     dev, 4), "positions": pos}
+            n_k4 = 0
+        before = pf.LAUNCHES["prefill_flash"], fa.LAUNCHES[
+            "flash_attention_fwd"]
+        with torch.no_grad():
+            logits, _ = model.prefill(params, batch, last_pos=20)
+            after = pf.LAUNCHES["prefill_flash"], fa.LAUNCHES[
+                "flash_attention_fwd"]
+            assert (after[0] - before[0], after[1] - before[1]) == (
+                cfg.n_layers, n_k4), arch
+            ref, _ = plain.prefill(params, batch, last_pos=20)
+        torch.testing.assert_close(logits, ref, rtol=5e-4, atol=5e-5,
+                                   msg=arch)
+
+
+def test_mla_handoff_through_put_on_the_card(dev):
+    """The reduced DeepSeek-V2 on the card: MLACache handoffs of shorter
+    buckets (the prefix layer's through lane axis 0) through prefill +
+    insert give the tokens of submit, and launch no kernel."""
+    cfg = get_config("deepseek-v2-236b", reduced=True)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=4.0))
+    model = Model(cfg)
+    params = model.init(0)
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, 255, n)] for n in (5, 11)]
+    from repro_torch.serve import DecodeEngine, Request
+
+    fed = DecodeEngine(model, params, max_batch=2, max_seq=32)
+    a = [Request(i, list(p), 6) for i, p in enumerate(prompts)]
+    for r in a:
+        fed.submit(r)
+    fed.run_until_drained()
+    before = dict(pf.LAUNCHES), dict(fa.LAUNCHES)
+    dec = DecodeEngine(model, params, max_batch=2, max_seq=32)
+    pre = DecodeEngine(model, params, max_batch=2, max_seq=32)
+    b = [Request(i, list(p), 6) for i, p in enumerate(prompts)]
+    for r in b:
+        dec.insert(pre.prefill(r))
+    dec.run_until_drained()
+    assert (dict(pf.LAUNCHES), dict(fa.LAUNCHES)) == before
+    assert [r.out_tokens for r in a] == [r.out_tokens for r in b]

@@ -97,6 +97,34 @@ assert all(len(r.out_tokens) == 3 for r in reqs)
 """
 
 
+_REMAINING = """
+import numpy as np
+import torch
+from repro_torch.cluster import Cluster, ServeJob
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import prefill_batch_specs, train_batch_specs
+from repro_torch.models import Model
+from repro_torch.serve import Request
+
+cfg = get_config("deepseek-v2-236b", reduced=True)
+model = Model(cfg, device="cpu")
+params = model.init(0)
+rng = np.random.default_rng(0)
+reqs = [Request(i, [int(t) for t in rng.integers(0, cfg.vocab_size, 5 + 3 * i)], 3)
+        for i in range(3)]
+rep = Cluster("fast=2.0^prefill,slow=1.0x2^decode", device="cpu").serve(
+    ServeJob(reqs, model=model, params=params, max_seq=32))
+assert rep.metrics["n_handoffs"] == 3, rep.metrics
+for arch in ("qwen2-vl-7b", "seamless-m4t-medium"):
+    cfg = get_config(arch, reduced=True, use_pallas=True)
+    model = Model(cfg, device="cpu")
+    params = model.init(0)
+    loss, _ = model.loss(params, train_batch_specs(cfg, 2, 8, device="cpu"))
+    logits, caches = model.prefill(params, prefill_batch_specs(cfg, 1, 8))
+    assert torch.isfinite(loss) and torch.isfinite(logits).all()
+"""
+
+
 def _run(code: str) -> list[str]:
     # One intra-op thread, as the in-process port tests pin it.
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
@@ -120,6 +148,19 @@ def test_port_train_loads_no_jax_or_repro():
 
 def test_port_mamba_serve_loads_no_jax_or_repro():
     assert _run(_MAMBA) == []
+
+
+def test_port_remaining_configs_load_no_jax_or_repro():
+    """MLA served through the disaggregated fleet, M-RoPE with embeds
+    input and enc-dec trained and prefilled on K1/K4's wrappers."""
+    assert _run(_REMAINING) == []
+
+
+def test_source_scan_covers_the_remaining_configs_modules():
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"models/mla.py", "configs/shapes.py",
+            "configs/deepseek_v2_236b.py", "configs/qwen2_vl_7b.py",
+            "configs/seamless_m4t_medium.py"} <= scanned
 
 
 def test_import_chip_smoke_loads_no_jax_or_repro():

@@ -330,11 +330,15 @@ def test_device_policy_and_later_slices():
     dots = Model(dataclasses.replace(cfg, remat_policy="dots"), device="cpu")
     with pytest.raises(NotImplementedError, match="dots"):
         dots.loss(dots.init(0), batch)
+    # MLA layers run since the remaining-configs slice.
     mla = dataclasses.replace(cfg, layer_pattern=(
         port_config.LayerSpec("mla", "dense"),),
-        mla=port_config.MLAConfig())
-    with pytest.raises(NotImplementedError, match="MLA"):
-        Model(mla, device="cpu")
+        mla=port_config.MLAConfig(q_lora_rank=16, kv_lora_rank=8,
+                                  qk_nope_head_dim=8, qk_rope_head_dim=4,
+                                  v_head_dim=8))
+    m = Model(mla, device="cpu")
+    loss, _ = m.loss(m.init(0), batch)
+    assert torch.isfinite(loss)
 
 
 def test_port_init_is_seeded_and_laid_out_like_reference():
