@@ -226,10 +226,33 @@ Phases, each of which exits non-zero when it fails:
                prefill (which encodes) into a lane of one cache from
                ``init_cache(4, max_seq, cross_seq=512)``, then 16 batched
                decode steps; K4 and K1 held against their plain versions on
-               the inputs they got, tokens/s;
-               phases 16-24 run after phase 14 and before phase 15; each
+               the inputs they got, tokens/s,
+ 25. distribution — the sharded steps (``sharding/apply.py``) on a (1, 1)
+               ("data", "model") mesh over NCCL at world size 1: (a) one
+               ``fsdp_tp`` train step of full-width bf16 Qwen2-1.5B on
+               phase 11's batch (8 grains of one 1024-token sequence)
+               against ``make_train_step`` from the same init, loss,
+               parameters and moments bitwise equal (SHA-256 per leaf),
+               seconds and peaks of both; (b) a prefill of four prompts
+               (K1 once a layer) and 16 decode steps, sharded against
+               unsharded, logits and caches bitwise equal, tokens equal;
+               (c) phase 11's f32 grain under ``remat_policy="dots"``
+               against the default policy, within the f32 tolerance, both
+               peaks; (e) two HDP steps of phase 11's fleet reading
+               ``MemmapSource`` grains from a ``.npy`` the phase writes,
+               each grain the file's window; then, in processes of their
+               own and all at once, (d) the dry run (``launch/dryrun.py``,
+               a fake process group of 256 ranks) of Qwen2-1.5B at
+               decode_32k and of (a)'s step on one device, its predicted
+               peak beside (a)'s measured one, (f) the train CLI under
+               ``--tuned``, and (g) the four examples
+               (``chip_smoke.py --example <name>``: the example's report,
+               K4's forward, dQ and dK/dV against their plain versions on
+               the inputs the example gave K4, at TOL / GRAD_TOL, then its
+               kernels' launches);
+               phases 16-25 run after phase 14 and before phase 15; each
                frees its model at its end and prints its peak memory, and
-               phases 22-24 their seconds,
+               phases 22-25 their seconds,
  15. device  — each kernel's device time (the profiler's kernel durations)
                beside PyTorch's call for the same function: K1 and SDPA at
                phase 3's sweep and in f32 at phase 4's shape, K2 and
@@ -249,7 +272,7 @@ Phases, each of which exits non-zero when it fails:
                began, and CUPTI's stamps read early, the more so the
                longer a process has loaded the card.
 
-Phases 4, 5, 7, 8, 9, 11, 13, 14, 16, 17 and 19-24 are the main path:
+Phases 4, 5, 7, 8, 9, 11, 13, 14, 16, 17 and 19-25 are the main path:
 the kernels' launch counts are set to 0 just before each of their runs and
 read just after it; the ``kernels`` line gives each kernel's launches in all
 and by run.  A line before the card's holds the whole run's wall time.  The
@@ -271,8 +294,10 @@ import hashlib
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -370,8 +395,34 @@ QWEN2VL_F32_LAYERS = 4
 #: The remaining configs' runs: four prompts of phase 5's lengths, 16
 #: decode steps each, batched in one cache.
 REMAINING_LENGTHS = (20, 90, 300, 500)
+#: The port's examples (``src/repro_torch/examples``), run by phase 25 in
+#: processes of their own (``chip_smoke.py --example <name>``).
+EXAMPLES = ("quickstart", "serve_hetero", "train_hetero", "moe_homogenized")
+# Phase 25's dry run of (a)'s step: the sharded train step of full-width
+# Qwen2-1.5B under fsdp_tp at (a)'s batch on a (1, 1) mesh, in a fake
+# process group; argv: global batch, sequence length.  A JSON last line.
+DRY_RUN_ONE = """
+import dataclasses, json, sys
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.launch.dryrun import measure
+from repro_torch.launch.mesh import HW, debug_mesh_shape
+shape = dataclasses.replace(SHAPES["train_4k"], global_batch=int(sys.argv[1]),
+                            seq_len=int(sys.argv[2]))
+m = measure(get_config("qwen2-1.5b", sharding_policy="fsdp_tp"), shape,
+            debug_mesh_shape(1, 1))
+m["compute_s"] = m["flops"] / HW["peak_flops_bf16"]
+m["memory_s"] = m["bytes"] / HW["hbm_bw"]
+print(json.dumps(m))
+"""
 SEAMLESS_LENGTHS = (5, 20, 40, 90)
 DECODE_STEPS = 16
+
+
+def free_port() -> int:
+    """A free TCP port on the loopback interface."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def fail(msg: str) -> None:
@@ -3172,6 +3223,355 @@ def main() -> int:
     del model, params, srcs, cache, seen1, seen4, lg, c
     peak("seamless-serve")
 
+    # ------------------------------------- 25. distribution (main path)
+    # The sharded steps of sharding/apply.py on a (1, 1) ("data", "model")
+    # mesh over NCCL at world size 1, where every collective is the
+    # identity: each sharded step must give the unsharded step's bits.
+    import torch.distributed as dist
+
+    from repro_torch.data import MemmapSource
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.sharding import Policy
+    from repro_torch.sharding.apply import (
+        distribute_tree,
+        local_tree,
+        make_sharded_decode_step,
+        make_sharded_prefill_step,
+        make_sharded_train_step,
+    )
+    from repro_torch.train import (
+        HDPConfig,
+        HDPTrainer,
+        Pod,
+        TrainState,
+        init_train_state,
+        make_decode_step,
+        make_prefill_step,
+        make_train_step,
+    )
+
+    phase_t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    mesh = make_debug_mesh(1, 1, device_type="cuda")
+    cfgd = dataclasses.replace(get_config("qwen2-1.5b"),
+                               sharding_policy="fsdp_tp")
+    model = Model(cfgd)
+    policy = Policy(cfgd, mesh)
+    spec1 = GrainSpec(1, TRAIN_SEQ, cfgd.vocab_size)
+    batch = batch_from_grains(SyntheticSource(spec1, seed=SEED), 0,
+                              list(range(TRAIN_GRAINS)), spec1, device=dev)
+
+    # 25.1 (a) One train step of phase 11's batch (8 grains of one
+    # 1024-token sequence), unsharded then sharded, each from init(SEED).
+    def train_once(sharded: bool) -> dict:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(model.init(SEED))
+        if sharded:
+            state = TrainState(
+                params=distribute_tree(state.params,
+                                       policy.param_specs(state.params), mesh),
+                opt=distribute_tree(state.opt, policy.opt_specs(state.params),
+                                    mesh))
+            step = make_sharded_train_step(model, mesh)
+            b = distribute_tree(batch, policy.batch_specs(batch), mesh)
+        else:
+            step, b = make_train_step(model), batch
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        path = "dist_train" if sharded else "dist_train_unsharded"
+        check_k4_launches(path, 1)
+        out = {"loss": float(met["loss"]), "grad_norm": float(
+            met["grad_norm"]), "s": secs,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        for key, tree in (("params", state.params), ("m", state.opt["m"]),
+                          ("v", state.opt["v"])):
+            out[key] = leaf_digests(torch, tree_leaves, local_tree(tree))
+        del state, met
+        return out
+
+    plain_run = train_once(False)
+    shard_run = train_once(True)
+    for key in ("loss", "grad_norm", "params", "m", "v"):
+        if shard_run[key] != plain_run[key]:
+            fail(f"distribution: the sharded train step's {key} differs from "
+                 f"the unsharded step's")
+    print(f"[distribution] {card}: one train step of bf16 {cfgd.name} "
+          f"(fsdp_tp on a (1, 1) mesh, NCCL at world size 1), batch "
+          f"{tuple(batch['tokens'].shape)}: loss {shard_run['loss']:.6f} and "
+          f"grad norm {shard_run['grad_norm']:.6f} equal, all "
+          f"{len(shard_run['params'])} parameter leaves and both moments "
+          f"bitwise equal (SHA-256); step s with the wait: sharded "
+          f"{shard_run['s']:.3f}, unsharded {plain_run['s']:.3f}; peak memory "
+          f"sharded {shard_run['peak_gb']:.2f} GB, unsharded "
+          f"{plain_run['peak_gb']:.2f} GB (torch.cuda.max_memory_allocated); "
+          f"K4 launches {json.dumps(by_path['dist_train'])}", flush=True)
+
+    # 25.2 (b) Prefill of 4 prompts of REMAINING_LENGTHS (right-padded to
+    # 512), then DECODE_STEPS greedy decode steps (each row from its last
+    # prompt token), sharded against unsharded.
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.init(SEED)
+    sparams = distribute_tree(params, policy.param_specs(params), mesh)
+    prng = np.random.default_rng(SEED)
+    bucket = 512
+    tokens = torch.zeros((len(REMAINING_LENGTHS), bucket), dtype=torch.int32,
+                         device=dev)
+    for i, n in enumerate(REMAINING_LENGTHS):
+        tokens[i, :n] = torch.as_tensor(prng.integers(0, cfgd.vocab_size, n),
+                                        dtype=torch.int32, device=dev)
+    pbatch = {"tokens": tokens}
+    zero_counts()
+    with keep_inputs(ops, "_prefill_call") as seen:
+        lg_u, c_u = make_prefill_step(model)(params, pbatch)
+        torch.cuda.synchronize()
+    read_counts("dist_prefill_unsharded")
+    zero_counts()
+    lg_s, c_s = make_sharded_prefill_step(model, mesh)(
+        sparams, distribute_tree(pbatch, policy.batch_specs(pbatch), mesh))
+    torch.cuda.synchronize()
+    k1_dist = read_counts("dist_prefill")["prefill_flash"]
+    if k1_dist != N_LAYERS:
+        fail(f"distribution: the sharded prefill launched K1 {k1_dist} "
+             f"times, expected {N_LAYERS}")
+    if not torch.equal(lg_s.to_local(), lg_u) or leaf_digests(
+            torch, tree_leaves, local_tree(c_s)) != leaf_digests(
+            torch, tree_leaves, c_u):
+        fail("distribution: the sharded prefill's logits or caches differ")
+    k1_err = max(k1_err, k1_on_seen("distribution", seen))
+
+    def long_cache(caches):
+        big = model.init_cache(len(REMAINING_LENGTHS), 2 * bucket)
+        for b_leaf, s_leaf in zip(tree_leaves(big), tree_leaves(caches),
+                                  strict=True):
+            b_leaf.narrow(2, 0, bucket).copy_(s_leaf)
+        return big
+
+    caches_u = long_cache(c_u)
+    caches_s = distribute_tree(long_cache(local_tree(c_s)),
+                               policy.cache_specs(caches_u), mesh)
+    del c_u, c_s, lg_u, lg_s
+    last = torch.as_tensor([n - 1 for n in REMAINING_LENGTHS], device=dev)
+    inp = tokens[torch.arange(len(REMAINING_LENGTHS), device=dev), last][:,
+                                                                          None]
+    dstep, sdstep = make_decode_step(model), make_sharded_decode_step(model,
+                                                                      mesh)
+    toks_u, toks_s = [], []
+    inp_u = inp_s = inp
+    t0 = time.perf_counter()
+    for i in range(DECODE_STEPS):
+        pos = (last + i).to(torch.int32)
+        lg_u, caches_u = dstep(params, caches_u, inp_u, pos)
+        lg_s, caches_s = sdstep(
+            sparams, caches_s, distribute_tree(inp_s, policy.batch_specs(
+                inp_s), mesh), distribute_tree(pos, policy.batch_specs(pos),
+                                               mesh))
+        lg_s = lg_s.to_local()
+        if not torch.equal(lg_s, lg_u):
+            fail(f"distribution: decode step {i}: the sharded logits differ")
+        inp_u = lg_u[:, 0, :cfgd.vocab_size].argmax(-1, keepdim=True).to(
+            torch.int32)
+        inp_s = lg_s[:, 0, :cfgd.vocab_size].argmax(-1, keepdim=True).to(
+            torch.int32)
+        toks_u.append(inp_u[:, 0].tolist())
+        toks_s.append(inp_s[:, 0].tolist())
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if toks_s != toks_u or leaf_digests(torch, tree_leaves, local_tree(
+            caches_s)) != leaf_digests(torch, tree_leaves, caches_u):
+        fail("distribution: the sharded decode's tokens or caches differ")
+    print(f"[distribution] {card}: prefill of {len(REMAINING_LENGTHS)} "
+          f"prompts of {list(REMAINING_LENGTHS)} tokens (padded to {bucket}; "
+          f"K1 {k1_dist} launches) and {DECODE_STEPS} decode steps, sharded "
+          f"against unsharded: logits and caches bitwise equal, tokens equal "
+          f"(first {[t[:4] for t in zip(*toks_s)]}); both decodes "
+          f"{decode_s:.3f} s", flush=True)
+    del params, sparams, caches_u, caches_s, lg_u, lg_s, seen
+
+    # 25.3 (c) Phase 11's one f32 grain again under remat_policy="dots"
+    # against the default policy.
+    cfg32 = get_config("qwen2-1.5b", param_dtype="float32",
+                       compute_dtype="float32")
+    spec32 = GrainSpec(1, TRAIN_SEQ, cfg32.vocab_size)
+    gbatch = batch_from_grains(SyntheticSource(spec32, seed=SEED), 0, [0],
+                               spec32, device=dev)
+    remat = {}
+    for pol_name in ("nothing", "dots"):
+        m32 = Model(dataclasses.replace(cfg32, remat_policy=pol_name))
+        gc.collect()
+        torch.cuda.empty_cache()
+        p32 = m32.init(SEED)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        (loss, _), grads = make_grain_grad_fn(m32)(p32, gbatch)
+        torch.cuda.synchronize()
+        check_k4_launches(f"dist_remat_{pol_name}", 1)
+        remat[pol_name] = (loss, grads,
+                           torch.cuda.max_memory_allocated() / 1e9)
+        del p32, m32
+    (l_n, g_n, pk_n), (l_d, g_d, pk_d) = remat["nothing"], remat["dots"]
+    check_close(torch, "dots loss", l_d, l_n, "float32")
+    for i, (a, b) in enumerate(zip(tree_leaves(g_d), tree_leaves(g_n),
+                                   strict=True)):
+        check_close(torch, f"dots gradient leaf {i}", a, b, "float32")
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(g_d),
+                                                  tree_leaves(g_n)))
+    print(f"[distribution] {card}: remat_policy='dots' on one f32 grain of "
+          f"{cfg32.name}: loss {float(l_d):.6f} vs {float(l_n):.6f} "
+          f"('nothing'), gradients within the f32 tolerance (bitwise equal: "
+          f"{same}); peak memory dots {pk_d:.2f} GB, nothing {pk_n:.2f} GB",
+          flush=True)
+    del remat, g_n, g_d, l_n, l_d, gbatch
+
+    # 25.4 (e) MemmapSource: two HDP steps of phase 11's fleet, each grain
+    # read from a .npy of tokens the phase writes.
+    class _Served(MemmapSource):
+        """Keeps every grain it serves."""
+
+        def __init__(self, path, spec):
+            super().__init__(path, spec)
+            self.served = {}
+
+        def grain(self, step, gid):
+            out = super().grain(step, gid)
+            self.served[(step, gid)] = out
+            return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tokens.npy")
+        stream = np.random.default_rng(SEED).integers(
+            0, cfgd.vocab_size, 64 * TRAIN_SEQ + 1).astype(np.int32)
+        np.save(path, stream)
+        fleet = FleetSpec.parse("4:3:2:1", prefix="pod")
+        trainer = HDPTrainer(model, [Pod(w.name, w.perf)
+                                     for w in fleet.workers],
+                             HDPConfig(total_grains=TRAIN_GRAINS,
+                                       grain_spec=spec1, seed=SEED))
+        trainer.source = _Served(path, spec1)
+        zero_counts()
+        t0 = time.perf_counter()
+        history = trainer.run(2)
+        torch.cuda.synchronize()
+        mm_s = time.perf_counter() - t0
+        check_k4_launches("dist_memmap", 2 * TRAIN_GRAINS)
+        served = trainer.source.served
+        del trainer
+    n_win = (len(stream) - 1) // TRAIN_SEQ
+    for (step, gid), g in served.items():
+        w = (step * 1_000_003 + gid) % n_win
+        if not np.array_equal(g[0], stream[w * TRAIN_SEQ:
+                                           (w + 1) * TRAIN_SEQ + 1]):
+            fail(f"distribution: memmap grain ({step}, {gid}) is not the "
+                 f"file's window {w}")
+    losses = [h["loss"] for h in history]
+    if sorted(served) != [(s, g) for s in range(2)
+                          for g in range(TRAIN_GRAINS)] or not all(
+            np.isfinite(x) for x in losses):
+        fail(f"distribution: memmap run served {sorted(served)}, losses "
+             f"{losses}")
+    print(f"[distribution] {card}: MemmapSource, {fleet}: 2 HDP steps of "
+          f"{TRAIN_GRAINS} grains of bf16 {cfgd.name} at seq {TRAIN_SEQ}, "
+          f"every grain the file's window ({len(served)} grains from "
+          f"{n_win} windows of a {stream.nbytes / 1e6:.3f} MB .npy): losses "
+          f"{[round(x, 6) for x in losses]}, {mm_s:.3f} s wall", flush=True)
+    del model, batch
+    peak("distribution")
+
+    # 25.5 (d, f, g) In processes of their own, all at once: the dry run
+    # (a fake process group must not share a process with NCCL) at
+    # decode_32k on the 256-device mesh and of (a)'s step on one device;
+    # the train CLI under --tuned; the four examples.
+    env = dict(os.environ, PYTHONPATH=SRC)
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = {
+            "dryrun": [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", "qwen2-1.5b", "--shape", "decode_32k",
+                       "--mesh", "single", "--out", tmp],
+            "dryrun_one": [sys.executable, "-c", DRY_RUN_ONE,
+                           str(TRAIN_GRAINS), str(TRAIN_SEQ)],
+            "tuned": [sys.executable, "-m", "repro_torch.launch.train",
+                      "--tuned", "--mode", "hdp", "--steps", "2", "--seq",
+                      "64", "--grains", "4"],
+        }
+        for name in EXAMPLES:
+            jobs[f"example_{name}"] = [sys.executable, os.path.abspath(
+                __file__), "--example", name]
+        t0 = time.perf_counter()
+        procs = {name: subprocess.Popen(cmd, cwd=HERE, env=env, text=True,
+                                        stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE)
+                 for name, cmd in jobs.items()}
+        outs = {}
+        try:
+            for name, p in procs.items():
+                outs[name] = p.communicate(timeout=600)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        sub_s = time.perf_counter() - t0
+        for name, p in procs.items():
+            if p.returncode != 0:
+                fail(f"distribution: {' '.join(jobs[name][1:])} exited "
+                     f"{p.returncode}: {outs[name][1][-3000:]}")
+        with open(os.path.join(
+                tmp, "qwen2-1.5b__decode_32k__single.json")) as f:
+            dry = json.load(f)
+    line = next(ln for ln in outs["dryrun"][0].splitlines()
+                if ln.startswith("  ok "))
+    print(f"[distribution] dry run {' '.join(jobs['dryrun'][3:-2])}: "
+          f"{line.split('ok', 1)[1].strip()}", flush=True)
+    if dry["n_devices"] != 256 or dry["status"] != "run":
+        fail(f"distribution: dry run {dry['status']} on "
+             f"{dry.get('n_devices')} devices")
+    dry_one = json.loads(outs["dryrun_one"][0].splitlines()[-1])
+    print(f"[distribution] {card}: the dry run of (a)'s step on one device "
+          f"({dry_one['run_s']:.1f} s): predicted peak "
+          f"{dry_one['peak_bytes'] / 1e9:.2f} GB on the plain path "
+          f"(chunked attention) against (a)'s measured "
+          f"{shard_run['peak_gb']:.2f} GB on the kernel path (K4), two "
+          f"programs; predicted step flops {dry_one['flops']:.4e}, compute "
+          f"term {dry_one['compute_s']:.4f} s, memory term "
+          f"{dry_one['memory_s']:.4f} s against the measured "
+          f"{shard_run['s']:.3f} s", flush=True)
+    tuned = [ln for ln in outs["tuned"][0].splitlines()
+             if ln.startswith("tuned env profile applied:")]
+    if not tuned:
+        fail("distribution: --tuned printed no applied keys")
+    print(f"[distribution] train CLI --tuned: {tuned[0]}", flush=True)
+    for name in EXAMPLES:
+        lines = outs[f"example_{name}"][0].splitlines()
+        last = json.loads(lines[-1])
+        by_path[f"example_{name}"] = counts = last["launches"]
+        for ln in lines[:-1]:
+            print(f"[example {name}] {ln}", flush=True)
+        print(f"[example {name}] launches {json.dumps(counts)}", flush=True)
+        k4_runs = sum(counts[n] for n in K4_KERNELS)
+        if k4_runs and not last["k4_cases"]:
+            fail(f"distribution: example {name} launched K4 {k4_runs} times "
+                 f"and kept none of its inputs")
+        for part, e in last["k4_err"].items():
+            k4_err[part] = max(k4_err[part], e)
+    # serve_hetero's requests enter through submit (prompts fed through
+    # decode steps), as the reference's: it runs no prefill and no kernel.
+    for name, kernel in (("quickstart", "matmul"),
+                         ("train_hetero", "flash_attention_fwd")):
+        if not by_path[f"example_{name}"][kernel]:
+            fail(f"distribution: example {name} launched no {kernel}")
+    print(f"[distribution] subprocesses (two dry runs, the --tuned CLI, four "
+          f"examples, together) {sub_s:.1f} s; phase "
+          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+    dist.destroy_process_group()
+
     # ------------------------------------------------------ 15. device times
     # Each kernel's device time (the profiler's kernel durations, which
     # leave out the host's gaps between launches) beside PyTorch's call for
@@ -3342,8 +3742,74 @@ def main() -> int:
     return 0
 
 
+def run_example(name: str) -> int:
+    """Run the port's example ``name`` on the card; its report, then K4's
+    forward and backward against their plain versions on the first inputs
+    of each shape the example gave it, then a last line with its kernels'
+    launches and K4's errors."""
+    import importlib
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.mamba_scan import mamba_scan as k5
+    from repro_torch.kernels.matmul import matmul as mm
+    from repro_torch.kernels.prefill import prefill as pf
+
+    counters = (pf.LAUNCHES, mm.LAUNCHES, fa.LAUNCHES, k5.LAUNCHES)
+    module = importlib.import_module(f"repro_torch.examples.{name}")
+    for c in counters:
+        for key in c:
+            c[key] = 0
+    t0 = time.perf_counter()
+    with keep_inputs(flash_ops, "_flash_call") as seen:
+        module.main([])
+    torch.cuda.synchronize()
+    print(f"{time.perf_counter() - t0:.3f} s wall on {card_line()}")
+    launches = {key: n for c in counters for key, n in c.items()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k4_err = {"fwd": 0.0, "dq": 0.0, "dkdv": 0.0}
+    for (qs, ks, dt), ((q, k, v), kw) in sorted(seen.items(),
+                                                 key=lambda kv: kv[0][0]):
+        dname = str(dt)[6:]
+        case = (f"K4 on example {name} inputs q {qs} k {ks} "
+                f"{'causal' if kw['causal'] else 'full'} {dname}")
+        dout = torch.randn(qs, generator=gen, device="cuda",
+                           dtype=torch.float32).to(dt)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out = fa.flash_attention(*leaves, **kw)
+        grads = torch.autograd.grad(out, leaves, dout)
+        torch.cuda.synchronize()
+        refs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        ref = flash_attention_ref(*refs, **kw)
+        ref_grads = torch.autograd.grad(ref, refs, dout)
+        errs = {"fwd": check_close(torch, f"{case} out", out, ref, dname),
+                "dq": check_close(torch, f"{case} dq", grads[0],
+                                  ref_grads[0], dname, GRAD_TOL),
+                "dkdv": max(check_close(torch, f"{case} d{which}", g, r,
+                                        dname, GRAD_TOL)
+                            for which, g, r in zip("kv", grads[1:],
+                                                   ref_grads[1:],
+                                                   strict=True))}
+        print(f"{case}: max abs err out {errs['fwd']:.3e}, dq "
+              f"{errs['dq']:.3e}, dk/dv {errs['dkdv']:.3e}")
+        k4_err = {part: max(k4_err[part], e) for part, e in errs.items()}
+    print(json.dumps({"launches": launches, "k4_cases": len(seen),
+                      "k4_err": k4_err}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--device-times"]:
         print(json.dumps(device_times()))
         sys.exit(0)
+    if sys.argv[1:2] == ["--example"] and len(sys.argv) == 3:
+        sys.exit(run_example(sys.argv[2]))
     sys.exit(main())

@@ -1,14 +1,15 @@
-"""Assigned input shapes and the functions that make concrete batches.
+"""Assigned input shapes, the functions that make batches, and the dry
+run's abstract inputs.
 
-Port of the concrete half of ``repro/configs/shapes.py``: the four shapes
-per architecture, which cells run, and the functions that make real
-batches for smoke runs and the embeds / enc-dec branch of
-``launch/train.py``.  The data are drawn from numpy's ``default_rng(0)``
-exactly as the reference's ``_arr`` draws them (every call starts a new
-generator, so ``tgt_tokens`` and ``targets`` of one batch are the same
-draw), so both packages build the same arrays.  The abstract half
-(``ShapeDtypeStruct`` specs and ``input_specs``) belongs with the dry-run
-tooling.
+Port of ``repro/configs/shapes.py``: the four shapes per architecture,
+which cells run, and the functions that make batches for smoke runs and
+the embeds / enc-dec branch of ``launch/train.py``.  The data are drawn
+from numpy's ``default_rng(0)`` exactly as the reference's ``_arr`` draws
+them (every call starts a new generator, so ``tgt_tokens`` and
+``targets`` of one batch are the same draw), so both packages build the
+same arrays.  On the meta device the same builders give tensors of the
+same shapes and dtypes with nothing allocated and nothing drawn: the
+reference's ``ShapeDtypeStruct``s (``input_specs``).
 
 Four shapes per architecture (40 cells):
   train_4k     seq 4096  x global_batch 256   -> train_step
@@ -27,6 +28,7 @@ cells use a 4096-frame encoder memory beside the seq_len self-attn cache.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -67,6 +69,8 @@ def cell_status(cfg: ModelConfig, shape: ShapeSpec) -> str:
 
 def _arr(shape, dtype: torch.dtype, device, fill: str = "zeros",
          vocab: int | None = None) -> torch.Tensor:
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     if fill == "tokens":
         rng = np.random.default_rng(0)
         return torch.as_tensor(rng.integers(0, vocab, shape)).to(
@@ -145,3 +149,19 @@ def decode_input_specs(cfg: ModelConfig, batch: int, seq: int, device=None):
         inputs = _arr((batch, 1), i32, model.device, "tokens", cfg.vocab_size)
     pos = torch.tensor(seq - 1, dtype=i32, device=model.device)
     return inputs, caches, pos
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec,
+                device="meta") -> dict[str, Any]:
+    """All inputs for the shape's step kind, on the meta device by default
+    (nothing allocated): ``{"batch"}`` for train and prefill, ``{"inputs",
+    "caches", "pos"}`` for decode."""
+    if shape.kind == "train":
+        return {"batch": train_batch_specs(cfg, shape.global_batch,
+                                           shape.seq_len, device)}
+    if shape.kind == "prefill":
+        return {"batch": prefill_batch_specs(cfg, shape.global_batch,
+                                             shape.seq_len, device)}
+    inputs, caches, pos = decode_input_specs(cfg, shape.global_batch,
+                                             shape.seq_len, device)
+    return {"inputs": inputs, "caches": caches, "pos": pos}

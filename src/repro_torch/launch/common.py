@@ -4,9 +4,8 @@ Port of ``repro/launch/common.py`` with the same flags.  ``--devices`` is
 the number of CUDA devices the wall-clock backend round-robins over
 (``make_backend``); the XLA host-device pinning it drives in the reference
 has no counterpart under PyTorch, so nothing is written to the environment.
-The tuned env profile (``launch/env.py``) comes with a later port slice:
-asking for it raises ``NotImplementedError``.  The reference's description
-follows.
+``--tuned`` applies the port's tuned env profile (``launch/env.py``).  The
+reference's description follows.
 
 The train and serve CLIs grew the same three fragments independently — a
 ``--fleet`` flag whose legacy alias (``--pods`` / ``--replicas``) predates
@@ -18,6 +17,7 @@ the FleetSpec grammar, a ``--tuned``/``REPRO_TUNED`` env-profile apply, and
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import warnings
 
@@ -120,12 +120,16 @@ def export_trace(tracer, args: argparse.Namespace) -> None:
              else " (open at https://ui.perfetto.dev)"))
 
 
-def apply_env(args: argparse.Namespace) -> None:
-    """Apply launcher environment knobs after arg parsing.  ``--tuned`` /
-    ``REPRO_TUNED=1`` (the tuned-substrate profile of ``launch/env.py``)
-    comes with the port's distribution-and-tooling slice."""
-    if getattr(args, "tuned", False) or os.environ.get("REPRO_TUNED") == "1":
-        raise NotImplementedError(
-            "the tuned env profile (launch/env.py) comes with the port's "
-            "distribution-and-tooling slice"
-        )
+def apply_env(args: argparse.Namespace) -> dict[str, str]:
+    """Apply launcher environment knobs after arg parsing: ``--tuned`` /
+    ``REPRO_TUNED=1`` applies the tuned-substrate profile of
+    ``launch/env.py`` and prints the keys it set.  Returns them (empty
+    without the profile)."""
+    if not (getattr(args, "tuned", False)
+            or os.environ.get("REPRO_TUNED") == "1"):
+        return {}
+    from .env import apply as _apply_tuned
+
+    applied = _apply_tuned()
+    print(f"tuned env profile applied: {json.dumps(applied, sort_keys=True)}")
+    return applied

@@ -5,7 +5,8 @@ Port of ``repro/launch/serve.py`` with the same flags, plus ``--device``
 (default ``cuda``; ``--device cpu`` runs the port's plain kernel versions on
 the host).  ``--backend wallclock`` measures engine steps on the card
 (``--devices`` of them, all visible by default) and, as in the reference,
-refuses a scenario; ``--tuned`` raises until the port slice that brings it.
+refuses a scenario; ``--tuned`` applies the port's env profile
+(``launch/env.py``).
 The reference launcher's deprecated pre-Cluster shims are not ported.
 
 ``--fleet`` is the ``FleetSpec`` grammar (``[NAME=]PERFxSLOTS[@PROFILE]``,
@@ -111,8 +112,9 @@ def main() -> None:
     add_trace_args(ap)
     ap.add_argument("--tuned", action="store_true",
                     help="apply the tuned-substrate env profile "
-                         "(launch/env.py; LD_PRELOAD needs "
-                         "scripts/tuned_run.sh)")
+                         "(launch/env.py; LD_PRELOAD needs a wrapper that "
+                         "evals 'python -m repro_torch.launch.env "
+                         "--export')")
     ap.add_argument("--device", default=None,
                     help="torch device the engines run on (default: cuda; "
                          "'cpu' runs the kernels' plain versions)")

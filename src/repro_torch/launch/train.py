@@ -3,8 +3,9 @@
 Port of ``repro/launch/train.py`` with the same flags, plus ``--device``
 (default ``cuda``; ``--device cpu`` runs the kernels' plain versions on the
 host).  ``--backend wallclock`` times each grain's real gradient work on
-the card (``--devices`` of them, all visible by default); ``--tuned`` raises
-until the port slice that brings it.  The reference's description follows.
+the card (``--devices`` of them, all visible by default); ``--tuned``
+applies the port's env profile (``launch/env.py``).  The reference's
+description follows.
 
 Two modes:
   --mode single   one-worker training of an assigned arch's *reduced* config
@@ -83,8 +84,9 @@ def main() -> None:
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--tuned", action="store_true",
                     help="apply the tuned-substrate env profile "
-                         "(launch/env.py; LD_PRELOAD needs "
-                         "scripts/tuned_run.sh)")
+                         "(launch/env.py; LD_PRELOAD needs a wrapper that "
+                         "evals 'python -m repro_torch.launch.env "
+                         "--export')")
     ap.add_argument("--device", default=None,
                     help="torch device the model trains on (default: cuda; "
                          "'cpu' runs the kernels' plain versions)")

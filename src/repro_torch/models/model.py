@@ -25,7 +25,12 @@ MoE takes none.
 Params are a nested dict of tensors laid out exactly like the reference's
 pytree (``models/bridge.py`` loads the reference's weights); ``init(seed)``
 draws the port's own random weights with a ``torch.Generator`` on the
-model's device (the two packages' random numbers differ from one seed).
+model's device (the two packages' random numbers differ from one seed);
+``abstract_params`` gives the same tree on the meta device.
+
+A sharded step (``sharding/apply.py``) passes ``dist``, its batch's split
+over the data ranks, to ``loss`` and ``prefill``: the batch is then this
+rank's rows of the global batch.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
+from ..tree import tree_map
 from .config import LayerSpec, ModelConfig
 from .layers import (
     apply_norm,
@@ -92,6 +98,16 @@ class Model:
             params["enc_final_norm"] = init_norm(cfg, self.device)
         return params
 
+    def abstract_params(self, seed: int = 0) -> dict:
+        """The tree ``init`` gives (paths, shapes, dtypes) on the meta
+        device, with nothing allocated: ``init`` runs on fake tensors."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        with FakeTensorMode():
+            fake = Model(self.cfg, device="cpu").init(seed)
+        return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device="meta"), fake)
+
     # ----------------------------------------------------------------- embed
     def _embed(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
@@ -114,7 +130,7 @@ class Model:
                               pattern=ENC_PATTERN, prefix=())
         return apply_norm(cfg, params["enc_final_norm"], x)
 
-    def _stack(self, params, batch, mode: str, capacities):
+    def _stack(self, params, batch, mode: str, capacities, dist=None):
         """The decoder stack over the batch's inputs (with the encoder
         memory of an enc-dec model): (x, caches, aux)."""
         cfg = self.cfg
@@ -126,18 +142,19 @@ class Model:
         return apply_stack(params["stack"], cfg, x, mode=mode,
                            positions=positions, causal=True,
                            cross_memory=memory, mem_positions=mem_pos,
-                           capacities=capacities, pattern=dec_pattern(cfg))
+                           capacities=capacities, pattern=dec_pattern(cfg),
+                           dist=dist)
 
     # ----------------------------------------------------------------- train
-    def hidden(self, params, batch, capacities=None):
+    def hidden(self, params, batch, capacities=None, dist=None):
         """Final normed hidden states (pre-LM-head) + aux loss (the MoE
         layers' load-balancing terms; 0 without MoE)."""
-        x, _, aux = self._stack(params, batch, "train", capacities)
+        x, _, aux = self._stack(params, batch, "train", capacities, dist)
         aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
         return apply_norm(self.cfg, params["final_norm"], x), aux
 
-    def logits(self, params, batch, capacities=None):
-        x, aux = self.hidden(params, batch, capacities)
+    def logits(self, params, batch, capacities=None, dist=None):
+        x, aux = self.hidden(params, batch, capacities, dist)
         return lm_logits(params["embed"], x, self.cfg), aux
 
     def _chunked_ce(self, params, x, targets, w) -> torch.Tensor:
@@ -168,19 +185,29 @@ class Model:
             total = total + torch.sum((lse - tlog) * w[:, i:i + c])
         return total
 
-    def loss(self, params, batch, capacities=None):
+    def loss(self, params, batch, capacities=None, dist=None):
         """(loss, metrics): the loss_mask-weighted token mean of the
-        cross-entropy (plus the aux term), as the reference computes it."""
+        cross-entropy (plus the aux term), as the reference computes it.
+
+        With ``dist`` the batch is this rank's rows: the mean divides by
+        the global weight sum, and the aux term (of the global token set)
+        enters 1/n of it, so the n data ranks' losses sum to the global
+        batch's loss, and their gradients to its gradient."""
         w = batch["loss_mask"].float()
-        wsum = torch.clamp(torch.sum(w), min=1.0)
+        wsum = torch.sum(w)
+        if dist is not None:
+            wsum = dist.sum(wsum)
+        wsum = torch.clamp(wsum, min=1.0)
         if self.cfg.ce_chunk > 0:
-            x, aux = self.hidden(params, batch, capacities)
+            x, aux = self.hidden(params, batch, capacities, dist)
             ce = self._chunked_ce(params, x, batch["targets"], w) / wsum
         else:
-            logits, aux = self.logits(params, batch, capacities)
+            logits, aux = self.logits(params, batch, capacities, dist)
             lp = torch.log_softmax(logits.float(), dim=-1)
             nll = -take_targets(lp, batch["targets"])
             ce = torch.sum(nll * w) / wsum
+        if dist is not None:
+            aux = aux / dist.n
         loss = ce + aux
         return loss, {"loss": loss, "ce": ce, "aux": aux, "tokens": wsum}
 
@@ -194,7 +221,7 @@ class Model:
                                 cross_seq=cross_seq)
 
     def prefill(self, params, batch, capacities=None,
-                last_pos: int | None = None):
+                last_pos: int | None = None, dist=None):
         """Full-prompt forward.  Returns (last-token logits (B,1,V), caches).
 
         ``last_pos`` selects which position's logits to return (default: the
@@ -206,7 +233,8 @@ class Model:
         ``batch["src_embeds"]`` first and returns each decoder layer's
         cross K/V in its caches."""
         cfg = self.cfg
-        x, caches, _ = self._stack(params, batch, "prefill", capacities)
+        x, caches, _ = self._stack(params, batch, "prefill", capacities,
+                                   dist)
         if last_pos is None:
             x = x[:, -1:]
         else:

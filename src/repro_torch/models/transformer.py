@@ -23,8 +23,20 @@ from the memory (``cross_kv``, the layer's "cross" cache).  MLPs: dense,
 MoE (``models/moe.py``: the capacity-routed ``apply_moe`` in train and
 prefill, the dropless ``apply_moe_dense`` in decode, as in the reference)
 or none.  Every apply returns the MoE load-balancing aux loss beside ``x``,
-summed in the reference's layer order.  ``remat_policy="dots"`` raises
-``NotImplementedError`` naming the port slice that brings it.
+summed in the reference's layer order.
+
+``remat_policy="dots"`` keeps, of each checkpointed period, the outputs of
+the matrix products without batch dimensions (``aten.mm``, ``aten.addmm``)
+and recomputes the rest, as ``jax.checkpoint_policies.
+dots_with_no_batch_dims_saveable`` does: batched products (``bmm``: the
+plain attention's and the experts' einsums) and K4's autograd function are
+recomputed.
+
+A sharded step (``sharding/apply.py``) hands the stack its periods as an
+object with ``unbind()`` (each period's stored shards) and ``gather(tree)``
+(a period's full tensors), and a decode its cache periods as an object
+with ``period(t)`` and ``commit(t, caches)``; ``dist`` routes an MoE
+layer over the global token set of a batch split over data ranks.
 """
 
 from __future__ import annotations
@@ -33,7 +45,11 @@ import dataclasses
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..tree import tree_flatten, tree_unflatten
 from .attention import (
@@ -50,10 +66,19 @@ from .mamba import init_mamba, init_mamba_cache, mamba_decode, mamba_train
 from .mla import init_mla, init_mla_cache, mla_decode, mla_prefill, mla_train
 from .moe import apply_moe, apply_moe_dense, init_moe
 
-_LATER = {
-    "dots": "remat_policy='dots' (save the matmul outputs, recompute the "
-            "rest) comes with the port's distribution-and-tooling slice",
-}
+#: The products ``remat_policy="dots"`` saves: matrix products without
+#: batch dimensions.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 # --------------------------------------------------------------------- layer init
@@ -111,12 +136,14 @@ def apply_layer(
     p: dict, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor, *,
     mode: str, positions=None, cache: dict | None = None, pos=None,
     causal: bool = True, cross_memory: torch.Tensor | None = None,
-    mem_positions=None, capacities=None,
+    mem_positions=None, capacities=None, dist=None,
 ):
     """Returns (x, new_cache, aux): the cache is None in train mode; aux is
     the MoE layer's load-balancing loss, and the number 0.0 for other
     layers and in decode (adding it changes no sum, and it launches
-    nothing)."""
+    nothing).  With ``dist`` (this rank's rows of a batch split over data
+    ranks) an MoE layer routes the global token set, as the reference's
+    compiled step does, and keeps this rank's rows."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode: {mode!r}")
     h = apply_norm(cfg, p["norm1"], x)
@@ -175,7 +202,12 @@ def apply_layer(
         if mode == "decode":
             mo, _ = apply_moe_dense(p["moe"], cfg, h)
         else:
-            mo, aux = apply_moe(p["moe"], cfg, h, capacities)
+            if dist is None:
+                mo, aux = apply_moe(p["moe"], cfg, h, capacities)
+            else:
+                mo, aux = apply_moe(p["moe"], cfg, dist.gather_rows(h),
+                                    capacities)
+                mo = dist.own_rows(mo)
         x = x + mo
     return x, (None if mode == "train" else new_cache), aux
 
@@ -275,10 +307,22 @@ def _unbind(tree: Any) -> list:
             for t in range(len(parts[0]))]
 
 
+def _same(tree):
+    return tree
+
+
+def _period_params(periods) -> tuple[list, Any]:
+    """The stack's per-period parameter trees, and the function that makes
+    one ready for its layers: the stacked tensors' own periods, or a
+    sharded stack's stored shards and its gather."""
+    if isinstance(periods, dict):
+        return _unbind(periods), _same
+    return periods.unbind(), periods.gather
+
+
 def _apply_stack_train(params: dict, cfg: ModelConfig, x: torch.Tensor,
                        pattern, prefix, remat: bool, **kw):
-    if remat and cfg.remat_policy == "dots":
-        raise NotImplementedError(_LATER["dots"])
+    per_list, gather = _period_params(params["periods"])
     aux = 0.0
     for i, spec in enumerate(prefix):
         x, _, a = apply_layer(params["prefix"][i], cfg, spec, x, mode="train",
@@ -290,19 +334,24 @@ def _apply_stack_train(params: dict, cfg: ModelConfig, x: torch.Tensor,
         # and an output, as the scan carry does in the reference: its
         # gradient survives the checkpoint, and the sum runs in the
         # reference's layer order.  The cross memory comes in by closure;
-        # the non-reentrant checkpoint carries its gradient.
+        # the non-reentrant checkpoint carries its gradient.  A sharded
+        # period is gathered here, so the checkpoint keeps only its shards.
+        per_params = gather(per_params)
         for i, spec in enumerate(pattern):
             h, _, a = apply_layer(per_params[f"pos{i}"], cfg, spec, h,
                                   mode="train", **kw)
             aux_acc = aux_acc + a
         return h, aux_acc
 
-    for per_params in _unbind(params["periods"]):
+    extra = {"context_fn": _dots_context} if cfg.remat_policy == "dots" \
+        else {}
+    for per_params in per_list:
         if remat:
             # The reference's jax.checkpoint of the scan body: only the
-            # period's input is kept; its forward runs again in the backward.
+            # period's input is kept ("dots": and its matrix products'
+            # outputs); its forward runs again in the backward.
             x, aux = checkpoint(body, x, aux, per_params, use_reentrant=False,
-                                preserve_rng_state=False)
+                                preserve_rng_state=False, **extra)
         else:
             x, aux = body(x, aux, per_params)
     return x, aux
@@ -313,6 +362,7 @@ def apply_stack(
     mode: str, positions=None, caches: dict | None = None, pos=None,
     causal: bool = True, cross_memory=None, mem_positions=None,
     capacities=None, pattern=None, prefix=None, remat: bool = True,
+    dist=None,
 ):
     """Returns (x, new_caches, aux): the caches are None in train mode; aux
     is the sum of the MoE layers' load-balancing losses in layer order (the
@@ -323,10 +373,12 @@ def apply_stack(
     ``capacities`` are the MoE layers' per-expert capacities (train and
     prefill; None: uniform); ``pattern`` and ``prefix`` the stack's layers
     (the config's by default).  ``remat`` (train mode) recomputes each
-    period's forward in the backward instead of keeping its activations."""
+    period's forward in the backward instead of keeping its activations.
+    ``dist`` is a sharded step's data split (MoE layers route the global
+    token set)."""
     pattern, prefix, _ = _layout(cfg, pattern, prefix, 0)
     kw = dict(positions=positions, causal=causal, cross_memory=cross_memory,
-              mem_positions=mem_positions, capacities=capacities)
+              mem_positions=mem_positions, capacities=capacities, dist=dist)
     if mode == "train":
         x, aux = _apply_stack_train(params, cfg, x, pattern, prefix, remat,
                                     **kw)
@@ -342,17 +394,24 @@ def apply_stack(
         aux = aux + a
         new_prefix.append(nc)
     per_period = []
-    n_periods = tree_flatten(params["periods"])[0][0].shape[0]
-    for t in range(n_periods):
+    per_list, gather = _period_params(params["periods"])
+    cache_periods = caches["periods"] if mode == "decode" else None
+    plain_caches = isinstance(cache_periods, dict)
+    for t, per_params in enumerate(per_list):
+        per_params = gather(per_params)
+        if mode == "decode":
+            per_cache = (_index(cache_periods, t) if plain_caches
+                         else cache_periods.period(t))
         ncs = {}
         for i, spec in enumerate(pattern):
             key = f"pos{i}"
-            c = (_index(caches["periods"][key], t)
-                 if mode == "decode" else None)
+            c = per_cache[key] if mode == "decode" else None
             x, ncs[key], a = apply_layer(
-                _index(params["periods"][key], t), cfg, spec, x, mode=mode,
-                cache=c, pos=pos, **kw)
+                per_params[key], cfg, spec, x, mode=mode, cache=c, pos=pos,
+                **kw)
             aux = aux + a
+        if mode == "decode" and not plain_caches:
+            cache_periods.commit(t, ncs)
         per_period.append(ncs)
     if mode == "decode":
         out_caches = caches

@@ -23,7 +23,8 @@ from ..optim.adamw import AdamWConfig, adamw_update
 from ..tree import tree_flatten, tree_map, tree_unflatten
 from .train_state import TrainState
 
-__all__ = ["make_grain_grad_fn", "make_train_step"]
+__all__ = ["make_grain_grad_fn", "make_train_step", "make_prefill_step",
+           "make_decode_step"]
 
 
 def _value_and_grad(model: Model, params, batch, capacities=None):
@@ -94,3 +95,17 @@ def make_train_step(
 
     return train_step
 
+
+
+def make_prefill_step(model: Model) -> Callable:
+    def prefill_step(params, batch):
+        return model.prefill(params, batch)
+
+    return prefill_step
+
+
+def make_decode_step(model: Model) -> Callable:
+    def decode_step(params, caches, inputs, pos):
+        return model.decode_step(params, caches, inputs, pos)
+
+    return decode_step

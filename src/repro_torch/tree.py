@@ -21,7 +21,7 @@ import dataclasses
 from typing import Any, Callable
 
 __all__ = ["TreeDef", "tree_flatten", "tree_unflatten", "tree_leaves",
-           "tree_map"]
+           "tree_map", "tree_paths"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,30 +54,61 @@ def _is_dataclass_instance(x) -> bool:
     return dataclasses.is_dataclass(x) and not isinstance(x, type)
 
 
-def _walk(node, leaves: list) -> TreeDef:
+def _walk(node, leaves: list, is_leaf=None) -> TreeDef:
     if node is None:
         return TreeDef("none")
+    if is_leaf is not None and is_leaf(node):
+        leaves.append(node)
+        return TreeDef("leaf")
     if isinstance(node, dict):
         keys = tuple(sorted(node))
-        return TreeDef("dict", keys, tuple(_walk(node[k], leaves)
+        return TreeDef("dict", keys, tuple(_walk(node[k], leaves, is_leaf)
                                            for k in keys))
     if isinstance(node, (list, tuple)):
         kind = "list" if isinstance(node, list) else "tuple"
-        return TreeDef(kind, None, tuple(_walk(c, leaves) for c in node))
+        return TreeDef(kind, None, tuple(_walk(c, leaves, is_leaf)
+                                         for c in node))
     if _is_dataclass_instance(node):
         return TreeDef("dataclass", type(node), tuple(
-            _walk(getattr(node, f.name), leaves)
+            _walk(getattr(node, f.name), leaves, is_leaf)
             for f in dataclasses.fields(node)))
     leaves.append(node)
     return TreeDef("leaf")
 
 
-def tree_flatten(tree: Any) -> tuple[list, TreeDef]:
+def tree_flatten(tree: Any, is_leaf: Callable | None = None
+                 ) -> tuple[list, TreeDef]:
+    """(leaves, treedef); ``is_leaf(node)`` true keeps a container whole as
+    one leaf (a spec tuple in a tree of specs)."""
     # Module-level recursion: a nested recursive function is a reference
     # cycle that would keep ``leaves`` (and so every tensor in it) alive
     # until the garbage collector runs.
     leaves: list = []
-    return leaves, _walk(tree, leaves)
+    return leaves, _walk(tree, leaves, is_leaf)
+
+
+def _paths(td: TreeDef, prefix: tuple, out: list) -> None:
+    if td.kind == "leaf":
+        out.append(prefix)
+    elif td.kind == "dict":
+        for k, c in zip(td.meta, td.children):
+            _paths(c, prefix + (("key", k),), out)
+    elif td.kind in ("list", "tuple"):
+        for i, c in enumerate(td.children):
+            _paths(c, prefix + (("index", i),), out)
+    elif td.kind == "dataclass":
+        for f, c in zip(dataclasses.fields(td.meta), td.children):
+            _paths(c, prefix + (("attr", f.name),), out)
+
+
+def tree_paths(tree: Any) -> list[tuple]:
+    """Each leaf's path, in leaf order: a tuple of ``("key", dict key)``,
+    ``("index", list or tuple index)`` and ``("attr", dataclass field)``
+    steps, as ``jax.tree_util``'s ``DictKey``, ``SequenceKey`` and
+    ``GetAttrKey``."""
+    out: list = []
+    _paths(tree_flatten(tree)[1], (), out)
+    return out
 
 
 def _build(td: TreeDef, it) -> Any:

@@ -125,6 +125,44 @@ for arch in ("qwen2-vl-7b", "seamless-m4t-medium"):
 """
 
 
+_DISTRIBUTION = """
+import argparse, dataclasses, os, tempfile
+import torch, torch.distributed as dist
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import train_batch_specs
+from repro_torch.examples import moe_homogenized
+from repro_torch.launch import dryrun, env
+from repro_torch.launch.common import apply_env
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.models import Model
+from repro_torch.sharding import Policy
+from repro_torch.sharding.apply import distribute_tree, make_sharded_train_step
+from repro_torch.train import TrainState, init_train_state
+
+assert apply_env(argparse.Namespace(tuned=True)) is not None
+fd, path = tempfile.mkstemp()
+os.close(fd)
+dist.init_process_group("gloo", init_method=f"file://{path}", rank=0,
+                        world_size=1)
+cfg = dataclasses.replace(get_config("qwen2-1.5b", reduced=True),
+                          sharding_policy="fsdp_tp", remat_policy="dots")
+model = Model(cfg, device="cpu")
+mesh = make_debug_mesh(1, 1, device_type="cpu")
+pol = Policy(cfg, mesh)
+state = init_train_state(model.init(0))
+batch = train_batch_specs(cfg, 2, 8, device="cpu")
+sstate = TrainState(
+    params=distribute_tree(state.params, pol.param_specs(state.params), mesh),
+    opt=distribute_tree(state.opt, pol.opt_specs(state.params), mesh))
+_, met = make_sharded_train_step(model, mesh)(
+    sstate, distribute_tree(batch, pol.batch_specs(batch), mesh))
+assert torch.isfinite(met["loss"])
+dist.destroy_process_group()
+os.remove(path)
+moe_homogenized.main(["--device", "cpu"])
+"""
+
+
 def _run(code: str) -> list[str]:
     # One intra-op thread, as the in-process port tests pin it.
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
@@ -154,6 +192,20 @@ def test_port_remaining_configs_load_no_jax_or_repro():
     """MLA served through the disaggregated fleet, M-RoPE with embeds
     input and enc-dec trained and prefilled on K1/K4's wrappers."""
     assert _run(_REMAINING) == []
+
+
+def test_port_distribution_loads_no_jax_or_repro():
+    """The sharded train step (remat_policy="dots") on a one-rank mesh,
+    the tuned env profile applied, the dry-run module and an example."""
+    assert _run(_DISTRIBUTION) == []
+
+
+def test_source_scan_covers_the_distribution_modules():
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"sharding/policy.py", "sharding/apply.py", "launch/mesh.py",
+            "launch/env.py", "launch/dryrun.py", "examples/quickstart.py",
+            "examples/serve_hetero.py", "examples/train_hetero.py",
+            "examples/moe_homogenized.py"} <= scanned
 
 
 def test_source_scan_covers_the_remaining_configs_modules():

@@ -186,9 +186,14 @@ def test_remat_changes_no_bit_and_dots_policy_raises():
         outs.append((y, torch.autograd.grad(y.square().sum(), x)[0]))
     assert torch.equal(outs[0][0], outs[1][0])
     assert torch.equal(outs[0][1], outs[1][1])
-    with pytest.raises(NotImplementedError, match="dots"):
-        apply_stack(params["stack"], dataclasses.replace(
-            cfg, remat_policy="dots"), x0, mode="train", positions=pos)
+    # remat_policy="dots" runs (since the distribution-and-tooling slice):
+    # it keeps the matrix products' outputs, and changes no bit either.
+    x = x0.clone().requires_grad_(True)
+    y, _, _ = apply_stack(params["stack"], dataclasses.replace(
+        cfg, remat_policy="dots"), x, mode="train", positions=pos)
+    assert torch.equal(y, outs[0][0])
+    assert torch.equal(torch.autograd.grad(y.square().sum(), x)[0],
+                       outs[0][1])
 
 
 def test_microbatched_train_step_matches_reference():
