@@ -245,14 +245,44 @@ Phases, each of which exits non-zero when it fails:
                a fake process group of 256 ranks) of Qwen2-1.5B at
                decode_32k and of (a)'s step on one device, its predicted
                peak beside (a)'s measured one, (f) the train CLI under
-               ``--tuned``, and (g) the four examples
+               ``--tuned``, and (g) the four examples, train_hetero cut
+               to 100 of its 200 steps (EXAMPLE_ARGV)
                (``chip_smoke.py --example <name>``: the example's report,
                K4's forward, dQ and dK/dV against their plain versions on
                the inputs the example gave K4, at TOL / GRAD_TOL, then its
                kernels' launches);
-               phases 16-25 run after phase 14 and before phase 15; each
+               phases 16-26 run after phase 14 and before phase 15; each
                frees its model at its end and prints its peak memory, and
-               phases 22-25 their seconds,
+               phases 22-26 their seconds,
+ 26. tensor-parallel — the sharded steps tensor-parallel over the mesh's
+               ``model`` axis, at model 2 and 4 on a (1, m) mesh, the ranks
+               in processes of their own (``chip_smoke.py --tp-rank``): on
+               one card over gloo where a probe pair of processes finds it
+               takes the steps' collectives on CUDA tensors, else over
+               ``launch/staged_pg.py``'s backend (gloo between the
+               processes, each collective staged through host memory); over
+               NCCL where there are m cards; the backend and world size
+               printed.  (a) f32 Qwen2-1.5B cut to 4 of 28 layers,
+               ``fsdp_tp``, its cache in bf16: one train step of phase 11's
+               f32 grain against ``make_train_step`` from the same init
+               (loss, every parameter leaf and both moments within the f32
+               tolerance), a prefill of four prompts and 16 decode steps
+               (logits within the f32 tolerance, tokens equal); (c) (a)'s
+               train step under ``seq_parallel``, the same checks; at model
+               2 also (b) the whole model in bf16: phase 11's (8, 1024)
+               batch through one train step and the four prompts with 16
+               decode steps against phase 25's unsharded steps: the loss
+               within the bf16 tolerance, the first step's logits within
+               relative Frobenius error 2e-2 (elementwise, two unsharded
+               bf16 routes, kernel and plain, already differ past the bf16
+               tolerance at 28 layers; both spreads printed), the tokens
+               reported; K4 and K1 launched at the local heads (q (8, S,
+               128) over one KV head at model 2, (4, S, 128) at model 4)
+               and held against their plain versions on the inputs they
+               got; seconds and peaks a rank (not a tensor-parallel speed
+               where the ranks share a card); then K1 and K4 in bf16 at
+               model 2's local heads timed beside their plain versions,
+               SDPA and the bound,
  15. device  — each kernel's device time (the profiler's kernel durations)
                beside PyTorch's call for the same function: K1 and SDPA at
                phase 3's sweep and in f32 at phase 4's shape, K2 and
@@ -262,7 +292,8 @@ Phases, each of which exits non-zero when it fails:
                the new groups and the remaining configs' shapes, K4 at
                SeamlessM4T's shapes in bf16 and f32 beside SDPA's forward
                and backward, K5 at Jamba's shape, ``apply_moe`` under
-               phase 18's three capacity sets; after
+               phase 18's three capacity sets, K1 and K4 at phase 26's
+               local heads; after
                every serve phase, so
                no profiler session of these precedes phases 5 and 14, and
                in a process of its own (``chip_smoke.py --device-times``,
@@ -272,7 +303,7 @@ Phases, each of which exits non-zero when it fails:
                began, and CUPTI's stamps read early, the more so the
                longer a process has loaded the card.
 
-Phases 4, 5, 7, 8, 9, 11, 13, 14, 16, 17 and 19-25 are the main path:
+Phases 4, 5, 7, 8, 9, 11, 13, 14, 16, 17 and 19-26 are the main path:
 the kernels' launch counts are set to 0 just before each of their runs and
 read just after it; the ``kernels`` line gives each kernel's launches in all
 and by run.  A line before the card's holds the whole run's wall time.  The
@@ -398,6 +429,9 @@ REMAINING_LENGTHS = (20, 90, 300, 500)
 #: The port's examples (``src/repro_torch/examples``), run by phase 25 in
 #: processes of their own (``chip_smoke.py --example <name>``).
 EXAMPLES = ("quickstart", "serve_hetero", "train_hetero", "moe_homogenized")
+#: Cuts of the examples' defaults, to keep the smoke near half its time
+#: limit: train_hetero runs 100 of its 200 steps.
+EXAMPLE_ARGV = {"train_hetero": ["--steps", "100"]}
 # Phase 25's dry run of (a)'s step: the sharded train step of full-width
 # Qwen2-1.5B under fsdp_tp at (a)'s batch on a (1, 1) mesh, in a fake
 # process group; argv: global batch, sequence length.  A JSON last line.
@@ -416,6 +450,17 @@ print(json.dumps(m))
 """
 SEAMLESS_LENGTHS = (5, 20, 40, 90)
 DECODE_STEPS = 16
+#: Phase 26: the tensor-parallel steps at these sizes of the ``model``
+#: axis (mesh (1, m)), the f32 check cut to TP_F32_LAYERS of Qwen2-1.5B's
+#: 28 layers; the whole bf16 model at the first size only.
+TP_SIZES = (2, 4)
+TP_F32_LAYERS = 4
+#: K1 and K4 at the tensor-parallel steps' local heads at model 2 (Qwen2-
+#: 1.5B's 16 padded q heads and 2 KV heads, split two ways): K1 on the
+#: serve's 512-token bucket, K4 on one 1024-token training sequence:
+#: (q heads, KV heads, S).
+K1_TP_SHAPE = (8, 1, 512)
+K4_TP_SHAPE = (8, 1, TRAIN_SEQ)
 
 
 def free_port() -> int:
@@ -1068,6 +1113,37 @@ def device_times() -> dict[str, dict[str, float]]:
         c = torch.as_tensor(caps[key], device=dev)
         out[f"moe_{key}"] = {"device_ms": device_ms(
             torch, lambda: apply_moe(p, cfg, x, c), iters=5)}
+    del params, skewed, x
+    # K1 and K4 (bf16) at the tensor-parallel steps' local heads (phase 26).
+    hq, hkv, s = K1_TP_SHAPE
+    q = rand((hq, s, 128), torch.bfloat16)
+    k, v = rand((hkv, s, 128), torch.bfloat16), rand((hkv, s, 128),
+                                                    torch.bfloat16)
+    out["k1_tp"] = pair(lambda: pf.prefill_flash(q, k, v, group=hq // hkv),
+                        library_attention(torch, q, k, v))
+    hq, hkv, s = K4_TP_SHAPE
+    q = rand((hq, s, 128), torch.bfloat16)
+    k, v = rand((hkv, s, 128), torch.bfloat16), rand((hkv, s, 128),
+                                                    torch.bfloat16)
+    dout = rand(q.shape, torch.bfloat16)
+    _, lse, out32 = fa.flash_attention_fwd(q, k, v, group=hq // hkv)
+    _, drow = fa.flash_attention_bwd_dq(q, k, v, out32, lse, dout,
+                                        group=hq // hkv)
+    leaves = [t[None].clone().requires_grad_(True) for t in (q, k, v)]
+    lib_out = sdpa(*leaves, is_causal=True, enable_gqa=True)
+    lib_bwd = device_ms(torch, lambda: torch.autograd.grad(
+        lib_out, leaves, dout[None], retain_graph=True))
+    out["k4_tp_fwd"] = pair(
+        lambda: fa.flash_attention_fwd(q, k, v, group=hq // hkv),
+        library_attention(torch, q, k, v))
+    out["k4_tp_dq"] = {
+        "device_ms": device_ms(torch, lambda: fa.flash_attention_bwd_dq(
+            q, k, v, out32, lse, dout, group=hq // hkv)),
+        "library_device_ms": lib_bwd}
+    out["k4_tp_dkdv"] = {
+        "device_ms": device_ms(torch, lambda: fa.flash_attention_bwd_dkdv(
+            q, k, v, lse, dout, drow, group=hq // hkv)),
+        "library_device_ms": lib_bwd}
     return out
 
 
@@ -3377,6 +3453,8 @@ def main() -> int:
         lg_s = lg_s.to_local()
         if not torch.equal(lg_s, lg_u):
             fail(f"distribution: decode step {i}: the sharded logits differ")
+        if i == 0:          # phase 26's reference for (b)
+            logits0_u = lg_u[:, 0].float()
         inp_u = lg_u[:, 0, :cfgd.vocab_size].argmax(-1, keepdim=True).to(
             torch.int32)
         inp_s = lg_s[:, 0, :cfgd.vocab_size].argmax(-1, keepdim=True).to(
@@ -3394,7 +3472,15 @@ def main() -> int:
           f"against unsharded: logits and caches bitwise equal, tokens equal "
           f"(first {[t[:4] for t in zip(*toks_s)]}); both decodes "
           f"{decode_s:.3f} s", flush=True)
-    del params, sparams, caches_u, caches_s, lg_u, lg_s, seen
+    # Phase 26's yardstick for (b): the unsharded decode's first step on
+    # the plain route (use_pallas=False), against the kernel route's.
+    plain = Model(dataclasses.replace(cfgd, use_pallas=False))
+    _, c_p = make_prefill_step(plain)(params, pbatch)
+    lg_p, _ = make_decode_step(plain)(params, long_cache(c_p), inp, last.to(
+        torch.int32))
+    logits0_plain = lg_p[:, 0].float()
+    del params, sparams, caches_u, caches_s, lg_u, lg_s, seen, plain, c_p
+    del lg_p
 
     # 25.3 (c) Phase 11's one f32 grain again under remat_policy="dots"
     # against the default policy.
@@ -3572,6 +3658,25 @@ def main() -> int:
           f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
     dist.destroy_process_group()
 
+    # ------------------------------------------- 26. tensor-parallel (main path)
+    # The sharded steps tensor-parallel over a (1, m) mesh: ranks in
+    # processes of their own (``chip_smoke.py --tp-rank``), on the one card
+    # over gloo where it takes the steps' collectives on CUDA tensors (a
+    # probe pair tries them first), else over ``launch/staged_pg.py``'s
+    # backend (gloo between the processes, each collective staged through
+    # host memory); NCCL across cards where there are m of them.  Against
+    # the unsharded steps: (a) and (c) on rank 0, (b) here against phase
+    # 25's unsharded bf16 train step and decode of the same batch, prompts
+    # and init.
+    tp = tensor_parallel(torch, card, {"loss": plain_run["loss"],
+                                       "logits0": logits0_u,
+                                       "logits0_plain": logits0_plain,
+                                       "tokens": toks_u}, by_path)
+    tp_runs, k1_tp, k4_tp = tp["runs"], tp["k1"], tp["k4"]
+    k1_err = max(k1_err, tp["k1_err"])
+    for part, e in tp["k4_err"].items():
+        k4_err[part] = max(k4_err[part], e)
+
     # ------------------------------------------------------ 15. device times
     # Each kernel's device time (the profiler's kernel durations, which
     # leave out the host's gaps between launches) beside PyTorch's call for
@@ -3614,6 +3719,20 @@ def main() -> int:
                   f"{'forward' if part == 'fwd' else 'whole backward'} "
                   f"{row['library_device_ms']:.6f} ms (bound "
                   f"{row['bound_ms']:.6f} ms)", flush=True)
+    k1_tp.update(dev_times["k1_tp"])
+    for part, row in k4_tp.items():
+        row.update(dev_times[f"k4_tp_{part}"])
+        print(f"[device] K4 bf16 {part} at the tensor-parallel local heads "
+              f"q {row['shape'][0]}, k/v {row['shape'][1]}: "
+              f"{row['device_ms']:.6f} ms, SDPA "
+              f"{'forward' if part == 'fwd' else 'whole backward'} "
+              f"{row['library_device_ms']:.6f} ms (bound "
+              f"{row['bound_ms']:.6f} ms)", flush=True)
+    print(f"[device] K1 bf16 at the tensor-parallel local heads q "
+          f"{k1_tp['shape'][0]}, k/v {k1_tp['shape'][1]}: "
+          f"{k1_tp['device_ms']:.6f} ms, SDPA "
+          f"{k1_tp['library_device_ms']:.6f} ms (bound "
+          f"{k1_tp['bound_ms']:.6f} ms)", flush=True)
     k5_jamba.update(dev_times["k5_jamba"])
     print(f"[device] K5 bf16 Jamba xdt {k5_jamba['shape'][0]}, B/C "
           f"{k5_jamba['shape'][1]}: {k5_jamba['device_ms']:.6f} ms (bound "
@@ -3679,7 +3798,9 @@ def main() -> int:
          "library_ms": k1_row["library_ms"], "device_ms": k1_row["device_ms"],
          "library_device_ms": k1_row["library_device_ms"],
          "build": k1_build["prefill_flash_mma_kernel<128>"], "f32": k1_f32,
-         "at_new_groups": k1_groups, "at_remaining_configs": k1_remaining},
+         "at_new_groups": k1_groups, "at_remaining_configs": k1_remaining,
+         "tensor_parallel": dict(k1_tp, shapes_by_size={
+             w: r["k1_shapes"] for w, r in tp_runs.items()})},
         {"name": "cache_cast", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/prefill/prefill.py:145",
          "launches": launches["cache_cast"],
@@ -3716,7 +3837,9 @@ def main() -> int:
          "device_ms": k4_rows[part]["device_ms"],
          "library_device_ms": k4_rows[part]["library_device_ms"],
          "build": k4_rows[part].get("build"), "f32": k4_f32[part],
-         "seamless": {key: rows[part] for key, rows in k4_seamless.items()}}
+         "seamless": {key: rows[part] for key, rows in k4_seamless.items()},
+         "tensor_parallel": dict(k4_tp[part], shapes_by_size={
+             w: r["k4_shapes"] for w, r in tp_runs.items()})}
         for name, part in zip(K4_KERNELS, ("fwd", "dq", "dkdv"), strict=True)
     ] + [
         {"name": "ssd_scan", "route": "cuda",
@@ -3742,44 +3865,19 @@ def main() -> int:
     return 0
 
 
-def run_example(name: str) -> int:
-    """Run the port's example ``name`` on the card; its report, then K4's
-    forward and backward against their plain versions on the first inputs
-    of each shape the example gave it, then a last line with its kernels'
-    launches and K4's errors."""
-    import importlib
-
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, SRC)
+def k4_check_seen(torch, seen, tag: str, prefix: str) -> dict:
+    """K4's forward, dQ and dK/dV against their plain version and autograd
+    through it on the first inputs of each shape a path gave K4 (a
+    ``keep_inputs`` record), at TOL / GRAD_TOL; the largest errors."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
-    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.mamba_scan import mamba_scan as k5
-    from repro_torch.kernels.matmul import matmul as mm
-    from repro_torch.kernels.prefill import prefill as pf
 
-    counters = (pf.LAUNCHES, mm.LAUNCHES, fa.LAUNCHES, k5.LAUNCHES)
-    module = importlib.import_module(f"repro_torch.examples.{name}")
-    for c in counters:
-        for key in c:
-            c[key] = 0
-    t0 = time.perf_counter()
-    with keep_inputs(flash_ops, "_flash_call") as seen:
-        module.main([])
-    torch.cuda.synchronize()
-    print(f"{time.perf_counter() - t0:.3f} s wall on {card_line()}")
-    launches = {key: n for c in counters for key, n in c.items()}
     gen = torch.Generator(device="cuda").manual_seed(0)
     k4_err = {"fwd": 0.0, "dq": 0.0, "dkdv": 0.0}
     for (qs, ks, dt), ((q, k, v), kw) in sorted(seen.items(),
                                                  key=lambda kv: kv[0][0]):
         dname = str(dt)[6:]
-        case = (f"K4 on example {name} inputs q {qs} k {ks} "
+        case = (f"K4 on {tag} inputs q {qs} k {ks} "
                 f"{'causal' if kw['causal'] else 'full'} {dname}")
         dout = torch.randn(qs, generator=gen, device="cuda",
                            dtype=torch.float32).to(dt)
@@ -3798,9 +3896,605 @@ def run_example(name: str) -> int:
                             for which, g, r in zip("kv", grads[1:],
                                                    ref_grads[1:],
                                                    strict=True))}
-        print(f"{case}: max abs err out {errs['fwd']:.3e}, dq "
-              f"{errs['dq']:.3e}, dk/dv {errs['dkdv']:.3e}")
+        print(f"{prefix}{case}: max abs err out {errs['fwd']:.3e}, dq "
+              f"{errs['dq']:.3e}, dk/dv {errs['dkdv']:.3e}", flush=True)
         k4_err = {part: max(k4_err[part], e) for part, e in errs.items()}
+    return k4_err
+
+
+def k1_check_seen(torch, seen, tag: str, prefix: str) -> float:
+    """K1 against its plain version on the first inputs of each shape a
+    path gave it (a ``keep_inputs`` record); the largest error."""
+    from repro_torch.kernels.prefill import prefill as pf
+    from repro_torch.kernels.prefill.ref import prefill_ref
+
+    err = 0.0
+    for (qs, _, dt), ((q, k, v), kw) in sorted(seen.items(),
+                                                key=lambda kv: kv[0][0]):
+        name = f"K1 on {tag} inputs q {qs} group {kw['group']} {str(dt)[6:]}"
+        out, _, _ = pf.prefill_flash(q, k, v, group=kw["group"])
+        torch.cuda.synchronize()
+        ref, _, _ = prefill_ref(q, k, v, group=kw["group"])
+        e = check_close(torch, name, out, ref, str(dt)[6:])
+        err = max(err, e)
+        print(f"{prefix}{name}: max abs err {e:.3e}", flush=True)
+    return err
+
+
+def tensor_parallel(torch, card: str, tp_ref: dict, by_path: dict) -> dict:
+    """Phase 26 (see the module docstring): the ranks of each size in
+    TP_SIZES in processes of their own, their checks, (b) against
+    ``tp_ref`` (phase 25's unsharded bf16 loss, first decode step's logits
+    and tokens), each rank's launches into ``by_path``; then K1 and K4 at
+    model 2's local heads timed.  Returns the runs, the timed rows and the
+    K1/K4 checks' largest errors."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.prefill import prefill as pf
+    from repro_torch.kernels.prefill.ref import prefill_ref
+
+    dev = torch.device("cuda")
+    k1_err = 0.0
+    k4_err = {"fwd": 0.0, "dq": 0.0, "dkdv": 0.0}
+    phase_t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_cards = torch.cuda.device_count()
+    env = dict(os.environ, PYTHONPATH=SRC)
+
+    def run_ranks(args_of, world: int, timeout: int):
+        """``world`` processes of this script, rank r with ``args_of(r,
+        port)``; (return codes, outputs)."""
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__)] + args_of(r, port),
+            cwd=HERE, env=env, text=True, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE) for r in range(world)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=timeout))
+        except subprocess.TimeoutExpired:
+            outs += [("", "timed out")] * (world - len(outs))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        return [p.returncode for p in procs], outs
+
+    if n_cards >= 2:
+        shared = "nccl"
+    else:
+        rcs, outs = run_ranks(lambda r, port: ["--tp-probe", str(r), "2",
+                                               str(port)], 2, 120)
+        shared = "gloo" if rcs == [0, 0] else "staged"
+        print(f"[tensor-parallel] {card}: gloo between two processes on the "
+              f"one card, the steps' collectives on CUDA tensors: "
+              f"{'taken' if shared == 'gloo' else 'refused'} (exit codes "
+              f"{rcs}); ranks on one card run over {shared!r}", flush=True)
+    tp_runs = {}
+    for world in TP_SIZES:
+        backend = "nccl" if n_cards >= world else shared
+        what = "full" if world == TP_SIZES[0] else "f32"
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "rank0.pt")
+            rcs, outs = run_ranks(lambda r, port: [
+                "--tp-rank", str(r), str(world), str(port), backend, what,
+                path], world, 900)
+            for r, (rc, (_, err)) in enumerate(zip(rcs, outs, strict=True)):
+                if rc != 0:
+                    fail(f"tensor-parallel m={world} ({backend}): rank {r} "
+                         f"exited {rc}: {err[-3000:]}")
+            res = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
+            saved = torch.load(path) if what == "full" else None
+        for line in outs[0][0].strip().splitlines()[:-1]:
+            print(line, flush=True)
+        head = res[0]
+        for r, rr in enumerate(res):
+            for run, counts in rr["launches"].items():
+                by_path[f"{run}_r{r}"] = counts
+        k4_train = {n: head["launches"][f"tp{world}_f32_a_train"][n]
+                    for n in K4_KERNELS}
+        want = {n: c * TP_F32_LAYERS // N_LAYERS
+                for n, c in K4_PER_GRAIN.items()}
+        if k4_train != want:
+            fail(f"tensor-parallel m={world}: K4 launches {k4_train} in "
+                 f"(a)'s train step, predicted {want}")
+        for run, kernel in (("serve", "prefill_flash"),
+                            ("prefill_bf16_cache", "prefill_flash"),
+                            ("prefill_bf16_cache", "cache_cast")):
+            n = head["launches"][f"tp{world}_f32_{run}"][kernel]
+            if n != TP_F32_LAYERS:
+                fail(f"tensor-parallel m={world}: {kernel} {n} launches in "
+                     f"(a)'s {run}, expected {TP_F32_LAYERS}")
+        k1_err = max(k1_err, head["k1_err"])
+        for part, e in head["k4_err"].items():
+            k4_err[part] = max(k4_err[part], e)
+        print(f"[tensor-parallel] {card}: m={world} over {backend!r}, "
+              f"world size {world}, mesh (1, {world}): (a) f32 "
+              f"qwen2-1.5b cut to {TP_F32_LAYERS} of {N_LAYERS} layers, "
+              f"fsdp_tp: one train step of a (1, {TRAIN_SEQ}) grain, loss "
+              f"{head['a_loss']:.6f} against the unsharded "
+              f"{head['a_loss_unsharded']:.6f}, all {head['leaves']} "
+              f"parameter leaves and both moments within the f32 tolerance; "
+              f"(c) the same under seq_parallel: loss {head['c_loss']:.6f}, "
+              f"the same checks; a prefill of {len(REMAINING_LENGTHS)} "
+              f"prompts and {DECODE_STEPS} decode steps: logits within the "
+              f"f32 tolerance (max abs err {head['f32_logits_err']:.3e}), "
+              f"tokens equal (first "
+              f"{[t[:4] for t in zip(*head['f32_tokens'])]}); the prefill "
+              f"with its cache in bf16 (K2 on the local KV heads): logits "
+              f"within the f32 tolerance (max abs err "
+              f"{head['bf16_cache_logits_err']:.3e}), caches within the "
+              f"bf16 tolerance ({head['bf16_cache_err']:.3e}); K1 at "
+              f"{head['k1_shapes']}, K4 at {head['k4_shapes']}; train step "
+              f"s (a) {head['a_s']:.3f}, (c) {head['c_s']:.3f}", flush=True)
+        if what == "full":
+            check_close(torch, f"tensor-parallel m={world} (b) loss",
+                        torch.tensor(head["b_loss"]),
+                        torch.tensor(tp_ref["loss"]), "bfloat16")
+            # At 28 bf16 layers two orders of the same sums already differ
+            # past the bf16 tolerance elementwise (the unsharded kernel and
+            # plain routes, printed beside it), so the logits are held by
+            # their relative Frobenius error, at the bf16 rtol.
+            ref = tp_ref["logits0"].cpu()
+            lg_b = saved["logits0"]
+            rel = float(torch.linalg.vector_norm(lg_b - ref)
+                        / torch.linalg.vector_norm(ref))
+            if not rel <= TOL["bfloat16"][0]:
+                fail(f"tensor-parallel m={world} (b): the first decode "
+                     f"step's logits off the unsharded by relative "
+                     f"Frobenius error {rel:.3e}")
+
+            def spread(a, b):
+                err = (a - b).abs()
+                rtol, atol = TOL["bfloat16"]
+                return (f"max abs err {float(err.max()):.3e}, "
+                        f"{int((err > atol + rtol * b.abs()).sum())} of "
+                        f"{b.numel()} outside rtol {rtol} / atol {atol}")
+
+            pairs = [(a, b) for ra, rb in zip(head["b_tokens"],
+                                              tp_ref["tokens"], strict=True)
+                     for a, b in zip(ra, rb, strict=True)]
+            first_diff = next((i for i, (ra, rb) in enumerate(zip(
+                head["b_tokens"], tp_ref["tokens"])) if ra != rb), None)
+            print(f"[tensor-parallel] {card}: m={world} (b) bf16 "
+                  f"qwen2-1.5b whole ({N_LAYERS} layers), fsdp_tp: one "
+                  f"train step of phase 11's ({TRAIN_GRAINS}, {TRAIN_SEQ}) "
+                  f"batch, loss {head['b_loss']:.6f} against the unsharded "
+                  f"{tp_ref['loss']:.6f} (bf16 tolerance); "
+                  f"{len(REMAINING_LENGTHS)} prompts and {DECODE_STEPS} "
+                  f"decode steps: the first step's logits against the "
+                  f"unsharded: relative Frobenius error {rel:.3e} (at most "
+                  f"{TOL['bfloat16'][0]}), elementwise "
+                  f"{spread(lg_b, ref)}; the unsharded plain route against "
+                  f"its kernel route: "
+                  f"{spread(tp_ref['logits0_plain'].cpu(), ref)}; tokens: "
+                  f"{sum(a == b for a, b in pairs)} of {len(pairs)} equal to "
+                  f"the unsharded's, the first difference at decode step "
+                  f"{first_diff} (sharded first "
+                  f"{[t[:4] for t in zip(*head['b_tokens'])]}, unsharded "
+                  f"{[t[:4] for t in zip(*tp_ref['tokens'])]}); train step "
+                  f"{head['b_s']:.3f} s, peak {head['b_peak_gb']:.2f} GB a "
+                  f"rank, serve {head['b_serve_s']:.3f} s", flush=True)
+        peaks = [round(rr["peak_gb"], 2) for rr in res]
+        print(f"[tensor-parallel] {card}: m={world}: rank seconds "
+              f"{[round(rr['s'], 1) for rr in res]}, peaks {peaks} GB "
+              f"(torch.cuda.max_memory_allocated a rank)"
+              + ("; the ranks share one card and their collectives cross "
+                 "the host: these are not a tensor-parallel speed"
+                 if backend != "nccl" else ""), flush=True)
+        tp_runs[world] = {"backend": backend, "what": what,
+                          "k1_shapes": head["k1_shapes"],
+                          "k4_shapes": head["k4_shapes"]}
+    print(f"[tensor-parallel] ran model sizes "
+          f"{[(w, r['backend']) for w, r in tp_runs.items()]}; phase "
+          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+
+    # K1 and K4 at the tensor-parallel steps' local heads (model 2), timed
+    # beside their plain versions, SDPA and the bound (device times in
+    # phase 15).
+    gen_tp = torch.Generator(device=dev).manual_seed(SEED + 26)
+
+    def rand_tp(shape, dtype):
+        return torch.randn(shape, generator=gen_tp, device=dev,
+                           dtype=torch.float32).to(dtype)
+
+    hq, hkv, s_tp = K1_TP_SHAPE
+    q = rand_tp((hq, s_tp, 128), torch.bfloat16)
+    k, v = rand_tp((hkv, s_tp, 128), torch.bfloat16), rand_tp(
+        (hkv, s_tp, 128), torch.bfloat16)
+    k1_tp = {"shape": [[hq, s_tp, 128], [hkv, s_tp, 128]],
+             "ms": time_ms(torch, lambda: pf.prefill_flash(q, k, v,
+                                                           group=hq // hkv)),
+             "plain_ms": time_ms(torch, lambda: prefill_ref(
+                 q, k, v, group=hq // hkv)),
+             "library_ms": time_ms(torch, library_attention(torch, q, k, v))}
+    k1_tp["bound_ms"], k1_tp["bound_by"] = flash_bound_ms(
+        hq, s_tp, 128, hkv, 2, "bfloat16")
+    hq, hkv, s_tp = K4_TP_SHAPE
+    q = rand_tp((hq, s_tp, 128), torch.bfloat16)
+    k, v = rand_tp((hkv, s_tp, 128), torch.bfloat16), rand_tp(
+        (hkv, s_tp, 128), torch.bfloat16)
+    dout = rand_tp(q.shape, torch.bfloat16)
+    _, lse, out32 = fa.flash_attention_fwd(q, k, v, group=hq // hkv)
+    _, drow = fa.flash_attention_bwd_dq(q, k, v, out32, lse, dout,
+                                        group=hq // hkv)
+    plain_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    plain_out = flash_attention_ref(*plain_leaves, group=hq // hkv)
+    lib_leaves = [t[None].clone().requires_grad_(True) for t in (q, k, v)]
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        *lib_leaves, is_causal=True, enable_gqa=True)
+    plain_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        plain_out, plain_leaves, dout, retain_graph=True))
+    lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, lib_leaves, dout[None], retain_graph=True))
+    k4_tp = {
+        "fwd": {"ms": time_ms(torch, lambda: fa.flash_attention_fwd(
+                    q, k, v, group=hq // hkv)),
+                "plain_ms": time_ms(torch, lambda: flash_attention_ref(
+                    q, k, v, group=hq // hkv)),
+                "library_ms": time_ms(torch, library_attention(
+                    torch, q, k, v))},
+        "dq": {"ms": time_ms(torch, lambda: fa.flash_attention_bwd_dq(
+                   q, k, v, out32, lse, dout, group=hq // hkv)),
+               "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms},
+        "dkdv": {"ms": time_ms(torch, lambda: fa.flash_attention_bwd_dkdv(
+                     q, k, v, lse, dout, drow, group=hq // hkv)),
+                 "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms}}
+    for part, row in k4_tp.items():
+        row["shape"] = [[hq, s_tp, 128], [hkv, s_tp, 128]]
+        row["bound_ms"], row["bound_by"] = k4_bound_ms(
+            hq, hkv, s_tp, s_tp, 128, 2, "bfloat16", True, part)
+    print(f"[tensor-parallel] {card}: K1 bf16 at the local heads "
+          + json.dumps(k1_tp) + "; K4 bf16 " + json.dumps(k4_tp), flush=True)
+    del q, k, v, dout, lse, out32, drow, plain_leaves, plain_out, lib_leaves
+    del lib_out
+    return {"runs": tp_runs, "k1": k1_tp, "k4": k4_tp, "k1_err": k1_err,
+            "k4_err": k4_err}
+
+
+def run_tp_probe(rank: int, world: int, port: int) -> int:
+    """One rank of phase 26's backend probe: ``gloo`` between processes
+    that share the card, each collective the tensor-parallel steps run
+    on CUDA tensors."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as fc
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    g = dist.group.WORLD
+    x = torch.arange(64.0, device="cuda").reshape(2, 4, 4, 2) + rank
+    for op in (lambda: fc.all_reduce(x, "sum", g),
+               lambda: fc.all_reduce(x, "max", g),
+               lambda: fc.all_gather_tensor(x, 2, g),
+               lambda: fc.reduce_scatter_tensor(x, "sum", 1, g)):
+        fc.wait_tensor(op())
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+    return 0
+
+
+def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
+                out_path: str) -> int:
+    """One rank of phase 26: the sharded steps (``sharding/apply.py``),
+    tensor-parallel over a (1, ``world``) mesh on the card, ``backend``
+    between the ranks.  (a) f32 Qwen2-1.5B cut to TP_F32_LAYERS layers,
+    ``fsdp_tp``: one train step of phase 11's f32 grain, (c) the same step
+    under ``seq_parallel``, a prefill of four prompts and DECODE_STEPS
+    decode steps, and the prefill again with its cache stored in bf16 (K2
+    on the local KV heads); rank 0 then runs the unsharded steps from the
+    same init and holds every loss, parameter leaf, moment and logit within
+    the f32 tolerance, tokens equal, the bf16 caches within the bf16
+    tolerance.  With ``what`` "full" also (b) the
+    whole model in bf16: one train step of phase 11's (8, 1024) batch, four
+    prompts and DECODE_STEPS decode steps (rank 0 saves the loss, the first
+    step's logits and the tokens to ``out_path`` for the main process,
+    which holds them against the unsharded steps).  Then K1 and K4 against
+    their plain versions on the inputs the sharded runs gave them.  Its last
+    line: the launches of each run and the checks' largest errors."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, SRC)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    if backend == "staged":
+        from repro_torch.launch.staged_pg import register
+        register()
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    from repro_torch.configs import get_config
+    from repro_torch.data import GrainSpec, SyntheticSource, batch_from_grains
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.mamba_scan import mamba_scan as k5
+    from repro_torch.kernels.matmul import matmul as mm
+    from repro_torch.kernels.prefill import ops
+    from repro_torch.kernels.prefill import prefill as pf
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import Model
+    from repro_torch.sharding import Policy
+    from repro_torch.sharding.apply import (
+        distribute_tree,
+        full_tree,
+        make_sharded_decode_step,
+        make_sharded_prefill_step,
+        make_sharded_train_step,
+    )
+    from repro_torch.train import (
+        TrainState,
+        init_train_state,
+        make_decode_step,
+        make_prefill_step,
+        make_train_step,
+    )
+    from repro_torch.tree import tree_leaves
+
+    dev = torch.device("cuda")
+    tag = f"[tensor-parallel m={world} rank {rank}]"
+    mesh = make_debug_mesh(1, world, device_type="cuda")
+    counters = (pf.LAUNCHES, mm.LAUNCHES, fa.LAUNCHES, k5.LAUNCHES)
+    launches: dict[str, dict[str, int]] = {}
+
+    def zero_counts() -> None:
+        for c in counters:
+            for key in c:
+                c[key] = 0
+
+    def read_counts(path: str) -> dict[str, int]:
+        launches[path] = {key: n for c in counters for key, n in c.items()}
+        return launches[path]
+
+    def grain_batch(cfg, grains):
+        spec = GrainSpec(1, TRAIN_SEQ, cfg.vocab_size)
+        return batch_from_grains(SyntheticSource(spec, seed=SEED), 0, grains,
+                                 spec, device=dev)
+
+    def sharded_state(model, policy):
+        st = init_train_state(model.init(SEED))
+        return TrainState(
+            params=distribute_tree(st.params, policy.param_specs(st.params),
+                                   mesh),
+            opt=distribute_tree(st.opt, policy.opt_specs(st.params), mesh))
+
+    bucket = 512
+    prng = np.random.default_rng(SEED)
+    tokens = torch.zeros((len(REMAINING_LENGTHS), bucket), dtype=torch.int32,
+                         device=dev)
+    vocab = get_config("qwen2-1.5b").vocab_size
+    for i, n in enumerate(REMAINING_LENGTHS):
+        tokens[i, :n] = torch.as_tensor(prng.integers(0, vocab, n),
+                                        dtype=torch.int32, device=dev)
+    last = torch.as_tensor([n - 1 for n in REMAINING_LENGTHS], device=dev)
+    first = tokens[torch.arange(len(REMAINING_LENGTHS), device=dev),
+                   last][:, None]
+
+    def serve(model, params, policy):
+        """A prefill of the four prompts, then DECODE_STEPS greedy steps in
+        a cache twice the bucket: sharded when ``policy`` is given."""
+        pbatch = {"tokens": tokens}
+        if policy is None:
+            _, caches = make_prefill_step(model)(params, pbatch)
+        else:
+            _, caches = make_sharded_prefill_step(model, mesh)(
+                params, distribute_tree(pbatch, policy.batch_specs(pbatch),
+                                        mesh))
+            caches = full_tree(caches)
+        big = model.init_cache(len(REMAINING_LENGTHS), 2 * bucket)
+        for b_leaf, s_leaf in zip(tree_leaves(big), tree_leaves(caches),
+                                  strict=True):
+            b_leaf.narrow(2, 0, bucket).copy_(s_leaf)
+        del caches
+        if policy is None:
+            step = make_decode_step(model)
+        else:
+            big = distribute_tree(big, policy.cache_specs(big), mesh)
+            step = make_sharded_decode_step(model, mesh)
+        logits, toks, inp = [], [], first
+        for i in range(DECODE_STEPS):
+            pos = (last + i).to(torch.int32)
+            if policy is None:
+                lg, big = step(params, big, inp, pos)
+            else:
+                lg, big = step(params, big, distribute_tree(
+                    inp, policy.batch_specs(inp), mesh), distribute_tree(
+                    pos, policy.batch_specs(pos), mesh))
+                lg = lg.full_tensor()
+            logits.append(lg[:, 0].float())
+            inp = lg[:, 0, :model.cfg.vocab_size].argmax(-1, keepdim=True).to(
+                torch.int32)
+            toks.append(inp[:, 0].tolist())
+        return logits, toks
+
+    out: dict = {"rank": rank, "world": world, "backend": backend}
+    seen1, seen4 = {}, {}
+
+    # (a), (c): f32, TP_F32_LAYERS layers, sharded.
+    cfg32 = dataclasses.replace(
+        get_config("qwen2-1.5b", param_dtype="float32",
+                   compute_dtype="float32", sharding_policy="fsdp_tp"),
+        n_layers=TP_F32_LAYERS)
+    model16 = Model(dataclasses.replace(cfg32, cache_dtype="bfloat16"))
+    batch32 = grain_batch(cfg32, [0])
+    runs = {}
+    t_phase = time.perf_counter()
+    with keep_inputs(ops, "_prefill_call") as s1, \
+            keep_inputs(flash_ops, "_flash_call") as s4:
+        for key, cfg in (("a", cfg32),
+                         ("c", dataclasses.replace(cfg32,
+                                                   seq_parallel=True))):
+            model = Model(cfg)
+            policy = Policy(cfg, mesh)
+            state = sharded_state(model, policy)
+            sbatch = distribute_tree(batch32, policy.batch_specs(batch32),
+                                     mesh)
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            state, met = make_sharded_train_step(model, mesh)(state, sbatch)
+            torch.cuda.synchronize()
+            out[f"{key}_s"] = time.perf_counter() - t0
+            read_counts(f"tp{world}_f32_{key}_train")
+            runs[key] = (met, full_tree(state.params),
+                         full_tree(state.opt["m"]), full_tree(state.opt["v"]))
+            del state
+        model = Model(cfg32)
+        policy = Policy(cfg32, mesh)
+        params = model.init(SEED)
+        sparams = distribute_tree(params, policy.param_specs(params), mesh)
+        zero_counts()
+        sharded_serve = serve(model, sparams, policy)
+        read_counts(f"tp{world}_f32_serve")
+        pbatch = {"tokens": tokens}
+        zero_counts()
+        lg16, c16 = make_sharded_prefill_step(model16, mesh)(
+            sparams, distribute_tree(pbatch, policy.batch_specs(pbatch),
+                                     mesh))
+        torch.cuda.synchronize()
+        read_counts(f"tp{world}_f32_prefill_bf16_cache")
+        lg16, c16 = lg16.full_tensor(), full_tree(c16)
+        seen1.update(s1)
+        seen4.update(s4)
+    del sparams
+    if rank == 0:
+        zero_counts()
+        want, umet = make_train_step(model)(init_train_state(params),
+                                            batch32)
+        for key, (met, p, m1, v1) in runs.items():
+            check_close(torch, f"tensor-parallel ({key}) loss", met["loss"],
+                        umet["loss"], "float32")
+            for name, got, ref in (("parameter", p, want.params),
+                                   ("first moment", m1, want.opt["m"]),
+                                   ("second moment", v1, want.opt["v"])):
+                for i, (g, r) in enumerate(zip(tree_leaves(got),
+                                               tree_leaves(ref),
+                                               strict=True)):
+                    check_close(torch, f"tensor-parallel ({key}) {name} "
+                                f"leaf {i}", g, r, "float32")
+            out[f"{key}_loss"] = float(met["loss"])
+        out["a_loss_unsharded"] = float(umet["loss"])
+        out["leaves"] = len(tree_leaves(want.params))
+        del want
+        logits_u, toks_u = serve(model, params, None)
+        out["f32_logits_err"] = max(
+            check_close(torch, f"tensor-parallel (a) decode step {i} logits",
+                        g, r, "float32")
+            for i, (g, r) in enumerate(zip(sharded_serve[0], logits_u,
+                                           strict=True)))
+        if sharded_serve[1] != toks_u:
+            fail(f"tensor-parallel (a): sharded tokens {sharded_serve[1]} "
+                 f"differ from the unsharded {toks_u}")
+        out["f32_tokens"] = toks_u
+        ulg16, uc16 = make_prefill_step(model16)(params, {"tokens": tokens})
+        read_counts(f"tp{world}_f32_unsharded")
+        out["bf16_cache_logits_err"] = check_close(
+            torch, "tensor-parallel (a) prefill logits, bf16 cache", lg16,
+            ulg16, "float32")
+        out["bf16_cache_err"] = max(
+            check_close(torch, f"tensor-parallel (a) bf16 cache leaf {i}", g,
+                        r, "bfloat16")
+            for i, (g, r) in enumerate(zip(tree_leaves(c16),
+                                           tree_leaves(uc16), strict=True)))
+        del uc16, ulg16
+    del runs, params, model, model16, sharded_serve, c16, lg16
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    if what == "full":
+        # (b): the whole model in bf16, sharded.
+        cfgb = dataclasses.replace(get_config("qwen2-1.5b"),
+                                   sharding_policy="fsdp_tp")
+        model = Model(cfgb)
+        policy = Policy(cfgb, mesh)
+        batch = grain_batch(cfgb, list(range(TRAIN_GRAINS)))
+        with keep_inputs(ops, "_prefill_call") as s1, \
+                keep_inputs(flash_ops, "_flash_call") as s4:
+            state = sharded_state(model, policy)
+            sbatch = distribute_tree(batch, policy.batch_specs(batch), mesh)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            t0 = time.perf_counter()
+            state, met = make_sharded_train_step(model, mesh)(state, sbatch)
+            torch.cuda.synchronize()
+            out["b_s"] = time.perf_counter() - t0
+            out["b_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            read_counts(f"tp{world}_bf16_train")
+            out["b_loss"] = float(met["loss"])
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            params = model.init(SEED)
+            sparams = distribute_tree(params, policy.param_specs(params),
+                                      mesh)
+            del params
+            zero_counts()
+            t0 = time.perf_counter()
+            logits_b, toks_b = serve(model, sparams, policy)
+            torch.cuda.synchronize()
+            out["b_serve_s"] = time.perf_counter() - t0
+            read_counts(f"tp{world}_bf16_serve")
+            seen1.update(s1)
+            seen4.update(s4)
+        out["b_tokens"] = toks_b
+        if rank == 0:
+            torch.save({"logits0": logits_b[0].cpu()}, out_path)
+        del sparams, logits_b
+    out["s"] = time.perf_counter() - t_phase
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["k1_shapes"] = sorted([list(k[0]), list(k[1]), str(k[2])[6:]]
+                              for k in seen1)
+    out["k4_shapes"] = sorted([list(k[0]), list(k[1]), str(k[2])[6:]]
+                              for k in seen4)
+    if rank == 0:
+        out["k1_err"] = k1_check_seen(torch, seen1, "tensor-parallel",
+                                      f"{tag} ")
+        out["k4_err"] = k4_check_seen(torch, seen4, "tensor-parallel",
+                                      f"{tag} ")
+    out["launches"] = launches
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def run_example(name: str) -> int:
+    """Run the port's example ``name`` on the card; its report, then K4's
+    forward and backward against their plain versions on the first inputs
+    of each shape the example gave it, then a last line with its kernels'
+    launches and K4's errors."""
+    import importlib
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.mamba_scan import mamba_scan as k5
+    from repro_torch.kernels.matmul import matmul as mm
+    from repro_torch.kernels.prefill import prefill as pf
+
+    counters = (pf.LAUNCHES, mm.LAUNCHES, fa.LAUNCHES, k5.LAUNCHES)
+    module = importlib.import_module(f"repro_torch.examples.{name}")
+    for c in counters:
+        for key in c:
+            c[key] = 0
+    t0 = time.perf_counter()
+    with keep_inputs(flash_ops, "_flash_call") as seen:
+        module.main(EXAMPLE_ARGV.get(name, []))
+    torch.cuda.synchronize()
+    print(f"{time.perf_counter() - t0:.3f} s wall on {card_line()}")
+    launches = {key: n for c in counters for key, n in c.items()}
+    k4_err = k4_check_seen(torch, seen, f"example {name}", "")
     print(json.dumps({"launches": launches, "k4_cases": len(seen),
                       "k4_err": k4_err}))
     return 0
@@ -3812,4 +4506,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--example"] and len(sys.argv) == 3:
         sys.exit(run_example(sys.argv[2]))
+    if sys.argv[1:2] == ["--tp-probe"] and len(sys.argv) == 5:
+        sys.exit(run_tp_probe(*map(int, sys.argv[2:5])))
+    if sys.argv[1:2] == ["--tp-rank"] and len(sys.argv) == 8:
+        sys.exit(run_tp_rank(int(sys.argv[2]), int(sys.argv[3]),
+                             int(sys.argv[4]), *sys.argv[5:8]))
     sys.exit(main())

@@ -32,9 +32,12 @@ No counterpart: the reference parses the compiled HLO (``cost_dict``,
 unrolled compiles to the full depth, because XLA's cost analysis visits a
 scanned period once.  Here every number comes from PyTorch's own counters
 on the executed step, which runs every period, so nothing is extrapolated.
-The compute is data-parallel (``sharding/apply.py``): each device of a
-``model`` group computes the same rows, which ``useful_flops_ratio``
-shows.
+The step is the one a run would take (``sharding/apply.py``): tensor-
+parallel over ``model`` for attention, dense-MLP, embedding and head
+leaves (each device computes its heads, MLP columns and vocabulary rows,
+and a decode attends over its own share of the cache's sequence), every
+other layer whole on each ``model`` device; so ``useful_flops_ratio`` and
+the collectives count what that split does.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k --mesh single

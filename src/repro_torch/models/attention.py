@@ -10,11 +10,21 @@ backward (``kernels/flash_attention``), the prefill through the bucketed
 prefill kernel (``kernels/prefill``).
 
 Decode reads a cache laid out (B, S, Hkv, Dh), as the reference does.
+
+Split heads (``group``, a ``models/parallel.py::Group`` of more than one
+rank): the q heads and ``wo``'s rows are this rank's (their counts come from
+the tensors), K/V this rank's share of the KV heads, or, where the KV heads
+do not divide over the ranks, all of them, of which each rank reads the
+heads its own q heads use (``_local_kv``).  Training and the prefill run K4
+and K1 on the local heads.  A decode's cache holds this rank's share of the
+sequence for every KV head: each rank attends all heads over its own
+positions and the ranks combine their partial softmaxes (``_decode_split``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -22,8 +32,12 @@ from ..kernels.flash_attention.ops import mha as flash_mha
 from ..kernels.prefill.ops import prefill_attention
 from .config import ModelConfig
 from .layers import apply_rope, dense_init, dtype_of, rms_norm
+from .parallel import SOLO, Group
 
 NEG_INF = -1e30
+
+#: ``wo``: the heads' outputs (B, S, H, Dh) to the model width.
+_wo = functools.partial(torch.einsum, "bshd,hdm->bsm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,17 +166,88 @@ def _use_kernel(cfg: ModelConfig, x: torch.Tensor) -> bool:
     return cfg.use_pallas
 
 
+def _kv_ranges(hq: int, size: int, n_kv: int) -> list[tuple[int, int]]:
+    """Each rank's KV heads ``[lo, hi)``: those its ``hq`` q heads read,
+    the q heads split over ``size`` ranks in order."""
+    group = hq * size // n_kv
+    return [((r * hq) // group, ((r + 1) * hq - 1) // group + 1)
+            for r in range(size)]
+
+
+def _local_kv(p: dict, cfg: ModelConfig, group: Group):
+    """The projections this rank's q heads need, and None or the index
+    that maps each local q head to a column of the projected K/V.
+
+    Where the KV heads split over the ranks with the q heads, this rank's
+    share is already the right one and the kernels' own map (q head i reads
+    KV head i // (Hq / Hkv)) holds.  Where they do not, every rank holds all
+    KV heads: K/V are projected for the range its q heads read only; a map
+    that is not uniform over that range (a rank's q heads straddle KV heads
+    unevenly) becomes an index that repeats K/V per q head."""
+    if group.size == 1:
+        return p, None
+    hq, hkv = p["wq"].shape[1], p["wk"].shape[1]
+    if hkv * group.size == cfg.n_kv_heads:
+        return p, None
+    lo, hi = _kv_ranges(hq, group.size, hkv)[group.rank]
+    p = dict(p)
+    for name in ("wk", "wv"):
+        p[name] = p[name][:, lo:hi]
+    for name in ("bk", "bv"):
+        if name in p:
+            p[name] = p[name][lo:hi]
+    per = hq * group.size // hkv
+    need = [(group.rank * hq + i) // per - lo for i in range(hq)]
+    n = hi - lo
+    if hq % n == 0 and need == [i // (hq // n) for i in range(hq)]:
+        return p, None
+    return p, torch.tensor(need, device=p["wq"].device)
+
+
+def _cache_shard(c: torch.Tensor, cfg: ModelConfig, group: Group,
+                 hq: int) -> torch.Tensor:
+    """From each rank's own KV heads ``c`` (B, S, n, Dh), every KV head on
+    this rank's share of the sequence (the whole sequence where it does
+    not divide over the ranks): the placement of a decode's cache."""
+    n_kv = cfg.n_kv_heads
+    n = c.shape[2]
+    ranges = ([(r * n, (r + 1) * n) for r in range(group.size)]
+              if n * group.size == n_kv else
+              _kv_ranges(hq, group.size, n_kv))
+    width = max(hi - lo for lo, hi in ranges)
+    if n < width:
+        c = torch.nn.functional.pad(c, (0, 0, 0, width - n))
+    every = group.gather(c, 2)
+    heads = []
+    for u in range(n_kv):
+        r, (lo, _) = next((r, rg) for r, rg in enumerate(ranges)
+                          if rg[0] <= u < rg[1])
+        heads.append(r * width + u - lo)
+    if heads != list(range(every.shape[2])):
+        every = every[:, :, heads]
+    s = every.shape[1]
+    if s % group.size:
+        return every
+    part = s // group.size
+    return every.narrow(1, group.rank * part, part).contiguous()
+
+
 def attention_train(
     p: dict, cfg: ModelConfig, x: torch.Tensor, positions, *,
     causal: bool = True, xkv: torch.Tensor | None = None, kv_positions=None,
-    rope: bool = True,
+    rope: bool = True, group: Group = SOLO,
 ) -> torch.Tensor:
     """Full-sequence attention (training, the encoder, cross-attention over
     ``xkv``).  The kernel branch is differentiable through K4's own
-    backward kernels, causal or not, with Sq != Skv for cross-attention."""
+    backward kernels, causal or not, with Sq != Skv for cross-attention.
+    Under split heads (``group``) the output is this rank's partial sum
+    over its heads (its ``wo`` rows)."""
     xkv = x if xkv is None else xkv
     kv_positions = positions if kv_positions is None else kv_positions
+    p, expand = _local_kv(p, cfg, group)
     q, k, v = _project_qkv(p, cfg, x, xkv, positions, kv_positions, rope=rope)
+    if expand is not None:
+        k, v = k[:, :, expand], v[:, :, expand]
     if _use_kernel(cfg, x):
         out = flash_mha(q, k, v, causal=causal, use_pallas=True)
     elif q.shape[1] * k.shape[1] <= cfg.attn_chunk ** 2:
@@ -170,11 +255,12 @@ def attention_train(
     else:
         out = _sdpa_chunked(q, k, v, causal=causal, chunk=cfg.attn_chunk,
                             chunk_k=cfg.attn_chunk_k)
-    return torch.einsum("bshd,hdm->bsm", out, p["wo"])
+    return group.row_product(_wo, out, p["wo"])
 
 
 def attention_prefill(
-    p: dict, cfg: ModelConfig, x: torch.Tensor, positions,
+    p: dict, cfg: ModelConfig, x: torch.Tensor, positions, *,
+    group: Group = SOLO,
 ) -> tuple[torch.Tensor, KVCache]:
     """Causal attention over the prompt; returns output + KV cache (rope is
     applied before caching, as in the reference).
@@ -182,19 +268,30 @@ def attention_prefill(
     The kernel branch uses the fused bucketed-prefill op, which returns the
     cache tensors in the storage dtype (the KV handoff payload for
     disaggregated serving); the plain branch returns K/V uncast, exactly as
-    the reference's two branches do."""
+    the reference's two branches do.  Under split heads (``group``) the
+    output is this rank's partial sum, and the cache every KV head on this
+    rank's share of the sequence (``_cache_shard``)."""
+    p, expand = _local_kv(p, cfg, group)
     q, k, v = _project_qkv(p, cfg, x, x, positions, positions)
+    if expand is not None:
+        k, v = k[:, :, expand], v[:, :, expand]
     if _use_kernel(cfg, x):
-        out, kc, vc = prefill_attention(
+        out, k, v = prefill_attention(
             q, k, v, cache_dtype=dtype_of(cfg.cache_dtype or cfg.compute_dtype),
             use_pallas=True)
-        return torch.einsum("bshd,hdm->bsm", out, p["wo"]), KVCache(k=kc, v=vc)
-    if x.shape[1] <= cfg.attn_chunk:
+    elif x.shape[1] <= cfg.attn_chunk:
         out = _sdpa_full(q, k, v, causal=True)
     else:
         out = _sdpa_chunked(q, k, v, causal=True, chunk=cfg.attn_chunk,
                             chunk_k=cfg.attn_chunk_k)
-    return torch.einsum("bshd,hdm->bsm", out, p["wo"]), KVCache(k=k, v=v)
+    if group.size > 1:
+        if expand is not None:           # one column per KV head
+            firsts = [expand.tolist().index(u)
+                      for u in range(int(expand.max()) + 1)]
+            k, v = k[:, :, firsts], v[:, :, firsts]
+        k = _cache_shard(k, cfg, group, q.shape[2])
+        v = _cache_shard(v, cfg, group, q.shape[2])
+    return group.row_product(_wo, out, p["wo"]), KVCache(k=k, v=v)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, seq: int, device) -> KVCache:
@@ -231,10 +328,56 @@ def _cache_write(cache_arr: torch.Tensor, new: torch.Tensor,
     return cache_arr
 
 
+def _decode_split(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                  cache: KVCache, pos: torch.Tensor, group: Group
+                  ) -> tuple[torch.Tensor, KVCache]:
+    """One-token self-attention decode of split heads over a cache that
+    holds this rank's share of the sequence (``Policy.cache_specs``) for
+    every KV head.  The new token's q, k and v are gathered over the ranks
+    ((B, 1, H, Dh) and smaller); the rank that owns position ``pos`` writes
+    k and v; each rank attends every head over its own positions, and the
+    ranks combine their partial softmaxes by all-reduces of the row maxima,
+    the sums and the weighted values.  Returns this rank's partial sum over
+    its own heads (its ``wo`` rows)."""
+    b = x.shape[0]
+    pos_b = _pos2d(pos, b)
+    q, k_t, v_t = _project_qkv(p, cfg, x, x, pos_b, pos_b)
+    hq = q.shape[2]
+    q = group.gather(q, 2)
+    if k_t.shape[2] != cfg.n_kv_heads:
+        k_t, v_t = group.gather(k_t, 2), group.gather(v_t, 2)
+    s_l = cache.k.shape[1]
+    start = group.rank * s_l
+    local = pos_b[:, 0] - start
+    own = ((local >= 0) & (local < s_l))[:, None, None]
+    at = local.clamp(0, s_l - 1)
+    lanes = torch.arange(b, device=x.device)
+    for arr, new in ((cache.k, k_t), (cache.v, v_t)):
+        arr[lanes, at] = torch.where(own, new[:, 0].to(arr.dtype),
+                                     arr[lanes, at])
+    valid = (start + torch.arange(s_l, device=x.device))[None, :] <= pos_b
+    h, hkv, dh = q.shape[2], cache.k.shape[2], q.shape[3]
+    qg = q.reshape(b, 1, hkv, h // hkv, dh)
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", qg,
+                      cache.k.to(x.dtype)).float() / dh ** 0.5
+    sc = torch.where(valid[:, None, None, None, :], sc, NEG_INF)
+    # The whole decode's softmax over the ranks' positions: its maximum and
+    # sum all-reduced, its probabilities rounded to the compute dtype as
+    # the whole decode rounds them, the weighted values summed in f32 and
+    # rounded once.
+    e = torch.exp(sc - group.max(sc.amax(dim=-1, keepdim=True)))
+    p_att = (e / group.sum(e.sum(dim=-1, keepdim=True))).to(x.dtype)
+    out = group.sum(torch.einsum("bhgqk,bkhd->bhgqd", p_att.float(),
+                                 cache.v.to(x.dtype).float())).to(x.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, dh)
+    out = out[:, :, group.rank * hq:(group.rank + 1) * hq]
+    return group.row_product(_wo, out, p["wo"]), cache
+
+
 def attention_decode(
     p: dict, cfg: ModelConfig, x: torch.Tensor, cache: KVCache,
     pos: torch.Tensor | None, *, cross: bool = False,
-    cross_len: int | torch.Tensor | None = None,
+    cross_len: int | torch.Tensor | None = None, group: Group = SOLO,
 ) -> tuple[torch.Tensor, KVCache]:
     """One-token decode.  x: (B,1,d).  pos: scalar or per-slot (B,) index.
 
@@ -242,7 +385,10 @@ def attention_decode(
     and attends over cache[<= pos].  Cross-attention (enc-dec) reads the
     encoder memory's K/V from the cache, writes nothing and attends over
     cache[< cross_len] (the whole cache when ``cross_len`` is None); its
-    query is not rope'd, and x may hold any number of tokens."""
+    query is not rope'd, and x may hold any number of tokens.  Split heads
+    (``group``) decode over a sequence-split cache (``_decode_split``)."""
+    if group.size > 1 and not cross:
+        return _decode_split(p, cfg, x, cache, pos, group)
     b = x.shape[0]
     if cross:
         q = torch.einsum("bsd,dhk->bshk", x, p["wq"])

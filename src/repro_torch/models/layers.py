@@ -137,12 +137,16 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
-def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU (all assigned LM archs use gated SiLU MLPs)."""
+def apply_mlp(p: dict, x: torch.Tensor, group=None) -> torch.Tensor:
+    """SwiGLU (all assigned LM archs use gated SiLU MLPs).  ``group``
+    (``models/parallel.py``) forms ``w_down``'s row-parallel product where
+    the width is split."""
     g = x @ p["w_gate"]
     u = x @ p["w_up"]
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    return h @ p["w_down"]
+    if group is None:
+        return h @ p["w_down"]
+    return group.row_product(torch.matmul, h, p["w_down"])
 
 
 # ------------------------------------------------------------------- embeddings
@@ -168,3 +172,42 @@ def lm_logits(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         mask[cfg.vocab_size:] = -1e30
         logits = logits + mask
     return logits
+
+
+def take_targets(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """``take_along_axis(logits, targets[..., None], -1)[..., 0]`` for
+    (B, S, V) logits.  Advanced indexing, whose backward on CUDA sums in a
+    fixed order (``torch.gather``'s scatter-add backward does not)."""
+    b, s = targets.shape
+    rows = torch.arange(b * s, device=logits.device)
+    return logits.reshape(b * s, -1)[rows, targets.reshape(-1).long()] \
+        .reshape(b, s)
+
+
+def chunked_ce(p: dict, x: torch.Tensor, targets: torch.Tensor,
+               w: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Fused chunked cross-entropy: never materializes (B, S, V) —
+    sequence chunks of the hidden states hit the LM head one at a time and
+    reduce immediately to (logsumexp, target-logit) pairs.  Returns the
+    weighted sum."""
+    c = cfg.ce_chunk
+    s = x.shape[1]
+    pad = (-s) % c
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        targets = torch.nn.functional.pad(targets, (0, pad))
+        w = torch.nn.functional.pad(w, (0, pad))
+    table = p["head"] if "head" in p else p["table"].T
+    pad_vocab = None
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad_vocab = torch.arange(cfg.padded_vocab,
+                                 device=x.device) >= cfg.vocab_size
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s + pad, c):
+        lg = (x[:, i:i + c] @ table).float()
+        if pad_vocab is not None:
+            lg = lg.masked_fill(pad_vocab, -1e30)
+        lse = torch.logsumexp(lg, dim=-1)
+        tlog = take_targets(lg, targets[:, i:i + c])
+        total = total + torch.sum((lse - tlog) * w[:, i:i + c])
+    return total

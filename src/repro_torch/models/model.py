@@ -28,9 +28,12 @@ draws the port's own random weights with a ``torch.Generator`` on the
 model's device (the two packages' random numbers differ from one seed);
 ``abstract_params`` gives the same tree on the meta device.
 
-A sharded step (``sharding/apply.py``) passes ``dist``, its batch's split
-over the data ranks, to ``loss`` and ``prefill``: the batch is then this
-rank's rows of the global batch.
+Every entry point takes ``par``, the one object between the model and
+sharding (``models/parallel.py``): ``SINGLE`` by default, the identity on
+every hook.  A sharded step (``sharding/apply.py``) passes its own: the
+batch is then this rank's rows of the global batch, and ``loss`` returns
+this rank's terms over its own weight sum (the step divides by the global
+one).
 """
 
 from __future__ import annotations
@@ -40,14 +43,8 @@ import torch
 from ..device import resolve_device
 from ..tree import tree_map
 from .config import LayerSpec, ModelConfig
-from .layers import (
-    apply_norm,
-    dtype_of,
-    embed_tokens,
-    init_embedding,
-    init_norm,
-    lm_logits,
-)
+from .layers import apply_norm, dtype_of, init_embedding, init_norm
+from .parallel import SINGLE, Parallel
 from .transformer import apply_stack, init_stack, init_stack_cache
 
 ENC_PATTERN = (LayerSpec(mixer="attn", mlp="dense"),)
@@ -64,16 +61,6 @@ def _arange_positions(x: torch.Tensor) -> torch.Tensor:
     """0 .. S-1 for each row of a (B, S, ...) input."""
     b, s = x.shape[:2]
     return torch.arange(s, device=x.device)[None].expand(b, s)
-
-
-def take_targets(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """``take_along_axis(logits, targets[..., None], -1)[..., 0]`` for
-    (B, S, V) logits.  Advanced indexing, whose backward on CUDA sums in a
-    fixed order (``torch.gather``'s scatter-add backward does not)."""
-    b, s = targets.shape
-    rows = torch.arange(b * s, device=logits.device)
-    return logits.reshape(b * s, -1)[rows, targets.reshape(-1).long()] \
-        .reshape(b, s)
 
 
 class Model:
@@ -109,105 +96,71 @@ class Model:
                                               device="meta"), fake)
 
     # ----------------------------------------------------------------- embed
-    def _embed(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
+    def _embed(self, params, batch, par: Parallel
+               ) -> tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
         if cfg.is_enc_dec:
-            x = embed_tokens(params["embed"], batch["tgt_tokens"], cfg)
+            x = par.embed_tokens(params["embed"], batch["tgt_tokens"], cfg)
             return x, _arange_positions(x)
         if cfg.input_mode == "embeds":
             return (batch["embeds"].to(dtype_of(cfg.compute_dtype)),
                     batch["positions"])
-        x = embed_tokens(params["embed"], batch["tokens"], cfg)
+        x = par.embed_tokens(params["embed"], batch["tokens"], cfg)
         return x, _arange_positions(x)
 
-    def encode(self, params, src_embeds: torch.Tensor) -> torch.Tensor:
+    def encode(self, params, src_embeds: torch.Tensor,
+               par: Parallel = SINGLE) -> torch.Tensor:
         """The encoder memory (B, Ss, d): non-causal ``ENC_PATTERN`` layers
         over the source embeddings, then the encoder's final norm."""
         cfg = self.cfg
         x = src_embeds.to(dtype_of(cfg.compute_dtype))
         x, _, _ = apply_stack(params["enc_stack"], cfg, x, mode="train",
                               positions=_arange_positions(x), causal=False,
-                              pattern=ENC_PATTERN, prefix=())
+                              pattern=ENC_PATTERN, prefix=(), par=par)
         return apply_norm(cfg, params["enc_final_norm"], x)
 
-    def _stack(self, params, batch, mode: str, capacities, dist=None):
+    def _stack(self, params, batch, mode: str, capacities, par: Parallel):
         """The decoder stack over the batch's inputs (with the encoder
         memory of an enc-dec model): (x, caches, aux)."""
         cfg = self.cfg
-        x, positions = self._embed(params, batch)
+        x, positions = self._embed(params, batch, par)
         memory = mem_pos = None
         if cfg.is_enc_dec:
-            memory = self.encode(params, batch["src_embeds"])
+            memory = self.encode(params, batch["src_embeds"], par)
             mem_pos = _arange_positions(memory)
         return apply_stack(params["stack"], cfg, x, mode=mode,
                            positions=positions, causal=True,
                            cross_memory=memory, mem_positions=mem_pos,
                            capacities=capacities, pattern=dec_pattern(cfg),
-                           dist=dist)
+                           par=par)
 
     # ----------------------------------------------------------------- train
-    def hidden(self, params, batch, capacities=None, dist=None):
+    def hidden(self, params, batch, capacities=None, par: Parallel = SINGLE):
         """Final normed hidden states (pre-LM-head) + aux loss (the MoE
         layers' load-balancing terms; 0 without MoE)."""
-        x, _, aux = self._stack(params, batch, "train", capacities, dist)
+        x, _, aux = self._stack(params, batch, "train", capacities, par)
         aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
         return apply_norm(self.cfg, params["final_norm"], x), aux
 
-    def logits(self, params, batch, capacities=None, dist=None):
-        x, aux = self.hidden(params, batch, capacities, dist)
-        return lm_logits(params["embed"], x, self.cfg), aux
+    def logits(self, params, batch, capacities=None, par: Parallel = SINGLE):
+        x, aux = self.hidden(params, batch, capacities, par)
+        return par.lm_logits(params["embed"], x, self.cfg), aux
 
-    def _chunked_ce(self, params, x, targets, w) -> torch.Tensor:
-        """Fused chunked cross-entropy: never materializes (B, S, V) —
-        sequence chunks of the hidden states hit the LM head one at a time
-        and reduce immediately to (logsumexp, target-logit) pairs."""
-        cfg = self.cfg
-        c = cfg.ce_chunk
-        s = x.shape[1]
-        pad = (-s) % c
-        if pad:
-            x = torch.nn.functional.pad(x, (0, 0, 0, pad))
-            targets = torch.nn.functional.pad(targets, (0, pad))
-            w = torch.nn.functional.pad(w, (0, pad))
-        table = (params["embed"]["head"] if "head" in params["embed"]
-                 else params["embed"]["table"].T)
-        pad_vocab = None
-        if cfg.padded_vocab != cfg.vocab_size:
-            pad_vocab = torch.arange(cfg.padded_vocab,
-                                     device=x.device) >= cfg.vocab_size
-        total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i in range(0, s + pad, c):
-            lg = (x[:, i:i + c] @ table).float()
-            if pad_vocab is not None:
-                lg = lg.masked_fill(pad_vocab, -1e30)
-            lse = torch.logsumexp(lg, dim=-1)
-            tlog = take_targets(lg, targets[:, i:i + c])
-            total = total + torch.sum((lse - tlog) * w[:, i:i + c])
-        return total
-
-    def loss(self, params, batch, capacities=None, dist=None):
+    def loss(self, params, batch, capacities=None, par: Parallel = SINGLE):
         """(loss, metrics): the loss_mask-weighted token mean of the
         cross-entropy (plus the aux term), as the reference computes it.
-
-        With ``dist`` the batch is this rank's rows: the mean divides by
-        the global weight sum, and the aux term (of the global token set)
-        enters 1/n of it, so the n data ranks' losses sum to the global
-        batch's loss, and their gradients to its gradient."""
+        ``tokens`` is the weight sum it divides by: a sharded step's own
+        rows' (``sharding/apply.py`` rescales to the global batch's)."""
         w = batch["loss_mask"].float()
-        wsum = torch.sum(w)
-        if dist is not None:
-            wsum = dist.sum(wsum)
-        wsum = torch.clamp(wsum, min=1.0)
+        wsum = torch.clamp(torch.sum(w), min=1.0)
+        x, aux = self.hidden(params, batch, capacities, par)
         if self.cfg.ce_chunk > 0:
-            x, aux = self.hidden(params, batch, capacities, dist)
-            ce = self._chunked_ce(params, x, batch["targets"], w) / wsum
+            ce = par.chunked_ce(params["embed"], x, batch["targets"], w,
+                                self.cfg) / wsum
         else:
-            logits, aux = self.logits(params, batch, capacities, dist)
-            lp = torch.log_softmax(logits.float(), dim=-1)
-            nll = -take_targets(lp, batch["targets"])
+            nll = par.token_nll(params["embed"], x, batch["targets"],
+                                self.cfg)
             ce = torch.sum(nll * w) / wsum
-        if dist is not None:
-            aux = aux / dist.n
         loss = ce + aux
         return loss, {"loss": loss, "ce": ce, "aux": aux, "tokens": wsum}
 
@@ -221,7 +174,7 @@ class Model:
                                 cross_seq=cross_seq)
 
     def prefill(self, params, batch, capacities=None,
-                last_pos: int | None = None, dist=None):
+                last_pos: int | None = None, par: Parallel = SINGLE):
         """Full-prompt forward.  Returns (last-token logits (B,1,V), caches).
 
         ``last_pos`` selects which position's logits to return (default: the
@@ -233,16 +186,16 @@ class Model:
         ``batch["src_embeds"]`` first and returns each decoder layer's
         cross K/V in its caches."""
         cfg = self.cfg
-        x, caches, _ = self._stack(params, batch, "prefill", capacities,
-                                   dist)
+        x, caches, _ = self._stack(params, batch, "prefill", capacities, par)
         if last_pos is None:
             x = x[:, -1:]
         else:
             x = x[:, int(last_pos):int(last_pos) + 1]
         x = apply_norm(cfg, params["final_norm"], x)
-        return lm_logits(params["embed"], x, cfg), caches
+        return par.lm_logits(params["embed"], x, cfg), caches
 
-    def decode_step(self, params, caches, inputs, pos, capacities=None):
+    def decode_step(self, params, caches, inputs, pos, capacities=None,
+                    par: Parallel = SINGLE):
         """One-token decode.  ``inputs``: (B,1) tokens (or ``{"tokens":
         ...}``), or for an embeds-input model ``{"embeds": (B,1,d),
         "positions": (B,1)|(B,3,1)}``; ``pos``: scalar or per-slot (B,)
@@ -256,14 +209,14 @@ class Model:
             positions = inputs["positions"]
         else:
             tok = inputs["tokens"] if isinstance(inputs, dict) else inputs
-            x = embed_tokens(params["embed"], tok, cfg)
+            x = par.embed_tokens(params["embed"], tok, cfg)
             positions = None     # attention ropes with ``pos``
         x, caches, _ = apply_stack(
             params["stack"], cfg, x, mode="decode", positions=positions,
             caches=caches, pos=torch.as_tensor(pos, device=x.device),
-            capacities=capacities, pattern=dec_pattern(cfg))
+            capacities=capacities, pattern=dec_pattern(cfg), par=par)
         x = apply_norm(cfg, params["final_norm"], x)
-        logits = lm_logits(params["embed"], x, cfg)
+        logits = par.lm_logits(params["embed"], x, cfg)
         if cfg.decode_sample:
             return torch.argmax(logits, dim=-1).to(torch.int32), caches
         return logits, caches

@@ -32,16 +32,15 @@ dots_with_no_batch_dims_saveable`` does: batched products (``bmm``: the
 plain attention's and the experts' einsums) and K4's autograd function are
 recomputed.
 
-A sharded step (``sharding/apply.py``) hands the stack its periods as an
-object with ``unbind()`` (each period's stored shards) and ``gather(tree)``
-(a period's full tensors), and a decode its cache periods as an object
-with ``period(t)`` and ``commit(t, caches)``; ``dist`` routes an MoE
-layer over the global token set of a batch split over data ranks.
+Every apply takes ``par`` (``models/parallel.py``), the one object between
+the model and sharding: the stack takes its periods (and a decode its cache
+periods) from it, each layer its groups (attention heads and dense-MLP
+width split over ranks, or the layer computed whole), and an MoE layer its
+token set.  ``SINGLE``, the default, is the identity on every hook.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Any
 
 import torch
@@ -65,6 +64,7 @@ from .layers import apply_mlp, apply_norm, init_mlp, init_norm, rms_norm
 from .mamba import init_mamba, init_mamba_cache, mamba_decode, mamba_train
 from .mla import init_mla, init_mla_cache, mla_decode, mla_prefill, mla_train
 from .moe import apply_moe, apply_moe_dense, init_moe
+from .parallel import SINGLE, Parallel, fields
 
 #: The products ``remat_policy="dots"`` saves: matrix products without
 #: batch dimensions.
@@ -136,18 +136,26 @@ def apply_layer(
     p: dict, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor, *,
     mode: str, positions=None, cache: dict | None = None, pos=None,
     causal: bool = True, cross_memory: torch.Tensor | None = None,
-    mem_positions=None, capacities=None, dist=None,
+    mem_positions=None, capacities=None, par: Parallel = SINGLE,
 ):
     """Returns (x, new_cache, aux): the cache is None in train mode; aux is
     the MoE layer's load-balancing loss, and the number 0.0 for other
     layers and in decode (adding it changes no sum, and it launches
-    nothing).  With ``dist`` (this rank's rows of a batch split over data
-    ranks) an MoE layer routes the global token set, as the reference's
-    compiled step does, and keeps this rank's rows."""
+    nothing).  Each mixer and MLP runs in its group of ``par``: attention
+    on this rank's heads and the dense MLP on its columns where ``par``
+    split them, every other layer whole; an MoE layer routes
+    ``par.moe_tokens`` (a sharded step's global token set, as the
+    reference's compiled step routes it) and keeps ``par.moe_rows``."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode: {mode!r}")
-    h = apply_norm(cfg, p["norm1"], x)
     new_cache: dict[str, Any] = {}
+    if spec.mixer == "attn":
+        g = par.split(p["attn"]["wq"].shape[1], cfg.n_q_heads)
+    elif spec.mixer in ("mamba", "mla"):
+        g = par.whole()
+    else:
+        raise ValueError(spec.mixer)
+    h = g.col_in(apply_norm(cfg, p["norm1"], x))
     if spec.mixer == "mamba":
         if mode == "decode":
             a, new_cache["self"] = mamba_decode(p["mamba"], cfg, h,
@@ -164,19 +172,20 @@ def apply_layer(
         else:
             a, new_cache["self"] = mla_decode(p["mla"], cfg, h, cache["self"],
                                               pos)
-    elif spec.mixer != "attn":
-        raise ValueError(spec.mixer)
     elif mode == "train":
-        a = attention_train(p["attn"], cfg, h, positions, causal=causal)
+        a = attention_train(p["attn"], cfg, h, positions, causal=causal,
+                            group=g)
     elif mode == "prefill":
-        a, new_cache["self"] = attention_prefill(p["attn"], cfg, h, positions)
+        a, new_cache["self"] = attention_prefill(p["attn"], cfg, h,
+                                                 positions, group=g)
     else:
         a, new_cache["self"] = attention_decode(p["attn"], cfg, h,
-                                                cache["self"], pos)
-    x = x + a
+                                                cache["self"], pos, group=g)
+    x = x + g.row_out(a).to(x.dtype)
 
     if spec.cross_attn:
-        h = apply_norm(cfg, p["norm_cross"], x)
+        g = par.whole()
+        h = g.col_in(apply_norm(cfg, p["norm_cross"], x))
         if mode == "train":
             a = attention_train(
                 p["cross"], cfg, h, positions, causal=False,
@@ -192,52 +201,33 @@ def apply_layer(
             a, _ = attention_decode(p["cross"], cfg, h, cache["cross"], None,
                                     cross=True)
             new_cache["cross"] = cache["cross"]
-        x = x + a
+        x = x + g.row_out(a)
 
     aux = 0.0
     if spec.mlp == "dense":
-        x = x + apply_mlp(p["mlp"], apply_norm(cfg, p["norm2"], x))
+        g = par.split(p["mlp"]["w_down"].shape[0], cfg.d_ff)
+        h = g.col_in(apply_norm(cfg, p["norm2"], x))
+        x = x + g.row_out(apply_mlp(p["mlp"], h, g)).to(x.dtype)
     elif spec.mlp == "moe":
-        h = apply_norm(cfg, p["norm2"], x)
+        g = par.whole()
+        h = g.col_in(apply_norm(cfg, p["norm2"], x))
         if mode == "decode":
             mo, _ = apply_moe_dense(p["moe"], cfg, h)
         else:
-            if dist is None:
-                mo, aux = apply_moe(p["moe"], cfg, h, capacities)
-            else:
-                mo, aux = apply_moe(p["moe"], cfg, dist.gather_rows(h),
-                                    capacities)
-                mo = dist.own_rows(mo)
-        x = x + mo
+            mo, aux = apply_moe(p["moe"], cfg, par.moe_tokens(h), capacities)
+            mo = par.moe_rows(mo)
+        x = x + g.row_out(mo)
     return x, (None if mode == "train" else new_cache), aux
 
 
 # -------------------------------------------------------------------- stack
-def _fields(cache) -> dict[str, Any]:
-    """A cache dataclass's (``KVCache``, ``MambaCache``) tensors by name."""
-    return {f.name: getattr(cache, f.name) for f in dataclasses.fields(cache)}
-
-
 def _stack(items: list) -> Any:
     """Stack per-period pytrees (dicts / cache dataclasses of tensors) on a
     new leading axis — the layout ``lax.scan`` gives the reference."""
-    first = items[0]
-    if isinstance(first, dict):
-        return {key: _stack([it[key] for it in items]) for key in first}
-    if dataclasses.is_dataclass(first):
-        return type(first)(**{name: torch.stack([getattr(it, name)
-                                                 for it in items])
-                              for name in _fields(first)})
-    return torch.stack(items)
-
-
-def _index(tree: Any, i: int) -> Any:
-    """Period ``i`` of a stacked pytree (views: writes reach the stack)."""
-    if isinstance(tree, dict):
-        return {key: _index(val, i) for key, val in tree.items()}
-    if dataclasses.is_dataclass(tree):
-        return type(tree)(**{name: t[i] for name, t in _fields(tree).items()})
-    return tree[i]
+    treedef = tree_flatten(items[0])[1]
+    cols = [tree_flatten(it)[0] for it in items]
+    return tree_unflatten(treedef, [torch.stack(leaves)
+                                    for leaves in zip(*cols, strict=True)])
 
 
 def _init_stacked(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
@@ -291,43 +281,24 @@ def init_stack_cache(cfg: ModelConfig, batch: int, seq: int, device, *,
         periods[f"pos{i}"] = {key: type(c)(**{
             name: torch.zeros((n_periods,) + tuple(t.shape), dtype=t.dtype,
                               device=device)
-            for name, t in _fields(c).items()}) for key, c in single.items()}
+            for name, t in fields(c).items()}) for key, c in single.items()}
     out["periods"] = periods
     return out
 
 
-def _unbind(tree: Any) -> list:
-    """A stacked period pytree as one pytree per period.  ``unbind``'s
-    backward stacks the per-period gradients in one op, where indexing
-    period by period would add a zero-padded full-size gradient per
-    period."""
-    leaves, treedef = tree_flatten(tree)
-    parts = [leaf.unbind(0) for leaf in leaves]
-    return [tree_unflatten(treedef, [p[t] for p in parts])
-            for t in range(len(parts[0]))]
-
-
-def _same(tree):
-    return tree
-
-
-def _period_params(periods) -> tuple[list, Any]:
-    """The stack's per-period parameter trees, and the function that makes
-    one ready for its layers: the stacked tensors' own periods, or a
-    sharded stack's stored shards and its gather."""
-    if isinstance(periods, dict):
-        return _unbind(periods), _same
-    return periods.unbind(), periods.gather
-
-
 def _apply_stack_train(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                       pattern, prefix, remat: bool, **kw):
-    per_list, gather = _period_params(params["periods"])
+                       pattern, prefix, remat: bool, par: Parallel, **kw):
+    per_list, gather = par.periods(params["periods"])
     aux = 0.0
     for i, spec in enumerate(prefix):
         x, _, a = apply_layer(params["prefix"][i], cfg, spec, x, mode="train",
-                              **kw)
+                              par=par, **kw)
         aux = aux + a
+    # Between the periods the residual stream may be split over ranks
+    # (``seq_parallel``): each period's checkpoint then keeps a share of
+    # its input, and its layers take ``inner``'s groups.
+    x = par.seq_split(x)
+    inner = par.in_periods()
 
     def body(h: torch.Tensor, aux_acc, per_params: dict):
         # The aux sum enters and leaves the checkpointed body as an argument
@@ -339,7 +310,7 @@ def _apply_stack_train(params: dict, cfg: ModelConfig, x: torch.Tensor,
         per_params = gather(per_params)
         for i, spec in enumerate(pattern):
             h, _, a = apply_layer(per_params[f"pos{i}"], cfg, spec, h,
-                                  mode="train", **kw)
+                                  mode="train", par=inner, **kw)
             aux_acc = aux_acc + a
         return h, aux_acc
 
@@ -354,7 +325,7 @@ def _apply_stack_train(params: dict, cfg: ModelConfig, x: torch.Tensor,
                                 preserve_rng_state=False, **extra)
         else:
             x, aux = body(x, aux, per_params)
-    return x, aux
+    return par.seq_gather(x), aux
 
 
 def apply_stack(
@@ -362,7 +333,7 @@ def apply_stack(
     mode: str, positions=None, caches: dict | None = None, pos=None,
     causal: bool = True, cross_memory=None, mem_positions=None,
     capacities=None, pattern=None, prefix=None, remat: bool = True,
-    dist=None,
+    par: Parallel = SINGLE,
 ):
     """Returns (x, new_caches, aux): the caches are None in train mode; aux
     is the sum of the MoE layers' load-balancing losses in layer order (the
@@ -374,14 +345,14 @@ def apply_stack(
     prefill; None: uniform); ``pattern`` and ``prefix`` the stack's layers
     (the config's by default).  ``remat`` (train mode) recomputes each
     period's forward in the backward instead of keeping its activations.
-    ``dist`` is a sharded step's data split (MoE layers route the global
-    token set)."""
+    ``par`` gives the periods, the cache periods and each layer's groups
+    (``models/parallel.py``)."""
     pattern, prefix, _ = _layout(cfg, pattern, prefix, 0)
     kw = dict(positions=positions, causal=causal, cross_memory=cross_memory,
-              mem_positions=mem_positions, capacities=capacities, dist=dist)
+              mem_positions=mem_positions, capacities=capacities)
     if mode == "train":
         x, aux = _apply_stack_train(params, cfg, x, pattern, prefix, remat,
-                                    **kw)
+                                    par, **kw)
         return x, None, aux
     if mode not in ("prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode: {mode!r}")
@@ -390,27 +361,25 @@ def apply_stack(
     for i, spec in enumerate(prefix):
         c = caches["prefix"][i] if caches is not None else None
         x, nc, a = apply_layer(params["prefix"][i], cfg, spec, x, mode=mode,
-                               cache=c, pos=pos, **kw)
+                               cache=c, pos=pos, par=par, **kw)
         aux = aux + a
         new_prefix.append(nc)
     per_period = []
-    per_list, gather = _period_params(params["periods"])
-    cache_periods = caches["periods"] if mode == "decode" else None
-    plain_caches = isinstance(cache_periods, dict)
+    per_list, gather = par.periods(params["periods"])
+    cache_periods = (par.cache_periods(caches["periods"]) if mode == "decode"
+                     else None)
     for t, per_params in enumerate(per_list):
         per_params = gather(per_params)
-        if mode == "decode":
-            per_cache = (_index(cache_periods, t) if plain_caches
-                         else cache_periods.period(t))
+        per_cache = cache_periods.period(t) if mode == "decode" else None
         ncs = {}
         for i, spec in enumerate(pattern):
             key = f"pos{i}"
             c = per_cache[key] if mode == "decode" else None
             x, ncs[key], a = apply_layer(
                 per_params[key], cfg, spec, x, mode=mode, cache=c, pos=pos,
-                **kw)
+                par=par, **kw)
             aux = aux + a
-        if mode == "decode" and not plain_caches:
+        if mode == "decode":
             cache_periods.commit(t, ncs)
         per_period.append(ncs)
     if mode == "decode":

@@ -1,42 +1,54 @@
-"""Sharded train, prefill and decode steps on DTensor.
+"""Sharded train, prefill and decode steps on DTensor, with tensor-parallel
+compute over the mesh's ``model`` axis.
 
 The counterpart of the reference's ``jax.jit(step, in_shardings=...,
 out_shardings=...)`` (``repro/launch/dryrun.py::build_step``), built on
-``torch.distributed.tensor``:
+``torch.distributed.tensor``; GSPMD's sharding of the compute itself is
+``sharding/tp.py``:
 
   - **Storage.** ``distribute_tree`` stores params, both AdamW moments and
     the decode caches as DTensors at the policy's placements
     (``sharding/policy.py``): each rank holds its share of the bytes.
-  - **Per-period gathers.** A step takes the model's periods one at a time
-    and gathers each period's parameters to full local tensors
-    (``redistribute(...).to_local(grad_placements=...)``), inside the
-    period's checkpoint in training; the embedding, the norms and the
-    prefix layers are gathered once a step.  So the model code, the
-    checkpointed periods and the kernels see plain tensors.  A decode
-    gathers each period's caches over ``model`` (the sequence) and writes
-    its shard of them back.
-  - **Backward.** A gathered parameter's gradient is a partial sum over the
-    data ranks (each rank computed its own rows) and the same on every
-    ``model`` rank, so it returns as a reduce-scatter (or all-reduce) over
-    the data axes to the stored placements, and AdamW updates the shards.
-    The global-norm clip takes the norm of the whole gradient (DTensor
-    reductions).
-  - **Batch.** The batch is split over the data axes (``batch_specs``).
-    The loss divides by the global weight sum, and an MoE layer gathers
-    its input over the data axes, routes the global token set (capacities
-    and ranks as the reference's compiled step sees them) and keeps this
-    rank's rows (``DataSplit``).
-
-This is the fsdp/ZeRO layout of ``fsdp_tp`` (and ``tp``: weights
-replicated over data) with data-parallel compute.  Tensor-parallel compute
-and ``seq_parallel``'s residual-stream constraint are what GSPMD adds
-inside the reference's compiled step; they are not ported, so every rank
-of a ``model`` group computes the same rows.
+  - **Per-period gathers** (``_plan``).  A step takes the model's periods
+    one at a time, inside each period's checkpoint in training; the
+    embedding, the norms and the prefix layers once a step.  A leaf of an
+    attention, dense-MLP or embedding group whose key leaf (``wq``,
+    ``w_down``, ``table``) the policy splits over ``model`` is gathered
+    over the data axes only and keeps its ``model`` shard: those layers
+    compute tensor-parallel on this rank's heads, MLP columns and
+    vocabulary rows.  Every other leaf is gathered whole (MoE, Mamba, MLA,
+    cross-attention, and groups whose heads, width or vocabulary do not
+    divide), and its layer computes whole on every ``model`` rank.
+  - **Gradients.**  Each leaf's gradient is ``Partial`` over the data axes
+    (each data rank computed its own rows) and over ``model``: ``Shard``
+    where a rank used only its own shard; ``Partial`` where each rank used
+    part of a leaf replicated over ``model`` (``wk``/``wv``/``bk``/``bv``
+    when the KV heads do not divide, ``q_norm``/``k_norm``, and a period's
+    norms under ``seq_parallel``, which see this rank's positions);
+    ``Replicate`` where every rank computed the same.  They return as
+    reduce-scatters or all-reduces to the stored placements, and AdamW
+    updates the shards; the global-norm clip takes the whole gradient's
+    norm (DTensor reductions).
+  - **Batch.** The batch is split over the data axes (``batch_specs``)
+    and the same on every ``model`` rank.  The step divides the loss by
+    the global weight sum and takes 1/n of the aux term (the MoE layers
+    route the global token set, ``DataSplit``), so the data ranks' losses
+    sum to the global batch's.
+  - **Decode.**  An attention layer's cache stays at ``Policy.
+    cache_specs`` (the sequence over ``model``): each rank attends every
+    head over its own positions (``models/attention.py::_decode_split``)
+    and the cache is never gathered.  A layer computed whole gathers its
+    period's caches over ``model`` and writes its shard back, as do the
+    attention caches where the sequence does not divide.  The prefill's
+    caches come back at those placements.
+  - ``seq_parallel`` (training): between the periods the residual stream
+    is split on the sequence over ``model``, so each period's checkpoint
+    keeps 1/m of its input.
 
 With ``n_micro > 1`` the training step splits this rank's rows into
 microbatches (the reference splits the global batch): without MoE the
 accumulated gradient is the same sum, with MoE the aux terms follow the
-other partition.
+other partition.  On a (1, 1) mesh every step is bitwise the unsharded one.
 """
 
 from __future__ import annotations
@@ -57,7 +69,8 @@ from ..models.model import Model
 from ..optim.adamw import AdamWConfig, adamw_update
 from ..tree import tree_flatten, tree_map, tree_paths, tree_unflatten
 from ..train.train_state import TrainState
-from .policy import is_spec, to_placements
+from .policy import Policy, is_spec, leaf_names, to_placements
+from .tp import MeshParallel
 
 __all__ = ["DataSplit", "distribute_tree", "local_tree", "full_tree",
            "make_sharded_train_step", "make_sharded_prefill_step",
@@ -103,8 +116,8 @@ def _shift(placements) -> list:
 class DataSplit:
     """A batch's rows split over the mesh dimensions ``dims`` (the data
     axes that ``batch_specs`` shards its first dimension over; none when
-    the batch does not divide).  The model code (``models/model.py::loss``,
-    ``transformer.apply_layer``) reads it."""
+    the batch does not divide).  ``MeshParallel`` routes an MoE layer's
+    tokens through it."""
 
     def __init__(self, mesh, dims: tuple[int, ...]):
         self.mesh = mesh
@@ -159,27 +172,96 @@ class DataSplit:
                                   run_check=False)
 
 
-def _gather(local: torch.Tensor, placements, mesh, grad_placements
-            ) -> torch.Tensor:
-    """A shard's full tensor; the gradient returns to the shard."""
+#: The groups that compute tensor-parallel, by the dict that holds them,
+#: and the leaf whose placement over ``model`` decides.
+_TP_KEY = {"attn": "wq", "mlp": "w_down", "embed": "table"}
+_NORMS = ("norm1", "norm2", "norm_cross")
+
+
+def _model_dim(mesh) -> int:
+    return list(mesh.mesh_dim_names).index("model")
+
+
+def _on_model(placements, dim: int) -> bool:
+    return dim >= 0 and isinstance(placements[dim], Shard)
+
+
+class _Plan:
+    """How a step reads each leaf of a params tree: the placements it is
+    gathered to (``target``) and the placements of its gradient
+    (``grad``), by path (``leaf_names``, the period axis dropped).
+
+    ``kinds``: the groups that compute tensor-parallel in this step
+    (a decode whose caches do not split the sequence leaves out
+    ``attn``); ``seq``: ``seq_parallel``, so a period's norms see this
+    rank's positions."""
+
+    def __init__(self, stored: Any, mesh, split: DataSplit,
+                 kinds=("attn", "mlp", "embed"), seq: bool = False):
+        self.mesh, self.split, self.seq = mesh, split, seq
+        self.mdim = _model_dim(mesh) if mesh.size(_model_dim(mesh)) > 1 \
+            else -1
+        leaves = tree_flatten(stored)[0]
+        names = [tuple(leaf_names(p)) for p in tree_paths(stored)]
+        self._stored = {n: _shift(d.placements) if "periods" in n
+                        else list(d.placements)
+                        for n, d in zip(names, leaves, strict=True)}
+        # A group computes tensor-parallel where its key leaf is split
+        # over ``model``.
+        self.tp_groups = {n[:-1] for n, pl in self._stored.items()
+                          if n[-1] == _TP_KEY.get(n[-2] if len(n) > 1
+                                                  else "")
+                          and n[-2] in kinds
+                          and _on_model(pl, self.mdim)}
+
+    def placements(self, names: tuple) -> tuple[list, list, list]:
+        """(stored, target, grad) placements of the leaf at ``names``."""
+        stored = self._stored[names]
+        tp = names[:-1] in self.tp_groups
+        norm = self.seq and "periods" in names and names[-2] in _NORMS
+        target, grad = [], []
+        for i, p in enumerate(stored):
+            if i != self.mdim:
+                target.append(Replicate())
+                grad.append(Partial() if i in self.split.dims
+                            else Replicate())
+            elif tp and isinstance(p, Shard):
+                target.append(p)
+                grad.append(p)
+            else:
+                target.append(Replicate())
+                grad.append(Partial() if tp or norm else Replicate())
+        return stored, target, grad
+
+    def gather(self, tree: Any, prefix: tuple = ()) -> Any:
+        """Each local shard of ``tree`` (at path ``prefix``) gathered to
+        its target placements."""
+        leaves, treedef = tree_flatten(tree)
+        return tree_unflatten(treedef, [
+            _gather(leaf, *self.placements(prefix + tuple(leaf_names(p))),
+                    self.mesh)
+            for leaf, p in zip(leaves, tree_paths(tree), strict=True)])
+
+
+def _gather(local: torch.Tensor, placements, target, grad_placements,
+            mesh) -> torch.Tensor:
+    """A shard gathered to ``target``; the gradient returns to the shard
+    from ``grad_placements``."""
     return DTensor.from_local(local, mesh, placements, run_check=False
-                              ).redistribute(mesh, _all_replicate(mesh)
-                                             ).to_local(
+                              ).redistribute(mesh, target).to_local(
         grad_placements=grad_placements)
 
 
 class ShardedPeriods:
-    """A stack's stored periods for ``transformer.apply_stack``: ``unbind``
-    gives each period's shards (views of ``local``, whose gradients stack
-    in one op), ``gather`` a period's full tensors."""
+    """A stack's stored periods, handed to the model as its period
+    provider (``MeshParallel.periods``): ``unbind`` gives each period's
+    shards (views of ``local``, whose gradients stack in one op),
+    ``gather`` a period's tensors at the plan's placements."""
 
-    def __init__(self, stored: Any, local: Any, mesh, grad_placements):
+    def __init__(self, local: Any, plan: _Plan, prefix: tuple):
         leaves, self._treedef = tree_flatten(local)
         self._leaves = leaves
-        self._placements = [_shift(d.placements)
-                            for d in tree_flatten(stored)[0]]
-        self._mesh = mesh
-        self._grad = grad_placements
+        self._plan, self._prefix = plan, prefix
 
     def unbind(self) -> list:
         parts = [leaf.unbind(0) for leaf in self._leaves]
@@ -187,32 +269,28 @@ class ShardedPeriods:
                 for t in range(len(parts[0]))]
 
     def gather(self, tree: Any) -> Any:
-        leaves, treedef = tree_flatten(tree)
-        return tree_unflatten(treedef, [
-            _gather(leaf, pl, self._mesh, self._grad)
-            for leaf, pl in zip(leaves, self._placements, strict=True)])
+        return self._plan.gather(tree, self._prefix)
 
 
-def _model_params(stored: dict, local: dict, mesh, grad_placements) -> dict:
+def _model_params(stored: dict, local: dict, plan: _Plan) -> dict:
     """The params tree the model reads: each stack's periods as
-    ``ShardedPeriods``, every other leaf gathered."""
-
-    def gather_all(s, loc):
-        s_leaves, treedef = tree_flatten(s)
-        return tree_unflatten(treedef, [
-            _gather(x, d.placements, mesh, grad_placements)
-            for d, x in zip(s_leaves, tree_flatten(loc)[0], strict=True)])
-
+    ``ShardedPeriods``, every other leaf gathered by the plan."""
     out = {}
     for key, sub in stored.items():
         if isinstance(sub, dict) and "periods" in sub:
-            out[key] = {k: (ShardedPeriods(v, local[key][k], mesh,
-                                           grad_placements)
-                            if k == "periods" else gather_all(v, local[key][k]))
-                        for k, v in sub.items()}
+            out[key] = {k: (ShardedPeriods(local[key][k], plan,
+                                           (key, "periods"))
+                            if k == "periods"
+                            else plan.gather(local[key][k], (key, k)))
+                        for k in sub}
         else:
-            out[key] = gather_all(sub, local[key])
+            out[key] = plan.gather(local[key], (key,))
     return out
+
+
+def _local_params(params: Any) -> Any:
+    leaves, treedef = tree_flatten(params)
+    return tree_unflatten(treedef, [d.to_local() for d in leaves])
 
 
 def make_sharded_train_step(model: Model, mesh,
@@ -222,19 +300,31 @@ def make_sharded_train_step(model: Model, mesh,
     DTensors (``distribute_tree`` at ``Policy.param_specs`` /
     ``opt_specs``) and a batch of DTensors (``batch_specs``): forward,
     backward and AdamW, as ``train.step.make_train_step`` on the global
-    batch.  The metrics are the global batch's (summed over the data
-    ranks)."""
+    batch, tensor-parallel over ``model`` (and ``seq_parallel`` where the
+    config asks for it).  The metrics are the global batch's (summed over
+    the data ranks)."""
     opt_cfg = opt_cfg or AdamWConfig()
+    seq = model.cfg.seq_parallel
 
     def value_and_grad(params_dt, local, batch, split):
+        plan = _Plan(params_dt, mesh, split, seq=seq)
+        par = MeshParallel(mesh, split, seq_parallel=seq)
         treedef = tree_flatten(params_dt)[1]
         mparams = _model_params(params_dt, tree_unflatten(treedef, local),
-                                mesh, split.grad_placements)
-        loss, metrics = model.loss(mparams, batch, dist=split)
+                                plan)
+        _, met = model.loss(mparams, batch, par=par)
+        # This rank's terms over the global weight sum; 1/n of the aux
+        # term (an MoE layer's is the global token set's).
+        wsum = torch.clamp(split.sum(batch["loss_mask"].float().sum()),
+                           min=1.0)
+        ce = met["ce"] * (met["tokens"] / wsum)
+        aux = met["aux"] / split.n
+        loss = ce + aux
         grads = torch.autograd.grad(loss, local, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for g, x in zip(grads, local, strict=True)]
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = {"loss": loss.detach(), "ce": ce.detach(),
+                   "aux": aux.detach(), "tokens": wsum.detach()}
         return loss.detach(), metrics, grads
 
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
@@ -282,29 +372,63 @@ def make_sharded_train_step(model: Model, mesh,
     return train_step
 
 
-def _prefill_caches_as_dtensors(caches: Any, split: DataSplit) -> Any:
+def _own_chunk(t: torch.Tensor, placements, shape, mesh) -> torch.Tensor:
+    """This rank's chunk of ``t``, whose dimensions hold the global
+    ``shape`` or already a rank's share of it, at ``placements`` over the
+    mesh dimensions that do not split the batch."""
+    coord = mesh.get_coordinate() or [0] * mesh.ndim
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard) and t.shape[p.dim] == shape[p.dim] \
+                and mesh.size(i) > 1:
+            n = shape[p.dim] // mesh.size(i)
+            t = t.narrow(p.dim, coord[i] * n, n)
+    return t.contiguous()
+
+
+def _prefill_caches(model: Model, caches: Any, batch: Any, split: DataSplit,
+                    mesh) -> Any:
+    """The prefill's caches as DTensors at ``Policy.cache_specs``: the
+    batch over the data ranks, the sequence (or a mamba state's heads) over
+    ``model``; the caches the model built whole keep this rank's chunk,
+    the split attention's came at it already."""
     leaves, treedef = tree_flatten(caches)
-    return tree_unflatten(treedef, [
-        split.as_dtensor(c, 1 if ("key", "periods") in path else 0)
-        for path, c in zip(tree_paths(caches), leaves, strict=True)])
+    cfg = model.cfg
+    cross = None
+    if cfg.is_enc_dec:
+        tokens, cross = batch["tgt_tokens"], batch["src_embeds"].shape[1]
+    else:
+        tokens = batch["embeds" if cfg.input_mode == "embeds" else "tokens"]
+    b, s = tokens.shape[0] * split.n, tokens.shape[1]
+    meta = Model(model.cfg, device="meta").init_cache(b, s, cross_seq=cross)
+    specs = Policy(model.cfg, mesh).cache_specs(meta)
+    out = []
+    for leaf, m, spec in zip(leaves, tree_flatten(meta)[0],
+                             tree_flatten(specs, is_leaf=is_spec)[0],
+                             strict=True):
+        pl = to_placements(spec, mesh)
+        keep = [p if i not in split.dims else Replicate()
+                for i, p in enumerate(pl)]
+        out.append(DTensor.from_local(
+            _own_chunk(leaf, keep, tuple(m.shape), mesh), mesh, pl,
+            run_check=False))
+    return tree_unflatten(treedef, out)
 
 
 def make_sharded_prefill_step(model: Model, mesh) -> Callable:
     """``(params, batch) -> (logits, caches)``: ``Model.prefill`` on this
-    rank's rows, periods gathered one at a time; logits and caches come
-    back as DTensors split over the data ranks."""
+    rank's rows, tensor-parallel over ``model``, periods gathered one at a
+    time; full logits come back as a DTensor split over the data ranks,
+    the caches at ``Policy.cache_specs``."""
 
     def prefill_step(params, batch):
         split = DataSplit.of(batch, mesh)
-        leaves_dt, treedef = tree_flatten(params)
-        local = tree_unflatten(treedef, [d.to_local() for d in leaves_dt])
         with torch.no_grad():
-            mparams = _model_params(params, local, mesh,
-                                    split.grad_placements)
+            mparams = _model_params(params, _local_params(params),
+                                    _Plan(params, mesh, split))
             logits, caches = model.prefill(mparams, local_tree(batch),
-                                           dist=split)
-        return split.as_dtensor(logits), _prefill_caches_as_dtensors(
-            caches, split)
+                                           par=MeshParallel(mesh, split))
+        return split.as_dtensor(logits), _prefill_caches(
+            model, caches, local_tree(batch), split, mesh)
 
     return prefill_step
 
@@ -328,46 +452,73 @@ def _cache_commit(local: torch.Tensor, full: torch.Tensor, placements,
 
 
 class ShardedCachePeriods:
-    """A decode's stored cache periods for ``transformer.apply_stack``:
-    ``period(t)`` gathers period t's caches over the sequence (``model``),
-    ``commit(t, caches)`` writes this rank's shard of them back."""
+    """A decode's stored cache periods, handed to the model as its cache
+    provider (``MeshParallel.cache_periods``): ``period(t)`` gives period
+    t's caches, the split attention layers' own shards as they are (the
+    model writes them in place) and every other cache gathered over the
+    sequence (``model``); ``commit(t, caches)`` writes this rank's shard
+    of the gathered ones back."""
 
-    def __init__(self, stored: Any, mesh):
+    def __init__(self, stored: Any, mesh, local_layers=frozenset()):
         leaves, self._treedef = tree_flatten(stored)
         self._local = [d.to_local() for d in leaves]
         self._placements = [_shift(d.placements) for d in leaves]
+        self._own = [tuple(leaf_names(p, kinds=("key",)))[:2] in local_layers
+                     for p in tree_paths(stored)]
         self._mesh = mesh
 
     def period(self, t: int) -> Any:
         return tree_unflatten(self._treedef, [
-            _cache_view(x[t], pl, self._mesh)
-            for x, pl in zip(self._local, self._placements, strict=True)])
+            x[t] if own else _cache_view(x[t], pl, self._mesh)
+            for x, pl, own in zip(self._local, self._placements, self._own,
+                                  strict=True)])
 
     def commit(self, t: int, caches: Any) -> None:
-        for x, full, pl in zip(self._local, tree_flatten(caches)[0],
-                               self._placements, strict=True):
-            _cache_commit(x[t], full, pl, self._mesh)
+        for x, full, pl, own in zip(self._local, tree_flatten(caches)[0],
+                                    self._placements, self._own,
+                                    strict=True):
+            if not own:
+                _cache_commit(x[t], full, pl, self._mesh)
+
+
+def _split_attention(params: Any, caches: Any, mesh) -> frozenset:
+    """The (``pos<i>``, ``self``) caches of the attention layers a decode
+    splits over ``model``: those whose heads the policy splits and whose
+    cache splits the sequence."""
+    mdim = _model_dim(mesh)
+    if mesh.size(mdim) == 1:
+        return frozenset()
+    out = set()
+    for key, layer in caches["periods"].items():
+        attn = params["stack"]["periods"][key].get("attn")
+        if attn is None or "self" not in layer:
+            continue
+        if _on_model(attn["wq"].placements, mdim) and _on_model(
+                layer["self"].k.placements, mdim):
+            out.add((key, "self"))
+    return frozenset(out)
 
 
 def make_sharded_decode_step(model: Model, mesh) -> Callable:
     """``(params, caches, inputs, pos) -> (logits, caches)``:
     ``Model.decode_step`` on this rank's rows (``inputs`` split over the
-    data ranks), the caches stored at ``Policy.cache_specs`` and updated
-    in place; ``pos`` is one position for every row, or a (B,) DTensor of
-    them placed as the inputs.  Logits come back as a DTensor split over
-    the data ranks."""
+    data ranks), tensor-parallel over ``model``, the caches stored at
+    ``Policy.cache_specs`` and updated in place (an attention layer's
+    over its own share of the sequence); ``pos`` is one position for every
+    row, or a (B,) DTensor of them placed as the inputs.  Full logits come
+    back as a DTensor split over the data ranks."""
 
     def decode_step(params, caches, inputs, pos):
         split = DataSplit.of(inputs, mesh)
-        leaves_dt, treedef = tree_flatten(params)
-        local = tree_unflatten(treedef, [d.to_local() for d in leaves_dt])
         if isinstance(pos, DTensor):
             pos = pos.to_local()
+        own = _split_attention(params, caches, mesh)
+        kinds = ("attn", "mlp", "embed") if own else ("mlp", "embed")
         with torch.no_grad():
-            mparams = _model_params(params, local, mesh,
-                                    split.grad_placements)
+            mparams = _model_params(params, _local_params(params),
+                                    _Plan(params, mesh, split, kinds))
             mcaches = {"periods": ShardedCachePeriods(caches["periods"],
-                                                      mesh)}
+                                                      mesh, own)}
             prefix = caches.get("prefix")
             if prefix is not None:
                 p_leaves, p_def = tree_flatten(prefix)
@@ -375,7 +526,8 @@ def make_sharded_decode_step(model: Model, mesh) -> Callable:
                          for d in p_leaves]
                 mcaches["prefix"] = tree_unflatten(p_def, views)
             logits, _ = model.decode_step(mparams, mcaches,
-                                          local_tree(inputs), pos)
+                                          local_tree(inputs), pos,
+                                          par=MeshParallel(mesh, split))
             if prefix is not None:
                 for d, full in zip(p_leaves, views, strict=True):
                     _cache_commit(d.to_local(), full, d.placements, mesh)

@@ -21,10 +21,13 @@ mamba states shard heads, conv windows channels, over `model`.
 A dim shards over an axis only if it divides evenly; otherwise that dim is
 replicated.
 
-How the port computes under these specs (``sharding/apply.py``): the
-specs place the stored state; each step gathers a period's parameters at
-a time and computes data-parallel.  The reference's compiled step lets
-GSPMD shard the compute itself along the same specs.
+How the port computes under these specs (``sharding/apply.py``,
+``sharding/tp.py``): the specs place the stored state; each step gathers a
+period's parameters at a time over the data axes, and the attention,
+dense-MLP, embedding and head leaves keep their ``model`` shards and
+compute tensor-parallel on them, as the reference's GSPMD shards the
+compute along the same specs; MoE, Mamba, MLA and cross-attention leaves
+are gathered whole and computed on every ``model`` rank.
 """
 
 from __future__ import annotations
