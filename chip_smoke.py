@@ -246,7 +246,7 @@ Phases, each of which exits non-zero when it fails:
                decode_32k and of (a)'s step on one device, its predicted
                peak beside (a)'s measured one, (f) the train CLI under
                ``--tuned``, and (g) the four examples, train_hetero cut
-               to 100 of its 200 steps (EXAMPLE_ARGV)
+               to 50 of its 200 steps (EXAMPLE_ARGV)
                (``chip_smoke.py --example <name>``: the example's report,
                K4's forward, dQ and dK/dV against their plain versions on
                the inputs the example gave K4, at TOL / GRAD_TOL, then its
@@ -280,9 +280,38 @@ Phases, each of which exits non-zero when it fails:
                128) over one KV head at model 2, (4, S, 128) at model 4)
                and held against their plain versions on the inputs they
                got; seconds and peaks a rank (not a tensor-parallel speed
-               where the ranks share a card); then K1 and K4 in bf16 at
-               model 2's local heads timed beside their plain versions,
-               SDPA and the bound,
+               where the ranks share a card); then the MoE and Mamba layers
+               split, each bf16 case held to an unsharded run the
+               main process takes first and frees (the ranks then init the
+               model one at a time, each keeping its shards): (d)
+               Qwen1.5-MoE expert-parallel at model 2 and 4 (30 and 15
+               experts a rank), whole in bf16 (the four prompts, 16 decode
+               steps, capacity drops as configured: at the first MoE
+               layer at most 5 % of the prefill's tokens routed to other
+               experts than the unsharded's, each layer's count printed
+               beside the unsharded plain route's; the prefill's and the
+               first step's logits within relative Frobenius error 0.5,
+               as the routes' recorded spread at full depth allows:
+               ``scripts/bf16_depth_spread.py``; tokens reported) and in f32
+               cut to 4 of 24 layers (the prompts and 16 decode steps
+               within the f32 tolerance, tokens equal, and one train step
+               of phase 11's f32 grain: the loss, every parameter leaf and
+               both moments, the router's printed, within the f32
+               tolerance); (e) the same f32 checks of Qwen1.5-MoE cut to
+               one layer at model 8, expert-TP (60 experts do not divide
+               8: each rank every expert at 176 of 1408); (f) Mamba2-2.7B
+               at model 2 and 4 (40 and 20 heads a rank, K5 on them),
+               in bf16 cut to 2 of 64 layers, where two unsharded routes
+               still agree, on phase 13's prompt and 16 decode steps, held
+               as (b) (relative Frobenius error 2e-2), the first step's
+               tokens among the unsharded step's 5 most likely, and in f32
+               cut to 4 layers (K5's f32 kernel; the train step on the
+               plain path); (g) Jamba cut to one period at model 2, every
+               layer split, bf16 as (d); K5 held against
+               its plain version on the inputs each rank gave it; then K1
+               and K4 in bf16 at model 2's local heads, K1 (bf16) and K4
+               (f32) at Qwen1.5-MoE's and K5 (bf16) at Mamba2-2.7B's timed
+               beside their plain versions, SDPA and the bound,
  15. device  — each kernel's device time (the profiler's kernel durations)
                beside PyTorch's call for the same function: K1 and SDPA at
                phase 3's sweep and in f32 at phase 4's shape, K2 and
@@ -293,7 +322,8 @@ Phases, each of which exits non-zero when it fails:
                SeamlessM4T's shapes in bf16 and f32 beside SDPA's forward
                and backward, K5 at Jamba's shape, ``apply_moe`` under
                phase 18's three capacity sets, K1 and K4 at phase 26's
-               local heads; after
+               local heads (Qwen2-1.5B's and Qwen1.5-MoE's), K5 at its
+               Mamba2-2.7B local heads; after
                every serve phase, so
                no profiler session of these precedes phases 5 and 14, and
                in a process of its own (``chip_smoke.py --device-times``,
@@ -430,8 +460,9 @@ REMAINING_LENGTHS = (20, 90, 300, 500)
 #: processes of their own (``chip_smoke.py --example <name>``).
 EXAMPLES = ("quickstart", "serve_hetero", "train_hetero", "moe_homogenized")
 #: Cuts of the examples' defaults, to keep the smoke near half its time
-#: limit: train_hetero runs 100 of its 200 steps.
-EXAMPLE_ARGV = {"train_hetero": ["--steps", "100"]}
+#: limit: train_hetero runs 50 of its 200 steps (100 until phase 26 took
+#: the MoE and Mamba cases).
+EXAMPLE_ARGV = {"train_hetero": ["--steps", "50"]}
 # Phase 25's dry run of (a)'s step: the sharded train step of full-width
 # Qwen2-1.5B under fsdp_tp at (a)'s batch on a (1, 1) mesh, in a fake
 # process group; argv: global batch, sequence length.  A JSON last line.
@@ -451,16 +482,55 @@ print(json.dumps(m))
 SEAMLESS_LENGTHS = (5, 20, 40, 90)
 DECODE_STEPS = 16
 #: Phase 26: the tensor-parallel steps at these sizes of the ``model``
-#: axis (mesh (1, m)), the f32 check cut to TP_F32_LAYERS of Qwen2-1.5B's
-#: 28 layers; the whole bf16 model at the first size only.
-TP_SIZES = (2, 4)
+#: axis (mesh (1, m)), each with the cases its ranks run (the module
+#: docstring's letters): Qwen2-1.5B's f32 check cut to TP_F32_LAYERS of its
+#: 28 layers ((a), (c)) and whole in bf16 ((b), model 2 only); Qwen1.5-MoE
+#: expert-parallel ((d): 30 and 15 experts a rank) and expert-TP ((e), one
+#: layer at model 8: 60 experts do not divide 8); Mamba2-2.7B ((f): 40 and
+#: 20 heads a rank); Jamba cut to one period ((g), model 2 only).
+TP_RUNS = ((2, "abcdfg"), (4, "acdf"), (8, "e"))
 TP_F32_LAYERS = 4
+TP_ETP_LAYERS = 1
+#: (f): phase 13's prompt (100 tokens in a bucket of 128), the f32 check
+#: cut to TP_MAMBA_F32_LAYERS of Mamba2-2.7B's 64 layers.
+TP_MAMBA_PROMPT, TP_MAMBA_BUCKET = 100, 128
+TP_MAMBA_F32_LAYERS = 4
+#: The ranks init a model one at a time where their whole copies together
+#: would pass this many bytes (each keeps its shards after).
+TP_STAGGER_BYTES = 40e9
+#: Phase 26's bf16 cases.  Two unsharded routes of one bf16 model (kernel
+#: and plain: the same sums in other orders) drift apart with depth
+#: (``scripts/bf16_depth_spread.py``, PERF.md section 6: Mamba2-2.7B
+#: 2.5e-3 at 1 layer, 6.3e-3 at 2, 1.4e-2 at 4, 0.72 at 64; Qwen1.5-MoE's
+#: routing already differs for 1 % of the prompts' tokens at its first
+#: layer and for 62 % at its 24th).  (f) cuts Mamba2-2.7B to
+#: TP_MAMBA_BF16_LAYERS of its 64 layers, where they still agree, and is
+#: held as (b), at relative Frobenius error 2e-2, with the first decode
+#: step's tokens among the unsharded step's TP_TOP_TOKENS most likely.  (d)
+#: and (g) keep their depth and their capacity drops: the first MoE layer's
+#: routing is held (at most TP_ROUTE_FLIPS of the prefill's tokens with
+#: other top-k experts than the unsharded's; each MoE layer's count is
+#: printed beside the plain route's), and the logits within relative
+#: Frobenius error TP_BF16_LIMIT (the routes' recorded spreads at these
+#: depths: 0.13-0.25 sharded, 0.02-0.29 the plain route).
+TP_MAMBA_BF16_LAYERS = 2
+TP_TOP_TOKENS = 5
+TP_BF16_LIMIT = 0.5
+TP_ROUTE_FLIPS = 0.05
 #: K1 and K4 at the tensor-parallel steps' local heads at model 2 (Qwen2-
 #: 1.5B's 16 padded q heads and 2 KV heads, split two ways): K1 on the
 #: serve's 512-token bucket, K4 on one 1024-token training sequence:
 #: (q heads, KV heads, S).
 K1_TP_SHAPE = (8, 1, 512)
 K4_TP_SHAPE = (8, 1, TRAIN_SEQ)
+#: K1 (bf16, the serve's prefill) and K4 (f32, the train step) at
+#: Qwen1.5-MoE's local heads at model 2 (16 heads, 16 KV heads, split two
+#: ways), and K5 (bf16) at Mamba2-2.7B's (80 heads of 64 split two ways,
+#: one group of N 128) on (f)'s prompt bucket: (q heads, KV heads, S) and
+#: (heads, groups, S, P, N, chunk).
+K1_TP_MOE_SHAPE = (8, 8, 512)
+K4_TP_MOE_SHAPE = (8, 8, TRAIN_SEQ)
+K5_TP_SHAPE = (40, 1, TP_MAMBA_BUCKET, 64, 128, 256)
 
 
 def free_port() -> int:
@@ -560,6 +630,36 @@ def keep_inputs(module, name):
         yield kept
     finally:
         setattr(module, name, saved)
+
+
+@contextlib.contextmanager
+def keep_routes(rows: int):
+    """The top-k experts (on the host) that each MoE layer's router gives a
+    batch of ``rows`` tokens (a prefill's), in call order, while the block
+    runs."""
+    from repro_torch.models import moe
+
+    saved, kept = moe._route, []
+
+    @functools.wraps(saved)
+    def route(p, m, xt):
+        out = saved(p, m, xt)
+        if xt.shape[0] == rows:
+            kept.append(out[2].cpu())
+        return out
+
+    moe._route = route
+    try:
+        yield kept
+    finally:
+        moe._route = saved
+
+
+def route_flips(got, want) -> list[int]:
+    """For each MoE layer of two ``keep_routes`` records: the tokens whose
+    top-k expert sets differ."""
+    return [int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+            for a, b in zip(got, want, strict=True)]
 
 
 @contextlib.contextmanager
@@ -1144,6 +1244,47 @@ def device_times() -> dict[str, dict[str, float]]:
         "device_ms": device_ms(torch, lambda: fa.flash_attention_bwd_dkdv(
             q, k, v, lse, dout, drow, group=hq // hkv)),
         "library_device_ms": lib_bwd}
+    # K1 (bf16) and K4 (f32) at Qwen1.5-MoE's local heads, K5 (bf16) at
+    # Mamba2-2.7B's (phase 26).
+    hq, hkv, s = K1_TP_MOE_SHAPE
+    q = rand((hq, s, 128), torch.bfloat16)
+    k, v = rand((hkv, s, 128), torch.bfloat16), rand((hkv, s, 128),
+                                                    torch.bfloat16)
+    out["k1_tp_moe"] = pair(lambda: pf.prefill_flash(q, k, v,
+                                                     group=hq // hkv),
+                            library_attention(torch, q, k, v))
+    hq, hkv, s = K4_TP_MOE_SHAPE
+    q = rand((hq, s, 128), torch.float32)
+    k, v = rand((hkv, s, 128), torch.float32), rand((hkv, s, 128),
+                                                   torch.float32)
+    dout = rand(q.shape, torch.float32)
+    _, lse, out32 = fa.flash_attention_fwd(q, k, v, group=hq // hkv)
+    _, drow = fa.flash_attention_bwd_dq(q, k, v, out32, lse, dout,
+                                        group=hq // hkv)
+    leaves = [t[None].clone().requires_grad_(True) for t in (q, k, v)]
+    lib_out = sdpa(*leaves, is_causal=True, enable_gqa=True)
+    lib_bwd = device_ms(torch, lambda: torch.autograd.grad(
+        lib_out, leaves, dout[None], retain_graph=True))
+    out["k4_tp_moe_fwd"] = pair(
+        lambda: fa.flash_attention_fwd(q, k, v, group=hq // hkv),
+        library_attention(torch, q, k, v))
+    out["k4_tp_moe_dq"] = {
+        "device_ms": device_ms(torch, lambda: fa.flash_attention_bwd_dq(
+            q, k, v, out32, lse, dout, group=hq // hkv)),
+        "library_device_ms": lib_bwd}
+    out["k4_tp_moe_dkdv"] = {
+        "device_ms": device_ms(torch, lambda: fa.flash_attention_bwd_dkdv(
+            q, k, v, lse, dout, drow, group=hq // hkv)),
+        "library_device_ms": lib_bwd}
+    h, g, s5, p5, n5, chunk = K5_TP_SHAPE
+    dtv = rand((h, s5), torch.float32).abs() * 0.1 + 0.01
+    xdt = (rand((h, s5, p5), torch.float32) * dtv[..., None]).to(
+        torch.bfloat16)
+    la = dtv * -(rand((h,), torch.float32).abs() + 0.1)[:, None]
+    bg, cg = rand((g, s5, n5), torch.bfloat16), rand((g, s5, n5),
+                                                     torch.bfloat16)
+    out["k5_tp"] = {"device_ms": device_ms(torch, lambda: k5.ssd_scan(
+        xdt, la, bg, cg, chunk=chunk, rep=h // g))}
     return out
 
 
@@ -3515,7 +3656,7 @@ def main() -> int:
           f"('nothing'), gradients within the f32 tolerance (bitwise equal: "
           f"{same}); peak memory dots {pk_d:.2f} GB, nothing {pk_n:.2f} GB",
           flush=True)
-    del remat, g_n, g_d, l_n, l_d, gbatch
+    del remat, g_n, g_d, l_n, l_d, gbatch, grads, a, b
 
     # 25.4 (e) MemmapSource: two HDP steps of phase 11's fleet, each grain
     # read from a .npy of tokens the phase writes.
@@ -3673,7 +3814,8 @@ def main() -> int:
                                        "logits0_plain": logits0_plain,
                                        "tokens": toks_u}, by_path)
     tp_runs, k1_tp, k4_tp = tp["runs"], tp["k1"], tp["k4"]
-    k1_err = max(k1_err, tp["k1_err"])
+    k1_moe, k4_moe, k5_tp = tp["k1_moe"], tp["k4_moe"], tp["k5"]
+    k1_err, k5_err = max(k1_err, tp["k1_err"]), max(k5_err, tp["k5_err"])
     for part, e in tp["k4_err"].items():
         k4_err[part] = max(k4_err[part], e)
 
@@ -3720,6 +3862,25 @@ def main() -> int:
                   f"{row['library_device_ms']:.6f} ms (bound "
                   f"{row['bound_ms']:.6f} ms)", flush=True)
     k1_tp.update(dev_times["k1_tp"])
+    k1_moe.update(dev_times["k1_tp_moe"])
+    k5_tp.update(dev_times["k5_tp"])
+    for part, row in k4_moe.items():
+        row.update(dev_times[f"k4_tp_moe_{part}"])
+        print(f"[device] K4 f32 {part} at Qwen1.5-MoE's tensor-parallel "
+              f"local heads q {row['shape'][0]}, k/v {row['shape'][1]}: "
+              f"{row['device_ms']:.6f} ms, SDPA f32 "
+              f"{'forward' if part == 'fwd' else 'whole backward'} "
+              f"{row['library_device_ms']:.6f} ms (bound "
+              f"{row['bound_ms']:.6f} ms)", flush=True)
+    print(f"[device] K1 bf16 at Qwen1.5-MoE's tensor-parallel local heads q "
+          f"{k1_moe['shape'][0]}, k/v {k1_moe['shape'][1]}: "
+          f"{k1_moe['device_ms']:.6f} ms, SDPA "
+          f"{k1_moe['library_device_ms']:.6f} ms (bound "
+          f"{k1_moe['bound_ms']:.6f} ms)", flush=True)
+    print(f"[device] K5 bf16 at Mamba2-2.7B's tensor-parallel local heads "
+          f"xdt {k5_tp['shape'][0]}, B/C {k5_tp['shape'][1]}: "
+          f"{k5_tp['device_ms']:.6f} ms (bound {k5_tp['bound_ms']:.6f} ms)",
+          flush=True)
     for part, row in k4_tp.items():
         row.update(dev_times[f"k4_tp_{part}"])
         print(f"[device] K4 bf16 {part} at the tensor-parallel local heads "
@@ -3800,7 +3961,8 @@ def main() -> int:
          "build": k1_build["prefill_flash_mma_kernel<128>"], "f32": k1_f32,
          "at_new_groups": k1_groups, "at_remaining_configs": k1_remaining,
          "tensor_parallel": dict(k1_tp, shapes_by_size={
-             w: r["k1_shapes"] for w, r in tp_runs.items()})},
+             w: r["k1_shapes"] for w, r in tp_runs.items()}),
+         "tensor_parallel_moe": k1_moe},
         {"name": "cache_cast", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/prefill/prefill.py:145",
          "launches": launches["cache_cast"],
@@ -3839,7 +4001,8 @@ def main() -> int:
          "build": k4_rows[part].get("build"), "f32": k4_f32[part],
          "seamless": {key: rows[part] for key, rows in k4_seamless.items()},
          "tensor_parallel": dict(k4_tp[part], shapes_by_size={
-             w: r["k4_shapes"] for w, r in tp_runs.items()})}
+             w: r["k4_shapes"] for w, r in tp_runs.items()}),
+         "tensor_parallel_moe_f32": k4_moe[part]}
         for name, part in zip(K4_KERNELS, ("fwd", "dq", "dkdv"), strict=True)
     ] + [
         {"name": "ssd_scan", "route": "cuda",
@@ -3851,7 +4014,9 @@ def main() -> int:
          "ms": k5_row["ms"], "plain_ms": k5_row["plain_ms"],
          "bound_ms": k5_row["bound_ms"], "bound_by": k5_row["bound_by"],
          "library_ms": k5_row["library_ms"], "device_ms": k5_row["device_ms"],
-         "build": k5_row["build"], "f32": k5_f32, "jamba": k5_jamba},
+         "build": k5_row["build"], "f32": k5_f32, "jamba": k5_jamba,
+         "tensor_parallel": dict(k5_tp, shapes_by_size={
+             w: r["k5_shapes"] for w, r in tp_runs.items()})},
     ]}
     print(f"[moe-capacity] {card}: " + json.dumps(
         {key: {k: v for k, v in row.items() if k != "capacities"}
@@ -3922,25 +4087,80 @@ def k1_check_seen(torch, seen, tag: str, prefix: str) -> float:
 
 
 def tensor_parallel(torch, card: str, tp_ref: dict, by_path: dict) -> dict:
-    """Phase 26 (see the module docstring): the ranks of each size in
-    TP_SIZES in processes of their own, their checks, (b) against
-    ``tp_ref`` (phase 25's unsharded bf16 loss, first decode step's logits
-    and tokens), each rank's launches into ``by_path``; then K1 and K4 at
-    model 2's local heads timed.  Returns the runs, the timed rows and the
-    K1/K4 checks' largest errors."""
+    """Phase 26 (see the module docstring): the unsharded bf16 runs that
+    (d), (f) and (g) are held to, each model whole on the card in turn and
+    freed; the ranks of each size in TP_RUNS in processes of their own,
+    their checks, (b) against ``tp_ref`` (phase 25's unsharded bf16 loss,
+    first decode step's logits and tokens), (d), (f) and (g) against those
+    runs, each rank's launches into ``by_path``; then K1 and K4 at model
+    2's local heads of Qwen2-1.5B and of Qwen1.5-MoE, and K5 at Mamba2-
+    2.7B's, timed.  Returns the runs, the timed rows and the K1/K4/K5
+    checks' largest errors."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.mamba_scan import mamba_scan as k5
+    from repro_torch.kernels.mamba_scan.ref import ssd_scan_plain
+    from repro_torch.kernels.matmul import matmul as mm
     from repro_torch.kernels.prefill import prefill as pf
     from repro_torch.kernels.prefill.ref import prefill_ref
+    from repro_torch.models import Model
 
     dev = torch.device("cuda")
-    k1_err = 0.0
+    k1_err = k5_err = 0.0
     k4_err = {"fwd": 0.0, "dq": 0.0, "dkdv": 0.0}
     phase_t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
+    print(f"[tensor-parallel] begins with {torch.cuda.memory_allocated() / 1e9:.2f} "
+          f"GB allocated in this process", flush=True)
     n_cards = torch.cuda.device_count()
-    env = dict(os.environ, PYTHONPATH=SRC)
+    # The ranks share the card: expandable segments keep each one's cache
+    # from holding memory that its next, larger tensors cannot reuse.
+    env = dict(os.environ, PYTHONPATH=SRC,
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+
+    # The unsharded bf16 runs of (d), (f) and (g), taken first, each model
+    # freed before the next and before the ranks start: the MoE whole is
+    # 28.6 GB, and the ranks on the card take their shares of it after.
+    counters = (pf.LAUNCHES, mm.LAUNCHES, fa.LAUNCHES, k5.LAUNCHES)
+    refs = {}
+    for key, cfg, lengths, bucket in tp_bf16_cases():
+        torch.cuda.reset_peak_memory_stats()
+        model = Model(cfg)
+        params = model.init(SEED)
+        tokens, last = tp_prompts(torch, dev, cfg.vocab_size, lengths, bucket)
+        for c in counters:
+            for name in c:
+                c[name] = 0
+        t0 = time.perf_counter()
+        with keep_routes(tokens.numel()) as routes:
+            plg, logits, toks = tp_serve(torch, model, params, tokens, last)
+            torch.cuda.synchronize()
+        by_path[f"tp_ref_{key}"] = {name: n for c in counters
+                                    for name, n in c.items()}
+        refs[key] = {"prefill": plg.cpu(), "logits0": logits[0].cpu(),
+                     "tokens": toks, "routes": routes, "rows": tokens.numel(),
+                     "layers": cfg.n_layers, "vocab": cfg.vocab_size,
+                     "s": time.perf_counter() - t0,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        # The plain route (no kernel) on the same weights: two unsharded
+        # bf16 routes' own spread, printed beside the sharded run's.
+        with keep_routes(tokens.numel()) as proutes:
+            pplg, plogits, ptoks = tp_serve(torch, Model(dataclasses.replace(
+                cfg, use_pallas=False)), params, tokens, last)
+        refs[key]["plain"] = {"prefill": pplg.cpu(),
+                              "logits0": plogits[0].cpu(), "tokens": ptoks,
+                              "routes": proutes}
+        del pplg, plogits
+        print(f"[tensor-parallel] {card}: ({key[0]}) unsharded {cfg.name} "
+              f"bf16, {cfg.n_layers} layers: a prefill of {len(lengths)} "
+              f"prompt(s) ({list(lengths)} tokens, bucket {bucket}) and "
+              f"{DECODE_STEPS} decode steps in {refs[key]['s']:.3f} s, peak "
+              f"{refs[key]['peak_gb']:.2f} GB; launches "
+              f"{json.dumps(by_path[f'tp_ref_{key}'])}", flush=True)
+        del model, params, plg, logits
+        gc.collect()
+        torch.cuda.empty_cache()
 
     def run_ranks(args_of, world: int, timeout: int):
         """``world`` processes of this script, rank r with ``args_of(r,
@@ -3974,63 +4194,66 @@ def tensor_parallel(torch, card: str, tp_ref: dict, by_path: dict) -> dict:
               f"{'taken' if shared == 'gloo' else 'refused'} (exit codes "
               f"{rcs}); ranks on one card run over {shared!r}", flush=True)
     tp_runs = {}
-    for world in TP_SIZES:
+    for world, what in TP_RUNS:
         backend = "nccl" if n_cards >= world else shared
-        what = "full" if world == TP_SIZES[0] else "f32"
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "rank0.pt")
             rcs, outs = run_ranks(lambda r, port: [
                 "--tp-rank", str(r), str(world), str(port), backend, what,
                 path], world, 900)
-            for r, (rc, (_, err)) in enumerate(zip(rcs, outs, strict=True)):
-                if rc != 0:
-                    fail(f"tensor-parallel m={world} ({backend}): rank {r} "
-                         f"exited {rc}: {err[-3000:]}")
+            bad = [f"rank {r} exited {rc}: {err[-2000:]}"
+                   for r, (rc, (_, err)) in enumerate(zip(rcs, outs,
+                                                          strict=True))
+                   if rc != 0]
+            if bad:
+                fail(f"tensor-parallel m={world} ({backend}): "
+                     + "\n".join(bad))
             res = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
-            saved = torch.load(path) if what == "full" else None
+            saved = torch.load(path)
         for line in outs[0][0].strip().splitlines()[:-1]:
             print(line, flush=True)
         head = res[0]
         for r, rr in enumerate(res):
             for run, counts in rr["launches"].items():
                 by_path[f"{run}_r{r}"] = counts
-        k4_train = {n: head["launches"][f"tp{world}_f32_a_train"][n]
-                    for n in K4_KERNELS}
-        want = {n: c * TP_F32_LAYERS // N_LAYERS
-                for n, c in K4_PER_GRAIN.items()}
-        if k4_train != want:
-            fail(f"tensor-parallel m={world}: K4 launches {k4_train} in "
-                 f"(a)'s train step, predicted {want}")
-        for run, kernel in (("serve", "prefill_flash"),
-                            ("prefill_bf16_cache", "prefill_flash"),
-                            ("prefill_bf16_cache", "cache_cast")):
-            n = head["launches"][f"tp{world}_f32_{run}"][kernel]
-            if n != TP_F32_LAYERS:
-                fail(f"tensor-parallel m={world}: {kernel} {n} launches in "
-                     f"(a)'s {run}, expected {TP_F32_LAYERS}")
         k1_err = max(k1_err, head["k1_err"])
         for part, e in head["k4_err"].items():
             k4_err[part] = max(k4_err[part], e)
-        print(f"[tensor-parallel] {card}: m={world} over {backend!r}, "
-              f"world size {world}, mesh (1, {world}): (a) f32 "
-              f"qwen2-1.5b cut to {TP_F32_LAYERS} of {N_LAYERS} layers, "
-              f"fsdp_tp: one train step of a (1, {TRAIN_SEQ}) grain, loss "
-              f"{head['a_loss']:.6f} against the unsharded "
-              f"{head['a_loss_unsharded']:.6f}, all {head['leaves']} "
-              f"parameter leaves and both moments within the f32 tolerance; "
-              f"(c) the same under seq_parallel: loss {head['c_loss']:.6f}, "
-              f"the same checks; a prefill of {len(REMAINING_LENGTHS)} "
-              f"prompts and {DECODE_STEPS} decode steps: logits within the "
-              f"f32 tolerance (max abs err {head['f32_logits_err']:.3e}), "
-              f"tokens equal (first "
-              f"{[t[:4] for t in zip(*head['f32_tokens'])]}); the prefill "
-              f"with its cache in bf16 (K2 on the local KV heads): logits "
-              f"within the f32 tolerance (max abs err "
-              f"{head['bf16_cache_logits_err']:.3e}), caches within the "
-              f"bf16 tolerance ({head['bf16_cache_err']:.3e}); K1 at "
-              f"{head['k1_shapes']}, K4 at {head['k4_shapes']}; train step "
-              f"s (a) {head['a_s']:.3f}, (c) {head['c_s']:.3f}", flush=True)
-        if what == "full":
+        if "a" in what:
+            k4_train = {n: head["launches"][f"tp{world}_f32_a_train"][n]
+                        for n in K4_KERNELS}
+            want = {n: c * TP_F32_LAYERS // N_LAYERS
+                    for n, c in K4_PER_GRAIN.items()}
+            if k4_train != want:
+                fail(f"tensor-parallel m={world}: K4 launches {k4_train} in "
+                     f"(a)'s train step, predicted {want}")
+            for run, kernel in (("serve", "prefill_flash"),
+                                ("prefill_bf16_cache", "prefill_flash"),
+                                ("prefill_bf16_cache", "cache_cast")):
+                n = head["launches"][f"tp{world}_f32_{run}"][kernel]
+                if n != TP_F32_LAYERS:
+                    fail(f"tensor-parallel m={world}: {kernel} {n} launches in "
+                         f"(a)'s {run}, expected {TP_F32_LAYERS}")
+            print(f"[tensor-parallel] {card}: m={world} over {backend!r}, "
+                  f"world size {world}, mesh (1, {world}): (a) f32 "
+                  f"qwen2-1.5b cut to {TP_F32_LAYERS} of {N_LAYERS} layers, "
+                  f"fsdp_tp: one train step of a (1, {TRAIN_SEQ}) grain, loss "
+                  f"{head['a_loss']:.6f} against the unsharded "
+                  f"{head['a_loss_unsharded']:.6f}, all {head['leaves']} "
+                  f"parameter leaves and both moments within the f32 tolerance; "
+                  f"(c) the same under seq_parallel: loss {head['c_loss']:.6f}, "
+                  f"the same checks; a prefill of {len(REMAINING_LENGTHS)} "
+                  f"prompts and {DECODE_STEPS} decode steps: logits within the "
+                  f"f32 tolerance (max abs err {head['f32_logits_err']:.3e}), "
+                  f"tokens equal (first "
+                  f"{[t[:4] for t in zip(*head['f32_tokens'])]}); the prefill "
+                  f"with its cache in bf16 (K2 on the local KV heads): logits "
+                  f"within the f32 tolerance (max abs err "
+                  f"{head['bf16_cache_logits_err']:.3e}), caches within the "
+                  f"bf16 tolerance ({head['bf16_cache_err']:.3e}); K1 at "
+                  f"{head['k1_shapes']}, K4 at {head['k4_shapes']}; train step "
+                  f"s (a) {head['a_s']:.3f}, (c) {head['c_s']:.3f}", flush=True)
+        if "b" in what:
             check_close(torch, f"tensor-parallel m={world} (b) loss",
                         torch.tensor(head["b_loss"]),
                         torch.tensor(tp_ref["loss"]), "bfloat16")
@@ -4078,6 +4301,10 @@ def tensor_parallel(torch, card: str, tp_ref: dict, by_path: dict) -> dict:
                   f"{[t[:4] for t in zip(*tp_ref['tokens'])]}); train step "
                   f"{head['b_s']:.3f} s, peak {head['b_peak_gb']:.2f} GB a "
                   f"rank, serve {head['b_serve_s']:.3f} s", flush=True)
+        k5_err = max([k5_err] + [rr["k5_err"] for rr in res])
+        for case in "defg":
+            if case in what:
+                tp_case_report(torch, card, world, case, res, saved, refs)
         peaks = [round(rr["peak_gb"], 2) for rr in res]
         print(f"[tensor-parallel] {card}: m={world}: rank seconds "
               f"{[round(rr['s'], 1) for rr in res]}, peaks {peaks} GB "
@@ -4087,7 +4314,10 @@ def tensor_parallel(torch, card: str, tp_ref: dict, by_path: dict) -> dict:
                  if backend != "nccl" else ""), flush=True)
         tp_runs[world] = {"backend": backend, "what": what,
                           "k1_shapes": head["k1_shapes"],
-                          "k4_shapes": head["k4_shapes"]}
+                          "k4_shapes": head["k4_shapes"],
+                          "k5_shapes": head["k5_shapes"],
+                          "rank_s": [round(rr["s"], 1) for rr in res],
+                          "peaks_gb": [round(rr["peak_gb"], 2) for rr in res]}
     print(f"[tensor-parallel] ran model sizes "
           f"{[(w, r['backend']) for w, r in tp_runs.items()]}; phase "
           f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
@@ -4101,58 +4331,314 @@ def tensor_parallel(torch, card: str, tp_ref: dict, by_path: dict) -> dict:
         return torch.randn(shape, generator=gen_tp, device=dev,
                            dtype=torch.float32).to(dtype)
 
-    hq, hkv, s_tp = K1_TP_SHAPE
-    q = rand_tp((hq, s_tp, 128), torch.bfloat16)
-    k, v = rand_tp((hkv, s_tp, 128), torch.bfloat16), rand_tp(
-        (hkv, s_tp, 128), torch.bfloat16)
-    k1_tp = {"shape": [[hq, s_tp, 128], [hkv, s_tp, 128]],
-             "ms": time_ms(torch, lambda: pf.prefill_flash(q, k, v,
-                                                           group=hq // hkv)),
-             "plain_ms": time_ms(torch, lambda: prefill_ref(
-                 q, k, v, group=hq // hkv)),
-             "library_ms": time_ms(torch, library_attention(torch, q, k, v))}
-    k1_tp["bound_ms"], k1_tp["bound_by"] = flash_bound_ms(
-        hq, s_tp, 128, hkv, 2, "bfloat16")
-    hq, hkv, s_tp = K4_TP_SHAPE
-    q = rand_tp((hq, s_tp, 128), torch.bfloat16)
-    k, v = rand_tp((hkv, s_tp, 128), torch.bfloat16), rand_tp(
-        (hkv, s_tp, 128), torch.bfloat16)
-    dout = rand_tp(q.shape, torch.bfloat16)
-    _, lse, out32 = fa.flash_attention_fwd(q, k, v, group=hq // hkv)
-    _, drow = fa.flash_attention_bwd_dq(q, k, v, out32, lse, dout,
-                                        group=hq // hkv)
-    plain_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    plain_out = flash_attention_ref(*plain_leaves, group=hq // hkv)
-    lib_leaves = [t[None].clone().requires_grad_(True) for t in (q, k, v)]
-    lib_out = torch.nn.functional.scaled_dot_product_attention(
-        *lib_leaves, is_causal=True, enable_gqa=True)
-    plain_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
-        plain_out, plain_leaves, dout, retain_graph=True))
-    lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
-        lib_out, lib_leaves, dout[None], retain_graph=True))
-    k4_tp = {
-        "fwd": {"ms": time_ms(torch, lambda: fa.flash_attention_fwd(
-                    q, k, v, group=hq // hkv)),
-                "plain_ms": time_ms(torch, lambda: flash_attention_ref(
-                    q, k, v, group=hq // hkv)),
-                "library_ms": time_ms(torch, library_attention(
-                    torch, q, k, v))},
-        "dq": {"ms": time_ms(torch, lambda: fa.flash_attention_bwd_dq(
-                   q, k, v, out32, lse, dout, group=hq // hkv)),
-               "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms},
-        "dkdv": {"ms": time_ms(torch, lambda: fa.flash_attention_bwd_dkdv(
-                     q, k, v, lse, dout, drow, group=hq // hkv)),
-                 "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms}}
-    for part, row in k4_tp.items():
-        row["shape"] = [[hq, s_tp, 128], [hkv, s_tp, 128]]
-        row["bound_ms"], row["bound_by"] = k4_bound_ms(
-            hq, hkv, s_tp, s_tp, 128, 2, "bfloat16", True, part)
+    def k1_row(hq, hkv, s_tp, dt):
+        q = rand_tp((hq, s_tp, 128), dt)
+        k, v = rand_tp((hkv, s_tp, 128), dt), rand_tp((hkv, s_tp, 128), dt)
+        row = {"shape": [[hq, s_tp, 128], [hkv, s_tp, 128]],
+               "ms": time_ms(torch, lambda: pf.prefill_flash(
+                   q, k, v, group=hq // hkv)),
+               "plain_ms": time_ms(torch, lambda: prefill_ref(
+                   q, k, v, group=hq // hkv)),
+               "library_ms": time_ms(torch, library_attention(torch, q, k,
+                                                              v))}
+        row["bound_ms"], row["bound_by"] = flash_bound_ms(
+            hq, s_tp, 128, hkv, q.element_size(), str(dt)[6:])
+        return row
+
+    def k4_rows(hq, hkv, s_tp, dt):
+        q = rand_tp((hq, s_tp, 128), dt)
+        k, v = rand_tp((hkv, s_tp, 128), dt), rand_tp((hkv, s_tp, 128), dt)
+        dout = rand_tp(q.shape, dt)
+        _, lse, out32 = fa.flash_attention_fwd(q, k, v, group=hq // hkv)
+        _, drow = fa.flash_attention_bwd_dq(q, k, v, out32, lse, dout,
+                                            group=hq // hkv)
+        plain_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        plain_out = flash_attention_ref(*plain_leaves, group=hq // hkv)
+        lib_leaves = [t[None].clone().requires_grad_(True) for t in (q, k, v)]
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            *lib_leaves, is_causal=True, enable_gqa=True)
+        plain_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+            plain_out, plain_leaves, dout, retain_graph=True))
+        lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, lib_leaves, dout[None], retain_graph=True))
+        rows = {
+            "fwd": {"ms": time_ms(torch, lambda: fa.flash_attention_fwd(
+                        q, k, v, group=hq // hkv)),
+                    "plain_ms": time_ms(torch, lambda: flash_attention_ref(
+                        q, k, v, group=hq // hkv)),
+                    "library_ms": time_ms(torch, library_attention(
+                        torch, q, k, v))},
+            "dq": {"ms": time_ms(torch, lambda: fa.flash_attention_bwd_dq(
+                       q, k, v, out32, lse, dout, group=hq // hkv)),
+                   "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms},
+            "dkdv": {"ms": time_ms(
+                         torch, lambda: fa.flash_attention_bwd_dkdv(
+                             q, k, v, lse, dout, drow, group=hq // hkv)),
+                     "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms}}
+        for part, row in rows.items():
+            row["shape"] = [[hq, s_tp, 128], [hkv, s_tp, 128]]
+            row["bound_ms"], row["bound_by"] = k4_bound_ms(
+                hq, hkv, s_tp, s_tp, 128, q.element_size(), str(dt)[6:],
+                True, part)
+        return rows
+
+    k1_tp = k1_row(*K1_TP_SHAPE, torch.bfloat16)
+    k4_tp = k4_rows(*K4_TP_SHAPE, torch.bfloat16)
     print(f"[tensor-parallel] {card}: K1 bf16 at the local heads "
           + json.dumps(k1_tp) + "; K4 bf16 " + json.dumps(k4_tp), flush=True)
-    del q, k, v, dout, lse, out32, drow, plain_leaves, plain_out, lib_leaves
-    del lib_out
-    return {"runs": tp_runs, "k1": k1_tp, "k4": k4_tp, "k1_err": k1_err,
-            "k4_err": k4_err}
+    # K1 (bf16, the serve's prefill) and K4 (f32, the train step) at
+    # Qwen1.5-MoE's local heads at model 2 (16 heads of 128, one KV head
+    # each, split two ways).
+    k1_moe = k1_row(*K1_TP_MOE_SHAPE, torch.bfloat16)
+    k4_moe = k4_rows(*K4_TP_MOE_SHAPE, torch.float32)
+    print(f"[tensor-parallel] {card}: K1 bf16 at Qwen1.5-MoE's local heads "
+          + json.dumps(k1_moe) + "; K4 f32 " + json.dumps(k4_moe), flush=True)
+    # K5 at Mamba2-2.7B's local heads at model 2 (its 80 heads split two
+    # ways), bf16 at (f)'s prompt bucket, with phase 15's input recipe.
+    h, g, s5, p5, n5, chunk = K5_TP_SHAPE
+    dtv = rand_tp((h, s5), torch.float32).abs() * 0.1 + 0.01
+    xdt = (rand_tp((h, s5, p5), torch.float32) * dtv[..., None]).to(
+        torch.bfloat16)
+    la = dtv * -(rand_tp((h,), torch.float32).abs() + 0.1)[:, None]
+    bg, cg = rand_tp((g, s5, n5), torch.bfloat16), rand_tp((g, s5, n5),
+                                                           torch.bfloat16)
+    bf, cf = (torch.repeat_interleave(t, h // g, 0) for t in (bg, cg))
+    k5_tp = {"shape": [[h, s5, p5], [g, s5, n5]], "chunk": chunk,
+             "ms": time_ms(torch, lambda: k5.ssd_scan(
+                 xdt, la, bg, cg, chunk=chunk, rep=h // g)),
+             "plain_ms": time_ms(torch, lambda: ssd_scan_plain(
+                 xdt, la, bf, cf, chunk=chunk)),
+             "library_ms": None}
+    k5_tp["bound_ms"], k5_tp["bound_by"] = k5_bound_ms(
+        h, g, s5, p5, n5, chunk, 2, "bfloat16")
+    print(f"[tensor-parallel] {card}: K5 bf16 at Mamba2-2.7B's local heads "
+          + json.dumps(k5_tp), flush=True)
+    del dtv, xdt, la, bg, cg, bf, cf
+    return {"runs": tp_runs, "k1": k1_tp, "k4": k4_tp, "k1_moe": k1_moe,
+            "k4_moe": k4_moe, "k5": k5_tp, "k1_err": k1_err,
+            "k4_err": k4_err, "k5_err": k5_err}
+
+
+def tp_bf16_cases():
+    """Phase 26's bf16 cases that the main process holds to an unsharded
+    run: (key, config, prompt lengths, bucket)."""
+    sys.path.insert(0, SRC)
+    from repro_torch.configs import get_config
+
+    return (("d_bf16", get_config("qwen2-moe-a2.7b"), REMAINING_LENGTHS, 512),
+            ("f_bf16", get_config("mamba2-2.7b",
+                                  n_layers=TP_MAMBA_BF16_LAYERS),
+             (TP_MAMBA_PROMPT,), TP_MAMBA_BUCKET),
+            ("g_bf16", get_config("jamba-v0.1-52b", n_layers=8),
+             REMAINING_LENGTHS, 512))
+
+
+def tp_case_report(torch, card: str, world: int, case: str, res: list,
+                   saved: dict, refs: dict) -> None:
+    """Phase 26's case (d), (e), (f) or (g) at model ``world``: its bf16
+    run (rank 0's, in ``saved``) against the unsharded run in ``refs``,
+    the prefill's and the first decode step's logits by relative Frobenius
+    error, (f) at the bf16 rtol (as (b)) with the first step's tokens among
+    the unsharded step's TP_TOP_TOKENS most likely, (d) and (g) within
+    TP_BF16_LIMIT with the first MoE layer's routing held (TP_ROUTE_FLIPS);
+    the f32 checks' errors rank 0 took; each rank's seconds and peaks."""
+    label = {"d": "Qwen1.5-MoE, expert-parallel", "e": "Qwen1.5-MoE, "
+             "expert-TP", "f": "Mamba2-2.7B, split heads",
+             "g": "Jamba-v0.1 cut to one period, every layer split"}[case]
+    head = res[0][case]
+    parts = []
+    if "bf16" in head:
+        key = f"{case}_bf16"
+        got, ref = saved[key], refs[key]
+        limit = TOL["bfloat16"][0] if case == "f" else TP_BF16_LIMIT
+
+        def rel(a, b):
+            return float(torch.linalg.vector_norm(a - b)
+                         / torch.linalg.vector_norm(b))
+
+        def same(a, b):
+            pairs = [(x, y) for ra, rb in zip(a, b, strict=True)
+                     for x, y in zip(ra, rb, strict=True)]
+            return f"{sum(x == y for x, y in pairs)} of {len(pairs)}"
+
+        # The vocabulary's logits (the padded rows' -1e30 would swamp the
+        # norm).
+        v = ref["vocab"]
+        rels = {name: rel(got[name][..., :v], ref[name][..., :v])
+                for name in ("prefill", "logits0")}
+        plain = {name: rel(ref["plain"][name][..., :v], ref[name][..., :v])
+                 for name in ("prefill", "logits0")}
+        flips = route_flips(got["routes"], ref["routes"])
+        routing = (
+            f"; tokens (of {ref['rows']}) whose top-k experts differ from "
+            f"the unsharded's, by MoE layer of the prefill: {flips} (the "
+            f"plain route's {route_flips(ref['plain']['routes'], ref['routes'])}"
+            f"; the first layer's at most {TP_ROUTE_FLIPS:.0%})"
+            if flips else "")
+        b = head["bf16"]
+        parts.append(
+            f"bf16, {ref['layers']} layers: local {json.dumps(b['local'])}; "
+            f"against the unsharded, relative Frobenius error: the prefill's "
+            f"logits {rels['prefill']:.3e}, the first decode step's "
+            f"{rels['logits0']:.3e} (at most {limit}; the unsharded plain "
+            f"route against its kernel route: {plain['prefill']:.3e}, "
+            f"{plain['logits0']:.3e}){routing}; "
+            f"tokens {same(got['tokens'], ref['tokens'])} equal to the "
+            f"unsharded's (the plain route's "
+            f"{same(ref['plain']['tokens'], ref['tokens'])}; sharded first "
+            f"{[t[:4] for t in zip(*got['tokens'])]}); staggered init "
+            f"{b['init_s']:.1f} s, serve {b['serve_s']:.3f} s (the unsharded "
+            f"{ref['s']:.3f} s), serve peaks "
+            f"{[round(r[case]['bf16']['serve_peak_gb'], 2) for r in res]} GB "
+            f"a rank (the unsharded {ref['peak_gb']:.2f})")
+    if "f32" in head:
+        f = head["f32"]
+        router = (f"; the router's leaf {f['router_err']['parameter']:.3e}, "
+                  f"its moments {f['router_err']['first moment']:.3e} / "
+                  f"{f['router_err']['second moment']:.3e}"
+                  if f.get("router_err") else "")
+        parts.append(
+            f"f32: local {json.dumps(f['local'])}; a prefill and "
+            f"{DECODE_STEPS} decode steps: logits within the f32 tolerance "
+            f"(prefill {f['prefill_err']:.3e}, decode {f['logits_err']:.3e}), "
+            f"tokens equal; one train step of a (1, {TRAIN_SEQ}) grain: loss "
+            f"{f['loss']:.6f} against the unsharded {f['loss_unsharded']:.6f}"
+            f", all {f['leaves']} parameter leaves and both moments within the "
+            f"f32 tolerance (max abs err {f['max_err']:.3e}){router}; serve "
+            f"{f['serve_s']:.3f} s, train step {f['train_s']:.3f} s; peaks "
+            f"serve {[round(r[case]['f32']['serve_peak_gb'], 2) for r in res]}"
+            f", train {[round(r[case]['f32']['train_peak_gb'], 2) for r in res]}"
+            f" GB a rank")
+    print(f"[tensor-parallel] {card}: m={world} ({case}) {label}: "
+          + "; ".join(parts) + f"; {head['s']:.1f} s", flush=True)
+    if "bf16" in head:
+        for name, r in rels.items():
+            if not r <= limit:
+                fail(f"tensor-parallel m={world} ({case}): the {name} logits "
+                     f"off the unsharded by relative Frobenius error {r:.3e}, "
+                     f"past {limit}")
+        top = ref["logits0"][..., :v].topk(TP_TOP_TOKENS, dim=-1).indices
+        if case == "f" and not all(t in row for t, row in zip(
+                got["tokens"][0], top.tolist(), strict=True)):
+            fail(f"tensor-parallel m={world} (f): the first decode step's "
+                 f"tokens {got['tokens'][0]}, not all among the unsharded "
+                 f"step's {TP_TOP_TOKENS} most likely {top.tolist()}")
+        if flips and not flips[0] <= TP_ROUTE_FLIPS * ref["rows"]:
+            fail(f"tensor-parallel m={world} ({case}): {flips[0]} of "
+                 f"{ref['rows']} tokens routed to other experts than the "
+                 f"unsharded's at the first MoE layer")
+
+
+def k5_check_seen(torch, seen, tag: str, prefix: str) -> float:
+    """K5 against its plain version on the first inputs of each shape a
+    path gave it (a ``keep_inputs`` record); the largest error."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as k5
+    from repro_torch.kernels.mamba_scan.ref import ssd_scan_plain
+
+    err = 0.0
+    for (xs, _, dt), ((xdt, la, bg, cg), kw) in sorted(
+            seen.items(), key=lambda kv: kv[0][0]):
+        name = (f"K5 on {tag} inputs xdt {xs} {str(dt)[6:]} chunk "
+                f"{kw['chunk']}")
+        y, hf = k5.ssd_scan(xdt, la, bg, cg, **kw)
+        torch.cuda.synchronize()
+        ry, rh = ssd_scan_plain(
+            xdt, la, torch.repeat_interleave(bg, kw["rep"], 0),
+            torch.repeat_interleave(cg, kw["rep"], 0), chunk=kw["chunk"])
+        e = max(check_close(torch, f"{name} y", y, ry, str(dt)[6:]),
+                check_close(torch, f"{name} state", hf, rh, str(dt)[6:]))
+        err = max(err, e)
+        print(f"{prefix}{name}: max abs err {e:.3e}", flush=True)
+    return err
+
+
+def tp_prompts(torch, dev, vocab: int, lengths, bucket: int):
+    """Seeded prompts of ``lengths`` tokens, zero-padded into one (n,
+    ``bucket``) batch, and each prompt's last index."""
+    import numpy as np
+
+    prng = np.random.default_rng(SEED)
+    tokens = torch.zeros((len(lengths), bucket), dtype=torch.int32,
+                         device=dev)
+    for i, n in enumerate(lengths):
+        tokens[i, :n] = torch.as_tensor(prng.integers(0, vocab, n),
+                                        dtype=torch.int32, device=dev)
+    return tokens, torch.as_tensor([n - 1 for n in lengths], device=dev)
+
+
+def tp_serve(torch, model, params, tokens, last, mesh=None, policy=None):
+    """A prefill of ``tokens``, then DECODE_STEPS greedy decode steps in a
+    cache twice the bucket, each row from its prompt's last token; sharded
+    over ``mesh`` when ``policy`` is given.  Returns the prefill's logits
+    (its last position), each step's logits (f32) and each step's
+    tokens."""
+    from repro_torch.sharding.apply import (
+        distribute_tree,
+        full_tree,
+        make_sharded_decode_step,
+        make_sharded_prefill_step,
+    )
+    from repro_torch.train import make_decode_step, make_prefill_step
+    from repro_torch.tree import tree_leaves
+
+    n, bucket = tokens.shape
+    pbatch = {"tokens": tokens}
+    if policy is None:
+        plg, caches = make_prefill_step(model)(params, pbatch)
+    else:
+        plg, caches = make_sharded_prefill_step(model, mesh)(
+            params, distribute_tree(pbatch, policy.batch_specs(pbatch), mesh))
+        plg, caches = plg.full_tensor(), full_tree(caches)
+    big = model.init_cache(n, 2 * bucket)
+    for b_leaf, s_leaf in zip(tree_leaves(big), tree_leaves(caches),
+                              strict=True):
+        # An attention cache grows on the sequence; a Mamba layer's conv
+        # window and state keep their shapes.
+        (b_leaf if b_leaf.shape == s_leaf.shape
+         else b_leaf.narrow(2, 0, bucket)).copy_(s_leaf)
+    del caches
+    if policy is None:
+        step = make_decode_step(model)
+    else:
+        big = distribute_tree(big, policy.cache_specs(big), mesh)
+        step = make_sharded_decode_step(model, mesh)
+    logits, toks = [], []
+    inp = tokens[torch.arange(n, device=tokens.device), last][:, None]
+    for i in range(DECODE_STEPS):
+        pos = (last + i).to(torch.int32)
+        if policy is None:
+            lg, big = step(params, big, inp, pos)
+        else:
+            lg, big = step(params, big, distribute_tree(
+                inp, policy.batch_specs(inp), mesh), distribute_tree(
+                pos, policy.batch_specs(pos), mesh))
+            lg = lg.full_tensor()
+        logits.append(lg[:, 0].float())
+        inp = lg[:, 0, :model.cfg.vocab_size].argmax(-1, keepdim=True).to(
+            torch.int32)
+        toks.append(inp[:, 0].tolist())
+    return plg[:, -1].float(), logits, toks
+
+
+def own_shards(tree):
+    """``tree``'s DTensors, each local shard in storage of its own:
+    ``distribute_tree`` cuts a shard of the first dimension as a view,
+    which keeps the whole tensor alive, and ranks that share one card
+    cannot each keep a whole model."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import tree_map
+
+    def own(d):
+        local = d.to_local()
+        if local.untyped_storage().nbytes() == \
+                local.numel() * local.element_size():
+            return d
+        return DTensor.from_local(local.clone(), d.device_mesh, d.placements,
+                                  run_check=False, shape=d.shape,
+                                  stride=d.stride())
+
+    return tree_map(own, tree)
 
 
 def run_tp_probe(rank: int, world: int, port: int) -> int:
@@ -4189,16 +4675,18 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
     on the local KV heads); rank 0 then runs the unsharded steps from the
     same init and holds every loss, parameter leaf, moment and logit within
     the f32 tolerance, tokens equal, the bf16 caches within the bf16
-    tolerance.  With ``what`` "full" also (b) the
-    whole model in bf16: one train step of phase 11's (8, 1024) batch, four
-    prompts and DECODE_STEPS decode steps (rank 0 saves the loss, the first
-    step's logits and the tokens to ``out_path`` for the main process,
-    which holds them against the unsharded steps).  Then K1 and K4 against
-    their plain versions on the inputs the sharded runs gave them.  Its last
-    line: the launches of each run and the checks' largest errors."""
-    import numpy as np
+    tolerance.  (b) the whole model in bf16: one train step of phase 11's
+    (8, 1024) batch, four prompts and DECODE_STEPS decode steps.  (d)-(g)
+    the MoE and Mamba cases (``moe_mamba``).  ``what`` holds the letters of
+    the cases to run (TP_RUNS).  Rank 0 saves the bf16 runs' logits and
+    tokens to ``out_path`` for the main process, which holds them against
+    the unsharded runs.  Then K1 and K4 (rank 0) and K5 (every rank)
+    against their plain versions on the inputs the sharded runs gave them.
+    Its last line: the launches of each run and the checks' largest
+    errors."""
     import torch
     import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
     sys.path.insert(0, SRC)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4214,6 +4702,7 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.mamba_scan import mamba_scan as k5
+    from repro_torch.kernels.mamba_scan import ops as mamba_ops
     from repro_torch.kernels.matmul import matmul as mm
     from repro_torch.kernels.prefill import ops
     from repro_torch.kernels.prefill import prefill as pf
@@ -4223,18 +4712,25 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
     from repro_torch.sharding.apply import (
         distribute_tree,
         full_tree,
-        make_sharded_decode_step,
         make_sharded_prefill_step,
         make_sharded_train_step,
     )
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update, global_norm
     from repro_torch.train import (
         TrainState,
         init_train_state,
-        make_decode_step,
+        make_grain_grad_fn,
         make_prefill_step,
         make_train_step,
     )
-    from repro_torch.tree import tree_leaves
+    from repro_torch.sharding.policy import is_spec, to_placements
+    from repro_torch.tree import (
+        tree_flatten,
+        tree_leaves,
+        tree_map,
+        tree_paths,
+        tree_unflatten,
+    )
 
     dev = torch.device("cuda")
     tag = f"[tensor-parallel m={world} rank {rank}]"
@@ -4263,189 +4759,434 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
                                    mesh),
             opt=distribute_tree(st.opt, policy.opt_specs(st.params), mesh))
 
-    bucket = 512
-    prng = np.random.default_rng(SEED)
-    tokens = torch.zeros((len(REMAINING_LENGTHS), bucket), dtype=torch.int32,
-                         device=dev)
-    vocab = get_config("qwen2-1.5b").vocab_size
-    for i, n in enumerate(REMAINING_LENGTHS):
-        tokens[i, :n] = torch.as_tensor(prng.integers(0, vocab, n),
-                                        dtype=torch.int32, device=dev)
-    last = torch.as_tensor([n - 1 for n in REMAINING_LENGTHS], device=dev)
-    first = tokens[torch.arange(len(REMAINING_LENGTHS), device=dev),
-                   last][:, None]
+    tokens, last = tp_prompts(torch, dev, get_config("qwen2-1.5b").vocab_size,
+                              REMAINING_LENGTHS, 512)
 
     def serve(model, params, policy):
         """A prefill of the four prompts, then DECODE_STEPS greedy steps in
         a cache twice the bucket: sharded when ``policy`` is given."""
-        pbatch = {"tokens": tokens}
-        if policy is None:
-            _, caches = make_prefill_step(model)(params, pbatch)
-        else:
-            _, caches = make_sharded_prefill_step(model, mesh)(
-                params, distribute_tree(pbatch, policy.batch_specs(pbatch),
-                                        mesh))
-            caches = full_tree(caches)
-        big = model.init_cache(len(REMAINING_LENGTHS), 2 * bucket)
-        for b_leaf, s_leaf in zip(tree_leaves(big), tree_leaves(caches),
-                                  strict=True):
-            b_leaf.narrow(2, 0, bucket).copy_(s_leaf)
-        del caches
-        if policy is None:
-            step = make_decode_step(model)
-        else:
-            big = distribute_tree(big, policy.cache_specs(big), mesh)
-            step = make_sharded_decode_step(model, mesh)
-        logits, toks, inp = [], [], first
-        for i in range(DECODE_STEPS):
-            pos = (last + i).to(torch.int32)
-            if policy is None:
-                lg, big = step(params, big, inp, pos)
-            else:
-                lg, big = step(params, big, distribute_tree(
-                    inp, policy.batch_specs(inp), mesh), distribute_tree(
-                    pos, policy.batch_specs(pos), mesh))
-                lg = lg.full_tensor()
-            logits.append(lg[:, 0].float())
-            inp = lg[:, 0, :model.cfg.vocab_size].argmax(-1, keepdim=True).to(
-                torch.int32)
-            toks.append(inp[:, 0].tolist())
-        return logits, toks
+        return tp_serve(torch, model, params, tokens, last,
+                        None if policy is None else mesh, policy)[1:]
 
     out: dict = {"rank": rank, "world": world, "backend": backend}
-    seen1, seen4 = {}, {}
-
-    # (a), (c): f32, TP_F32_LAYERS layers, sharded.
-    cfg32 = dataclasses.replace(
-        get_config("qwen2-1.5b", param_dtype="float32",
-                   compute_dtype="float32", sharding_policy="fsdp_tp"),
-        n_layers=TP_F32_LAYERS)
-    model16 = Model(dataclasses.replace(cfg32, cache_dtype="bfloat16"))
-    batch32 = grain_batch(cfg32, [0])
-    runs = {}
+    seen1, seen4, seen5 = {}, {}, {}
+    saved: dict = {}          # rank 0's bf16 results, for the main process
     t_phase = time.perf_counter()
-    with keep_inputs(ops, "_prefill_call") as s1, \
-            keep_inputs(flash_ops, "_flash_call") as s4:
-        for key, cfg in (("a", cfg32),
-                         ("c", dataclasses.replace(cfg32,
-                                                   seq_parallel=True))):
-            model = Model(cfg)
-            policy = Policy(cfg, mesh)
-            state = sharded_state(model, policy)
-            sbatch = distribute_tree(batch32, policy.batch_specs(batch32),
-                                     mesh)
-            torch.cuda.synchronize()
-            zero_counts()
-            t0 = time.perf_counter()
-            state, met = make_sharded_train_step(model, mesh)(state, sbatch)
-            torch.cuda.synchronize()
-            out[f"{key}_s"] = time.perf_counter() - t0
-            read_counts(f"tp{world}_f32_{key}_train")
-            runs[key] = (met, full_tree(state.params),
-                         full_tree(state.opt["m"]), full_tree(state.opt["v"]))
-            del state
-        model = Model(cfg32)
-        policy = Policy(cfg32, mesh)
-        params = model.init(SEED)
-        sparams = distribute_tree(params, policy.param_specs(params), mesh)
-        zero_counts()
-        sharded_serve = serve(model, sparams, policy)
-        read_counts(f"tp{world}_f32_serve")
-        pbatch = {"tokens": tokens}
-        zero_counts()
-        lg16, c16 = make_sharded_prefill_step(model16, mesh)(
-            sparams, distribute_tree(pbatch, policy.batch_specs(pbatch),
-                                     mesh))
-        torch.cuda.synchronize()
-        read_counts(f"tp{world}_f32_prefill_bf16_cache")
-        lg16, c16 = lg16.full_tensor(), full_tree(c16)
-        seen1.update(s1)
-        seen4.update(s4)
-    del sparams
-    if rank == 0:
-        zero_counts()
-        want, umet = make_train_step(model)(init_train_state(params),
-                                            batch32)
-        for key, (met, p, m1, v1) in runs.items():
-            check_close(torch, f"tensor-parallel ({key}) loss", met["loss"],
-                        umet["loss"], "float32")
-            for name, got, ref in (("parameter", p, want.params),
-                                   ("first moment", m1, want.opt["m"]),
-                                   ("second moment", v1, want.opt["v"])):
-                for i, (g, r) in enumerate(zip(tree_leaves(got),
-                                               tree_leaves(ref),
-                                               strict=True)):
-                    check_close(torch, f"tensor-parallel ({key}) {name} "
-                                f"leaf {i}", g, r, "float32")
-            out[f"{key}_loss"] = float(met["loss"])
-        out["a_loss_unsharded"] = float(umet["loss"])
-        out["leaves"] = len(tree_leaves(want.params))
-        del want
-        logits_u, toks_u = serve(model, params, None)
-        out["f32_logits_err"] = max(
-            check_close(torch, f"tensor-parallel (a) decode step {i} logits",
-                        g, r, "float32")
-            for i, (g, r) in enumerate(zip(sharded_serve[0], logits_u,
-                                           strict=True)))
-        if sharded_serve[1] != toks_u:
-            fail(f"tensor-parallel (a): sharded tokens {sharded_serve[1]} "
-                 f"differ from the unsharded {toks_u}")
-        out["f32_tokens"] = toks_u
-        ulg16, uc16 = make_prefill_step(model16)(params, {"tokens": tokens})
-        read_counts(f"tp{world}_f32_unsharded")
-        out["bf16_cache_logits_err"] = check_close(
-            torch, "tensor-parallel (a) prefill logits, bf16 cache", lg16,
-            ulg16, "float32")
-        out["bf16_cache_err"] = max(
-            check_close(torch, f"tensor-parallel (a) bf16 cache leaf {i}", g,
-                        r, "bfloat16")
-            for i, (g, r) in enumerate(zip(tree_leaves(c16),
-                                           tree_leaves(uc16), strict=True)))
-        del uc16, ulg16
-    del runs, params, model, model16, sharded_serve, c16, lg16
-    gc.collect()
-    torch.cuda.empty_cache()
 
-    if what == "full":
-        # (b): the whole model in bf16, sharded.
-        cfgb = dataclasses.replace(get_config("qwen2-1.5b"),
-                                   sharding_policy="fsdp_tp")
-        model = Model(cfgb)
-        policy = Policy(cfgb, mesh)
-        batch = grain_batch(cfgb, list(range(TRAIN_GRAINS)))
+    def staggered(fn):
+        """``fn()`` on one rank at a time, a barrier after each: the ranks
+        share one card and must not each hold a whole model at once."""
+        res = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        for r in range(world):
+            if r == rank:
+                res = fn()
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        return res
+
+    def shards(model, policy):
+        """This rank's shards of the model's seeded init (one rank at a
+        time where the ranks' whole models together would pass
+        TP_STAGGER_BYTES), and the seconds the ranks took.  Each whole
+        leaf is freed as soon as its shard is cut: a rank holds the
+        whole model and one leaf's shard at most."""
+        meta = model.abstract_params()
+        specs = tree_flatten(policy.param_specs(meta), is_leaf=is_spec)[0]
+
+        def init():
+            leaves, treedef = tree_flatten(model.init(SEED))
+            out = []
+            for i, spec in enumerate(specs):
+                leaf, leaves[i] = leaves[i], None
+                out.append(own_shards(distribute_tensor(
+                    leaf, mesh, to_placements(spec, mesh),
+                    src_data_rank=None)))
+                del leaf
+            return tree_unflatten(treedef, out)
+
+        whole = sum(t.numel() * t.element_size() for t in tree_leaves(meta))
+        t0 = time.perf_counter()
+        sp = staggered(init) if world * whole > TP_STAGGER_BYTES else init()
+        return sp, time.perf_counter() - t0
+
+    def split_shapes(cfg, sp) -> dict:
+        """Each split layer's local key leaves: an MoE layer's experts (or
+        their width) and a Mamba layer's heads, for the checks and the
+        report; fails where one is not split."""
+        got = {}
+        for key, layer in sp["stack"]["periods"].items():
+            if "moe" in layer:
+                shp = list(layer["moe"]["w_gate"].to_local().shape[1:])
+                e, f = cfg.moe.n_routed, cfg.moe.d_expert
+                want = ([e // world, cfg.d_model, f] if e % world == 0
+                        else [e, cfg.d_model, f // world])
+                if shp != want:
+                    fail(f"{tag} {key} experts {shp}, expected {want}")
+                got[f"{key}.moe.w_gate"] = shp
+            if "mamba" in layer:
+                shp = list(layer["mamba"]["wdt"].to_local().shape[1:])
+                if shp[1] * world != cfg.ssm.n_heads(cfg.d_model):
+                    fail(f"{tag} {key} Mamba heads {shp}, not split")
+                got[f"{key}.mamba.wdt"] = shp
+        return got
+
+    def want_launches(counts: dict, want: dict, what_run: str) -> None:
+        got = {key: counts[key] for key in want}
+        if got != want:
+            fail(f"{tag} {what_run}: launches {got}, expected {want}")
+
+    def serve_case(key: str, cfg, tokens, last, want: dict) -> dict:
+        """``cfg``'s model sharded: a prefill and DECODE_STEPS decode
+        steps.  In f32 rank 0 then holds the prefill's and every step's
+        logits within the f32 tolerance of the unsharded run, tokens
+        equal; in bf16 it keeps them for the main process, which holds
+        them against the unsharded run it took first."""
+        model, policy = Model(cfg), Policy(cfg, mesh)
+        sp, init_s = shards(model, policy)
+        res = {"init_s": init_s, "local": split_shapes(cfg, sp)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
         with keep_inputs(ops, "_prefill_call") as s1, \
-                keep_inputs(flash_ops, "_flash_call") as s4:
-            state = sharded_state(model, policy)
-            sbatch = distribute_tree(batch, policy.batch_specs(batch), mesh)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            zero_counts()
+                keep_inputs(mamba_ops, "_ssd_kernel_call") as s5, \
+                keep_routes(tokens.numel()) as routes:
             t0 = time.perf_counter()
-            state, met = make_sharded_train_step(model, mesh)(state, sbatch)
+            plg, logits, toks = tp_serve(torch, model, sp, tokens, last, mesh,
+                                         policy)
             torch.cuda.synchronize()
-            out["b_s"] = time.perf_counter() - t0
-            out["b_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-            read_counts(f"tp{world}_bf16_train")
-            out["b_loss"] = float(met["loss"])
-            del state
+            res["serve_s"] = time.perf_counter() - t0
+        res["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        want_launches(read_counts(f"tp{world}_{key}_serve"), want,
+                      f"({key}) serve")
+        seen1.update(s1)
+        seen5.update(s5)
+        res["tokens"] = toks
+        del sp
+        gc.collect()
+        torch.cuda.empty_cache()
+        if cfg.param_dtype != "float32":
+            if rank == 0:
+                saved[key] = {"prefill": plg.cpu(), "logits0": logits[0].cpu(),
+                              "tokens": toks, "routes": routes}
+        elif rank == 0:
+            t0 = time.perf_counter()
+            zero_counts()
+            params = model.init(SEED)
+            uplg, ulogits, utoks = tp_serve(torch, model, params, tokens,
+                                            last)
+            res["serve_check_s"] = time.perf_counter() - t0
+            read_counts(f"tp{world}_{key}_unsharded_serve")
+            res["prefill_err"] = check_close(
+                torch, f"{tag} ({key}) prefill logits", plg, uplg, "float32")
+            res["logits_err"] = max(
+                check_close(torch, f"{tag} ({key}) decode step {i} logits",
+                            g, r, "float32")
+                for i, (g, r) in enumerate(zip(logits, ulogits, strict=True)))
+            if toks != utoks:
+                fail(f"{tag} ({key}): sharded tokens {toks} differ from the "
+                     f"unsharded {utoks}")
+            del params
             gc.collect()
             torch.cuda.empty_cache()
-            params = model.init(SEED)
-            sparams = distribute_tree(params, policy.param_specs(params),
-                                      mesh)
-            del params
-            zero_counts()
+        dist.barrier()
+        return res
+
+    def train_case(key: str, cfg, want: dict) -> dict:
+        """One sharded train step of ``cfg``'s model on phase 11's f32
+        grain; rank 0 keeps every leaf of the new parameters and moments on
+        the host, then runs the unsharded step from the same init (the
+        other ranks have freed theirs) and holds the loss, every leaf and
+        both moments within the f32 tolerance, the router's among them."""
+        model, policy = Model(cfg), Policy(cfg, mesh)
+        sp, init_s = shards(model, policy)
+        opt = {"m": tree_map(lambda d: torch.zeros_like(
+                   d, dtype=torch.float32), sp),
+               "v": tree_map(lambda d: torch.zeros_like(
+                   d, dtype=torch.float32), sp),
+               "step": distribute_tensor(
+                   torch.zeros((), dtype=torch.int32, device=dev), mesh,
+                   [Replicate()] * mesh.ndim, src_data_rank=None)}
+        state = TrainState(params=sp, opt=opt)
+        del sp, opt
+        batch = grain_batch(cfg, [0])
+        sbatch = distribute_tree(batch, policy.batch_specs(batch), mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        with keep_inputs(flash_ops, "_flash_call") as s4:
             t0 = time.perf_counter()
-            logits_b, toks_b = serve(model, sparams, policy)
+            state, met = make_sharded_train_step(model, mesh)(state, sbatch)
             torch.cuda.synchronize()
-            out["b_serve_s"] = time.perf_counter() - t0
-            read_counts(f"tp{world}_bf16_serve")
+            train_s = time.perf_counter() - t0
+        res = {"train_init_s": init_s, "train_s": train_s,
+               "train_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "loss": float(met["loss"])}
+        want_launches(read_counts(f"tp{world}_{key}_train"), want,
+                      f"({key}) train")
+        seen4.update(s4)
+        names = ("parameter", "first moment", "second moment")
+        trees = (state.params, state.opt["m"], state.opt["v"])
+        t0 = time.perf_counter()
+        host = {n: [d.to_local().cpu() for d in tree_leaves(tree)]
+                for n, tree in zip(names, trees, strict=True)}
+        placements = [d.placements for d in tree_leaves(state.params)]
+        del state, trees
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["copy_s"] = time.perf_counter() - t0
+
+        def own(t, pl):
+            """This rank's chunk of the whole ``t`` at placements ``pl``."""
+            coord = mesh.get_coordinate()
+            for i, p in enumerate(pl):
+                if isinstance(p, Shard):
+                    t = t.chunk(mesh.size(i), p.dim)[coord[i]]
+            return t
+
+        def check() -> None:
+            # The unsharded step as ``make_train_step`` takes it (the loss
+            # gradient, then ``adamw_update``), its update leaf by leaf (the
+            # whole update of the f32 MoE cut holds the parameters, the
+            # gradients, both moments and the new parameters at once, 58
+            # GB), each leaf's new value, moments included, held against
+            # this rank's shard of it.
+            params = model.init(SEED)
+            paths = tree_paths(params)
+            zero_counts()
+            (_, umet), grads = make_grain_grad_fn(model)(params, batch)
+            read_counts(f"tp{world}_{key}_unsharded_train")
+            check_close(torch, f"{tag} ({key}) loss", met["loss"],
+                        umet["loss"], "float32")
+            opt_cfg = AdamWConfig()
+            scale = torch.clamp(opt_cfg.clip_norm / torch.clamp(
+                global_norm(grads), min=1e-9), max=1.0)
+            leaf_cfg = dataclasses.replace(opt_cfg, clip_norm=float("inf"))
+            step0 = torch.zeros((), dtype=torch.int32, device=dev)
+            errs = {}
+            for i, (p_i, g_i, pl) in enumerate(zip(
+                    tree_leaves(params), tree_leaves(grads), placements,
+                    strict=True)):
+                mv = {"m": [torch.zeros(p_i.shape, dtype=torch.float32,
+                                        device=dev)],
+                      "v": [torch.zeros(p_i.shape, dtype=torch.float32,
+                                        device=dev)], "step": step0}
+                new_p, new_mv, _ = adamw_update(
+                    [g_i.to(torch.float32) * scale], mv, [p_i], leaf_cfg)
+                for name, want_leaf in zip(names, (new_p[0], new_mv["m"][0],
+                                                   new_mv["v"][0]),
+                                           strict=True):
+                    errs[name, i] = check_close(
+                        torch, f"{tag} ({key}) {name} leaf {i}",
+                        host[name][i].to(dev), own(want_leaf, pl), "float32")
+                del new_p, new_mv, mv
+            router = [i for i, p in enumerate(paths) if ("key", "router") in p]
+            res.update(leaves=len(paths), max_err=max(errs.values()),
+                       loss_unsharded=float(umet["loss"]),
+                       router_err={n: max(errs[n, i] for i in router)
+                                   for n in names} if router else None)
+
+        # Each rank in turn: the unsharded step beside one rank's state.
+        t0 = time.perf_counter()
+        staggered(check)
+        res["train_check_s"] = time.perf_counter() - t0
+        host.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    def moe_mamba(cases) -> None:
+        """Phase 26's MoE and Mamba cases (d)-(g) on this rank: each
+        result under ``out[case]``."""
+        k4 = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+              "flash_attention_bwd_dkdv": 0}
+
+        def k4_train(n_layers):
+            return {"flash_attention_fwd": 2 * n_layers,
+                    "flash_attention_bwd_dq": n_layers,
+                    "flash_attention_bwd_dkdv": n_layers}
+
+        moe_tokens = tp_prompts(torch, dev, get_config(
+            "qwen2-moe-a2.7b").vocab_size, REMAINING_LENGTHS, 512)
+        bf16 = {key: cfg for key, cfg, _, _ in tp_bf16_cases()}
+        for case in cases:
+            t0 = time.perf_counter()
+            if case in ("d", "e"):
+                n = MOE_F32_LAYERS if case == "d" else TP_ETP_LAYERS
+                cfg32 = get_config("qwen2-moe-a2.7b", n_layers=n,
+                                   param_dtype="float32",
+                                   compute_dtype="float32")
+                res = {}
+                if case == "d":
+                    res["bf16"] = serve_case(
+                        "d_bf16", bf16["d_bf16"], *moe_tokens,
+                        {"prefill_flash": 24, "ssd_scan": 0})
+                res["f32"] = serve_case(f"{case}_f32", cfg32, *moe_tokens,
+                                        {"prefill_flash": n, "ssd_scan": 0})
+                res["f32"].update(train_case(f"{case}_f32", cfg32,
+                                             k4_train(n)))
+            elif case == "f":
+                cfgm = bf16["f_bf16"]
+                prompt = tp_prompts(torch, dev, cfgm.vocab_size,
+                                    (TP_MAMBA_PROMPT,), TP_MAMBA_BUCKET)
+                cfgm32 = get_config("mamba2-2.7b", n_layers=TP_MAMBA_F32_LAYERS,
+                                    param_dtype="float32",
+                                    compute_dtype="float32")
+                res = {"bf16": serve_case("f_bf16", cfgm, *prompt,
+                                          {"ssd_scan": cfgm.n_layers}),
+                       "f32": serve_case("f_f32", cfgm32, *prompt,
+                                         {"ssd_scan": TP_MAMBA_F32_LAYERS})}
+                res["f32"].update(train_case(
+                    "f_f32", dataclasses.replace(cfgm32, use_pallas=False),
+                    dict(k4, ssd_scan=0)))
+            else:
+                cfgj = bf16["g_bf16"]
+                res = {"bf16": serve_case(
+                    "g_bf16", cfgj,
+                    *tp_prompts(torch, dev, cfgj.vocab_size, REMAINING_LENGTHS,
+                                512), {"prefill_flash": 1, "ssd_scan": 7})}
+            res["s"] = time.perf_counter() - t0
+            out[case] = res
+            print(f"{tag} ({case}) {res['s']:.1f} s: " + json.dumps(
+                {run: {k: round(v, 2) for k, v in r.items()
+                       if k.endswith("_s")}
+                 for run, r in res.items() if isinstance(r, dict)}),
+                flush=True)
+
+    moe_mamba([case for case in "defg" if case in what])
+    if "a" in what:
+        # (a), (c): f32, TP_F32_LAYERS layers, sharded.
+        cfg32 = dataclasses.replace(
+            get_config("qwen2-1.5b", param_dtype="float32",
+                       compute_dtype="float32", sharding_policy="fsdp_tp"),
+            n_layers=TP_F32_LAYERS)
+        model16 = Model(dataclasses.replace(cfg32, cache_dtype="bfloat16"))
+        batch32 = grain_batch(cfg32, [0])
+        runs = {}
+        with keep_inputs(ops, "_prefill_call") as s1, \
+                keep_inputs(flash_ops, "_flash_call") as s4:
+            for key, cfg in (("a", cfg32),
+                             ("c", dataclasses.replace(cfg32,
+                                                       seq_parallel=True))):
+                model = Model(cfg)
+                policy = Policy(cfg, mesh)
+                state = sharded_state(model, policy)
+                sbatch = distribute_tree(batch32, policy.batch_specs(batch32),
+                                         mesh)
+                torch.cuda.synchronize()
+                zero_counts()
+                t0 = time.perf_counter()
+                state, met = make_sharded_train_step(model, mesh)(state, sbatch)
+                torch.cuda.synchronize()
+                out[f"{key}_s"] = time.perf_counter() - t0
+                read_counts(f"tp{world}_f32_{key}_train")
+                runs[key] = (met, full_tree(state.params),
+                             full_tree(state.opt["m"]), full_tree(state.opt["v"]))
+                del state
+            model = Model(cfg32)
+            policy = Policy(cfg32, mesh)
+            params = model.init(SEED)
+            sparams = distribute_tree(params, policy.param_specs(params), mesh)
+            zero_counts()
+            sharded_serve = serve(model, sparams, policy)
+            read_counts(f"tp{world}_f32_serve")
+            pbatch = {"tokens": tokens}
+            zero_counts()
+            lg16, c16 = make_sharded_prefill_step(model16, mesh)(
+                sparams, distribute_tree(pbatch, policy.batch_specs(pbatch),
+                                         mesh))
+            torch.cuda.synchronize()
+            read_counts(f"tp{world}_f32_prefill_bf16_cache")
+            lg16, c16 = lg16.full_tensor(), full_tree(c16)
             seen1.update(s1)
             seen4.update(s4)
-        out["b_tokens"] = toks_b
+        del sparams
         if rank == 0:
-            torch.save({"logits0": logits_b[0].cpu()}, out_path)
-        del sparams, logits_b
+            zero_counts()
+            want, umet = make_train_step(model)(init_train_state(params),
+                                                batch32)
+            for key, (met, p, m1, v1) in runs.items():
+                check_close(torch, f"tensor-parallel ({key}) loss", met["loss"],
+                            umet["loss"], "float32")
+                for name, got, ref in (("parameter", p, want.params),
+                                       ("first moment", m1, want.opt["m"]),
+                                       ("second moment", v1, want.opt["v"])):
+                    for i, (g, r) in enumerate(zip(tree_leaves(got),
+                                                   tree_leaves(ref),
+                                                   strict=True)):
+                        check_close(torch, f"tensor-parallel ({key}) {name} "
+                                    f"leaf {i}", g, r, "float32")
+                out[f"{key}_loss"] = float(met["loss"])
+            out["a_loss_unsharded"] = float(umet["loss"])
+            out["leaves"] = len(tree_leaves(want.params))
+            del want
+            logits_u, toks_u = serve(model, params, None)
+            out["f32_logits_err"] = max(
+                check_close(torch, f"tensor-parallel (a) decode step {i} logits",
+                            g, r, "float32")
+                for i, (g, r) in enumerate(zip(sharded_serve[0], logits_u,
+                                               strict=True)))
+            if sharded_serve[1] != toks_u:
+                fail(f"tensor-parallel (a): sharded tokens {sharded_serve[1]} "
+                     f"differ from the unsharded {toks_u}")
+            out["f32_tokens"] = toks_u
+            ulg16, uc16 = make_prefill_step(model16)(params, {"tokens": tokens})
+            read_counts(f"tp{world}_f32_unsharded")
+            out["bf16_cache_logits_err"] = check_close(
+                torch, "tensor-parallel (a) prefill logits, bf16 cache", lg16,
+                ulg16, "float32")
+            out["bf16_cache_err"] = max(
+                check_close(torch, f"tensor-parallel (a) bf16 cache leaf {i}", g,
+                            r, "bfloat16")
+                for i, (g, r) in enumerate(zip(tree_leaves(c16),
+                                               tree_leaves(uc16), strict=True)))
+            del uc16, ulg16
+        del runs, params, model, model16, sharded_serve, c16, lg16
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        if "b" in what:
+            # (b): the whole model in bf16, sharded.
+            cfgb = dataclasses.replace(get_config("qwen2-1.5b"),
+                                       sharding_policy="fsdp_tp")
+            model = Model(cfgb)
+            policy = Policy(cfgb, mesh)
+            batch = grain_batch(cfgb, list(range(TRAIN_GRAINS)))
+            with keep_inputs(ops, "_prefill_call") as s1, \
+                    keep_inputs(flash_ops, "_flash_call") as s4:
+                state = sharded_state(model, policy)
+                sbatch = distribute_tree(batch, policy.batch_specs(batch), mesh)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero_counts()
+                t0 = time.perf_counter()
+                state, met = make_sharded_train_step(model, mesh)(state, sbatch)
+                torch.cuda.synchronize()
+                out["b_s"] = time.perf_counter() - t0
+                out["b_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                read_counts(f"tp{world}_bf16_train")
+                out["b_loss"] = float(met["loss"])
+                del state
+                gc.collect()
+                torch.cuda.empty_cache()
+                params = model.init(SEED)
+                sparams = distribute_tree(params, policy.param_specs(params),
+                                          mesh)
+                del params
+                zero_counts()
+                t0 = time.perf_counter()
+                logits_b, toks_b = serve(model, sparams, policy)
+                torch.cuda.synchronize()
+                out["b_serve_s"] = time.perf_counter() - t0
+                read_counts(f"tp{world}_bf16_serve")
+                seen1.update(s1)
+                seen4.update(s4)
+            out["b_tokens"] = toks_b
+            if rank == 0:
+                saved["logits0"] = logits_b[0].cpu()
+            del sparams, logits_b
     out["s"] = time.perf_counter() - t_phase
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["k1_shapes"] = sorted([list(k[0]), list(k[1]), str(k[2])[6:]]
@@ -4457,6 +5198,13 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
                                       f"{tag} ")
         out["k4_err"] = k4_check_seen(torch, seen4, "tensor-parallel",
                                       f"{tag} ")
+    out["k5_shapes"] = sorted([list(k[0]), list(k[1]), str(k[2])[6:]]
+                              for k in seen5)
+    # Every rank holds K5 against its plain version on the inputs its
+    # heads gave it.
+    out["k5_err"] = k5_check_seen(torch, seen5, "tensor-parallel", f"{tag} ")
+    if rank == 0:
+        torch.save(saved, out_path)
     out["launches"] = launches
     dist.destroy_process_group()
     print(json.dumps(out), flush=True)

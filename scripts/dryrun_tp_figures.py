@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""The dry run's figures for tensor-parallel compute: a Qwen2-1.5B train
+"""The dry run's figures for tensor-parallel compute: an arch's train
 cell's ``useful_flops_ratio`` and the ``decode_32k`` cell's collective
 bytes a device, on the production (16, 16) mesh.
 
     PYTHONPATH=src python scripts/dryrun_tp_figures.py [--src DIR]
-        [--batch 16] [--seq 1024]
+        [--arch qwen2-1.5b] [--batch 16] [--seq 1024]
 
 On the CPU, no card: ``launch.dryrun.measure`` runs one sharded step on
 fake tensors under a fake process group of 256 ranks, so every figure is
@@ -13,9 +13,10 @@ the dry run's prediction, not a device number.  The train cell is
 cell takes the plain chunked attention over 256 x 4096 tokens); the
 decode cell is whole.  ``--src`` imports the port from another checkout's
 ``src`` (a parent commit unpacked with ``git archive``), so both commits
-run the same cells.  Prints one JSON line: each cell's FLOPs a device,
-model FLOPs, the ratio, collective bytes a device by operation, the
-largest collectives and the peak a device.
+run the same cells.  ``--arch`` takes any of the registry's archs (at
+their published widths).  Prints one JSON line: each cell's FLOPs a
+device, model FLOPs, the ratio, collective bytes a device by operation,
+the largest collectives and the peak a device.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
+    ap.add_argument("--arch", default="qwen2-1.5b")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--seq", type=int, default=1024)
     args = ap.parse_args(argv)
@@ -41,7 +43,7 @@ def main(argv: list[str] | None = None) -> None:
     from repro_torch.launch.mesh import production_mesh_shape
     from repro_torch.models.model import Model
 
-    cfg = get_config("qwen2-1.5b")
+    cfg = get_config(args.arch)
     mesh = production_mesh_shape()
     out = {"src": os.path.abspath(args.src), "arch": cfg.name,
            "policy": cfg.sharding_policy, "mesh": list(mesh.sizes)}

@@ -19,6 +19,8 @@ heads its own q heads use (``_local_kv``).  Training and the prefill run K4
 and K1 on the local heads.  A decode's cache holds this rank's share of the
 sequence for every KV head: each rank attends all heads over its own
 positions and the ranks combine their partial softmaxes (``_decode_split``).
+Cross-attention computes whole on every rank (``transformer.apply_layer``
+gives it ``par.whole()``): its heads split is the next slice.
 """
 
 from __future__ import annotations

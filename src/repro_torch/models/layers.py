@@ -77,10 +77,19 @@ def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def gated_rms_norm(x: torch.Tensor, gate: torch.Tensor, weight: torch.Tensor,
-                   eps: float) -> torch.Tensor:
-    """Mamba-2 output norm: RMSNorm(x * silu(z))."""
+                   eps: float, group=None, width: int = 0) -> torch.Tensor:
+    """Mamba-2 output norm: RMSNorm(x * silu(z)).  ``group``
+    (``models/parallel.py``) of more than one rank: ``x``, ``gate`` and
+    ``weight`` are this rank's channels of ``width``, and the mean square
+    is taken over all of them (the sum of squares summed over the
+    ranks)."""
     g = torch.nn.functional.silu(gate.float()).to(x.dtype)
-    return rms_norm(x * g, weight, eps)
+    if group is None or group.size == 1:
+        return rms_norm(x * g, weight, eps)
+    xf = (x * g).float()
+    var = group.total(torch.sum(xf * xf, dim=-1, keepdim=True)) / width
+    out = xf * torch.rsqrt(var + eps)
+    return (out * weight.float()).to(x.dtype)
 
 
 # ------------------------------------------------------------------------- RoPE

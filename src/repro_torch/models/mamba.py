@@ -9,6 +9,20 @@ plain torch, as the reference computes them outside any Pallas kernel.
 
 ``mamba_decode`` updates the cache in place and returns it (the reference
 returns a new one; the values are the same), as the attention decode does.
+
+Split heads (``group``, a ``models/parallel.py::Group`` of more than one
+rank): ``wz``, ``wx`` and ``wdt`` hold this rank's heads' columns and
+``wo`` their rows, as ``sharding/policy.py`` stores them; ``wb``/``wc``
+come whole (one group of B and C, which every head reads: a config of more
+groups raises), and the per-head
+vectors, the norm and the conv's columns are cut to the rank's heads
+(``_local``).  K5 runs on the local heads; the gated norm's mean square is
+taken over every rank's channels (``Group.total``), and ``wo``'s product
+is this rank's partial sum.  A decode reads the whole conv window (its
+channels do not split by heads; the reference's specs store it whole over
+``model``) and this rank's heads of the state; it writes the whole new
+window (the new column's x channels gathered over the ranks) and its own
+state.
 """
 
 from __future__ import annotations
@@ -21,6 +35,7 @@ import torch.nn.functional as F
 from ..kernels.mamba_scan.ops import ssd
 from .config import ModelConfig
 from .layers import dense_init, dtype_of, gated_rms_norm
+from .parallel import SOLO, Group
 
 __all__ = ["MambaCache", "F32_LEAVES", "init_mamba", "mamba_train",
            "init_mamba_cache", "mamba_decode"]
@@ -78,14 +93,54 @@ def _conv_full(p: dict, u: torch.Tensor, d_conv: int) -> torch.Tensor:
     return F.silu((out + p["conv_b"]).float()).to(u.dtype)
 
 
+def _local(p: dict, cfg: ModelConfig, group: Group):
+    """This rank's share of a layer whose heads ``group`` splits, and the
+    indices of its conv channels (its x channels, then every B and C
+    channel) in the whole conv window; the params as they are, and None,
+    for one rank.  One group of B and C only (every config's): each head
+    reads it whole."""
+    if group.size == 1:
+        return p, None
+    s, d_in, _, gn, _ = _dims(cfg)
+    if s.n_groups != 1:
+        raise ValueError(f"mamba: split heads need n_groups 1, not "
+                         f"{s.n_groups}")
+    h = p["wdt"].shape[1]
+    x0, x1 = group.rank * h * s.head_dim, (group.rank + 1) * h * s.head_dim
+    dev = p["wx"].device
+    cols = torch.cat([torch.arange(x0, x1, device=dev),
+                      torch.arange(d_in, d_in + 2 * gn, device=dev)])
+    out = dict(p)
+    for name in F32_LEAVES:
+        out[name] = p[name][group.rank * h:(group.rank + 1) * h]
+    out["norm"] = p["norm"][x0:x1]
+    out["conv_w"] = p["conv_w"][:, cols]
+    out["conv_b"] = p["conv_b"][cols]
+    return out, cols
+
+
+def _whole_channels(u: torch.Tensor, d_local: int,
+                    group: Group) -> torch.Tensor:
+    """Conv inputs (..., this rank's ``d_local`` x channels, then every B
+    and C channel) as every conv channel: the x channels gathered over the
+    ranks (no gradient)."""
+    return torch.cat([group.gather(u[..., :d_local], -1), u[..., d_local:]],
+                     dim=-1)
+
+
 def mamba_train(
-    p: dict, cfg: ModelConfig, x: torch.Tensor
-) -> tuple[torch.Tensor, MambaCache]:
+    p: dict, cfg: ModelConfig, x: torch.Tensor, *, group: Group = SOLO,
+    cache: bool = True,
+) -> tuple[torch.Tensor, MambaCache | None]:
     """Full-sequence SSD.  Returns output and final recurrent state (used by
-    prefill; train ignores it).  The conv window and the state cover every
-    position of ``x``, pad tokens of a bucketed prompt included, as in the
-    reference."""
-    s, d_in, heads, gn, conv_ch = _dims(cfg)
+    prefill; train asks for none: ``cache=False`` gives None).  The conv
+    window and the state cover every position of ``x``, pad tokens of a
+    bucketed prompt included, as in the reference.  Under split heads
+    (``group``) the output is this rank's partial sum over its heads (its
+    ``wo`` rows), the state its heads' and the conv window whole."""
+    s, d_full = cfg.ssm, cfg.ssm.d_inner(cfg.d_model)
+    p, cols = _local(p, cfg, group)
+    d_in, heads, gn = p["wx"].shape[1], p["wdt"].shape[1], _dims(cfg)[3]
     b, seq, _ = x.shape
     z = x @ p["wz"]
     xs = x @ p["wx"]
@@ -102,11 +157,15 @@ def mamba_train(
     y, state = ssd(xc, dt.to(xc.dtype), a, bc, cc, p["d_skip"],
                    chunk=s.chunk, use_pallas=cfg.use_pallas)
     y = y.reshape(b, seq, d_in)
-    y = gated_rms_norm(y, z, p["norm"], cfg.norm_eps)
-    out = y @ p["wo"]
+    y = gated_rms_norm(y, z, p["norm"], cfg.norm_eps, group, d_full)
+    out = group.row_product(torch.matmul, y, p["wo"])
+    if not cache:
+        return out, None
     conv_tail = torch.cat(
-        [torch.zeros((b, s.d_conv - 1, conv_ch), dtype=u.dtype,
+        [torch.zeros((b, s.d_conv - 1, u.shape[-1]), dtype=u.dtype,
                      device=u.device), u], dim=1)[:, -(s.d_conv - 1):, :]
+    if cols is not None:
+        conv_tail = _whole_channels(conv_tail.detach(), d_in, group)
     return out, MambaCache(conv=conv_tail, state=state)
 
 
@@ -122,18 +181,24 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, device) -> MambaCache:
 
 
 def mamba_decode(
-    p: dict, cfg: ModelConfig, x: torch.Tensor, cache: MambaCache
+    p: dict, cfg: ModelConfig, x: torch.Tensor, cache: MambaCache, *,
+    group: Group = SOLO,
 ) -> tuple[torch.Tensor, MambaCache]:
     """One-token recurrent step.  x: (B, 1, d).  Writes the new conv window
-    and state into ``cache`` and returns it."""
-    s, d_in, heads, gn, conv_ch = _dims(cfg)
+    and state into ``cache`` and returns it.  Under split heads
+    (``group``) ``cache`` holds the whole conv window and this rank's
+    heads of the state, and the output is this rank's partial sum."""
+    s, d_full = cfg.ssm, cfg.ssm.d_inner(cfg.d_model)
+    p, cols = _local(p, cfg, group)
+    d_in, heads, gn = p["wx"].shape[1], p["wdt"].shape[1], _dims(cfg)[3]
     b = x.shape[0]
     xt = x[:, 0]
     z = xt @ p["wz"]
     u_t = torch.cat([xt @ p["wx"], xt @ p["wb"], xt @ p["wc"]], dim=-1)
     dt_raw = (xt @ p["wdt"]).float()
     dt = F.softplus(dt_raw + p["dt_bias"])                # (B, H)
-    window = torch.cat([cache.conv, u_t[:, None, :]], dim=1)  # (B, dc, C)
+    conv = cache.conv if cols is None else cache.conv[..., cols]
+    window = torch.cat([conv, u_t[:, None, :]], dim=1)    # (B, dc, C)
     conv_out = torch.einsum("bwc,wc->bc", window, p["conv_w"]) + p["conv_b"]
     conv_out = F.silu(conv_out.float()).to(x.dtype)
     xc = conv_out[:, :d_in].reshape(b, heads, s.head_dim)
@@ -150,8 +215,12 @@ def mamba_decode(
     y = torch.einsum("bhpn,bhn->bhp", state, cch.float())
     y = y + xc.float() * p["d_skip"][None, :, None]
     y = y.reshape(b, d_in).to(x.dtype)
-    y = gated_rms_norm(y, z, p["norm"], cfg.norm_eps)
-    out = (y @ p["wo"])[:, None, :]
-    cache.conv.copy_(window[:, 1:])
+    y = gated_rms_norm(y, z, p["norm"], cfg.norm_eps, group, d_full)
+    out = group.row_product(torch.matmul, y, p["wo"])[:, None, :]
+    if cols is None:
+        cache.conv.copy_(window[:, 1:])
+    else:
+        cache.conv.copy_(torch.cat([cache.conv[:, 1:], _whole_channels(
+            u_t[:, None, :], d_in, group)], dim=1))
     cache.state.copy_(state)
     return out, cache

@@ -15,6 +15,10 @@ the values are the same.
 Plain tensor code, no kernel, as in the reference (its MLA attention is
 plain einsums): its q/k head dim (nope + rope, 192 at full width) is not
 one of K4's compiled head dims.
+
+Under tensor parallelism an MLA layer still computes whole on every
+``model`` rank (``transformer.apply_layer`` gives it ``par.whole()``):
+its heads split, with its latent cache's sequence, is the next slice.
 """
 
 from __future__ import annotations

@@ -31,6 +31,16 @@ What the port keeps of the reference, value for value:
   - the expert MLP rounds as ``silu(g.float()).to(x.dtype) * u``, and the
     combine multiplies by the gates in ``x.dtype`` and sums over k there.
 
+Split over ranks (``group``, a ``models/parallel.py::Group`` of more than
+one rank), as ``sharding/policy.py`` stores the experts: expert-parallel
+where ``w_gate`` holds E/m of the experts (this rank's, in order), expert-
+TP where it holds every expert at ff/m of its width.  Every rank routes the
+whole token set alike (the router is replicated), so ranks and ``keep``
+are the unsplit layer's; it runs its experts' buckets only (expert-
+parallel) or every bucket at its width (expert-TP), and returns its
+partial combine in f32, the shared expert's column/row-parallel partial
+added, for the caller's one all-reduce.  No token moves between ranks.
+
 Plain tensor code, no kernel: the reference's MoE has no Pallas kernel.
 """
 
@@ -43,6 +53,7 @@ import torch.nn.functional as F
 from ..core.homogenization import scope_lengths
 from .config import ModelConfig
 from .layers import dense_init, dtype_of
+from .parallel import SOLO, Group
 
 __all__ = ["F32_LEAVES", "capacity_per_expert", "init_moe", "apply_moe",
            "apply_moe_dense", "expert_load"]
@@ -97,25 +108,48 @@ def _route(p: dict, m, xt: torch.Tensor):
     return probs, gate_vals * m.routed_scaling, experts
 
 
-def _expert_mlp(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+def _expert_mlp(x: torch.Tensor, w_gate, w_up, w_down,
+                group: Group | None = None) -> torch.Tensor:
+    """SwiGLU experts; ``group`` forms ``w_down``'s row-parallel product
+    where the width is split (the expert-TP experts, the shared expert)."""
     g = x @ w_gate
     u = x @ w_up
-    return (F.silu(g.float()).to(x.dtype) * u) @ w_down
+    h = F.silu(g.float()).to(x.dtype) * u
+    if group is None:
+        return h @ w_down
+    return group.row_product(torch.matmul, h, w_down)
 
 
-def _shared(p: dict, m, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+def _shared(p: dict, m, x: torch.Tensor, out: torch.Tensor,
+            group: Group = SOLO) -> torch.Tensor:
     if not m.n_shared:
         return out
     sp = p["shared"]
-    return out + _expert_mlp(x, sp["w_gate"], sp["w_up"], sp["w_down"])
+    # Split over ranks, its width is split too (``sharding/apply.py``
+    # splits the layer only then): a row-parallel partial.
+    return out + _expert_mlp(x, sp["w_gate"], sp["w_up"], sp["w_down"],
+                             None if group.size == 1 else group)
+
+
+def _experts(p: dict, m, group: Group) -> tuple[int, int, Group | None]:
+    """This rank's experts ``[lo, lo + n)`` and the group of ``w_down``'s
+    row-parallel product (expert-TP), or None (whole experts)."""
+    n = p["w_gate"].shape[0]
+    if n < m.n_routed:                     # expert-parallel
+        return group.rank * n, n, None
+    if p["w_gate"].shape[2] < m.d_expert:  # expert-TP
+        return 0, n, group
+    return 0, n, None
 
 
 def apply_moe(
-    p: dict, cfg: ModelConfig, x: torch.Tensor, capacities=None
+    p: dict, cfg: ModelConfig, x: torch.Tensor, capacities=None, *,
+    group: Group = SOLO,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out, aux_loss).  ``capacities``: (E,) ints (a
     tensor, array or list); None => uniform capacity from the config's
-    capacity factor."""
+    capacity factor.  Under ``group`` of more than one rank ``out`` is
+    this rank's partial sum in f32."""
     m = cfg.moe
     e, k = m.n_routed, m.top_k
     b, s, d = x.shape
@@ -147,10 +181,15 @@ def apply_moe(
     rank_in_expert = ranks.gather(1, flat_experts[:, None]).reshape(t, k)
     keep = (rank_in_expert < capacities[experts]) & (rank_in_expert < cap_max)
 
-    # Scatter tokens into (E, C) buckets.  Dropped assignments point at the
-    # sentinel E * cap_max: the one spare slot, cut off after the scatter.
-    sentinel = e * cap_max
-    bucket_idx = torch.where(keep, experts * cap_max + rank_in_expert,
+    # Scatter this rank's tokens into its (E, C) buckets (every expert on
+    # one rank).  Dropped assignments, and under expert parallelism those
+    # of other ranks' experts, point at the sentinel E * cap_max: the one
+    # spare slot, cut off after the scatter.
+    lo, n_e, down = _experts(p, m, group)
+    if n_e < m.n_routed:
+        keep = keep & (experts >= lo) & (experts < lo + n_e)
+    sentinel = n_e * cap_max
+    bucket_idx = torch.where(keep, (experts - lo) * cap_max + rank_in_expert,
                              sentinel)                            # (T, K)
     flat_idx = bucket_idx.reshape(-1)
     token_ids = torch.arange(t, device=dev)[:, None].expand(t, k).reshape(-1)
@@ -160,25 +199,34 @@ def apply_moe(
     filled.scatter_(0, flat_idx, True)
     gather_src, filled = gather_src[:sentinel], filled[:sentinel]
 
-    xg = xt[gather_src.reshape(e, cap_max)]                       # (E, C, d)
-    xg = torch.where(filled.reshape(e, cap_max, 1), xg, 0)
-    yo = _expert_mlp(xg, p["w_gate"], p["w_up"], p["w_down"])    # (E, C, d)
+    xg = xt[gather_src.reshape(n_e, cap_max)]                     # (E, C, d)
+    xg = torch.where(filled.reshape(n_e, cap_max, 1), xg, 0)
+    yo = _expert_mlp(xg, p["w_gate"], p["w_up"], p["w_down"],
+                     down)                                        # (E, C, d)
 
     # Combine: token t gets sum_k gate * y[expert_k, slot_k].  The sentinel
     # reads the last row (the reference's gather clamps it); keep masks it.
+    # Split over ranks: each rank's partial in f32, rounded once after the
+    # ranks' sum.
     per_k = yo.reshape(sentinel, d)[bucket_idx.clamp(max=sentinel - 1)]
-    combine = torch.where(keep[..., None],
-                          per_k * gate_vals[..., None].to(x.dtype), 0)
+    if group.size == 1:
+        gates = gate_vals[..., None].to(x.dtype)
+    else:
+        per_k, gates = per_k.float(), gate_vals[..., None]
+    combine = torch.where(keep[..., None], per_k * gates, 0)
     out = combine.sum(dim=1).reshape(b, s, d)
-    return _shared(p, m, x, out), aux
+    return _shared(p, m, x, out, group), aux
 
 
-def apply_moe_dense(p: dict, cfg: ModelConfig,
-                    x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def apply_moe_dense(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+                    group: Group = SOLO
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dropless decode path: sweep every expert over the (small) token batch
     and mask by the top-k gates.  Exact (no capacity drops); FLOPs are
     E/top_k times the routed cost, the right trade at decode batch sizes
-    (T = B·1) where the capacity machinery would be all overhead."""
+    (T = B·1) where the capacity machinery would be all overhead.  Under
+    ``group`` of more than one rank each rank sweeps its own experts (or
+    every expert at its width) and ``out`` is its partial sum in f32."""
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -186,10 +234,15 @@ def apply_moe_dense(p: dict, cfg: ModelConfig,
     _, gate_vals, experts = _route(p, m, xt)
     gates = torch.zeros((t, m.n_routed), dtype=torch.float32,
                         device=x.device).scatter_add_(1, experts, gate_vals)
-    y = _expert_mlp(xt, p["w_gate"], p["w_up"], p["w_down"])    # (E, T, d)
-    out = torch.einsum("etd,te->td", y, gates.to(x.dtype)).reshape(b, s, d)
-    return _shared(p, m, x, out), torch.zeros((), dtype=torch.float32,
-                                              device=x.device)
+    lo, n_e, down = _experts(p, m, group)
+    y = _expert_mlp(xt, p["w_gate"], p["w_up"], p["w_down"],
+                    down)                                        # (E, T, d)
+    if group.size == 1:
+        out = torch.einsum("etd,te->td", y, gates.to(x.dtype))
+    else:
+        out = torch.einsum("etd,te->td", y.float(), gates[:, lo:lo + n_e])
+    return _shared(p, m, x, out.reshape(b, s, d), group), torch.zeros(
+        (), dtype=torch.float32, device=x.device)
 
 
 def expert_load(cfg_moe, probs_or_logits: torch.Tensor) -> torch.Tensor:

@@ -8,13 +8,15 @@ The model code (``model.py``, ``transformer.py``, ``attention.py``) takes a
     makes one ready for its layers (``periods``), and a decode's cache
     periods (``cache_periods``: ``period(t)``, ``commit(t, caches)``);
   - **groups**: ``split(n_local, n_global)`` gives the ``Group`` that splits a
-    layer's heads or MLP width (a leaf's local size against its global
-    one), ``whole()`` the group of a layer every rank computes whole.  A
-    group's ``col_in`` enters a column-parallel product, ``row_product``
-    forms a row-parallel one and ``row_out`` completes it (the caller casts
-    it to the stream's dtype); ``rank``/``size`` say which heads are this
-    rank's, and ``gather``/``sum``/``max`` combine a decode's partial
-    softmaxes;
+    layer's heads, MLP width or experts (a leaf's local size against its
+    global one), ``whole()`` the group of a layer every rank computes
+    whole.  A group's ``col_in`` enters a column-parallel product,
+    ``row_product`` forms a row-parallel one and ``row_out`` completes it
+    (the caller casts it to the stream's dtype); ``rank``/``size`` say
+    which heads (or experts) are this rank's, ``gather``/``sum``/``max``
+    combine a decode's partial softmaxes, ``total`` a statistic over the
+    split channels (Mamba's gated norm), and ``once`` counts the gradient
+    of a value every rank computes alike (the MoE aux loss) once;
   - **the vocabulary**: ``embed_tokens``, ``lm_logits`` (full logits),
     ``token_nll`` and ``chunked_ce`` (the loss's two routes);
   - **the residual stream between periods** (training): ``seq_split`` /
@@ -76,6 +78,18 @@ class Group:
         """The elementwise maximum of ``t`` over the ranks (no gradient)."""
         return t
 
+    def total(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ranks, each of which then uses the sum on
+        its own channels: differentiable, its gradient summed too."""
+        return t
+
+    def once(self, t: torch.Tensor) -> torch.Tensor:
+        """A value every rank computes alike from inputs whose gradients
+        the ranks sum (a split layer's input, the MoE router): the
+        identity, its gradient divided by the ranks so that the sum counts
+        it once."""
+        return t
+
 
 SOLO = Group()
 
@@ -135,7 +149,7 @@ class Parallel:
     # -- groups ----------------------------------------------------------
     def split(self, n_local: int, n_global: int) -> Group:
         """The group that splits a dimension of ``n_global`` of which this
-        rank holds ``n_local`` (heads, MLP width)."""
+        rank holds ``n_local`` (heads, MLP width, experts)."""
         return SOLO
 
     def whole(self) -> Group:

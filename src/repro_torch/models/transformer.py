@@ -34,8 +34,9 @@ recomputed.
 
 Every apply takes ``par`` (``models/parallel.py``), the one object between
 the model and sharding: the stack takes its periods (and a decode its cache
-periods) from it, each layer its groups (attention heads and dense-MLP
-width split over ranks, or the layer computed whole), and an MoE layer its
+periods) from it, each layer its groups (attention and Mamba heads, dense-
+MLP width, MoE experts or their width split over ranks, or the layer
+computed whole: MLA and cross-attention always), and an MoE layer its
 token set.  ``SINGLE``, the default, is the identity on every hook.
 """
 
@@ -145,13 +146,19 @@ def apply_layer(
     on this rank's heads and the dense MLP on its columns where ``par``
     split them, every other layer whole; an MoE layer routes
     ``par.moe_tokens`` (a sharded step's global token set, as the
-    reference's compiled step routes it) and keeps ``par.moe_rows``."""
+    reference's compiled step routes it) and keeps ``par.moe_rows``.
+    Mamba splits its heads; an MoE layer its experts (expert-parallel) or
+    their width (expert-TP), its aux loss's gradient counted once over the
+    group (``Group.once``).  MLA and cross-attention compute whole."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode: {mode!r}")
     new_cache: dict[str, Any] = {}
     if spec.mixer == "attn":
         g = par.split(p["attn"]["wq"].shape[1], cfg.n_q_heads)
-    elif spec.mixer in ("mamba", "mla"):
+    elif spec.mixer == "mamba":
+        g = par.split(p["mamba"]["wdt"].shape[1],
+                      cfg.ssm.n_heads(cfg.d_model))
+    elif spec.mixer == "mla":
         g = par.whole()
     else:
         raise ValueError(spec.mixer)
@@ -159,9 +166,10 @@ def apply_layer(
     if spec.mixer == "mamba":
         if mode == "decode":
             a, new_cache["self"] = mamba_decode(p["mamba"], cfg, h,
-                                                cache["self"])
+                                                cache["self"], group=g)
         else:
-            a, c = mamba_train(p["mamba"], cfg, h)
+            a, c = mamba_train(p["mamba"], cfg, h, group=g,
+                               cache=mode == "prefill")
             if mode == "prefill":
                 new_cache["self"] = c
     elif spec.mixer == "mla":
@@ -209,14 +217,17 @@ def apply_layer(
         h = g.col_in(apply_norm(cfg, p["norm2"], x))
         x = x + g.row_out(apply_mlp(p["mlp"], h, g)).to(x.dtype)
     elif spec.mlp == "moe":
-        g = par.whole()
+        m, w = cfg.moe, p["moe"]["w_gate"]
+        g = (par.split(w.shape[0], m.n_routed) if w.shape[0] != m.n_routed
+             else par.split(w.shape[2], m.d_expert))
         h = g.col_in(apply_norm(cfg, p["norm2"], x))
         if mode == "decode":
-            mo, _ = apply_moe_dense(p["moe"], cfg, h)
+            mo, _ = apply_moe_dense(p["moe"], cfg, h, group=g)
         else:
-            mo, aux = apply_moe(p["moe"], cfg, par.moe_tokens(h), capacities)
-            mo = par.moe_rows(mo)
-        x = x + g.row_out(mo)
+            mo, aux = apply_moe(p["moe"], cfg, par.moe_tokens(h), capacities,
+                                group=g)
+            mo, aux = par.moe_rows(mo), g.once(aux)
+        x = x + g.row_out(mo).to(x.dtype)
     return x, (None if mode == "train" else new_cache), aux
 
 

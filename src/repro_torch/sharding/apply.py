@@ -12,19 +12,24 @@ out_shardings=...)`` (``repro/launch/dryrun.py::build_step``), built on
   - **Per-period gathers** (``_plan``).  A step takes the model's periods
     one at a time, inside each period's checkpoint in training; the
     embedding, the norms and the prefix layers once a step.  A leaf of an
-    attention, dense-MLP or embedding group whose key leaf (``wq``,
-    ``w_down``, ``table``) the policy splits over ``model`` is gathered
-    over the data axes only and keeps its ``model`` shard: those layers
-    compute tensor-parallel on this rank's heads, MLP columns and
-    vocabulary rows.  Every other leaf is gathered whole (MoE, Mamba, MLA,
-    cross-attention, and groups whose heads, width or vocabulary do not
-    divide), and its layer computes whole on every ``model`` rank.
+    attention, dense-MLP, embedding, MoE or Mamba group whose key leaves
+    (``_TP_KEY``: ``wq``, ``w_down``, ``table``, ``w_gate`` and the shared
+    expert's ``w_down``, ``wx`` and ``wdt``) the policy splits over
+    ``model`` is gathered over the data axes only and keeps its ``model``
+    shard: those layers compute tensor-parallel on this rank's heads, MLP
+    columns, vocabulary rows, experts (or expert width) and Mamba heads;
+    Mamba's ``wb``/``wc`` are gathered whole (``_WHOLE``).  Every other
+    leaf is gathered whole (MLA, cross-attention, and groups whose heads,
+    width, experts or vocabulary do not divide), and its layer computes
+    whole on every ``model`` rank.
   - **Gradients.**  Each leaf's gradient is ``Partial`` over the data axes
     (each data rank computed its own rows) and over ``model``: ``Shard``
     where a rank used only its own shard; ``Partial`` where each rank used
     part of a leaf replicated over ``model`` (``wk``/``wv``/``bk``/``bv``
-    when the KV heads do not divide, ``q_norm``/``k_norm``, and a period's
-    norms under ``seq_parallel``, which see this rank's positions);
+    when the KV heads do not divide, ``q_norm``/``k_norm``, the MoE
+    router, Mamba's per-head vectors, norm, conv and ``wb``/``wc``, and a
+    period's norms under ``seq_parallel``, which see this rank's
+    positions);
     ``Replicate`` where every rank computed the same.  They return as
     reduce-scatters or all-reduces to the stored placements, and AdamW
     updates the shards; the global-norm clip takes the whole gradient's
@@ -33,14 +38,19 @@ out_shardings=...)`` (``repro/launch/dryrun.py::build_step``), built on
     and the same on every ``model`` rank.  The step divides the loss by
     the global weight sum and takes 1/n of the aux term (the MoE layers
     route the global token set, ``DataSplit``), so the data ranks' losses
-    sum to the global batch's.
+    sum to the global batch's; a split MoE layer's ranks count its aux
+    gradient 1/m each (``Group.once``), as they compute it alike.
   - **Decode.**  An attention layer's cache stays at ``Policy.
     cache_specs`` (the sequence over ``model``): each rank attends every
     head over its own positions (``models/attention.py::_decode_split``)
-    and the cache is never gathered.  A layer computed whole gathers its
-    period's caches over ``model`` and writes its shard back, as do the
-    attention caches where the sequence does not divide.  The prefill's
-    caches come back at those placements.
+    and the cache is never gathered.  A split Mamba layer reads its own
+    heads of the state (``cache_specs`` splits it by heads) and the whole
+    conv window (stored whole, as the reference's specs place it; were it
+    split, it would be gathered each step and its shard written back: its
+    channels do not split by heads).  A layer
+    computed whole gathers its period's caches over ``model`` and writes
+    its shard back, as do the attention caches where the sequence does not
+    divide.  The prefill's caches come back at those placements.
   - ``seq_parallel`` (training): between the periods the residual stream
     is split on the sequence over ``model``, so each period's checkpoint
     keeps 1/m of its input.
@@ -173,8 +183,17 @@ class DataSplit:
 
 
 #: The groups that compute tensor-parallel, by the dict that holds them,
-#: and the leaf whose placement over ``model`` decides.
-_TP_KEY = {"attn": "wq", "mlp": "w_down", "embed": "table"}
+#: and the leaves (paths below it) whose placement over ``model`` decides:
+#: the first must be split, and each other one present with it (an MoE
+#: layer's shared expert; Mamba's heads, where ``wx``'s channels divide
+#: and its heads do not) too.
+_TP_KEY = {"attn": (("wq",),), "mlp": (("w_down",),), "embed": (("table",),),
+           "moe": (("w_gate",), ("shared", "w_down")),
+           "mamba": (("wx",), ("wdt",))}
+#: Leaves of a tensor-parallel group gathered whole over ``model`` though
+#: the policy splits them: Mamba's B and C projections (every head of a
+#: group reads them; the policy splits their state columns).
+_WHOLE = {("mamba", "wb"), ("mamba", "wc")}
 _NORMS = ("norm1", "norm2", "norm_cross")
 
 
@@ -197,7 +216,7 @@ class _Plan:
     rank's positions."""
 
     def __init__(self, stored: Any, mesh, split: DataSplit,
-                 kinds=("attn", "mlp", "embed"), seq: bool = False):
+                 kinds=tuple(_TP_KEY), seq: bool = False):
         self.mesh, self.split, self.seq = mesh, split, seq
         self.mdim = _model_dim(mesh) if mesh.size(_model_dim(mesh)) > 1 \
             else -1
@@ -206,18 +225,25 @@ class _Plan:
         self._stored = {n: _shift(d.placements) if "periods" in n
                         else list(d.placements)
                         for n, d in zip(names, leaves, strict=True)}
-        # A group computes tensor-parallel where its key leaf is split
+        # A group computes tensor-parallel where its key leaves are split
         # over ``model``.
-        self.tp_groups = {n[:-1] for n, pl in self._stored.items()
-                          if n[-1] == _TP_KEY.get(n[-2] if len(n) > 1
-                                                  else "")
-                          and n[-2] in kinds
-                          and _on_model(pl, self.mdim)}
+        self.tp_groups = set()
+        for n, pl in self._stored.items():
+            kind = n[-2] if len(n) > 1 else ""
+            if kind not in kinds or n[-1:] != _TP_KEY[kind][0] \
+                    or not _on_model(pl, self.mdim):
+                continue
+            others = [self._stored.get(n[:-1] + rest)
+                      for rest in _TP_KEY[kind][1:]]
+            if all(o is None or _on_model(o, self.mdim) for o in others):
+                self.tp_groups.add(n[:-1])
 
     def placements(self, names: tuple) -> tuple[list, list, list]:
         """(stored, target, grad) placements of the leaf at ``names``."""
         stored = self._stored[names]
-        tp = names[:-1] in self.tp_groups
+        tp = names[:-1] in self.tp_groups or (
+            names[-2:-1] == ("shared",) and names[:-2] in self.tp_groups)
+        whole = names[-2:] in _WHOLE
         norm = self.seq and "periods" in names and names[-2] in _NORMS
         target, grad = [], []
         for i, p in enumerate(stored):
@@ -225,7 +251,7 @@ class _Plan:
                 target.append(Replicate())
                 grad.append(Partial() if i in self.split.dims
                             else Replicate())
-            elif tp and isinstance(p, Shard):
+            elif tp and isinstance(p, Shard) and not whole:
                 target.append(p)
                 grad.append(p)
             else:
@@ -451,20 +477,26 @@ def _cache_commit(local: torch.Tensor, full: torch.Tensor, placements,
                                                   ).to_local())
 
 
+def _cache_names(path: tuple) -> tuple:
+    """A cache leaf's dict keys and dataclass field (``("pos0", "self",
+    "k")``)."""
+    return tuple(str(k) for kind, k in path if kind in ("key", "attr"))
+
+
 class ShardedCachePeriods:
     """A decode's stored cache periods, handed to the model as its cache
     provider (``MeshParallel.cache_periods``): ``period(t)`` gives period
-    t's caches, the split attention layers' own shards as they are (the
-    model writes them in place) and every other cache gathered over the
-    sequence (``model``); ``commit(t, caches)`` writes this rank's shard
-    of the gathered ones back."""
+    t's caches, the split layers' own shards as they are (the model writes
+    them in place: a split attention layer's K and V, a split Mamba
+    layer's state) and every other cache gathered over ``model`` (a Mamba
+    layer's conv window too); ``commit(t, caches)`` writes this rank's
+    shard of the gathered ones back."""
 
-    def __init__(self, stored: Any, mesh, local_layers=frozenset()):
+    def __init__(self, stored: Any, mesh, own=frozenset()):
         leaves, self._treedef = tree_flatten(stored)
         self._local = [d.to_local() for d in leaves]
         self._placements = [_shift(d.placements) for d in leaves]
-        self._own = [tuple(leaf_names(p, kinds=("key",)))[:2] in local_layers
-                     for p in tree_paths(stored)]
+        self._own = [_cache_names(p) in own for p in tree_paths(stored)]
         self._mesh = mesh
 
     def period(self, t: int) -> Any:
@@ -482,9 +514,9 @@ class ShardedCachePeriods:
 
 
 def _split_attention(params: Any, caches: Any, mesh) -> frozenset:
-    """The (``pos<i>``, ``self``) caches of the attention layers a decode
-    splits over ``model``: those whose heads the policy splits and whose
-    cache splits the sequence."""
+    """K and V (``_cache_names``) of the attention layers a decode splits
+    over ``model``: those whose heads the policy splits and whose cache
+    splits the sequence."""
     mdim = _model_dim(mesh)
     if mesh.size(mdim) == 1:
         return frozenset()
@@ -495,7 +527,25 @@ def _split_attention(params: Any, caches: Any, mesh) -> frozenset:
             continue
         if _on_model(attn["wq"].placements, mdim) and _on_model(
                 layer["self"].k.placements, mdim):
-            out.add((key, "self"))
+            out |= {(key, "self", "k"), (key, "self", "v")}
+    return frozenset(out)
+
+
+def _split_states(plan: _Plan, caches: Any) -> frozenset:
+    """The state (``_cache_names``) of each Mamba layer whose heads
+    ``plan`` splits: ``Policy.cache_specs`` splits it by the same heads,
+    so a decode keeps this rank's shard."""
+    out = set()
+    for names in plan.tp_groups:
+        if names[-1] != "mamba" or names[:2] != ("stack", "periods"):
+            continue
+        key = names[2]
+        state = caches["periods"][key]["self"].state
+        if not _on_model(state.placements, plan.mdim):
+            raise ValueError(f"decode: {key}'s Mamba heads are split over "
+                             f"model, its state stored at "
+                             f"{state.placements}")
+        out.add((key, "self", "state"))
     return frozenset(out)
 
 
@@ -513,10 +563,11 @@ def make_sharded_decode_step(model: Model, mesh) -> Callable:
         if isinstance(pos, DTensor):
             pos = pos.to_local()
         own = _split_attention(params, caches, mesh)
-        kinds = ("attn", "mlp", "embed") if own else ("mlp", "embed")
+        plan = _Plan(params, mesh, split, tuple(
+            k for k in _TP_KEY if k != "attn" or own))
+        own |= _split_states(plan, caches)
         with torch.no_grad():
-            mparams = _model_params(params, _local_params(params),
-                                    _Plan(params, mesh, split, kinds))
+            mparams = _model_params(params, _local_params(params), plan)
             mcaches = {"periods": ShardedCachePeriods(caches["periods"],
                                                       mesh, own)}
             prefix = caches.get("prefix")

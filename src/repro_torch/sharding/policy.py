@@ -24,10 +24,18 @@ replicated.
 How the port computes under these specs (``sharding/apply.py``,
 ``sharding/tp.py``): the specs place the stored state; each step gathers a
 period's parameters at a time over the data axes, and the attention,
-dense-MLP, embedding and head leaves keep their ``model`` shards and
-compute tensor-parallel on them, as the reference's GSPMD shards the
-compute along the same specs; MoE, Mamba, MLA and cross-attention leaves
-are gathered whole and computed on every ``model`` rank.
+dense-MLP, embedding, head, MoE (experts, or their ``ff`` width) and Mamba
+(heads) leaves keep their ``model`` shards and compute tensor-parallel on
+them, as the reference's GSPMD shards the compute along the same specs;
+MLA and cross-attention leaves are still gathered whole and computed on
+every ``model`` rank.
+
+``cache_specs`` names a leaf by its dict keys alone, as the reference's
+``DictKey`` filter does, so a ``MambaCache``'s fields (``conv``,
+``state``) never match their names: the state (B, H, P, N) takes the
+attention branch, which splits dimension 1 (its heads, as meant), and the
+conv window (B, d_conv - 1, C) the MLA branch, which splits dimension 1
+(the window's d_conv - 1 = 3 positions: replicated at model 2, 4 and 8).
 """
 
 from __future__ import annotations

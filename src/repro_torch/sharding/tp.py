@@ -13,10 +13,15 @@ functions run the collectives:
     outputs of row-parallel products (``wo``, ``w_down``); under
     ``seq_parallel`` ``_GatherSeq`` (all-gather on the sequence, reduce-
     scatter backward) and ``_ReduceScatterSeq`` (its transpose) in their
-    place.  A layer every rank computes whole (MoE, Mamba, MLA, cross-
-    attention, a head count that does not divide) takes ``_GatherSplit``
-    (all-gather forward, this rank's slice backward) and ``_Split`` (its
-    transpose) under ``seq_parallel``, and no collective otherwise.  Each
+    place; ``_Total`` (all-reduce both ways) for a statistic each rank
+    uses on its own channels (Mamba's gated norm over ``d_inner``), and
+    ``_Once`` (identity forward, the gradient over the ranks backward) for
+    a value every rank computes alike from inputs whose gradients the
+    ranks sum (the MoE aux loss from the replicated router).  A layer
+    every rank computes whole (MLA, cross-attention, a head, expert or
+    width count that does not divide) takes ``_GatherSplit`` (all-gather
+    forward, this rank's slice backward) and ``_Split`` (its transpose)
+    under ``seq_parallel``, and no collective otherwise.  Each
     is an autograd function over ``torch.distributed._functional_
     collectives`` with its backward written out; DTensor's redistributions
     stay in ``apply.py``'s per-leaf gathers.
@@ -91,6 +96,33 @@ class _Reduce(torch.autograd.Function):
         return g, None
 
 
+class _Total(torch.autograd.Function):
+    """All-reduce (sum) forward and backward: each rank uses the sum on
+    its own share, so the sum's gradient is the ranks' gradients summed."""
+
+    @staticmethod
+    def forward(ctx, x, pg):
+        ctx.pg = pg
+        return _all_reduce(x, "sum", pg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, "sum", ctx.pg), None
+
+
+class _Once(torch.autograd.Function):
+    """Identity forward, the gradient divided by the ranks backward."""
+
+    @staticmethod
+    def forward(ctx, x, size):
+        ctx.size = size
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.size, None
+
+
 class _GatherSeq(torch.autograd.Function):
     """All-gather on ``dim`` forward, reduce-scatter backward."""
 
@@ -146,8 +178,8 @@ class _GatherSplit(torch.autograd.Function):
 
 
 class TPGroup(Group):
-    """The ``model`` ranks of this rank, splitting a layer's heads or MLP
-    width.  ``seq``: the residual stream is split on the sequence
+    """The ``model`` ranks of this rank, splitting a layer's heads, MLP
+    width or experts.  ``seq``: the residual stream is split on the sequence
     (``seq_parallel``), so inputs are all-gathered and outputs
     reduce-scattered."""
 
@@ -179,6 +211,12 @@ class TPGroup(Group):
 
     def max(self, t):
         return _all_reduce(t, "max", self.pg)
+
+    def total(self, t):
+        return _Total.apply(t, self.pg)
+
+    def once(self, t):
+        return _Once.apply(t, self.size)
 
 
 class WholeGroup(Group):

@@ -246,12 +246,15 @@ def _free_port() -> int:
 
 
 def _run_ranks(nd: int, nm: int, pkl: str, case: dict,
-               timeout: int = 300) -> list[dict]:
+               timeout: int = 300, worker: str = _WORKER) -> list[dict]:
+    """``worker`` on ``nd * nm`` gloo ranks in subprocesses (argv: rank,
+    world, port, nd, nm, pkl, the case as JSON); each rank's last stdout
+    line as JSON."""
     world = nd * nm
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
-        [sys.executable, "-c", _WORKER, str(r), str(world), str(port),
+        [sys.executable, "-c", worker, str(r), str(world), str(port),
          str(nd), str(nm), pkl, json.dumps(case)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
         cwd=ROOT) for r in range(world)]
