@@ -307,11 +307,31 @@ Phases, each of which exits non-zero when it fails:
                tokens among the unsharded step's 5 most likely, and in f32
                cut to 4 layers (K5's f32 kernel; the train step on the
                plain path); (g) Jamba cut to one period at model 2, every
-               layer split, bf16 as (d); K5 held against
-               its plain version on the inputs each rank gave it; then K1
-               and K4 in bf16 at model 2's local heads, K1 (bf16) and K4
-               (f32) at Qwen1.5-MoE's and K5 (bf16) at Mamba2-2.7B's timed
-               beside their plain versions, SDPA and the bound,
+               layer split, bf16 as (d); (h) DeepSeek-V2 in f32 at model 2
+               and 4 (64 and 32 MLA heads a rank, the latent cache split
+               on its sequence and never gathered: no cache view in the
+               decode), cut to its dense first layer and one MoE layer for
+               the four prompts and 16 decode steps, and to the dense
+               layer alone (zero periods) for one train step of phase 11's
+               f32 grain, each against the unsharded step (logits, loss,
+               every leaf and both moments within the f32 tolerance,
+               tokens equal); (i) SeamlessM4T-medium's cross-attention
+               split (8 and 4 heads a rank, the cross cache on its
+               sequence, never gathered): in f32 cut to 4 encoder and 4
+               decoder layers, the four prompts over 512 seeded frames
+               each and 16 decode steps, and one train step of 64 target
+               tokens over 512 frames (K4 forward, dQ and dK/dV on each
+               rank's cross heads, non-causal, Sq 64 over Skv 512, held
+               against the plain version), the f32 checks of (h); at model
+               2 also whole in bf16, held as (f) (relative Frobenius error
+               2e-2: on an H100 the unsharded routes differ by 8.0e-3 at
+               its 12 layers, ``scripts/bf16_depth_spread.py``); K5 held
+               against its plain version on the inputs each rank gave it;
+               then K1 and K4 in bf16 at model 2's local heads, K1 (bf16) and K4
+               (f32) at Qwen1.5-MoE's, K5 (bf16) at Mamba2-2.7B's, K1
+               (bf16) at SeamlessM4T's decoder and K4 (bf16, f32) at its
+               cross-attention's local heads timed beside their plain
+               versions, SDPA and the bound,
  15. device  — each kernel's device time (the profiler's kernel durations)
                beside PyTorch's call for the same function: K1 and SDPA at
                phase 3's sweep and in f32 at phase 4's shape, K2 and
@@ -322,7 +342,8 @@ Phases, each of which exits non-zero when it fails:
                SeamlessM4T's shapes in bf16 and f32 beside SDPA's forward
                and backward, K5 at Jamba's shape, ``apply_moe`` under
                phase 18's three capacity sets, K1 and K4 at phase 26's
-               local heads (Qwen2-1.5B's and Qwen1.5-MoE's), K5 at its
+               local heads (Qwen2-1.5B's, Qwen1.5-MoE's and
+               SeamlessM4T's, K4 at its cross-attention's), K5 at its
                Mamba2-2.7B local heads; after
                every serve phase, so
                no profiler session of these precedes phases 5 and 14, and
@@ -487,8 +508,10 @@ DECODE_STEPS = 16
 #: 28 layers ((a), (c)) and whole in bf16 ((b), model 2 only); Qwen1.5-MoE
 #: expert-parallel ((d): 30 and 15 experts a rank) and expert-TP ((e), one
 #: layer at model 8: 60 experts do not divide 8); Mamba2-2.7B ((f): 40 and
-#: 20 heads a rank); Jamba cut to one period ((g), model 2 only).
-TP_RUNS = ((2, "abcdfg"), (4, "acdf"), (8, "e"))
+#: 20 heads a rank); Jamba cut to one period ((g), model 2 only);
+#: DeepSeek-V2's MLA ((h): 64 and 32 heads a rank) and SeamlessM4T-medium's
+#: cross-attention ((i): 8 and 4 heads a rank; bf16 at model 2 only).
+TP_RUNS = ((2, "abcdfghi"), (4, "acdfhi"), (8, "e"))
 TP_F32_LAYERS = 4
 TP_ETP_LAYERS = 1
 #: (f): phase 13's prompt (100 tokens in a bucket of 128), the f32 check
@@ -531,6 +554,25 @@ K4_TP_SHAPE = (8, 1, TRAIN_SEQ)
 K1_TP_MOE_SHAPE = (8, 8, 512)
 K4_TP_MOE_SHAPE = (8, 8, TRAIN_SEQ)
 K5_TP_SHAPE = (40, 1, TP_MAMBA_BUCKET, 64, 128, 256)
+#: (h): DeepSeek-V2 at its published widths in f32, where MLA's split is
+#: held (its absorbed and decompressed forms already differ in bf16): the
+#: serve at DEEPSEEK_F32_LAYERS (the dense first layer and one MoE layer),
+#: the train step through the dense first layer alone (zero periods, about
+#: 22 GB with its gradients and moments).  MLA launches no kernel.
+TP_DEEPSEEK_TRAIN_LAYERS = 1
+#: (i): SeamlessM4T-medium in f32 cut to TP_SEAMLESS_F32_LAYERS encoder
+#: and decoder layers (a train step of TP_SEAMLESS_TARGET target tokens
+#: over SEAMLESS_FRAMES frames, the four prompts and DECODE_STEPS decode
+#: steps over one SEAMLESS_FRAMES memory each), and whole in bf16 at model
+#: 2 (the prompts and decode steps).
+TP_SEAMLESS_F32_LAYERS = 4
+TP_SEAMLESS_TARGET = 64
+#: K1 at SeamlessM4T's decoder local heads at model 2 (16 heads of 64
+#: split two ways) on the prompts' bucket, and K4 at its cross-attention's
+#: (the train step's 64 target tokens over 512 frames): (q heads, KV
+#: heads, S, D) and (heads, Sq, Skv, D).
+K1_TP_SEAMLESS_SHAPE = (8, 8, 512, SEAMLESS_D)
+K4_TP_SEAMLESS_SHAPE = (8, TP_SEAMLESS_TARGET, SEAMLESS_FRAMES, SEAMLESS_D)
 
 
 def free_port() -> int:
@@ -607,7 +649,8 @@ def check_close(torch, name, got, want, dtype_name, tol=TOL) -> float:
     if bad.any():
         fail(f"{name}: {int(bad.sum())} elements outside rtol {rtol} / "
              f"atol {atol}, max abs err {float(err.max()):.3e}")
-    return float(err.max())
+    # An empty leaf (a stack of zero periods) has no error.
+    return float(err.max()) if err.numel() else 0.0
 
 
 @contextlib.contextmanager
@@ -1180,8 +1223,19 @@ def device_times() -> dict[str, dict[str, float]]:
         out[f"k1_{hq}_{hkv}_{d}"] = pair(
             lambda: pf.prefill_flash(q, k, v, group=hq // hkv),
             library_attention(torch, q, k, v))
-    h, d = SEAMLESS_HEADS, SEAMLESS_D
-    for sq, skv in K4_SEAMLESS_SHAPES:
+    # K1 (bf16) at SeamlessM4T's decoder local heads of phase 26, and K4
+    # at its cross-attention's (the last key below).
+    hq, hkv, s, d = K1_TP_SEAMLESS_SHAPE
+    q = rand((hq, s, d), torch.bfloat16)
+    k, v = rand((hkv, s, d), torch.bfloat16), rand((hkv, s, d),
+                                                  torch.bfloat16)
+    out["k1_tp_seamless"] = pair(
+        lambda: pf.prefill_flash(q, k, v, group=hq // hkv),
+        library_attention(torch, q, k, v))
+    h4, sq4, skv4, d = K4_TP_SEAMLESS_SHAPE
+    shapes = [(SEAMLESS_HEADS, sq, skv, f"k4_seamless_{sq}_{skv}")
+              for sq, skv in K4_SEAMLESS_SHAPES]
+    for h, sq, skv, name in shapes + [(h4, sq4, skv4, "k4_tp_cross")]:
         for dname, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
             q = rand((h, sq, d), dt)
             k, v = rand((h, skv, d), dt), rand((h, skv, d), dt)
@@ -1193,7 +1247,7 @@ def device_times() -> dict[str, dict[str, float]]:
             lib_out = sdpa(*leaves, is_causal=False)
             lib_bwd = device_ms(torch, lambda: torch.autograd.grad(
                 lib_out, leaves, dout[None], retain_graph=True))
-            key = f"k4_seamless_{sq}_{skv}_{dname}"
+            key = f"{name}_{dname}"
             out[f"{key}_fwd"] = pair(
                 lambda: fa.flash_attention_fwd(q, k, v, causal=False),
                 lambda: sdpa(q[None], k[None], v[None], is_causal=False))
@@ -3815,6 +3869,7 @@ def main() -> int:
                                        "tokens": toks_u}, by_path)
     tp_runs, k1_tp, k4_tp = tp["runs"], tp["k1"], tp["k4"]
     k1_moe, k4_moe, k5_tp = tp["k1_moe"], tp["k4_moe"], tp["k5"]
+    k1_seamless_tp, k4_cross_tp = tp["k1_seamless"], tp["k4_cross"]
     k1_err, k5_err = max(k1_err, tp["k1_err"]), max(k5_err, tp["k5_err"])
     for part, e in tp["k4_err"].items():
         k4_err[part] = max(k4_err[part], e)
@@ -3863,6 +3918,22 @@ def main() -> int:
                   f"{row['bound_ms']:.6f} ms)", flush=True)
     k1_tp.update(dev_times["k1_tp"])
     k1_moe.update(dev_times["k1_tp_moe"])
+    k1_seamless_tp.update(dev_times["k1_tp_seamless"])
+    print(f"[device] K1 bf16 at SeamlessM4T's tensor-parallel decoder local "
+          f"heads q {k1_seamless_tp['shape'][0]}, k/v "
+          f"{k1_seamless_tp['shape'][1]}: {k1_seamless_tp['device_ms']:.6f} "
+          f"ms, SDPA {k1_seamless_tp['library_device_ms']:.6f} ms (bound "
+          f"{k1_seamless_tp['bound_ms']:.6f} ms)", flush=True)
+    for dname, rows in k4_cross_tp.items():
+        for part, row in rows.items():
+            row.update(dev_times[f"k4_tp_cross_{dname}_{part}"])
+            print(f"[device] K4 {dname} {part} at SeamlessM4T's tensor-"
+                  f"parallel cross-attention local heads q {row['shape'][0]},"
+                  f" k/v {row['shape'][1]}, non-causal: "
+                  f"{row['device_ms']:.6f} ms, SDPA "
+                  f"{'forward' if part == 'fwd' else 'whole backward'} "
+                  f"{row['library_device_ms']:.6f} ms (bound "
+                  f"{row['bound_ms']:.6f} ms)", flush=True)
     k5_tp.update(dev_times["k5_tp"])
     for part, row in k4_moe.items():
         row.update(dev_times[f"k4_tp_moe_{part}"])
@@ -3962,7 +4033,8 @@ def main() -> int:
          "at_new_groups": k1_groups, "at_remaining_configs": k1_remaining,
          "tensor_parallel": dict(k1_tp, shapes_by_size={
              w: r["k1_shapes"] for w, r in tp_runs.items()}),
-         "tensor_parallel_moe": k1_moe},
+         "tensor_parallel_moe": k1_moe,
+         "tensor_parallel_seamless": k1_seamless_tp},
         {"name": "cache_cast", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/prefill/prefill.py:145",
          "launches": launches["cache_cast"],
@@ -4002,7 +4074,9 @@ def main() -> int:
          "seamless": {key: rows[part] for key, rows in k4_seamless.items()},
          "tensor_parallel": dict(k4_tp[part], shapes_by_size={
              w: r["k4_shapes"] for w, r in tp_runs.items()}),
-         "tensor_parallel_moe_f32": k4_moe[part]}
+         "tensor_parallel_moe_f32": k4_moe[part],
+         "tensor_parallel_cross": {dname: rows[part] for dname, rows
+                                   in k4_cross_tp.items()}}
         for name, part in zip(K4_KERNELS, ("fwd", "dq", "dkdv"), strict=True)
     ] + [
         {"name": "ssd_scan", "route": "cuda",
@@ -4129,12 +4203,15 @@ def tensor_parallel(torch, card: str, tp_ref: dict, by_path: dict) -> dict:
         model = Model(cfg)
         params = model.init(SEED)
         tokens, last = tp_prompts(torch, dev, cfg.vocab_size, lengths, bucket)
+        src = (tp_src(torch, dev, cfg, len(lengths)) if cfg.is_enc_dec
+               else None)
         for c in counters:
             for name in c:
                 c[name] = 0
         t0 = time.perf_counter()
         with keep_routes(tokens.numel()) as routes:
-            plg, logits, toks = tp_serve(torch, model, params, tokens, last)
+            plg, logits, toks = tp_serve(torch, model, params, tokens, last,
+                                         src=src)
             torch.cuda.synchronize()
         by_path[f"tp_ref_{key}"] = {name: n for c in counters
                                     for name, n in c.items()}
@@ -4147,7 +4224,7 @@ def tensor_parallel(torch, card: str, tp_ref: dict, by_path: dict) -> dict:
         # bf16 routes' own spread, printed beside the sharded run's.
         with keep_routes(tokens.numel()) as proutes:
             pplg, plogits, ptoks = tp_serve(torch, Model(dataclasses.replace(
-                cfg, use_pallas=False)), params, tokens, last)
+                cfg, use_pallas=False)), params, tokens, last, src=src)
         refs[key]["plain"] = {"prefill": pplg.cpu(),
                               "logits0": plogits[0].cpu(), "tokens": ptoks,
                               "routes": proutes}
@@ -4158,7 +4235,7 @@ def tensor_parallel(torch, card: str, tp_ref: dict, by_path: dict) -> dict:
               f"{DECODE_STEPS} decode steps in {refs[key]['s']:.3f} s, peak "
               f"{refs[key]['peak_gb']:.2f} GB; launches "
               f"{json.dumps(by_path[f'tp_ref_{key}'])}", flush=True)
-        del model, params, plg, logits
+        del model, params, plg, logits, src
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -4302,7 +4379,7 @@ def tensor_parallel(torch, card: str, tp_ref: dict, by_path: dict) -> dict:
                   f"{head['b_s']:.3f} s, peak {head['b_peak_gb']:.2f} GB a "
                   f"rank, serve {head['b_serve_s']:.3f} s", flush=True)
         k5_err = max([k5_err] + [rr["k5_err"] for rr in res])
-        for case in "defg":
+        for case in "defghi":
             if case in what:
                 tp_case_report(torch, card, world, case, res, saved, refs)
         peaks = [round(rr["peak_gb"], 2) for rr in res]
@@ -4331,10 +4408,10 @@ def tensor_parallel(torch, card: str, tp_ref: dict, by_path: dict) -> dict:
         return torch.randn(shape, generator=gen_tp, device=dev,
                            dtype=torch.float32).to(dtype)
 
-    def k1_row(hq, hkv, s_tp, dt):
-        q = rand_tp((hq, s_tp, 128), dt)
-        k, v = rand_tp((hkv, s_tp, 128), dt), rand_tp((hkv, s_tp, 128), dt)
-        row = {"shape": [[hq, s_tp, 128], [hkv, s_tp, 128]],
+    def k1_row(hq, hkv, s_tp, dt, d=128):
+        q = rand_tp((hq, s_tp, d), dt)
+        k, v = rand_tp((hkv, s_tp, d), dt), rand_tp((hkv, s_tp, d), dt)
+        row = {"shape": [[hq, s_tp, d], [hkv, s_tp, d]],
                "ms": time_ms(torch, lambda: pf.prefill_flash(
                    q, k, v, group=hq // hkv)),
                "plain_ms": time_ms(torch, lambda: prefill_ref(
@@ -4342,44 +4419,50 @@ def tensor_parallel(torch, card: str, tp_ref: dict, by_path: dict) -> dict:
                "library_ms": time_ms(torch, library_attention(torch, q, k,
                                                               v))}
         row["bound_ms"], row["bound_by"] = flash_bound_ms(
-            hq, s_tp, 128, hkv, q.element_size(), str(dt)[6:])
+            hq, s_tp, d, hkv, q.element_size(), str(dt)[6:])
         return row
 
-    def k4_rows(hq, hkv, s_tp, dt):
-        q = rand_tp((hq, s_tp, 128), dt)
-        k, v = rand_tp((hkv, s_tp, 128), dt), rand_tp((hkv, s_tp, 128), dt)
+    def k4_rows(hq, hkv, s_tp, dt, d=128, skv=None, causal=True):
+        skv = skv or s_tp
+        q = rand_tp((hq, s_tp, d), dt)
+        k, v = rand_tp((hkv, skv, d), dt), rand_tp((hkv, skv, d), dt)
         dout = rand_tp(q.shape, dt)
-        _, lse, out32 = fa.flash_attention_fwd(q, k, v, group=hq // hkv)
-        _, drow = fa.flash_attention_bwd_dq(q, k, v, out32, lse, dout,
-                                            group=hq // hkv)
+        kw = {"group": hq // hkv, "causal": causal}
+        _, lse, out32 = fa.flash_attention_fwd(q, k, v, **kw)
+        _, drow = fa.flash_attention_bwd_dq(q, k, v, out32, lse, dout, **kw)
         plain_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        plain_out = flash_attention_ref(*plain_leaves, group=hq // hkv)
+        plain_out = flash_attention_ref(*plain_leaves, **kw)
         lib_leaves = [t[None].clone().requires_grad_(True) for t in (q, k, v)]
         lib_out = torch.nn.functional.scaled_dot_product_attention(
-            *lib_leaves, is_causal=True, enable_gqa=True)
+            *lib_leaves, is_causal=causal, enable_gqa=True)
         plain_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
             plain_out, plain_leaves, dout, retain_graph=True))
         lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
             lib_out, lib_leaves, dout[None], retain_graph=True))
         rows = {
             "fwd": {"ms": time_ms(torch, lambda: fa.flash_attention_fwd(
-                        q, k, v, group=hq // hkv)),
+                        q, k, v, **kw)),
                     "plain_ms": time_ms(torch, lambda: flash_attention_ref(
-                        q, k, v, group=hq // hkv)),
-                    "library_ms": time_ms(torch, library_attention(
-                        torch, q, k, v))},
+                        q, k, v, **kw)),
+                    "library_ms": time_ms(
+                        torch, library_attention(torch, q, k, v) if causal
+                        else lambda: torch.nn.functional.
+                        scaled_dot_product_attention(
+                            q[None], k[None], v[None], is_causal=False,
+                            enable_gqa=True))},
             "dq": {"ms": time_ms(torch, lambda: fa.flash_attention_bwd_dq(
-                       q, k, v, out32, lse, dout, group=hq // hkv)),
+                       q, k, v, out32, lse, dout, **kw)),
                    "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms},
             "dkdv": {"ms": time_ms(
                          torch, lambda: fa.flash_attention_bwd_dkdv(
-                             q, k, v, lse, dout, drow, group=hq // hkv)),
+                             q, k, v, lse, dout, drow, **kw)),
                      "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms}}
         for part, row in rows.items():
-            row["shape"] = [[hq, s_tp, 128], [hkv, s_tp, 128]]
+            row["shape"] = [[hq, s_tp, d], [hkv, skv, d]]
+            row["causal"] = causal
             row["bound_ms"], row["bound_by"] = k4_bound_ms(
-                hq, hkv, s_tp, s_tp, 128, q.element_size(), str(dt)[6:],
-                True, part)
+                hq, hkv, s_tp, skv, d, q.element_size(), str(dt)[6:],
+                causal, part)
         return rows
 
     k1_tp = k1_row(*K1_TP_SHAPE, torch.bfloat16)
@@ -4414,9 +4497,21 @@ def tensor_parallel(torch, card: str, tp_ref: dict, by_path: dict) -> dict:
     print(f"[tensor-parallel] {card}: K5 bf16 at Mamba2-2.7B's local heads "
           + json.dumps(k5_tp), flush=True)
     del dtv, xdt, la, bg, cg, bf, cf
+    # K1 (bf16) at SeamlessM4T's decoder local heads, and K4 (bf16 and f32)
+    # at its cross-attention's, non-causal, Sq 64 over Skv 512 (model 2).
+    hq, hkv, s1, d1 = K1_TP_SEAMLESS_SHAPE
+    k1_seamless = k1_row(hq, hkv, s1, torch.bfloat16, d1)
+    h4, sq4, skv4, d4 = K4_TP_SEAMLESS_SHAPE
+    k4_cross = {dname: k4_rows(h4, h4, sq4, dt, d4, skv4, causal=False)
+                for dname, dt in (("bf16", torch.bfloat16),
+                                  ("f32", torch.float32))}
+    print(f"[tensor-parallel] {card}: K1 bf16 at SeamlessM4T's decoder local "
+          f"heads " + json.dumps(k1_seamless) + "; K4 at its cross-attention's"
+          f" local heads " + json.dumps(k4_cross), flush=True)
     return {"runs": tp_runs, "k1": k1_tp, "k4": k4_tp, "k1_moe": k1_moe,
-            "k4_moe": k4_moe, "k5": k5_tp, "k1_err": k1_err,
-            "k4_err": k4_err, "k5_err": k5_err}
+            "k4_moe": k4_moe, "k5": k5_tp, "k1_seamless": k1_seamless,
+            "k4_cross": k4_cross, "k1_err": k1_err, "k4_err": k4_err,
+            "k5_err": k5_err}
 
 
 def tp_bf16_cases():
@@ -4430,27 +4525,33 @@ def tp_bf16_cases():
                                   n_layers=TP_MAMBA_BF16_LAYERS),
              (TP_MAMBA_PROMPT,), TP_MAMBA_BUCKET),
             ("g_bf16", get_config("jamba-v0.1-52b", n_layers=8),
-             REMAINING_LENGTHS, 512))
+             REMAINING_LENGTHS, 512),
+            ("i_bf16", get_config("seamless-m4t-medium"), REMAINING_LENGTHS,
+             512))
 
 
 def tp_case_report(torch, card: str, world: int, case: str, res: list,
                    saved: dict, refs: dict) -> None:
-    """Phase 26's case (d), (e), (f) or (g) at model ``world``: its bf16
-    run (rank 0's, in ``saved``) against the unsharded run in ``refs``,
-    the prefill's and the first decode step's logits by relative Frobenius
-    error, (f) at the bf16 rtol (as (b)) with the first step's tokens among
-    the unsharded step's TP_TOP_TOKENS most likely, (d) and (g) within
+    """Phase 26's case (d)-(i) at model ``world``: its bf16 run (rank 0's,
+    in ``saved``) against the unsharded run in ``refs``, the prefill's and
+    the first decode step's logits by relative Frobenius error, (f) and (i)
+    at the bf16 rtol (as (b)) with the first step's tokens among the
+    unsharded step's TP_TOP_TOKENS most likely, (d) and (g) within
     TP_BF16_LIMIT with the first MoE layer's routing held (TP_ROUTE_FLIPS);
     the f32 checks' errors rank 0 took; each rank's seconds and peaks."""
     label = {"d": "Qwen1.5-MoE, expert-parallel", "e": "Qwen1.5-MoE, "
              "expert-TP", "f": "Mamba2-2.7B, split heads",
-             "g": "Jamba-v0.1 cut to one period, every layer split"}[case]
+             "g": "Jamba-v0.1 cut to one period, every layer split",
+             "h": "DeepSeek-V2, MLA split heads and the latent cache's "
+                  "sequence (MoE expert-parallel)",
+             "i": "SeamlessM4T-medium, cross-attention split heads and the "
+                  "cross cache's sequence"}[case]
     head = res[0][case]
     parts = []
     if "bf16" in head:
         key = f"{case}_bf16"
         got, ref = saved[key], refs[key]
-        limit = TOL["bfloat16"][0] if case == "f" else TP_BF16_LIMIT
+        limit = TOL["bfloat16"][0] if case in "fi" else TP_BF16_LIMIT
 
         def rel(a, b):
             return float(torch.linalg.vector_norm(a - b)
@@ -4501,10 +4602,12 @@ def tp_case_report(torch, card: str, world: int, case: str, res: list,
             f"f32: local {json.dumps(f['local'])}; a prefill and "
             f"{DECODE_STEPS} decode steps: logits within the f32 tolerance "
             f"(prefill {f['prefill_err']:.3e}, decode {f['logits_err']:.3e}), "
-            f"tokens equal; one train step of a (1, {TRAIN_SEQ}) grain: loss "
+            f"tokens equal; one train step of {f['train_batch']}: loss "
             f"{f['loss']:.6f} against the unsharded {f['loss_unsharded']:.6f}"
             f", all {f['leaves']} parameter leaves and both moments within the "
-            f"f32 tolerance (max abs err {f['max_err']:.3e}){router}; serve "
+            f"f32 tolerance (max abs err {f['max_err']:.3e}){router}; "
+            f"caches gathered over model in the sharded decode "
+            f"{f['cache_gathers']}; serve "
             f"{f['serve_s']:.3f} s, train step {f['train_s']:.3f} s; peaks "
             f"serve {[round(r[case]['f32']['serve_peak_gb'], 2) for r in res]}"
             f", train {[round(r[case]['f32']['train_peak_gb'], 2) for r in res]}"
@@ -4518,9 +4621,9 @@ def tp_case_report(torch, card: str, world: int, case: str, res: list,
                      f"off the unsharded by relative Frobenius error {r:.3e}, "
                      f"past {limit}")
         top = ref["logits0"][..., :v].topk(TP_TOP_TOKENS, dim=-1).indices
-        if case == "f" and not all(t in row for t, row in zip(
+        if case in "fi" and not all(t in row for t, row in zip(
                 got["tokens"][0], top.tolist(), strict=True)):
-            fail(f"tensor-parallel m={world} (f): the first decode step's "
+            fail(f"tensor-parallel m={world} ({case}): the first decode step's "
                  f"tokens {got['tokens'][0]}, not all among the unsharded "
                  f"step's {TP_TOP_TOKENS} most likely {top.tolist()}")
         if flips and not flips[0] <= TP_ROUTE_FLIPS * ref["rows"]:
@@ -4566,12 +4669,24 @@ def tp_prompts(torch, dev, vocab: int, lengths, bucket: int):
     return tokens, torch.as_tensor([n - 1 for n in lengths], device=dev)
 
 
-def tp_serve(torch, model, params, tokens, last, mesh=None, policy=None):
+def tp_src(torch, dev, cfg, n: int):
+    """Seeded source frames for ``n`` prompts of an enc-dec model: (n,
+    SEAMLESS_FRAMES, d) in its compute dtype."""
+    import numpy as np
+
+    return torch.as_tensor(np.random.default_rng(SEED + 1).standard_normal(
+        (n, SEAMLESS_FRAMES, cfg.d_model)), device=dev).to(
+        getattr(torch, cfg.compute_dtype))
+
+
+def tp_serve(torch, model, params, tokens, last, mesh=None, policy=None,
+             src=None):
     """A prefill of ``tokens``, then DECODE_STEPS greedy decode steps in a
     cache twice the bucket, each row from its prompt's last token; sharded
-    over ``mesh`` when ``policy`` is given.  Returns the prefill's logits
-    (its last position), each step's logits (f32) and each step's
-    tokens."""
+    over ``mesh`` when ``policy`` is given.  An enc-dec model encodes
+    ``src`` in the prefill, and decodes over a cross cache of its length.
+    Returns the prefill's logits (its last position), each step's logits
+    (f32) and each step's tokens."""
     from repro_torch.sharding.apply import (
         distribute_tree,
         full_tree,
@@ -4582,20 +4697,26 @@ def tp_serve(torch, model, params, tokens, last, mesh=None, policy=None):
     from repro_torch.tree import tree_leaves
 
     n, bucket = tokens.shape
-    pbatch = {"tokens": tokens}
+    pbatch = ({"tokens": tokens} if src is None else
+              {"src_embeds": src, "tgt_tokens": tokens})
     if policy is None:
         plg, caches = make_prefill_step(model)(params, pbatch)
     else:
         plg, caches = make_sharded_prefill_step(model, mesh)(
             params, distribute_tree(pbatch, policy.batch_specs(pbatch), mesh))
         plg, caches = plg.full_tensor(), full_tree(caches)
-    big = model.init_cache(n, 2 * bucket)
+    big = model.init_cache(n, 2 * bucket,
+                           cross_seq=None if src is None else src.shape[1])
     for b_leaf, s_leaf in zip(tree_leaves(big), tree_leaves(caches),
                               strict=True):
-        # An attention cache grows on the sequence; a Mamba layer's conv
-        # window and state keep their shapes.
-        (b_leaf if b_leaf.shape == s_leaf.shape
-         else b_leaf.narrow(2, 0, bucket)).copy_(s_leaf)
+        # An attention or latent cache grows on the sequence (its first
+        # dimension that differs); a Mamba layer's conv window and state
+        # and a cross cache keep their shapes.
+        dim = next((i for i, (x, y) in enumerate(zip(b_leaf.shape,
+                                                     s_leaf.shape))
+                    if x != y), None)
+        (b_leaf if dim is None else b_leaf.narrow(dim, 0, bucket)).copy_(
+            s_leaf)
     del caches
     if policy is None:
         step = make_decode_step(model)
@@ -4684,6 +4805,7 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
     against their plain versions on the inputs the sharded runs gave them.
     Its last line: the launches of each run and the checks' largest
     errors."""
+    import numpy as np
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
@@ -4708,7 +4830,9 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
     from repro_torch.kernels.prefill import prefill as pf
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models import Model
+    from repro_torch.models.config import EncoderConfig
     from repro_torch.sharding import Policy
+    from repro_torch.sharding import apply as sharding_apply
     from repro_torch.sharding.apply import (
         distribute_tree,
         full_tree,
@@ -4814,10 +4938,23 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
 
     def split_shapes(cfg, sp) -> dict:
         """Each split layer's local key leaves: an MoE layer's experts (or
-        their width) and a Mamba layer's heads, for the checks and the
-        report; fails where one is not split."""
+        their width), a Mamba layer's heads, an MLA layer's (the prefix
+        layer's too) and a cross-attention layer's heads, for the checks
+        and the report; fails where one is not split."""
         got = {}
-        for key, layer in sp["stack"]["periods"].items():
+        layers = [(f"prefix{i}", layer, 0) for i, layer in
+                  enumerate(sp["stack"].get("prefix", ()))]
+        layers += [(key, layer, 1)
+                   for key, layer in sp["stack"]["periods"].items()]
+        for key, layer, lead in layers:
+            for kind, leaf in (("mla", "wuq"), ("cross", "wq")):
+                if kind in layer:
+                    shp = list(layer[kind][leaf].to_local().shape[lead:])
+                    if shp[1] * world != cfg.n_q_heads:
+                        fail(f"{tag} {key} {kind} heads {shp}, not split")
+                    got[f"{key}.{kind}.{leaf}"] = shp
+            if lead == 0:
+                continue
             if "moe" in layer:
                 shp = list(layer["moe"]["w_gate"].to_local().shape[1:])
                 e, f = cfg.moe.n_routed, cfg.moe.d_expert
@@ -4838,30 +4975,49 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
         if got != want:
             fail(f"{tag} {what_run}: launches {got}, expected {want}")
 
-    def serve_case(key: str, cfg, tokens, last, want: dict) -> dict:
-        """``cfg``'s model sharded: a prefill and DECODE_STEPS decode
-        steps.  In f32 rank 0 then holds the prefill's and every step's
-        logits within the f32 tolerance of the unsharded run, tokens
-        equal; in bf16 it keeps them for the main process, which holds
-        them against the unsharded run it took first."""
+    def serve_case(key: str, cfg, tokens, last, want: dict, src=None,
+                   gathers=None) -> dict:
+        """``cfg``'s model sharded: a prefill (of an enc-dec model, over
+        ``src``) and DECODE_STEPS decode steps, the caches a decode step
+        gathers over ``model`` counted (``gathers``: the count required).
+        In f32 rank 0 then holds the prefill's and every step's logits
+        within the f32 tolerance of the unsharded run, tokens equal; in
+        bf16 it keeps them for the main process, which holds them against
+        the unsharded run it took first."""
         model, policy = Model(cfg), Policy(cfg, mesh)
         sp, init_s = shards(model, policy)
         res = {"init_s": init_s, "local": split_shapes(cfg, sp)}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
-        with keep_inputs(ops, "_prefill_call") as s1, \
-                keep_inputs(mamba_ops, "_ssd_kernel_call") as s5, \
-                keep_routes(tokens.numel()) as routes:
-            t0 = time.perf_counter()
-            plg, logits, toks = tp_serve(torch, model, sp, tokens, last, mesh,
-                                         policy)
-            torch.cuda.synchronize()
-            res["serve_s"] = time.perf_counter() - t0
+        views, real_view = [0], sharding_apply._cache_view
+
+        def counted_view(*a, **k):
+            views[0] += 1
+            return real_view(*a, **k)
+
+        sharding_apply._cache_view = counted_view
+        try:
+            with keep_inputs(ops, "_prefill_call") as s1, \
+                    keep_inputs(flash_ops, "_flash_call") as s4, \
+                    keep_inputs(mamba_ops, "_ssd_kernel_call") as s5, \
+                    keep_routes(tokens.numel()) as routes:
+                t0 = time.perf_counter()
+                plg, logits, toks = tp_serve(torch, model, sp, tokens, last,
+                                             mesh, policy, src)
+                torch.cuda.synchronize()
+                res["serve_s"] = time.perf_counter() - t0
+        finally:
+            sharding_apply._cache_view = real_view
         res["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        res["cache_gathers"] = views[0]
+        if gathers is not None and views[0] != gathers:
+            fail(f"{tag} ({key}): the sharded decode gathered {views[0]} "
+                 f"caches over model, expected {gathers}")
         want_launches(read_counts(f"tp{world}_{key}_serve"), want,
                       f"({key}) serve")
         seen1.update(s1)
+        seen4.update(s4)
         seen5.update(s5)
         res["tokens"] = toks
         del sp
@@ -4876,7 +5032,7 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
             zero_counts()
             params = model.init(SEED)
             uplg, ulogits, utoks = tp_serve(torch, model, params, tokens,
-                                            last)
+                                            last, src=src)
             res["serve_check_s"] = time.perf_counter() - t0
             read_counts(f"tp{world}_{key}_unsharded_serve")
             res["prefill_err"] = check_close(
@@ -4894,7 +5050,7 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
         dist.barrier()
         return res
 
-    def train_case(key: str, cfg, want: dict) -> dict:
+    def train_case(key: str, cfg, want: dict, batch=None) -> dict:
         """One sharded train step of ``cfg``'s model on phase 11's f32
         grain; rank 0 keeps every leaf of the new parameters and moments on
         the host, then runs the unsharded step from the same init (the
@@ -4911,7 +5067,8 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
                    [Replicate()] * mesh.ndim, src_data_rank=None)}
         state = TrainState(params=sp, opt=opt)
         del sp, opt
-        batch = grain_batch(cfg, [0])
+        if batch is None:
+            batch = grain_batch(cfg, [0])
         sbatch = distribute_tree(batch, policy.batch_specs(batch), mesh)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4923,7 +5080,12 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
             train_s = time.perf_counter() - t0
         res = {"train_init_s": init_s, "train_s": train_s,
                "train_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "loss": float(met["loss"])}
+               "loss": float(met["loss"]),
+               "train_batch": (
+                   f"{batch['targets'].shape[1]} target tokens over "
+                   f"{batch['src_embeds'].shape[1]} frames"
+                   if "src_embeds" in batch else
+                   f"a {tuple(batch['targets'].shape)} grain")}
         want_launches(read_counts(f"tp{world}_{key}_train"), want,
                       f"({key}) train")
         seen4.update(s4)
@@ -4997,9 +5159,9 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
         torch.cuda.empty_cache()
         return res
 
-    def moe_mamba(cases) -> None:
-        """Phase 26's MoE and Mamba cases (d)-(g) on this rank: each
-        result under ``out[case]``."""
+    def split_layers(cases) -> None:
+        """Phase 26's MoE, Mamba, MLA and cross-attention cases (d)-(i) on
+        this rank: each result under ``out[case]``."""
         k4 = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
               "flash_attention_bwd_dkdv": 0}
 
@@ -5041,12 +5203,65 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
                 res["f32"].update(train_case(
                     "f_f32", dataclasses.replace(cfgm32, use_pallas=False),
                     dict(k4, ssd_scan=0)))
-            else:
+            elif case == "g":
                 cfgj = bf16["g_bf16"]
                 res = {"bf16": serve_case(
                     "g_bf16", cfgj,
                     *tp_prompts(torch, dev, cfgj.vocab_size, REMAINING_LENGTHS,
                                 512), {"prefill_flash": 1, "ssd_scan": 7})}
+            elif case == "h":
+                # MLA launches no kernel (plain einsums, as in the
+                # reference); no cache is gathered over ``model``.
+                cfgd = get_config("deepseek-v2-236b",
+                                  n_layers=DEEPSEEK_F32_LAYERS,
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+                none = dict(k4, prefill_flash=0, ssd_scan=0)
+                res = {"f32": serve_case(
+                    "h_f32", cfgd, *tp_prompts(
+                        torch, dev, cfgd.vocab_size, REMAINING_LENGTHS, 512),
+                    none, gathers=0)}
+                res["f32"].update(train_case("h_f32", dataclasses.replace(
+                    cfgd, n_layers=TP_DEEPSEEK_TRAIN_LAYERS), none))
+            else:
+                # K4 once an encoder layer in a prefill (the encoder), K1
+                # once a decoder layer; in training K4 forward (twice: the
+                # checkpoint), dQ and dK/dV on each encoder layer's
+                # self-attention and each decoder layer's self- and
+                # cross-attention, on this rank's heads.
+                n = TP_SEAMLESS_F32_LAYERS
+                cfgs = get_config("seamless-m4t-medium", n_layers=n,
+                                  encoder=EncoderConfig(n_layers=n),
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+                prompts = tp_prompts(torch, dev, cfgs.vocab_size,
+                                     REMAINING_LENGTHS, 512)
+                res = {}
+                if world == 2:               # bf16 whole at model 2 only
+                    full = bf16["i_bf16"]
+                    res["bf16"] = serve_case(
+                        "i_bf16", full, *prompts,
+                        {"prefill_flash": full.n_layers,
+                         "flash_attention_fwd": full.encoder.n_layers},
+                        src=tp_src(torch, dev, full, len(REMAINING_LENGTHS)),
+                        gathers=0)
+                res["f32"] = serve_case(
+                    "i_f32", cfgs, *prompts,
+                    {"prefill_flash": n, "flash_attention_fwd": n},
+                    src=tp_src(torch, dev, cfgs, len(REMAINING_LENGTHS)),
+                    gathers=0)
+                srng = np.random.default_rng(SEED + 2)
+                tgt = torch.as_tensor(srng.integers(
+                    0, cfgs.vocab_size, (1, TP_SEAMLESS_TARGET + 1)),
+                    dtype=torch.int32, device=dev)
+                batch = {"src_embeds": tp_src(torch, dev, cfgs, 1),
+                         "tgt_tokens": tgt[:, :-1].contiguous(),
+                         "targets": tgt[:, 1:].contiguous(),
+                         "loss_mask": torch.ones(
+                             (1, TP_SEAMLESS_TARGET), dtype=torch.float32,
+                             device=dev)}
+                res["f32"].update(train_case("i_f32", cfgs, k4_train(3 * n),
+                                             batch))
             res["s"] = time.perf_counter() - t0
             out[case] = res
             print(f"{tag} ({case}) {res['s']:.1f} s: " + json.dumps(
@@ -5055,7 +5270,7 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
                  for run, r in res.items() if isinstance(r, dict)}),
                 flush=True)
 
-    moe_mamba([case for case in "defg" if case in what])
+    split_layers([case for case in "defghi" if case in what])
     if "a" in what:
         # (a), (c): f32, TP_F32_LAYERS layers, sharded.
         cfg32 = dataclasses.replace(

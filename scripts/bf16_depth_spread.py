@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """How far two unsharded bf16 routes of one model drift apart with depth.
 
-    python3 scripts/bf16_depth_spread.py [--out FILE]
+    python3 scripts/bf16_depth_spread.py [--arch NAME ...] [--out FILE]
 
 Run from the repository root on the machine with the card (it builds K1
 and K5 from this checkout).  For each full-width config of
-``chip_smoke.py`` phase 26's bf16 cases, cut to each depth below, the
+``chip_smoke.py`` phase 26's bf16 cases (``--arch`` picks some), cut to
+each depth below (SeamlessM4T-medium's encoder and decoder both), the
 model from one seeded init serves phase 26's prompts
-(``chip_smoke.tp_serve``: a prefill and 16 greedy decode steps) twice:
-through the kernels (K1, K5) and on the plain path (``use_pallas=False``).
+(``chip_smoke.tp_serve``: a prefill, of an enc-dec model over
+``chip_smoke.tp_src``'s frames, and 16 greedy decode steps) twice:
+through the kernels (K1, K4, K5) and on the plain path
+(``use_pallas=False``).
 Nothing differs between the two but the order of their roundings.  Prints
 one JSON line a depth (and appends it to ``--out`` where one is given):
 
@@ -22,7 +25,8 @@ one JSON line a depth (and appends it to ``--out`` where one is given):
 
 The errors' growth with depth is what a bf16 check between two orders of
 the same sums has to allow for; ``chip_smoke.py`` phase 26 takes its depth
-cut for Mamba2-2.7B and its limits for the MoE cases from these lines.
+cut for Mamba2-2.7B, its limits for the MoE cases and its check of
+SeamlessM4T-medium whole from these lines.
 The card's name and power limit head the output.
 """
 
@@ -38,16 +42,20 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-#: (config, prompt lengths, bucket, depths): phase 26's (d), (f) and (g).
+#: (config, prompt lengths, bucket, depths): phase 26's (d), (f), (g) and
+#: (i).
 CASES = (
     ("mamba2-2.7b", (100,), 128, (1, 2, 4, 8, 16, 24, 32, 64)),
     ("qwen2-moe-a2.7b", (20, 90, 300, 500), 512, (1, 2, 4, 8, 24)),
     ("jamba-v0.1-52b", (20, 90, 300, 500), 512, (8,)),
+    ("seamless-m4t-medium", (20, 90, 300, 500), 512, (1, 2, 4, 8, 12)),
 )
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", nargs="*", choices=[c[0] for c in CASES],
+                    default=[c[0] for c in CASES])
     ap.add_argument("--out", default=None,
                     help="a file to append each JSON line to as well")
     args = ap.parse_args()
@@ -75,18 +83,25 @@ def main() -> int:
                      / torch.linalg.vector_norm(b))
 
     for name, lengths, bucket, depths in CASES:
+        if name not in args.arch:
+            continue
         for depth in depths:
             cfg = get_config(name, n_layers=depth)
+            if cfg.is_enc_dec:
+                cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+                    cfg.encoder, n_layers=depth))
             params = Model(cfg).init(cs.SEED)
             tokens, last = cs.tp_prompts(torch, dev, cfg.vocab_size, lengths,
                                          bucket)
+            src = (cs.tp_src(torch, dev, cfg, len(lengths)) if cfg.is_enc_dec
+                   else None)
             runs = {}
             for route, c in (("kernel", cfg),
                              ("plain", dataclasses.replace(
                                  cfg, use_pallas=False))):
                 with cs.keep_routes(tokens.numel()) as routes:
                     plg, logits, toks = cs.tp_serve(torch, Model(c), params,
-                                                    tokens, last)
+                                                    tokens, last, src=src)
                 torch.cuda.synchronize()
                 runs[route] = (plg[..., :cfg.vocab_size].float(),
                                logits[0][..., :cfg.vocab_size], toks, routes)

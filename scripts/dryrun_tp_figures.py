@@ -14,9 +14,11 @@ cell takes the plain chunked attention over 256 x 4096 tokens); the
 decode cell is whole.  ``--src`` imports the port from another checkout's
 ``src`` (a parent commit unpacked with ``git archive``), so both commits
 run the same cells.  ``--arch`` takes any of the registry's archs (at
-their published widths).  Prints one JSON line: each cell's FLOPs a
-device, model FLOPs, the ratio, collective bytes a device by operation,
-the largest collectives and the peak a device.
+their published widths; an enc-dec model's train cell counts its decoder
+tokens, half the sequence, as ``launch/dryrun.py::run_cell`` does).
+Prints one JSON line: each cell's FLOPs a device, model FLOPs, the ratio,
+collective bytes a device by operation, the largest collectives and the
+peak a device.
 """
 
 from __future__ import annotations
@@ -57,6 +59,9 @@ def main(argv: list[str] | None = None) -> None:
         m = measure(cfg, shape, mesh)
         tokens = shape.global_batch * (1 if shape.kind == "decode"
                                        else shape.seq_len)
+        if cfg.is_enc_dec and shape.kind != "decode":
+            tokens //= 2         # decoder tokens, as launch/dryrun.run_cell
+
         mf, _ = model_flops(cfg, Model(cfg, device="meta"), shape, tokens,
                             shape.kind)
         coll = m["coll"]

@@ -21,8 +21,10 @@ Port of ``repro/launch/dryrun.py``.  For each cell this:
        group size), turned into bytes by the reference's ring model
        (``collective_stats``),
      - peak bytes a device (``torch.distributed._tools.mem_tracker.
-       MemTracker``) and argument bytes (the local shards of the state and
-       inputs),
+       MemTracker``; DTensor's sharding propagation, which runs each op
+       once more on fake tensors of the global shapes to learn its output's
+       metadata, is kept out of it: ``_untracked_propagation``) and
+       argument bytes (the local shards of the state and inputs),
      - ``model_flops`` (6N / 2N active parameters) and the roofline terms
        against the H100's figures (``HW``), with ``dominant`` and
        ``useful_flops_ratio``.
@@ -33,11 +35,12 @@ unrolled compiles to the full depth, because XLA's cost analysis visits a
 scanned period once.  Here every number comes from PyTorch's own counters
 on the executed step, which runs every period, so nothing is extrapolated.
 The step is the one a run would take (``sharding/apply.py``): tensor-
-parallel over ``model`` for attention, dense-MLP, embedding and head
-leaves (each device computes its heads, MLP columns and vocabulary rows,
-and a decode attends over its own share of the cache's sequence), every
-other layer whole on each ``model`` device; so ``useful_flops_ratio`` and
-the collectives count what that split does.
+parallel over ``model`` for attention, MLA, cross-attention, dense-MLP,
+MoE, Mamba, embedding and head leaves (each device computes its heads, MLP
+columns, experts and vocabulary rows, and a decode attends over its own
+share of the cache's sequence), a layer whose count does not divide whole
+on each ``model`` device; so ``useful_flops_ratio`` and the collectives
+count what that split does.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k --mesh single
@@ -48,6 +51,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -220,6 +224,35 @@ def _fake_like(tree):
     return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype), tree)
 
 
+@contextlib.contextmanager
+def _untracked_propagation():
+    """DTensor's sharding propagation run outside the dry run's fake mode.
+
+    To learn an op's output shape DTensor runs the op on fake tensors of
+    the global shapes, under the fake mode it finds active (``_sharding_
+    prop.py``).  Under the dry run's mode ``MemTracker`` counts those
+    tensors as the step's own: a whole expert stack or vocabulary table,
+    several times, at the first op of each shape, which set the peak of
+    every cell whatever the split (an MoE cell's peak stayed put while its
+    experts split over ``model``).  In a fake mode of its own the
+    propagation allocates nothing the tracker sees, as in an eager step
+    on real tensors, where it makes a fake mode of its own too."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+    real = ShardingPropagator._propagate_tensor_meta_non_cached
+
+    def apart(self, op_schema):
+        with unset_fake_temporarily():
+            return real(self, op_schema)
+
+    ShardingPropagator._propagate_tensor_meta_non_cached = apart
+    try:
+        yield
+    finally:
+        ShardingPropagator._propagate_tensor_meta_non_cached = real
+
+
 def _fake_group(world_size: int) -> None:
     """A ``fake`` process group of ``world_size`` ranks (this process is
     rank 0), replacing a fake group of another size."""
@@ -307,7 +340,7 @@ def measure(cfg, shape: ShapeSpec, mesh_shape: MeshShape,
         comm = _collective_mode()
         counter = _ByteCounter()
         t0 = time.perf_counter()
-        with mem, comm, flops, counter:
+        with _untracked_propagation(), mem, comm, flops, counter:
             out = step(*args)
         run_s = time.perf_counter() - t0
         out_bytes = _local_bytes(out)

@@ -19,8 +19,12 @@ heads its own q heads use (``_local_kv``).  Training and the prefill run K4
 and K1 on the local heads.  A decode's cache holds this rank's share of the
 sequence for every KV head: each rank attends all heads over its own
 positions and the ranks combine their partial softmaxes (``_decode_split``).
-Cross-attention computes whole on every rank (``transformer.apply_layer``
-gives it ``par.whole()``): its heads split is the next slice.
+Cross-attention splits its heads the same way: training runs K4 on the
+local heads over the whole encoder memory (``Group.kv_in`` sums the
+memory's gradient over the ranks), the prefill (``cross_prefill``) attends
+the local heads over the whole memory and keeps every head on this rank's
+share of the memory's sequence, and the decode combines the ranks' partial
+softmaxes over that share (``_decode_split``, no write).
 """
 
 from __future__ import annotations
@@ -206,6 +210,17 @@ def _local_kv(p: dict, cfg: ModelConfig, group: Group):
     return p, torch.tensor(need, device=p["wq"].device)
 
 
+def _seq_share(c: torch.Tensor, group: Group) -> torch.Tensor:
+    """This rank's share of a (B, S, ...) cache's sequence, which every
+    rank holds whole (the whole sequence where it does not divide over the
+    ranks): the placement ``Policy.cache_specs`` gives a decode's cache."""
+    s = c.shape[1]
+    if group.size == 1 or s % group.size:
+        return c
+    part = s // group.size
+    return c.narrow(1, group.rank * part, part).contiguous()
+
+
 def _cache_shard(c: torch.Tensor, cfg: ModelConfig, group: Group,
                  hq: int) -> torch.Tensor:
     """From each rank's own KV heads ``c`` (B, S, n, Dh), every KV head on
@@ -227,11 +242,7 @@ def _cache_shard(c: torch.Tensor, cfg: ModelConfig, group: Group,
         heads.append(r * width + u - lo)
     if heads != list(range(every.shape[2])):
         every = every[:, :, heads]
-    s = every.shape[1]
-    if s % group.size:
-        return every
-    part = s // group.size
-    return every.narrow(1, group.rank * part, part).contiguous()
+    return _seq_share(every, group)
 
 
 def attention_train(
@@ -330,36 +341,62 @@ def _cache_write(cache_arr: torch.Tensor, new: torch.Tensor,
     return cache_arr
 
 
+def _own_write(arr: torch.Tensor, new: torch.Tensor, pos_b: torch.Tensor,
+               start: int) -> None:
+    """Write (B, 1, ...) ``new`` at each row's position ``pos_b`` (B, 1)
+    into ``arr``, which holds the sequence from ``start`` on: in place, in
+    the rows whose position falls in it."""
+    s_l = arr.shape[1]
+    local = pos_b[:, 0] - start
+    own = ((local >= 0) & (local < s_l)).reshape(
+        (-1,) + (1,) * (arr.ndim - 2))
+    at = local.clamp(0, s_l - 1)
+    lanes = torch.arange(arr.shape[0], device=arr.device)
+    arr[lanes, at] = torch.where(own, new[:, 0].to(arr.dtype), arr[lanes, at])
+
+
+def _cross_q(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Cross-attention's queries: no rope."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    return q
+
+
 def _decode_split(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                  cache: KVCache, pos: torch.Tensor, group: Group
-                  ) -> tuple[torch.Tensor, KVCache]:
-    """One-token self-attention decode of split heads over a cache that
-    holds this rank's share of the sequence (``Policy.cache_specs``) for
-    every KV head.  The new token's q, k and v are gathered over the ranks
-    ((B, 1, H, Dh) and smaller); the rank that owns position ``pos`` writes
-    k and v; each rank attends every head over its own positions, and the
-    ranks combine their partial softmaxes by all-reduces of the row maxima,
-    the sums and the weighted values.  Returns this rank's partial sum over
-    its own heads (its ``wo`` rows)."""
-    b = x.shape[0]
-    pos_b = _pos2d(pos, b)
-    q, k_t, v_t = _project_qkv(p, cfg, x, x, pos_b, pos_b)
-    hq = q.shape[2]
-    q = group.gather(q, 2)
-    if k_t.shape[2] != cfg.n_kv_heads:
-        k_t, v_t = group.gather(k_t, 2), group.gather(v_t, 2)
+                  cache: KVCache, pos: torch.Tensor | None, group: Group,
+                  cross: bool = False) -> tuple[torch.Tensor, KVCache]:
+    """Decode of split heads over a cache that holds this rank's share of
+    the sequence (``Policy.cache_specs``) for every KV head.  The tokens'
+    queries are gathered over the ranks ((B, T, H, Dh)); self-attention
+    (one token) gathers k and v too, and the rank that owns position
+    ``pos`` writes them; cross-attention writes nothing, and every row of
+    the share is valid (no ``cross_len``, as the whole decode reads the
+    whole cache).  Each rank attends every head over its own positions, and
+    the ranks combine their partial softmaxes by all-reduces of the row
+    maxima, the sums and the weighted values.  Returns this rank's partial
+    sum over its own heads (its ``wo`` rows)."""
+    b, t = x.shape[:2]
     s_l = cache.k.shape[1]
     start = group.rank * s_l
-    local = pos_b[:, 0] - start
-    own = ((local >= 0) & (local < s_l))[:, None, None]
-    at = local.clamp(0, s_l - 1)
-    lanes = torch.arange(b, device=x.device)
-    for arr, new in ((cache.k, k_t), (cache.v, v_t)):
-        arr[lanes, at] = torch.where(own, new[:, 0].to(arr.dtype),
-                                     arr[lanes, at])
-    valid = (start + torch.arange(s_l, device=x.device))[None, :] <= pos_b
+    if cross:
+        q = _cross_q(p, cfg, x)
+        valid = torch.ones((b, s_l), dtype=torch.bool, device=x.device)
+    else:
+        pos_b = _pos2d(pos, b)
+        q, k_t, v_t = _project_qkv(p, cfg, x, x, pos_b, pos_b)
+        if k_t.shape[2] != cfg.n_kv_heads:
+            k_t, v_t = group.gather(k_t, 2), group.gather(v_t, 2)
+        _own_write(cache.k, k_t, pos_b, start)
+        _own_write(cache.v, v_t, pos_b, start)
+        valid = (start + torch.arange(s_l, device=x.device))[None, :] \
+            <= pos_b
+    hq = q.shape[2]
+    q = group.gather(q, 2)
     h, hkv, dh = q.shape[2], cache.k.shape[2], q.shape[3]
-    qg = q.reshape(b, 1, hkv, h // hkv, dh)
+    qg = q.reshape(b, t, hkv, h // hkv, dh)
     sc = torch.einsum("bqhgd,bkhd->bhgqk", qg,
                       cache.k.to(x.dtype)).float() / dh ** 0.5
     sc = torch.where(valid[:, None, None, None, :], sc, NEG_INF)
@@ -371,7 +408,7 @@ def _decode_split(p: dict, cfg: ModelConfig, x: torch.Tensor,
     p_att = (e / group.sum(e.sum(dim=-1, keepdim=True))).to(x.dtype)
     out = group.sum(torch.einsum("bhgqk,bkhd->bhgqd", p_att.float(),
                                  cache.v.to(x.dtype).float())).to(x.dtype)
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, dh)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, t, h, dh)
     out = out[:, :, group.rank * hq:(group.rank + 1) * hq]
     return group.row_product(_wo, out, p["wo"]), cache
 
@@ -388,16 +425,16 @@ def attention_decode(
     encoder memory's K/V from the cache, writes nothing and attends over
     cache[< cross_len] (the whole cache when ``cross_len`` is None); its
     query is not rope'd, and x may hold any number of tokens.  Split heads
-    (``group``) decode over a sequence-split cache (``_decode_split``)."""
-    if group.size > 1 and not cross:
-        return _decode_split(p, cfg, x, cache, pos, group)
+    (``group``) decode over a sequence-split cache (``_decode_split``; a
+    cross decode there takes the whole share, as ``cross_len`` None)."""
+    if group.size > 1:
+        if cross and cross_len is not None:
+            raise ValueError("a split cross decode reads its whole share: "
+                             "cross_len must be None")
+        return _decode_split(p, cfg, x, cache, pos, group, cross=cross)
     b = x.shape[0]
     if cross:
-        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-        if "bq" in p:
-            q = q + p["bq"]
-        if "q_norm" in p:
-            q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        q = _cross_q(p, cfg, x)
         k, v = cache.k, cache.v
         n = k.shape[1] if cross_len is None else cross_len
         valid = torch.arange(k.shape[1], device=x.device) < torch.as_tensor(
@@ -414,3 +451,41 @@ def attention_decode(
         q, k.to(x.dtype), v.to(x.dtype), causal=False, kv_mask=kv_mask
     )
     return torch.einsum("bshd,hdm->bsm", out, p["wo"]), cache
+
+
+def cross_kv(p: dict, cfg: ModelConfig, memory: torch.Tensor) -> KVCache:
+    """Project encoder memory to K/V once (cached for the whole decode).
+    The keys take ``k_norm`` where the layer has one; no rope."""
+    k = torch.einsum("bsd,dhk->bshk", memory, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", memory, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    if "k_norm" in p:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return KVCache(k=k, v=v)
+
+
+def cross_prefill(
+    p: dict, cfg: ModelConfig, x: torch.Tensor, memory: torch.Tensor, *,
+    group: Group = SOLO,
+) -> tuple[torch.Tensor, KVCache]:
+    """A prefill's cross-attention: K/V projected once from the memory
+    (``cross_kv``, the layer's "cross" cache) and ``x`` attending all of
+    it, as the reference's ``attention_decode(cross=True)`` with no
+    ``cross_len``.  Under split heads the output is this rank's partial
+    sum over its heads, attended over the whole memory, and the cache every
+    KV head on this rank's share of the memory's sequence
+    (``_cache_shard``)."""
+    if group.size == 1:
+        kv = cross_kv(p, cfg, memory)
+        return attention_decode(p, cfg, x, kv, None, cross=True)[0], kv
+    p, expand = _local_kv(p, cfg, group)
+    kv = cross_kv(p, cfg, memory)
+    k, v = kv.k, kv.v
+    q = _cross_q(p, cfg, x)
+    if expand is not None:
+        k, v = k[:, :, expand], v[:, :, expand]
+    out = _sdpa_full(q, k.to(x.dtype), v.to(x.dtype), causal=False)
+    return group.row_product(_wo, out, p["wo"]), KVCache(
+        k=_cache_shard(kv.k, cfg, group, q.shape[2]),
+        v=_cache_shard(kv.v, cfg, group, q.shape[2]))

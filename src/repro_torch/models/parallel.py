@@ -9,9 +9,11 @@ The model code (``model.py``, ``transformer.py``, ``attention.py``) takes a
     periods (``cache_periods``: ``period(t)``, ``commit(t, caches)``);
   - **groups**: ``split(n_local, n_global)`` gives the ``Group`` that splits a
     layer's heads, MLP width or experts (a leaf's local size against its
-    global one), ``whole()`` the group of a layer every rank computes
-    whole.  A group's ``col_in`` enters a column-parallel product,
-    ``row_product`` forms a row-parallel one and ``row_out`` completes it
+    global one), or of a layer every rank computes whole where they do
+    not divide.  A group's ``col_in`` enters a column-parallel product
+    (``kv_in`` an input held whole under ``seq_parallel`` too: the encoder
+    memory), ``row_product`` forms a row-parallel one and ``row_out``
+    completes it
     (the caller casts it to the stream's dtype); ``rank``/``size`` say
     which heads (or experts) are this rank's, ``gather``/``sum``/``max``
     combine a decode's partial softmaxes, ``total`` a statistic over the
@@ -54,6 +56,12 @@ class Group:
 
     def col_in(self, x: torch.Tensor) -> torch.Tensor:
         """The input of column-parallel products (each rank's columns)."""
+        return x
+
+    def kv_in(self, x: torch.Tensor) -> torch.Tensor:
+        """An input every rank holds whole whatever the stream's split (the
+        encoder memory of cross-attention), entering column-parallel
+        products."""
         return x
 
     def row_product(self, fn: Callable, a: torch.Tensor,
@@ -150,10 +158,6 @@ class Parallel:
     def split(self, n_local: int, n_global: int) -> Group:
         """The group that splits a dimension of ``n_global`` of which this
         rank holds ``n_local`` (heads, MLP width, experts)."""
-        return SOLO
-
-    def whole(self) -> Group:
-        """The group of a layer that every rank computes whole."""
         return SOLO
 
     # -- the residual stream between periods (training) ------------------

@@ -34,10 +34,10 @@ recomputed.
 
 Every apply takes ``par`` (``models/parallel.py``), the one object between
 the model and sharding: the stack takes its periods (and a decode its cache
-periods) from it, each layer its groups (attention and Mamba heads, dense-
-MLP width, MoE experts or their width split over ranks, or the layer
-computed whole: MLA and cross-attention always), and an MoE layer its
-token set.  ``SINGLE``, the default, is the identity on every hook.
+periods) from it, each layer its groups (attention, MLA, cross-attention
+and Mamba heads, dense-MLP width, MoE experts or their width split over
+ranks, or the layer computed whole where they do not divide), and an MoE
+layer its token set.  ``SINGLE``, the default, is the identity on every hook.
 """
 
 from __future__ import annotations
@@ -52,16 +52,17 @@ from torch.utils.checkpoint import (
 )
 
 from ..tree import tree_flatten, tree_unflatten
-from .attention import (
-    KVCache,
+from .attention import (  # noqa: F401 (cross_kv: the layer's cross cache)
     attention_decode,
     attention_prefill,
     attention_train,
+    cross_kv,
+    cross_prefill,
     init_attention,
     init_kv_cache,
 )
 from .config import LayerSpec, ModelConfig
-from .layers import apply_mlp, apply_norm, init_mlp, init_norm, rms_norm
+from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 from .mamba import init_mamba, init_mamba_cache, mamba_decode, mamba_train
 from .mla import init_mla, init_mla_cache, mla_decode, mla_prefill, mla_train
 from .moe import apply_moe, apply_moe_dense, init_moe
@@ -120,18 +121,6 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, seq: int,
     return c
 
 
-def cross_kv(p_cross: dict, cfg: ModelConfig, memory: torch.Tensor) -> KVCache:
-    """Project encoder memory to K/V once (cached for the whole decode).
-    The keys take ``k_norm`` where the layer has one; no rope."""
-    k = torch.einsum("bsd,dhk->bshk", memory, p_cross["wk"])
-    v = torch.einsum("bsd,dhk->bshk", memory, p_cross["wv"])
-    if "bk" in p_cross:
-        k, v = k + p_cross["bk"], v + p_cross["bv"]
-    if "k_norm" in p_cross:
-        k = rms_norm(k, p_cross["k_norm"], cfg.norm_eps)
-    return KVCache(k=k, v=v)
-
-
 # -------------------------------------------------------------------- layer apply
 def apply_layer(
     p: dict, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor, *,
@@ -149,7 +138,9 @@ def apply_layer(
     reference's compiled step routes it) and keeps ``par.moe_rows``.
     Mamba splits its heads; an MoE layer its experts (expert-parallel) or
     their width (expert-TP), its aux loss's gradient counted once over the
-    group (``Group.once``).  MLA and cross-attention compute whole."""
+    group (``Group.once``).  MLA and cross-attention split their heads
+    (the encoder memory entering through ``Group.kv_in``, its gradient
+    summed over the ranks)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode: {mode!r}")
     new_cache: dict[str, Any] = {}
@@ -159,7 +150,7 @@ def apply_layer(
         g = par.split(p["mamba"]["wdt"].shape[1],
                       cfg.ssm.n_heads(cfg.d_model))
     elif spec.mixer == "mla":
-        g = par.whole()
+        g = par.split(p["mla"]["wuq"].shape[1], cfg.n_q_heads)
     else:
         raise ValueError(spec.mixer)
     h = g.col_in(apply_norm(cfg, p["norm1"], x))
@@ -174,12 +165,13 @@ def apply_layer(
                 new_cache["self"] = c
     elif spec.mixer == "mla":
         if mode == "train":
-            a = mla_train(p["mla"], cfg, h, positions, causal=causal)
+            a = mla_train(p["mla"], cfg, h, positions, causal=causal, group=g)
         elif mode == "prefill":
-            a, new_cache["self"] = mla_prefill(p["mla"], cfg, h, positions)
+            a, new_cache["self"] = mla_prefill(p["mla"], cfg, h, positions,
+                                               group=g)
         else:
             a, new_cache["self"] = mla_decode(p["mla"], cfg, h, cache["self"],
-                                              pos)
+                                              pos, group=g)
     elif mode == "train":
         a = attention_train(p["attn"], cfg, h, positions, causal=causal,
                             group=g)
@@ -192,24 +184,24 @@ def apply_layer(
     x = x + g.row_out(a).to(x.dtype)
 
     if spec.cross_attn:
-        g = par.whole()
+        g = par.split(p["cross"]["wq"].shape[1], cfg.n_q_heads)
         h = g.col_in(apply_norm(cfg, p["norm_cross"], x))
         if mode == "train":
             a = attention_train(
                 p["cross"], cfg, h, positions, causal=False,
-                xkv=cross_memory, kv_positions=mem_positions, rope=False)
+                xkv=g.kv_in(cross_memory), kv_positions=mem_positions,
+                rope=False, group=g)
         elif mode == "prefill":
-            ckv = cross_kv(p["cross"], cfg, cross_memory)
-            new_cache["cross"] = ckv
             # As the reference: no cross_len, the whole memory is valid.
-            a, _ = attention_decode(p["cross"], cfg, h, ckv, None, cross=True)
+            a, new_cache["cross"] = cross_prefill(p["cross"], cfg, h,
+                                                  cross_memory, group=g)
         else:
             # As the reference: no cross_len, so a cross cache longer than
             # the memory attends to its zero rows too.
             a, _ = attention_decode(p["cross"], cfg, h, cache["cross"], None,
-                                    cross=True)
+                                    cross=True, group=g)
             new_cache["cross"] = cache["cross"]
-        x = x + g.row_out(a)
+        x = x + g.row_out(a).to(x.dtype)
 
     aux = 0.0
     if spec.mlp == "dense":
@@ -241,12 +233,40 @@ def _stack(items: list) -> Any:
                                     for leaves in zip(*cols, strict=True)])
 
 
+def _no_periods(cfg: ModelConfig, pattern, x: torch.Tensor,
+                cross_memory) -> dict:
+    """The prefill caches of a stack with no periods: each layer's cache
+    leaves with a period axis of 0, as the reference's ``lax.scan`` over
+    zero periods returns them (the shapes of ``init_cache``'s leaves)."""
+    b, s = x.shape[:2]
+    cross = None if cross_memory is None else cross_memory.shape[1]
+    out = {}
+    for i, spec in enumerate(pattern):
+        single = init_layer_cache(cfg, spec, b, s, "meta", cross)
+        out[f"pos{i}"] = {key: type(c)(**{
+            name: torch.zeros((0,) + tuple(t.shape), dtype=t.dtype,
+                              device=x.device)
+            for name, t in fields(c).items()}) for key, c in single.items()}
+    return out
+
+
 def _init_stacked(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                   n_periods: int) -> dict:
     """``n_periods`` draws of one layer, stacked on a leading axis as
     ``_stack`` lays them out, each written into its slot as it is drawn:
     the peak holds the stack and one layer, where stacking a list of every
-    period would hold the stack twice."""
+    period would hold the stack twice.  Zero periods draw nothing (the
+    layer's shapes come from fake tensors), as the reference's init over
+    no period keys."""
+    if n_periods == 0:
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        with FakeTensorMode():
+            leaves, treedef = tree_flatten(init_layer(
+                torch.Generator(), cfg, spec))
+        return tree_unflatten(treedef, [
+            torch.empty((0,) + tuple(leaf.shape), dtype=leaf.dtype,
+                        device=gen.device) for leaf in leaves])
     leaves, treedef = tree_flatten(init_layer(gen, cfg, spec))
     out = [torch.empty((n_periods,) + tuple(leaf.shape), dtype=leaf.dtype,
                        device=leaf.device) for leaf in leaves]
@@ -396,7 +416,8 @@ def apply_stack(
     if mode == "decode":
         out_caches = caches
     else:
-        out_caches = {"periods": _stack(per_period)}
+        out_caches = {"periods": _stack(per_period) if per_period else
+                      _no_periods(cfg, pattern, x, cross_memory)}
         if prefix:
             out_caches["prefix"] = new_prefix
     return x, out_caches, aux

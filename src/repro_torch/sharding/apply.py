@@ -12,22 +12,23 @@ out_shardings=...)`` (``repro/launch/dryrun.py::build_step``), built on
   - **Per-period gathers** (``_plan``).  A step takes the model's periods
     one at a time, inside each period's checkpoint in training; the
     embedding, the norms and the prefix layers once a step.  A leaf of an
-    attention, dense-MLP, embedding, MoE or Mamba group whose key leaves
-    (``_TP_KEY``: ``wq``, ``w_down``, ``table``, ``w_gate`` and the shared
-    expert's ``w_down``, ``wx`` and ``wdt``) the policy splits over
-    ``model`` is gathered over the data axes only and keeps its ``model``
-    shard: those layers compute tensor-parallel on this rank's heads, MLP
-    columns, vocabulary rows, experts (or expert width) and Mamba heads;
-    Mamba's ``wb``/``wc`` are gathered whole (``_WHOLE``).  Every other
-    leaf is gathered whole (MLA, cross-attention, and groups whose heads,
-    width, experts or vocabulary do not divide), and its layer computes
-    whole on every ``model`` rank.
+    attention, dense-MLP, embedding, MoE, Mamba, MLA or cross-attention
+    group whose key leaves (``_TP_KEY``: ``wq``, ``w_down``, ``table``,
+    ``w_gate`` and the shared expert's ``w_down``, ``wx`` and ``wdt``,
+    ``wuq``) the policy splits over ``model`` is gathered over the data
+    axes only and keeps its ``model`` shard: those layers compute
+    tensor-parallel on this rank's heads, MLP columns, vocabulary rows,
+    experts (or expert width) and Mamba heads; Mamba's ``wb``/``wc`` and
+    MLA's ``wdq`` are gathered whole (``_WHOLE``).  Every other leaf is
+    gathered whole (groups whose heads, width, experts or vocabulary do
+    not divide), and its layer computes whole on every ``model`` rank.
   - **Gradients.**  Each leaf's gradient is ``Partial`` over the data axes
     (each data rank computed its own rows) and over ``model``: ``Shard``
     where a rank used only its own shard; ``Partial`` where each rank used
     part of a leaf replicated over ``model`` (``wk``/``wv``/``bk``/``bv``
     when the KV heads do not divide, ``q_norm``/``k_norm``, the MoE
-    router, Mamba's per-head vectors, norm, conv and ``wb``/``wc``, and a
+    router, Mamba's per-head vectors, norm, conv and ``wb``/``wc``, MLA's
+    front end ``wdq``/``q_norm``/``wdkv``/``wkr``/``kv_norm``, and a
     period's norms under ``seq_parallel``, which see this rank's
     positions);
     ``Replicate`` where every rank computed the same.  They return as
@@ -40,25 +41,30 @@ out_shardings=...)`` (``repro/launch/dryrun.py::build_step``), built on
     route the global token set, ``DataSplit``), so the data ranks' losses
     sum to the global batch's; a split MoE layer's ranks count its aux
     gradient 1/m each (``Group.once``), as they compute it alike.
-  - **Decode.**  An attention layer's cache stays at ``Policy.
-    cache_specs`` (the sequence over ``model``): each rank attends every
-    head over its own positions (``models/attention.py::_decode_split``)
-    and the cache is never gathered.  A split Mamba layer reads its own
-    heads of the state (``cache_specs`` splits it by heads) and the whole
-    conv window (stored whole, as the reference's specs place it; were it
-    split, it would be gathered each step and its shard written back: its
-    channels do not split by heads).  A layer
-    computed whole gathers its period's caches over ``model`` and writes
-    its shard back, as do the attention caches where the sequence does not
-    divide.  The prefill's caches come back at those placements.
+  - **Decode.**  An attention, MLA or cross-attention layer's cache
+    stays at ``Policy.cache_specs`` (the sequence over ``model``; the
+    prefix layers' too): each rank attends every head over its own
+    positions (``models/attention.py::_decode_split``, ``models/mla.py::
+    _decode_split``) and the cache is never gathered.  A split Mamba layer
+    reads its own heads of the state (``cache_specs`` splits it by heads)
+    and the whole conv window (stored whole, as the reference's specs
+    place it; were it split, it would be gathered each step and its shard
+    written back: its channels do not split by heads).  A layer computed
+    whole gathers its caches over ``model`` and writes its shard back, as
+    do the attention, MLA and cross caches where the sequence does not
+    divide (``_split_sequences``).  The prefill's caches come back at
+    those placements.
   - ``seq_parallel`` (training): between the periods the residual stream
     is split on the sequence over ``model``, so each period's checkpoint
     keeps 1/m of its input.
 
-With ``n_micro > 1`` the training step splits this rank's rows into
-microbatches (the reference splits the global batch): without MoE the
-accumulated gradient is the same sum, with MoE the aux terms follow the
-other partition.  On a (1, 1) mesh every step is bitwise the unsharded one.
+With ``n_micro > 1`` the training step of an MoE model gives microbatch
+i the global batch's rows [i B / n, (i + 1) B / n), as the reference
+splits it, each data rank its share (one all-gather of the batch's rows a
+step): the MoE capacities, drops and aux terms follow the reference's
+partition.  Without MoE each rank splits its own rows, which gives the same
+accumulated gradient.  On a (1, 1) mesh every step is bitwise the unsharded
+one.
 """
 
 from __future__ import annotations
@@ -189,11 +195,19 @@ class DataSplit:
 #: and its heads do not) too.
 _TP_KEY = {"attn": (("wq",),), "mlp": (("w_down",),), "embed": (("table",),),
            "moe": (("w_gate",), ("shared", "w_down")),
-           "mamba": (("wx",), ("wdt",))}
+           "mamba": (("wx",), ("wdt",)), "mla": (("wuq",),),
+           "cross": (("wq",),)}
 #: Leaves of a tensor-parallel group gathered whole over ``model`` though
 #: the policy splits them: Mamba's B and C projections (every head of a
-#: group reads them; the policy splits their state columns).
-_WHOLE = {("mamba", "wb"), ("mamba", "wc")}
+#: group reads them; the policy splits their state columns) and MLA's
+#: query down-projection (``q_norm`` normalizes its whole q_lora width).
+_WHOLE = {("mamba", "wb"), ("mamba", "wc"), ("mla", "wdq")}
+#: The groups whose split decode reads its cache's sequence split over
+#: ``model`` (``Policy.cache_specs``): (kind, cache key, head leaf, the
+#: cache's fields).
+_SEQ_CACHED = (("attn", "self", "wq", ("k", "v")),
+               ("mla", "self", "wuq", ("c_kv", "k_rope")),
+               ("cross", "cross", "wq", ("k", "v")))
 _NORMS = ("norm1", "norm2", "norm_cross")
 
 
@@ -319,6 +333,33 @@ def _local_params(params: Any) -> Any:
     return tree_unflatten(treedef, [d.to_local() for d in leaves])
 
 
+def _microbatches(lbatch: dict, n_micro: int, split: DataSplit,
+                  global_rows: bool) -> list[dict]:
+    """This rank's rows of each of ``n_micro`` microbatches.
+
+    ``global_rows``: microbatch i is the global batch's rows [i B / n,
+    (i + 1) B / n), as the reference splits the batch, each data rank
+    holding its share of them in rank order, so that an MoE layer, which
+    gathers the ranks' rows (``DataSplit.gather_rows``), routes the
+    reference's token set: one all-gather of the batch's rows a step.
+    Otherwise each rank splits its own rows; without MoE every microbatch
+    partition gives the same token-weighted gradient sum."""
+    if global_rows and split.n > 1:
+        b = next(iter(lbatch.values())).shape[0] * split.n
+        if b % (n_micro * split.n):
+            raise ValueError(f"n_micro={n_micro}: the global batch ({b}) "
+                             f"must divide over {n_micro} microbatches of "
+                             f"{split.n} data ranks")
+        whole = {k: split.as_dtensor(v).full_tensor()
+                 for k, v in lbatch.items()}
+        return [{k: v.reshape((n_micro, split.n, -1) + tuple(v.shape[1:]))[
+            i, split.index] for k, v in whole.items()}
+            for i in range(n_micro)]
+    return [{k: v.reshape((n_micro, v.shape[0] // n_micro)
+                          + tuple(v.shape[1:]))[i] for k, v in lbatch.items()}
+            for i in range(n_micro)]
+
+
 def make_sharded_train_step(model: Model, mesh,
                             opt_cfg: AdamWConfig | None = None,
                             n_micro: int = 1) -> Callable:
@@ -370,13 +411,9 @@ def make_sharded_train_step(model: Model, mesh,
             toks = torch.zeros((), dtype=torch.float32,
                                device=local[0].device)
             loss_sum = torch.zeros_like(toks)
-            micro = {k: v.reshape((n_micro, v.shape[0] // n_micro)
-                                  + tuple(v.shape[1:]))
-                     for k, v in lbatch.items()}
-            for i in range(n_micro):
-                loss, met, g = value_and_grad(
-                    state.params, local, {k: v[i] for k, v in micro.items()},
-                    split)
+            for mb in _microbatches(lbatch, n_micro, split,
+                                    model.cfg.moe is not None):
+                loss, met, g = value_and_grad(state.params, local, mb, split)
                 w = met["tokens"]
                 g_sum = [a + b.to(torch.float32) * w
                          for a, b in zip(g_sum, g, strict=True)]
@@ -478,9 +515,10 @@ def _cache_commit(local: torch.Tensor, full: torch.Tensor, placements,
 
 
 def _cache_names(path: tuple) -> tuple:
-    """A cache leaf's dict keys and dataclass field (``("pos0", "self",
-    "k")``)."""
-    return tuple(str(k) for kind, k in path if kind in ("key", "attr"))
+    """A cache leaf's dict keys, list indices (``i<n>``) and dataclass
+    field (``("pos0", "self", "k")``, ``("i0", "self", "c_kv")``)."""
+    return tuple(f"i{k}" if kind == "index" else str(k)
+                 for kind, k in path if kind in ("key", "attr", "index"))
 
 
 class ShardedCachePeriods:
@@ -513,22 +551,31 @@ class ShardedCachePeriods:
                 _cache_commit(x[t], full, pl, self._mesh)
 
 
-def _split_attention(params: Any, caches: Any, mesh) -> frozenset:
-    """K and V (``_cache_names``) of the attention layers a decode splits
-    over ``model``: those whose heads the policy splits and whose cache
-    splits the sequence."""
+def _split_sequences(params: Any, caches: Any, mesh
+                     ) -> tuple[frozenset, frozenset]:
+    """The caches (``_cache_names``; a prefix layer's under ``i<n>``) of
+    the attention, MLA and cross-attention layers a decode splits over
+    ``model``, those whose heads the policy splits and whose cache splits
+    the sequence, and their kinds (``_SEQ_CACHED``)."""
     mdim = _model_dim(mesh)
     if mesh.size(mdim) == 1:
-        return frozenset()
-    out = set()
-    for key, layer in caches["periods"].items():
-        attn = params["stack"]["periods"][key].get("attn")
-        if attn is None or "self" not in layer:
-            continue
-        if _on_model(attn["wq"].placements, mdim) and _on_model(
-                layer["self"].k.placements, mdim):
-            out |= {(key, "self", "k"), (key, "self", "v")}
-    return frozenset(out)
+        return frozenset(), frozenset()
+    layers = list(caches["periods"].items())
+    layers += [(f"i{i}", c) for i, c in enumerate(caches.get("prefix", ()))]
+    stack = params["stack"]
+    names, kinds = set(), set()
+    for key, layer in layers:
+        lp = (stack["periods"][key] if key in stack["periods"]
+              else stack["prefix"][int(key[1:])])
+        for kind, ckey, head, fields in _SEQ_CACHED:
+            if kind not in lp or ckey not in layer:
+                continue
+            seq = getattr(layer[ckey], fields[0]).placements
+            if _on_model(lp[kind][head].placements, mdim) and _on_model(
+                    seq, mdim):
+                names |= {(key, ckey, f) for f in fields}
+                kinds.add(kind)
+    return frozenset(names), frozenset(kinds)
 
 
 def _split_states(plan: _Plan, caches: Any) -> frozenset:
@@ -562,9 +609,10 @@ def make_sharded_decode_step(model: Model, mesh) -> Callable:
         split = DataSplit.of(inputs, mesh)
         if isinstance(pos, DTensor):
             pos = pos.to_local()
-        own = _split_attention(params, caches, mesh)
+        own, seq_kinds = _split_sequences(params, caches, mesh)
         plan = _Plan(params, mesh, split, tuple(
-            k for k in _TP_KEY if k != "attn" or own))
+            k for k in _TP_KEY
+            if k in seq_kinds or k not in {c[0] for c in _SEQ_CACHED}))
         own |= _split_states(plan, caches)
         with torch.no_grad():
             mparams = _model_params(params, _local_params(params), plan)
@@ -573,15 +621,18 @@ def make_sharded_decode_step(model: Model, mesh) -> Callable:
             prefix = caches.get("prefix")
             if prefix is not None:
                 p_leaves, p_def = tree_flatten(prefix)
-                views = [_cache_view(d.to_local(), d.placements, mesh)
-                         for d in p_leaves]
+                p_own = [_cache_names(p) in own for p in tree_paths(prefix)]
+                views = [d.to_local() if o else
+                         _cache_view(d.to_local(), d.placements, mesh)
+                         for d, o in zip(p_leaves, p_own, strict=True)]
                 mcaches["prefix"] = tree_unflatten(p_def, views)
             logits, _ = model.decode_step(mparams, mcaches,
                                           local_tree(inputs), pos,
                                           par=MeshParallel(mesh, split))
             if prefix is not None:
-                for d, full in zip(p_leaves, views, strict=True):
-                    _cache_commit(d.to_local(), full, d.placements, mesh)
+                for d, full, o in zip(p_leaves, views, p_own, strict=True):
+                    if not o:
+                        _cache_commit(d.to_local(), full, d.placements, mesh)
         return split.as_dtensor(logits), caches
 
     return decode_step

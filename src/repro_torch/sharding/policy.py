@@ -24,11 +24,10 @@ replicated.
 How the port computes under these specs (``sharding/apply.py``,
 ``sharding/tp.py``): the specs place the stored state; each step gathers a
 period's parameters at a time over the data axes, and the attention,
-dense-MLP, embedding, head, MoE (experts, or their ``ff`` width) and Mamba
-(heads) leaves keep their ``model`` shards and compute tensor-parallel on
-them, as the reference's GSPMD shards the compute along the same specs;
-MLA and cross-attention leaves are still gathered whole and computed on
-every ``model`` rank.
+dense-MLP, embedding, head, MoE (experts, or their ``ff`` width), Mamba,
+MLA and cross-attention (heads) leaves keep their ``model`` shards and
+compute tensor-parallel on them, as the reference's GSPMD shards the
+compute along the same specs.
 
 ``cache_specs`` names a leaf by its dict keys alone, as the reference's
 ``DictKey`` filter does, so a ``MambaCache``'s fields (``conv``,

@@ -17,11 +17,14 @@ functions run the collectives:
     uses on its own channels (Mamba's gated norm over ``d_inner``), and
     ``_Once`` (identity forward, the gradient over the ranks backward) for
     a value every rank computes alike from inputs whose gradients the
-    ranks sum (the MoE aux loss from the replicated router).  A layer
-    every rank computes whole (MLA, cross-attention, a head, expert or
-    width count that does not divide) takes ``_GatherSplit`` (all-gather
-    forward, this rank's slice backward) and ``_Split`` (its transpose)
-    under ``seq_parallel``, and no collective otherwise.  Each
+    ranks sum (the MoE aux loss from the replicated router).  The encoder
+    memory that split cross-attention projects enters through ``_Copy``
+    under ``seq_parallel`` too (``kv_in``: it is whole on every rank).  A
+    layer every rank computes whole (a head, expert or width count that
+    does not divide, or a decode whose cache does not split the sequence)
+    takes ``_GatherSplit`` (all-gather forward, this rank's slice
+    backward) and ``_Split`` (its transpose) under ``seq_parallel``, and
+    no collective otherwise.  Each
     is an autograd function over ``torch.distributed._functional_
     collectives`` with its backward written out; DTensor's redistributions
     stay in ``apply.py``'s per-leaf gathers.
@@ -191,6 +194,11 @@ class TPGroup(Group):
             return _GatherSeq.apply(x, 1, self.pg)
         return _Copy.apply(x, self.pg)
 
+    def kv_in(self, x):
+        # Whole on every rank, under ``seq_parallel`` too: only the
+        # gradient is summed.
+        return _Copy.apply(x, self.pg)
+
     def row_product(self, fn, a, w):
         # The partial sums in f32, reduced in f32 and rounded once by the
         # caller, as the whole product accumulates in f32 and rounds once:
@@ -274,9 +282,6 @@ class MeshParallel(Parallel):
     def split(self, n_local: int, n_global: int) -> Group:
         if self.size > 1 and n_local * self.size == n_global:
             return self._tp
-        return self._whole
-
-    def whole(self) -> Group:
         return self._whole
 
     def seq_split(self, x):

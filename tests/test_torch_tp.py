@@ -471,7 +471,7 @@ def test_single_is_the_identity():
     x = torch.randn(2, 3, 4)
     for fn in (SOLO.col_in, SOLO.row_out, SOLO.sum, SOLO.max,
                SINGLE.seq_split, SINGLE.seq_gather, SINGLE.moe_tokens,
-               SINGLE.moe_rows, SINGLE.whole().col_in):
+               SINGLE.moe_rows, SOLO.kv_in):
         assert fn(x) is x
     assert SINGLE.split(4, 4) is SOLO and SINGLE.in_periods() is SINGLE
     p = {"wq": x}
