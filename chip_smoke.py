@@ -42,7 +42,24 @@ Phases, each of which exits non-zero when it fails:
                is split into the engines' prefill, insert and step calls
                and the control plane around them.  The inputs K1 got on
                this path, one set per bucket, are kept and K1 is held
-               against its plain version on them afterwards,
+               against its plain version on them afterwards.  Every serve
+               phase runs the engines' compiled route (``DecodeEngine``'s
+               decode step and each prefill bucket captured as CUDA graphs
+               from their second call, ``serve/compiled.py``); phases 5,
+               14, 17 and 22 serve their requests once more through
+               ``compile_steps=False`` engines, the model loaded (after the
+               compiled route in 5 and 17, before it in 14 and 22): every
+               request's tokens and the launches equal (else fail); the
+               first three decode steps' logits (warm-up, capture +
+               replay, replay) against the eager route's, bitwise
+               expected; host ms a decode step (the mean, and the median
+               from each engine's fourth step on) and a prefill, tokens/s,
+               graphs captured, capture seconds and graph-pool bytes.
+               Phases 5 and 14 then prefill one prompt three times on one
+               engine (eager, capture + replay, replay): logits and caches
+               bitwise equal, K1 (K5) counted 3 x layers; phase 5 takes
+               each route's busy share from a profiled repeat of it (14
+               and 17 the compiled route's),
   6. matmul  — K3 (``matmul``) through ``kernels.matmul.ops.matmul`` against
                its plain version in f32 and bf16 at the shapes of the
                reference's kernel sweep and the paper path's (2, 1000, 1000),
@@ -734,6 +751,39 @@ def wall_split(cls, names):
             setattr(cls, n, saved[n])
 
 
+@contextlib.contextmanager
+def step_log(cls, stats: dict, keep: int = 3):
+    """While the block runs, the host logits of each engine's first
+    ``keep`` decode steps (``cls._decode_logits``: on the compiled route the
+    warm-up, the capture and its replay, a replay), by engine name, in
+    ``log["decode"]``, and the host seconds of every decode step from its
+    inputs to its logits on the host, in ``log["step_s"]``; ``stats``
+    (``serve.compiled.STATS``) set to 0 before the block and copied into
+    ``log["graphs"]`` after it."""
+    log = {"decode": {}, "step_s": {}, "graphs": {}}
+    saved = cls._decode_logits
+    for key in stats:
+        stats[key] = 0
+
+    @functools.wraps(saved)
+    def call(self, toks, pos):
+        t0 = time.perf_counter()
+        lg = saved(self, toks, pos)
+        log["step_s"].setdefault(self.name, []).append(
+            time.perf_counter() - t0)
+        seq = log["decode"].setdefault(self.name, [])
+        if len(seq) < keep:
+            seq.append(lg.copy())
+        return lg
+
+    cls._decode_logits = call
+    try:
+        yield log
+    finally:
+        cls._decode_logits = saved
+        log["graphs"] = dict(stats)
+
+
 def flash_bound_ms(bh: int, s: int, d: int, hkv_rows: int, itemsize: int,
                    dtype_name: str) -> tuple[float, str]:
     """Least time for causal prefill attention: q, k, v read once, out
@@ -1386,6 +1436,7 @@ def main() -> int:
     from repro_torch.kernels.prefill.ref import cache_cast_ref, prefill_ref
     from repro_torch.models import Model
     from repro_torch.serve import DecodeEngine, Request
+    from repro_torch.serve import compiled as compiled_steps
     from repro_torch.train import loop as train_loop
     from repro_torch.train import make_grain_grad_fn
     from repro_torch.tree import tree_leaves
@@ -1679,6 +1730,144 @@ def main() -> int:
             print(f"[{tag}] {name}: max abs err {e:.3e}", flush=True)
         return err
 
+    # The engine's two routes: compiled (the default: its decode step and
+    # prefill buckets captured as CUDA graphs, ``serve/compiled.py``) and
+    # eager (``compile_steps=False``).
+    fleet_spec = "fast=2.0^prefill,slow=1.0x4^decode"
+
+    def route_result(reqs, wall_s: float, spent: dict, log: dict,
+                     launches: dict) -> dict:
+        """One serve's figures: tokens by request, wall, host ms a decode
+        step and a prefill (``wall_split``), the first decode steps' logits
+        and the graph counts (``step_log``), the kernels' launches."""
+        n_tok = sum(len(r.out_tokens) for r in reqs)
+        (n_pre, pre_s), (n_step, step_s) = spent["prefill"], spent["step"]
+        # A decode step from its fourth on: on the compiled route a replay.
+        later = sorted(t for seq in log["step_s"].values() for t in seq[3:])
+        return {"tokens": [list(r.out_tokens) for r in reqs],
+                "wall_s": wall_s, "tokens_per_s": n_tok / wall_s,
+                "steps": n_step, "step_ms": 1e3 * step_s / max(n_step, 1),
+                "later_ms": 1e3 * later[len(later) // 2] if later else 0.0,
+                "prefill_ms": 1e3 * pre_s / max(n_pre, 1),
+                "decode": log["decode"], "graphs": log["graphs"],
+                "launches": dict(launches)}
+
+    def eager_job(job: ServeJob, model, params) -> ServeJob:
+        """``job`` on engines of the eager route."""
+        def make(spec):
+            return DecodeEngine(model, params, max_batch=spec.concurrency,
+                                max_seq=job.max_seq, name=spec.name,
+                                compile_steps=False)
+
+        return dataclasses.replace(job, model=None, params=None,
+                                   engine_factory=make)
+
+    def eager_serve(path: str, job: ServeJob, model, params) -> dict:
+        """``job``'s requests once more, the model already loaded, through
+        engines on the eager route; its launches counted as ``path``."""
+        j = eager_job(job, model, params)
+        torch.cuda.synchronize()
+        zero_counts()
+        with wall_split(DecodeEngine, ("prefill", "insert", "step")) as spent, \
+                step_log(DecodeEngine, compiled_steps.STATS) as log:
+            t0 = time.perf_counter()
+            Cluster(fleet_spec).serve(j)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        return route_result(j.requests, wall_s, spent, log, read_counts(path))
+
+    def compare_routes(tag: str, fast: dict, slow: dict) -> None:
+        """The compiled route against the eager route on one fleet serve:
+        every request's tokens equal (else fail), and the kernels' launches;
+        the decode logits' difference by step (bitwise expected), host ms a
+        decode step and a prefill, tokens/s, graphs captured, capture
+        seconds and graph-pool bytes printed."""
+        for rid, (a, b) in enumerate(zip(fast["tokens"], slow["tokens"],
+                                         strict=True)):
+            if a != b:
+                fail(f"{tag}: request {rid}'s tokens differ: compiled route "
+                     f"{a}, eager route {b}")
+        if fast["launches"] != slow["launches"]:
+            fail(f"{tag}: launches differ: compiled {fast['launches']}, "
+                 f"eager {slow['launches']}")
+        g = fast["graphs"]
+        if g["captures"] < 1 or slow["graphs"]["captures"]:
+            fail(f"{tag}: {g['captures']} graphs captured on the compiled "
+                 f"route, {slow['graphs']['captures']} on the eager route")
+        diffs: dict[int, float] = {}
+        for name, seq in fast["decode"].items():
+            for i, (a, b) in enumerate(zip(seq, slow["decode"].get(name, ()))):
+                diffs[i] = max(diffs.get(i, 0.0), float(np.abs(a - b).max()))
+        if len(diffs) < 3:
+            fail(f"{tag}: {len(diffs)} decode steps compared, expected 3")
+        worst = max(diffs.values())
+        print(f"[{tag}] {card}: compiled route against eager route: the "
+              f"tokens of all {len(fast['tokens'])} requests equal, launches "
+              f"equal {json.dumps({k: n for k, n in fast['launches'].items() if n})}"
+              f"; decode logits max abs diff (over the engines) at step 1 "
+              f"(the warm-up) {diffs[0]:.3e}, step 2 (capture + replay) "
+              f"{diffs[1]:.3e}, step 3 (replay) {diffs[2]:.3e}: "
+              f"{'bitwise equal' if worst == 0 else 'NOT bitwise equal'}; "
+              f"host ms a decode step {fast['step_ms']:.3f} compiled, "
+              f"{slow['step_ms']:.3f} eager ({fast['steps']} / "
+              f"{slow['steps']} steps; the median of the steps from each "
+              f"engine's fourth on, inputs to logits on the host: "
+              f"{fast['later_ms']:.3f} / {slow['later_ms']:.3f}); host ms "
+              f"a prefill "
+              f"{fast['prefill_ms']:.3f} / {slow['prefill_ms']:.3f}; "
+              f"tokens/s {fast['tokens_per_s']:.2f} compiled, "
+              f"{slow['tokens_per_s']:.2f} eager ({fast['wall_s']:.3f} / "
+              f"{slow['wall_s']:.3f} s); graphs captured {g['captures']}, "
+              f"replays {g['replays']}, capture {g['capture_s']:.3f} s, "
+              f"graph pools {g['pool_bytes']} bytes", flush=True)
+
+    def prefill_thrice(tag: str, path: str, model, params, prompt,
+                       key: str, per_prefill: int) -> None:
+        """One engine prefills ``prompt`` three times (eager warm-up,
+        capture + replay, replay): logits, first tokens and caches bitwise
+        equal across the three, and ``key``'s kernel counted
+        ``per_prefill`` times each."""
+        engine = DecodeEngine(model, params, max_batch=1, max_seq=1024,
+                              name=f"{tag}-prefill")
+        seen, saved = [], engine._prefill_logits
+
+        def prefill_logits(toks, last_pos):
+            lg, caches = saved(toks, last_pos)
+            seen.append(lg.copy())
+            return lg, caches
+
+        engine._prefill_logits = prefill_logits
+        handoffs, secs = [], []
+        torch.cuda.synchronize()
+        zero_counts()
+        for i in range(3):
+            t0 = time.perf_counter()
+            handoffs.append(engine.prefill(Request(
+                rid=i, prompt=list(prompt), max_new_tokens=2)))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        n = read_counts(path)[key]
+        bucket = handoffs[0].bucket
+        if engine._prefills[bucket].graph is None:
+            fail(f"{tag}: the bucket-{bucket} prefill was not captured")
+        if n != 3 * per_prefill:
+            fail(f"{tag}: {key} launched {n} times over three prefills, "
+                 f"expected {3 * per_prefill}")
+        leaves = [tree_leaves(h.caches) for h in handoffs]
+        if not all(np.array_equal(seen[0], lg) for lg in seen[1:]) or \
+                len({h.first_token for h in handoffs}) != 1:
+            fail(f"{tag}: the three prefills' logits differ")
+        if not all(torch.equal(a, b) for other in leaves[1:]
+                   for a, b in zip(leaves[0], other, strict=True)):
+            fail(f"{tag}: the three prefills' caches differ")
+        print(f"[{tag}] {card}: one prompt of {len(prompt)} tokens prefilled "
+              f"three times by one engine (bucket {bucket}: eager warm-up, "
+              f"capture + replay, replay): logits and {len(leaves[0])} cache "
+              f"leaves bitwise equal, first token {handoffs[0].first_token}; "
+              f"{key} launched {n} times ({per_prefill} a prefill); host ms "
+              f"{', '.join(f'{1e3 * s:.3f}' for s in secs)}", flush=True)
+        del handoffs, leaves, engine
+
     # ------------------------------------------------ 4. model (main path)
     zero_counts()
     cfg32 = get_config("qwen2-1.5b", param_dtype="float32",
@@ -1729,17 +1918,20 @@ def main() -> int:
                 max_new_tokens=16)
         for i, n in enumerate(lengths)
     ]
-    cluster = Cluster("fast=2.0^prefill,slow=1.0x4^decode")
+    cluster = Cluster(fleet_spec)
     torch.cuda.synchronize()
     zero_counts()
     with wall_split(DecodeEngine, ("prefill", "insert", "step")) as spent, \
-            keep_inputs(ops, "_prefill_call") as seen:
+            keep_inputs(ops, "_prefill_call") as seen, \
+            step_log(DecodeEngine, compiled_steps.STATS) as log:
         t0 = time.perf_counter()
         rep = cluster.serve(ServeJob(requests, model=model, params=params,
                                      max_seq=1024))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    k1_serve = read_counts("serve")["prefill_flash"]
+    counts = read_counts("serve")
+    k1_serve = counts["prefill_flash"]
+    fast = route_result(requests, wall_s, spent, log, counts)
     m = rep.metrics
     for r in requests:
         if not r.done or len(r.out_tokens) != 16:
@@ -1768,6 +1960,29 @@ def main() -> int:
     if buckets != [16, 32, 64, 128, 256, 512]:
         fail(f"serve: K1 saw buckets {buckets}, expected 16 .. 512")
     k1_err = max(k1_err, k1_on_seen("serve", seen))
+    del seen
+
+    # The compiled route against the eager one, the model loaded (compiled
+    # first here; the order alternates over the phases), then one prompt
+    # prefilled three times, and the compiled route's busy share.
+    def serve_job() -> ServeJob:
+        return ServeJob([Request(rid=r.rid, prompt=list(r.prompt),
+                                 max_new_tokens=16) for r in requests],
+                        model=model, params=params, max_seq=1024)
+
+    slow = eager_serve("serve_eager", serve_job(), model, params)
+    compare_routes("serve", fast, slow)
+    prefill_thrice("serve", "serve_prefill3", model, params,
+                   requests[3].prompt, "prefill_flash", N_LAYERS)
+    # Each route's busy share, from a profiled repeat of each.
+    print_busy(card, "8 requests x 16 tokens, compiled route", *card_busy(
+        torch, lambda: Cluster(fleet_spec).serve(serve_job()),
+        kernels=("prefill_flash",), top=6), wall_s, tag="serve",
+        kernel="K1")
+    print_busy(card, "8 requests x 16 tokens, eager route", *card_busy(
+        torch, lambda: Cluster(fleet_spec).serve(eager_job(
+            serve_job(), model, params)), kernels=("prefill_flash",)),
+        slow["wall_s"], tag="serve", kernel="K1")
 
     # ------------------------------------------------------------ 6. matmul
     def unit_rand(shape, k, dtype=torch.float32):
@@ -2715,17 +2930,21 @@ def main() -> int:
                          for i, p in enumerate(prompts)],
                         model=model, params=params, max_seq=1024)
 
-    fleet_spec = "fast=2.0^prefill,slow=1.0x4^decode"
+    # The eager route first here (the order alternates over the phases).
+    slow = eager_serve("mamba_serve_eager", mamba_job(), model, params)
     job = mamba_job()
     torch.cuda.synchronize()
     zero_counts()
     with wall_split(DecodeEngine, ("prefill", "insert", "step")) as spent, \
-            keep_inputs(mamba_ops, "_ssd_kernel_call") as seen:
+            keep_inputs(mamba_ops, "_ssd_kernel_call") as seen, \
+            step_log(DecodeEngine, compiled_steps.STATS) as log:
         t0 = time.perf_counter()
         rep = Cluster(fleet_spec).serve(job)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    k5_serve = read_counts("mamba_serve")["ssd_scan"]
+    counts = read_counts("mamba_serve")
+    k5_serve = counts["ssd_scan"]
+    fast = route_result(job.requests, wall_s, spent, log, counts)
     m = rep.metrics
     for r in job.requests:
         if not r.done or len(r.out_tokens) != 16:
@@ -2757,7 +2976,10 @@ def main() -> int:
     if buckets != [16, 32, 64, 128, 256, 512]:
         fail(f"mamba serve: K5 saw buckets {buckets}, expected 16 .. 512")
     k5_err = max(k5_err, k5_on_seen("mamba-serve", seen))
-    del seen, rep, job
+    compare_routes("mamba-serve", fast, slow)
+    prefill_thrice("mamba-serve", "mamba_serve_prefill3", model, params,
+                   prompts[3], "ssd_scan", n_mamba)
+    del seen, rep, job, fast, slow
     gc.collect()
     torch.cuda.empty_cache()
     print_busy(card, "8 requests x 16 tokens", *card_busy(
@@ -2804,12 +3026,16 @@ def main() -> int:
     def n_mixers(cfg, mixer: str) -> int:
         return sum(s.mixer == mixer for s in cfg.layer_pattern) * cfg.n_periods
 
-    def serve_fleet(tag: str, path: str, cfg, model, params):
+    def serve_fleet(tag: str, path: str, cfg, model, params,
+                    eager: str = ""):
         """Phase 5's fleet, prompt lengths and token budget on ``model``
         (prompts drawn from its vocabulary): every request completes with
         16 in-vocab tokens, 8 handoffs, K1 once per attention layer per
         prefill; the host wall split; K1 against its plain version on the
-        inputs the path gave it.  Returns (job factory, wall s, K1 err)."""
+        inputs the path gave it.  ``eager`` "before" or "after": the
+        requests also through the eager route, before or after the
+        compiled one, the two held equal (``compare_routes``).  Returns
+        (job factory, wall s, K1 err)."""
         prng = np.random.default_rng(SEED)
         prompts = [[int(t) for t in prng.integers(0, cfg.vocab_size, n)]
                    for n in lengths]
@@ -2819,16 +3045,20 @@ def main() -> int:
                              for i, p in enumerate(prompts)],
                             model=model, params=params, max_seq=1024)
 
+        if eager == "before":
+            slow = eager_serve(f"{path}_eager", job(), model, params)
         j = job()
         torch.cuda.synchronize()
         zero_counts()
         with wall_split(DecodeEngine, ("prefill", "insert", "step")) as spent, \
-                keep_inputs(ops, "_prefill_call") as seen:
+                keep_inputs(ops, "_prefill_call") as seen, \
+                step_log(DecodeEngine, compiled_steps.STATS) as log:
             t0 = time.perf_counter()
             rep = Cluster(fleet_spec).serve(j)
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
-        k1 = read_counts(path)["prefill_flash"]
+        counts = read_counts(path)
+        k1 = counts["prefill_flash"]
         m = rep.metrics
         for r in j.requests:
             if not r.done or len(r.out_tokens) != 16:
@@ -2856,6 +3086,11 @@ def main() -> int:
             + f", the rest (control plane) {wall_s - engine_s:.3f} s",
             flush=True)
         err = k1_on_seen(tag, seen)
+        if eager:
+            fast = route_result(j.requests, wall_s, spent, log, counts)
+            if eager == "after":
+                slow = eager_serve(f"{path}_eager", job(), model, params)
+            compare_routes(tag, fast, slow)
         return job, wall_s, err
 
     def engine_run(tag: str, path: str, cfg, model, params):
@@ -2983,7 +3218,7 @@ def main() -> int:
             torch.float32:
         fail("moe serve: the router must stay f32 under bf16 params")
     moe_job, moe_wall, err = serve_fleet("moe-serve", "moe_serve", cfgq, model,
-                                         params)
+                                         params, eager="after")
     k1_err = max(k1_err, err)
     gc.collect()
     print_busy(card, "8 requests x 16 tokens", *card_busy(
@@ -3142,13 +3377,15 @@ def main() -> int:
     engine_mod._put = counting_put
     try:
         serve_fleet("deepseek-cut", "deepseek_cut", cfgd,
-                    model, params)
+                    model, params, eager="before")
     finally:
         engine_mod._put = saved_put
-    launched = {key: n for key, n in by_path["deepseek_cut"].items() if n}
+    launched = {key: n for path in ("deepseek_cut", "deepseek_cut_eager")
+                for key, n in by_path[path].items() if n}
     if launched:
         fail(f"deepseek cut: kernels launched on an MLA path: {launched}")
-    want_puts = len(lengths) * (1 + len(cfgd.layer_pattern))
+    # Two serves wrote handoffs: the eager route's and the compiled one's.
+    want_puts = 2 * len(lengths) * (1 + len(cfgd.layer_pattern))
     if puts != ["MLACache"] * want_puts:
         fail(f"deepseek cut: handoff cache writes {puts}, expected "
              f"{want_puts} MLACache writes")
@@ -3214,7 +3451,8 @@ def main() -> int:
         fail(f"deepseek f32: greedy tokens differ ({tok_a} vs {tok_d})")
     print(f"[deepseek-cut] {card}: no kernel runs on this path (MLA is plain "
           f"einsums, as in the reference); {len(puts)} MLACache handoff "
-          f"writes ({len(lengths)} handoffs x {1 + len(cfgd.layer_pattern)}: "
+          f"writes (2 serves x {len(lengths)} handoffs x "
+          f"{1 + len(cfgd.layer_pattern)}: "
           f"the prefix layer and the stacked periods); handoff {mla_bytes} "
           f"bytes a token a layer ({latent[0]} + {latent[1]} {latent[2]} "
           f"values) against {gqa_bytes} for a GQA cache of "

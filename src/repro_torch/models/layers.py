@@ -11,6 +11,7 @@ Port of ``repro/models/layers.py``.  Conventions kept from the reference:
 from __future__ import annotations
 
 import torch
+from torch._guards import detect_fake_mode
 
 from .config import ModelConfig
 
@@ -93,11 +94,30 @@ def gated_rms_norm(x: torch.Tensor, gate: torch.Tensor, weight: torch.Tensor,
 
 
 # ------------------------------------------------------------------------- RoPE
+#: ``rope_freqs`` on CUDA by (head_dim, theta, device): built once, outside
+#: the engine's captured steps, whose replays then launch nothing for them.
+_FREQS: dict[tuple, torch.Tensor] = {}
+
+
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                        device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    """1 / theta^(2i / head_dim), (head_dim / 2,) f32.  ``theta`` enters by
+    ``torch.full`` on ``device``, a fill, where ``torch.tensor(theta)``
+    would copy from host memory (forbidden while a CUDA graph is captured),
+    with the same bits.  On CUDA (real tensors) they are computed once per
+    (head_dim, theta, device) and kept; elsewhere anew on every call, so a
+    CPU step holds no tensor the dry run's step on fake tensors does
+    not."""
+    device = torch.device(device)
+    key = (head_dim, float(theta), device)
+    freqs = _FREQS.get(key)
+    if freqs is None:
+        exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+        base = torch.full((), theta, dtype=torch.float32, device=device)
+        freqs = 1.0 / torch.pow(base, exps)
+        if device.type == "cuda" and detect_fake_mode() is None:
+            _FREQS[key] = freqs
+    return freqs
 
 
 def apply_rope(

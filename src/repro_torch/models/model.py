@@ -180,15 +180,20 @@ class Model:
         ``last_pos`` selects which position's logits to return (default: the
         final one).  Bucketed prefill pads prompts to a fixed length on the
         right; causality keeps every valid position's activations exact, so
-        the true last-token logits live at ``last_pos = L - 1``, not -1.  The
-        MoE capacities count the pad tokens too, which rank after the real
-        ones, as in the reference.  An enc-dec model encodes
-        ``batch["src_embeds"]`` first and returns each decoder layer's
-        cross K/V in its caches."""
+        the true last-token logits live at ``last_pos = L - 1``, not -1.
+        ``last_pos`` may be an int or a 0-d integer tensor on the model's
+        device, gathered there without reading it on the host, as the
+        reference's compiled prefill takes a traced ``last_pos`` (a
+        captured step may not sync the host).  The MoE capacities count
+        the pad tokens too, which rank after the real ones, as in the
+        reference.  An enc-dec model encodes ``batch["src_embeds"]`` first
+        and returns each decoder layer's cross K/V in its caches."""
         cfg = self.cfg
         x, caches, _ = self._stack(params, batch, "prefill", capacities, par)
         if last_pos is None:
             x = x[:, -1:]
+        elif isinstance(last_pos, torch.Tensor):
+            x = x.index_select(1, last_pos.reshape(1))
         else:
             x = x[:, int(last_pos):int(last_pos) + 1]
         x = apply_norm(cfg, params["final_norm"], x)

@@ -108,6 +108,14 @@ def _route(p: dict, m, xt: torch.Tensor):
     return probs, gate_vals * m.routed_scaling, experts
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` as its CUDA route computes it, a scatter into
+    zeros: on the CPU ``one_hot`` first reads the indices' range on the
+    host, a sync that a captured engine step may not make."""
+    return torch.zeros(idx.shape + (n,), dtype=torch.int64,
+                       device=idx.device).scatter_(-1, idx[..., None], 1)
+
+
 def _expert_mlp(x: torch.Tensor, w_gate, w_up, w_down,
                 group: Group | None = None) -> torch.Tensor:
     """SwiGLU experts; ``group`` forms ``w_down``'s row-parallel product
@@ -160,7 +168,7 @@ def apply_moe(
 
     # Load-balancing aux loss (Switch): E * sum_e f_e * p_e.
     me = probs.mean(dim=0)
-    fe = F.one_hot(experts[:, 0], e).float().mean(dim=0)
+    fe = _one_hot(experts[:, 0], e).float().mean(dim=0)
     aux = e * torch.sum(fe * me) * m.router_aux_coef
 
     if capacities is None:
@@ -176,7 +184,7 @@ def apply_moe(
 
     # Rank of each (token, k) assignment within its expert (order: token id).
     flat_experts = experts.reshape(-1)                            # (T*K,)
-    eo = F.one_hot(flat_experts, e)
+    eo = _one_hot(flat_experts, e)
     ranks = torch.cumsum(eo, dim=0) - eo
     rank_in_expert = ranks.gather(1, flat_experts[:, None]).reshape(t, k)
     keep = (rank_in_expert < capacities[experts]) & (rank_in_expert < cap_max)

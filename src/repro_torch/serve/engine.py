@@ -1,8 +1,16 @@
 """Continuous-batching decode engine (single replica).
 
-Port of ``repro/serve/engine.py``; PyTorch runs eagerly, so the reference's
-per-engine ``jax.jit`` (one compiled decode shape, one per prefill bucket)
-has no counterpart here: the same shapes run as they are.
+Port of ``repro/serve/engine.py``.  The reference's per-engine ``jax.jit``
+(one compiled decode step, the cache donated; one compiled prefill per
+length bucket) becomes ``serve/compiled.py``'s ``CompiledStep``: on CUDA
+each step is captured as a CUDA graph on its second call and replayed from
+then on, the hand-written kernels inside it (``self._decode``, and
+``self._prefills[bucket]``, sharing one graph memory pool).  The caches are
+written in place, the port's donation, so a decode returns the very cache
+objects it was given.  ``compile_steps=False`` keeps the eager route,
+which dispatches every op from Python; the tests and ``chip_smoke.py``
+hold the two routes' tokens and logits equal, bit for bit.  On the CPU the
+compiled route runs its steps eagerly over the same static buffers.
 
 A fixed pool of ``max_batch`` slots shares one batched decode_step
 with a *per-slot position vector* — slots advance independently, so finished
@@ -27,6 +35,7 @@ The engine reports throughput heartbeats which the homogenized dispatcher
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -37,6 +46,8 @@ from ..kernels.prefill.ops import length_bucket
 from ..models.attention import KVCache
 from ..models.mla import MLACache
 from ..models.model import Model
+from ..tree import tree_map
+from .compiled import CompiledStep, new_pool
 
 
 @dataclasses.dataclass
@@ -98,11 +109,30 @@ def _put(full, part, batch_axis: int, idx: int) -> None:
         f[tuple(sl)] = p.to(f.dtype)
 
 
+def _decode_step(model: Model, params, caches: dict, toks: torch.Tensor,
+                 pos: torch.Tensor) -> torch.Tensor:
+    """The engine's decode step: (B, 1, V) logits; the caches written in
+    place, never replaced (the port's donation)."""
+    with torch.no_grad():
+        logits, out = model.decode_step(params, caches, toks, pos)
+    if out is not caches:
+        raise RuntimeError("the decode step returned other caches than it "
+                           "was given")
+    return logits
+
+
+def _prefill_step(model: Model, params, toks: torch.Tensor, last_pos):
+    """The engine's bucketed prefill: (last-token logits, caches)."""
+    with torch.no_grad():
+        return model.prefill(params, {"tokens": toks}, last_pos=last_pos)
+
+
 class DecodeEngine:
     def __init__(
         self, model: Model, params, max_batch: int = 4, max_seq: int = 128,
         eos_id: int | None = None, greedy: bool = True, seed: int = 0,
         name: str = "engine0", device: str | torch.device | None = None,
+        compile_steps: bool = True,
     ):
         if model.cfg.input_mode == "embeds" and not model.cfg.is_enc_dec:
             raise ValueError("DecodeEngine drives token-input models")
@@ -112,6 +142,9 @@ class DecodeEngine:
         if self.device != model.device:
             raise ValueError(f"engine on {self.device}, model on {model.device}")
         self.model = model
+        self.compile_steps = compile_steps
+        self._pool = None        # the compiled steps' graph memory pool
+        self._stream = None      # and their side stream (CUDA)
         self.params = params
         self.name = name
         self.max_batch = max_batch
@@ -129,6 +162,80 @@ class DecodeEngine:
         self._hb_steps = 0
         self._hb_tokens = 0
         self._hb_fed = 0
+
+    # -------------------------------------------------------- compiled steps
+    @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, params) -> None:
+        """New parameters drop the compiled steps: a graph keeps the
+        addresses of the parameters it was captured with, where the
+        reference's jitted steps take ``params`` on every call."""
+        self._params = params
+        self._decode: CompiledStep | None = None
+        self._prefills: dict[int, CompiledStep] = {}
+
+    @property
+    def caches(self) -> dict:
+        return self._caches
+
+    @caches.setter
+    def caches(self, caches: dict) -> None:
+        """New caches drop the compiled decode step, which keeps the
+        addresses of the caches it was captured with."""
+        self._caches = caches
+        self._decode = None
+
+    def _compiled(self, name: str, fn, *bound) -> CompiledStep:
+        """``fn(self.model, *bound, *inputs)`` compiled: ``bound`` (the
+        parameters, the caches) is fixed at compile time, as a graph fixes
+        addresses, on the CPU too.  The step holds no reference to the
+        engine, so dropping the engine frees its graphs at once."""
+        if self._pool is None:
+            self._pool = new_pool(self.device)
+            if self.device.type == "cuda":
+                self._stream = torch.cuda.Stream(self.device)
+        return CompiledStep(f"{self.name}.{name}",
+                            functools.partial(fn, self.model, *bound),
+                            self.device, pool=self._pool, stream=self._stream)
+
+    def _decode_logits(self, toks: np.ndarray, pos: np.ndarray) -> np.ndarray:
+        """One decode step over (B, 1) tokens at (B,) positions: the
+        (B, V) logits on the host."""
+        toks, pos = torch.from_numpy(toks), torch.from_numpy(pos)
+        if not self.compile_steps:
+            logits = _decode_step(self.model, self._params, self._caches,
+                                  toks.to(self.device), pos.to(self.device))
+        else:
+            if self._decode is None:
+                self._decode = self._compiled("decode", _decode_step,
+                                              self._params, self._caches)
+            logits = self._decode(toks, pos)
+        return logits[:, 0].float().cpu().numpy()
+
+    def _prefill_logits(self, toks: np.ndarray, last_pos: int):
+        """One bucket's prefill of (1, bucket) tokens: the logits at
+        ``last_pos`` (V,) on the host, and the batch-1 caches.  A compiled
+        prefill's caches are its graph's outputs, which the bucket's next
+        replay overwrites: the handoff gets a copy of its own (a
+        disaggregated fleet queues handoffs before it inserts them)."""
+        if not self.compile_steps:
+            logits, caches = _prefill_step(
+                self.model, self._params,
+                torch.from_numpy(toks).to(self.device), last_pos)
+        else:
+            bucket = toks.shape[1]
+            step = self._prefills.get(bucket)
+            if step is None:
+                step = self._prefills[bucket] = self._compiled(
+                    f"prefill[{bucket}]", _prefill_step, self._params)
+            logits, caches = step(torch.from_numpy(toks),
+                                  torch.tensor(last_pos))
+            caches = tree_map(torch.clone, caches)
+        lg = logits[0, 0, : self.model.cfg.vocab_size].float().cpu().numpy()
+        return lg, caches
 
     # ----------------------------------------------------------------- admin
     def submit(self, req: Request) -> None:
@@ -194,12 +301,7 @@ class DecodeEngine:
         bucket = length_bucket(L, self.max_seq)
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :L] = req.prompt
-        with torch.no_grad():
-            logits, caches = self.model.prefill(
-                self.params, {"tokens": torch.as_tensor(toks, device=self.device)},
-                last_pos=L - 1,
-            )
-        lg = logits[0, 0, : self.model.cfg.vocab_size].float().cpu().numpy()
+        lg, caches = self._prefill_logits(toks, L - 1)
         first = (
             int(lg.argmax()) if self.greedy
             else int(self.rng.choice(self.model.cfg.vocab_size))
@@ -277,15 +379,9 @@ class DecodeEngine:
                 toks[i, 0] = r.prompt[slot.fed]
             else:
                 toks[i, 0] = r.out_tokens[-1]
-        with torch.no_grad():
-            logits, self.caches = self.model.decode_step(
-                self.params, self.caches,
-                torch.as_tensor(toks, device=self.device),
-                torch.as_tensor(pos, device=self.device),
-            )
+        lg = self._decode_logits(toks, pos)
         self.steps += 1
         finished = []
-        lg = logits[:, 0].float().cpu().numpy()
         for i, slot in enumerate(self.slots):
             r = slot.req
             if r is None:

@@ -1174,3 +1174,157 @@ def test_mla_handoff_through_put_on_the_card(dev):
     dec.run_until_drained()
     assert (dict(pf.LAUNCHES), dict(fa.LAUNCHES)) == before
     assert [r.out_tokens for r in a] == [r.out_tokens for r in b]
+
+
+# ------------------------------------------------- the engine's compiled steps
+def _logged(engine) -> list:
+    """The engine's host logits, every decode step and prefill in call
+    order."""
+    seen = []
+    decode, prefill = engine._decode_logits, engine._prefill_logits
+
+    def dec(toks, pos):
+        lg = decode(toks, pos)
+        seen.append(lg.copy())
+        return lg
+
+    def pre(toks, last_pos):
+        lg, caches = prefill(toks, last_pos)
+        seen.append(lg.copy())
+        return lg, caches
+
+    engine._decode_logits, engine._prefill_logits = dec, pre
+    return seen
+
+
+def _serve_both(engine, prompts, new: int = 5) -> list[list[int]]:
+    """The prompts through prefill + insert (two at a time), then again
+    through ``submit``."""
+    from repro_torch.serve import Request
+
+    out = []
+    reqs = [Request(i, list(p), new) for i, p in enumerate(prompts)]
+    for i in range(0, len(reqs), engine.max_batch):
+        handoffs = [engine.prefill(r) for r in reqs[i:i + engine.max_batch]]
+        for h in handoffs:
+            engine.insert(h)
+        engine.run_until_drained()
+    out += [r.out_tokens for r in reqs]
+    reqs = [Request(i, list(p), new) for i, p in enumerate(prompts)]
+    for r in reqs:
+        engine.submit(r)
+    engine.run_until_drained()
+    return out + [r.out_tokens for r in reqs]
+
+
+def test_rope_freqs_keep_their_bits_on_the_card(dev):
+    """The frequencies built once on the card (and kept: the same tensor
+    again) are the bits of the expression the model computed on every
+    call."""
+    from repro_torch.models.layers import rope_freqs
+
+    for d in (64, 128, 192):
+        for theta in (1e4, 1e6, 10000.1):
+            exps = torch.arange(0, d, 2, dtype=torch.float32, device=dev) / d
+            old = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                               device=dev), exps)
+            new = rope_freqs(d, theta, dev)
+            assert torch.equal(new, old)
+            assert rope_freqs(d, theta, torch.device(dev)) is new
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-2.7b",
+                                  "jamba-v0.1-52b", "qwen2-moe-a2.7b"])
+def test_compiled_engine_is_the_eager_engine_bit_for_bit(dev, arch):
+    """The reduced config on the card, f32: the engine's captured decode
+    step and prefills (three prompts of bucket 16: warm-up, capture +
+    replay, replay; one of bucket 32: warm-up) give the eager route's
+    logits bit for bit and its tokens, and count the kernels' launches of
+    every replay: K1 once an attention layer and K5 once a mamba layer a
+    prefill, as the eager route counts them."""
+    from repro_torch.serve import DecodeEngine, compiled
+
+    cfg = dataclasses.replace(get_config(arch, reduced=True), use_pallas=None)
+    model = Model(cfg)
+    params = model.init(0)
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+               for n in (5, 11, 7, 20)]
+    runs = {}
+    for flag in (True, False):
+        engine = DecodeEngine(model, params, max_batch=2, max_seq=64,
+                              compile_steps=flag)
+        seen = _logged(engine)
+        before = pf.LAUNCHES["prefill_flash"], k5.LAUNCHES["ssd_scan"]
+        captures = compiled.STATS["captures"]
+        tokens = _serve_both(engine, prompts)
+        torch.cuda.synchronize()
+        launched = (pf.LAUNCHES["prefill_flash"] - before[0],
+                    k5.LAUNCHES["ssd_scan"] - before[1])
+        runs[flag] = (tokens, seen, launched,
+                      compiled.STATS["captures"] - captures, engine)
+    fast, slow = runs[True], runs[False]
+    assert fast[0] == slow[0]
+    assert len(fast[1]) == len(slow[1]) > 20
+    for a, b in zip(fast[1], slow[1]):
+        assert np.array_equal(a, b)
+    n_attn = sum(s.mixer == "attn" for s in cfg.layer_pattern) * cfg.n_periods
+    n_mamba = sum(s.mixer == "mamba" for s in cfg.layer_pattern) \
+        * cfg.n_periods
+    assert fast[2] == slow[2] == (4 * n_attn, 4 * n_mamba)
+    engine = fast[4]
+    assert fast[3] == 2                 # the decode step and bucket 16
+    assert engine._decode.graph is not None
+    assert engine._prefills[16].graph is not None
+    assert engine._prefills[32].graph is None
+
+
+def test_failed_capture_raises_instead_of_running_eagerly(dev):
+    """A step that syncs the host runs as its eager warm-up, then its
+    capture fails: the call raises with the step's name and CUDA's error,
+    runs nothing eagerly, and so does the next call."""
+    from repro_torch.serve import compiled
+
+    ran = []
+
+    def fn(x):
+        ran.append(1)
+        return x * float(x.sum().item())
+
+    step = compiled.CompiledStep("sync-step", fn, dev)
+    x = torch.arange(4.0, device=dev)
+    assert torch.equal(step(x), x * 6.0)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="capture of sync-step failed"):
+            step(x)
+        assert step.graph is None
+    assert len(ran) == 3                # the warm-up and two captures
+    assert torch.cuda.current_stream(dev) == torch.cuda.default_stream(dev)
+    # The card goes on: a kernel wrapper (which reads CUDA's last error)
+    # launches, and plain ops run.
+    k = _rand((2, 64, 128), torch.float32, dev)
+    kc, vc = pf.cache_cast(k, k, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(kc, k.to(torch.bfloat16)) and torch.equal(kc, vc)
+
+
+def test_capture_runs_without_cyclic_gc(dev):
+    """A cyclic collection during a capture can free a dropped engine's
+    graph, which CUDA forbids while a stream captures (it invalidated a
+    later capture on the card): the capture runs with the collector off,
+    and turns it back on."""
+    import gc
+
+    from repro_torch.serve import compiled
+
+    seen = []
+
+    def fn(x):
+        seen.append(gc.isenabled())
+        return x * 2
+
+    step = compiled.CompiledStep("gc-step", fn, dev)
+    x = torch.ones(4, device=dev)
+    for _ in range(3):
+        assert torch.equal(step(x), x * 2)
+    assert seen == [True, False] and gc.isenabled()
