@@ -122,20 +122,29 @@ Phases, each of which exits non-zero when it fails:
                and backward against the plain version and autograd at
                GRAD_TOL, timed beside the plain version, SDPA and the bound,
  11. train   — full-width Qwen2-1.5B training at seq 1024: one f32 grain's
-               loss and gradients on the kernel path against
-               ``use_pallas=False`` (loss rtol 1e-4, each gradient leaf
-               within relative Frobenius error 1e-3); the launcher's HDP flow
-               in bf16, ``Cluster("4:3:2:1").train`` for 3 steps of 8 grains
-               under ``halve:pod0@1:25%`` (losses finite; shares, migrations,
-               sim-clock step times; the host wall split into grain
-               gradients, combine, AdamW and control plane; peak memory; the
+               loss and gradients on the kernel path, compiled (the first
+               call eager, the second captured as a CUDA graph and
+               replayed, the third replayed: the three bitwise equal),
+               against ``use_pallas=False`` (loss rtol 1e-4, each gradient
+               leaf within relative Frobenius error 1e-3); the launcher's
+               HDP flow in bf16, ``Cluster("4:3:2:1").train`` for 3 steps of
+               8 grains under ``halve:pod0@1:25%`` on the compiled route
+               (the grain gradient and the AdamW update captured and
+               replayed), then again on the eager route
+               (``compile_steps=False``): losses and every parameter leaf
+               (a SHA-256 per leaf) equal on both routes; per route losses
+               finite, shares, migrations, sim-clock step times, the host
+               wall split into grain gradients, combine, AdamW and control
+               plane, host ms of each warm-up, capture and replay, graphs
+               captured, capture seconds and pool bytes, peak memory, the
                card's busy share and its 12 costliest kernels in a profiled
-               repeat of one step); the same
-               2 steps static and adaptive with bitwise-equal parameters (a
-               SHA-256 per leaf); 2 steps on the wall-clock backend.  K4's
-               launches equal the prediction in every run: per grain, 2 x 28
-               forwards (forward and remat recompute) and 28 of each
-               backward kernel,
+               fourth step (after an unprofiled third of the same trainer);
+               the same 2 steps static and adaptive, compiled, with
+               bitwise-equal parameters (a SHA-256 per leaf); 2 steps on
+               the wall-clock backend, compiled.  K4's launches equal the
+               prediction in every run, the replays' counted as the eager
+               calls': per grain, 2 x 28 forwards (forward and remat
+               recompute) and 28 of each backward kernel,
  12. K5      — the SSD chunked scan (``ssd_scan``) through ``ssd``, the op
                the model calls, against the same op with K5's plain version
                in its place and against the sequential oracle, f32 and bf16,
@@ -875,13 +884,16 @@ def train_split(torch, loop):
     """Calls and host seconds spent, while the block runs, in each grain
     (``_GrainGradExecutor.execute``: the batch, forward, backward, and the
     wait for the loss), in the combine (``_PrefixCombine.add``, nested in
-    the grain) and in AdamW (``adamw_update``), and the host seconds of each
-    training step (``HDPTrainer.step``).  The combine and AdamW only enqueue
-    their work, so their timed calls end in ``torch.cuda.synchronize()``."""
+    the grain) and in AdamW (``HDPTrainer._apply_update``: the update on
+    either route, a compiled one's warm-up, capture or replay), and the
+    host seconds of each training step (``HDPTrainer.step``); ``calls``
+    keeps each grain's and each update's seconds in call order.  The
+    combine and AdamW only enqueue their work, so their timed calls end in
+    ``torch.cuda.synchronize()``, from outside any capture."""
     spent = {"grain": [0, 0.0], "combine": [0, 0.0], "adamw": [0, 0.0],
-             "steps": []}
+             "steps": [], "calls": {"grain": [], "adamw": []}}
     saved = [(loop._GrainGradExecutor, "execute"),
-             (loop._PrefixCombine, "add"), (loop, "adamw_update"),
+             (loop._PrefixCombine, "add"), (loop.HDPTrainer, "_apply_update"),
              (loop.HDPTrainer, "step")]
     saved = [(owner, name, getattr(owner, name)) for owner, name in saved]
 
@@ -894,11 +906,14 @@ def train_split(torch, loop):
             finally:
                 if sync:
                     torch.cuda.synchronize()
+                dt = time.perf_counter() - t
                 if key == "steps":
-                    spent["steps"].append(time.perf_counter() - t)
+                    spent["steps"].append(dt)
                 else:
                     spent[key][0] += 1
-                    spent[key][1] += time.perf_counter() - t
+                    spent[key][1] += dt
+                    if key in spent["calls"]:
+                        spent["calls"][key].append(dt)
         return call
 
     for (owner, name, fn), key, sync in zip(
@@ -2492,7 +2507,10 @@ def main() -> int:
         return got
 
     # 11.1 One grain of full-width Qwen2-1.5B in f32: loss and gradients on
-    # the kernel path against use_pallas=False on the card.
+    # the kernel path against use_pallas=False on the card.  The grain is
+    # compiled: three calls (the eager warm-up, the capture and its replay,
+    # a replay) give the same bits, and the third is held against the plain
+    # route.
     cfg32 = get_config("qwen2-1.5b", param_dtype="float32",
                        compute_dtype="float32")
     model = Model(cfg32)
@@ -2501,13 +2519,27 @@ def main() -> int:
     spec = GrainSpec(1, TRAIN_SEQ, cfg32.vocab_size)
     batch = batch_from_grains(SyntheticSource(spec, seed=SEED), 0, [0], spec,
                               device=dev)
+    grain_fn = make_grain_grad_fn(model)
     torch.cuda.synchronize()
     zero_counts()
-    t0 = time.perf_counter()
-    (loss_k, _), grads_k = make_grain_grad_fn(model)(params, batch)
-    torch.cuda.synchronize()
-    grain_k_s = time.perf_counter() - t0
-    check_k4_launches("train_f32", 1)
+    grain_k_s, first = [], None
+    for call in range(3):
+        t0 = time.perf_counter()
+        (loss_k, _), grads_k = grain_fn(params, batch)
+        torch.cuda.synchronize()
+        grain_k_s.append(time.perf_counter() - t0)
+        outs = [loss_k] + tree_leaves(grads_k)
+        if first is None:
+            first = [x.clone() for x in outs]
+        elif not all(torch.equal(a, b) for a, b in zip(outs, first,
+                                                       strict=True)):
+            fail(f"train f32 grain: compiled call {call + 1} differs from "
+                 f"the first (eager) call's bits")
+    del first, outs
+    (step,) = grain_fn.steps
+    if step.graph is None:
+        fail("train f32 grain: no graph captured by the second call")
+    check_k4_launches("train_f32", 3)
     t0 = time.perf_counter()
     (loss_p, _), grads_p = make_grain_grad_fn(plain)(params, batch)
     torch.cuda.synchronize()
@@ -2530,66 +2562,131 @@ def main() -> int:
           f"d_model 1536, vocab 151936), seq {TRAIN_SEQ}: loss "
           f"{float(loss_k):.6f} kernel path vs {float(loss_p):.6f} plain (rel "
           f"err {loss_rel:.3e}); worst gradient leaf relative Frobenius "
-          f"error {worst[0]:.3e} (leaf {worst[1]}); K4 launches "
-          f"{json.dumps(by_path['train_f32'])}; host s with the wait: "
-          f"kernel path {grain_k_s:.3f}, plain {grain_p_s:.3f}", flush=True)
+          f"error {worst[0]:.3e} (leaf {worst[1]}); compiled, three calls "
+          f"bitwise equal; K4 launches over the three "
+          f"{json.dumps(by_path['train_f32'])}; host s with the wait: kernel "
+          f"path eager warm-up {grain_k_s[0]:.3f}, capture + replay "
+          f"{grain_k_s[1]:.3f} (capture {step.capture_s:.3f}, pool "
+          f"{step.pool_bytes / 1e9:.3f} GB), replay {grain_k_s[2]:.3f}; "
+          f"plain (eager warm-up) {grain_p_s:.3f}", flush=True)
     del model, plain, params, batch, grads_k, grads_p, loss_k, loss_p
+    del grain_fn, step
     gc.collect()
     torch.cuda.empty_cache()
 
     # 11.2 The launcher's HDP flow in bf16: Cluster("4:3:2:1").train with a
-    # mid-step straggler, 3 steps of 8 grains.
+    # mid-step straggler, 3 steps of 8 grains, on the compiled route, then
+    # on the eager route: the same losses and parameter bits.  Each route's
+    # trainer then takes a third, unprofiled step and a fourth under the
+    # profiler (steady state: on the compiled route every grain and the
+    # update replay).
     cfg = get_config("qwen2-1.5b")
     model = Model(cfg)
     fleet = FleetSpec.parse("4:3:2:1", prefix="pod")
     scenario = f"halve:{fleet.names[0]}@1:25%"
-
-    def train_job(steps: int) -> TrainJob:
-        return TrainJob(model, steps=steps, grains=TRAIN_GRAINS,
-                        seq_len=TRAIN_SEQ)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    with train_split(torch, train_loop) as spent:
-        t0 = time.perf_counter()
-        rep = Cluster(fleet).train(train_job(3), scenario=scenario)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
     n_hdp = 3 * TRAIN_GRAINS
-    check_k4_launches("train_hdp", n_hdp)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    losses = [p.metrics["loss"] for p in rep.phases]
-    if len(losses) != 3 or not all(np.isfinite(x) for x in losses):
-        fail(f"train hdp: losses {losses}")
-    for p in rep.phases:
-        print(f"[train] step {p.index}: loss {p.metrics['loss']:.6f}, grad "
-              f"norm {p.metrics['grad_norm']:.4f}, shares "
-              f"{json.dumps(dict(p.shares))}, migrated {p.n_migrated}, "
-              f"steals {p.metrics['n_steals']}, sim-clock step time "
-              f"{p.sim_time_s:.4f} s, quality {p.quality:.4f}", flush=True)
-    grain_s = spent["grain"][1] - spent["combine"][1]
-    rest_s = wall_s - spent["grain"][1] - spent["adamw"][1]
-    print(f"[train] {card}: {fleet} {scenario}, {len(rep.phases)} steps x "
-          f"{TRAIN_GRAINS} grains of bf16 {cfg.name} at seq {TRAIN_SEQ}: "
-          f"{wall_s:.3f} s wall ({n_hdp * TRAIN_SEQ / wall_s:.1f} tokens/s); "
-          f"K4 launches {json.dumps(by_path['train_hdp'])}; peak memory "
-          f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated)", flush=True)
-    print(f"[train] host wall split: grain gradients {spent['grain'][0]} "
-          f"calls {grain_s:.3f} s, combine {spent['combine'][0]} calls "
-          f"{spent['combine'][1]:.3f} s, AdamW {spent['adamw'][0]} calls "
-          f"{spent['adamw'][1]:.3f} s, the rest (control plane) "
-          f"{rest_s:.3f} s; per step {[round(x, 4) for x in spent['steps']]}"
-          f" s (the combine's and AdamW's calls end in a synchronize)",
-          flush=True)
-    step0_s = spent["steps"][0]
-    del rep
-    gc.collect()
-    torch.cuda.empty_cache()
-    print_busy(card, "one step of 8 grains", *card_busy(
-        torch, lambda: Cluster(fleet).train(train_job(1)),
-        kernels=K4_BF16_KERNELS,
-        top=12), step0_s, tag="train", kernel="K4")
+
+    def train_job(steps: int, compile_steps: bool = True) -> TrainJob:
+        return TrainJob(model, steps=steps, grains=TRAIN_GRAINS,
+                        seq_len=TRAIN_SEQ, compile_steps=compile_steps)
+
+    hdp = {}
+    for compile_steps in (True, False):
+        route = "compiled" if compile_steps else "eager"
+        path = "train_hdp" if compile_steps else "train_hdp_eager"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        graphs0 = dict(compiled_steps.STATS)
+        with train_split(torch, train_loop) as spent:
+            t0 = time.perf_counter()
+            rep = Cluster(fleet).train(train_job(3, compile_steps),
+                                       scenario=scenario)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        graphs = {k: compiled_steps.STATS[k] - graphs0[k] for k in graphs0}
+        check_k4_launches(path, n_hdp)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        trainer = rep.artifact
+        losses = [p.metrics["loss"] for p in rep.phases]
+        if len(losses) != 3 or not all(np.isfinite(x) for x in losses):
+            fail(f"train hdp ({route}): losses {losses}")
+        if compile_steps and (graphs["captures"] < 2 or trainer._update is None
+                              or trainer._update.graph is None
+                              or not all(s.graph is not None
+                                         for s in trainer._grad_fn.steps)):
+            fail(f"train hdp: {graphs['captures']} graphs captured; the "
+                 f"grain gradient and the update must both be")
+        if not compile_steps and graphs["captures"]:
+            fail("train hdp (eager): the eager route captured a graph")
+        for p in rep.phases:
+            print(f"[train] {route} step {p.index}: loss "
+                  f"{p.metrics['loss']:.6f}, grad norm "
+                  f"{p.metrics['grad_norm']:.4f}, shares "
+                  f"{json.dumps(dict(p.shares))}, migrated {p.n_migrated}, "
+                  f"steals {p.metrics['n_steals']}, sim-clock step time "
+                  f"{p.sim_time_s:.4f} s, quality {p.quality:.4f}",
+                  flush=True)
+        grain_s = spent["grain"][1] - spent["combine"][1]
+        rest_s = wall_s - spent["grain"][1] - spent["adamw"][1]
+        print(f"[train] {card}: {route} route, {fleet} {scenario}, "
+              f"{len(rep.phases)} steps x {TRAIN_GRAINS} grains of bf16 "
+              f"{cfg.name} at seq {TRAIN_SEQ}: {wall_s:.3f} s wall "
+              f"({n_hdp * TRAIN_SEQ / wall_s:.1f} tokens/s); K4 launches "
+              f"{json.dumps(by_path[path])}; peak memory {peak_gb:.2f} GB "
+              f"(torch.cuda.max_memory_allocated)", flush=True)
+        print(f"[train] {route} host wall split: grain gradients "
+              f"{spent['grain'][0]} calls {grain_s:.3f} s, combine "
+              f"{spent['combine'][0]} calls {spent['combine'][1]:.3f} s, "
+              f"AdamW {spent['adamw'][0]} calls {spent['adamw'][1]:.3f} s, "
+              f"the rest (control plane) {rest_s:.3f} s; per step "
+              f"{[round(x, 4) for x in spent['steps']]} s (the combine's "
+              f"and AdamW's calls end in a synchronize)", flush=True)
+        gms = [round(1e3 * x, 3) for x in spent["calls"]["grain"]]
+        ums = [round(1e3 * x, 3) for x in spent["calls"]["adamw"]]
+        if compile_steps:
+            replay_grain = float(np.median(gms[2:]))
+            replay_update = ums[2]
+            print(f"[train] {card}: compiled route: {graphs['captures']} "
+                  f"graphs captured in {graphs['capture_s']:.3f} s, pool "
+                  f"{graphs['pool_bytes'] / 1e9:.3f} GB, {graphs['replays']} "
+                  f"replays; host ms a grain with its wait (warm-up, capture "
+                  f"+ replay, then replays; the combine's synchronize "
+                  f"included): {gms}; a replayed grain {replay_grain:.3f} ms "
+                  f"(median); host ms an update (warm-up, capture + replay, "
+                  f"replay) {ums}: a replayed update {replay_update:.3f} ms",
+                  flush=True)
+        else:
+            print(f"[train] eager route: host ms a grain with its wait "
+                  f"{gms}; an update {ums}", flush=True)
+        hdp[route] = {"loss": losses, "grad_norm": [p.metrics["grad_norm"]
+                                                    for p in rep.phases],
+                      "digests": leaf_digests(torch, tree_leaves,
+                                              trainer.state.params),
+                      "wall_s": wall_s, "peak_gb": peak_gb}
+        # A third step unprofiled and a fourth profiled, the same trainer.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step(3)
+        torch.cuda.synchronize()
+        steady_s = time.perf_counter() - t0
+        print_busy(card, f"{route} route, a steady step of 8 grains",
+                   *card_busy(torch, lambda: trainer.step(4),
+                              kernels=K4_BF16_KERNELS, top=12),
+                   steady_s, tag="train", kernel="K4")
+        del rep, trainer
+    fast, slow = hdp["compiled"], hdp["eager"]
+    for key in ("loss", "grad_norm", "digests"):
+        if fast[key] != slow[key]:
+            fail(f"train hdp: the compiled and eager routes' {key} differ")
+    print(f"[train] compiled vs eager, 3 steps under {scenario}: all "
+          f"{len(fast['digests'])} parameter leaves bitwise equal (SHA-256), "
+          f"losses {fast['loss']} equal; wall {fast['wall_s']:.3f} s vs "
+          f"{slow['wall_s']:.3f} s ({n_hdp * TRAIN_SEQ / fast['wall_s']:.1f} "
+          f"vs {n_hdp * TRAIN_SEQ / slow['wall_s']:.1f} tokens/s), peak "
+          f"{fast['peak_gb']:.2f} GB vs {slow['peak_gb']:.2f} GB", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2618,7 +2715,8 @@ def main() -> int:
     for key in ("loss", "grad_norm", "digests"):
         if st[key] != ad[key]:
             fail(f"train: static and adaptive {key} differ")
-    print(f"[train] static vs adaptive, 2 steps under {scenario}: all "
+    print(f"[train] static vs adaptive, compiled route, 2 steps under "
+          f"{scenario}: all "
           f"{len(ad['digests'])} parameter leaves bitwise equal (SHA-256), "
           f"losses {ad['loss']} equal; shares static {st['shares']} "
           f"(migrated {st['migrated']}), adaptive {ad['shares']} (migrated "
@@ -2636,7 +2734,8 @@ def main() -> int:
                                                  for x in losses):
         fail(f"train wallclock: backend {rep.backend}, losses {losses}")
     busy = {w: round(t.busy_s, 4) for w, t in rep.worker_timelines.items()}
-    print(f"[train-wallclock] {card}: 2 steps on {rep.backend}: losses "
+    print(f"[train-wallclock] {card}: 2 steps on {rep.backend}, compiled "
+          f"route: losses "
           f"{losses}; event-clock step times "
           f"{[round(p.sim_time_s, 4) for p in rep.phases]} s (the unit-op "
           f"chains; each grain's measured gradient seconds go to its "

@@ -118,7 +118,10 @@ class MatmulJob:
 @dataclasses.dataclass(frozen=True)
 class TrainJob:
     """Homogenized Data Parallel training of ``model`` for ``steps`` steps;
-    each step is one runtime job of ``grains`` microbatch grains."""
+    each step is one runtime job of ``grains`` microbatch grains.
+    ``compile_steps``: the trainer's grain gradient and update run as
+    compiled steps (CUDA graphs on the card; ``HDPTrainer``); False is the
+    eager route."""
 
     model: Any
     steps: int
@@ -132,6 +135,7 @@ class TrainJob:
     compress_grads: bool = False
     jitter: float = 0.0
     seed: int = 0
+    compile_steps: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -659,6 +663,7 @@ class Cluster:
             job.model, [Pod(w.name, w.perf) for w in self.fleet.workers],
             cfg, opt_cfg=job.opt, authority=self._new_authority(),
             backend=self._new_backend(), eta_mode=self.eta_mode,
+            compile_steps=job.compile_steps,
         )
         trainer.runtime.tracer = self.tracer
         if self.priors == "spec":

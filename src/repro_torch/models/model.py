@@ -139,7 +139,10 @@ class Model:
         """Final normed hidden states (pre-LM-head) + aux loss (the MoE
         layers' load-balancing terms; 0 without MoE)."""
         x, _, aux = self._stack(params, batch, "train", capacities, par)
-        aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+        # Without MoE layers aux is the number 0.0: filled on the device, as
+        # a captured step may not copy from host memory.
+        aux = aux.to(torch.float32) if isinstance(aux, torch.Tensor) else \
+            torch.full((), aux, dtype=torch.float32, device=x.device)
         return apply_norm(self.cfg, params["final_norm"], x), aux
 
     def logits(self, params, batch, capacities=None, par: Parallel = SINGLE):

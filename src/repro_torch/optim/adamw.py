@@ -11,7 +11,11 @@ their period axis, as in the reference).  The state is a plain pytree
 tensors, as the reference's jitted update reuses the donated optimizer
 state's buffers: at full width two copies of the f32 moments would not fit
 beside the gradients.  Each in-place step rounds exactly as the reference's
-expression does.  Params come back as new tensors.
+expression does.  Params come back as new tensors, unless ``in_place``:
+then the new params are written into the given ones, and the new step into
+``opt_state["step"]`` (each ``copy_`` of the same expression, so the same
+bits), which is how the compiled training steps (``train/step.py``) keep
+the addresses their graphs read.
 """
 
 from __future__ import annotations
@@ -72,8 +76,10 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def adamw_update(grads, opt_state: dict, params, cfg: AdamWConfig):
-    """Returns (new_params, new_opt_state, stats)."""
+def adamw_update(grads, opt_state: dict, params, cfg: AdamWConfig, *,
+                 in_place: bool = False):
+    """Returns (new_params, new_opt_state, stats); with ``in_place``, the
+    given ``params`` and ``opt_state``, updated."""
     step = opt_state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -90,7 +96,8 @@ def adamw_update(grads, opt_state: dict, params, cfg: AdamWConfig):
         delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
         if p.ndim >= 2:  # decay matrices only (norms/bias exempt), standard
             delta = delta + cfg.weight_decay * p.to(torch.float32)
-        return (p.to(torch.float32) - lr * delta).to(p.dtype)
+        new = (p.to(torch.float32) - lr * delta).to(p.dtype)
+        return p.copy_(new) if in_place else new
 
     flat_p, treedef = tree_flatten(params)
     flat_g = tree_flatten(grads)[0]
@@ -100,5 +107,8 @@ def adamw_update(grads, opt_state: dict, params, cfg: AdamWConfig):
         upd(g, m, v, p)
         for g, m, v, p in zip(flat_g, flat_m, flat_v, flat_p, strict=True)])
     stats = {"grad_norm": gnorm, "lr": lr}
+    if in_place:
+        opt_state["step"].copy_(step)
+        return params, opt_state, stats
     return new_params, {"m": opt_state["m"], "v": opt_state["v"],
                         "step": step}, stats

@@ -1,17 +1,22 @@
-"""One engine step compiled once per shape: the port's counterpart of the
+"""One step compiled once per shape: the port's counterpart of the
 reference's ``jax.jit`` on ``DecodeEngine``'s decode step and on each
-length bucket's prefill (``repro/serve/engine.py``).
+length bucket's prefill (``repro/serve/engine.py``), and on the training
+steps: the grain gradient, ``HDPTrainer``'s AdamW update and
+``train_single``'s step (``repro/train/{step,loop}.py``).
 
 On CUDA the step is captured as a CUDA graph, which the card replays with
-no Python dispatch; the hand-written kernels it launches (K1, K2, K5) are
-captured with it.  ``CompiledStep`` owns:
+no Python dispatch; the hand-written kernels it launches (K1, K2, K5; K4's
+forward and, from autograd's device thread, its backward) are captured
+with it.  ``CompiledStep`` owns:
 
   - the step function, which reads its inputs from static buffers and may
     read (and write in place) tensors it closes over: the engine's
-    parameters and caches, whose addresses the graph keeps;
+    parameters and caches, a trainer's parameters, optimizer state and
+    gradient buffers, whose addresses the graph keeps;
   - the static input buffers, filled by each call;
   - the static outputs, which each replay overwrites;
-  - a graph memory pool, which the engine shares among its steps.
+  - a graph memory pool, which an engine (or a trainer) shares among its
+    steps.
 
 A step's calls go through three stages on CUDA.  The first call for its
 shape runs eagerly on a side stream (the warm-up: lazy initialisation,
@@ -64,10 +69,10 @@ def _counts() -> list[dict[str, int]]:
 
 
 def new_pool(device: torch.device):
-    """A graph memory pool for one engine's steps on ``device`` (None on
-    the CPU).  An engine runs one step at a time on one stream, so its
-    graphs share the pool's intermediates; each graph's outputs stay
-    held by its step."""
+    """A graph memory pool for one engine's (or trainer's) steps on
+    ``device`` (None on the CPU).  An engine runs one step at a time on one
+    stream, so its graphs share the pool's intermediates; each graph's
+    outputs stay held by its step."""
     if device.type != "cuda":
         return None
     return torch.cuda.graph_pool_handle()
@@ -163,9 +168,18 @@ class CompiledStep:
         # model's engines were dropped).
         collecting = gc.isenabled()
         gc.disable()
+        # The graph allocates from its private pool, which cannot take the
+        # blocks the allocator keeps cached for eager tensors: hand those
+        # back to the device first (on the card a training step's capture
+        # ran out of memory beside 46 GiB of cached, unused blocks).
+        torch.cuda.empty_cache()
         try:
             # ``torch.cuda.graph`` would leave the side stream current when
             # its capture fails; this block restores the caller's stream.
+            # "thread_local": autograd's device thread launches the
+            # backward's kernels into this stream; the mode bars unsafe
+            # calls from this thread only (``global`` and ``relaxed``
+            # capture the same bits: scripts/train_capture_probe.py).
             with torch.cuda.stream(self.stream):
                 graph.capture_begin(pool=self.pool,
                                     capture_error_mode="thread_local")

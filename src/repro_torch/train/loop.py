@@ -3,7 +3,20 @@
 Port of ``repro/train/loop.py``: the same runtime-driven trainer over the
 port's copy of the control plane, with each grain's gradient computed by
 PyTorch on the model's device (K4 and its backward kernels in every
-attention layer on CUDA).  The reference's description follows.
+attention layer on CUDA).
+
+The reference jits three steps: the grain gradient, the AdamW update (its
+optimizer state donated) and ``train_single``'s whole step (its state
+donated).  With ``compile_steps=True`` (the default) each is a
+``CompiledStep`` (``serve/compiled.py``), captured as a CUDA graph on the
+card: the update writes the new parameters, moments and step into the
+state's own tensors, so the grain graph reads the updated parameters at
+the addresses it was captured with and nothing is copied (the port's
+donation); it reads the combined gradients from buffers the trainer owns,
+into which the combine folds every step.  A trainer's graphs share one
+graph pool.  A new ``TrainState`` (a restore) drops them.
+``compile_steps=False`` is the eager route; the two give the same bits.
+The reference's description follows.
 
 HDP is the paper's TDA mapped onto pods, *runtime-driven*: each training step
 is one job on the shared ``core/runtime.py`` event loop.
@@ -46,6 +59,7 @@ import dataclasses
 from typing import Callable
 
 import numpy as np
+import torch
 
 from ..checkpoint.checkpoint import AsyncCheckpointer, read_extras, restore
 from ..core.homogenization import OverheadModel
@@ -56,8 +70,9 @@ from ..data.pipeline import GrainSpec, SyntheticSource, batch_from_grains
 from ..models.model import Model
 from ..optim.adamw import AdamWConfig, adamw_update
 from ..optim.grad_compress import ef_compress_tree, init_residuals
-from ..tree import tree_map
-from .step import make_grain_grad_fn, make_train_step
+from ..serve.compiled import CompiledStep, new_pool
+from ..tree import tree_leaves, tree_map
+from .step import BatchSteps, make_grain_grad_fn, make_train_step
 from .train_state import TrainState, init_train_state
 
 __all__ = ["train_single", "Pod", "HDPConfig", "HDPTrainer"]
@@ -69,7 +84,13 @@ def train_single(
     opt_cfg: AdamWConfig | None = None, ckpt_dir: str | None = None,
     ckpt_every: int = 100, log_every: int = 10, seed: int = 0,
     log_fn: Callable[[int, dict], None] | None = None,
+    compile_steps: bool = True,
 ) -> tuple[TrainState, list[dict]]:
+    """``n_steps`` steps of ``make_train_step`` from ``model.init(seed)``
+    (or the last checkpoint in ``ckpt_dir``).  ``compile_steps``: the step
+    is compiled per batch shape, its state bound and updated in place (the
+    reference's ``jax.jit(..., donate_argnums=0)``); the state returned is
+    the one the run started from, holding the last step's values."""
     opt_cfg = opt_cfg or AdamWConfig()
     state = init_train_state(model.init(seed))
     start = 0
@@ -78,10 +99,17 @@ def train_single(
         restored, rstep = restore(ckpt_dir, state)
         if restored is not None:
             state, start = restored, rstep
-    step_fn = make_train_step(model, opt_cfg)
+    step_fn = make_train_step(model, opt_cfg, in_place=compile_steps)
+    if compile_steps:
+        bound = state
+        compiled = BatchSteps("train_single", lambda b: step_fn(bound, b)[1],
+                              model.device, pool=new_pool(model.device))
     history = []
     for step in range(start, n_steps):
-        state, metrics = step_fn(state, batch_fn(step))
+        if compile_steps:
+            metrics = compiled(batch_fn(step))
+        else:
+            state, metrics = step_fn(state, batch_fn(step))
         if step % log_every == 0 or step == n_steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
             m["step"] = step
@@ -132,37 +160,54 @@ class _PrefixCombine:
     not ``total_grains``.  Sums stay in the gradients' dtype (bf16 for bf16
     params), as in the reference; they are taken in place in the running
     sum (each step rounds as the reference's ``a + x * w``), so a fold holds
-    one sum, not two."""
+    one sum, not two.  The first fold writes its ``x * w`` into ``out`` (a
+    tree like the gradients: the buffers a compiled update reads), or into
+    new tensors.  A grain that must wait for an earlier one is
+    buffered as a copy: a compiled grain's gradients are its graph's
+    outputs, which the next grain overwrites."""
 
-    def __init__(self, compress: bool, residuals):
+    def __init__(self, compress: bool, residuals, out=None):
         self.compress = compress
         self.residuals = residuals
+        self.out = out
         self.next_grain = 0
         self.pending: dict[int, tuple] = {}
+        self.buffered = 0          # grains that waited in ``pending``
         self.grads_sum = None
         self.tok_sum = 0.0
         self.loss_sum = 0.0
 
     def add(self, grain: int, loss: float, tokens: float, grads) -> None:
-        self.pending[grain] = (loss, tokens, grads)
+        if grain != self.next_grain:
+            self.pending[grain] = (loss, tokens, tree_map(torch.clone, grads))
+            self.buffered += 1
+            return
+        self._fold(loss, tokens, grads)
         while self.next_grain in self.pending:
-            loss, w, grads = self.pending.pop(self.next_grain)
-            if self.compress:
-                grads, self.residuals = ef_compress_tree(grads, self.residuals)
-            if self.grads_sum is None:
-                self.grads_sum = tree_map(lambda x: x * w, grads)
-            else:
-                tree_map(lambda a, x: a.add_(x * w), self.grads_sum, grads)
-            self.tok_sum += w
-            self.loss_sum += loss * w
-            self.next_grain += 1
+            self._fold(*self.pending.pop(self.next_grain))
+
+    def _fold(self, loss: float, w: float, grads) -> None:
+        if self.compress:
+            grads, self.residuals = ef_compress_tree(grads, self.residuals)
+        if self.grads_sum is None:
+            self.grads_sum = tree_map(torch.empty_like, grads) \
+                if self.out is None else self.out
+            tree_map(lambda o, x: torch.mul(x, w, out=o), self.grads_sum,
+                     grads)
+        else:
+            tree_map(lambda a, x: a.add_(x * w), self.grads_sum, grads)
+        self.tok_sum += w
+        self.loss_sum += loss * w
+        self.next_grain += 1
 
     def grads(self, n_grains: int):
         if self.next_grain != n_grains:
             raise RuntimeError(
                 f"combine folded {self.next_grain}/{n_grains} grains"
             )
-        return tree_map(lambda x: x.div_(self.tok_sum), self.grads_sum)
+        for x in tree_leaves(self.grads_sum):
+            x.div_(self.tok_sum)
+        return self.grads_sum
 
 
 class _GrainGradExecutor(GrainExecutor):
@@ -206,13 +251,23 @@ class _GrainGradExecutor(GrainExecutor):
 class HDPTrainer:
     def __init__(self, model: Model, pods: list[Pod], cfg: HDPConfig,
                  opt_cfg: AdamWConfig | None = None, authority=None,
-                 backend=None, eta_mode: str | None = None):
+                 backend=None, eta_mode: str | None = None,
+                 compile_steps: bool = True):
         self.model = model
         self.pods = {p.name: p for p in pods}
         self.cfg = cfg
         self.opt_cfg = opt_cfg or AdamWConfig()
         self.tracker = PerformanceTracker(alpha=0.5, dead_after_s=1e7)
         self.source = SyntheticSource(cfg.grain_spec, seed=cfg.seed)
+        # The compiled route's grain and update graphs share one graph pool
+        # and one side stream.
+        self.compile_steps = compile_steps
+        self._pool = new_pool(model.device) if compile_steps else None
+        self._stream = torch.cuda.Stream(model.device) if (
+            compile_steps and model.device.type == "cuda") else None
+        self._grad_fn = make_grain_grad_fn(model, compile_steps,
+                                           pool=self._pool,
+                                           stream=self._stream)
         self.state = init_train_state(model.init(cfg.seed))
         self.start_step = 0
         self.ckpt = AsyncCheckpointer(cfg.ckpt_dir) if cfg.ckpt_dir else None
@@ -259,8 +314,6 @@ class HDPTrainer:
             init_residuals(self.state.params) if cfg.compress_grads else None
         )
         self.rng = np.random.default_rng(cfg.seed)
-        self._grad_fn = make_grain_grad_fn(model)
-        self._update_fn = lambda g, o, p: adamw_update(g, o, p, self.opt_cfg)
         self._timeline: list[TimelineEvent] = []
         self._step_hooks: list[Callable[[int, float], object]] = []
         self.history: list[dict] = []
@@ -268,6 +321,43 @@ class HDPTrainer:
     @property
     def clock(self) -> float:
         return self.runtime.clock
+
+    # -- the state and the compiled steps ------------------------------------
+    @property
+    def state(self) -> TrainState:
+        return self._state
+
+    @state.setter
+    def state(self, state: TrainState) -> None:
+        """A new state drops the compiled steps, whose graphs keep the
+        addresses of the state they were captured with, and the gradient
+        buffers the update reads."""
+        self._state = state
+        self._grad_fn.reset()
+        self._update: CompiledStep | None = None
+        self._grads = None
+
+    def _apply_update(self, grads) -> dict:
+        """AdamW on the combined ``grads``; returns its stats.  Compiled: the
+        state is written in place by a step bound to it and to ``grads``,
+        the buffers every later step's combine folds into."""
+        if not self.compile_steps:
+            new_params, new_opt, stats = adamw_update(
+                grads, self.state.opt, self.state.params, self.opt_cfg)
+            self.state = TrainState(params=new_params, opt=new_opt)
+            return stats
+        if self._update is None:
+            opt, params, cfg = self.state.opt, self.state.params, self.opt_cfg
+            self._grads = grads
+            self._update = CompiledStep(
+                "update",
+                lambda: adamw_update(grads, opt, params, cfg,
+                                     in_place=True)[2],
+                self.model.device, pool=self._pool, stream=self._stream)
+        elif grads is not self._grads:
+            raise RuntimeError("the combine folded into other buffers than "
+                               "the compiled update reads")
+        return self._update()
 
     # -- failure / straggler injection hooks (tests, examples) --------------
     def set_perf(self, pod: str, perf: float) -> None:
@@ -315,7 +405,8 @@ class HDPTrainer:
         # grain-id order as completions stream in.  Pure function of the
         # grain data — which pod ran a grain (and in what completion order)
         # cannot change the update.
-        combine = _PrefixCombine(cfg.compress_grads, self.residuals)
+        combine = _PrefixCombine(cfg.compress_grads, self.residuals,
+                                 out=self._grads)
         for hook in self._step_hooks:
             self._timeline.extend(hook(step_idx, self.runtime.clock))
         events, self._timeline = tuple(self._timeline), []
@@ -336,10 +427,7 @@ class HDPTrainer:
         grads = combine.grads(cfg.total_grains)
         self.residuals = combine.residuals
         tok_sum, loss_sum = combine.tok_sum, combine.loss_sum
-        new_params, new_opt, stats = self._update_fn(
-            grads, self.state.opt, self.state.params
-        )
-        self.state = TrainState(params=new_params, opt=new_opt)
+        stats = self._apply_update(grads)
 
         ovh = cfg.overhead(cfg.total_grains)
         self.runtime.clock += ovh  # distribution overhead advances the clock

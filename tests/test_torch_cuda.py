@@ -1328,3 +1328,101 @@ def test_capture_runs_without_cyclic_gc(dev):
     for _ in range(3):
         assert torch.equal(step(x), x * 2)
     assert seen == [True, False] and gc.isenabled()
+
+
+def test_compiled_trainer_is_the_eager_trainer_bit_for_bit(dev):
+    """Reduced Qwen2 in bf16, 2 HDP steps under a mid-step halving on both
+    routes: the compiled route (the grain gradient captured at its second
+    grain, the update at its second step, both replayed after) gives the
+    eager route's losses, grad norms and parameters bit for bit, and K4's
+    launches (the replays' counted as the eager calls') are the same."""
+    from repro_torch.serve import compiled
+
+    cfg = get_config("qwen2-1.5b", reduced=True, tp_pad_heads=8,
+                     param_dtype="bfloat16", compute_dtype="bfloat16")
+    model = Model(dataclasses.replace(cfg, use_pallas=None))
+    runs = {}
+    for flag in (True, False):
+        before, captures = dict(fa.LAUNCHES), compiled.STATS["captures"]
+        rep = Cluster("4:3:2:1").train(
+            TrainJob(model, steps=2, grains=8, seq_len=64,
+                     compile_steps=flag),
+            scenario="halve:w0@1:25%")
+        torch.cuda.synchronize()
+        runs[flag] = (
+            [(p.metrics["loss"], p.metrics["grad_norm"]) for p in rep.phases],
+            tree_leaves(rep.artifact.state.params),
+            {n: fa.LAUNCHES[n] - before[n] for n in before},
+            compiled.STATS["captures"] - captures, rep.artifact)
+    fast, slow = runs[True], runs[False]
+    assert fast[0] == slow[0]
+    assert all(torch.equal(a, b) for a, b in zip(fast[1], slow[1],
+                                                 strict=True))
+    assert fast[2] == slow[2] == {
+        "flash_attention_fwd": 2 * 16 * cfg.n_layers,
+        "flash_attention_bwd_dq": 16 * cfg.n_layers,
+        "flash_attention_bwd_dkdv": 16 * cfg.n_layers}
+    assert fast[3] == 2 and slow[3] == 0
+    (grain,) = fast[4]._grad_fn.steps
+    assert grain.graph is not None and fast[4]._update.graph is not None
+
+
+def test_compiled_train_single_is_eager_bit_for_bit(dev):
+    """``train_single`` on the card, reduced Qwen2 in bf16, 3 steps: the
+    compiled whole step (forward, backward and AdamW in one graph, the
+    state written in place) gives the eager route's history and parameters
+    bit for bit, with the same K4 launches."""
+    from repro_torch.train import train_single
+
+    cfg = get_config("qwen2-1.5b", reduced=True,
+                     param_dtype="bfloat16", compute_dtype="bfloat16")
+    model = Model(dataclasses.replace(cfg, use_pallas=None))
+    g = torch.Generator().manual_seed(26)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=g).to(dev)
+    batch = {"tokens": toks[:, :-1].int(), "targets": toks[:, 1:].int(),
+             "loss_mask": torch.ones((2, 64), device=dev)}
+    runs = {}
+    for flag in (True, False):
+        before = dict(fa.LAUNCHES)
+        state, hist = train_single(model, 3, lambda s: batch, log_every=1,
+                                   compile_steps=flag)
+        torch.cuda.synchronize()
+        runs[flag] = (hist, tree_leaves(state),
+                      {n: fa.LAUNCHES[n] - before[n] for n in before})
+    fast, slow = runs[True], runs[False]
+    assert fast[0] == slow[0] and len(fast[0]) == 3
+    assert all(torch.equal(a, b) for a, b in zip(fast[1], slow[1],
+                                                 strict=True))
+    assert fast[2] == slow[2] == {
+        "flash_attention_fwd": 3 * 2 * cfg.n_layers,
+        "flash_attention_bwd_dq": 3 * cfg.n_layers,
+        "flash_attention_bwd_dkdv": 3 * cfg.n_layers}
+
+
+def test_capture_returns_cached_blocks_first(dev, monkeypatch):
+    """A graph's private pool cannot take the blocks the allocator keeps
+    cached for eager tensors: a capture hands them back to the device
+    before it begins, so a step captured after a large eager phase still
+    fits (a training step's capture ran out of memory beside 46 GiB of
+    cached, unused blocks)."""
+    from repro_torch.serve import compiled
+
+    calls = []
+    empty, begin = torch.cuda.empty_cache, torch.cuda.CUDAGraph.capture_begin
+
+    def empty_cache():
+        calls.append("empty_cache")
+        empty()
+
+    def capture_begin(self, *args, **kwargs):
+        calls.append("capture_begin")
+        return begin(self, *args, **kwargs)
+
+    monkeypatch.setattr(torch.cuda, "empty_cache", empty_cache)
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin", capture_begin)
+    step = compiled.CompiledStep("cache-step", lambda x: x * 2, dev)
+    x = torch.ones(4, device=dev)
+    for _ in range(3):
+        assert torch.equal(step(x), x * 2)
+    assert step.graph is not None
+    assert calls == ["empty_cache", "capture_begin"]
