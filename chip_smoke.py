@@ -165,7 +165,19 @@ Phases, each of which exits non-zero when it fails:
                128, 128), chunk 256); at Jamba's shape (xdt (128, 512, 64),
                B/C (1, 512, 16), chunk 256; N 16 pads to 32 in bf16) in
                bf16 and f32 against its plain version, bitwise over two
-               runs, bf16 timed,
+               runs, bf16 timed; its backward (``ssd_scan_bwd``:
+               ``ssd_scan_bwd_kernel`` and ``ssd_bwd_reduce_kernel``)
+               against its plain version (``ssd_scan_bwd_plain``) at
+               GRAD_TOL in bf16 and f32, at Mamba2-2.7B's training shape
+               (xdt (80, 1024, 64), B/C (1, 1024, 128), chunk 256; two
+               draws, the second with the final state's gradient), Jamba's,
+               a ragged last chunk, three groups, and la down to -50 a step
+               (f32 also within relative Frobenius error 1e-4 of the f64
+               recurrence's gradients), bitwise over two runs, its
+               registers, spills and shared memory (no spill), timed at the
+               training shape beside its plain version and the bound
+               (``k5_bwd_bound_ms``; no PyTorch call computes the scan's
+               gradient; device time in phase 15),
  13. mamba model — full-width Mamba2-2.7B in f32 from ``Model.init(seed)``:
                prefill of one prompt of length 100 (bucket 128) on the kernel
                path against ``use_pallas=False``: logits within the f32
@@ -178,6 +190,17 @@ Phases, each of which exits non-zero when it fails:
                host wall split, tokens/s and the card's busy share in a
                profiled repeat; K5 held against its plain version on the
                inputs it got from each bucket,
+ 27. mamba train — Mamba2-2.7B trained on the kernel route (K5's forward
+               twice a layer a grain, forward and remat recompute, and its
+               backward once): (b) one f32 grain at its published widths cut
+               to MAMBA_TRAIN_F32_LAYERS layers against ``use_pallas=False``
+               (loss rtol 1e-4, every gradient leaf within GRAD_TOL); (c)
+               phase 11.2's flow on bf16 Mamba2-2.7B (d_model 2560, 80 heads
+               of 64, d_state 128) at MAMBA_TRAIN_LAYERS layers: 3 steps of
+               8 grains of 1024 tokens under ``halve:pod0@1:25%``, compiled
+               then eager, losses, every parameter leaf and the launches
+               equal, tokens/s, host ms of a replayed grain, the busy share
+               of a steady step and the peak (run after phase 14),
  16. moe model — Qwen1.5-MoE (``qwen2-moe-a2.7b``) in f32 at its published
                widths, depth cut to 4 of 24 layers (14.3 B parameters are
                57 GB in f32), from ``Model.init(seed)``: prefill of one
@@ -277,7 +300,7 @@ Phases, each of which exits non-zero when it fails:
                K4's forward, dQ and dK/dV against their plain versions on
                the inputs the example gave K4, at TOL / GRAD_TOL, then its
                kernels' launches);
-               phases 16-26 run after phase 14 and before phase 15; each
+               phases 27 and 16-26 run after phase 14 and before phase 15; each
                frees its model at its end and prints its peak memory, and
                phases 22-26 their seconds,
  26. tensor-parallel — the sharded steps tensor-parallel over the mesh's
@@ -331,8 +354,10 @@ Phases, each of which exits non-zero when it fails:
                still agree, on phase 13's prompt and 16 decode steps, held
                as (b) (relative Frobenius error 2e-2), the first step's
                tokens among the unsharded step's 5 most likely, and in f32
-               cut to 4 layers (K5's f32 kernel; the train step on the
-               plain path); (g) Jamba cut to one period at model 2, every
+               cut to 4 layers (K5's f32 kernel, and its backward in the
+               train step: twice K5's forward and once its backward a
+               layer on each rank's heads); (g) Jamba cut to one period at
+               model 2, every
                layer split, bf16 as (d); (h) DeepSeek-V2 in f32 at model 2
                and 4 (64 and 32 MLA heads a rank, the latent cache split
                on its sequence and never gathered: no cache view in the
@@ -370,7 +395,8 @@ Phases, each of which exits non-zero when it fails:
                phase 18's three capacity sets, K1 and K4 at phase 26's
                local heads (Qwen2-1.5B's, Qwen1.5-MoE's and
                SeamlessM4T's, K4 at its cross-attention's), K5 at its
-               Mamba2-2.7B local heads; after
+               Mamba2-2.7B local heads, K5's backward at the training
+               shape in bf16 and f32; after
                every serve phase, so
                no profiler session of these precedes phases 5 and 14, and
                in a process of its own (``chip_smoke.py --device-times``,
@@ -380,7 +406,7 @@ Phases, each of which exits non-zero when it fails:
                began, and CUPTI's stamps read early, the more so the
                longer a process has loaded the card.
 
-Phases 4, 5, 7, 8, 9, 11, 13, 14, 16, 17 and 19-26 are the main path:
+Phases 4, 5, 7, 8, 9, 11, 13, 14, 16, 17, 19-26 and 27 are the main path:
 the kernels' launch counts are set to 0 just before each of their runs and
 read just after it; the ``kernels`` line gives each kernel's launches in all
 and by run.  A line before the card's holds the whole run's wall time.  The
@@ -473,6 +499,20 @@ K1_GROUP_SHAPES = ((16, 16), (32, 8), (48, 1))
 #: 32 in bf16), S = 512 (the largest bucket), chunk 256: (heads, groups, S,
 #: P, N, chunk).
 K5_JAMBA_SHAPE = (128, 1, 512, 64, 16, 256)
+#: K5's backward at Mamba2-2.7B's training shape: 80 heads of 64 on one
+#: group of N 128, one TRAIN_SEQ-token grain, chunk 256: (heads, groups, S,
+#: P, N, chunk).
+K5_BWD_SHAPE = (80, 1, TRAIN_SEQ, 64, 128, 256)
+#: The Mamba training phase (27): the f32 grain of Mamba2-2.7B at its
+#: published widths cut to this many of its 64 layers, and the depth of the
+#: bf16 ``Cluster.train`` run: all 64 layers run out of the card's memory
+#: in the compiled route's first step (77-78 GiB allocated, 23.2 GiB of it
+#: in the graph pools, when the combine buffers a grain's gradients); 60
+#: train 3 steps (``scripts/mamba_train_depth.py``: peak 62.7 GB) but run
+#: out in this phase's steady third step, the combine buffering more
+#: grains (75.3 GiB allocated); so the run is cut to 56.
+MAMBA_TRAIN_F32_LAYERS = 4
+MAMBA_TRAIN_LAYERS = 56
 #: Depth cuts at the published widths: Qwen1.5-MoE in f32 (14.3 B
 #: parameters are 57 GB in f32) and Granite-34B in bf16 (93.9 GB whole).
 MOE_F32_LAYERS = 4
@@ -842,6 +882,39 @@ def k5_bound_ms(bh: int, bg: int, s: int, p: int, n: int, chunk: int,
                                        else "operations")
 
 
+def k5_bwd_bound_ms(bh: int, bg: int, s: int, p: int, n: int, chunk: int,
+                    itemsize: int, dtype_name: str,
+                    dstate: bool) -> tuple[float, str]:
+    """Least time for K5's backward on (BH, S, P) xdt and dy with (BG, S,
+    N) B and C: xdt, dy, B, C, la (f32) and, when given, the f32 (BH, P, N)
+    dstate read once, dxdt, dla (f32), dB and dC written once; 2 operations
+    per multiply-add of the products a chunk of length c needs: the causal
+    half of the Gram C Bᵀ (c (c + 1) / 2 pairs of N, once per group), and
+    per head M = dY Xᵀ and dx's decayed product (the same pairs, P wide
+    each), dB's and dC's (N wide each); then c P N per head for each state
+    term the data needs: dh B_j and dhᵀ x_j (dx, dB) where the state leaving
+    the chunk has a gradient (every chunk but the last, which has one only
+    with dstate), h_inᵀ dy_i (dC) and the entering state's gradient where a
+    chunk has a state entering it (after the first), and the forward's
+    state chain for every chunk before the last, at the type's peak.  The
+    elementwise decays and the dla sums are not counted."""
+    nbytes = itemsize * (3 * bh * s * p + 4 * bg * s * n) + 8 * bh * s \
+        + (4 * bh * p * n if dstate else 0)
+    ops = 0
+    for c0 in range(0, s, chunk):
+        c = min(chunk, s - c0)
+        last = c0 + c >= s
+        pairs = c * (c + 1) // 2
+        state_terms = (0 if last and not dstate else 2) + (2 if c0 else 0) \
+            + (0 if last else 1)
+        ops += 2 * (bg * pairs * n + bh * pairs * (2 * p + 2 * n)
+                    + state_terms * bh * c * p * n)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[dtype_name]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def k4_bound_ms(bh: int, bhkv: int, sq: int, skv: int, d: int, itemsize: int,
                 dtype_name: str, causal: bool, part: str) -> tuple[float, str]:
     """Least time for K4's forward (``part`` 'fwd') or one backward kernel
@@ -1025,8 +1098,9 @@ def kernel_build_report(log_text: str, sass_text: str,
                         names: tuple[str, ...]) -> dict[str, dict]:
     """Per instantiation of the kernels in ``names`` (``name<D>`` for an
     int template argument, ``name<float>`` or ``name<bf16>`` for a dtype,
-    ``name<float, D>`` or ``name<half, D>`` for both, ``name<float, bf16>``
-    and the like for two dtypes):
+    ``name<float, D>`` or ``name<half, D>`` for both, ``name<D, float>``
+    or ``name<D, bf16>`` for both the other way round, ``name<float,
+    bf16>`` and the like for two dtypes):
     registers, static shared memory, spill bytes and stack frame from an
     ``nvcc -Xptxas -v`` report, and the count of ``HMMA`` (tensor-core)
     instructions in its SASS from ``cuobjdump -sass``."""
@@ -1037,6 +1111,10 @@ def kernel_build_report(log_text: str, sass_text: str,
                 if d:
                     t = "float" if d.group(1) == "f" else "half"
                     return f"{n}<{t}, {d.group(2)}>"
+                d = re.search(n + r"ILi(\d+)E(f|13__nv_bfloat16)E", mangled)
+                if d:
+                    t = "float" if d.group(2) == "f" else "bf16"
+                    return f"{n}<{d.group(1)}, {t}>"
                 d = re.search(n + r"ILi(\d+)E", mangled)
                 if d:
                     return f"{n}<{d.group(1)}>"
@@ -1106,7 +1184,7 @@ def build_report(build_logs, lib, path, names, smem_bytes,
          path], capture_output=True, text=True, timeout=300, check=True).stdout
     report = kernel_build_report(build_logs[lib], sass, names)
     for name, info in sorted(report.items()):
-        head_dim = re.search(r"(\d+)>$", name)
+        head_dim = re.search(r"<(\d+),", name) or re.search(r"(\d+)>$", name)
         info["smem_bytes"] = smem_bytes(name, int(head_dim.group(1))) \
             if head_dim else 0
         if info.get("spill_stores", 1) or info.get("spill_loads", 1):
@@ -1404,6 +1482,18 @@ def device_times() -> dict[str, dict[str, float]]:
                                                      torch.bfloat16)
     out["k5_tp"] = {"device_ms": device_ms(torch, lambda: k5.ssd_scan(
         xdt, la, bg, cg, chunk=chunk, rep=h // g))}
+    # K5's backward at Mamba2-2.7B's training shape (phase 12), bf16 and
+    # f32.
+    h, g, s5, p5, n5, chunk = K5_BWD_SHAPE
+    for dname, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        dtv = rand((h, s5), torch.float32).abs() * 0.1 + 0.01
+        xdt = (rand((h, s5, p5), torch.float32) * dtv[..., None]).to(dt)
+        la = dtv * -(rand((h,), torch.float32).abs() + 0.1)[:, None]
+        bg, cg = rand((g, s5, n5), dt), rand((g, s5, n5), dt)
+        dy = rand((h, s5, p5), dt)
+        out[f"k5_bwd_{dname}"] = {"device_ms": device_ms(
+            torch, lambda: k5.ssd_scan_bwd(xdt, la, bg, cg, dy, None,
+                                           chunk=chunk, rep=h // g))}
     return out
 
 
@@ -1442,7 +1532,11 @@ def main() -> int:
     from repro_torch.kernels.build import BUILD_DIR
     from repro_torch.kernels.mamba_scan import mamba_scan as k5
     from repro_torch.kernels.mamba_scan import ops as mamba_ops
-    from repro_torch.kernels.mamba_scan.ref import ssd_scan_plain, ssd_scan_ref
+    from repro_torch.kernels.mamba_scan.ref import (
+        ssd_scan_bwd_plain,
+        ssd_scan_plain,
+        ssd_scan_ref,
+    )
     from repro_torch.kernels.matmul import matmul as mm
     from repro_torch.kernels.matmul.ops import matmul as k3_matmul
     from repro_torch.kernels.matmul.ref import matmul_ref
@@ -2590,105 +2684,139 @@ def main() -> int:
         return TrainJob(model, steps=steps, grains=TRAIN_GRAINS,
                         seq_len=TRAIN_SEQ, compile_steps=compile_steps)
 
-    hdp = {}
-    for compile_steps in (True, False):
-        route = "compiled" if compile_steps else "eager"
-        path = "train_hdp" if compile_steps else "train_hdp_eager"
+    def hdp_routes(tag: str, model, path: str, check, busy_kernels,
+                   kernel: str) -> dict:
+        """The flow above on ``model`` (bf16, seq TRAIN_SEQ): the runs
+        ``path`` (compiled) and ``path + "_eager"``, each one's launches
+        held by ``check(run, n_hdp)``; per route the steps' losses, shares
+        and sim-clock times, the host wall split, host ms a grain and an
+        update call, graphs, tokens/s, peak memory and the busy share of a
+        steady step (``kernel``'s time: the device kernels whose names hold
+        one of ``busy_kernels``); both routes' losses, grad norms and every
+        parameter leaf (SHA-256) equal.  Returns each route's figures."""
+        name = model.cfg.name
+        hdp = {}
+        for compile_steps in (True, False):
+            route = "compiled" if compile_steps else "eager"
+            run = path if compile_steps else f"{path}_eager"
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            graphs0 = dict(compiled_steps.STATS)
+            with train_split(torch, train_loop) as spent:
+                t0 = time.perf_counter()
+                rep = Cluster(fleet).train(
+                    TrainJob(model, steps=3, grains=TRAIN_GRAINS,
+                             seq_len=TRAIN_SEQ, compile_steps=compile_steps),
+                    scenario=scenario)
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+            graphs = {k: compiled_steps.STATS[k] - graphs0[k]
+                      for k in graphs0}
+            launches = check(run, n_hdp)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            trainer = rep.artifact
+            losses = [p.metrics["loss"] for p in rep.phases]
+            if len(losses) != 3 or not all(np.isfinite(x) for x in losses):
+                fail(f"{tag} hdp ({route}): losses {losses}")
+            if compile_steps and (
+                    graphs["captures"] < 2 or trainer._update is None
+                    or trainer._update.graph is None
+                    or not all(s.graph is not None
+                               for s in trainer._grad_fn.steps)):
+                fail(f"{tag} hdp: {graphs['captures']} graphs captured; the "
+                     f"grain gradient and the update must both be")
+            if not compile_steps and graphs["captures"]:
+                fail(f"{tag} hdp (eager): the eager route captured a graph")
+            for p in rep.phases:
+                print(f"[{tag}] {route} step {p.index}: loss "
+                      f"{p.metrics['loss']:.6f}, grad norm "
+                      f"{p.metrics['grad_norm']:.4f}, shares "
+                      f"{json.dumps(dict(p.shares))}, migrated "
+                      f"{p.n_migrated}, steals {p.metrics['n_steals']}, "
+                      f"sim-clock step time {p.sim_time_s:.4f} s, quality "
+                      f"{p.quality:.4f}", flush=True)
+            grain_s = spent["grain"][1] - spent["combine"][1]
+            rest_s = wall_s - spent["grain"][1] - spent["adamw"][1]
+            print(f"[{tag}] {card}: {route} route, {fleet} {scenario}, "
+                  f"{len(rep.phases)} steps x {TRAIN_GRAINS} grains of bf16 "
+                  f"{name} ({model.cfg.n_layers} layers) at seq "
+                  f"{TRAIN_SEQ}: {wall_s:.3f} s wall "
+                  f"({n_hdp * TRAIN_SEQ / wall_s:.1f} tokens/s); {kernel} "
+                  f"launches {json.dumps(launches)}; peak memory "
+                  f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated)",
+                  flush=True)
+            print(f"[{tag}] {route} host wall split: grain gradients "
+                  f"{spent['grain'][0]} calls {grain_s:.3f} s, combine "
+                  f"{spent['combine'][0]} calls {spent['combine'][1]:.3f} s, "
+                  f"AdamW {spent['adamw'][0]} calls "
+                  f"{spent['adamw'][1]:.3f} s, the rest (control plane) "
+                  f"{rest_s:.3f} s; per step "
+                  f"{[round(x, 4) for x in spent['steps']]} s (the "
+                  f"combine's and AdamW's calls end in a synchronize)",
+                  flush=True)
+            gms = [round(1e3 * x, 3) for x in spent["calls"]["grain"]]
+            ums = [round(1e3 * x, 3) for x in spent["calls"]["adamw"]]
+            replay_grain = None
+            if compile_steps:
+                replay_grain = float(np.median(gms[2:]))
+                print(f"[{tag}] {card}: compiled route: "
+                      f"{graphs['captures']} graphs captured in "
+                      f"{graphs['capture_s']:.3f} s, pool "
+                      f"{graphs['pool_bytes'] / 1e9:.3f} GB, "
+                      f"{graphs['replays']} replays; host ms a grain with "
+                      f"its wait (warm-up, capture + replay, then replays; "
+                      f"the combine's synchronize included): {gms}; a "
+                      f"replayed grain {replay_grain:.3f} ms (median); host "
+                      f"ms an update (warm-up, capture + replay, replay) "
+                      f"{ums}: a replayed update {ums[2]:.3f} ms",
+                      flush=True)
+            else:
+                print(f"[{tag}] eager route: host ms a grain with its wait "
+                      f"{gms}; an update {ums}", flush=True)
+            hdp[route] = {
+                "loss": losses,
+                "grad_norm": [p.metrics["grad_norm"] for p in rep.phases],
+                "digests": leaf_digests(torch, tree_leaves,
+                                        trainer.state.params),
+                "wall_s": wall_s, "peak_gb": peak_gb,
+                "tokens_s": n_hdp * TRAIN_SEQ / wall_s,
+                "replay_grain_ms": replay_grain, "launches": launches}
+            # A third step unprofiled and a fourth profiled, the same
+            # trainer.
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.step(3)
+            torch.cuda.synchronize()
+            steady_s = time.perf_counter() - t0
+            prof = card_busy(torch, lambda: trainer.step(4),
+                             kernels=busy_kernels, top=12)
+            print_busy(card, f"{route} route, a steady step of "
+                       f"{TRAIN_GRAINS} grains", *prof, steady_s, tag=tag,
+                       kernel=kernel)
+            hdp[route].update(steady_s=steady_s, busy=prof[1] / prof[0],
+                              kernel_s=prof[2])
+            del rep, trainer
+        fast, slow = hdp["compiled"], hdp["eager"]
+        for key in ("loss", "grad_norm", "digests", "launches"):
+            if fast[key] != slow[key]:
+                fail(f"{tag} hdp: the compiled and eager routes' {key} "
+                     f"differ")
+        print(f"[{tag}] compiled vs eager, 3 steps under {scenario}: all "
+              f"{len(fast['digests'])} parameter leaves bitwise equal "
+              f"(SHA-256), losses {fast['loss']} equal, {kernel} launches "
+              f"equal; wall {fast['wall_s']:.3f} s vs {slow['wall_s']:.3f} "
+              f"s ({fast['tokens_s']:.1f} vs {slow['tokens_s']:.1f} "
+              f"tokens/s), peak {fast['peak_gb']:.2f} GB vs "
+              f"{slow['peak_gb']:.2f} GB", flush=True)
         gc.collect()
         torch.cuda.empty_cache()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        graphs0 = dict(compiled_steps.STATS)
-        with train_split(torch, train_loop) as spent:
-            t0 = time.perf_counter()
-            rep = Cluster(fleet).train(train_job(3, compile_steps),
-                                       scenario=scenario)
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t0
-        graphs = {k: compiled_steps.STATS[k] - graphs0[k] for k in graphs0}
-        check_k4_launches(path, n_hdp)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        trainer = rep.artifact
-        losses = [p.metrics["loss"] for p in rep.phases]
-        if len(losses) != 3 or not all(np.isfinite(x) for x in losses):
-            fail(f"train hdp ({route}): losses {losses}")
-        if compile_steps and (graphs["captures"] < 2 or trainer._update is None
-                              or trainer._update.graph is None
-                              or not all(s.graph is not None
-                                         for s in trainer._grad_fn.steps)):
-            fail(f"train hdp: {graphs['captures']} graphs captured; the "
-                 f"grain gradient and the update must both be")
-        if not compile_steps and graphs["captures"]:
-            fail("train hdp (eager): the eager route captured a graph")
-        for p in rep.phases:
-            print(f"[train] {route} step {p.index}: loss "
-                  f"{p.metrics['loss']:.6f}, grad norm "
-                  f"{p.metrics['grad_norm']:.4f}, shares "
-                  f"{json.dumps(dict(p.shares))}, migrated {p.n_migrated}, "
-                  f"steals {p.metrics['n_steals']}, sim-clock step time "
-                  f"{p.sim_time_s:.4f} s, quality {p.quality:.4f}",
-                  flush=True)
-        grain_s = spent["grain"][1] - spent["combine"][1]
-        rest_s = wall_s - spent["grain"][1] - spent["adamw"][1]
-        print(f"[train] {card}: {route} route, {fleet} {scenario}, "
-              f"{len(rep.phases)} steps x {TRAIN_GRAINS} grains of bf16 "
-              f"{cfg.name} at seq {TRAIN_SEQ}: {wall_s:.3f} s wall "
-              f"({n_hdp * TRAIN_SEQ / wall_s:.1f} tokens/s); K4 launches "
-              f"{json.dumps(by_path[path])}; peak memory {peak_gb:.2f} GB "
-              f"(torch.cuda.max_memory_allocated)", flush=True)
-        print(f"[train] {route} host wall split: grain gradients "
-              f"{spent['grain'][0]} calls {grain_s:.3f} s, combine "
-              f"{spent['combine'][0]} calls {spent['combine'][1]:.3f} s, "
-              f"AdamW {spent['adamw'][0]} calls {spent['adamw'][1]:.3f} s, "
-              f"the rest (control plane) {rest_s:.3f} s; per step "
-              f"{[round(x, 4) for x in spent['steps']]} s (the combine's "
-              f"and AdamW's calls end in a synchronize)", flush=True)
-        gms = [round(1e3 * x, 3) for x in spent["calls"]["grain"]]
-        ums = [round(1e3 * x, 3) for x in spent["calls"]["adamw"]]
-        if compile_steps:
-            replay_grain = float(np.median(gms[2:]))
-            replay_update = ums[2]
-            print(f"[train] {card}: compiled route: {graphs['captures']} "
-                  f"graphs captured in {graphs['capture_s']:.3f} s, pool "
-                  f"{graphs['pool_bytes'] / 1e9:.3f} GB, {graphs['replays']} "
-                  f"replays; host ms a grain with its wait (warm-up, capture "
-                  f"+ replay, then replays; the combine's synchronize "
-                  f"included): {gms}; a replayed grain {replay_grain:.3f} ms "
-                  f"(median); host ms an update (warm-up, capture + replay, "
-                  f"replay) {ums}: a replayed update {replay_update:.3f} ms",
-                  flush=True)
-        else:
-            print(f"[train] eager route: host ms a grain with its wait "
-                  f"{gms}; an update {ums}", flush=True)
-        hdp[route] = {"loss": losses, "grad_norm": [p.metrics["grad_norm"]
-                                                    for p in rep.phases],
-                      "digests": leaf_digests(torch, tree_leaves,
-                                              trainer.state.params),
-                      "wall_s": wall_s, "peak_gb": peak_gb}
-        # A third step unprofiled and a fourth profiled, the same trainer.
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer.step(3)
-        torch.cuda.synchronize()
-        steady_s = time.perf_counter() - t0
-        print_busy(card, f"{route} route, a steady step of 8 grains",
-                   *card_busy(torch, lambda: trainer.step(4),
-                              kernels=K4_BF16_KERNELS, top=12),
-                   steady_s, tag="train", kernel="K4")
-        del rep, trainer
-    fast, slow = hdp["compiled"], hdp["eager"]
-    for key in ("loss", "grad_norm", "digests"):
-        if fast[key] != slow[key]:
-            fail(f"train hdp: the compiled and eager routes' {key} differ")
-    print(f"[train] compiled vs eager, 3 steps under {scenario}: all "
-          f"{len(fast['digests'])} parameter leaves bitwise equal (SHA-256), "
-          f"losses {fast['loss']} equal; wall {fast['wall_s']:.3f} s vs "
-          f"{slow['wall_s']:.3f} s ({n_hdp * TRAIN_SEQ / fast['wall_s']:.1f} "
-          f"vs {n_hdp * TRAIN_SEQ / slow['wall_s']:.1f} tokens/s), peak "
-          f"{fast['peak_gb']:.2f} GB vs {slow['peak_gb']:.2f} GB", flush=True)
-    gc.collect()
-    torch.cuda.empty_cache()
+        return hdp
+
+    hdp_routes("train", model, "train_hdp", check_k4_launches,
+               K4_BF16_KERNELS, "K4")
 
     # 11.3 The same 2 steps, static and adaptive: bitwise-equal parameters,
     # compared by a hash of each leaf's bytes.
@@ -2887,14 +3015,22 @@ def main() -> int:
     # argument the padded N / 16), f32 on the CUDA cores (the padded N).
     k5_build = build_report(
         build_logs, "mamba_scan", k5.load_library()._name,
-        ("ssd_scan_mma_kernel", "ssd_scan_f32_kernel"),
-        lambda name, arg: int(k5.load_library().ssd_scan_smem_bytes(
-            *((1, 16 * arg) if "mma" in name else (0, arg)), 256)),
+        ("ssd_scan_mma_kernel", "ssd_scan_f32_kernel", "ssd_scan_bwd_kernel",
+         "ssd_bwd_reduce_kernel"),
+        lambda name, arg: 0 if "reduce" in name else int(
+            k5.load_library().ssd_scan_bwd_smem_bytes(arg, 256)
+            if "bwd" in name else k5.load_library().ssd_scan_smem_bytes(
+                *((1, 16 * arg) if "mma" in name else (0, arg)), 256)),
         main={"ssd_scan_mma_kernel": ("ssd_scan_mma_kernel<8>", True),
-              "ssd_scan_f32_kernel": ("ssd_scan_f32_kernel<128>", False)})
+              "ssd_scan_f32_kernel": ("ssd_scan_f32_kernel<128>", False),
+              "ssd_scan_bwd_kernel": ("ssd_scan_bwd_kernel<128, bf16>",
+                                      False),
+              "ssd_bwd_reduce_kernel": ("ssd_bwd_reduce_kernel<bf16>",
+                                        False)})
     for name, info in sorted(k5_build.items()):
-        print(f"[k5] build {name} (shared memory at chunk 256): "
-              f"{json.dumps(info)}", flush=True)
+        if "bwd" not in name:
+            print(f"[k5] build {name} (shared memory at chunk 256): "
+                  f"{json.dumps(info)}", flush=True)
 
     k5_row = {
         "ms": time_ms(torch, lambda: k5.ssd_scan(xdt, la, bg, cg, chunk=256,
@@ -2962,6 +3098,118 @@ def main() -> int:
               {k: v for k, v in k5_jamba.items() if k != "build"}),
           flush=True)
     del x, dtv, a, bm, cm, xdt, la, bg, cg, bf, cf, y, hf, again, ry, rh
+
+    # K5's backward (``ssd_scan_bwd``: ``ssd_scan_bwd_kernel``, then
+    # ``ssd_bwd_reduce_kernel`` for dB and dC per group) against its plain
+    # version (``ssd_scan_bwd_plain``) at GRAD_TOL, bf16 and f32: Mamba2's
+    # training shape over two seeds (the second with the final state's
+    # gradient), Jamba's (N 16, 128 heads a group), a ragged last chunk
+    # and several groups, la down to -50 a step (in f32 also every
+    # gradient within 1e-4 of the f64 recurrence's, as a relative Frobenius
+    # error: elementwise the f32 chunked algorithm misses that recurrence at
+    # such decays, tests/test_torch_mamba_scan_bwd.py); bitwise over two
+    # runs at the training shape; its kernels' registers, spills and shared
+    # memory; timed at the training shape (device time in phase 15).  The
+    # inputs come from a generator of their own.
+    gen_bwd = torch.Generator(device=dev)
+    gen_bwd.manual_seed(SEED + 19)
+
+    def bwd_case(bh, g, s, p, n, dt, la_floor=None):
+        def draw(shape):
+            return torch.randn(shape, generator=gen_bwd, device=dev)
+        dtv = draw((bh, s)).abs() * 0.1 + 0.01
+        la = dtv * -(draw((bh,)).abs() + 0.1)[:, None]
+        if la_floor is not None:
+            la = la * (la_floor / la.min())
+        xdt = (draw((bh, s, p)) * dtv[..., None]).to(dt)
+        return (xdt, la, draw((g, s, n)).to(dt), draw((g, s, n)).to(dt),
+                draw((bh, s, p)).to(dt), draw((bh, p, n)))
+
+    hb, gb, sb, pb, nb, cb = K5_BWD_SHAPE
+    hj, gj, sj, pj, nj, cj = K5_JAMBA_SHAPE
+    k5b_err = 0.0
+    k5b_cases = [((hb, gb, sb, pb, nb, cb), dt, seed, None)
+                 for dt in (torch.bfloat16, torch.float32) for seed in (0, 1)]
+    k5b_cases += [(shape, dt, 1, floor)
+                  for dt in (torch.bfloat16, torch.float32)
+                  for shape, floor in (((hj, gj, sj, pj, nj, cj), None),
+                                       ((4, 1, 300, 64, 128, 256), None),
+                                       ((6, 3, 129, 64, 100, 64), None),
+                                       ((4, 1, 300, 64, 128, 256), -50.0))]
+    for (h_, g_, s_, p_, n_, c_), dt, seed, floor in k5b_cases:
+        dname = str(dt)[6:]
+        xdt, la, bm, cm, dy, dstate = bwd_case(h_, g_, s_, p_, n_, dt, floor)
+        dstate = dstate if seed else None
+        name = (f"K5 backward {dname} xdt ({h_}, {s_}, {p_}), B/C ({g_}, "
+                f"{s_}, {n_}), chunk {c_}, seed {seed}"
+                + (", with dstate" if seed else "")
+                + (f", la down to {floor}" if floor else ""))
+        before = k5.LAUNCHES["ssd_scan_bwd"]
+        got = k5.ssd_scan_bwd(xdt, la, bm, cm, dy, dstate, chunk=c_,
+                              rep=h_ // g_)
+        torch.cuda.synchronize()
+        if k5.LAUNCHES["ssd_scan_bwd"] != before + 1:
+            fail(f"{name}: ssd_scan_bwd did not launch its kernels")
+        want = ssd_scan_bwd_plain(xdt, la, bm, cm, dy, dstate, chunk=c_,
+                                  rep=h_ // g_)
+        err = max(check_close(torch, f"{name} {part}", g, w, dname,
+                              GRAD_TOL)
+                  for part, g, w in zip(("dxdt", "dla", "db", "dc"), got,
+                                        want, strict=True))
+        k5b_err = max(k5b_err, err)
+        oracle = ""
+        if floor and dt == torch.float32:
+            # Autograd through the sequential recurrence, all in f64.
+            leaves = [t.double().requires_grad_(True)
+                      for t in (xdt, la, bm, cm)]
+            y, hf = ssd_scan_ref(leaves[0], leaves[1], *(
+                torch.repeat_interleave(t, h_ // g_, 0) for t in leaves[2:]))
+            ((y * dy.double()).sum() + (hf * dstate.double()).sum()).backward()
+            rel = [float(torch.linalg.vector_norm(g.double() - w.grad)
+                         / torch.linalg.vector_norm(w.grad))
+                   for g, w in zip(got, leaves, strict=True)]
+            if not max(rel) <= 1e-4:
+                fail(f"{name}: relative Frobenius errors {rel} against the "
+                     f"f64 recurrence, above 1e-4")
+            oracle = (f"; against the f64 recurrence relative Frobenius "
+                      f"errors {[f'{r:.2e}' for r in rel]}")
+            del leaves, y, hf
+        print(f"[k5] {name}: max abs err {err:.3e} against the plain "
+              f"backward (GRAD_TOL){oracle}", flush=True)
+    xdt, la, bm, cm, dy, _ = bwd_case(hb, gb, sb, pb, nb, torch.bfloat16)
+    first = k5.ssd_scan_bwd(xdt, la, bm, cm, dy, None, chunk=cb, rep=hb)
+    again = k5.ssd_scan_bwd(xdt, la, bm, cm, dy, None, chunk=cb, rep=hb)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again, strict=True)):
+        fail("K5 backward at the training shape: two runs differ")
+    del first, again
+    print("[k5] backward bf16 at the training shape: two runs bitwise "
+          "equal", flush=True)
+    for name, info in sorted(k5_build.items()):
+        if "bwd" in name:
+            print(f"[k5] build {name} (shared memory at chunk 256): "
+                  f"{json.dumps(info)}", flush=True)
+    k5_bwd = {}
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt)[6:]
+        xdt, la, bm, cm, dy, _ = bwd_case(hb, gb, sb, pb, nb, dt)
+        row = {"shape": [[hb, sb, pb], [gb, sb, nb]], "chunk": cb,
+               "ms": time_ms(torch, lambda: k5.ssd_scan_bwd(
+                   xdt, la, bm, cm, dy, None, chunk=cb, rep=hb // gb)),
+               "plain_ms": time_ms(torch, lambda: ssd_scan_bwd_plain(
+                   xdt, la, bm, cm, dy, None, chunk=cb, rep=hb // gb)),
+               # No PyTorch call computes the scan's gradient.
+               "library_ms": None,
+               "build": k5_build[f"ssd_scan_bwd_kernel<128, "
+                                 f"{'bf16' if dname == 'bfloat16' else 'float'}>"]}
+        row["bound_ms"], row["bound_by"] = k5_bwd_bound_ms(
+            hb, gb, sb, pb, nb, cb, dt.itemsize, dname, False)
+        k5_bwd[dname] = row
+        print(f"[k5] {card}: backward {dname} xdt ({hb}, {sb}, {pb}), B/C "
+              f"({gb}, {sb}, {nb}), chunk {cb}: " + json.dumps(
+                  {k: v for k, v in row.items() if k != "build"}),
+              flush=True)
+    del xdt, la, bm, cm, dy, dstate, got, want
 
     # ----------------------------------- 13. mamba model, f32 (main path)
     cfgm32 = get_config("mamba2-2.7b", param_dtype="float32",
@@ -3086,6 +3334,93 @@ def main() -> int:
         kernels=("ssd_scan_f32_kernel", "ssd_scan_mma_kernel"), top=8), wall_s,
         tag="mamba-serve", kernel="K5")
     del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------- 27. mamba train, bf16 (main path)
+    # Mamba2-2.7B trained on the kernel route: K5's forward twice a layer a
+    # grain (the forward, then its recompute under remat) and its backward
+    # once.  (b) One f32 grain cut to MAMBA_TRAIN_F32_LAYERS layers against
+    # use_pallas=False; (c) phase 11.2's flow on the bf16 model at its
+    # published widths and MAMBA_TRAIN_LAYERS layers.
+    def check_k5_launches(path: str, n_grains: int,
+                          n_layers: int) -> dict[str, int]:
+        counts = read_counts(path)
+        want = {"ssd_scan": 2 * n_layers * n_grains,
+                "ssd_scan_bwd": n_layers * n_grains}
+        got = {n: counts[n] for n in want}
+        if got != want:
+            fail(f"{path}: K5 launches {got}, predicted {want}")
+        return got
+
+    phase_t0 = time.perf_counter()
+    cfgt32 = get_config("mamba2-2.7b", n_layers=MAMBA_TRAIN_F32_LAYERS,
+                        param_dtype="float32", compute_dtype="float32")
+    model = Model(cfgt32)
+    plain = Model(dataclasses.replace(cfgt32, use_pallas=False))
+    params = model.init(SEED)
+    spec = GrainSpec(1, TRAIN_SEQ, cfgt32.vocab_size)
+    batch = batch_from_grains(SyntheticSource(spec, seed=SEED), 0, [0], spec,
+                              device=dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    (loss_k, _), grads_k = make_grain_grad_fn(model, compile_steps=False)(
+        params, batch)
+    torch.cuda.synchronize()
+    grain_k_s = time.perf_counter() - t0
+    k5_train = check_k5_launches("mamba_train_f32", 1, MAMBA_TRAIN_F32_LAYERS)
+    t0 = time.perf_counter()
+    (loss_p, _), grads_p = make_grain_grad_fn(plain, compile_steps=False)(
+        params, batch)
+    torch.cuda.synchronize()
+    grain_p_s = time.perf_counter() - t0
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    if not (loss_rel <= 1e-4 and torch.isfinite(loss_k)):
+        fail(f"mamba train f32 grain: loss {float(loss_k)} on the kernel "
+             f"route vs {float(loss_p)} plain (rel err {loss_rel:.3e} > "
+             f"1e-4)")
+    leaf_err, leaf_rel = 0.0, (0.0, None)
+    for i, (gk, gp) in enumerate(zip(tree_leaves(grads_k),
+                                     tree_leaves(grads_p), strict=True)):
+        leaf_err = max(leaf_err, check_close(
+            torch, f"mamba train f32 gradient leaf {i} {tuple(gk.shape)}",
+            gk, gp, "float32", GRAD_TOL))
+        rel = float(torch.linalg.vector_norm((gk - gp).float())
+                    / torch.linalg.vector_norm(gp.float()).clamp_min(1e-30))
+        if rel >= leaf_rel[0]:
+            leaf_rel = (rel, (i, tuple(gk.shape)))
+    print(f"[mamba-train] {card}: one f32 grain of {cfgt32.name} "
+          f"({MAMBA_TRAIN_F32_LAYERS} of 64 layers, d_model "
+          f"{cfgt32.d_model}, 80 heads of 64, d_state 128), seq "
+          f"{TRAIN_SEQ}: loss {float(loss_k):.6f} kernel route vs "
+          f"{float(loss_p):.6f} plain (rel err {loss_rel:.3e}); every "
+          f"gradient leaf within GRAD_TOL (max abs err {leaf_err:.3e}; worst "
+          f"relative Frobenius error {leaf_rel[0]:.3e}, leaf {leaf_rel[1]}); "
+          f"K5 launches {json.dumps(k5_train)}; host s with the wait: "
+          f"kernel route {grain_k_s:.3f}, plain {grain_p_s:.3f}", flush=True)
+    del model, plain, params, batch, grads_k, grads_p, loss_k, loss_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(get_config("mamba2-2.7b", n_layers=MAMBA_TRAIN_LAYERS))
+    mamba_hdp = hdp_routes(
+        "mamba-train", model, "mamba_train_hdp",
+        lambda path, n: check_k5_launches(path, n, MAMBA_TRAIN_LAYERS),
+        ("ssd_scan_mma_kernel", "ssd_scan_bwd_kernel",
+         "ssd_bwd_reduce_kernel"), "K5")
+    print(f"[mamba-train] {card}: bf16 {model.cfg.name} at "
+          f"{MAMBA_TRAIN_LAYERS} of 64 layers"
+          + ("" if MAMBA_TRAIN_LAYERS == 64 else " (a cut: the whole model "
+             "ran out of the card's memory in training)")
+          + f": compiled {mamba_hdp['compiled']['tokens_s']:.1f} tokens/s, "
+          f"a replayed grain {mamba_hdp['compiled']['replay_grain_ms']:.3f} "
+          f"host ms, busy {mamba_hdp['compiled']['busy']:.4f} of a steady "
+          f"step, peak {mamba_hdp['compiled']['peak_gb']:.2f} GB; eager "
+          f"{mamba_hdp['eager']['tokens_s']:.1f} tokens/s, busy "
+          f"{mamba_hdp['eager']['busy']:.4f}, peak "
+          f"{mamba_hdp['eager']['peak_gb']:.2f} GB; phase "
+          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+    del model
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4302,6 +4637,12 @@ def main() -> int:
           f"{k1_tp['device_ms']:.6f} ms, SDPA "
           f"{k1_tp['library_device_ms']:.6f} ms (bound "
           f"{k1_tp['bound_ms']:.6f} ms)", flush=True)
+    for dname in ("bf16", "f32"):
+        row = k5_bwd["bfloat16" if dname == "bf16" else "float32"]
+        row.update(dev_times[f"k5_bwd_{dname}"])
+        print(f"[device] K5 backward {dname} xdt {row['shape'][0]}, B/C "
+              f"{row['shape'][1]}: {row['device_ms']:.6f} ms (bound "
+              f"{row['bound_ms']:.6f} ms)", flush=True)
     k5_jamba.update(dev_times["k5_jamba"])
     print(f"[device] K5 bf16 Jamba xdt {k5_jamba['shape'][0]}, B/C "
           f"{k5_jamba['shape'][1]}: {k5_jamba['device_ms']:.6f} ms (bound "
@@ -4428,6 +4769,24 @@ def main() -> int:
          "build": k5_row["build"], "f32": k5_f32, "jamba": k5_jamba,
          "tensor_parallel": dict(k5_tp, shapes_by_size={
              w: r["k5_shapes"] for w, r in tp_runs.items()})},
+        {"name": "ssd_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+         # The reference's kernel route has no VJP: this is the gradient
+         # its plain route's autodiff takes of K5's function.
+         "replaces": "src/repro/kernels/mamba_scan/mamba_scan.py:85",
+         "launches": launches["ssd_scan_bwd"],
+         "launches_by_path": per_kernel["ssd_scan_bwd"],
+         "max_abs_err": k5b_err, "shape": k5_bwd["bfloat16"]["shape"],
+         "ms": k5_bwd["bfloat16"]["ms"],
+         "plain_ms": k5_bwd["bfloat16"]["plain_ms"],
+         "bound_ms": k5_bwd["bfloat16"]["bound_ms"],
+         "bound_by": k5_bwd["bfloat16"]["bound_by"],
+         "library_ms": None,
+         "device_ms": k5_bwd["bfloat16"]["device_ms"],
+         "build": k5_bwd["bfloat16"]["build"], "f32": k5_bwd["float32"],
+         "mamba_train": {route: {k: v for k, v in r.items()
+                                 if k != "digests"}
+                         for route, r in mamba_hdp.items()}},
     ]}
     print(f"[moe-capacity] {card}: " + json.dumps(
         {key: {k: v for k, v in row.items() if k != "capacities"}
@@ -5538,8 +5897,9 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
                        "f32": serve_case("f_f32", cfgm32, *prompt,
                                          {"ssd_scan": TP_MAMBA_F32_LAYERS})}
                 res["f32"].update(train_case(
-                    "f_f32", dataclasses.replace(cfgm32, use_pallas=False),
-                    dict(k4, ssd_scan=0)))
+                    "f_f32", cfgm32, dict(
+                        k4, ssd_scan=2 * TP_MAMBA_F32_LAYERS,
+                        ssd_scan_bwd=TP_MAMBA_F32_LAYERS)))
             elif case == "g":
                 cfgj = bf16["g_bf16"]
                 res = {"bf16": serve_case(

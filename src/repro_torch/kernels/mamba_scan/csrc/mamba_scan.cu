@@ -10,7 +10,9 @@
 //   y_i    = sum_{j <= i} (C_i . B_j) exp(min(cum_i - cum_j, 0)) xdt_j
 //            + exp(cum_i) (C_i . h)
 //   h      = exp(cum_last) h + sum_j (xdt_j exp(cum_last - cum_j)) (x) B_j
-// with y in xdt's dtype and the final (P, N) state in f32.
+// with y in xdt's dtype and the final (P, N) state in f32.  `ssd_scan_bwd`
+// is its gradient, which the reference's kernel has not (its design is
+// noted where its kernels are defined, after the forward's).
 //
 // What bounds it on the card: at the serving path's shape (80 heads, P 64,
 // one group of N 128, S 512 in chunks of 256, bf16) the function moves
@@ -905,6 +907,578 @@ cudaError_t dispatch_mma(const void* xdt, const float* la, const void* b,
 
 int mma_nb(int n) { return n <= 32 ? 2 : n <= 64 ? 4 : 8; }
 
+// ------------------------------------------------------------------------
+// Backward: `ssd_scan_bwd_kernel`, then `ssd_bwd_reduce_kernel`.
+//
+// Replaces no Pallas kernel: the reference's kernel route has no VJP
+// (jax.grad through repro/kernels/mamba_scan/ops.py::ssd with
+// use_pallas=True fails), and its models train through the plain route
+// (ssd_chunked_grouped) under jax.grad.  This is that gradient of K5's
+// function, written out per chunk; ref.py::ssd_scan_bwd_plain lists its
+// terms and is what it is held against.  Inputs xdt, B, C and dy in one
+// dtype (bf16 or f32), la f32; dxdt in the inputs' dtype, dla f32, dB and
+// dC per group in the inputs' dtype.
+//
+// Design (a simple one: f32 FMAs on the CUDA cores): one block per head row
+// (grid BH), 16 x 16 threads, tiles of 64 rows staged by plain loads and
+// widened to f32 (so no alignment is asked of the inputs), P up to 64
+// (padded with zeros to 64), N padded to 32, 64 or 128.
+//   * Pass 0 runs the forward's state chain over the chunks and writes the
+//     state entering each chunk to a workspace (BH, n_chunks, 64, NP) f32
+//     (10.5 MB at the training shape); the forward kernels stay untouched.
+//   * Then the chunks in reverse, with dh, the gradient of the state
+//     leaving the chunk, in shared memory both as [p][n] and as [n][p]:
+//     pass A, per key tile J (its rows j), over the query tiles I >= J:
+//     G^T = B_J C_I^T and M^T = X_J dY_I^T, decayed and masked; dx_J +=
+//     (G^T W^T) dY_I and dB_J += (W^T M^T) C_I in registers, the column
+//     sums of E; then the state terms w_j dh B_j (dx), w_j dh^T x_j (dB)
+//     and x_j . (w_j dh B_j) (dcum).  dx goes out in the inputs' dtype, dB
+//     per head in f32 to the workspace.  Pass B, per query tile I, over the
+//     key tiles J <= I: dC_I += (W M) B_J, the row sums of E, then the
+//     entering state's terms e^{cum_i} h_in^T dy_i (dC) and its dot with
+//     C_i (dcum); dC per head in f32.  Pass C: dh_in = e^{cum_L} dh +
+//     sum_i e^{cum_i} dy_i (x) C_i.  dcum is summed in f64 from the f32
+//     terms, and dla is its suffix sum over the chunk, taken in f64 by one
+//     thread in index order and rounded once, as the forward takes its
+//     prefix sum: the sum of a chunk's E terms is 0, and in f32 a chunk's
+//     first dla values were left with the rounding of the sum's terms
+//     (2.8e-3 against a 1e-4 tolerance at the training shape).
+//   * Every output element is owned by one thread and summed in a fixed
+//     order (no atomics), so two runs give the same bits;
+//     `ssd_bwd_reduce_kernel` then sums each group's rep heads of dB and dC
+//     in head order and rounds once (the model: flash_attention.cu's
+//     `flash_dkdv_reduce_kernel`).
+// What bounds it: at the training shape (80 heads of P 64, one group of N
+// 128, S 1024 in chunks of 256, bf16) the function moves about 33 MB and
+// needs about 14 GFLOP (chip_smoke.py's k5_bwd_bound_ms counts both), so
+// at the tensor cores' bf16 rate its bound is operations, about 0.014 ms.
+// This kernel runs every product as f32 FMAs on 80 of the 132 SMs (one
+// block a head row), reads its operands from shared memory 16 bytes at a
+// time as the f32 forward does, and forms each chunk's Gram once per head
+// and twice (passes A and B), so it is far from that bound: the tensor
+// cores, cp.async staging and more blocks than head rows are later work.
+// ------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 256;      // 16 x 16
+constexpr int kBwdT = 64;             // rows of a tile (keys or queries)
+constexpr int kBwdP = 64;             // P columns the block holds (padded)
+constexpr int kBwdSX = kBwdP + 4;     // row stride of the P-wide tiles
+constexpr int kBwdSS = kBwdT + 4;     // row stride of the score tiles
+static_assert(kBwdP == 4 * 16, "a thread owns 4 P columns of 64");
+
+// Floats of the union that holds dh^T (NP rows of P) in pass A and the
+// entering state (64 rows of N) in passes B and C.
+__host__ __device__ constexpr int bwd_union_floats(int np) {
+  return np * kBwdSX > kBwdP * (np + 4) ? np * kBwdSX : kBwdP * (np + 4);
+}
+
+// Bytes of dynamic shared memory at padded state width np and chunk length
+// chunk: the C and B tiles, the xdt and dy tiles, two score tiles, dh, the
+// union, four f32 arrays and one f64 array of the chunk's positions and a
+// block reduction.
+size_t bwd_smem_bytes(int np, int chunk) {
+  const size_t sf = np + 4, cpad = round_up(chunk, kBwdT);
+  const size_t floats = 2 * kBwdT * sf + 2 * kBwdT * kBwdSX
+                        + 2 * kBwdT * kBwdSS + kBwdP * sf
+                        + bwd_union_floats(np) + 6 * cpad + 32;
+  return floats * sizeof(float);
+}
+
+// Floats of the workspace: the entering states, then dB's and dC's
+// partials per head.
+size_t bwd_workspace_floats(int bh, int s, int n, int chunk) {
+  const size_t nc = (s + chunk - 1) / chunk;
+  return (size_t)bh * nc * kBwdP * (16 * mma_nb(n)) + 2 * (size_t)bh * s * n;
+}
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void narrow(float* p, float v) { *p = v; }
+__device__ __forceinline__ void narrow(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// Rows [0, ROWS) and columns [0, COLS) of an f32 tile of row stride
+// `stride` from the rows of a row-major matrix of leading dimension `ld`
+// starting at `src`, widened to f32; rows at or past `valid` and columns at
+// or past `width` read 0.
+template <int ROWS, int COLS, typename TI>
+__device__ __forceinline__ void load_tile(float* dst, int stride,
+                                          const TI* src, int ld, int valid,
+                                          int width) {
+  for (int i = threadIdx.x; i < ROWS * COLS; i += kBwdThreads) {
+    const int r = i / COLS, c = i % COLS;
+    dst[r * stride + c] =
+        r < valid && c < width ? widen(src[(size_t)r * ld + c]) : 0.f;
+  }
+}
+
+// out[r][c] = sum over k < K of A[(ty + 16 r) sa + k] * B[(tx + 16 c) sb + k]:
+// a 4 x 4 block of the 64 x 64 product of two row-major tiles, each row read
+// 16 bytes at a time, the sum in ascending k.
+template <int K>
+__device__ __forceinline__ void tile_dot(float (&out)[4][4], const float* A,
+                                         int sa, const float* B, int sb,
+                                         int tx, int ty) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) out[r][c] = 0.f;
+#pragma unroll 1
+  for (int k = 0; k < K; k += 4) {
+    float av[4][4], bv[4][4], bt[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) load_row(av[r], A + (ty + 16 * r) * sa + k);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) load_row(bv[c], B + (tx + 16 * c) * sb + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) bt[kk][c] = bv[c][kk];
+    fma4(out, av, bt);
+  }
+}
+
+// out[r][q] += sum over k < K of A[(ty + 16 r) sa + k] * M[k sm + q0 + q]:
+// rows ty + 16 r of a row-major tile times a row-major matrix, this
+// thread's QW consecutive columns from q0.
+template <int K, int QW>
+__device__ __forceinline__ void rows_times(float (&out)[4][QW],
+                                           const float* A, int sa,
+                                           const float* M, int sm, int q0,
+                                           int ty) {
+#pragma unroll 2
+  for (int k = 0; k < K; k += 4) {
+    float av[4][4], mv[4][QW];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) load_row(av[r], A + (ty + 16 * r) * sa + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) load_row(mv[kk], M + (k + kk) * sm + q0);
+    fma4(out, av, mv);
+  }
+}
+
+// out[q][v] += sum over the tile's kBwdT rows k of (X[k][p0 + q] w_k)
+// Y[k][n0 + v]: a (P, N) block of X^T diag(w) Y as rank-1 updates.
+template <int NV>
+__device__ __forceinline__ void outer_acc(float (&out)[4][NV], const float* X,
+                                          int sx, const float* Y, int sy,
+                                          const float* w, int p0, int n0) {
+#pragma unroll 2
+  for (int k = 0; k < kBwdT; ++k) {
+    float xv[4], yv[NV];
+    load_row(xv, X + k * sx + p0);
+    load_row(yv, Y + k * sy + n0);
+    const float wk = w[k];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float xw = xv[q] * wk;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) out[q][v] = fmaf(xw, yv[v], out[q][v]);
+    }
+  }
+}
+
+// The sum over the 16 lanes of a half warp (the tx of one ty).
+template <typename V>
+__device__ __forceinline__ V half_warp_sum(V v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Grid (B*H); NP is N padded to 32, 64 or 128; TI the inputs' dtype.
+template <int NP, typename TI>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+ssd_scan_bwd_kernel(const TI* __restrict__ xdt, const float* __restrict__ la,
+                    const TI* __restrict__ bmat, const TI* __restrict__ cmat,
+                    const TI* __restrict__ dy,
+                    const float* __restrict__ dstate, TI* __restrict__ dxdt,
+                    float* __restrict__ dla, float* __restrict__ db_part,
+                    float* __restrict__ dc_part, float* __restrict__ h_ws,
+                    int S, int P, int N, int chunk, int rep) {
+  constexpr int T = kBwdT, SX = kBwdSX, SS = kBwdSS, SF = NP + 4;
+  constexpr int NV = NP / 16;              // N columns a thread owns
+  extern __shared__ __align__(16) float smb[];
+  float* Cs = smb;                         // T x SF
+  float* Bs = Cs + T * SF;                 // T x SF
+  float* Xs = Bs + T * SF;                 // T x SX
+  float* Ys = Xs + T * SX;                 // T x SX: dy
+  float* Ss = Ys + T * SX;                 // T x SS
+  float* Qs = Ss + T * SS;                 // T x SS
+  float* DH = Qs + T * SS;                 // kBwdP x SF: dh[p][n]
+  float* Un = DH + kBwdP * SF;             // dh^T [n][p], or h_in [p][n]
+  const int cpad = round_up(chunk, T);
+  float* cum = Un + bwd_union_floats(NP);
+  float* ecum = cum + cpad;                // e^{cum_i}, 0 past the end
+  float* wl = ecum + cpad;                 // e^{cum_L - cum_j}, 0 past it
+  float* rr = wl + cpad;                   // x_j . (w_j dh B_j)
+  // dcum in f64: each E_ij enters row i's sum and column j's with one f32
+  // value, and each r_j position j and L, so the suffix sum cancels them
+  // exactly where they cancel (a chunk's first positions).
+  double* dcum = reinterpret_cast<double*>(rr + cpad);
+  float* red = rr + 3 * cpad;              // a block reduction's 8 warps
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int row = blockIdx.x;              // b * H + h
+  const int grow = row / rep;              // b * G + h / rep
+  const int nc = (S + chunk - 1) / chunk;
+  const TI* xp = xdt + (size_t)row * S * P;
+  const TI* yp = dy + (size_t)row * S * P;
+  const float* lp = la + (size_t)row * S;
+  const TI* bp = bmat + (size_t)grow * S * N;
+  const TI* cp = cmat + (size_t)grow * S * N;
+  float* ws = h_ws + (size_t)row * nc * kBwdP * NP;
+  // This thread's (P, N) entries: p in [hp, hp + 4), n in [hn, hn + NV).
+  const int hp = 4 * tx, hn = NV * ty;
+
+  // The chunk's cum (warp 0, f64, as the forward), e^cum and w; dcum = 0.
+  auto chunk_terms = [&](int c0, int clen) {
+    __syncthreads();                       // Ss and the arrays are free
+    if (tid < 32)
+      prefix_sum_f64(cum, lp + c0, clen, reinterpret_cast<double*>(Ss));
+    __syncthreads();
+    const float last = cum[clen - 1];
+    for (int i = tid; i < cpad; i += kBwdThreads) {
+      const bool in = i < clen;
+      ecum[i] = in ? expf(cum[i]) : 0.f;
+      wl[i] = in ? expf(last - cum[i]) : 0.f;
+      dcum[i] = 0.0;
+    }
+    __syncthreads();
+  };
+  auto stage_keys = [&](int at, int valid) {      // B and xdt rows
+    load_tile<T, NP>(Bs, SF, bp + (size_t)at * N, N, valid, N);
+    load_tile<T, kBwdP>(Xs, SX, xp + (size_t)at * P, P, valid, P);
+  };
+  auto stage_queries = [&](int at, int valid) {   // C and dy rows
+    load_tile<T, NP>(Cs, SF, cp + (size_t)at * N, N, valid, N);
+    load_tile<T, kBwdP>(Ys, SX, yp + (size_t)at * P, P, valid, P);
+  };
+
+  // Pass 0: the state entering each chunk, into the workspace.
+  {
+    float h[4][NV];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int v = 0; v < NV; ++v) h[q][v] = 0.f;
+    for (int z = 0; z < nc; ++z) {
+      float* wz = ws + (size_t)z * kBwdP * NP;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) store_row(wz + (hp + q) * NP + hn, h[q]);
+      if (z == nc - 1) break;
+      const int c0 = z * chunk, clen = min(chunk, S - c0);
+      chunk_terms(c0, clen);
+      float hc[4][NV];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int v = 0; v < NV; ++v) hc[q][v] = 0.f;
+      for (int j0 = 0; j0 < clen; j0 += T) {
+        __syncthreads();
+        stage_keys(c0 + j0, clen - j0);
+        __syncthreads();
+        outer_acc(hc, Xs, SX, Bs, SF, wl + j0, hp, hn);
+      }
+      const float decay = ecum[clen - 1];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int v = 0; v < NV; ++v) h[q][v] = fmaf(decay, h[q][v], hc[q][v]);
+    }
+  }
+
+  // dh of the last chunk: dstate, or 0.
+  __syncthreads();
+  for (int i = tid; i < kBwdP * NP; i += kBwdThreads) {
+    const int p = i / NP, n = i % NP;
+    const float v = dstate != nullptr && p < P && n < N
+                        ? dstate[((size_t)row * P + p) * N + n] : 0.f;
+    DH[p * SF + n] = v;
+    Un[n * SX + p] = v;
+  }
+
+  for (int z = nc - 1; z >= 0; --z) {
+    const int c0 = z * chunk, clen = min(chunk, S - c0);
+    chunk_terms(c0, clen);
+
+    // Pass A: per key tile, dx and dB (intra-chunk and state terms).
+    for (int j0 = 0; j0 < clen; j0 += T) {
+      __syncthreads();                     // the last tile's reads done
+      stage_keys(c0 + j0, clen - j0);
+      float dx[4][4], dbv[4][NV];
+      double erow[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        erow[r] = 0.0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) dx[r][q] = 0.f;
+#pragma unroll
+        for (int v = 0; v < NV; ++v) dbv[r][v] = 0.f;
+      }
+      for (int i0 = j0; i0 < clen; i0 += T) {
+        __syncthreads();                   // C, dy and the scores are free
+        stage_queries(c0 + i0, clen - i0);
+        __syncthreads();
+        float g[4][4], m[4][4];
+        tile_dot<NP>(g, Bs, SF, Cs, SF, tx, ty);       // B_j . C_i
+        tile_dot<kBwdP>(m, Xs, SX, Ys, SX, tx, ty);    // x_j . dy_i
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int j = j0 + ty + 16 * r, i = i0 + tx + 16 * c;
+            const float w = j <= i && i < clen
+                                ? expf(fminf(cum[i] - cum[j], 0.f)) : 0.f;
+            const float sv = g[r][c] * w;
+            erow[r] += (double)(sv * m[r][c]);
+            Ss[(ty + 16 * r) * SS + tx + 16 * c] = sv;
+            Qs[(ty + 16 * r) * SS + tx + 16 * c] = m[r][c] * w;
+          }
+        __syncthreads();
+        rows_times<T, 4>(dx, Ss, SS, Ys, SX, 4 * tx, ty);
+        rows_times<T, NV>(dbv, Qs, SS, Cs, SF, NV * tx, ty);
+      }
+      // The state terms: v_j = dh B_j and t_j = dh^T x_j.
+      float v[4][4], t[4][NV];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[r][q] = 0.f;
+#pragma unroll
+        for (int k = 0; k < NV; ++k) t[r][k] = 0.f;
+      }
+      rows_times<NP, 4>(v, Bs, SF, Un, SX, 4 * tx, ty);
+      rows_times<kBwdP, NV>(t, Xs, SX, DH, SF, NV * tx, ty);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int jl = ty + 16 * r, j = j0 + jl;
+        const float w = wl[j];
+        float xv[4];
+        load_row(xv, Xs + jl * SX + 4 * tx);
+        float part = 0.f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) part = fmaf(xv[q], v[r][q], part);
+        const float rj = w * half_warp_sum(part);
+        const double e = half_warp_sum(erow[r]);
+        if (tx == 0 && j < clen) {
+          dcum[j] -= e + (double)rj;
+          rr[j] = rj;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) dx[r][q] = fmaf(w, v[r][q], dx[r][q]);
+#pragma unroll
+        for (int k = 0; k < NV; ++k) dbv[r][k] = fmaf(w, t[r][k], dbv[r][k]);
+        if (j < clen) {
+          TI* dxr = dxdt + ((size_t)row * S + c0 + j) * P;
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (4 * tx + q < P) narrow(dxr + 4 * tx + q, dx[r][q]);
+          float* dbr = db_part + ((size_t)row * S + c0 + j) * N;
+#pragma unroll
+          for (int k = 0; k < NV; ++k)
+            if (NV * tx + k < N) dbr[NV * tx + k] = dbv[r][k];
+        }
+      }
+    }
+
+    // Pass B: per query tile, dC (intra-chunk and entering-state terms).
+    __syncthreads();                       // pass A's reads of dh^T done
+    const float* wz = ws + (size_t)z * kBwdP * NP;
+    for (int i = tid; i < kBwdP * NP; i += kBwdThreads)
+      Un[(i / NP) * SF + i % NP] = wz[i];
+    for (int i0 = 0; i0 < clen; i0 += T) {
+      __syncthreads();
+      stage_queries(c0 + i0, clen - i0);
+      float dcv[4][NV];
+      double erow[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        erow[r] = 0.0;
+#pragma unroll
+        for (int k = 0; k < NV; ++k) dcv[r][k] = 0.f;
+      }
+      for (int j0 = 0; j0 <= i0; j0 += T) {
+        __syncthreads();                   // B, xdt and the scores are free
+        stage_keys(c0 + j0, clen - j0);
+        __syncthreads();
+        float g[4][4], m[4][4];
+        tile_dot<NP>(g, Cs, SF, Bs, SF, tx, ty);       // C_i . B_j
+        tile_dot<kBwdP>(m, Ys, SX, Xs, SX, tx, ty);    // dy_i . x_j
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int i = i0 + ty + 16 * r, j = j0 + tx + 16 * c;
+            const float w = j <= i && i < clen
+                                ? expf(fminf(cum[i] - cum[j], 0.f)) : 0.f;
+            const float sv = g[r][c] * w;
+            erow[r] += (double)(sv * m[r][c]);
+            Qs[(ty + 16 * r) * SS + tx + 16 * c] = m[r][c] * w;
+          }
+        __syncthreads();
+        rows_times<T, NV>(dcv, Qs, SS, Bs, SF, NV * tx, ty);
+      }
+      // u_i = h_in^T dy_i.
+      float u[4][NV];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int k = 0; k < NV; ++k) u[r][k] = 0.f;
+      rows_times<kBwdP, NV>(u, Ys, SX, Un, SF, NV * tx, ty);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int il = ty + 16 * r, i = i0 + il;
+        const float ei = ecum[i];
+        float cv[NV];
+        load_row(cv, Cs + il * SF + NV * tx);
+        float part = 0.f;
+#pragma unroll
+        for (int k = 0; k < NV; ++k) part = fmaf(cv[k], u[r][k], part);
+        const float inter = ei * half_warp_sum(part);
+        const double e = half_warp_sum(erow[r]);
+        if (tx == 0 && i < clen) dcum[i] += e + (double)inter;
+#pragma unroll
+        for (int k = 0; k < NV; ++k) dcv[r][k] = fmaf(ei, u[r][k], dcv[r][k]);
+        if (i < clen) {
+          float* dcr = dc_part + ((size_t)row * S + c0 + i) * N;
+#pragma unroll
+          for (int k = 0; k < NV; ++k)
+            if (NV * tx + k < N) dcr[NV * tx + k] = dcv[r][k];
+        }
+      }
+    }
+
+    // Pass C: sum_i e^{cum_i} dy_i (x) C_i, for the entering state's dh.
+    float dhn[4][NV];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int v = 0; v < NV; ++v) dhn[q][v] = 0.f;
+    if (z > 0)
+      for (int i0 = 0; i0 < clen; i0 += T) {
+        __syncthreads();
+        stage_queries(c0 + i0, clen - i0);
+        __syncthreads();
+        outer_acc(dhn, Ys, SX, Cs, SF, ecum + i0, hp, hn);
+      }
+
+    // dcum_L += e^{cum_L} <dh, h_in> + sum_j x_j . (w_j dh B_j); then dla.
+    float dot = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+        dot = fmaf(DH[(hp + q) * SF + hn + v], Un[(hp + q) * SF + hn + v], dot);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    if (tid % 32 == 0) red[tid / 32] = dot;
+    __syncthreads();                       // dcum, rr and red complete
+    const float el = ecum[clen - 1];
+    if (tid == 0) {
+      float tot = 0.f;
+      double rs = 0.0;
+      for (int w = 0; w < kBwdThreads / 32; ++w) tot += red[w];
+      for (int j = 0; j < clen; ++j) rs += (double)rr[j];
+      dcum[clen - 1] += (double)(el * tot) + rs;
+      double run = 0.0;
+      for (int i = clen - 1; i >= 0; --i) {
+        run += dcum[i];
+        dla[(size_t)row * S + c0 + i] = (float)run;
+      }
+    }
+    if (z > 0) {
+      // dh <- e^{cum_L} dh + the sum; dh^T over h_in's room.
+      float nv[4][NV];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+          nv[q][v] = fmaf(el, DH[(hp + q) * SF + hn + v], dhn[q][v]);
+      __syncthreads();                     // every read of dh and h_in done
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          DH[(hp + q) * SF + hn + v] = nv[q][v];
+          Un[(hn + v) * SX + hp + q] = nv[q][v];
+        }
+    }
+  }
+}
+
+// db[e] = the sum over h = 0 .. rep-1 of db_part[(g rep + h) S N + off] for
+// e = g S N + off, the heads in ascending order, rounded once to TO; the
+// same for dc.
+template <typename TO>
+__global__ void __launch_bounds__(256)
+ssd_bwd_reduce_kernel(const float* __restrict__ db_part,
+                      const float* __restrict__ dc_part, TO* __restrict__ db,
+                      TO* __restrict__ dc, size_t elems, size_t row_elems,
+                      int rep) {
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < elems;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const size_t g = e / row_elems, off = e % row_elems;
+    float sb = 0.f, sc = 0.f;
+    for (int h = 0; h < rep; ++h) {
+      const size_t src = (g * rep + h) * row_elems + off;
+      sb += db_part[src];
+      sc += dc_part[src];
+    }
+    narrow(db + e, sb);
+    narrow(dc + e, sc);
+  }
+}
+
+template <int NP, typename TI>
+cudaError_t launch_bwd(const void* xdt, const float* la, const void* b,
+                       const void* c, const void* dy, const float* dstate,
+                       void* dxdt, float* dla, void* db, void* dc, float* ws,
+                       int bh, int s, int p, int n, int chunk, int rep,
+                       cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes(NP, chunk);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_scan_bwd_kernel<NP, TI>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const size_t nc = (s + chunk - 1) / chunk;
+  float* db_part = ws + (size_t)bh * nc * kBwdP * NP;
+  float* dc_part = db_part + (size_t)bh * s * n;
+  ssd_scan_bwd_kernel<NP, TI><<<bh, kBwdThreads, smem, stream>>>(
+      static_cast<const TI*>(xdt), la, static_cast<const TI*>(b),
+      static_cast<const TI*>(c), static_cast<const TI*>(dy), dstate,
+      static_cast<TI*>(dxdt), dla, db_part, dc_part, ws, s, p, n, chunk, rep);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t elems = (size_t)(bh / rep) * s * n;
+  const size_t want = (elems + 255) / 256;
+  const int blocks = (int)(want < 1056 ? want : 1056);
+  ssd_bwd_reduce_kernel<TI><<<blocks, 256, 0, stream>>>(
+      db_part, dc_part, static_cast<TI*>(db), static_cast<TI*>(dc), elems,
+      (size_t)s * n, rep);
+  return cudaGetLastError();
+}
+
+template <typename TI>
+cudaError_t dispatch_bwd(const void* xdt, const float* la, const void* b,
+                         const void* c, const void* dy, const float* dstate,
+                         void* dxdt, float* dla, void* db, void* dc, float* ws,
+                         int bh, int s, int p, int n, int chunk, int rep,
+                         cudaStream_t st) {
+  switch (mma_nb(n)) {
+    case 2:
+      return launch_bwd<32, TI>(xdt, la, b, c, dy, dstate, dxdt, dla, db, dc,
+                                ws, bh, s, p, n, chunk, rep, st);
+    case 4:
+      return launch_bwd<64, TI>(xdt, la, b, c, dy, dstate, dxdt, dla, db, dc,
+                                ws, bh, s, p, n, chunk, rep, st);
+    default:
+      return launch_bwd<128, TI>(xdt, la, b, c, dy, dstate, dxdt, dla, db,
+                                 dc, ws, bh, s, p, n, chunk, rep, st);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -951,6 +1525,46 @@ long long ssd_scan_smem_bytes(int dtype, int n, int chunk) {
   if (n < 1 || n > kMaxN || chunk < 1) return -1;
   return (long long)(dtype == kBF16 ? mma_smem_bytes(mma_nb(n), chunk)
                                     : f32_smem_bytes(16 * mma_nb(n), chunk));
+}
+
+// The backward.  xdt, dy and dxdt (bh, s, p), b, c, db and dc (bh / rep,
+// s, n), all in one dtype (0 f32, 1 bf16); la and dla (bh, s) f32; dstate
+// (bh, p, n) f32 or null (a zero gradient of the final state); workspace
+// ssd_scan_bwd_workspace_floats(bh, s, n, chunk) floats, 16-byte aligned.
+// All contiguous.  Returns the CUDA error of the launches (0 on success).
+int ssd_scan_bwd(const void* xdt, const float* la, const void* b,
+                 const void* c, const void* dy, const float* dstate,
+                 void* dxdt, float* dla, void* db, void* dc, float* workspace,
+                 int bh, int s, int p, int n, int chunk, int rep, int dtype,
+                 void* stream) {
+  if (bh < 1 || s < 1 || p < 1 || p > kBwdP || n < 1 || n > kMaxN ||
+      chunk < 1 || rep < 1 || bh % rep)
+    return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(workspace) % 16)
+    return cudaErrorMisalignedAddress;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32:
+      return dispatch_bwd<float>(xdt, la, b, c, dy, dstate, dxdt, dla, db, dc,
+                                 workspace, bh, s, p, n, chunk, rep, st);
+    case kBF16:
+      return dispatch_bwd<bf16>(xdt, la, b, c, dy, dstate, dxdt, dla, db, dc,
+                                workspace, bh, s, p, n, chunk, rep, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+long long ssd_scan_bwd_workspace_floats(int bh, int s, int n, int chunk) {
+  if (bh < 1 || s < 1 || n < 1 || n > kMaxN || chunk < 1) return -1;
+  return (long long)bwd_workspace_floats(bh, s, n, chunk);
+}
+
+// Bytes of dynamic shared memory the backward takes at state width n and
+// chunk length chunk.
+long long ssd_scan_bwd_smem_bytes(int n, int chunk) {
+  if (n < 1 || n > kMaxN || chunk < 1) return -1;
+  return (long long)bwd_smem_bytes(16 * mma_nb(n), chunk);
 }
 
 const char* ssd_scan_error_string(int err) {

@@ -1,4 +1,5 @@
-"""Mamba-2 SSD chunked scan, kernel K5: the mamba layers' prefill scan.
+"""Mamba-2 SSD chunked scan, kernel K5: the mamba layers' scan, and its
+gradient.
 
 Port of ``repro/kernels/mamba_scan/mamba_scan.py``.  The Pallas program
 becomes hand-written CUDA kernels in ``csrc/mamba_scan.cu`` (see the notes
@@ -14,12 +15,18 @@ per group (``rep`` heads share a row), where the reference's
 kernel route repeats them per head, and it masks a last chunk shorter than
 ``chunk``, where the reference's wrapper requires S to divide.
 
-Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor takes
-the plain version (``ref.ssd_scan_plain``, B and C repeated per head) — the
+The backward (``ssd_scan_bwd_kernel``, then ``ssd_bwd_reduce_kernel`` for
+dB and dC per group) is the gradient of the same function, which the
+reference's kernel route lacks (its models train through the plain route):
+``_SSDScan`` is the autograd function around the two.  It recomputes the
+state entering each chunk, so the forward saves only its inputs.
+
+Dispatch: a CUDA tensor launches the kernels or raises; a CPU tensor runs
+the same autograd function over the plain versions (``ref.ssd_scan_plain``
+with B and C repeated per head, and ``ref.ssd_scan_bwd_plain``) — the
 port's counterpart of interpret mode.  There is no fallback from a failed
-launch.  The kernel has no backward (nor has the reference's): on CUDA it
-raises when autograd would need one.  ``LAUNCHES`` counts kernel launches
-(and nothing else), so a run can show its path went through the kernel.
+launch.  ``LAUNCHES`` counts kernel launches (and nothing else), so a run
+can show its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -31,10 +38,10 @@ import os
 import torch
 
 from ..build import build_library
-from .ref import ssd_scan_plain
+from .ref import ssd_scan_bwd_plain, ssd_scan_plain
 
-__all__ = ["ssd_scan", "LAUNCHES", "SOURCES", "HEADERS", "load_library",
-           "MAX_N"]
+__all__ = ["ssd_scan", "ssd_scan_bwd", "LAUNCHES", "SOURCES", "HEADERS",
+           "load_library", "MAX_N", "MAX_P_BWD"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", "mamba_scan.cu")]
@@ -44,11 +51,13 @@ HEADERS = [os.path.join(os.path.dirname(_HERE), "flash_attention", "csrc",
                         "mma_tiles.cuh")]
 
 #: Kernel launches by kernel name, since the counts were last set to 0.
-LAUNCHES: dict[str, int] = {"ssd_scan": 0}
+LAUNCHES: dict[str, int] = {"ssd_scan": 0, "ssd_scan_bwd": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: Widest state the kernel compiles (the state sum lives in registers).
 MAX_N = 128
+#: Widest head the backward compiles (a thread owns 4 of 64 P columns).
+MAX_P_BWD = 64
 _INT_MAX = 2**31 - 1
 
 
@@ -61,6 +70,12 @@ def load_library() -> ctypes.CDLL:
     lib.ssd_scan.restype = i32
     lib.ssd_scan_smem_bytes.argtypes = [i32, i32, i32]
     lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
+    lib.ssd_scan_bwd.argtypes = [vp] * 11 + [i32] * 7 + [vp]
+    lib.ssd_scan_bwd.restype = i32
+    lib.ssd_scan_bwd_workspace_floats.argtypes = [i32] * 4
+    lib.ssd_scan_bwd_workspace_floats.restype = ctypes.c_longlong
+    lib.ssd_scan_bwd_smem_bytes.argtypes = [i32, i32]
+    lib.ssd_scan_bwd_smem_bytes.restype = ctypes.c_longlong
     lib.ssd_scan_error_string.argtypes = [i32]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -86,36 +101,8 @@ def _check(xdt, la, b, c, rep: int) -> tuple[int, int, int, int]:
     return bh, s, p, n
 
 
-def ssd_scan(
-    xdt: torch.Tensor,   # (BH, S, P) — dt-premultiplied input
-    la: torch.Tensor,    # (BH, S)    — log decay dt*A (<= 0)
-    b: torch.Tensor,     # (BH / rep, S, N)
-    c: torch.Tensor,     # (BH / rep, S, N)
-    *,
-    chunk: int = 256,
-    rep: int = 1,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (BH, S, P) in xdt's dtype, final state (BH, P, N) f32),
-    from zero state.  Head row r reads row r // rep of b and c; ``rep=1``
-    is the reference's interface.  S need not divide ``chunk``."""
-    bh, s, p, n = _check(xdt, la, b, c, rep)
-    if chunk < 1:
-        raise ValueError(f"chunk must be positive, got {chunk}")
-    chunk = min(chunk, s)
-    if xdt.device.type == "cpu":
-        if rep > 1:
-            b = torch.repeat_interleave(b, rep, dim=0)
-            c = torch.repeat_interleave(c, rep, dim=0)
-        return ssd_scan_plain(xdt, la, b, c, chunk=chunk)
-    if xdt.device.type != "cuda":
-        raise ValueError(f"ssd_scan runs on cuda or cpu, not {xdt.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (xdt, la, b, c)):
-        raise NotImplementedError(
-            "K5 has no backward kernel (nor has the reference's Pallas "
-            "kernel): mamba training on the kernel route comes with a later "
-            "port slice; run it under torch.no_grad() or with "
-            "use_pallas=False")
+def _check_cuda(xdt, la, b, c, n: int) -> None:
+    """What the kernels take of CUDA inputs."""
     for name, t in (("la", la), ("b", b), ("c", c)):
         if t.device != xdt.device:
             raise ValueError(f"{name} is on {t.device}, expected "
@@ -128,6 +115,18 @@ def ssd_scan(
         raise TypeError(f"la must be floating point, got {la.dtype}")
     if n > MAX_N:
         raise ValueError(f"state width N={n} above the compiled {MAX_N}")
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.ssd_scan_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def _forward_cuda(xdt, la, b, c, chunk: int, rep: int):
+    """K5's forward kernel on checked CUDA tensors: (y, final state)."""
+    bh, s, p = xdt.shape
+    n = b.shape[-1]
     xdt, b, c = xdt.contiguous(), b.contiguous(), c.contiguous()
     if xdt.dtype == torch.bfloat16:
         for name, t in (("xdt", xdt), ("b", b), ("c", c)):
@@ -139,13 +138,121 @@ def ssd_scan(
     la = la.to(torch.float32).contiguous()
     y = torch.empty_like(xdt)
     state = torch.empty((bh, p, n), dtype=torch.float32, device=xdt.device)
-    err = lib.ssd_scan(xdt.data_ptr(), la.data_ptr(), b.data_ptr(),
-                       c.data_ptr(), y.data_ptr(), state.data_ptr(), bh, s, p,
-                       n, chunk, rep, _DTYPE_CODES[xdt.dtype],
-                       torch.cuda.current_stream(xdt.device).cuda_stream)
-    if err != 0:
-        msg = lib.ssd_scan_error_string(err).decode()
-        raise RuntimeError(f"ssd_scan launch failed: CUDA error {err} "
-                           f"({msg})")
+    _raise_on(lib, lib.ssd_scan(
+        xdt.data_ptr(), la.data_ptr(), b.data_ptr(), c.data_ptr(),
+        y.data_ptr(), state.data_ptr(), bh, s, p, n, chunk, rep,
+        _DTYPE_CODES[xdt.dtype],
+        torch.cuda.current_stream(xdt.device).cuda_stream), "ssd_scan")
     LAUNCHES["ssd_scan"] += 1
     return y, state
+
+
+def ssd_scan_bwd(
+    xdt: torch.Tensor,   # (BH, S, P)
+    la: torch.Tensor,    # (BH, S)
+    b: torch.Tensor,     # (BH / rep, S, N)
+    c: torch.Tensor,     # (BH / rep, S, N)
+    dy: torch.Tensor,    # (BH, S, P)
+    dstate: torch.Tensor | None,   # (BH, P, N)
+    *,
+    chunk: int = 256,
+    rep: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5's backward kernels on CUDA tensors: (dxdt in xdt's dtype, dla
+    f32, db and dc per group in b's dtype), the gradient of ``ssd_scan``'s
+    (y, state) against ``dy`` and ``dstate`` (None: zero).  P up to
+    ``MAX_P_BWD``; S need not divide ``chunk``."""
+    bh, s, p, n = _check(xdt, la, b, c, rep)
+    if xdt.device.type != "cuda":
+        raise ValueError(f"ssd_scan_bwd's kernels run on cuda, not "
+                         f"{xdt.device}; the plain version is "
+                         f"ref.ssd_scan_bwd_plain")
+    _check_cuda(xdt, la, b, c, n)
+    if p > MAX_P_BWD:
+        raise ValueError(f"head width P={p} above the backward's compiled "
+                         f"{MAX_P_BWD}")
+    if tuple(dy.shape) != (bh, s, p) or dy.device != xdt.device:
+        raise ValueError(f"dy {tuple(dy.shape)} on {dy.device} must be "
+                         f"({bh}, {s}, {p}) on {xdt.device}")
+    if dstate is not None:
+        if tuple(dstate.shape) != (bh, p, n) or dstate.device != xdt.device:
+            raise ValueError(f"dstate {tuple(dstate.shape)} must be ({bh}, "
+                             f"{p}, {n}) on {xdt.device}")
+        dstate = dstate.to(torch.float32).contiguous()
+    chunk = min(chunk, s)
+    xdt, b, c = xdt.contiguous(), b.contiguous(), c.contiguous()
+    dy = dy.to(xdt.dtype).contiguous()
+    la = la.to(torch.float32).contiguous()
+    lib = load_library()
+    floats = lib.ssd_scan_bwd_workspace_floats(bh, s, n, chunk)
+    work = torch.empty(floats, dtype=torch.float32, device=xdt.device)
+    dxdt = torch.empty_like(xdt)
+    dla = torch.empty((bh, s), dtype=torch.float32, device=xdt.device)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    _raise_on(lib, lib.ssd_scan_bwd(
+        xdt.data_ptr(), la.data_ptr(), b.data_ptr(), c.data_ptr(),
+        dy.data_ptr(), None if dstate is None else dstate.data_ptr(),
+        dxdt.data_ptr(), dla.data_ptr(), db.data_ptr(), dc.data_ptr(),
+        work.data_ptr(), bh, s, p, n, chunk, rep, _DTYPE_CODES[xdt.dtype],
+        torch.cuda.current_stream(xdt.device).cuda_stream), "ssd_scan_bwd")
+    LAUNCHES["ssd_scan_bwd"] += 1
+    return dxdt, dla, db, dc
+
+
+class _SSDScan(torch.autograd.Function):
+    """K5's forward; its backward is the backward kernels (on the CPU: the
+    plain versions of both)."""
+
+    @staticmethod
+    def forward(ctx, xdt, la, b, c, chunk: int, rep: int):
+        if xdt.device.type == "cpu":
+            bh, bc = b, c
+            if rep > 1:
+                bh = torch.repeat_interleave(b, rep, dim=0)
+                bc = torch.repeat_interleave(c, rep, dim=0)
+            y, state = ssd_scan_plain(xdt, la, bh, bc, chunk=chunk)
+        else:
+            y, state = _forward_cuda(xdt, la, b, c, chunk, rep)
+        ctx.save_for_backward(xdt, la.to(torch.float32), b, c)
+        ctx.chunk, ctx.rep, ctx.la_dtype = chunk, rep, la.dtype
+        # Training discards the state: its gradient then arrives as None.
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        xdt, la, b, c = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(xdt)
+        bwd = ssd_scan_bwd_plain if xdt.device.type == "cpu" else ssd_scan_bwd
+        dxdt, dla, db, dc = bwd(xdt, la, b, c, dy, dstate, chunk=ctx.chunk,
+                                rep=ctx.rep)
+        return dxdt, dla.to(ctx.la_dtype), db, dc, None, None
+
+
+def ssd_scan(
+    xdt: torch.Tensor,   # (BH, S, P) — dt-premultiplied input
+    la: torch.Tensor,    # (BH, S)    — log decay dt*A (<= 0)
+    b: torch.Tensor,     # (BH / rep, S, N)
+    c: torch.Tensor,     # (BH / rep, S, N)
+    *,
+    chunk: int = 256,
+    rep: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y (BH, S, P) in xdt's dtype, final state (BH, P, N) f32),
+    from zero state, differentiable in xdt, la, b and c.  Head row r reads
+    row r // rep of b and c; ``rep=1`` is the reference's interface.  S
+    need not divide ``chunk``."""
+    bh, s, p, n = _check(xdt, la, b, c, rep)
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    chunk = min(chunk, s)
+    if xdt.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssd_scan runs on cuda or cpu, not {xdt.device}")
+    if xdt.device.type == "cuda":
+        _check_cuda(xdt, la, b, c, n)
+        if p > MAX_P_BWD and torch.is_grad_enabled() and any(
+                t.requires_grad for t in (xdt, la, b, c)):
+            raise ValueError(f"head width P={p} above the backward's "
+                             f"compiled {MAX_P_BWD}")
+    return _SSDScan.apply(xdt, la, b, c, chunk, rep)

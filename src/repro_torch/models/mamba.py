@@ -4,7 +4,7 @@ Port of ``repro/models/mamba.py``.  Projections are kept separate
 (wz/wx/wb/wc/wdt instead of one fused in_proj), with the reference's leaf
 names, so bridged weights load as they are.  The full-sequence path runs
 the SSD scan through ``kernels.mamba_scan.ops.ssd`` (kernel K5 on the
-card); the causal depthwise conv and the one-token recurrent decode stay
+card, its backward kernel in training); the causal depthwise conv and the one-token recurrent decode stay
 plain torch, as the reference computes them outside any Pallas kernel.
 
 ``mamba_decode`` updates the cache in place and returns it (the reference

@@ -5,9 +5,9 @@ steps: the grain gradient, ``HDPTrainer``'s AdamW update and
 ``train_single``'s step (``repro/train/{step,loop}.py``).
 
 On CUDA the step is captured as a CUDA graph, which the card replays with
-no Python dispatch; the hand-written kernels it launches (K1, K2, K5; K4's
-forward and, from autograd's device thread, its backward) are captured
-with it.  ``CompiledStep`` owns:
+no Python dispatch; the hand-written kernels it launches (K1, K2; K4's and
+K5's forwards and, from autograd's device thread, their backwards) are
+captured with it.  ``CompiledStep`` owns:
 
   - the step function, which reads its inputs from static buffers and may
     read (and write in place) tensors it closes over: the engine's

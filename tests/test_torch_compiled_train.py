@@ -21,13 +21,18 @@ training route to the graph's rules:
       each call gives the eager result, and a tree of other tensors drops
       the graph;
   (e) ``train_single`` compiled against eager and the reference, and its
-      checkpoint restart on the compiled route.
+      checkpoint restart on the compiled route;
+  (f) the reduced Mamba models on K5's route (``use_pallas=True``: its
+      autograd function, whose forward and backward run their plain
+      versions on the CPU): the grain gradient capture-safe, and bit for
+      bit the eager route's.
 
 The card's side (captured graphs, launch counts over replays) is in
 ``tests/test_torch_cuda.py``.
 """
 
 import contextlib
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -342,3 +347,34 @@ def test_new_state_drops_the_trainer_graphs():
     assert all(torch.equal(a, b) for a, b in zip(
         tree_leaves(tr.state.params), tree_leaves(fresh.state.params),
         strict=True))
+
+
+# ------------------------------------------- (f) Mamba on the kernel route
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-v0.1-52b"])
+def test_kernel_route_grain_is_capture_safe_and_bitwise_eager(arch):
+    """(f) The reduced model on K5's route, three grains of 40 tokens (the
+    reduced chunk is 16: two full chunks and a short one): the compiled
+    grain gradient guarded from its second call, each call's loss, metrics
+    and gradients equal to the eager route's bit for bit, the graph kept
+    over the three."""
+    cfg = dataclasses.replace(get_config(arch, reduced=True), use_pallas=True)
+    model = Model(cfg, device="cpu")
+    params = model.init(0)
+    fast = make_grain_grad_fn(model)
+    slow = make_grain_grad_fn(model, compile_steps=False)
+    rng = np.random.default_rng(7)
+    with _guarded_from_second_call() as guarded:
+        for _ in range(3):
+            toks = rng.integers(0, cfg.vocab_size, (2, 41))
+            batch = {"tokens": torch.from_numpy(toks[:, :-1].astype(np.int32)),
+                     "targets": torch.from_numpy(toks[:, 1:].astype(np.int32)),
+                     "loss_mask": torch.from_numpy(
+                         (rng.random((2, 40)) > 0.2).astype(np.float32))}
+            (loss, met), grads = fast(params, batch)
+            (want, wmet), wgrads = slow(params, batch)
+            assert torch.equal(loss, want)
+            assert all(torch.equal(met[k], wmet[k]) for k in wmet)
+            assert all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(grads), tree_leaves(wgrads), strict=True))
+    assert len(guarded) == 2
+    assert [s.calls for s in fast.steps] == [3]

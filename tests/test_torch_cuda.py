@@ -20,7 +20,11 @@ from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.mamba_scan import mamba_scan as k5
 from repro_torch.kernels.mamba_scan.ops import ssd
-from repro_torch.kernels.mamba_scan.ref import ssd_scan_plain, ssd_scan_ref
+from repro_torch.kernels.mamba_scan.ref import (
+    ssd_scan_bwd_plain,
+    ssd_scan_plain,
+    ssd_scan_ref,
+)
 from repro_torch.kernels.matmul import matmul as mm
 from repro_torch.kernels.matmul.ops import matmul
 from repro_torch.kernels.matmul.ref import matmul_ref
@@ -983,9 +987,174 @@ def test_ssd_scan_kernel_raises_instead_of_falling_back(dev):
     bc = torch.zeros((2, 16, 256), device=dev)
     with pytest.raises(ValueError, match="N=256"):
         k5.ssd_scan(xdt, la, bc, bc)
-    xg = xdt.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        k5.ssd_scan(xg, la, xdt, xdt)
+    # The backward compiles P up to 64: a forward that autograd would need
+    # it for raises before it launches, and the backward's wrapper runs on
+    # CUDA tensors only (the CPU's is the plain version).
+    xw = torch.zeros((2, 16, 72), device=dev, requires_grad=True)
+    bc = torch.zeros((2, 16, 8), device=dev)
+    before = dict(k5.LAUNCHES)
+    with pytest.raises(ValueError, match="P=72"):
+        k5.ssd_scan(xw, la, bc, bc)
+    with pytest.raises(ValueError, match="P=72"):
+        k5.ssd_scan_bwd(xw.detach(), la, bc, bc, xw.detach(), None)
+    with pytest.raises(ValueError, match="cuda"):
+        k5.ssd_scan_bwd(*(t.cpu() for t in (xdt, la, xdt, xdt, xdt)), None)
+    assert k5.LAUNCHES == before
+
+
+# ---------------------------------------------------- K5's backward kernels
+#: K4's gradient tolerance (chip_smoke.GRAD_TOL): the backward sums its
+#: products in another order than the plain version's matrix products.
+GRAD_TOL = {torch.float32: (1e-3, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+
+
+def _ssd_bwd_case(dev, bh, s, p, g, n, dtype, seed=40, la_floor=None):
+    """(xdt, la, b, c, dy, dstate) on the kernel's layout, drawn on the
+    card: la = dt a as ``_ssd_inputs`` draws them, scaled so that its
+    steepest step is ``la_floor`` where given."""
+    xdt = _rand((bh, s, p), dtype, dev, seed)
+    dt = _rand((bh, s), torch.float32, dev, seed + 1).abs() * 0.1 + 0.01
+    a = -_rand((bh,), torch.float32, dev, seed + 2).abs() - 0.1
+    la = dt * a[:, None]
+    if la_floor is not None:
+        la = la * (la_floor / la.min())
+    bm, cm = (_rand((g, s, n), dtype, dev, seed + i) for i in (3, 4))
+    dy = _rand((bh, s, p), dtype, dev, seed + 5)
+    dstate = _rand((bh, p, n), torch.float32, dev, seed + 6)
+    return xdt, la, bm, cm, dy, dstate
+
+
+def _grad_close(got, want, dtype):
+    rtol, atol = GRAD_TOL[dtype]
+    for name, g, w in zip(("dxdt", "dla", "db", "dc"), got, want,
+                          strict=True):
+        assert g.dtype == w.dtype, name
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                   atol=atol, msg=lambda m, n=name: f"{n}: {m}")
+
+
+# (bh, s, p, g, n, chunk): the reference's kernel-test shapes, a ragged
+# last chunk and tile edges (S 1, 63, 65, 129; P 8, 10, 40, 64; N 4, 7, 48,
+# 100), Mamba2-2.7B's training shape (80 heads of 64, one group of N 128,
+# S 1024 in chunks of 256) and Jamba's (128 heads of 64, N 16).
+K5_BWD_SHAPES = [(8, 96, 16, 2, 8, 32), (2, 64, 8, 1, 16, 32),
+                 (2, 90, 8, 1, 4, 32), (4, 1, 64, 1, 128, 256),
+                 (4, 63, 10, 2, 7, 32), (4, 65, 40, 1, 48, 64),
+                 (6, 129, 64, 3, 100, 64), (4, 300, 64, 1, 128, 256),
+                 (80, 1024, 64, 1, 128, 256), (128, 512, 64, 1, 16, 256)]
+
+
+@pytest.mark.parametrize("with_dstate", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,p,g,n,chunk", K5_BWD_SHAPES)
+def test_ssd_scan_bwd_kernel_matches_plain(dev, bh, s, p, g, n, chunk, dtype,
+                                           with_dstate):
+    xdt, la, bm, cm, dy, dstate = _ssd_bwd_case(dev, bh, s, p, g, n, dtype)
+    dstate = dstate if with_dstate else None
+    before = k5.LAUNCHES["ssd_scan_bwd"]
+    got = k5.ssd_scan_bwd(xdt, la, bm, cm, dy, dstate, chunk=chunk,
+                          rep=bh // g)
+    torch.cuda.synchronize()
+    assert k5.LAUNCHES["ssd_scan_bwd"] == before + 1
+    want = ssd_scan_bwd_plain(xdt, la, bm, cm, dy, dstate, chunk=chunk,
+                              rep=bh // g)
+    _grad_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_bwd_kernel_at_steep_decays(dev, dtype):
+    """la down to -50 a step: the kernel within GRAD_TOL of the plain
+    backward; in f32 also each gradient within 1e-4 of the f64
+    recurrence's, as a relative Frobenius error (elementwise the f32
+    chunked algorithm misses it there: tests/test_torch_mamba_scan_bwd.py)."""
+    xdt, la, bm, cm, dy, dstate = _ssd_bwd_case(dev, 4, 300, 64, 1, 128,
+                                                dtype, la_floor=-50.0)
+    got = k5.ssd_scan_bwd(xdt, la, bm, cm, dy, dstate, chunk=256, rep=4)
+    _grad_close(got, ssd_scan_bwd_plain(xdt, la, bm, cm, dy, dstate,
+                                        chunk=256, rep=4), dtype)
+    if dtype == torch.float32:
+        leaves = [t.double().requires_grad_(True)
+                  for t in (xdt, la, bm, cm)]
+        y, h = ssd_scan_ref(leaves[0], leaves[1],
+                            *(torch.repeat_interleave(t, 4, 0)
+                              for t in leaves[2:]))
+        ((y * dy.double()).sum() + (h * dstate.double()).sum()).backward()
+        for g, w in zip(got, (t.grad for t in leaves), strict=True):
+            rel = torch.linalg.vector_norm(g.double() - w) \
+                / torch.linalg.vector_norm(w)
+            assert float(rel) <= 1e-4
+
+
+def test_ssd_scan_bwd_kernel_is_bitwise_over_repeats(dev):
+    """Mamba2-2.7B's training shape in bf16: two runs, the same bits."""
+    case = _ssd_bwd_case(dev, 80, 1024, 64, 1, 128, torch.bfloat16)
+    first = k5.ssd_scan_bwd(*case, chunk=256, rep=80)
+    again = k5.ssd_scan_bwd(*case, chunk=256, rep=80)
+    assert all(torch.equal(a, b) for a, b in zip(first, again, strict=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_launches_the_kernels_once(dev, dtype):
+    """K5 under autograd: one forward and one backward launch, and the
+    backward's two device kernels.  f32 through ``ssd``, the op the model
+    calls, against autograd through the same route with K5's plain version
+    in K5's place; bf16 through ``ssd_scan`` against the plain backward (a
+    bf16 chain rule rounds each head's B and C gradient before the plain
+    route sums them over the group, which the kernel does in f32)."""
+    before = dict(k5.LAUNCHES)
+    if dtype == torch.float32:
+        x, dt, a, bm, cm, d = _ssd_inputs(dev, 2, 96, 4, 16, 2, 8, dtype)
+        leaves = [t.clone().requires_grad_(True) for t in (x, dt, bm, cm)]
+        y, _ = ssd(leaves[0], leaves[1], a, leaves[2], leaves[3], d,
+                   chunk=32)
+        y.square().sum().backward()
+        plain = [t.clone().requires_grad_(True) for t in (x, dt, bm, cm)]
+        _ssd_plain(plain[0], plain[1], a, plain[2], plain[3], d,
+                   32)[0].square().sum().backward()
+        for got, want in zip(leaves, plain, strict=True):
+            torch.testing.assert_close(got.grad, want.grad, rtol=1e-3,
+                                       atol=1e-4)
+    else:
+        xdt, la, bm, cm, dy, _ = _ssd_bwd_case(dev, 8, 96, 16, 2, 8, dtype)
+        leaves = [t.clone().requires_grad_(True) for t in (xdt, la, bm, cm)]
+        y, _ = k5.ssd_scan(*leaves, chunk=32, rep=4)
+        y.backward(dy)
+        want = ssd_scan_bwd_plain(xdt, la, bm, cm, dy, None, chunk=32, rep=4)
+        _grad_close([t.grad for t in leaves], want, dtype)
+    assert k5.LAUNCHES["ssd_scan"] == before["ssd_scan"] + 1
+    assert k5.LAUNCHES["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 1
+    case = _ssd_bwd_case(dev, 4, 64, 64, 1, 128, dtype)
+    names = _device_kernels(lambda: k5.ssd_scan_bwd(*case, chunk=32, rep=4))
+    assert [n for n in names if "ssd_scan_bwd_kernel" in n], names
+    assert [n for n in names if "ssd_bwd_reduce_kernel" in n], names
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-v0.1-52b"])
+def test_mamba_train_grain_on_kernels_matches_plain_and_counts(dev, arch):
+    """Reduced Mamba2 and Jamba in f32: one grain's loss and gradients on
+    the kernel route against use_pallas=False; K5 launches its forward
+    twice (forward and remat recompute) and its backward once per Mamba
+    layer."""
+    cfg = get_config(arch, reduced=True)
+    model = Model(dataclasses.replace(cfg, use_pallas=None))
+    plain = Model(dataclasses.replace(cfg, use_pallas=False))
+    params = model.init(0)
+    n_mamba = sum(s.mixer == "mamba" for s in cfg.layer_pattern) \
+        * cfg.n_periods + sum(s.mixer == "mamba" for s in cfg.prefix_pattern)
+    g = torch.Generator().manual_seed(26)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=g).to(dev)
+    batch = {"tokens": toks[:, :-1].int(), "targets": toks[:, 1:].int(),
+             "loss_mask": torch.ones((2, 64), device=dev)}
+    before = dict(k5.LAUNCHES)
+    (loss, _), grads = make_grain_grad_fn(model, compile_steps=False)(
+        params, batch)
+    assert {n: k5.LAUNCHES[n] - before[n] for n in before} == {
+        "ssd_scan": 2 * n_mamba, "ssd_scan_bwd": n_mamba}
+    (loss_p, _), grads_p = make_grain_grad_fn(plain, compile_steps=False)(
+        params, batch)
+    torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0)
+    for a, b in zip(tree_leaves(grads), tree_leaves(grads_p), strict=True):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-5)
 
 
 def test_mamba_model_prefill_launches_k5_per_layer(dev):
@@ -1270,7 +1439,7 @@ def test_compiled_engine_is_the_eager_engine_bit_for_bit(dev, arch):
         assert np.array_equal(a, b)
     n_attn = sum(s.mixer == "attn" for s in cfg.layer_pattern) * cfg.n_periods
     n_mamba = sum(s.mixer == "mamba" for s in cfg.layer_pattern) \
-        * cfg.n_periods
+        * cfg.n_periods + sum(s.mixer == "mamba" for s in cfg.prefix_pattern)
     assert fast[2] == slow[2] == (4 * n_attn, 4 * n_mamba)
     engine = fast[4]
     assert fast[3] == 2                 # the decode step and bucket 16

@@ -25,9 +25,12 @@ from repro.models import Model as JaxModel
 from repro.models import layers as jax_layers
 from repro.models import mamba as jax_mamba
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.kernels.mamba_scan import mamba_scan as k5
 from repro_torch.models import Model, ModelConfig, params_from_numpy
 from repro_torch.models import config as port_config
 from repro_torch.models import layers, mamba
+from repro_torch.train import make_grain_grad_fn
+from repro_torch.tree import tree_leaves
 
 # One intra-op thread: a torch file on one test worker must not take every
 # core from the timing tests that run beside it.
@@ -47,6 +50,8 @@ def port_cfg(jcfg) -> ModelConfig:
         port_config.LayerSpec(**dataclasses.asdict(s))
         for s in jcfg.prefix_pattern)
     fields["ssm"] = port_config.SSMConfig(**dataclasses.asdict(jcfg.ssm))
+    if jcfg.moe is not None:
+        fields["moe"] = port_config.MoEConfig(**dataclasses.asdict(jcfg.moe))
     return ModelConfig(**fields)
 
 
@@ -88,6 +93,71 @@ def test_mamba_train_matches_jax(use_pallas):
     _close(cache.conv, jcache.conv)
     assert cache.state.dtype == torch.float32
     _close(cache.state, jcache.state)
+
+
+@pytest.mark.parametrize("arch", [ARCH, "jamba-v0.1-52b"])
+def test_kernel_route_loss_and_gradients_match_jax_plain(arch):
+    """The reduced model trained on the kernel route (``use_pallas=True``:
+    K5's autograd function, whose CPU forward and backward are
+    ``ssd_scan_plain`` and ``ssd_scan_bwd_plain``) against the reference's
+    ``use_pallas=False`` (``jax.value_and_grad`` through its plain grouped
+    scan), on bridged weights: ``Model.loss`` (and the MoE aux of Jamba)
+    and every gradient leaf."""
+    jcfg = jax_get_config(arch, reduced=True, use_pallas=False)
+    jm = JaxModel(jcfg)
+    jparams = jm.init(jax.random.key(0))
+    tm = Model(dataclasses.replace(port_cfg(jcfg), use_pallas=True),
+               device="cpu")
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, jcfg.vocab_size, (2, 41))
+    batch = {"tokens": toks[:, :-1].astype(np.int32),
+             "targets": toks[:, 1:].astype(np.int32),
+             "loss_mask": (rng.random((2, 40)) > 0.2).astype(np.float32)}
+    (jloss, jmet), jgrads = jax.jit(jax.value_and_grad(
+        jm.loss, has_aux=True))(jparams, {k: jnp.asarray(v)
+                                          for k, v in batch.items()})
+    leaves = tree_leaves(tparams)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    before = dict(k5.LAUNCHES)
+    tloss, tmet = tm.loss(tparams, {k: torch.from_numpy(v)
+                                    for k, v in batch.items()})
+    tgrads = torch.autograd.grad(tloss, leaves)
+    assert k5.LAUNCHES == before          # the CPU runs the plain versions
+    np.testing.assert_allclose(float(tloss.detach()), float(jloss), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(float(tmet["aux"].detach()), float(jmet["aux"]),
+                               rtol=RTOL, atol=ATOL)
+    jleaves = jax.tree_util.tree_leaves(jgrads)
+    assert len(tgrads) == len(jleaves)
+    for t, j in zip(tgrads, jleaves, strict=True):
+        assert tuple(t.shape) == j.shape
+        _close(t, j)
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
+def test_kernel_route_recomputes_the_scan_under_remat(policy, monkeypatch):
+    """Under either remat policy a grain runs K5's forward twice a layer
+    (the forward, then its recompute in the backward: the scan is no
+    matrix product ``dots`` saves) and its backward once, as K4's; counted
+    on the CPU through the plain versions the autograd function runs."""
+    cfg = dataclasses.replace(get_config(ARCH, reduced=True),
+                              use_pallas=True, remat_policy=policy)
+    model = Model(cfg, device="cpu")
+    calls = {"fwd": 0, "bwd": 0}
+    for name, key in (("ssd_scan_plain", "fwd"),
+                      ("ssd_scan_bwd_plain", "bwd")):
+        def counted(*args, _fn=getattr(k5, name), _key=key, **kwargs):
+            calls[_key] += 1
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(k5, name, counted)
+    rng = np.random.default_rng(6)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 41)))
+    batch = {"tokens": toks[:, :-1].int(), "targets": toks[:, 1:].int(),
+             "loss_mask": torch.ones((2, 40))}
+    make_grain_grad_fn(model, compile_steps=False)(model.init(0), batch)
+    assert calls == {"fwd": 2 * cfg.n_layers, "bwd": cfg.n_layers}
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
