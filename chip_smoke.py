@@ -165,19 +165,25 @@ Phases, each of which exits non-zero when it fails:
                128, 128), chunk 256); at Jamba's shape (xdt (128, 512, 64),
                B/C (1, 512, 16), chunk 256; N 16 pads to 32 in bf16) in
                bf16 and f32 against its plain version, bitwise over two
-               runs, bf16 timed; its backward (``ssd_scan_bwd``:
-               ``ssd_scan_bwd_kernel`` and ``ssd_bwd_reduce_kernel``)
-               against its plain version (``ssd_scan_bwd_plain``) at
-               GRAD_TOL in bf16 and f32, at Mamba2-2.7B's training shape
-               (xdt (80, 1024, 64), B/C (1, 1024, 128), chunk 256; two
-               draws, the second with the final state's gradient), Jamba's,
-               a ragged last chunk, three groups, and la down to -50 a step
-               (f32 also within relative Frobenius error 1e-4 of the f64
-               recurrence's gradients), bitwise over two runs, its
-               registers, spills and shared memory (no spill), timed at the
-               training shape beside its plain version and the bound
+               runs, bf16 timed; its backward (``ssd_scan_bwd``: five
+               kernels a call, ``ssd_bwd_sums_*``, ``ssd_bwd_pass_kernel``,
+               ``ssd_bwd_local_*``, ``ssd_bwd_dla_kernel`` and
+               ``ssd_bwd_reduce_kernel``, ``*`` ``mma_kernel`` in bf16 and
+               ``kernel`` in f32) against its plain version
+               (``ssd_scan_bwd_plain``) at GRAD_TOL in bf16 and f32, at
+               Mamba2-2.7B's training shape (xdt (80, 1024, 64), B/C (1,
+               1024, 128), chunk 256; two draws, the second with the final
+               state's gradient), Jamba's, a ragged last chunk, three
+               groups, la down to -50 a step (f32 also within relative
+               Frobenius error 1e-4 of the f64 recurrence's gradients), and
+               the chunk-parallel grid's edges (16 chunks, 264 head rows,
+               P 32 and 48, N 16, 64 and 100, chunks of 64 and 128, up to 8
+               groups), bitwise over two runs in each dtype, its kernels'
+               registers, spills, shared memory and HMMA count (no spill;
+               HMMA in the bf16 kernels, none in the f32 ones), timed at
+               the training shape beside its plain version and the bound
                (``k5_bwd_bound_ms``; no PyTorch call computes the scan's
-               gradient; device time in phase 15),
+               gradient; device time, and each kernel's, in phase 15),
  13. mamba model — full-width Mamba2-2.7B in f32 from ``Model.init(seed)``:
                prefill of one prompt of length 100 (bucket 128) on the kernel
                path against ``use_pallas=False``: logits within the f32
@@ -503,6 +509,19 @@ K5_JAMBA_SHAPE = (128, 1, 512, 64, 16, 256)
 #: group of N 128, one TRAIN_SEQ-token grain, chunk 256: (heads, groups, S,
 #: P, N, chunk).
 K5_BWD_SHAPE = (80, 1, TRAIN_SEQ, 64, 128, 256)
+#: K5's backward kernels: the five a call launches at the
+#: training shape, in each dtype.
+K5_BWD_BUILDS = {
+    "bfloat16": ("ssd_bwd_sums_mma_kernel<8>", "ssd_bwd_pass_kernel",
+                 "ssd_bwd_local_mma_kernel<8>", "ssd_bwd_dla_kernel",
+                 "ssd_bwd_reduce_kernel<bf16>"),
+    "float32": ("ssd_bwd_sums_kernel<128>", "ssd_bwd_pass_kernel",
+                "ssd_bwd_local_kernel<128>", "ssd_bwd_dla_kernel",
+                "ssd_bwd_reduce_kernel<float>")}
+#: (heads, groups, S, P, N, chunk) at the edges of K5's backward grid.
+K5_BWD_GRID_EDGES = ((2, 1, 4096, 64, 128, 256), (3, 3, 4096, 32, 16, 64),
+                     (264, 4, 256, 32, 16, 64), (8, 2, 1000, 48, 64, 128),
+                     (160, 8, 300, 64, 100, 128))
 #: The Mamba training phase (27): the f32 grain of Mamba2-2.7B at its
 #: published widths cut to this many of its 64 layers, and the depth of the
 #: bf16 ``Cluster.train`` run: all 64 layers run out of the card's memory
@@ -682,13 +701,12 @@ def time_ms(torch, fn, iters: int = 20, reps: int = 7,
     return sorted(per_call)[reps // 2]
 
 
-def device_ms(torch, fn, iters: int = 20, warmup: int = 5) -> float:
-    """Device milliseconds per call: the durations of the kernels (and
-    copies) that ``iters`` calls launch, as CUPTI records them through
-    ``torch.profiler``, over ``iters``.  Unlike ``time_ms`` it leaves out
-    the host's gaps between launches, which set ``time_ms`` where a call's
-    host work outlasts its kernels.  The first call starts PROFILE_LEAD_S
-    after the session does."""
+def device_ms_by_kernel(torch, fn, iters: int = 20,
+                        warmup: int = 5) -> dict[str, float]:
+    """Device milliseconds per call of each kernel (and copy) that ``iters``
+    calls launch, by name, as CUPTI records them through ``torch.profiler``,
+    over ``iters``.  The first call starts PROFILE_LEAD_S after the session
+    does."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -701,8 +719,16 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 5) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(r.self_device_time_total for r in prof.key_averages()
-               if r.device_type == DeviceType.CUDA) / 1e3 / iters
+    return {r.key: r.self_device_time_total / 1e3 / iters
+            for r in prof.key_averages() if r.device_type == DeviceType.CUDA}
+
+
+def device_ms(torch, fn, iters: int = 20, warmup: int = 5) -> float:
+    """Device milliseconds per call: the durations of the kernels (and
+    copies) that ``iters`` calls launch, summed (``device_ms_by_kernel``).
+    Unlike ``time_ms`` it leaves out the host's gaps between launches,
+    which set ``time_ms`` where a call's host work outlasts its kernels."""
+    return sum(device_ms_by_kernel(torch, fn, iters, warmup).values())
 
 
 def check_close(torch, name, got, want, dtype_name, tol=TOL) -> float:
@@ -1491,9 +1517,14 @@ def device_times() -> dict[str, dict[str, float]]:
         la = dtv * -(rand((h,), torch.float32).abs() + 0.1)[:, None]
         bg, cg = rand((g, s5, n5), dt), rand((g, s5, n5), dt)
         dy = rand((h, s5, p5), dt)
-        out[f"k5_bwd_{dname}"] = {"device_ms": device_ms(
-            torch, lambda: k5.ssd_scan_bwd(xdt, la, bg, cg, dy, None,
-                                           chunk=chunk, rep=h // g))}
+        by_kernel = device_ms_by_kernel(torch, lambda: k5.ssd_scan_bwd(
+            xdt, la, bg, cg, dy, None, chunk=chunk, rep=h // g))
+        out[f"k5_bwd_{dname}"] = {
+            "device_ms": sum(by_kernel.values()),
+            "device_ms_by_kernel": {
+                re.search(r"(ssd_bwd_\w+?)[<(]", name).group(1)
+                if "ssd_bwd_" in name else name: ms
+                for name, ms in by_kernel.items()}}
     return out
 
 
@@ -3013,20 +3044,39 @@ def main() -> int:
 
     # K5's kernels as built: bf16 on the tensor cores (its template
     # argument the padded N / 16), f32 on the CUDA cores (the padded N).
+    k5_lib = k5.load_library()
+
+    def k5_smem(name, arg):
+        """Dynamic shared memory at chunk 256 of an instantiation (``arg``
+        its template argument)."""
+        if "bwd" not in name:
+            return int(k5_lib.ssd_scan_smem_bytes(
+                *((1, 16 * arg) if "mma" in name else (0, arg)), 256))
+        which = {"ssd_bwd_sums_kernel": 0, "ssd_bwd_sums_mma_kernel": 1,
+                 "ssd_bwd_local_kernel": 2, "ssd_bwd_local_mma_kernel": 3}
+        base = name.split("<")[0]
+        if base not in which:
+            return 0
+        n = 16 * arg if "mma" in name else arg
+        return int(k5_lib.ssd_scan_bwd_smem_bytes(which[base], n, 256))
+
+    # The backward's kernels by name, each at an instantiation the training
+    # shape runs (HMMA in the bf16 ones).
+    bwd_main = {k.split("<")[0]: (k, "mma" in k)
+                for ks in K5_BWD_BUILDS.values() for k in ks}
     k5_build = build_report(
-        build_logs, "mamba_scan", k5.load_library()._name,
-        ("ssd_scan_mma_kernel", "ssd_scan_f32_kernel", "ssd_scan_bwd_kernel",
-         "ssd_bwd_reduce_kernel"),
-        lambda name, arg: 0 if "reduce" in name else int(
-            k5.load_library().ssd_scan_bwd_smem_bytes(arg, 256)
-            if "bwd" in name else k5.load_library().ssd_scan_smem_bytes(
-                *((1, 16 * arg) if "mma" in name else (0, arg)), 256)),
+        build_logs, "mamba_scan", k5_lib._name,
+        ("ssd_scan_mma_kernel", "ssd_scan_f32_kernel") + tuple(bwd_main),
+        k5_smem,
         main={"ssd_scan_mma_kernel": ("ssd_scan_mma_kernel<8>", True),
               "ssd_scan_f32_kernel": ("ssd_scan_f32_kernel<128>", False),
-              "ssd_scan_bwd_kernel": ("ssd_scan_bwd_kernel<128, bf16>",
-                                      False),
-              "ssd_bwd_reduce_kernel": ("ssd_bwd_reduce_kernel<bf16>",
-                                        False)})
+              **bwd_main})
+    k5_build["ssd_bwd_dla_kernel"]["smem_bytes"] = int(
+        k5_lib.ssd_scan_bwd_smem_bytes(4, 128, 256))
+    for name, info in k5_build.items():
+        if "bwd" in name and "mma" not in name and info["hmma"]:
+            fail(f"{name}, an f32 kernel of K5's backward, has "
+                 f"{info['hmma']} HMMA instructions")
     for name, info in sorted(k5_build.items()):
         if "bwd" not in name:
             print(f"[k5] build {name} (shared memory at chunk 256): "
@@ -3136,6 +3186,12 @@ def main() -> int:
                                        ((4, 1, 300, 64, 128, 256), None),
                                        ((6, 3, 129, 64, 100, 64), None),
                                        ((4, 1, 300, 64, 128, 256), -50.0))]
+    # The chunk-parallel grid's edges: 16 chunks, head rows far
+    # below and above the card's 132 SMs, P 32 and 48, N 16, 64 and 100,
+    # chunks of 64 and 128 with a ragged last one, 2 to 8 groups.
+    k5b_cases += [(shape, dt, 1, None)
+                  for dt in (torch.bfloat16, torch.float32)
+                  for shape in K5_BWD_GRID_EDGES]
     for (h_, g_, s_, p_, n_, c_), dt, seed, floor in k5b_cases:
         dname = str(dt)[6:]
         xdt, la, bm, cm, dy, dstate = bwd_case(h_, g_, s_, p_, n_, dt, floor)
@@ -3176,15 +3232,18 @@ def main() -> int:
             del leaves, y, hf
         print(f"[k5] {name}: max abs err {err:.3e} against the plain "
               f"backward (GRAD_TOL){oracle}", flush=True)
-    xdt, la, bm, cm, dy, _ = bwd_case(hb, gb, sb, pb, nb, torch.bfloat16)
-    first = k5.ssd_scan_bwd(xdt, la, bm, cm, dy, None, chunk=cb, rep=hb)
-    again = k5.ssd_scan_bwd(xdt, la, bm, cm, dy, None, chunk=cb, rep=hb)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(first, again, strict=True)):
-        fail("K5 backward at the training shape: two runs differ")
-    del first, again
-    print("[k5] backward bf16 at the training shape: two runs bitwise "
-          "equal", flush=True)
+    for dt in (torch.bfloat16, torch.float32):
+        xdt, la, bm, cm, dy, _ = bwd_case(hb, gb, sb, pb, nb, dt)
+        first = k5.ssd_scan_bwd(xdt, la, bm, cm, dy, None, chunk=cb, rep=hb)
+        again = k5.ssd_scan_bwd(xdt, la, bm, cm, dy, None, chunk=cb, rep=hb)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b)
+                   for a, b in zip(first, again, strict=True)):
+            fail(f"K5 backward {str(dt)[6:]} at the training shape: two "
+                 f"runs differ")
+        del first, again
+        print(f"[k5] backward {str(dt)[6:]} at the training shape: two runs "
+              f"bitwise equal", flush=True)
     for name, info in sorted(k5_build.items()):
         if "bwd" in name:
             print(f"[k5] build {name} (shared memory at chunk 256): "
@@ -3200,8 +3259,8 @@ def main() -> int:
                    xdt, la, bm, cm, dy, None, chunk=cb, rep=hb // gb)),
                # No PyTorch call computes the scan's gradient.
                "library_ms": None,
-               "build": k5_build[f"ssd_scan_bwd_kernel<128, "
-                                 f"{'bf16' if dname == 'bfloat16' else 'float'}>"]}
+               "kernels": list(K5_BWD_BUILDS[dname]),
+               "build": {k: k5_build[k] for k in K5_BWD_BUILDS[dname]}}
         row["bound_ms"], row["bound_by"] = k5_bwd_bound_ms(
             hb, gb, sb, pb, nb, cb, dt.itemsize, dname, False)
         k5_bwd[dname] = row
@@ -3406,8 +3465,7 @@ def main() -> int:
     mamba_hdp = hdp_routes(
         "mamba-train", model, "mamba_train_hdp",
         lambda path, n: check_k5_launches(path, n, MAMBA_TRAIN_LAYERS),
-        ("ssd_scan_mma_kernel", "ssd_scan_bwd_kernel",
-         "ssd_bwd_reduce_kernel"), "K5")
+        ("ssd_scan_mma_kernel", "ssd_bwd_"), "K5")
     print(f"[mamba-train] {card}: bf16 {model.cfg.name} at "
           f"{MAMBA_TRAIN_LAYERS} of 64 layers"
           + ("" if MAMBA_TRAIN_LAYERS == 64 else " (a cut: the whole model "
@@ -4642,7 +4700,8 @@ def main() -> int:
         row.update(dev_times[f"k5_bwd_{dname}"])
         print(f"[device] K5 backward {dname} xdt {row['shape'][0]}, B/C "
               f"{row['shape'][1]}: {row['device_ms']:.6f} ms (bound "
-              f"{row['bound_ms']:.6f} ms)", flush=True)
+              f"{row['bound_ms']:.6f} ms); by kernel "
+              + json.dumps(row["device_ms_by_kernel"]), flush=True)
     k5_jamba.update(dev_times["k5_jamba"])
     print(f"[device] K5 bf16 Jamba xdt {k5_jamba['shape'][0]}, B/C "
           f"{k5_jamba['shape'][1]}: {k5_jamba['device_ms']:.6f} ms (bound "
@@ -4783,6 +4842,8 @@ def main() -> int:
          "bound_by": k5_bwd["bfloat16"]["bound_by"],
          "library_ms": None,
          "device_ms": k5_bwd["bfloat16"]["device_ms"],
+         "kernels": k5_bwd["bfloat16"]["kernels"],
+         "device_ms_by_kernel": k5_bwd["bfloat16"]["device_ms_by_kernel"],
          "build": k5_bwd["bfloat16"]["build"], "f32": k5_bwd["float32"],
          "mamba_train": {route: {k: v for k, v in r.items()
                                  if k != "digests"}

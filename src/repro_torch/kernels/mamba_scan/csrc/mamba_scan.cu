@@ -58,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 // The tile helpers (cp.async, ldmatrix, mma.sync, hi + lo splits), shared
 // with K1 and K4: the bf16 kernel's, and the f32 kernel's copies.
 #include "mma_tiles.cuh"
@@ -581,21 +583,23 @@ size_t mma_smem_bytes(int nb, int chunk) {
 // [col0, col0 + cols) of it; rows at or past `valid` and columns at or past
 // `width` read 0.  With ld a multiple of 8 each 16-byte piece lies wholly
 // inside or outside `width` and goes by cp.async (the wrapper checks the
-// base is 16-byte aligned); else plain loads and stores.
+// base is 16-byte aligned); else plain loads and stores.  By the NT threads
+// of the block.
+template <int NT = kMmaThreads>
 __device__ __forceinline__ void stage_bf16(bf16* dst, int stride,
                                            const bf16* src, int ld, int rows,
                                            int valid, int col0, int cols,
                                            int width) {
   if (ld % 8 == 0) {
     const int pieces = cols / 8;
-    for (int i = threadIdx.x; i < rows * pieces; i += kMmaThreads) {
+    for (int i = threadIdx.x; i < rows * pieces; i += NT) {
       const int r = i / pieces, c = (i % pieces) * 8;
       const bool ok = r < valid && col0 + c < width;
       cp_async16(smem_addr(dst + r * stride + c),
                  ok ? src + (size_t)r * ld + col0 + c : src, ok);
     }
   } else {
-    for (int i = threadIdx.x; i < rows * cols; i += kMmaThreads) {
+    for (int i = threadIdx.x; i < rows * cols; i += NT) {
       const int r = i / cols, c = i % cols;
       const bool ok = r < valid && col0 + c < width;
       dst[r * stride + c] =
@@ -908,7 +912,10 @@ cudaError_t dispatch_mma(const void* xdt, const float* la, const void* b,
 int mma_nb(int n) { return n <= 32 ? 2 : n <= 64 ? 4 : 8; }
 
 // ------------------------------------------------------------------------
-// Backward: `ssd_scan_bwd_kernel`, then `ssd_bwd_reduce_kernel`.
+// Backward: five kernels a call, in order `ssd_bwd_sums_*`,
+// `ssd_bwd_pass_kernel`, `ssd_bwd_local_*`, `ssd_bwd_dla_kernel` and
+// `ssd_bwd_reduce_kernel` (`*`: `mma_kernel<NB>` for bf16 inputs, on the
+// tensor cores; `kernel<NP>` for f32, f32 FMAs on the CUDA cores).
 //
 // Replaces no Pallas kernel: the reference's kernel route has no VJP
 // (jax.grad through repro/kernels/mamba_scan/ops.py::ssd with
@@ -919,99 +926,496 @@ int mma_nb(int n) { return n <= 32 ? 2 : n <= 64 ? 4 : 8; }
 // dtype (bf16 or f32), la f32; dxdt in the inputs' dtype, dla f32, dB and
 // dC per group in the inputs' dtype.
 //
-// Design (a simple one: f32 FMAs on the CUDA cores): one block per head row
-// (grid BH), 16 x 16 threads, tiles of 64 rows staged by plain loads and
-// widened to f32 (so no alignment is asked of the inputs), P up to 64
-// (padded with zeros to 64), N padded to 32, 64 or 128.
-//   * Pass 0 runs the forward's state chain over the chunks and writes the
-//     state entering each chunk to a workspace (BH, n_chunks, 64, NP) f32
-//     (10.5 MB at the training shape); the forward kernels stay untouched.
-//   * Then the chunks in reverse, with dh, the gradient of the state
-//     leaving the chunk, in shared memory both as [p][n] and as [n][p]:
-//     pass A, per key tile J (its rows j), over the query tiles I >= J:
-//     G^T = B_J C_I^T and M^T = X_J dY_I^T, decayed and masked; dx_J +=
-//     (G^T W^T) dY_I and dB_J += (W^T M^T) C_I in registers, the column
-//     sums of E; then the state terms w_j dh B_j (dx), w_j dh^T x_j (dB)
-//     and x_j . (w_j dh B_j) (dcum).  dx goes out in the inputs' dtype, dB
-//     per head in f32 to the workspace.  Pass B, per query tile I, over the
-//     key tiles J <= I: dC_I += (W M) B_J, the row sums of E, then the
-//     entering state's terms e^{cum_i} h_in^T dy_i (dC) and its dot with
-//     C_i (dcum); dC per head in f32.  Pass C: dh_in = e^{cum_L} dh +
-//     sum_i e^{cum_i} dy_i (x) C_i.  dcum is summed in f64 from the f32
-//     terms, and dla is its suffix sum over the chunk, taken in f64 by one
-//     thread in index order and rounded once, as the forward takes its
-//     prefix sum: the sum of a chunk's E terms is 0, and in f32 a chunk's
-//     first dla values were left with the rounding of the sum's terms
-//     (2.8e-3 against a 1e-4 tolerance at the training shape).
-//   * Every output element is owned by one thread and summed in a fixed
-//     order (no atomics), so two runs give the same bits;
-//     `ssd_bwd_reduce_kernel` then sums each group's rep heads of dB and dC
-//     in head order and rounds once (the model: flash_attention.cu's
-//     `flash_dkdv_reduce_kernel`).
+// Design: the chunked SSD algorithm of the Mamba-2 paper (chunk states,
+// state passing, chunk-local terms), applied to the gradient, so no block
+// walks the chunks in order.  Per chunk z of length L, W_ij = e^{cum_i -
+// cum_j} (j <= i), w_j = e^{cum_L - cum_j}, E = (C B^T) . W . (dY X^T):
+//   1. `ssd_bwd_sums_*`, grid (B*H, chunks, 2): the chunk's prefix sum of
+//      la (f64, index order, one thread, rounded once: every route's cum),
+//      into the workspace; the chunk's own state sum hc = (x . w)^T B (all
+//      chunks but the last; blocks of side 0) and its dy-side sum gc =
+//      (dy . e^{cum})^T C (all but the first; side 1), (64, NP) f32 each.
+//   2. `ssd_bwd_pass_kernel`, grid (B*H, 1024-entry tiles of the state):
+//      the short serial chains, entry by entry, in place over hc and gc:
+//      h_in(z+1) = e^{cum_L(z)} h_in(z) + hc_z from 0, and dh(z-1) =
+//      e^{cum_L(z)} dh(z) + gc_z from dstate (or 0); and each tile's f32
+//      part of <dh(z), h_in(z)>.
+//   3. `ssd_bwd_local_*`, grid (B*H, chunks, 64-row tiles): 1280 blocks at
+//      the training shape, where the last design ran 80.  Block (z, t) takes
+//      tile t first as keys j against the query tiles i >= j: dx_j and dB_j
+//      (per head), the state terms w_j dh B_j and w_j dh^T x_j, r_j =
+//      w_j x_j . dh B_j, and every E tile with j in t, formed once: its
+//      column sums (over i, for dcum_j) and its row sums (over j in t, for
+//      dcum_i) both leave the block as f64 sums, the rows' per (i, key
+//      tile).  (In bf16 the key role takes the query tiles twice, dx and
+//      E's sums, then dB, so that no pass holds both dx's and dB's
+//      accumulators.)  Then tile t as queries i against the key tiles j <=
+//      i: dC_i (per head, from dY X^T again, not the Gram) and the entering
+//      state's terms e^{cum_i} h_in^T dy_i and its dot with C_i.  The key
+//      role of tile t has nt - t tile pairs and the query role t + 1, so
+//      the blocks differ by little; the heaviest (t = 0) are launched
+//      first.
+//   4. `ssd_bwd_dla_kernel`, grid (B*H, chunks): dcum from the partials in a
+//      fixed order in f64, then its suffix sum in f64, rounded once.  The E
+//      and r terms sum to 0 over a chunk, and the suffix sum cancels them
+//      exactly only if each enters both its sums with one f32 value (in f32
+//      the last design's dla missed by 2.8e-3 against a 1e-4 tolerance):
+//      each E_ij and r_j is formed once, in one block.
+//   5. `ssd_bwd_reduce_kernel`: dB and dC summed over a group's rep heads
+//      in head order and rounded once (the model: flash_attention.cu's
+//      `flash_dkdv_reduce_kernel`).
+// No atomics: every output and partial is owned by one thread and summed
+// in a fixed order, so two runs give the same bits.  The workspace
+// (bwd_layout) holds cum, the state slots, the partials and dB's and dC's
+// per-head sums: about 104 MB at the training shape.
+//
+// bf16 (`ssd_bwd_sums_mma_kernel`, `ssd_bwd_local_mma_kernel`): every
+// product is `mma.sync.m16n8k16` bf16 x bf16 -> f32 from the tile helpers
+// the forward uses; B, C, xdt and dy arrive in bf16, so the Gram, dY X^T
+// and the tiles they multiply are exact; the f32 operands (the decayed
+// scores G . W and dY X^T . W, x . w, dy . e^{cum}, dh and h_in) enter as
+// hi + lo bf16 terms: each rounded once misses the bf16 tolerance (the CPU
+// model in tests/test_torch_mamba_scan_bwd.py shows each).  Tiles arrive by
+// cp.async, the next in flight while this one is used.  The local kernel
+// has 4 warps, each 16 rows of the 64-row tile, and two blocks an SM (255
+// registers, 84,992 B at N 128); a tile pair is taken in two halves of 32
+// columns.  W is 2^x by the SFU (`ex2.approx`), as in the forward.
+// f32 (`ssd_bwd_sums_kernel`, `ssd_bwd_local_kernel`): the same grid, each
+// product an f32 FMA chain on the CUDA cores in 4 x 4 register blocks fed
+// 16 bytes at a time from shared memory (tile_dot, rows_times, outer_acc):
+// TF32 products miss the f32 tolerance, as the forward's do.
+//
 // What bounds it: at the training shape (80 heads of P 64, one group of N
 // 128, S 1024 in chunks of 256, bf16) the function moves about 33 MB and
 // needs about 14 GFLOP (chip_smoke.py's k5_bwd_bound_ms counts both), so
-// at the tensor cores' bf16 rate its bound is operations, about 0.014 ms.
-// This kernel runs every product as f32 FMAs on 80 of the 132 SMs (one
-// block a head row), reads its operands from shared memory 16 bytes at a
-// time as the f32 forward does, and forms each chunk's Gram once per head
-// and twice (passes A and B), so it is far from that bound: the tensor
-// cores, cp.async staging and more blocks than head rows are later work.
+// at the tensor cores' bf16 rate its bound is operations, about 0.013 ms.
+// This design forms the Gram once per head (its bound counts it once per
+// group), dY X^T three times, and the hi + lo terms double the products
+// they enter: about 38 GFLOP issued as mma.sync, and it writes and reads
+// dB's and dC's per-head sums (84 MB) to sum them over the group.  On an
+// H100 at 700 W it takes 0.39-0.41 ms there (2.08 ms one block a head row
+// before; PERF.md), 0.30 of it the local kernel, about 130 TFLOP/s of
+// mma.sync; the f32 route 0.94 ms, its local kernel 0.79, where the
+// shared-memory reads of its FMA chains take most of the cycles, as in the
+// f32 forward (scripts/k5_bwd_timeline.py prints each kernel's phases).
 // ------------------------------------------------------------------------
 
-constexpr int kBwdThreads = 256;      // 16 x 16
+constexpr int kBwdThreads = 256;      // 16 x 16 (f32 kernels) or 8 warps
 constexpr int kBwdT = 64;             // rows of a tile (keys or queries)
-constexpr int kBwdP = 64;             // P columns the block holds (padded)
-constexpr int kBwdSX = kBwdP + 4;     // row stride of the P-wide tiles
-constexpr int kBwdSS = kBwdT + 4;     // row stride of the score tiles
-static_assert(kBwdP == 4 * 16, "a thread owns 4 P columns of 64");
+constexpr int kBwdP = 64;             // P columns the kernels hold (padded)
+constexpr int kBwdSX = kBwdP + 4;     // row stride of the f32 P-wide tiles
+constexpr int kBwdSS = kBwdT + 4;     // row stride of the f32 score tiles
+constexpr int kLocThreads = 128;      // the bf16 local kernel: 4 warps
+constexpr int kPassThreads = 256;     // state passing: 4 entries a thread
+constexpr int kPassTile = 4 * kPassThreads;
+constexpr int kDlaThreads = 128;
+static_assert(kBwdP == 4 * 16, "an f32 thread owns 4 P columns of 64");
 
-// Floats of the union that holds dh^T (NP rows of P) in pass A and the
-// entering state (64 rows of N) in passes B and C.
-__host__ __device__ constexpr int bwd_union_floats(int np) {
-  return np * kBwdSX > kBwdP * (np + 4) ? np * kBwdSX : kBwdP * (np + 4);
-}
+// The workspace, carved by bwd_layout.  Per head row r and chunk position
+// (row-major (r, s)): erow[(r, s), t] the sum over the keys of tile t of
+// E at query s; ecol the sum over the queries of E at key s; cum, r and
+// inter (e^{cum_i} C_i . h_in^T dy_i).  dotp[(r, z), tile]: a state tile's
+// part of <dh(z), h_in(z)>.  hs and gs: (r, nc - 1, kBwdP, NP) state slots,
+// hs[z] hc_z then h_in(z + 1), gs[z] gc_{z+1} then dh(z).  db_part and
+// dc_part: (r, s, n) per head.
+struct BwdWork {
+  double* erow;
+  double* ecol;
+  float* cum;
+  float* r;
+  float* inter;
+  float* dotp;
+  float* hs;
+  float* gs;
+  float* db_part;
+  float* dc_part;
+};
 
-// Bytes of dynamic shared memory at padded state width np and chunk length
-// chunk: the C and B tiles, the xdt and dy tiles, two score tiles, dh, the
-// union, four f32 arrays and one f64 array of the chunk's positions and a
-// block reduction.
-size_t bwd_smem_bytes(int np, int chunk) {
-  const size_t sf = np + 4, cpad = round_up(chunk, kBwdT);
-  const size_t floats = 2 * kBwdT * sf + 2 * kBwdT * kBwdSX
-                        + 2 * kBwdT * kBwdSS + kBwdP * sf
-                        + bwd_union_floats(np) + 6 * cpad + 32;
-  return floats * sizeof(float);
-}
-
-// Floats of the workspace: the entering states, then dB's and dC's
-// partials per head.
-size_t bwd_workspace_floats(int bh, int s, int n, int chunk) {
+// Floats of the workspace from `base` (16-byte aligned; null only counts),
+// each array starting on a 16-byte boundary.
+size_t bwd_layout(float* base, int bh, int s, int n, int chunk,
+                  BwdWork* w) {
   const size_t nc = (s + chunk - 1) / chunk;
-  return (size_t)bh * nc * kBwdP * (16 * mma_nb(n)) + 2 * (size_t)bh * s * n;
+  const size_t nt = (chunk + kBwdT - 1) / kBwdT;
+  const size_t np = 16 * mma_nb(n);
+  const size_t rows = (size_t)bh * s;
+  size_t off = 0;
+  auto take = [&](size_t floats) {
+    float* at = base ? base + off : nullptr;
+    off += (floats + 3) / 4 * 4;
+    return at;
+  };
+  BwdWork v;
+  v.erow = reinterpret_cast<double*>(take(2 * rows * nt));
+  v.ecol = reinterpret_cast<double*>(take(2 * rows));
+  v.cum = take(rows);
+  v.r = take(rows);
+  v.inter = take(rows);
+  v.dotp = take((size_t)bh * nc * (kBwdP * np / kPassTile));
+  v.hs = take((size_t)bh * (nc - 1) * kBwdP * np);
+  v.gs = take((size_t)bh * (nc - 1) * kBwdP * np);
+  v.db_part = take(rows * n);
+  v.dc_part = take(rows * n);
+  if (w) *w = v;
+  return off;
 }
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void narrow(float* p, float v) { *p = v; }
 __device__ __forceinline__ void narrow(bf16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// Rows [0, ROWS) and columns [0, COLS) of an f32 tile of row stride
-// `stride` from the rows of a row-major matrix of leading dimension `ld`
-// starting at `src`, widened to f32; rows at or past `valid` and columns at
-// or past `width` read 0.
-template <int ROWS, int COLS, typename TI>
-__device__ __forceinline__ void load_tile(float* dst, int stride,
-                                          const TI* src, int ld, int valid,
-                                          int width) {
-  for (int i = threadIdx.x; i < ROWS * COLS; i += kBwdThreads) {
-    const int r = i / COLS, c = i % COLS;
-    dst[r * stride + c] =
-        r < valid && c < width ? widen(src[(size_t)r * ld + c]) : 0.f;
+// The state slot of head row `row`, chunk z's dh (z < nc - 1: gs[z]; the
+// last chunk's: dstate, or null where it is 0) or h_in (z > 0: hs[z - 1];
+// null for the first chunk), and how to read it: the row stride and the
+// rows and columns that hold it (past them it reads 0).
+struct StateRef {
+  const float* p;
+  int ld, rows, cols;
+};
+
+__device__ __forceinline__ StateRef dh_ref(const BwdWork& ws,
+                                           const float* dstate, int row,
+                                           int z, int nc, int np, int P,
+                                           int N) {
+  if (z + 1 < nc)
+    return {ws.gs + ((size_t)row * (nc - 1) + z) * kBwdP * np, np, kBwdP, np};
+  if (dstate != nullptr) return {dstate + (size_t)row * P * N, N, P, N};
+  return {nullptr, 0, 0, 0};
+}
+
+__device__ __forceinline__ StateRef hin_ref(const BwdWork& ws, int row,
+                                            int z, int nc, int np) {
+  if (z == 0) return {nullptr, 0, 0, 0};
+  return {ws.hs + ((size_t)row * (nc - 1) + z - 1) * kBwdP * np, np, kBwdP,
+          np};
+}
+
+__device__ __forceinline__ float state_at(const StateRef& st, int p, int n) {
+  return p < st.rows && n < st.cols ? st.p[(size_t)p * st.ld + n] : 0.f;
+}
+
+// Whether `st` is kBwdP x NP floats, contiguous and 16-byte aligned (a
+// workspace slot, or a dstate of that width): then the f32 kernel reads it
+// 16 bytes a time, several reads in flight a thread, where a loop of
+// scalar loads waited out each load's latency (16 % of that kernel's
+// cycles at the training shape, scripts/k5_bwd_timeline.py).
+template <int NP>
+__device__ __forceinline__ bool state_dense(const StateRef& st) {
+  return st.ld == NP && st.rows == kBwdP && st.cols == NP &&
+         reinterpret_cast<uintptr_t>(st.p) % 16 == 0;
+}
+
+// f(e, v) for each 16 bytes v of a dense state (e its first entry), by the
+// NT threads of the block, each with its reads in flight in batches.
+template <int NP, int NT, typename F>
+__device__ __forceinline__ void for_state_vec4(const StateRef& st, F f) {
+  constexpr int kPer = kBwdP * NP / 4 / NT;      // float4 reads a thread
+  constexpr int kBatch = kPer < 8 ? kPer : 8;
+  static_assert(kPer * NT * 4 == kBwdP * NP && kPer % kBatch == 0,
+                "whole batches of reads");
+  const float4* src = reinterpret_cast<const float4*>(st.p);
+#pragma unroll
+  for (int b = 0; b < kPer; b += kBatch) {
+    float4 v[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) v[k] = src[(b + k) * NT + threadIdx.x];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) f(4 * ((b + k) * NT + threadIdx.x), v[k]);
   }
 }
+
+// W consecutive floats of device memory from `dst`, 16 or 8 bytes at a time
+// where `vec`, else one at a time, those at or past `lim` left out.
+template <int W>
+__device__ __forceinline__ void store_cols(float* dst, const float (&v)[W],
+                                           int col, int lim, bool vec) {
+  if (vec && col + W <= lim) {
+    store_row(dst, v);
+  } else {
+#pragma unroll
+    for (int e = 0; e < W; ++e)
+      if (col + e < lim) dst[e] = v[e];
+  }
+}
+
+// ------------------------------------------------------- 1. chunk sums
+// Grid (B*H, chunks, 2): side 0 forms hc = (x . w)^T B (all chunks but the
+// last) and writes cum, side 1 gc = (dy . e^{cum})^T C (all but the first);
+// each takes the chunk's prefix sum.
+// f32: 16 x 16 threads; thread (tx, ty) owns P columns 4 tx .. + 3 and N
+// columns NV ty .. + NV - 1 of its side's sum (outer_acc).
+template <int NP>
+size_t sums_f32_smem_bytes(int chunk) {
+  const size_t sf = NP + 4, cpad = round_up(chunk, kBwdT);
+  return sizeof(float) * (2 * kBwdT * sf + 2 * kBwdT * kBwdSX + 2 * cpad)
+         + sizeof(double) * kPrefixPiece;
+}
+
+// out[q][v] += sum over the tile's kBwdT rows k of (X[k][p0 + q] w_k)
+// Y[k][n0 + v]: a (P, N) block of X^T diag(w) Y as rank-1 updates.
+template <int NV>
+__device__ __forceinline__ void outer_acc(float (&out)[4][NV], const float* X,
+                                          int sx, const float* Y, int sy,
+                                          const float* w, int p0, int n0) {
+#pragma unroll 2
+  for (int k = 0; k < kBwdT; ++k) {
+    float xv[4], yv[NV];
+    load_row(xv, X + k * sx + p0);
+    load_row(yv, Y + k * sy + n0);
+    const float wk = w[k];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float xw = xv[q] * wk;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) out[q][v] = fmaf(xw, yv[v], out[q][v]);
+    }
+  }
+}
+
+// The chunk's cum into shared memory (warp 0, f64, as the forward), and
+// into the workspace on side 0; the side's weights: w_j = e^{cum_L - cum_j}
+// (side 0) or e^{cum_i} (side 1), 0 past the chunk's end.
+__device__ __forceinline__ void chunk_cum(float* cum, float* wv,
+                                          double* scratch, const float* lp,
+                                          float* cum_out, int clen, int cpad,
+                                          int side) {
+  if (threadIdx.x < 32) prefix_sum_f64(cum, lp, clen, scratch);
+  __syncthreads();
+  const float last = cum[clen - 1];
+  for (int i = threadIdx.x; i < cpad; i += blockDim.x) {
+    const bool in = i < clen;
+    if (in && side == 0) cum_out[i] = cum[i];
+    wv[i] = in ? expf(side == 0 ? last - cum[i] : cum[i]) : 0.f;
+  }
+}
+
+template <int NP>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+ssd_bwd_sums_kernel(const float* __restrict__ xdt, const float* __restrict__ la,
+                    const float* __restrict__ bmat,
+                    const float* __restrict__ cmat,
+                    const float* __restrict__ dy, BwdWork ws, int S, int P,
+                    int N, int chunk, int rep, int aligned) {
+  constexpr int T = kBwdT, SX = kBwdSX, SF = NP + 4, NV = NP / 16;
+  extern __shared__ __align__(16) float sms[];
+  float* As = sms;                      // xdt or dy: 2 x T x SX
+  float* Bs = As + 2 * T * SX;          // B or C: 2 x T x SF
+  const int cpad = round_up(chunk, T);
+  float* cum = Bs + 2 * T * SF;
+  float* wv = cum + cpad;
+  double* scratch = reinterpret_cast<double*>(wv + cpad);
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int row = blockIdx.x, z = blockIdx.y, nc = gridDim.y;
+  const int side = blockIdx.z;
+  const int c0 = z * chunk, clen = min(chunk, S - c0);
+  const size_t pos0 = (size_t)row * S + c0;
+  const bool want = side == 0 ? z + 1 < nc : z > 0;
+  const float* ap = (side == 0 ? xdt : dy) + pos0 * P;
+  const float* bp = (side == 0 ? bmat : cmat) + ((size_t)(row / rep) * S + c0)
+                    * N;
+  auto stage = [&](int j0, int buf) {
+    if (want) {
+      stage_f32<T, kBwdP>(As + buf * T * SX, SX, ap + (size_t)j0 * P, P,
+                          clen - j0, 0, P, aligned, tid, kBwdThreads);
+      stage_f32<T, NP>(Bs + buf * T * SF, SF, bp + (size_t)j0 * N, N,
+                       clen - j0, 0, N, aligned, tid, kBwdThreads);
+    }
+    cp_async_commit();
+  };
+  stage(0, 0);
+  chunk_cum(cum, wv, scratch, la + pos0, ws.cum + pos0, clen, cpad, side);
+  if (!want) return;
+  const int hp = 4 * tx, hn = NV * ty;
+  float acc[4][NV];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int v = 0; v < NV; ++v) acc[q][v] = 0.f;
+  const int n_kt = (clen + T - 1) / T;
+  for (int t = 0; t < n_kt; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();                    // tile t in; tile t - 1 read
+    if (t + 1 < n_kt) stage((t + 1) * T, (t + 1) & 1);
+    const int b = t & 1;
+    outer_acc(acc, As + b * T * SX, SX, Bs + b * T * SF, SF, wv + t * T, hp,
+              hn);
+  }
+  float* dst = (side == 0 ? ws.hs + ((size_t)row * (nc - 1) + z) * kBwdP * NP
+                          : ws.gs + ((size_t)row * (nc - 1) + z - 1) * kBwdP
+                                        * NP);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) store_row(dst + (hp + q) * NP + hn, acc[q]);
+}
+
+// bf16: 8 warps; warp w forms rows 16 (w % 4) .. + 15 and N columns (w / 4)
+// NP / 2 .. + NP / 2 - 1 of its side's sum, A = the xdt (or dy) tile read
+// transposed (ldmatrix.trans), scaled by the weights and split into hi +
+// lo in registers, B = the B (or C) tile.
+template <int NB>
+size_t sums_mma_smem_bytes(int chunk) {
+  const size_t sn = mma_row_stride(NB), cpad = round_up(chunk, kBwdT);
+  return 2 * (2 * kBwdT * (sn + kSP)) + sizeof(float) * 2 * cpad
+         + sizeof(double) * kPrefixPiece;
+}
+
+template <int NB>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+ssd_bwd_sums_mma_kernel(const bf16* __restrict__ xdt,
+                        const float* __restrict__ la,
+                        const bf16* __restrict__ bmat,
+                        const bf16* __restrict__ cmat,
+                        const bf16* __restrict__ dy, BwdWork ws, int S, int P,
+                        int N, int chunk, int rep) {
+  constexpr int NP = 16 * NB, SN = mma_row_stride(NB), T = kBwdT;
+  constexpr int DP = NB / 2;           // 16-column blocks a warp forms
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* As = reinterpret_cast<bf16*>(smem_raw);   // xdt or dy: 2 x T x kSP
+  bf16* Bs = As + 2 * T * kSP;                     // B or C: 2 x T x SN
+  const int cpad = round_up(chunk, T);
+  float* cum = reinterpret_cast<float*>(Bs + 2 * T * SN);
+  float* wv = cum + cpad;
+  double* scratch = reinterpret_cast<double*>(wv + cpad);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int row = blockIdx.x, z = blockIdx.y, nc = gridDim.y;
+  const int side = blockIdx.z;
+  const int c0 = z * chunk, clen = min(chunk, S - c0);
+  const size_t pos0 = (size_t)row * S + c0;
+  const bool want = side == 0 ? z + 1 < nc : z > 0;
+  const bf16* ap = (side == 0 ? xdt : dy) + pos0 * P;
+  const bf16* bp = (side == 0 ? bmat : cmat) + ((size_t)(row / rep) * S + c0)
+                   * N;
+  auto stage = [&](int j0, int buf) {
+    if (want) {
+      stage_bf16(As + buf * T * kSP, kSP, ap + (size_t)j0 * P, P, T,
+                 clen - j0, 0, kBwdP, P);
+      stage_bf16(Bs + buf * T * SN, SN, bp + (size_t)j0 * N, N, T, clen - j0,
+                 0, NP, N);
+    }
+    cp_async_commit();
+  };
+  stage(0, 0);
+  chunk_cum(cum, wv, scratch, la + pos0, ws.cum + pos0, clen, cpad, side);
+  if (!want) return;
+  const int hp0 = (warp % 4) * 16, hn0 = (warp / 4) * (NP / 2);
+  float acc[2 * DP][4];
+#pragma unroll
+  for (int j = 0; j < 2 * DP; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const int n_kt = (clen + T - 1) / T;
+  for (int t = 0; t < n_kt; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();                    // tile t in; tile t - 1 read
+    if (t + 1 < n_kt) stage((t + 1) * T, (t + 1) & 1);
+    const bf16* At = As + (t & 1) * T * kSP;
+    const bf16* Bt = Bs + (t & 1) * T * SN;
+    const float* wt = wv + t * T;
+#pragma unroll
+    for (int kk = 0; kk < T / 16; ++kk) {
+      uint32_t ax[4], ah[4], al[4];
+      ldsm_x4_trans(ax, frag_b_addr<kSP>(At, kk * 16, hp0, lane));
+      const float2 w0 = *reinterpret_cast<const float2*>(wt + kk * 16 + 2 * t4);
+      const float2 w1 =
+          *reinterpret_cast<const float2*>(wt + kk * 16 + 8 + 2 * t4);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float2 xv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&ax[r]));
+        const float2 w = r < 2 ? w0 : w1;
+        split_bf16(xv.x * w.x, xv.y * w.y, ah[r], al[r]);
+      }
+      uint32_t b[DP][4];
+#pragma unroll
+      for (int dp = 0; dp < DP; ++dp)
+        ldsm_x4_trans(b[dp], frag_a_addr<SN>(Bt, kk * 16, hn0 + dp * 16,
+                                             lane));
+#pragma unroll
+      for (int dp = 0; dp < DP; ++dp) {
+        mma_bf16(acc[2 * dp], ah, b[dp][0], b[dp][1]);
+        mma_bf16(acc[2 * dp + 1], ah, b[dp][2], b[dp][3]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < DP; ++dp) {
+        mma_bf16(acc[2 * dp], al, b[dp][0], b[dp][1]);
+        mma_bf16(acc[2 * dp + 1], al, b[dp][2], b[dp][3]);
+      }
+    }
+  }
+  float* dst = (side == 0 ? ws.hs + ((size_t)row * (nc - 1) + z) * kBwdP * NP
+                          : ws.gs + ((size_t)row * (nc - 1) + z - 1) * kBwdP
+                                        * NP);
+#pragma unroll
+  for (int j = 0; j < 2 * DP; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<float2*>(dst + (hp0 + g + 8 * i) * NP + hn0 + j * 8
+                                 + 2 * t4) =
+          make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
+}
+
+// ---------------------------------------------------- 2. state passing
+// Grid (B*H, kBwdP NP / kPassTile); thread t owns entries 4 t .. 4 t + 3 of
+// the block's tile of the (kBwdP, NP) state.
+__global__ void __launch_bounds__(kPassThreads)
+ssd_bwd_pass_kernel(const float* __restrict__ dstate, BwdWork ws, int S,
+                    int P, int N, int np, int chunk) {
+  __shared__ float red[kPassThreads / 32];
+  const int row = blockIdx.x, tile = blockIdx.y, tid = threadIdx.x;
+  const int nc = (S + chunk - 1) / chunk;
+  const int e0 = tile * kPassTile + 4 * tid;
+  const size_t slot = (size_t)kBwdP * np;
+  float* hs = ws.hs + (size_t)row * (nc - 1) * slot + e0;
+  float* gs = ws.gs + (size_t)row * (nc - 1) * slot + e0;
+  const float* cum = ws.cum + (size_t)row * S;
+  auto decay = [&](int z) { return expf(cum[min(z * chunk + chunk, S) - 1]); };
+  float h[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int z = 0; z + 1 < nc; ++z) {          // h_in(z + 1) over hc_z
+    const float d = decay(z);
+    float v[4];
+    load_row(v, hs + z * slot);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) h[k] = fmaf(d, h[k], v[k]);
+    store_row(hs + z * slot, h);
+  }
+  float dh[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int p = (e0 + k) / np, n = (e0 + k) % np;
+    dh[k] = dstate != nullptr && p < P && n < N
+                ? dstate[((size_t)row * P + p) * N + n] : 0.f;
+  }
+  for (int z = nc - 1; z >= 1; --z) {         // dh(z - 1) over gc_z
+    float hv[4];
+    load_row(hv, hs + (z - 1) * slot);        // h_in(z)
+    float dot = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) dot = fmaf(dh[k], hv[k], dot);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    if (tid % 32 == 0) red[tid / 32] = dot;
+    __syncthreads();
+    if (tid == 0) {
+      float tot = 0.f;
+      for (int w = 0; w < kPassThreads / 32; ++w) tot += red[w];
+      ws.dotp[((size_t)row * nc + z) * gridDim.y + tile] = tot;
+    }
+    const float d = decay(z);
+    float gv[4];
+    load_row(gv, gs + (z - 1) * slot);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) dh[k] = fmaf(d, dh[k], gv[k]);
+    store_row(gs + (z - 1) * slot, dh);
+    __syncthreads();                          // red read
+  }
+}
+
+// ------------------------------------------------ 3. chunk-local terms
+// f32: 16 x 16 threads, the last design's products (tile_dot, rows_times) on
+// the new grid.
 
 // out[r][c] = sum over k < K of A[(ty + 16 r) sa + k] * B[(tx + 16 c) sb + k]:
 // a 4 x 4 block of the 64 x 64 product of two row-major tiles, each row read
@@ -1058,27 +1462,6 @@ __device__ __forceinline__ void rows_times(float (&out)[4][QW],
   }
 }
 
-// out[q][v] += sum over the tile's kBwdT rows k of (X[k][p0 + q] w_k)
-// Y[k][n0 + v]: a (P, N) block of X^T diag(w) Y as rank-1 updates.
-template <int NV>
-__device__ __forceinline__ void outer_acc(float (&out)[4][NV], const float* X,
-                                          int sx, const float* Y, int sy,
-                                          const float* w, int p0, int n0) {
-#pragma unroll 2
-  for (int k = 0; k < kBwdT; ++k) {
-    float xv[4], yv[NV];
-    load_row(xv, X + k * sx + p0);
-    load_row(yv, Y + k * sy + n0);
-    const float wk = w[k];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float xw = xv[q] * wk;
-#pragma unroll
-      for (int v = 0; v < NV; ++v) out[q][v] = fmaf(xw, yv[v], out[q][v]);
-    }
-  }
-}
-
 // The sum over the 16 lanes of a half warp (the tx of one ty).
 template <typename V>
 __device__ __forceinline__ V half_warp_sum(V v) {
@@ -1087,327 +1470,858 @@ __device__ __forceinline__ V half_warp_sum(V v) {
   return v;
 }
 
-// Grid (B*H); NP is N padded to 32, 64 or 128; TI the inputs' dtype.
-template <int NP, typename TI>
+template <int NP>
+size_t local_f32_smem_bytes(int chunk) {
+  const size_t sf = NP + 4;
+  return sizeof(float) * (3 * kBwdT * sf + 3 * kBwdT * kBwdSX
+                          + 2 * kBwdT * kBwdSS + round_up(chunk, kBwdT))
+         + sizeof(double) * 2 * (kBwdThreads / 32) * kBwdT;
+}
+
+template <int NP>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-ssd_scan_bwd_kernel(const TI* __restrict__ xdt, const float* __restrict__ la,
-                    const TI* __restrict__ bmat, const TI* __restrict__ cmat,
-                    const TI* __restrict__ dy,
-                    const float* __restrict__ dstate, TI* __restrict__ dxdt,
-                    float* __restrict__ dla, float* __restrict__ db_part,
-                    float* __restrict__ dc_part, float* __restrict__ h_ws,
-                    int S, int P, int N, int chunk, int rep) {
+ssd_bwd_local_kernel(const float* __restrict__ xdt,
+                     const float* __restrict__ bmat,
+                     const float* __restrict__ cmat,
+                     const float* __restrict__ dy,
+                     const float* __restrict__ dstate,
+                     float* __restrict__ dxdt, BwdWork ws, int S, int P,
+                     int N, int chunk, int rep, int aligned) {
   constexpr int T = kBwdT, SX = kBwdSX, SS = kBwdSS, SF = NP + 4;
   constexpr int NV = NP / 16;              // N columns a thread owns
-  extern __shared__ __align__(16) float smb[];
-  float* Cs = smb;                         // T x SF
-  float* Bs = Cs + T * SF;                 // T x SF
-  float* Xs = Bs + T * SF;                 // T x SX
-  float* Ys = Xs + T * SX;                 // T x SX: dy
-  float* Ss = Ys + T * SX;                 // T x SS
+  constexpr int NW = kBwdThreads / 32;
+  extern __shared__ __align__(16) float sml[];
+  float* Fn = sml;                         // this tile's B or C: T x SF
+  float* Fp = Fn + T * SF;                 // its xdt or dy: T x SX
+  float* Ln = Fp + T * SX;                 // the other tiles': 2 x T x SF
+  float* Lp = Ln + 2 * T * SF;             // 2 x T x SX
+  float* Ss = Lp + 2 * T * SX;             // T x SS
   float* Qs = Ss + T * SS;                 // T x SS
-  float* DH = Qs + T * SS;                 // kBwdP x SF: dh[p][n]
-  float* Un = DH + kBwdP * SF;             // dh^T [n][p], or h_in [p][n]
+  float* cum = Qs + T * SS;
   const int cpad = round_up(chunk, T);
-  float* cum = Un + bwd_union_floats(NP);
-  float* ecum = cum + cpad;                // e^{cum_i}, 0 past the end
-  float* wl = ecum + cpad;                 // e^{cum_L - cum_j}, 0 past it
-  float* rr = wl + cpad;                   // x_j . (w_j dh B_j)
-  // dcum in f64: each E_ij enters row i's sum and column j's with one f32
-  // value, and each r_j position j and L, so the suffix sum cancels them
-  // exactly where they cancel (a chunk's first positions).
-  double* dcum = reinterpret_cast<double*>(rr + cpad);
-  float* red = rr + 3 * cpad;              // a block reduction's 8 warps
+  double* red = reinterpret_cast<double*>(cum + cpad);   // 2 x NW x T
+  // A state [p][n] (T x SF) and dh^T [n][p] (NP x SX), over Ln and Lp.
+  float* Ht = Ln + T * SF;
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int row = blockIdx.x;              // b * H + h
-  const int grow = row / rep;              // b * G + h / rep
-  const int nc = (S + chunk - 1) / chunk;
-  const TI* xp = xdt + (size_t)row * S * P;
-  const TI* yp = dy + (size_t)row * S * P;
-  const float* lp = la + (size_t)row * S;
-  const TI* bp = bmat + (size_t)grow * S * N;
-  const TI* cp = cmat + (size_t)grow * S * N;
-  float* ws = h_ws + (size_t)row * nc * kBwdP * NP;
-  // This thread's (P, N) entries: p in [hp, hp + 4), n in [hn, hn + NV).
-  const int hp = 4 * tx, hn = NV * ty;
+  const int lane = tid % 32, warp = tid / 32;
+  const int row = blockIdx.x, z = blockIdx.y, nc = gridDim.y, t = blockIdx.z;
+  const int c0 = z * chunk, clen = min(chunk, S - c0);
+  const int nt = (clen + T - 1) / T, ntmax = (chunk + T - 1) / T;
+  if (t >= nt) return;                     // a short last chunk
+  const int t0 = t * T;
+  const size_t pos0 = (size_t)row * S + c0;
+  const float* xp = xdt + pos0 * P;
+  const float* yp = dy + pos0 * P;
+  const float* bp = bmat + ((size_t)(row / rep) * S + c0) * N;
+  const float* cp = cmat + ((size_t)(row / rep) * S + c0) * N;
+  auto stage_n = [&](float* dst, const float* src, int r0) {
+    stage_f32<T, NP>(dst, SF, src + (size_t)r0 * N, N, clen - r0, 0, N,
+                     aligned, tid, kBwdThreads);
+  };
+  auto stage_p = [&](float* dst, const float* src, int r0) {
+    stage_f32<T, kBwdP>(dst, SX, src + (size_t)r0 * P, P, clen - r0, 0, P,
+                        aligned, tid, kBwdThreads);
+  };
+  // The warps' sums over their rows of E at each query column, in order.
+  auto flush_rows = [&](int buf, int i0) {
+    if (tid < T && i0 + tid < clen) {
+      const double* rp = red + buf * NW * T + tid;
+      double v = rp[0];
+      for (int w = 1; w < NW; ++w) v += rp[w * T];
+      ws.erow[(pos0 + i0 + tid) * ntmax + t] = v;
+    }
+  };
 
-  // The chunk's cum (warp 0, f64, as the forward), e^cum and w; dcum = 0.
-  auto chunk_terms = [&](int c0, int clen) {
-    __syncthreads();                       // Ss and the arrays are free
-    if (tid < 32)
-      prefix_sum_f64(cum, lp + c0, clen, reinterpret_cast<double*>(Ss));
-    __syncthreads();
-    const float last = cum[clen - 1];
-    for (int i = tid; i < cpad; i += kBwdThreads) {
-      const bool in = i < clen;
-      ecum[i] = in ? expf(cum[i]) : 0.f;
-      wl[i] = in ? expf(last - cum[i]) : 0.f;
-      dcum[i] = 0.0;
+  // ---- Keys: rows j of tile t against the query tiles i >= j.
+  stage_n(Fn, bp, t0);
+  stage_p(Fp, xp, t0);
+  stage_n(Ln, cp, t0);
+  stage_p(Lp, yp, t0);
+  cp_async_commit();
+  for (int i = tid; i < cpad; i += kBwdThreads)
+    cum[i] = i < clen ? ws.cum[pos0 + i] : 0.f;
+  float dx[4][4], dbv[4][NV];
+  double ekey[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    ekey[r] = 0.0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) dx[r][q] = 0.f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) dbv[r][v] = 0.f;
+  }
+  int k = 0;
+  for (; t + k < nt; ++k) {
+    const int i0 = (t + k) * T, b = k & 1;
+    const float* Ct = Ln + b * T * SF;
+    const float* Yt = Lp + b * T * SX;
+    cp_async_wait<0>();
+    __syncthreads();         // this query tile in; the last pair's reads done
+    if (k > 0) flush_rows((k - 1) & 1, i0 - T);
+    if (t + k + 1 < nt) {
+      stage_n(Ln + (b ^ 1) * T * SF, cp, i0 + T);
+      stage_p(Lp + (b ^ 1) * T * SX, yp, i0 + T);
+    }
+    cp_async_commit();
+    float gm[4][4], mm[4][4];
+    tile_dot<NP>(gm, Fn, SF, Ct, SF, tx, ty);       // B_j . C_i
+    tile_dot<kBwdP>(mm, Fp, SX, Yt, SX, tx, ty);    // x_j . dy_i
+    double qc[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = t0 + ty + 16 * r, i = i0 + tx + 16 * c;
+        const bool in = j <= i && i < clen;
+        const float w = in ? expf(fminf(cum[i] - cum[j], 0.f)) : 0.f;
+        const float sv = gm[r][c] * w;
+        const double e = (double)(sv * mm[r][c]);
+        ekey[r] += e;
+        qc[c] += e;
+        Ss[(ty + 16 * r) * SS + tx + 16 * c] = sv;
+        Qs[(ty + 16 * r) * SS + tx + 16 * c] = mm[r][c] * w;
+      }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      qc[c] += __shfl_xor_sync(0xffffffffu, qc[c], 16);   // the ty pair
+      if (lane < 16) red[(b * NW + warp) * T + tx + 16 * c] = qc[c];
     }
     __syncthreads();
-  };
-  auto stage_keys = [&](int at, int valid) {      // B and xdt rows
-    load_tile<T, NP>(Bs, SF, bp + (size_t)at * N, N, valid, N);
-    load_tile<T, kBwdP>(Xs, SX, xp + (size_t)at * P, P, valid, P);
-  };
-  auto stage_queries = [&](int at, int valid) {   // C and dy rows
-    load_tile<T, NP>(Cs, SF, cp + (size_t)at * N, N, valid, N);
-    load_tile<T, kBwdP>(Ys, SX, yp + (size_t)at * P, P, valid, P);
-  };
-
-  // Pass 0: the state entering each chunk, into the workspace.
-  {
-    float h[4][NV];
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int v = 0; v < NV; ++v) h[q][v] = 0.f;
-    for (int z = 0; z < nc; ++z) {
-      float* wz = ws + (size_t)z * kBwdP * NP;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) store_row(wz + (hp + q) * NP + hn, h[q]);
-      if (z == nc - 1) break;
-      const int c0 = z * chunk, clen = min(chunk, S - c0);
-      chunk_terms(c0, clen);
-      float hc[4][NV];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int v = 0; v < NV; ++v) hc[q][v] = 0.f;
-      for (int j0 = 0; j0 < clen; j0 += T) {
-        __syncthreads();
-        stage_keys(c0 + j0, clen - j0);
-        __syncthreads();
-        outer_acc(hc, Xs, SX, Bs, SF, wl + j0, hp, hn);
+    rows_times<T, 4>(dx, Ss, SS, Yt, SX, 4 * tx, ty);
+    rows_times<T, NV>(dbv, Qs, SS, Ct, SF, NV * tx, ty);
+  }
+  cp_async_wait<0>();
+  __syncthreads();           // the last pair's rows in red; its reads done
+  flush_rows((k - 1) & 1, (t + k - 1) * T);
+  // The state terms: v_j = dh B_j, t_j = dh^T x_j, r_j = w_j x_j . v_j.
+  const StateRef dh = dh_ref(ws, dstate, row, z, nc, NP, P, N);
+  float rj[4] = {0.f, 0.f, 0.f, 0.f};
+  if (dh.p != nullptr) {
+    if (state_dense<NP>(dh)) {
+      for_state_vec4<NP, kBwdThreads>(dh, [&](int e, float4 v) {
+        const int p = e / NP, n = e % NP;
+        *reinterpret_cast<float4*>(Ln + p * SF + n) = v;
+        Ht[n * SX + p] = v.x;
+        Ht[(n + 1) * SX + p] = v.y;
+        Ht[(n + 2) * SX + p] = v.z;
+        Ht[(n + 3) * SX + p] = v.w;
+      });
+    } else {
+      for (int i = tid; i < kBwdP * NP; i += kBwdThreads) {
+        const int p = i / NP, n = i % NP;
+        const float v = state_at(dh, p, n);
+        Ln[p * SF + n] = v;
+        Ht[n * SX + p] = v;
       }
-      const float decay = ecum[clen - 1];
+    }
+    __syncthreads();
+    float v[4][4], tt[4][NV];
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
+    for (int r = 0; r < 4; ++r) {
 #pragma unroll
-        for (int v = 0; v < NV; ++v) h[q][v] = fmaf(decay, h[q][v], hc[q][v]);
+      for (int q = 0; q < 4; ++q) v[r][q] = 0.f;
+#pragma unroll
+      for (int e = 0; e < NV; ++e) tt[r][e] = 0.f;
+    }
+    rows_times<NP, 4>(v, Fn, SF, Ht, SX, 4 * tx, ty);
+    rows_times<kBwdP, NV>(tt, Fp, SX, Ln, SF, NV * tx, ty);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int jl = ty + 16 * r, j = t0 + jl;
+      const float w = j < clen ? expf(cum[clen - 1] - cum[j]) : 0.f;
+      float xv[4];
+      load_row(xv, Fp + jl * SX + 4 * tx);
+      float part = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) part = fmaf(xv[q], v[r][q], part);
+      rj[r] = w * half_warp_sum(part);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dx[r][q] = fmaf(w, v[r][q], dx[r][q]);
+#pragma unroll
+      for (int e = 0; e < NV; ++e) dbv[r][e] = fmaf(w, tt[r][e], dbv[r][e]);
     }
   }
-
-  // dh of the last chunk: dstate, or 0.
-  __syncthreads();
-  for (int i = tid; i < kBwdP * NP; i += kBwdThreads) {
-    const int p = i / NP, n = i % NP;
-    const float v = dstate != nullptr && p < P && n < N
-                        ? dstate[((size_t)row * P + p) * N + n] : 0.f;
-    DH[p * SF + n] = v;
-    Un[n * SX + p] = v;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int j = t0 + ty + 16 * r;
+    const double e = half_warp_sum(ekey[r]);
+    if (j >= clen) continue;
+    if (tx == 0) {
+      ws.ecol[pos0 + j] = e;
+      ws.r[pos0 + j] = rj[r];
+    }
+    store_cols(dxdt + (pos0 + j) * P + 4 * tx, dx[r], 4 * tx, P, P % 4 == 0);
+    store_cols(ws.db_part + (pos0 + j) * N + NV * tx, dbv[r], NV * tx, N,
+               N % 4 == 0);
   }
 
-  for (int z = nc - 1; z >= 0; --z) {
-    const int c0 = z * chunk, clen = min(chunk, S - c0);
-    chunk_terms(c0, clen);
-
-    // Pass A: per key tile, dx and dB (intra-chunk and state terms).
-    for (int j0 = 0; j0 < clen; j0 += T) {
-      __syncthreads();                     // the last tile's reads done
-      stage_keys(c0 + j0, clen - j0);
-      float dx[4][4], dbv[4][NV];
-      double erow[4];
+  // ---- Queries: rows i of tile t against the key tiles j <= i.
+  __syncthreads();           // the key role's reads done
+  stage_n(Fn, cp, t0);
+  stage_p(Fp, yp, t0);
+  stage_n(Ln, bp, 0);
+  stage_p(Lp, xp, 0);
+  cp_async_commit();
+  float dcv[4][NV];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        erow[r] = 0.0;
+  for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) dx[r][q] = 0.f;
-#pragma unroll
-        for (int v = 0; v < NV; ++v) dbv[r][v] = 0.f;
-      }
-      for (int i0 = j0; i0 < clen; i0 += T) {
-        __syncthreads();                   // C, dy and the scores are free
-        stage_queries(c0 + i0, clen - i0);
-        __syncthreads();
-        float g[4][4], m[4][4];
-        tile_dot<NP>(g, Bs, SF, Cs, SF, tx, ty);       // B_j . C_i
-        tile_dot<kBwdP>(m, Xs, SX, Ys, SX, tx, ty);    // x_j . dy_i
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int j = j0 + ty + 16 * r, i = i0 + tx + 16 * c;
-            const float w = j <= i && i < clen
-                                ? expf(fminf(cum[i] - cum[j], 0.f)) : 0.f;
-            const float sv = g[r][c] * w;
-            erow[r] += (double)(sv * m[r][c]);
-            Ss[(ty + 16 * r) * SS + tx + 16 * c] = sv;
-            Qs[(ty + 16 * r) * SS + tx + 16 * c] = m[r][c] * w;
-          }
-        __syncthreads();
-        rows_times<T, 4>(dx, Ss, SS, Ys, SX, 4 * tx, ty);
-        rows_times<T, NV>(dbv, Qs, SS, Cs, SF, NV * tx, ty);
-      }
-      // The state terms: v_j = dh B_j and t_j = dh^T x_j.
-      float v[4][4], t[4][NV];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) v[r][q] = 0.f;
-#pragma unroll
-        for (int k = 0; k < NV; ++k) t[r][k] = 0.f;
-      }
-      rows_times<NP, 4>(v, Bs, SF, Un, SX, 4 * tx, ty);
-      rows_times<kBwdP, NV>(t, Xs, SX, DH, SF, NV * tx, ty);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int jl = ty + 16 * r, j = j0 + jl;
-        const float w = wl[j];
-        float xv[4];
-        load_row(xv, Xs + jl * SX + 4 * tx);
-        float part = 0.f;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) part = fmaf(xv[q], v[r][q], part);
-        const float rj = w * half_warp_sum(part);
-        const double e = half_warp_sum(erow[r]);
-        if (tx == 0 && j < clen) {
-          dcum[j] -= e + (double)rj;
-          rr[j] = rj;
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) dx[r][q] = fmaf(w, v[r][q], dx[r][q]);
-#pragma unroll
-        for (int k = 0; k < NV; ++k) dbv[r][k] = fmaf(w, t[r][k], dbv[r][k]);
-        if (j < clen) {
-          TI* dxr = dxdt + ((size_t)row * S + c0 + j) * P;
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            if (4 * tx + q < P) narrow(dxr + 4 * tx + q, dx[r][q]);
-          float* dbr = db_part + ((size_t)row * S + c0 + j) * N;
-#pragma unroll
-          for (int k = 0; k < NV; ++k)
-            if (NV * tx + k < N) dbr[NV * tx + k] = dbv[r][k];
-        }
-      }
+    for (int e = 0; e < NV; ++e) dcv[r][e] = 0.f;
+  for (int jt = 0; jt <= t; ++jt) {
+    const int j0 = jt * T, b = jt & 1;
+    const float* Bt = Ln + b * T * SF;
+    const float* Xt = Lp + b * T * SX;
+    cp_async_wait<0>();
+    __syncthreads();         // this key tile in; the last one's reads done
+    if (jt < t) {
+      stage_n(Ln + (b ^ 1) * T * SF, bp, j0 + T);
+      stage_p(Lp + (b ^ 1) * T * SX, xp, j0 + T);
     }
-
-    // Pass B: per query tile, dC (intra-chunk and entering-state terms).
-    __syncthreads();                       // pass A's reads of dh^T done
-    const float* wz = ws + (size_t)z * kBwdP * NP;
-    for (int i = tid; i < kBwdP * NP; i += kBwdThreads)
-      Un[(i / NP) * SF + i % NP] = wz[i];
-    for (int i0 = 0; i0 < clen; i0 += T) {
-      __syncthreads();
-      stage_queries(c0 + i0, clen - i0);
-      float dcv[4][NV];
-      double erow[4];
+    cp_async_commit();
+    float mm[4][4];
+    tile_dot<kBwdP>(mm, Fp, SX, Xt, SX, tx, ty);    // dy_i . x_j
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        erow[r] = 0.0;
+    for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int k = 0; k < NV; ++k) dcv[r][k] = 0.f;
+      for (int c = 0; c < 4; ++c) {
+        const int i = t0 + ty + 16 * r, j = j0 + tx + 16 * c;
+        const bool in = j <= i && i < clen;
+        const float w = in ? expf(fminf(cum[i] - cum[j], 0.f)) : 0.f;
+        Qs[(ty + 16 * r) * SS + tx + 16 * c] = mm[r][c] * w;
       }
-      for (int j0 = 0; j0 <= i0; j0 += T) {
-        __syncthreads();                   // B, xdt and the scores are free
-        stage_keys(c0 + j0, clen - j0);
-        __syncthreads();
-        float g[4][4], m[4][4];
-        tile_dot<NP>(g, Cs, SF, Bs, SF, tx, ty);       // C_i . B_j
-        tile_dot<kBwdP>(m, Ys, SX, Xs, SX, tx, ty);    // dy_i . x_j
+    __syncthreads();
+    rows_times<T, NV>(dcv, Qs, SS, Bt, SF, NV * tx, ty);
+  }
+  // The entering state's terms: u_i = h_in^T dy_i.
+  const StateRef hin = hin_ref(ws, row, z, nc, NP);
+  float inter[4] = {0.f, 0.f, 0.f, 0.f};
+  if (hin.p != nullptr) {
+    cp_async_wait<0>();
+    __syncthreads();         // the loop's reads done
+    for_state_vec4<NP, kBwdThreads>(hin, [&](int e, float4 v) {
+      *reinterpret_cast<float4*>(Ln + (e / NP) * SF + e % NP) = v;
+    });
+    __syncthreads();
+    float u[4][NV];
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < 4; ++r)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int i = i0 + ty + 16 * r, j = j0 + tx + 16 * c;
-            const float w = j <= i && i < clen
-                                ? expf(fminf(cum[i] - cum[j], 0.f)) : 0.f;
-            const float sv = g[r][c] * w;
-            erow[r] += (double)(sv * m[r][c]);
-            Qs[(ty + 16 * r) * SS + tx + 16 * c] = m[r][c] * w;
-          }
-        __syncthreads();
-        rows_times<T, NV>(dcv, Qs, SS, Bs, SF, NV * tx, ty);
-      }
-      // u_i = h_in^T dy_i.
-      float u[4][NV];
+      for (int e = 0; e < NV; ++e) u[r][e] = 0.f;
+    rows_times<kBwdP, NV>(u, Fp, SX, Ln, SF, NV * tx, ty);
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < 4; ++r) {
+      const int il = ty + 16 * r, i = t0 + il;
+      const float ei = i < clen ? expf(cum[i]) : 0.f;
+      float cv[NV];
+      load_row(cv, Fn + il * SF + NV * tx);
+      float part = 0.f;
 #pragma unroll
-        for (int k = 0; k < NV; ++k) u[r][k] = 0.f;
-      rows_times<kBwdP, NV>(u, Ys, SX, Un, SF, NV * tx, ty);
+      for (int e = 0; e < NV; ++e) part = fmaf(cv[e], u[r][e], part);
+      inter[r] = ei * half_warp_sum(part);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int il = ty + 16 * r, i = i0 + il;
-        const float ei = ecum[i];
-        float cv[NV];
-        load_row(cv, Cs + il * SF + NV * tx);
-        float part = 0.f;
-#pragma unroll
-        for (int k = 0; k < NV; ++k) part = fmaf(cv[k], u[r][k], part);
-        const float inter = ei * half_warp_sum(part);
-        const double e = half_warp_sum(erow[r]);
-        if (tx == 0 && i < clen) dcum[i] += e + (double)inter;
-#pragma unroll
-        for (int k = 0; k < NV; ++k) dcv[r][k] = fmaf(ei, u[r][k], dcv[r][k]);
-        if (i < clen) {
-          float* dcr = dc_part + ((size_t)row * S + c0 + i) * N;
-#pragma unroll
-          for (int k = 0; k < NV; ++k)
-            if (NV * tx + k < N) dcr[NV * tx + k] = dcv[r][k];
-        }
-      }
+      for (int e = 0; e < NV; ++e) dcv[r][e] = fmaf(ei, u[r][e], dcv[r][e]);
     }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = t0 + ty + 16 * r;
+    if (i >= clen) continue;
+    if (tx == 0) ws.inter[pos0 + i] = inter[r];
+    store_cols(ws.dc_part + (pos0 + i) * N + NV * tx, dcv[r], NV * tx, N,
+               N % 4 == 0);
+  }
+}
 
-    // Pass C: sum_i e^{cum_i} dy_i (x) C_i, for the entering state's dh.
-    float dhn[4][NV];
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int v = 0; v < NV; ++v) dhn[q][v] = 0.f;
-    if (z > 0)
-      for (int i0 = 0; i0 < clen; i0 += T) {
-        __syncthreads();
-        stage_queries(c0 + i0, clen - i0);
-        __syncthreads();
-        outer_acc(dhn, Ys, SX, Cs, SF, ecum + i0, hp, hn);
-      }
+// bf16: 4 warps, warp w rows 16 w .. 16 w + 15 of the tile (the M of every
+// product), lane (g, t4) rows g and g + 8, columns 2 t4 and 2 t4 + 1 of each
+// 8-column n-tile; two blocks an SM.
+template <int NB>
+size_t local_mma_smem_bytes(int chunk) {
+  const size_t sn = mma_row_stride(NB);
+  return 2 * 3 * kBwdT * (sn + kSP) + sizeof(float) * round_up(chunk, kBwdT)
+         + sizeof(double) * 2 * (kLocThreads / 32) * kBwdT;
+}
 
-    // dcum_L += e^{cum_L} <dh, h_in> + sum_j x_j . (w_j dh B_j); then dla.
-    float dot = 0.f;
+// The state at `st` (kBwdP rows of NP columns; 0 where it holds none) as
+// hi and lo bf16 tiles of row stride SN.
+// (Read 16 bytes at a time, as the f32 kernel reads a state, this kernel
+// ran 3 % slower at the training shape: it sits at 255 registers.)
+template <int NP, int SN>
+__device__ __forceinline__ void load_state_split(bf16* hi, bf16* lo,
+                                                 const StateRef& st) {
+  for (int i = threadIdx.x; i < kBwdP * NP / 2; i += blockDim.x) {
+    const int p = i / (NP / 2), n = 2 * (i % (NP / 2));
+    uint32_t h, l;
+    split_bf16(state_at(st, p, n), state_at(st, p, n + 1), h, l);
+    *reinterpret_cast<uint32_t*>(hi + p * SN + n) = h;
+    *reinterpret_cast<uint32_t*>(lo + p * SN + n) = l;
+  }
+}
+
+// The sums over the 8 lanes of a t4 group (lanes t4, t4 + 4, ..., the g of
+// rows g, g + 8) of v[0 .. 8), by halving exchanges: lane g returns the
+// sum of v[g].  Each sum is formed by one lane in one order.
+__device__ __forceinline__ double lane_sums8(const double (&v)[8], int g) {
+  double u[4], w[2];
+  const bool b2 = g & 4, b1 = g & 2, b0 = g & 1;
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
+  for (int q = 0; q < 4; ++q)
+    u[q] = (b2 ? v[q + 4] : v[q])
+           + __shfl_xor_sync(0xffffffffu, b2 ? v[q] : v[q + 4], 16);
 #pragma unroll
-      for (int v = 0; v < NV; ++v)
-        dot = fmaf(DH[(hp + q) * SF + hn + v], Un[(hp + q) * SF + hn + v], dot);
+  for (int q = 0; q < 2; ++q)
+    w[q] = (b1 ? u[q + 2] : u[q])
+           + __shfl_xor_sync(0xffffffffu, b1 ? u[q] : u[q + 2], 8);
+  return (b0 ? w[1] : w[0]) + __shfl_xor_sync(0xffffffffu, b0 ? w[0] : w[1], 4);
+}
+
+// The sum over the 4 lanes of a quad (the t4 of one g).
+template <typename V>
+__device__ __forceinline__ V quad_sum(V v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// acc[2 dp + (0, 1)] += (hi + lo) times two n-tiles of `b`, for dp < DP:
+// the B fragments of DP 16-column blocks, two at a time, hi products before
+// lo so an accumulator's two are four products apart.
+template <int DP, typename BAddr>
+__device__ __forceinline__ void mma_split_rows(float (*acc)[4],
+                                               const uint32_t (&hi)[4],
+                                               const uint32_t (&lo)[4],
+                                               BAddr baddr) {
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
-    if (tid % 32 == 0) red[tid / 32] = dot;
-    __syncthreads();                       // dcum, rr and red complete
-    const float el = ecum[clen - 1];
-    if (tid == 0) {
-      float tot = 0.f;
-      double rs = 0.0;
-      for (int w = 0; w < kBwdThreads / 32; ++w) tot += red[w];
-      for (int j = 0; j < clen; ++j) rs += (double)rr[j];
-      dcum[clen - 1] += (double)(el * tot) + rs;
-      double run = 0.0;
-      for (int i = clen - 1; i >= 0; --i) {
-        run += dcum[i];
-        dla[(size_t)row * S + c0 + i] = (float)run;
-      }
+  for (int dp = 0; dp < DP; dp += 2) {
+    uint32_t b[2][4];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) ldsm_x4_trans(b[u], baddr(dp + u));
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      mma_bf16(acc[2 * (dp + u)], hi, b[u][0], b[u][1]);
+      mma_bf16(acc[2 * (dp + u) + 1], hi, b[u][2], b[u][3]);
     }
-    if (z > 0) {
-      // dh <- e^{cum_L} dh + the sum; dh^T over h_in's room.
-      float nv[4][NV];
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int v = 0; v < NV; ++v)
-          nv[q][v] = fmaf(el, DH[(hp + q) * SF + hn + v], dhn[q][v]);
-      __syncthreads();                     // every read of dh and h_in done
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int v = 0; v < NV; ++v) {
-          DH[(hp + q) * SF + hn + v] = nv[q][v];
-          Un[(hn + v) * SX + hp + q] = nv[q][v];
-        }
+    for (int u = 0; u < 2; ++u) {
+      mma_bf16(acc[2 * (dp + u)], lo, b[u][0], b[u][1]);
+      mma_bf16(acc[2 * (dp + u) + 1], lo, b[u][2], b[u][3]);
     }
   }
 }
 
+// m (16 rows from 16 w of the A tile, 32 columns from c0 of the B tile's
+// rows) = A B^T over kBwdP columns: X_J dY_I^T in the key role, dY_I X_J^T
+// in the query role; m is zeroed first.
+template <int SP>
+__device__ __forceinline__ void xdy_t(float (&m)[4][4], const bf16* A,
+                                      const bf16* B, int warp, int c0,
+                                      int lane) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) m[j][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < kBwdP / 16; ++ks) {
+    uint32_t a[4];
+    ldsm_x4(a, frag_a_addr<SP>(A, warp * 16, ks * 16, lane));
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t bf[4];
+      ldsm_x4(bf, frag_b_addr<SP>(B, c0 + np * 16, ks * 16, lane));
+      mma_bf16(m[2 * np], a, bf[0], bf[1]);
+      mma_bf16(m[2 * np + 1], a, bf[2], bf[3]);
+    }
+  }
+}
+
+template <int NB>
+__global__ void __launch_bounds__(kLocThreads, 2)
+ssd_bwd_local_mma_kernel(const bf16* __restrict__ xdt,
+                         const bf16* __restrict__ bmat,
+                         const bf16* __restrict__ cmat,
+                         const bf16* __restrict__ dy,
+                         const float* __restrict__ dstate,
+                         bf16* __restrict__ dxdt, BwdWork ws, int S, int P,
+                         int N, int chunk, int rep) {
+  static_assert(NB % 2 == 0, "N is taken in halves of 16-column pairs");
+  constexpr int NP = 16 * NB, SN = mma_row_stride(NB), SP = kSP, T = kBwdT;
+  constexpr int NW = kLocThreads / 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Fn = reinterpret_cast<bf16*>(smem_raw);   // this tile's B or C
+  bf16* Fp = Fn + T * SN;                          // its xdt or dy
+  bf16* Ln = Fp + T * SP;                          // the others': 2 buffers
+  bf16* Lp = Ln + 2 * T * SN;                      // 2 buffers
+  float* cum = reinterpret_cast<float*>(Lp + 2 * T * SP);
+  const int cpad = round_up(chunk, T);
+  double* red = reinterpret_cast<double*>(cum + cpad);   // 2 x NW x T
+  bf16* Sh = Ln;                 // a state's hi and lo, over the Ln buffers
+  bf16* Sl = Ln + T * SN;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int row = blockIdx.x, z = blockIdx.y, nc = gridDim.y, t = blockIdx.z;
+  const int c0 = z * chunk, clen = min(chunk, S - c0);
+  const int nt = (clen + T - 1) / T, ntmax = (chunk + T - 1) / T;
+  if (t >= nt) return;                     // a short last chunk
+  const int t0 = t * T;
+  const size_t pos0 = (size_t)row * S + c0;
+  const bf16* xp = xdt + pos0 * P;
+  const bf16* yp = dy + pos0 * P;
+  const bf16* bp = bmat + ((size_t)(row / rep) * S + c0) * N;
+  const bf16* cp = cmat + ((size_t)(row / rep) * S + c0) * N;
+  auto stage_n = [&](bf16* dst, const bf16* src, int r0) {
+    stage_bf16<kLocThreads>(dst, SN, src + (size_t)r0 * N, N, T, clen - r0,
+                            0, NP, N);
+  };
+  auto stage_p = [&](bf16* dst, const bf16* src, int r0) {
+    stage_bf16<kLocThreads>(dst, SP, src + (size_t)r0 * P, P, T, clen - r0,
+                            0, kBwdP, P);
+  };
+  auto flush_rows = [&](int buf, int i0) {
+    if (tid < T && i0 + tid < clen) {
+      const double* rp = red + buf * NW * T + tid;
+      double v = rp[0];
+      for (int w = 1; w < NW; ++w) v += rp[w * T];
+      ws.erow[(pos0 + i0 + tid) * ntmax + t] = v;
+    }
+  };
+  const int ra = t0 + warp * 16 + g, rb = ra + 8;   // this lane's rows
+
+  // ---- Keys: rows j of tile t against the query tiles i >= j, in two
+  // passes over those tiles, so that no pass holds both dx's and dB's
+  // accumulators (with both, and the pair's products, the kernel spilled
+  // at 255 registers): the first forms G^T and M^T (E's sums, dx and the
+  // state term of dx), the second M^T again (dB and its state term).
+  stage_n(Fn, bp, t0);
+  stage_p(Fp, xp, t0);
+  stage_n(Ln, cp, t0);
+  stage_p(Lp, yp, t0);
+  cp_async_commit();
+  for (int i = tid; i < cpad; i += kLocThreads)
+    cum[i] = i < clen ? ws.cum[pos0 + i] : 0.f;
+  float dx[kBwdP / 8][4];
+#pragma unroll
+  for (int j = 0; j < kBwdP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dx[j][e] = 0.f;
+  double ekey[2] = {0.0, 0.0};
+  int k = 0;
+  for (; t + k < nt; ++k) {
+    const int i0 = (t + k) * T, b = k & 1;
+    const bf16* Ct = Ln + b * T * SN;
+    const bf16* Yt = Lp + b * T * SP;
+    cp_async_wait<0>();
+    __syncthreads();         // this query tile in; the last pair's reads done
+    if (k > 0) flush_rows((k - 1) & 1, i0 - T);
+    if (t + k + 1 < nt) {
+      stage_n(Ln + (b ^ 1) * T * SN, cp, i0 + T);
+      stage_p(Lp + (b ^ 1) * T * SP, yp, i0 + T);
+    }
+    cp_async_commit();
+    const float ca = cum[min(ra, clen - 1)], cb = cum[min(rb, clen - 1)];
+    double* rq = red + (b * NW + warp) * T;
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {          // query columns 32 h .. + 31
+      const int ic = 32 * h;
+      if (k == 0 && ic + 31 < warp * 16) {  // wholly above the diagonal
+        rq[ic + (g / 2) * 8 + 2 * t4 + (g & 1)] = 0.0;
+        continue;
+      }
+      float s[4][4], m[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < NB; ++ks) {     // G^T = B_J C_I^T
+        uint32_t a[4];
+        ldsm_x4(a, frag_a_addr<SN>(Fn, warp * 16, ks * 16, lane));
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t bf[4];
+          ldsm_x4(bf, frag_b_addr<SN>(Ct, ic + np * 16, ks * 16, lane));
+          mma_bf16(s[2 * np], a, bf[0], bf[1]);
+          mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
+        }
+      }
+      xdy_t<SP>(m, Fp, Yt, warp, ic, lane);  // M^T = X_J dY_I^T
+      // Decay and mask; E = (G W) M once, into both its sums.
+      double qv[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = i0 + ic + j * 8 + 2 * t4;
+        const float2 ci = *reinterpret_cast<const float2*>(cum + i);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ie = i + (e & 1), je = e < 2 ? ra : rb;
+          const bool in = je <= ie && ie < clen;
+          const float d = ex2_fast(
+              fminf((e & 1 ? ci.y : ci.x) - (e < 2 ? ca : cb), 0.f) * kLog2e);
+          const float sv = in ? s[j][e] * d : 0.f;
+          const float ev = sv * m[j][e];
+          s[j][e] = sv;
+          ekey[e >> 1] += (double)ev;
+          if (e < 2) qv[2 * j + e] = (double)ev;
+          else qv[2 * j + e - 2] += (double)ev;
+        }
+      }
+      rq[ic + (g / 2) * 8 + 2 * t4 + (g & 1)] = lane_sums8(qv, g);
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {     // dx += S^T dY_I
+        uint32_t sh[4], sl[4];
+        acc_to_a_split(s[2 * kk], s[2 * kk + 1], sh, sl);
+        mma_split_rows<kBwdP / 16>(dx, sh, sl, [&](int dp) {
+          return frag_a_addr<SP>(Yt, ic + kk * 16, dp * 16, lane);
+        });
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();           // the last pair's rows in red; its reads done
+  flush_rows((k - 1) & 1, (t + k - 1) * T);
+  // The state terms with dh: v_j = dh B_j (dx), r_j = w_j x_j . v_j.
+  const StateRef dh = dh_ref(ws, dstate, row, z, nc, NP, P, N);
+  const float wa = ra < clen ? expf(cum[clen - 1] - cum[ra]) : 0.f;
+  const float wb = rb < clen ? expf(cum[clen - 1] - cum[rb]) : 0.f;
+  float r_a = 0.f, r_b = 0.f;
+  if (dh.p != nullptr) {
+    load_state_split<NP, SN>(Sh, Sl, dh);
+    __syncthreads();
+    float v[kBwdP / 8][4];
+#pragma unroll
+    for (int j = 0; j < kBwdP / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < NB; ++ks) {       // v = B_J dh^T, dh as hi + lo
+      uint32_t a[4];
+      ldsm_x4(a, frag_a_addr<SN>(Fn, warp * 16, ks * 16, lane));
+#pragma unroll
+      for (int np = 0; np < kBwdP / 16; ++np) {
+        uint32_t bh[4], bl[4];
+        ldsm_x4(bh, frag_b_addr<SN>(Sh, np * 16, ks * 16, lane));
+        ldsm_x4(bl, frag_b_addr<SN>(Sl, np * 16, ks * 16, lane));
+        mma_bf16(v[2 * np], a, bh[0], bh[1]);
+        mma_bf16(v[2 * np + 1], a, bh[2], bh[3]);
+        mma_bf16(v[2 * np], a, bl[0], bl[1]);
+        mma_bf16(v[2 * np + 1], a, bl[2], bl[3]);
+      }
+    }
+    float pa = 0.f, pb = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBwdP / 8; ++j) {
+      const int p = j * 8 + 2 * t4;
+      const float2 xa = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          Fp + (warp * 16 + g) * SP + p));
+      const float2 xb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          Fp + (warp * 16 + g + 8) * SP + p));
+      pa = fmaf(xa.x, v[j][0], pa);
+      pa = fmaf(xa.y, v[j][1], pa);
+      pb = fmaf(xb.x, v[j][2], pb);
+      pb = fmaf(xb.y, v[j][3], pb);
+      dx[j][0] = fmaf(wa, v[j][0], dx[j][0]);
+      dx[j][1] = fmaf(wa, v[j][1], dx[j][1]);
+      dx[j][2] = fmaf(wb, v[j][2], dx[j][2]);
+      dx[j][3] = fmaf(wb, v[j][3], dx[j][3]);
+    }
+    r_a = wa * quad_sum(pa);
+    r_b = wb * quad_sum(pb);
+  }
+  {
+    const double ea = quad_sum(ekey[0]), eb = quad_sum(ekey[1]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int j = i ? rb : ra;
+      if (j >= clen) continue;
+      if (t4 == 0) {
+        ws.ecol[pos0 + j] = i ? eb : ea;
+        ws.r[pos0 + j] = i ? r_b : r_a;
+      }
+      bf16* dxr = dxdt + (pos0 + j) * P;
+#pragma unroll
+      for (int jj = 0; jj < kBwdP / 8; ++jj) {
+        const int p = jj * 8 + 2 * t4;
+        if (P % 2 == 0 && p + 1 < P) {
+          *reinterpret_cast<__nv_bfloat162*>(dxr + p) =
+              __floats2bfloat162_rn(dx[jj][2 * i], dx[jj][2 * i + 1]);
+        } else {
+          if (p < P) dxr[p] = __float2bfloat16_rn(dx[jj][2 * i]);
+          if (p + 1 < P) dxr[p + 1] = __float2bfloat16_rn(dx[jj][2 * i + 1]);
+        }
+      }
+    }
+  }
+  // Second pass: dB, from its state term t_j = dh^T x_j (while dh is in
+  // shared memory) and Q^T C_I over the query tiles.
+  float db[2 * NB][4];
+#pragma unroll
+  for (int j = 0; j < 2 * NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) db[j][e] = 0.f;
+  if (dh.p != nullptr) {
+#pragma unroll
+    for (int nh = 0; nh < 2; ++nh) {        // t = X_J dh, half of N at once
+      float tt[NB][4];
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tt[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kBwdP / 16; ++ks) {
+        uint32_t a[4];
+        ldsm_x4(a, frag_a_addr<SP>(Fp, warp * 16, ks * 16, lane));
+#pragma unroll
+        for (int dp = 0; dp < NB / 2; ++dp) {
+          uint32_t bh[4], bl[4];
+          const int n0 = nh * (NP / 2) + dp * 16;
+          ldsm_x4_trans(bh, frag_a_addr<SN>(Sh, ks * 16, n0, lane));
+          ldsm_x4_trans(bl, frag_a_addr<SN>(Sl, ks * 16, n0, lane));
+          mma_bf16(tt[2 * dp], a, bh[0], bh[1]);
+          mma_bf16(tt[2 * dp + 1], a, bh[2], bh[3]);
+          mma_bf16(tt[2 * dp], a, bl[0], bl[1]);
+          mma_bf16(tt[2 * dp + 1], a, bl[2], bl[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        float* d = db[nh * NB + j];
+        d[0] = wa * tt[j][0];
+        d[1] = wa * tt[j][1];
+        d[2] = wb * tt[j][2];
+        d[3] = wb * tt[j][3];
+      }
+    }
+  }
+  __syncthreads();           // the state's reads done: its room is staged
+  stage_n(Ln, cp, t0);
+  stage_p(Lp, yp, t0);
+  cp_async_commit();
+  for (k = 0; t + k < nt; ++k) {
+    const int i0 = (t + k) * T, b = k & 1;
+    const bf16* Ct = Ln + b * T * SN;
+    const bf16* Yt = Lp + b * T * SP;
+    cp_async_wait<0>();
+    __syncthreads();         // this query tile in; the last pair's reads done
+    if (t + k + 1 < nt) {
+      stage_n(Ln + (b ^ 1) * T * SN, cp, i0 + T);
+      stage_p(Lp + (b ^ 1) * T * SP, yp, i0 + T);
+    }
+    cp_async_commit();
+    const float ca = cum[min(ra, clen - 1)], cb = cum[min(rb, clen - 1)];
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {          // query columns 32 h .. + 31
+      const int ic = 32 * h;
+      if (k == 0 && ic + 31 < warp * 16) continue;   // above the diagonal
+      float m[4][4];
+      xdy_t<SP>(m, Fp, Yt, warp, ic, lane);  // M^T = X_J dY_I^T
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = i0 + ic + j * 8 + 2 * t4;
+        const float2 ci = *reinterpret_cast<const float2*>(cum + i);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ie = i + (e & 1), je = e < 2 ? ra : rb;
+          const bool in = je <= ie && ie < clen;
+          const float d = ex2_fast(
+              fminf((e & 1 ? ci.y : ci.x) - (e < 2 ? ca : cb), 0.f) * kLog2e);
+          m[j][e] = in ? m[j][e] * d : 0.f;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {     // dB += Q^T C_I
+        uint32_t qh[4], ql[4];
+        acc_to_a_split(m[2 * kk], m[2 * kk + 1], qh, ql);
+        mma_split_rows<NB>(db, qh, ql, [&](int dp) {
+          return frag_a_addr<SN>(Ct, ic + kk * 16, dp * 16, lane);
+        });
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j = i ? rb : ra;
+    if (j >= clen) continue;
+    float* dbr = ws.db_part + (pos0 + j) * N;
+#pragma unroll
+    for (int jj = 0; jj < 2 * NB; ++jj) {
+      const int n = jj * 8 + 2 * t4;
+      if (N % 2 == 0 && n + 1 < N) {
+        *reinterpret_cast<float2*>(dbr + n) =
+            make_float2(db[jj][2 * i], db[jj][2 * i + 1]);
+      } else {
+        if (n < N) dbr[n] = db[jj][2 * i];
+        if (n + 1 < N) dbr[n + 1] = db[jj][2 * i + 1];
+      }
+    }
+  }
+
+  // ---- Queries: rows i of tile t against the key tiles j <= i.
+  __syncthreads();           // the key role's reads done
+  stage_n(Fn, cp, t0);
+  stage_p(Fp, yp, t0);
+  stage_n(Ln, bp, 0);
+  stage_p(Lp, xp, 0);
+  cp_async_commit();
+  float dc[2 * NB][4];
+#pragma unroll
+  for (int j = 0; j < 2 * NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dc[j][e] = 0.f;
+  const float ca = cum[min(ra, clen - 1)], cb = cum[min(rb, clen - 1)];
+  for (int jt = 0; jt <= t; ++jt) {
+    const int j0 = jt * T, b = jt & 1;
+    const bf16* Bt = Ln + b * T * SN;
+    const bf16* Xt = Lp + b * T * SP;
+    cp_async_wait<0>();
+    __syncthreads();         // this key tile in; the last one's reads done
+    if (jt < t) {
+      stage_n(Ln + (b ^ 1) * T * SN, bp, j0 + T);
+      stage_p(Lp + (b ^ 1) * T * SP, xp, j0 + T);
+    }
+    cp_async_commit();
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {          // key columns 32 h .. + 31
+      const int jc = 32 * h;
+      if (jt == t && jc > warp * 16 + 15) continue;   // above the diagonal
+      float m[4][4];
+      xdy_t<SP>(m, Fp, Xt, warp, jc, lane);  // M = dY_I X_J^T
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int jj = j0 + jc + j * 8 + 2 * t4;
+        const float2 cj = *reinterpret_cast<const float2*>(cum + jj);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int je = jj + (e & 1), ie = e < 2 ? ra : rb;
+          const bool in = je <= ie && ie < clen;
+          const float d = ex2_fast(
+              fminf((e < 2 ? ca : cb) - (e & 1 ? cj.y : cj.x), 0.f) * kLog2e);
+          m[j][e] = in ? m[j][e] * d : 0.f;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {     // dC += Q B_J
+        uint32_t qh[4], ql[4];
+        acc_to_a_split(m[2 * kk], m[2 * kk + 1], qh, ql);
+        mma_split_rows<NB>(dc, qh, ql, [&](int dp) {
+          return frag_a_addr<SN>(Bt, jc + kk * 16, dp * 16, lane);
+        });
+      }
+    }
+  }
+  // The entering state's terms: u_i = h_in^T dy_i, inter_i = e^{cum_i}
+  // C_i . u_i.
+  const StateRef hin = hin_ref(ws, row, z, nc, NP);
+  float in_a = 0.f, in_b = 0.f;
+  if (hin.p != nullptr) {
+    cp_async_wait<0>();
+    __syncthreads();         // the loop's reads done
+    load_state_split<NP, SN>(Sh, Sl, hin);
+    __syncthreads();
+    const float ea = ra < clen ? expf(cum[ra]) : 0.f;
+    const float eb = rb < clen ? expf(cum[rb]) : 0.f;
+    float pa = 0.f, pb = 0.f;
+#pragma unroll
+    for (int nh = 0; nh < 2; ++nh) {
+      float u[NB][4];
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) u[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kBwdP / 16; ++ks) {
+        uint32_t a[4];
+        ldsm_x4(a, frag_a_addr<SP>(Fp, warp * 16, ks * 16, lane));
+#pragma unroll
+        for (int dp = 0; dp < NB / 2; ++dp) {
+          uint32_t bh[4], bl[4];
+          const int n0 = nh * (NP / 2) + dp * 16;
+          ldsm_x4_trans(bh, frag_a_addr<SN>(Sh, ks * 16, n0, lane));
+          ldsm_x4_trans(bl, frag_a_addr<SN>(Sl, ks * 16, n0, lane));
+          mma_bf16(u[2 * dp], a, bh[0], bh[1]);
+          mma_bf16(u[2 * dp + 1], a, bh[2], bh[3]);
+          mma_bf16(u[2 * dp], a, bl[0], bl[1]);
+          mma_bf16(u[2 * dp + 1], a, bl[2], bl[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const int n = nh * (NP / 2) + j * 8 + 2 * t4;
+        const float2 xa = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            Fn + (warp * 16 + g) * SN + n));
+        const float2 xb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            Fn + (warp * 16 + g + 8) * SN + n));
+        pa = fmaf(xa.x, u[j][0], pa);
+        pa = fmaf(xa.y, u[j][1], pa);
+        pb = fmaf(xb.x, u[j][2], pb);
+        pb = fmaf(xb.y, u[j][3], pb);
+        float* d = dc[nh * NB + j];
+        d[0] = fmaf(ea, u[j][0], d[0]);
+        d[1] = fmaf(ea, u[j][1], d[1]);
+        d[2] = fmaf(eb, u[j][2], d[2]);
+        d[3] = fmaf(eb, u[j][3], d[3]);
+      }
+    }
+    in_a = ea * quad_sum(pa);
+    in_b = eb * quad_sum(pb);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int q = i ? rb : ra;
+    if (q >= clen) continue;
+    if (t4 == 0) ws.inter[pos0 + q] = i ? in_b : in_a;
+    float* dcr = ws.dc_part + (pos0 + q) * N;
+#pragma unroll
+    for (int jj = 0; jj < 2 * NB; ++jj) {
+      const int n = jj * 8 + 2 * t4;
+      if (N % 2 == 0 && n + 1 < N) {
+        *reinterpret_cast<float2*>(dcr + n) =
+            make_float2(dc[jj][2 * i], dc[jj][2 * i + 1]);
+      } else {
+        if (n < N) dcr[n] = dc[jj][2 * i];
+        if (n + 1 < N) dcr[n + 1] = dc[jj][2 * i + 1];
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------- 4. dla
+// Grid (B*H, chunks).  dcum_i = (sum over the key tiles J <= i's of erow)
+// - ecol_i + inter_i - r_i, in f64; dcum_L += e^{cum_L} <dh, h_in> (its
+// tiles' f32 parts in order) + sum_j r_j (f64, index order); dla is the
+// suffix sum of dcum, in f64 by one thread in index order, rounded once.
+__global__ void __launch_bounds__(kDlaThreads)
+ssd_bwd_dla_kernel(float* __restrict__ dla, BwdWork ws, int S, int chunk,
+                   int ntiles) {
+  extern __shared__ double dcum[];
+  const int row = blockIdx.x, z = blockIdx.y, nc = gridDim.y;
+  const int c0 = z * chunk, clen = min(chunk, S - c0);
+  const int ntmax = (chunk + kBwdT - 1) / kBwdT;
+  const size_t pos0 = (size_t)row * S + c0;
+  for (int i = threadIdx.x; i < clen; i += kDlaThreads) {
+    const double* er = ws.erow + (pos0 + i) * ntmax;
+    double e = er[0];
+    for (int j = 1; j <= i / kBwdT; ++j) e += er[j];
+    dcum[i] = e - ws.ecol[pos0 + i] + (double)ws.inter[pos0 + i]
+              - (double)ws.r[pos0 + i];
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  double rs = 0.0;
+  for (int j = 0; j < clen; ++j) rs += (double)ws.r[pos0 + j];
+  float dot = 0.f;
+  if (z > 0)
+    for (int tl = 0; tl < ntiles; ++tl)
+      dot += ws.dotp[((size_t)row * nc + z) * ntiles + tl];
+  const float el = expf(ws.cum[pos0 + clen - 1]);
+  dcum[clen - 1] += (double)(el * dot) + rs;
+  double run = 0.0;
+  for (int i = clen - 1; i >= 0; --i) {
+    run += dcum[i];
+    dla[pos0 + i] = (float)run;
+  }
+}
+
+// ---------------------------------------------------------- 5. reduce
 // db[e] = the sum over h = 0 .. rep-1 of db_part[(g rep + h) S N + off] for
 // e = g S N + off, the heads in ascending order, rounded once to TO; the
 // same for dc.
@@ -1431,32 +2345,86 @@ ssd_bwd_reduce_kernel(const float* __restrict__ db_part,
   }
 }
 
-template <int NP, typename TI>
+template <typename K>
+cudaError_t set_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// The five launches for padded state width 16 NB, inputs of type TI.
+template <int NB, typename TI>
 cudaError_t launch_bwd(const void* xdt, const float* la, const void* b,
                        const void* c, const void* dy, const float* dstate,
-                       void* dxdt, float* dla, void* db, void* dc, float* ws,
+                       void* dxdt, float* dla, void* db, void* dc, float* wsp,
                        int bh, int s, int p, int n, int chunk, int rep,
-                       cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes(NP, chunk);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_bwd_kernel<NP, TI>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const size_t nc = (s + chunk - 1) / chunk;
-  float* db_part = ws + (size_t)bh * nc * kBwdP * NP;
-  float* dc_part = db_part + (size_t)bh * s * n;
-  ssd_scan_bwd_kernel<NP, TI><<<bh, kBwdThreads, smem, stream>>>(
-      static_cast<const TI*>(xdt), la, static_cast<const TI*>(b),
-      static_cast<const TI*>(c), static_cast<const TI*>(dy), dstate,
-      static_cast<TI*>(dxdt), dla, db_part, dc_part, ws, s, p, n, chunk, rep);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+                       cudaStream_t st) {
+  constexpr int NP = 16 * NB;
+  constexpr bool kBf16 = std::is_same<TI, bf16>::value;
+  BwdWork ws;
+  bwd_layout(wsp, bh, s, n, chunk, &ws);
+  const int nc = (s + chunk - 1) / chunk, nt = (chunk + kBwdT - 1) / kBwdT;
+  const TI* xt = static_cast<const TI*>(xdt);
+  const TI* bt = static_cast<const TI*>(b);
+  const TI* ct = static_cast<const TI*>(c);
+  const TI* yt = static_cast<const TI*>(dy);
+  cudaError_t err;
+  // 1. cum and the chunks' state sums.
+  if constexpr (kBf16) {
+    const size_t smem = sums_mma_smem_bytes<NB>(chunk);
+    if ((err = set_smem(ssd_bwd_sums_mma_kernel<NB>, smem))) return err;
+    ssd_bwd_sums_mma_kernel<NB><<<dim3(bh, nc, 2), kBwdThreads, smem, st>>>(
+        xt, la, bt, ct, yt, ws, s, p, n, chunk, rep);
+  } else {
+    const int aligned = (reinterpret_cast<uintptr_t>(xdt) |
+                         reinterpret_cast<uintptr_t>(b) |
+                         reinterpret_cast<uintptr_t>(c) |
+                         reinterpret_cast<uintptr_t>(dy)) % 16 == 0;
+    const size_t smem = sums_f32_smem_bytes<NP>(chunk);
+    if ((err = set_smem(ssd_bwd_sums_kernel<NP>, smem))) return err;
+    ssd_bwd_sums_kernel<NP><<<dim3(bh, nc, 2), kBwdThreads, smem, st>>>(
+        xt, la, bt, ct, yt, ws, s, p, n, chunk, rep, aligned);
+  }
+  if ((err = cudaGetLastError())) return err;
+  // 2. State passing.
+  const int ptiles = kBwdP * NP / kPassTile;
+  if (nc > 1) {
+    ssd_bwd_pass_kernel<<<dim3(bh, ptiles), kPassThreads, 0, st>>>(
+        dstate, ws, s, p, n, NP, chunk);
+    if ((err = cudaGetLastError())) return err;
+  }
+  // 3. The chunk-local terms.
+  if constexpr (kBf16) {
+    const size_t smem = local_mma_smem_bytes<NB>(chunk);
+    if ((err = set_smem(ssd_bwd_local_mma_kernel<NB>, smem))) return err;
+    ssd_bwd_local_mma_kernel<NB><<<dim3(bh, nc, nt), kLocThreads, smem, st>>>(
+        xt, bt, ct, yt, dstate, static_cast<TI*>(dxdt), ws, s, p, n, chunk,
+        rep);
+  } else {
+    const int aligned = (reinterpret_cast<uintptr_t>(xdt) |
+                         reinterpret_cast<uintptr_t>(b) |
+                         reinterpret_cast<uintptr_t>(c) |
+                         reinterpret_cast<uintptr_t>(dy)) % 16 == 0;
+    const size_t smem = local_f32_smem_bytes<NP>(chunk);
+    if ((err = set_smem(ssd_bwd_local_kernel<NP>, smem))) return err;
+    ssd_bwd_local_kernel<NP><<<dim3(bh, nc, nt), kBwdThreads, smem, st>>>(
+        xt, bt, ct, yt, dstate, static_cast<TI*>(dxdt), ws, s, p, n, chunk,
+        rep, aligned);
+  }
+  if ((err = cudaGetLastError())) return err;
+  // 4. dla.
+  const size_t dsmem = sizeof(double) * chunk;
+  if ((err = set_smem(ssd_bwd_dla_kernel, dsmem))) return err;
+  ssd_bwd_dla_kernel<<<dim3(bh, nc), kDlaThreads, dsmem, st>>>(
+      dla, ws, s, chunk, ptiles);
+  if ((err = cudaGetLastError())) return err;
+  // 5. dB and dC over each group's heads.
   const size_t elems = (size_t)(bh / rep) * s * n;
   const size_t want = (elems + 255) / 256;
   const int blocks = (int)(want < 1056 ? want : 1056);
-  ssd_bwd_reduce_kernel<TI><<<blocks, 256, 0, stream>>>(
-      db_part, dc_part, static_cast<TI*>(db), static_cast<TI*>(dc), elems,
-      (size_t)s * n, rep);
+  ssd_bwd_reduce_kernel<TI><<<blocks, 256, 0, st>>>(
+      ws.db_part, ws.dc_part, static_cast<TI*>(db), static_cast<TI*>(dc),
+      elems, (size_t)s * n, rep);
   return cudaGetLastError();
 }
 
@@ -1468,14 +2436,40 @@ cudaError_t dispatch_bwd(const void* xdt, const float* la, const void* b,
                          cudaStream_t st) {
   switch (mma_nb(n)) {
     case 2:
-      return launch_bwd<32, TI>(xdt, la, b, c, dy, dstate, dxdt, dla, db, dc,
-                                ws, bh, s, p, n, chunk, rep, st);
+      return launch_bwd<2, TI>(xdt, la, b, c, dy, dstate, dxdt, dla, db, dc,
+                               ws, bh, s, p, n, chunk, rep, st);
     case 4:
-      return launch_bwd<64, TI>(xdt, la, b, c, dy, dstate, dxdt, dla, db, dc,
-                                ws, bh, s, p, n, chunk, rep, st);
+      return launch_bwd<4, TI>(xdt, la, b, c, dy, dstate, dxdt, dla, db, dc,
+                               ws, bh, s, p, n, chunk, rep, st);
     default:
-      return launch_bwd<128, TI>(xdt, la, b, c, dy, dstate, dxdt, dla, db,
-                                 dc, ws, bh, s, p, n, chunk, rep, st);
+      return launch_bwd<8, TI>(xdt, la, b, c, dy, dstate, dxdt, dla, db, dc,
+                               ws, bh, s, p, n, chunk, rep, st);
+  }
+}
+
+// Bytes of dynamic shared memory of a backward kernel (0 sums f32, 1 sums
+// bf16, 2 local f32, 3 local bf16, 4 dla) at padded state width 16 nb and
+// chunk length chunk.
+size_t bwd_smem_bytes(int kernel, int nb, int chunk) {
+  switch (kernel) {
+    case 0:
+      return nb == 2 ? sums_f32_smem_bytes<32>(chunk)
+             : nb == 4 ? sums_f32_smem_bytes<64>(chunk)
+                       : sums_f32_smem_bytes<128>(chunk);
+    case 1:
+      return nb == 2 ? sums_mma_smem_bytes<2>(chunk)
+             : nb == 4 ? sums_mma_smem_bytes<4>(chunk)
+                       : sums_mma_smem_bytes<8>(chunk);
+    case 2:
+      return nb == 2 ? local_f32_smem_bytes<32>(chunk)
+             : nb == 4 ? local_f32_smem_bytes<64>(chunk)
+                       : local_f32_smem_bytes<128>(chunk);
+    case 3:
+      return nb == 2 ? local_mma_smem_bytes<2>(chunk)
+             : nb == 4 ? local_mma_smem_bytes<4>(chunk)
+                       : local_mma_smem_bytes<8>(chunk);
+    default:
+      return sizeof(double) * chunk;
   }
 }
 
@@ -1528,10 +2522,11 @@ long long ssd_scan_smem_bytes(int dtype, int n, int chunk) {
 }
 
 // The backward.  xdt, dy and dxdt (bh, s, p), b, c, db and dc (bh / rep,
-// s, n), all in one dtype (0 f32, 1 bf16); la and dla (bh, s) f32; dstate
-// (bh, p, n) f32 or null (a zero gradient of the final state); workspace
-// ssd_scan_bwd_workspace_floats(bh, s, n, chunk) floats, 16-byte aligned.
-// All contiguous.  Returns the CUDA error of the launches (0 on success).
+// s, n), all in one dtype (0 f32, 1 bf16; bf16 inputs 16-byte aligned); la
+// and dla (bh, s) f32; dstate (bh, p, n) f32 or null (a zero gradient of
+// the final state); workspace ssd_scan_bwd_workspace_floats(bh, s, n,
+// chunk) floats, 16-byte aligned.  All contiguous.  Returns the CUDA error
+// of the launches (0 on success).
 int ssd_scan_bwd(const void* xdt, const float* la, const void* b,
                  const void* c, const void* dy, const float* dstate,
                  void* dxdt, float* dla, void* db, void* dc, float* workspace,
@@ -1548,6 +2543,10 @@ int ssd_scan_bwd(const void* xdt, const float* la, const void* b,
       return dispatch_bwd<float>(xdt, la, b, c, dy, dstate, dxdt, dla, db, dc,
                                  workspace, bh, s, p, n, chunk, rep, st);
     case kBF16:
+      if ((reinterpret_cast<uintptr_t>(xdt) | reinterpret_cast<uintptr_t>(b) |
+           reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(dy)) %
+          16)
+        return cudaErrorMisalignedAddress;
       return dispatch_bwd<bf16>(xdt, la, b, c, dy, dstate, dxdt, dla, db, dc,
                                 workspace, bh, s, p, n, chunk, rep, st);
     default:
@@ -1557,14 +2556,16 @@ int ssd_scan_bwd(const void* xdt, const float* la, const void* b,
 
 long long ssd_scan_bwd_workspace_floats(int bh, int s, int n, int chunk) {
   if (bh < 1 || s < 1 || n < 1 || n > kMaxN || chunk < 1) return -1;
-  return (long long)bwd_workspace_floats(bh, s, n, chunk);
+  return (long long)bwd_layout(nullptr, bh, s, n, chunk, nullptr);
 }
 
-// Bytes of dynamic shared memory the backward takes at state width n and
+// Bytes of dynamic shared memory of backward kernel `kernel` (0
+// ssd_bwd_sums_kernel, 1 ssd_bwd_sums_mma_kernel, 2 ssd_bwd_local_kernel, 3
+// ssd_bwd_local_mma_kernel, 4 ssd_bwd_dla_kernel) at state width n and
 // chunk length chunk.
-long long ssd_scan_bwd_smem_bytes(int n, int chunk) {
-  if (n < 1 || n > kMaxN || chunk < 1) return -1;
-  return (long long)bwd_smem_bytes(16 * mma_nb(n), chunk);
+long long ssd_scan_bwd_smem_bytes(int kernel, int n, int chunk) {
+  if (kernel < 0 || kernel > 4 || n < 1 || n > kMaxN || chunk < 1) return -1;
+  return (long long)bwd_smem_bytes(kernel, mma_nb(n), chunk);
 }
 
 const char* ssd_scan_error_string(int err) {

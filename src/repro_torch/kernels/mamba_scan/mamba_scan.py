@@ -15,11 +15,19 @@ per group (``rep`` heads share a row), where the reference's
 kernel route repeats them per head, and it masks a last chunk shorter than
 ``chunk``, where the reference's wrapper requires S to divide.
 
-The backward (``ssd_scan_bwd_kernel``, then ``ssd_bwd_reduce_kernel`` for
-dB and dC per group) is the gradient of the same function, which the
-reference's kernel route lacks (its models train through the plain route):
-``_SSDScan`` is the autograd function around the two.  It recomputes the
-state entering each chunk, so the forward saves only its inputs.
+The backward is the gradient of the same function, which the reference's
+kernel route lacks (its models train through the plain route): five
+kernels a call, chunk-parallel as the Mamba-2 paper's chunked algorithm is
+(``ssd_bwd_sums_*``: the chunks' prefix sums and state sums;
+``ssd_bwd_pass_kernel``: the states entering and the gradients leaving each
+chunk, a short chain over the chunks; ``ssd_bwd_local_*``: a block per
+(head row, chunk, 64-row tile) for dxdt, dB, dC and dla's partials;
+``ssd_bwd_dla_kernel``; ``ssd_bwd_reduce_kernel`` for dB and dC per group),
+``*`` being ``mma_kernel`` in bf16, on the tensor cores with the f32
+operands as hi + lo bf16 terms, and ``kernel`` in f32, f32 FMAs.
+``_SSDScan`` is the autograd function around forward and backward.  The
+backward recomputes the states entering the chunks, so the forward saves
+only its inputs.
 
 Dispatch: a CUDA tensor launches the kernels or raises; a CPU tensor runs
 the same autograd function over the plain versions (``ref.ssd_scan_plain``
@@ -74,7 +82,7 @@ def load_library() -> ctypes.CDLL:
     lib.ssd_scan_bwd.restype = i32
     lib.ssd_scan_bwd_workspace_floats.argtypes = [i32] * 4
     lib.ssd_scan_bwd_workspace_floats.restype = ctypes.c_longlong
-    lib.ssd_scan_bwd_smem_bytes.argtypes = [i32, i32]
+    lib.ssd_scan_bwd_smem_bytes.argtypes = [i32, i32, i32]
     lib.ssd_scan_bwd_smem_bytes.restype = ctypes.c_longlong
     lib.ssd_scan_error_string.argtypes = [i32]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
@@ -123,17 +131,21 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
+def _check_aligned(**tensors) -> None:
+    """K5's bf16 kernels copy 16-byte pieces: each tensor must start on a
+    16-byte boundary."""
+    for name, t in tensors.items():
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"K5's bf16 kernels copy 16-byte pieces; {name} "
+                             f"does not start on a 16-byte boundary")
+
+
 def _forward_cuda(xdt, la, b, c, chunk: int, rep: int):
     """K5's forward kernel on checked CUDA tensors: (y, final state)."""
     bh, s, p = xdt.shape
     n = b.shape[-1]
     xdt, b, c = xdt.contiguous(), b.contiguous(), c.contiguous()
-    if xdt.dtype == torch.bfloat16:
-        for name, t in (("xdt", xdt), ("b", b), ("c", c)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"K5's bf16 kernel copies 16-byte pieces; "
-                                 f"{name} does not start on a 16-byte "
-                                 f"boundary")
+    _check_aligned(xdt=xdt, b=b, c=c)
     lib = load_library()
     la = la.to(torch.float32).contiguous()
     y = torch.empty_like(xdt)
@@ -161,7 +173,8 @@ def ssd_scan_bwd(
     """K5's backward kernels on CUDA tensors: (dxdt in xdt's dtype, dla
     f32, db and dc per group in b's dtype), the gradient of ``ssd_scan``'s
     (y, state) against ``dy`` and ``dstate`` (None: zero).  P up to
-    ``MAX_P_BWD``; S need not divide ``chunk``."""
+    ``MAX_P_BWD``; S need not divide ``chunk``; bf16 inputs start on a
+    16-byte boundary."""
     bh, s, p, n = _check(xdt, la, b, c, rep)
     if xdt.device.type != "cuda":
         raise ValueError(f"ssd_scan_bwd's kernels run on cuda, not "
@@ -182,6 +195,7 @@ def ssd_scan_bwd(
     chunk = min(chunk, s)
     xdt, b, c = xdt.contiguous(), b.contiguous(), c.contiguous()
     dy = dy.to(xdt.dtype).contiguous()
+    _check_aligned(xdt=xdt, b=b, c=c, dy=dy)
     la = la.to(torch.float32).contiguous()
     lib = load_library()
     floats = lib.ssd_scan_bwd_workspace_floats(bh, s, n, chunk)

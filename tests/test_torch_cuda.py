@@ -58,26 +58,37 @@ def _rand(shape, dtype, dev, seed=0):
 
 
 #: Host seconds between the start of a profiler session and the first
-#: launch it must record, as ``chip_smoke.PROFILE_LEAD_S``: the profiler
-#: drops device events stamped before its session began, and CUPTI's
-#: stamps of the card's kernels read early (scripts/profiler_probe.py).
-PROFILE_LEAD_S = 0.02
+#: launch it must record: the profiler drops device events stamped before
+#: its session began, and CUPTI's stamps of the card's kernels read early,
+#: by tens of milliseconds after a minute of load (scripts/profiler_probe.py;
+#: at 20 ms, as ``chip_smoke.PROFILE_LEAD_S`` for young processes, a whole
+#: run of this file lost the first kernels of a call, and at 500 ms still
+#: some).  So a session runs the call PROFILE_CALLS times, PROFILE_GAP_S
+#: apart, and reads the kernels any of them recorded.
+PROFILE_LEAD_S = 0.2
+PROFILE_CALLS, PROFILE_GAP_S = 8, 0.1
 
 
 def _device_kernels(run) -> set[str]:
     """Names of the device kernels that ``run()`` launches, from
-    ``torch.profiler``'s CUDA events; ``run()`` starts PROFILE_LEAD_S after
-    the session does."""
+    ``torch.profiler``'s CUDA events; ``run()`` runs once before the
+    session (a kernel's first launch in a process loads it, which delays
+    the launches after it), then PROFILE_CALLS times in it from
+    PROFILE_LEAD_S after its start."""
     import time
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    run()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_LEAD_S)
-        run()
-        torch.cuda.synchronize()
+        for _ in range(PROFILE_CALLS):
+            run()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_GAP_S)
     return {e.key for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA}
 
@@ -1085,20 +1096,86 @@ def test_ssd_scan_bwd_kernel_at_steep_decays(dev, dtype):
             assert float(rel) <= 1e-4
 
 
-def test_ssd_scan_bwd_kernel_is_bitwise_over_repeats(dev):
-    """Mamba2-2.7B's training shape in bf16: two runs, the same bits."""
-    case = _ssd_bwd_case(dev, 80, 1024, 64, 1, 128, torch.bfloat16)
+# (bh, s, p, g, n, chunk): the chunk-parallel grid's edges: 16 and 64
+# chunks (S 4096), head rows far below and above the card's 132 SMs, P 32
+# and 48, N 16, 64 and 100, chunks of 64 and 128 with a ragged last one,
+# and 2 to 8 groups.
+K5_BWD_GRID_SHAPES = [(2, 4096, 64, 1, 128, 256), (3, 4096, 32, 3, 16, 64),
+                      (264, 256, 32, 4, 16, 64), (8, 1000, 48, 2, 64, 128),
+                      (160, 300, 64, 8, 100, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,p,g,n,chunk", K5_BWD_GRID_SHAPES)
+def test_ssd_scan_bwd_kernel_grid_edges_match_plain(dev, bh, s, p, g, n,
+                                                    chunk, dtype):
+    xdt, la, bm, cm, dy, dstate = _ssd_bwd_case(dev, bh, s, p, g, n, dtype,
+                                                seed=41)
+    got = k5.ssd_scan_bwd(xdt, la, bm, cm, dy, dstate, chunk=chunk,
+                          rep=bh // g)
+    want = ssd_scan_bwd_plain(xdt, la, bm, cm, dy, dstate, chunk=chunk,
+                              rep=bh // g)
+    _grad_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_bwd_kernel_is_bitwise_over_repeats(dev, dtype):
+    """Mamba2-2.7B's training shape: two runs, the same bits."""
+    case = _ssd_bwd_case(dev, 80, 1024, 64, 1, 128, dtype)
     first = k5.ssd_scan_bwd(*case, chunk=256, rep=80)
     again = k5.ssd_scan_bwd(*case, chunk=256, rep=80)
     assert all(torch.equal(a, b) for a, b in zip(first, again, strict=True))
 
 
+def test_ssd_scan_bwd_bf16_needs_16_byte_aligned_inputs(dev):
+    """The bf16 backward copies 16-byte pieces: an input that starts off a
+    16-byte boundary raises instead of launching."""
+    xdt, la, bm, cm, dy, _ = _ssd_bwd_case(dev, 2, 64, 16, 1, 16,
+                                           torch.bfloat16)
+    flat = torch.zeros(dy.numel() + 1, dtype=torch.bfloat16, device=dev)
+    shifted = flat[1:].view(dy.shape)
+    shifted.copy_(dy)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    before = k5.LAUNCHES["ssd_scan_bwd"]
+    with pytest.raises(ValueError, match="16-byte"):
+        k5.ssd_scan_bwd(xdt, la, bm, cm, shifted, None, chunk=32, rep=2)
+    assert k5.LAUNCHES["ssd_scan_bwd"] == before
+    got = k5.ssd_scan_bwd(xdt, la, bm, cm, dy, None, chunk=32, rep=2)
+    assert k5.LAUNCHES["ssd_scan_bwd"] == before + 1
+    _grad_close(got, ssd_scan_bwd_plain(xdt, la, bm, cm, dy, None, chunk=32,
+                                        rep=2), torch.bfloat16)
+
+
+#: The backward's device kernels by dtype (the state passing, dla and
+#: reduction kernels are shared).
+K5_BWD_KERNELS = {
+    torch.bfloat16: ("ssd_bwd_sums_mma_kernel<", "ssd_bwd_local_mma_kernel<",
+                     "ssd_bwd_reduce_kernel<__nv_bfloat16>"),
+    torch.float32: ("ssd_bwd_sums_kernel<", "ssd_bwd_local_kernel<",
+                    "ssd_bwd_reduce_kernel<float>")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_bwd_launches_the_kernels_of_its_dtype(dev, dtype):
+    """Each dtype's five kernels, and not the other dtype's or the last
+    design's one-block-a-head-row ``ssd_scan_bwd_kernel``."""
+    case = _ssd_bwd_case(dev, 4, 64, 64, 1, 128, dtype)
+    names = _device_kernels(lambda: k5.ssd_scan_bwd(*case, chunk=32, rep=4))
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    for kernel in K5_BWD_KERNELS[dtype] + ("ssd_bwd_pass_kernel",
+                                           "ssd_bwd_dla_kernel"):
+        assert [n for n in names if kernel in n], (kernel, names)
+    for kernel in K5_BWD_KERNELS[other] + ("ssd_scan_bwd_kernel",):
+        assert not [n for n in names if kernel in n], (kernel, names)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_backward_launches_the_kernels_once(dev, dtype):
     """K5 under autograd: one forward and one backward launch, and the
-    backward's two device kernels.  f32 through ``ssd``, the op the model
-    calls, against autograd through the same route with K5's plain version
-    in K5's place; bf16 through ``ssd_scan`` against the plain backward (a
+    backward's chunk-local and reduction kernels among its device kernels.
+    f32 through ``ssd``, the op the model calls, against autograd through
+    the same route with K5's plain version in K5's place; bf16 through
+    ``ssd_scan`` against the plain backward (a
     bf16 chain rule rounds each head's B and C gradient before the plain
     route sums them over the group, which the kernel does in f32)."""
     before = dict(k5.LAUNCHES)
@@ -1125,7 +1202,7 @@ def test_ssd_backward_launches_the_kernels_once(dev, dtype):
     assert k5.LAUNCHES["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 1
     case = _ssd_bwd_case(dev, 4, 64, 64, 1, 128, dtype)
     names = _device_kernels(lambda: k5.ssd_scan_bwd(*case, chunk=32, rep=4))
-    assert [n for n in names if "ssd_scan_bwd_kernel" in n], names
+    assert [n for n in names if "ssd_bwd_local_" in n], names
     assert [n for n in names if "ssd_bwd_reduce_kernel" in n], names
 
 
