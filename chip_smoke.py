@@ -85,9 +85,16 @@ Phases, each of which exits non-zero when it fails:
   8. wallclock — the bench_wallclock flow: on fleet 4:3:2:1 the sim's
                predicted speedup against the speedup the wall-clock backend
                measures on the card, steady and under ``halve:w0@50%``
-               (within 0.35, the halved run below the steady one), then a
-               1000-square ``MatmulJob`` on that backend (``wallclock[1d]``,
-               bitwise equal to K3's product),
+               (within 0.35, the halved run below the steady one), the
+               unit op on the backend's compiled route (CUDA graphs, the
+               reference's ``jax.jit``); then the unit op's two routes at
+               sides 2048 and 256, with a worker stream and without: a
+               grain's chain of 37 ops (after a first grain, which
+               captures a worker's own chain) is 37 graph launches,
+               bitwise the eager route's (``compile_op=False``), and each
+               route's calibrated ``unit_s``; then a 1000-square
+               ``MatmulJob`` on that backend (``wallclock[1d]``, bitwise
+               equal to K3's product),
   9. serve under the wall-clock backend — 4 requests of 8 new tokens through
                phase 5's fleet with ``backend="wallclock"``,
  10. K4      — flash attention's forward (``flash_attention_fwd``) and its two
@@ -120,7 +127,9 @@ Phases, each of which exits non-zero when it fails:
                heads of 64, non-causal: Sq = Skv = 512, and Sq 64 over Skv
                512, the training cross-attention's), bf16 and f32, forward
                and backward against the plain version and autograd at
-               GRAD_TOL, timed beside the plain version, SDPA and the bound,
+               GRAD_TOL, timed beside the plain version, SDPA and the bound;
+               and so at Qwen2-VL-7B's training shape (q (32, 1024, 128)
+               over k/v (4, 1024, 128), causal, bf16),
  11. train   — full-width Qwen2-1.5B training at seq 1024: one f32 grain's
                loss and gradients on the kernel path, compiled (the first
                call eager, the second captured as a CUDA graph and
@@ -280,8 +289,31 @@ Phases, each of which exits non-zero when it fails:
                first tokens equal; then in bf16 four requests, each a
                prefill (which encodes) into a lane of one cache from
                ``init_cache(4, max_seq, cross_seq=512)``, then 16 batched
-               decode steps; K4 and K1 held against their plain versions on
-               the inputs they got, tokens/s,
+               decode steps; K4 (forward and backward) and K1 held against
+               their plain versions on the inputs they got, tokens/s,
+ 28. train single — bf16 training through ``train_single`` (the
+               launcher's ``--mode single``) at the published widths from
+               ``init(SEED)``: Qwen2-VL-7B cut to QWEN2VL_TRAIN_LAYERS on one
+               1024-token sequence of embeddings with M-RoPE streams that
+               differ; SeamlessM4T-medium whole on the launcher's batch (512
+               frames, 512 target tokens) and 64 targets over the same
+               frames, in turn (two graphs); DeepSeek-V2 at its dense first
+               layer and one MLA + MoE layer on tokens.  First the f32 cuts
+               (Qwen2-VL at 4 layers, SeamlessM4T at 4 + 4 at both shapes):
+               one step's loss and every gradient leaf on the kernel route
+               within GRAD_TOL of ``use_pallas=False``.  Then each bf16 model
+               on the compiled route and the eager route in turn, 3 steps
+               and one more of each batch shape (DeepSeek: 3 steps, eager
+               first, each route a process of its own, on expandable
+               segments): losses, every parameter leaf
+               (SHA-256) and K4's launches equal on both routes, K4's
+               launches as predicted (forward twice, dQ and dK/dV once a
+               layer a step; none on DeepSeek's path); tokens/s, a steady
+               step's seconds, the peak, the graph pool, K4's share of a
+               steady compiled step's kernels (a profiled step); K4 held at
+               TOL / GRAD_TOL against its plain version on every input shape
+               the paths gave it.  A DeepSeek route that runs out of the
+               card's memory prints the allocation it stopped at,
  25. distribution — the sharded steps (``sharding/apply.py``) on a (1, 1)
                ("data", "model") mesh over NCCL at world size 1: (a) one
                ``fsdp_tp`` train step of full-width bf16 Qwen2-1.5B on
@@ -306,9 +338,9 @@ Phases, each of which exits non-zero when it fails:
                K4's forward, dQ and dK/dV against their plain versions on
                the inputs the example gave K4, at TOL / GRAD_TOL, then its
                kernels' launches);
-               phases 27 and 16-26 run after phase 14 and before phase 15; each
-               frees its model at its end and prints its peak memory, and
-               phases 22-26 their seconds,
+               phases 27, 16-24, 28, 25 and 26 run in that order, after
+               phase 14 and before phase 15; each frees its model at its end
+               and prints its peak memory, and phases 22-28 their seconds,
  26. tensor-parallel — the sharded steps tensor-parallel over the mesh's
                ``model`` axis, at model 2 and 4 on a (1, m) mesh, the ranks
                in processes of their own (``chip_smoke.py --tp-rank``): on
@@ -340,7 +372,7 @@ Phases, each of which exits non-zero when it fails:
                main process takes first and frees (the ranks then init the
                model one at a time, each keeping its shards): (d)
                Qwen1.5-MoE expert-parallel at model 2 and 4 (30 and 15
-               experts a rank), whole in bf16 (the four prompts, 16 decode
+               experts a rank), whole in bf16 (the four prompts, 4 decode
                steps, capacity drops as configured: at the first MoE
                layer at most 5 % of the prefill's tokens routed to other
                experts than the unsharded's, each layer's count printed
@@ -348,7 +380,7 @@ Phases, each of which exits non-zero when it fails:
                first step's logits within relative Frobenius error 0.5,
                as the routes' recorded spread at full depth allows:
                ``scripts/bf16_depth_spread.py``; tokens reported) and in f32
-               cut to 4 of 24 layers (the prompts and 16 decode steps
+               cut to 4 of 24 layers (the prompts and 4 decode steps
                within the f32 tolerance, tokens equal, and one train step
                of phase 11's f32 grain: the loss, every parameter leaf and
                both moments, the router's printed, within the f32
@@ -357,7 +389,7 @@ Phases, each of which exits non-zero when it fails:
                8: each rank every expert at 176 of 1408); (f) Mamba2-2.7B
                at model 2 and 4 (40 and 20 heads a rank, K5 on them),
                in bf16 cut to 2 of 64 layers, where two unsharded routes
-               still agree, on phase 13's prompt and 16 decode steps, held
+               still agree, on phase 13's prompt and 4 decode steps, held
                as (b) (relative Frobenius error 2e-2), the first step's
                tokens among the unsharded step's 5 most likely, and in f32
                cut to 4 layers (K5's f32 kernel, and its backward in the
@@ -368,7 +400,7 @@ Phases, each of which exits non-zero when it fails:
                and 4 (64 and 32 MLA heads a rank, the latent cache split
                on its sequence and never gathered: no cache view in the
                decode), cut to its dense first layer and one MoE layer for
-               the four prompts and 16 decode steps, and to the dense
+               the four prompts and 4 decode steps, and to the dense
                layer alone (zero periods) for one train step of phase 11's
                f32 grain, each against the unsharded step (logits, loss,
                every leaf and both moments within the f32 tolerance,
@@ -376,7 +408,7 @@ Phases, each of which exits non-zero when it fails:
                split (8 and 4 heads a rank, the cross cache on its
                sequence, never gathered): in f32 cut to 4 encoder and 4
                decoder layers, the four prompts over 512 seeded frames
-               each and 16 decode steps, and one train step of 64 target
+               each and 4 decode steps, and one train step of 64 target
                tokens over 512 frames (K4 forward, dQ and dK/dV on each
                rank's cross heads, non-causal, Sq 64 over Skv 512, held
                against the plain version), the f32 checks of (h); at model
@@ -384,6 +416,7 @@ Phases, each of which exits non-zero when it fails:
                2e-2: on an H100 the unsharded routes differ by 8.0e-3 at
                its 12 layers, ``scripts/bf16_depth_spread.py``); K5 held
                against its plain version on the inputs each rank gave it;
+               ((d)-(i) decode TP_DECODE_STEPS steps, (a)-(c) 16);
                then K1 and K4 in bf16 at model 2's local heads, K1 (bf16) and K4
                (f32) at Qwen1.5-MoE's, K5 (bf16) at Mamba2-2.7B's, K1
                (bf16) at SeamlessM4T's decoder and K4 (bf16, f32) at its
@@ -412,7 +445,7 @@ Phases, each of which exits non-zero when it fails:
                began, and CUPTI's stamps read early, the more so the
                longer a process has loaded the card.
 
-Phases 4, 5, 7, 8, 9, 11, 13, 14, 16, 17, 19-26 and 27 are the main path:
+Phases 4, 5, 7, 8, 9, 11, 13, 14, 16, 17, 19-26, 27 and 28 are the main path:
 the kernels' launch counts are set to 0 just before each of their runs and
 read just after it; the ``kernels`` line gives each kernel's launches in all
 and by run.  A line before the card's holds the whole run's wall time.  The
@@ -493,10 +526,22 @@ K2_LARGE_SHAPE = (2, 32768, 128)
 #: (scripts/profiler_probe.py).  Every session here starts its launches
 #: this long after it, in a young process for the device times (phase 15).
 PROFILE_LEAD_S = 0.02
+#: Bytes of a leaf that ``leaf_digests`` hashes as one piece.
+DIGEST_PIECE = 1 << 28
+#: Milliseconds of calls a ``time_ms`` loop holds at most (at 20 calls a
+#: loop, every kernel of the port up to 1 ms a call).
+TIME_LOOP_MS = 20.0
 #: Side of the wall-clock backend's unit op ``tanh(h @ x)`` on the card: at
 #: 2048 one f32 product is about 17 GFLOP, far above a launch's cost, so the
 #: measured chains are device time (the default 96 is sized for a CPU).
 WALLCLOCK_SIDE = 2048
+#: The unit op's two routes timed side by side (phase 8): at WALLCLOCK_SIDE,
+#: where the product dominates, and at this side, where launches do; each
+#: calibrated over UNIT_OP_REPS ops, and the routes' chains of
+#: UNIT_OP_CHAIN ops compared bit for bit.
+WALLCLOCK_SMALL_SIDE = 256
+UNIT_OP_REPS = 200
+UNIT_OP_CHAIN = 37
 #: K1 at the new serves' groups, bf16 at S = 512, D 128: (q heads, KV
 #: heads) of Qwen1.5-MoE (group 1), Qwen3-8B and Jamba (group 4) and
 #: Granite-34B (group 48).
@@ -549,6 +594,10 @@ K1_REMAINING_SHAPES = ((32, 4, 128), (16, 16, 64))
 #: encoder's self-attention over 512 frames and the decoder's training
 #: cross-attention of 64 target tokens over them: (Sq, Skv).
 K4_SEAMLESS_SHAPES = ((512, 512), (64, 512))
+#: K4 at Qwen2-VL-7B's training shape (phase 28): 28 q heads padded to 32
+#: over 4 KV heads (group 8), one TRAIN_SEQ sequence, D 128, causal, bf16:
+#: (q heads, KV heads, S, D).
+K4_QWEN2VL_SHAPE = (32, 4, TRAIN_SEQ, 128)
 SEAMLESS_HEADS, SEAMLESS_D, SEAMLESS_FRAMES = 16, 64, 512
 #: Depth cuts at the published widths: DeepSeek-V2 in bf16 to its dense
 #: first layer and 4 MoE layers (236 B parameters are 472 GB in bf16), and
@@ -587,6 +636,37 @@ print(json.dumps(m))
 """
 SEAMLESS_LENGTHS = (5, 20, 40, 90)
 DECODE_STEPS = 16
+#: Phase 28: bf16 training through ``train_single`` (the launcher's
+#: ``--mode single``) of the configs whose batches are not tokens and of
+#: DeepSeek-V2's MLA + MoE layer, each route TRAIN_SINGLE_STEPS steps of
+#: one TRAIN_SEQ-token sequence and one more of each batch shape (profiled
+#: on the compiled route).  The training state is 12 bytes a parameter:
+#: bf16 weights and gradients, two f32 moments (``optim/adamw.py``).
+TRAIN_SINGLE_STEPS = 3
+#: Qwen2-VL-7B's depth in training: its embeddings and unembedding hold
+#: 1.090 B parameters, each layer 0.237 B (q heads padded to 32), so 13.1 GB
+#: of state and 2.84 GB a layer; all 28 layers would be 92.6 GB.  At 16
+#: layers the compiled route peaks near 69 GB with a 30 GB graph pool; at
+#: 18 and 20 its capture ran out of the card's memory, at an f32 copy of a
+#: gradient leaf (4.55 GiB asked at 18).  ``python3
+#: scripts/mamba_train_depth.py --arch qwen2-vl-7b --layers ...`` trains
+#: each depth's steps in a process of its own and prints its peak or where
+#: it ran out of memory.
+QWEN2VL_TRAIN_LAYERS = 16
+#: SeamlessM4T-medium's two target lengths over SEAMLESS_FRAMES frames: the
+#: launcher's own split of TRAIN_SEQ (``train_batch_specs``) and 64, the
+#: cross-attention's Sq 64 over Skv 512; the f32 check's cut, encoder and
+#: decoder layers.
+SEAMLESS_TRAIN_TARGETS = (TRAIN_SEQ // 2, 64)
+SEAMLESS_TRAIN_F32_LAYERS = 4
+#: DeepSeek-V2's dense first layer and one MLA + MoE layer (160 experts of
+#: 1536 and 2 shared): 5.359 B parameters, 64.3 GB of training state in
+#: bf16.  No smaller cut keeps an MLA + MoE layer.  Each route runs in a
+#: process of its own (``chip_smoke.py --train-route``), the eager one
+#: first, on expandable segments (phase 28 says why): a route that runs
+#: out of the card's memory prints the allocation it stopped at and does
+#: not fail the phase.
+DEEPSEEK_TRAIN_LAYERS = 2
 #: Phase 26: the tensor-parallel steps at these sizes of the ``model``
 #: axis (mesh (1, m)), each with the cases its ranks run (the module
 #: docstring's letters): Qwen2-1.5B's f32 check cut to TP_F32_LAYERS of its
@@ -622,6 +702,12 @@ TP_STAGGER_BYTES = 40e9
 #: Frobenius error TP_BF16_LIMIT (the routes' recorded spreads at these
 #: depths: 0.13-0.25 sharded, 0.02-0.29 the plain route).
 TP_MAMBA_BF16_LAYERS = 2
+#: Decode steps of the serves of (d)-(i) and of their unsharded runs
+#: ((a)-(c) take DECODE_STEPS, as phase 25's references do): each step's
+#: collectives cross the host, and (d)'s 16 bf16 steps over Qwen1.5-MoE's
+#: 24 layers took 37 s at model 4.  The checks read the prefill's and
+#: each step's logits and tokens.
+TP_DECODE_STEPS = 4
 TP_TOP_TOKENS = 5
 TP_BF16_LIMIT = 0.5
 TP_ROUTE_FLIPS = 0.05
@@ -647,7 +733,7 @@ K5_TP_SHAPE = (40, 1, TP_MAMBA_BUCKET, 64, 128, 256)
 TP_DEEPSEEK_TRAIN_LAYERS = 1
 #: (i): SeamlessM4T-medium in f32 cut to TP_SEAMLESS_F32_LAYERS encoder
 #: and decoder layers (a train step of TP_SEAMLESS_TARGET target tokens
-#: over SEAMLESS_FRAMES frames, the four prompts and DECODE_STEPS decode
+#: over SEAMLESS_FRAMES frames, the four prompts and TP_DECODE_STEPS decode
 #: steps over one SEAMLESS_FRAMES memory each), and whole in bf16 at model
 #: 2 (the prompts and decode steps).
 TP_SEAMLESS_F32_LAYERS = 4
@@ -684,12 +770,23 @@ def card_line() -> str:
 def time_ms(torch, fn, iters: int = 20, reps: int = 7,
             warmup: int = 5) -> float:
     """Milliseconds per call on the card: the median over ``reps`` loops of
-    ``iters`` calls, each loop timed by CUDA events, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
+    ``iters`` calls, each loop timed by CUDA events, after warm-up.  A call
+    slower than TIME_LOOP_MS / ``iters`` (the plain versions, milliseconds
+    a call) gets fewer calls a loop, at least one, and two warm-up calls."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    once = start.elapsed_time(end)
+    if once * iters > TIME_LOOP_MS:
+        iters, warmup = max(1, int(TIME_LOOP_MS / once)), 0
+    for _ in range(max(warmup - 2, 0)):
+        fn()
+    torch.cuda.synchronize()
     per_call = []
     for _ in range(reps):
         start.record()
@@ -749,13 +846,16 @@ def check_close(torch, name, got, want, dtype_name, tol=TOL) -> float:
 def keep_inputs(module, name):
     """Wrap ``module.<name>(*tensors, **kwargs)`` while the block runs and
     keep a copy of the first tensors and keyword arguments it gets for each
-    shape of its first two arguments and dtype of its first."""
+    shape of its first two arguments, dtype of its first and ``causal``
+    keyword (where given)."""
     kept = {}
     saved = getattr(module, name)
 
     @functools.wraps(saved)
     def call(*args, **kwargs):
         key = (tuple(args[0].shape), tuple(args[1].shape), args[0].dtype)
+        if "causal" in kwargs:
+            key += (kwargs["causal"],)
         if key not in kept:
             kept[key] = (tuple(a.clone() for a in args), dict(kwargs))
         return saved(*args, **kwargs)
@@ -1027,11 +1127,165 @@ def train_split(torch, loop):
 
 
 def leaf_digests(torch, tree_leaves, tree) -> list[str]:
-    """A SHA-256 of each leaf's bytes, in leaf order."""
-    out = []
-    for leaf in tree_leaves(tree):
+    """A SHA-256 digest of each leaf's bytes, in leaf order: of the bytes,
+    or for a leaf of more than DIGEST_PIECE bytes, of its pieces' SHA-256
+    digests in order; the pieces hashed eight at a time (the copies to the
+    host and ``hashlib`` release the interpreter's lock: a full-width
+    model's leaves took seconds one by one)."""
+    pieces = []                        # (leaf index, its bytes' piece)
+    leaves = tree_leaves(tree)
+    for i, leaf in enumerate(leaves):
         raw = leaf.detach().contiguous().reshape(-1).view(torch.uint8)
-        out.append(hashlib.sha256(raw.cpu().numpy()).hexdigest())
+        for lo in range(0, max(raw.numel(), 1), DIGEST_PIECE):
+            pieces.append((i, raw[lo:lo + DIGEST_PIECE]))
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        digests = list(pool.map(
+            lambda piece: hashlib.sha256(piece[1].cpu().numpy()).digest(),
+            pieces))
+    parts: list[list[bytes]] = [[] for _ in leaves]
+    for (i, _), d in zip(pieces, digests, strict=True):
+        parts[i].append(d)
+    return [p[0].hex() if len(p) == 1 else hashlib.sha256(b"".join(p))
+            .hexdigest() for p in parts]
+
+
+def vl_positions(torch, dev, n: int, bucket: int):
+    """(1, 3, bucket) M-RoPE ids of a prompt of ``n`` embeddings: 4 text
+    tokens, an 8 x 8 image block (one temporal id; h and w over its rows
+    and columns), then text from max + 1; pad positions go on counting.
+    A prompt shorter than that is text (three equal streams)."""
+    t, hh, w = [], [], []
+    if n >= 4 + 64:
+        t, hh, w = list(range(4)), list(range(4)), list(range(4))
+        for r in range(8):
+            for c in range(8):
+                t.append(4), hh.append(4 + r), w.append(4 + c)
+    nxt = max(t + hh + w, default=-1) + 1
+    rest = list(range(nxt, nxt + bucket - len(t)))
+    return torch.tensor([[t + rest, hh + rest, w + rest]],
+                        dtype=torch.int32, device=dev)
+
+
+def train_single_batches(torch, cfg, dev) -> list[dict]:
+    """Phase 28's batches on ``dev``, one a step: TRAIN_SINGLE_STEPS steps
+    and a last one (profiled on the compiled route) of each shape.
+    Qwen2-VL: one TRAIN_SEQ sequence of seeded embeddings with M-RoPE
+    positions whose streams differ (``vl_positions``: text, an 8 x 8 image
+    block, text), seeded targets; SeamlessM4T: the launcher's own batch
+    (``train_batch_specs(cfg, 1, TRAIN_SEQ)``: SEAMLESS_FRAMES frames and as
+    many target tokens) and, in turn with it, the same frames with its
+    first SEAMLESS_TRAIN_TARGETS[1] targets; token configs: one sequence of
+    ``batch_from_grains``."""
+    import numpy as np
+
+    from repro_torch.configs.shapes import train_batch_specs
+    from repro_torch.data import GrainSpec, SyntheticSource, batch_from_grains
+    from repro_torch.models.layers import dtype_of
+
+    n = TRAIN_SINGLE_STEPS + 1
+    if cfg.is_enc_dec:
+        whole = train_batch_specs(cfg, 1, TRAIN_SEQ, device=dev)
+        short = {k: v if k == "src_embeds"
+                 else v[:, :SEAMLESS_TRAIN_TARGETS[1]].contiguous()
+                 for k, v in whole.items()}
+        return [(whole, short)[i % 2] for i in range(2 * n)]
+    if cfg.input_mode == "embeds":
+        rng = np.random.default_rng(SEED)
+        one = {"embeds": torch.as_tensor(
+                   rng.standard_normal((1, TRAIN_SEQ, cfg.d_model)),
+                   dtype=dtype_of(cfg.compute_dtype), device=dev),
+               "positions": vl_positions(torch, dev, TRAIN_SEQ, TRAIN_SEQ),
+               "targets": torch.as_tensor(
+                   rng.integers(0, cfg.vocab_size, (1, TRAIN_SEQ)),
+                   dtype=torch.int32, device=dev),
+               "loss_mask": torch.ones((1, TRAIN_SEQ), device=dev)}
+        return [one] * n
+    spec = GrainSpec(1, TRAIN_SEQ, cfg.vocab_size)
+    one = batch_from_grains(SyntheticSource(spec, seed=SEED), 0, [0], spec,
+                            device=dev)
+    return [one] * n
+
+
+def train_single_route(torch, cfg, batches, compile_steps: bool,
+                       profile_from: int | None = None,
+                       kernels=()) -> dict:
+    """``train_single`` of ``cfg``'s model from ``init(SEED)`` over
+    ``batches`` (one a step) on one route, after freeing what the process
+    no longer holds: each step's loss, tokens and grad norm, host seconds
+    (to the step's metrics on the host, the first step with the init) and
+    the memory allocated after it, the peak memory, the graphs' captures,
+    seconds and pool bytes, the leaves' digests after the last step
+    (``leaf_digests``); from ``profile_from`` on the steps run under
+    ``torch.profiler``, and their host wall, the card's busy seconds and
+    those in the kernels named by ``kernels`` (``profile_sums``) are kept.
+    On running out of the card's memory, the error's first line and the
+    allocations instead (``oom``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import Model
+    from repro_torch.serve import compiled
+    from repro_torch.train import train_single
+    from repro_torch.tree import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats0 = dict(compiled.STATS)
+    marks, box = [], {}
+
+    def batch_fn(step: int) -> dict:
+        if step == profile_from:
+            torch.cuda.synchronize()
+            box["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA])
+            box["prof"].__enter__()
+            time.sleep(PROFILE_LEAD_S)
+            box["t0"] = time.perf_counter()
+        return batches[step]
+
+    def log_fn(step: int, metrics: dict) -> None:
+        marks.append(time.perf_counter())
+        held.append(torch.cuda.memory_allocated() / 1e9)
+
+    out = {"route": "compiled" if compile_steps else "eager",
+           "steps": len(batches)}
+    held = []
+    t0 = time.perf_counter()
+    try:
+        state, hist = train_single(
+            Model(cfg), len(batches), batch_fn, log_every=1, seed=SEED,
+            log_fn=log_fn, compile_steps=compile_steps)
+        torch.cuda.synchronize()
+    except (torch.OutOfMemoryError, RuntimeError) as err:
+        if "out of memory" not in str(err):
+            raise
+        out["oom"] = {"error": " ".join(str(err).split())[:600],
+                      "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "steps_done": len(marks), "held_gb": held}
+        return out
+    finally:
+        if "prof" in box:
+            box["prof"].__exit__(None, None, None)
+    times = [b - a for a, b in zip([t0] + marks, marks)]
+    out.update(
+        loss=[h["loss"] for h in hist], tokens=[h["tokens"] for h in hist],
+        grad_norm=[h["grad_norm"] for h in hist], step_s=times,
+        held_gb=held, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        graphs={k: compiled.STATS[k] - stats0[k] for k in stats0},
+        params=sum(leaf.numel() for leaf in tree_leaves(state.params)))
+    t0 = time.perf_counter()
+    out["digests"] = leaf_digests(torch, tree_leaves, state.params)
+    out["digest_s"] = time.perf_counter() - t0
+    if "prof" in box:
+        busy, mine = profile_sums(box["prof"], kernels, top=8)
+        out["profiled"] = {"steps": len(batches) - profile_from,
+                           "wall_s": marks[-1] - box["t0"], "busy_s": busy,
+                           "kernel_s": mine}
+    del state, hist
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1072,14 +1326,7 @@ def card_busy(torch, run, kernels=("matmul_kernel", "matmul_strip_kernel"),
     """Run ``run()`` under ``torch.profiler`` with CUDA tracing; return its
     host wall seconds (profiler overhead included), the card's seconds in
     every kernel (and copy) it ran and in the kernels whose names hold one
-    of ``kernels`` (K3 by default; durations as CUPTI records them).  Only
-    the device's own events are summed: a CPU op's row repeats the device
-    time of the kernels it launched.  They are read from the session's raw
-    events: ``key_averages()`` gives the same sums, but over a serve's
-    events it takes far longer than the serve (``scripts/profiler_cost.py``
-    times both).  ``top`` > 0 also prints that many kernels with the most
-    device time."""
-    from torch.autograd import DeviceType
+    of ``kernels`` (K3 by default; ``profile_sums``)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1089,6 +1336,21 @@ def card_busy(torch, run, kernels=("matmul_kernel", "matmul_strip_kernel"),
         run()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
+    return (wall_s,) + profile_sums(prof, kernels, top)
+
+
+def profile_sums(prof, kernels, top: int = 0) -> tuple[float, float]:
+    """The card's seconds in every kernel (and copy) of a finished
+    ``torch.profiler`` session and in the kernels whose names hold one of
+    ``kernels`` (durations as CUPTI records them).  Only the device's own
+    events are summed: a CPU op's row repeats the device time of the
+    kernels it launched.  They are read from the session's raw events:
+    ``key_averages()`` gives the same sums, but over a serve's events it
+    takes far longer than the serve (``scripts/profiler_cost.py`` times
+    both).  ``top`` > 0 also prints that many kernels with the most device
+    time."""
+    from torch.autograd import DeviceType
+
     by_name: dict[str, list] = {}        # kernel name -> [calls, ns]
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
@@ -1106,7 +1368,7 @@ def card_busy(torch, run, kernels=("matmul_kernel", "matmul_strip_kernel"),
         if any(k in name for k in kernels):
             print(f"[profile] of those: {ns / 1e9:.4f} s in {n} calls: "
                   f"{name[:80]}", flush=True)
-    return wall_s, busy, mine
+    return busy, mine
 
 
 def print_busy(card, label, wall_s, busy_s, k3_s, unprofiled_s,
@@ -1464,6 +1726,30 @@ def device_times() -> dict[str, dict[str, float]]:
             q, k, v, out32, lse, dout, group=hq // hkv)),
         "library_device_ms": lib_bwd}
     out["k4_tp_dkdv"] = {
+        "device_ms": device_ms(torch, lambda: fa.flash_attention_bwd_dkdv(
+            q, k, v, lse, dout, drow, group=hq // hkv)),
+        "library_device_ms": lib_bwd}
+    # K4 (bf16) at Qwen2-VL-7B's training shape (phase 28).
+    hq, hkv, s, d = K4_QWEN2VL_SHAPE
+    q = rand((hq, s, d), torch.bfloat16)
+    k, v = rand((hkv, s, d), torch.bfloat16), rand((hkv, s, d),
+                                                  torch.bfloat16)
+    dout = rand(q.shape, torch.bfloat16)
+    _, lse, out32 = fa.flash_attention_fwd(q, k, v, group=hq // hkv)
+    _, drow = fa.flash_attention_bwd_dq(q, k, v, out32, lse, dout,
+                                        group=hq // hkv)
+    leaves = [t[None].clone().requires_grad_(True) for t in (q, k, v)]
+    lib_out = sdpa(*leaves, is_causal=True, enable_gqa=True)
+    lib_bwd = device_ms(torch, lambda: torch.autograd.grad(
+        lib_out, leaves, dout[None], retain_graph=True))
+    out["k4_qwen2vl_fwd"] = pair(
+        lambda: fa.flash_attention_fwd(q, k, v, group=hq // hkv),
+        library_attention(torch, q, k, v))
+    out["k4_qwen2vl_dq"] = {
+        "device_ms": device_ms(torch, lambda: fa.flash_attention_bwd_dq(
+            q, k, v, out32, lse, dout, group=hq // hkv)),
+        "library_device_ms": lib_bwd}
+    out["k4_qwen2vl_dkdv"] = {
         "device_ms": device_ms(torch, lambda: fa.flash_attention_bwd_dkdv(
             q, k, v, lse, dout, drow, group=hq // hkv)),
         "library_device_ms": lib_bwd}
@@ -2319,6 +2605,53 @@ def main() -> int:
         fail(f"wallclock: halved run measured {measured['halving']:.4f}x, "
              f"not below the steady {measured['steady']:.4f}x")
 
+    # The unit op's routes in one process: on the compiled route (the
+    # default) each op of a grain's chain is one graph launch, and the
+    # chain ends in the eager route's bits (compile_op=False), with one
+    # worker stream (overlap) and without; each route's calibrated unit_s
+    # at both sides.
+    from repro_torch.core import SimWorker
+
+    unit_s = {}
+    for side in (WALLCLOCK_SIDE, WALLCLOCK_SMALL_SIDE):
+        for overlap in (False, True):
+            ends = {}
+            for compile_op in (True, False):
+                wb = WallclockBackend(side=side, overlap=overlap,
+                                      compile_op=compile_op,
+                                      calibration_reps=UNIT_OP_REPS)
+                if not overlap:
+                    unit_s[f"{side}_{'graph' if compile_op else 'eager'}"] = \
+                        wb.unit_s
+                worker = SimWorker("w0", 12 / UNIT_OP_CHAIN)
+                # Two grains: in overlap mode the first captures the
+                # worker's own chain; the second is counted.
+                for grain in range(2):
+                    replays0 = compiled_steps.STATS["replays"]
+                    handle = wb.launch(None, worker, grain, 1.0, 0.0)
+                    if handle.done is not None:
+                        handle.done.synchronize()
+                    torch.cuda.synchronize()
+                replays = compiled_steps.STATS["replays"] - replays0
+                if handle.k != UNIT_OP_CHAIN or replays != (
+                        UNIT_OP_CHAIN if compile_op else 0):
+                    fail(f"wallclock unit op (side {side}, overlap "
+                         f"{overlap}, compile_op {compile_op}): {handle.k} "
+                         f"ops, {replays} graph launches")
+                ends[compile_op] = handle.value.clone()
+                del wb, handle
+            if not torch.equal(ends[True], ends[False]):
+                fail(f"wallclock unit op (side {side}, overlap {overlap}): "
+                     f"the graph route's chain differs from the eager one's")
+        print(f"[wallclock] {card}: side {side}: a chain of {UNIT_OP_CHAIN} "
+              f"unit ops is {UNIT_OP_CHAIN} graph launches on the compiled "
+              f"route, bitwise the eager route's (with and without a worker "
+              f"stream); unit_s over {UNIT_OP_REPS} ops: graph "
+              f"{unit_s[f'{side}_graph']:.4e} s, eager "
+              f"{unit_s[f'{side}_eager']:.4e} s (eager / graph "
+              f"{unit_s[f'{side}_eager'] / unit_s[f'{side}_graph']:.3f})",
+              flush=True)
+
     wb = WallclockBackend(side=WALLCLOCK_SIDE)
     zero_counts()
     t0 = time.perf_counter()
@@ -2621,6 +2954,65 @@ def main() -> int:
             k4_seamless[f"{sq}_{skv}_{dname}"] = rows
             del q, k, v, dout, leaves, out, grads, ref_leaves, ref, ref_grads
             del out32, lse, drow, plain_leaves, plain_out, lib_leaves, lib_out
+
+    # K4 at Qwen2-VL-7B's training shape (phase 28), causal, group 8, bf16:
+    # forward, dQ and dK/dV against the plain version and autograd through
+    # it, then timed beside the plain version, SDPA and the bound (device
+    # times in phase 15).
+    hq, hkv, sq, d = K4_QWEN2VL_SHAPE
+    grp = hq // hkv
+    name = f"K4 qwen2-vl q ({hq}, {sq}, {d}) k/v ({hkv}, {sq}, {d}) causal bf16"
+    q, k, v = k4_inputs(1, sq, sq, hq, hkv, d, torch.bfloat16, draw=rand_rc)
+    dout = rand_rc(q.shape, torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, group=grp)
+    grads = torch.autograd.grad(out, leaves, dout)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = flash_attention_ref(*ref_leaves, group=grp)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, dout)
+    errs = {"fwd": check_close(torch, f"{name} out", out, ref, "bfloat16"),
+            "dq": check_close(torch, f"{name} dq", grads[0], ref_grads[0],
+                              "bfloat16", GRAD_TOL),
+            "dkdv": max(check_close(torch, f"{name} d{w}", g, r, "bfloat16",
+                                    GRAD_TOL)
+                        for w, g, r in zip("kv", grads[1:], ref_grads[1:],
+                                           strict=True))}
+    for part, e in errs.items():
+        k4_err[part] = max(k4_err[part], e)
+    _, lse, out32 = fa.flash_attention_fwd(q, k, v, group=grp)
+    _, drow = fa.flash_attention_bwd_dq(q, k, v, out32, lse, dout, group=grp)
+    plain_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    plain_out = flash_attention_ref(*plain_leaves, group=grp)
+    lib_leaves = [t[None].clone().requires_grad_(True) for t in (q, k, v)]
+    lib_out = sdpa(*lib_leaves, is_causal=True, enable_gqa=True)
+    plain_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        plain_out, plain_leaves, dout, retain_graph=True))
+    lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, lib_leaves, dout[None], retain_graph=True))
+    k4_qwen2vl = {
+        "fwd": {"ms": time_ms(torch, lambda: fa.flash_attention_fwd(
+                    q, k, v, group=grp)),
+                "plain_ms": time_ms(torch, lambda: flash_attention_ref(
+                    q, k, v, group=grp)),
+                "library_ms": time_ms(torch, lambda: sdpa(
+                    q[None], k[None], v[None], is_causal=True,
+                    enable_gqa=True))},
+        "dq": {"ms": time_ms(torch, lambda: fa.flash_attention_bwd_dq(
+                   q, k, v, out32, lse, dout, group=grp)),
+               "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms},
+        "dkdv": {"ms": time_ms(torch, lambda: fa.flash_attention_bwd_dkdv(
+                     q, k, v, lse, dout, drow, group=grp)),
+                 "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms},
+    }
+    for part, row in k4_qwen2vl.items():
+        row["max_abs_err"] = errs[part]
+        row["shape"] = [[hq, sq, d], [hkv, sq, d]]
+        row["bound_ms"], row["bound_by"] = k4_bound_ms(
+            hq, hkv, sq, sq, d, 2, "bfloat16", True, part)
+        print(f"[k4] {card}: qwen2-vl {part} bf16 q ({hq}, {sq}, {d}) k/v "
+              f"({hkv}, {sq}, {d}) causal: " + json.dumps(row), flush=True)
+    del q, k, v, dout, leaves, out, grads, ref_leaves, ref, ref_grads
+    del out32, lse, drow, plain_leaves, plain_out, lib_leaves, lib_out
 
     # ------------------------------------------- 11. train (the main path)
     def check_k4_launches(path: str, n_grains: int) -> dict[str, int]:
@@ -3828,21 +4220,12 @@ def main() -> int:
             for kind in part:
                 engine_mod._put(full[kind], part[kind], 0, lane)
 
-    def k4_on_seen(tag: str, seen) -> float:
-        """K4's forward against its plain version on the inputs a path gave
-        it."""
-        err = 0.0
-        for (qs, ks, dt), ((q, k, v), kw) in sorted(seen.items(),
-                                                     key=lambda kv: kv[0][0]):
-            name = (f"K4 on {tag} inputs q {qs} k {ks} "
-                    f"{'causal' if kw['causal'] else 'full'} {str(dt)[6:]}")
-            out, _, _ = fa.flash_attention_fwd(q, k, v, **kw)
-            torch.cuda.synchronize()
-            ref = flash_attention_ref(q, k, v, **kw)
-            e = check_close(torch, name, out, ref, str(dt)[6:])
-            err = max(err, e)
-            print(f"[{tag}] {name}: max abs err {e:.3e}", flush=True)
-        return err
+    def k4_on_seen(tag: str, seen) -> None:
+        """K4's forward, dQ and dK/dV against their plain version and
+        autograd through it on the inputs a path gave K4 (``k4_check_seen``,
+        at TOL and GRAD_TOL), into ``k4_err``."""
+        for part, e in k4_check_seen(torch, seen, tag, f"[{tag}] ").items():
+            k4_err[part] = max(k4_err[part], e)
 
     def greedy(logits, vocab: int) -> list[int]:
         return logits[:, -1, :vocab].float().argmax(-1).tolist()
@@ -3961,22 +4344,6 @@ def main() -> int:
     peak("deepseek-f32")
 
     # ------------- 23. Qwen2-VL, embeds input with M-RoPE (main path)
-    def vl_positions(n: int, bucket: int):
-        """(1, 3, bucket) M-RoPE ids of a prompt of ``n`` embeddings: 4 text
-        tokens, an 8 x 8 image block (one temporal id; h and w over its rows
-        and columns), then text from max + 1; pad positions go on counting.
-        A prompt shorter than that is text (three equal streams)."""
-        t, hh, w = [], [], []
-        if n >= 4 + 64:
-            t, hh, w = list(range(4)), list(range(4)), list(range(4))
-            for r in range(8):
-                for c in range(8):
-                    t.append(4), hh.append(4 + r), w.append(4 + c)
-        nxt = max(t + hh + w, default=-1) + 1
-        rest = list(range(nxt, nxt + bucket - len(t)))
-        return torch.tensor([[t + rest, hh + rest, w + rest]],
-                            dtype=torch.int32, device=dev)
-
     # 23.1 f32 at the published widths, depth cut to QWEN2VL_F32_LAYERS:
     # prefill on the kernel path (K1 in f32, group 8, D 128) against
     # use_pallas=False, with streams that differ (an image block).
@@ -3991,7 +4358,7 @@ def main() -> int:
     emb = torch.zeros((1, bucket, cfgv32.d_model), device=dev)
     emb[0, :L] = torch.as_tensor(vrng.standard_normal((L, cfgv32.d_model)),
                                  dtype=torch.float32, device=dev)
-    vpos = vl_positions(L, bucket)
+    vpos = vl_positions(torch, dev, L, bucket)
     if torch.equal(vpos[0, 0], vpos[0, 1]):
         fail("qwen2-vl model: the position streams do not differ")
     batch = {"embeds": emb, "positions": vpos}
@@ -4049,7 +4416,7 @@ def main() -> int:
             x = torch.zeros((1, bucket, cfgv.d_model), dtype=torch.bfloat16,
                             device=dev)
             x[0, :n] = e
-            p3 = vl_positions(n, bucket)
+            p3 = vl_positions(torch, dev, n, bucket)
             lg, c = model.prefill(params, {"embeds": x, "positions": p3},
                                   last_pos=n - 1)
             fill_lane(cache, c, i)
@@ -4218,11 +4585,264 @@ def main() -> int:
           f"), K1 {s_counts['prefill_flash']} (group 1, D {cfgs.head_dim}); "
           f"first tokens {[t[:4] for t in toks]}", flush=True)
     k1_err = max(k1_err, k1_on_seen("seamless-serve", seen1))
-    k4_err["fwd"] = max(k4_err["fwd"], k4_on_seen("seamless-serve", seen4))
+    k4_on_seen("seamless-serve", seen4)
     print(f"[seamless] phase {time.perf_counter() - phase_t0:.1f} s",
           flush=True)
     del model, params, srcs, cache, seen1, seen4, lg, c
     peak("seamless-serve")
+
+    # -------- 28. bf16 training of Qwen2-VL, SeamlessM4T and DeepSeek-V2
+    # through train_single (main path).  Each at its published widths from
+    # init(SEED): Qwen2-VL-7B cut to QWEN2VL_TRAIN_LAYERS on embeddings with
+    # M-RoPE streams that differ, SeamlessM4T-medium whole at two target
+    # lengths (two graphs in one BatchSteps), DeepSeek-V2 at its dense first
+    # layer and one MLA + MoE layer on tokens.  First the f32 cuts on the
+    # kernel route against use_pallas=False (one step's loss and every
+    # gradient leaf); then each bf16 model on the compiled route and the
+    # eager one in turn, each freed before the next: losses, every
+    # parameter leaf (SHA-256) and K4's launches equal on both; K4 held
+    # against its plain version on every input shape the routes gave it.
+    from repro_torch.models.config import EncoderConfig
+
+    phase_t0 = time.perf_counter()
+    print(f"[train-single] begins {phase_t0 - smoke_t0:.1f} s into the run, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
+          flush=True)
+
+    def k4_train_launches(cfg, steps: int) -> dict[str, int]:
+        """K4's launches in ``steps`` training steps: each attention layer
+        (encoder self-attention, decoder self- and cross-attention) runs
+        the forward twice (the forward and its recompute under remat) and
+        each backward kernel once."""
+        n = cfg.n_layers * (2 if cfg.is_enc_dec else 1) + (
+            cfg.encoder.n_layers if cfg.is_enc_dec else 0)
+        return {"flash_attention_fwd": 2 * n * steps,
+                "flash_attention_bwd_dq": n * steps,
+                "flash_attention_bwd_dkdv": n * steps}
+
+    def check_k4_train(path: str, cfg, steps: int) -> dict[str, int]:
+        counts = read_counts(path)
+        got = {key: counts[key] for key in K4_KERNELS}
+        want = k4_train_launches(cfg, steps)
+        if got != want:
+            fail(f"{path}: K4 launches {got}, predicted {want}")
+        others = {key: n for key, n in counts.items()
+                  if n and key not in K4_KERNELS}
+        if others:
+            fail(f"{path}: kernels other than K4 launched: {others}")
+        return got
+
+    def f32_check(tag: str, cfg, batches) -> None:
+        """One step's loss and every gradient leaf of ``cfg`` (f32) on the
+        kernel route against use_pallas=False, on each batch shape."""
+        model = Model(cfg)
+        plain = Model(dataclasses.replace(cfg, use_pallas=False))
+        params = model.init(SEED)
+        shapes = {}
+        for b in batches:
+            shapes.setdefault(tuple(tuple(v.shape) for v in b.values()), b)
+        for i, batch in enumerate(shapes.values()):
+            zero_counts()
+            with keep_inputs(flash_ops, "_flash_call") as seen:
+                t0 = time.perf_counter()
+                (loss_k, _), grads_k = make_grain_grad_fn(
+                    model, compile_steps=False)(params, batch)
+                torch.cuda.synchronize()
+                grain_k_s = time.perf_counter() - t0
+            launches = check_k4_train(f"{tag.replace('-', '_')}_f32_{i}",
+                                      cfg, 1)
+            t0 = time.perf_counter()
+            (loss_p, _), grads_p = make_grain_grad_fn(
+                plain, compile_steps=False)(params, batch)
+            torch.cuda.synchronize()
+            grain_p_s = time.perf_counter() - t0
+            loss_err = check_close(torch, f"{tag} f32 loss", loss_k, loss_p,
+                                   "float32", GRAD_TOL)
+            leaf_err, leaf_rel = 0.0, (0.0, None)
+            for i, (gk, gp) in enumerate(zip(tree_leaves(grads_k),
+                                             tree_leaves(grads_p),
+                                             strict=True)):
+                leaf_err = max(leaf_err, check_close(
+                    torch, f"{tag} f32 gradient leaf {i} {tuple(gk.shape)}",
+                    gk, gp, "float32", GRAD_TOL))
+                rel = float(torch.linalg.vector_norm((gk - gp).float())
+                            / torch.linalg.vector_norm(gp.float())
+                            .clamp_min(1e-30))
+                if rel >= leaf_rel[0]:
+                    leaf_rel = (rel, (i, tuple(gk.shape)))
+            print(f"[{tag}] {card}: one f32 step of {cfg.name} cut to "
+                  f"{cfg.n_layers} layers"
+                  + (f" (+ {cfg.encoder.n_layers} encoder layers)"
+                     if cfg.is_enc_dec else "")
+                  + f", batch {json.dumps({k: list(v.shape) for k, v in batch.items()})}"
+                  f": loss {float(loss_k):.6f} kernel route vs "
+                  f"{float(loss_p):.6f} plain (abs err {loss_err:.3e}); "
+                  f"every gradient leaf within GRAD_TOL (max abs err "
+                  f"{leaf_err:.3e}; worst relative Frobenius error "
+                  f"{leaf_rel[0]:.3e}, leaf {leaf_rel[1]}); K4 launches "
+                  f"{json.dumps(launches)}; host s with the wait: kernel "
+                  f"route {grain_k_s:.3f}, plain {grain_p_s:.3f}", flush=True)
+            k4_on_seen(f"{tag}-f32", seen)
+            del grads_k, grads_p, loss_k, loss_p, seen
+        del model, plain, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def train_paths(tag: str, cfg, path: str) -> dict:
+        """``train_single_route`` of bf16 ``cfg`` compiled, then eager; the
+        checks and figures above.  Returns each route's figures."""
+        batches = train_single_batches(torch, cfg, dev)
+        n_shapes = len({tuple(tuple(v.shape) for v in b.values())
+                        for b in batches})
+        steady = slice(2 * n_shapes, TRAIN_SINGLE_STEPS * n_shapes)
+        runs = {}
+        for compile_steps in (True, False):
+            run = path if compile_steps else f"{path}_eager"
+            zero_counts()
+            with keep_inputs(flash_ops, "_flash_call") as seen:
+                r = train_single_route(
+                    torch, cfg, batches, compile_steps,
+                    TRAIN_SINGLE_STEPS * n_shapes if compile_steps else None,
+                    K4_BF16_KERNELS)
+            if "oom" in r:
+                fail(f"{tag} ({r['route']}): out of the card's memory: "
+                     f"{json.dumps(r['oom'])}")
+            r["launches"] = check_k4_train(run, cfg, len(batches))
+            if not (all(np.isfinite(x) for x in r["loss"])
+                    and r["launches"]["flash_attention_bwd_dq"] > 0):
+                fail(f"{tag} ({r['route']}): losses {r['loss']}, launches "
+                     f"{r['launches']}")
+            graphs = r["graphs"]
+            if compile_steps != (graphs["captures"] == n_shapes):
+                fail(f"{tag} ({r['route']}): {graphs['captures']} graphs "
+                     f"captured for {n_shapes} batch shapes")
+            tok = sum(r["tokens"][steady])
+            r["steady_s"] = sum(r["step_s"][steady])
+            r["tokens_s"] = tok / r["steady_s"]
+            print(f"[{tag}] {card}: {r['route']} route, bf16 {cfg.name} ("
+                  f"{cfg.n_layers} layers"
+                  + (f" + {cfg.encoder.n_layers} encoder layers"
+                     if cfg.is_enc_dec else "")
+                  + f", {r['params'] / 1e9:.3f} B parameters), "
+                  f"{len(batches)} steps of {n_shapes} batch shape(s): "
+                  f"losses {[round(x, 6) for x in r['loss']]}, host s a step "
+                  f"(the first with the init; warm-up, capture + replay, "
+                  f"replays) {[round(x, 4) for x in r['step_s']]}; a steady "
+                  f"step {r['steady_s'] / n_shapes:.4f} s -> "
+                  f"{r['tokens_s']:.1f} tokens/s; peak {r['peak_gb']:.2f} "
+                  f"GB (torch.cuda.max_memory_allocated); graphs "
+                  f"{graphs['captures']} captured in "
+                  f"{graphs['capture_s']:.3f} s, pool "
+                  f"{graphs['pool_bytes'] / 1e9:.3f} GB, "
+                  f"{graphs['replays']} replays; K4 launches "
+                  f"{json.dumps(r['launches'])}; the leaves' digests "
+                  f"{r['digest_s']:.1f} s", flush=True)
+            if "profiled" in r:
+                pr = r["profiled"]
+                print_busy(card, f"{r['route']} route, {pr['steps']} steady "
+                           f"step(s)", pr["wall_s"], pr["busy_s"],
+                           pr["kernel_s"], r["steady_s"], tag=tag,
+                           kernel="K4")
+                print(f"[{tag}] K4's share of the steady compiled step's "
+                      f"kernels: {pr['kernel_s'] / max(pr['busy_s'], 1e-30):.4f}",
+                      flush=True)
+            if not compile_steps:
+                k4_on_seen(tag, seen)
+            del seen
+            runs[r["route"]] = r
+        fast, slow = runs["compiled"], runs["eager"]
+        for key in ("loss", "grad_norm", "digests", "launches"):
+            if fast[key] != slow[key]:
+                fail(f"{tag}: the compiled and eager routes' {key} differ")
+        print(f"[{tag}] compiled vs eager, {len(batches)} steps: all "
+              f"{len(fast['digests'])} parameter leaves bitwise equal "
+              f"(SHA-256), losses equal, K4 launches equal; tokens/s "
+              f"{fast['tokens_s']:.1f} vs {slow['tokens_s']:.1f}, peak "
+              f"{fast['peak_gb']:.2f} GB vs {slow['peak_gb']:.2f} GB",
+              flush=True)
+        return runs
+
+    # 28.1 Qwen2-VL-7B: f32 at QWEN2VL_F32_LAYERS, then bf16 at
+    # QWEN2VL_TRAIN_LAYERS (K4 q (32, 1024, 128) over k/v (4, 1024, 128),
+    # causal, in every layer).
+    cfg_v = get_config("qwen2-vl-7b", n_layers=QWEN2VL_F32_LAYERS,
+                       param_dtype="float32", compute_dtype="float32")
+    f32_check("qwen2vl-train", cfg_v, train_single_batches(torch, cfg_v, dev))
+    train_runs = {"qwen2vl": train_paths(
+        "qwen2vl-train", get_config("qwen2-vl-7b",
+                                    n_layers=QWEN2VL_TRAIN_LAYERS),
+        "qwen2vl_train")}
+    peak("qwen2vl-train")
+
+    # 28.2 SeamlessM4T-medium: f32 at 4 + 4 layers, then bf16 whole; K4 in
+    # the encoder's self-attention (non-causal), the decoder's (causal) and
+    # the cross-attention, D 64 over 16 heads.
+    cfg_s = get_config("seamless-m4t-medium",
+                       n_layers=SEAMLESS_TRAIN_F32_LAYERS,
+                       encoder=EncoderConfig(
+                           n_layers=SEAMLESS_TRAIN_F32_LAYERS),
+                       param_dtype="float32", compute_dtype="float32")
+    f32_check("seamless-train", cfg_s, train_single_batches(torch, cfg_s, dev))
+    train_runs["seamless"] = train_paths(
+        "seamless-train", get_config("seamless-m4t-medium"), "seamless_train")
+    peak("seamless-train")
+
+    # 28.3 DeepSeek-V2 at its dense first layer and one MLA + MoE layer, on
+    # tokens: the capacity-routed MoE backward over 160 experts.  No kernel
+    # runs (MLA's q/k head dim of 192 is not one of K4's; MLA is plain
+    # einsums, as in the reference).  Each route in a process of its own,
+    # the eager one first, the allocator on expandable segments: at peaks
+    # of 74-76 GB of the card's 85, cached blocks too small for the next
+    # f32 copy of an expert-sized gradient leaf (4.69 GiB) made both routes
+    # run out on the default allocator.
+    t0 = time.perf_counter()
+    ds = {}
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    for route in ("eager", "compiled"):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--train-route",
+             "deepseek-v2-236b", str(DEEPSEEK_TRAIN_LAYERS), route],
+            capture_output=True, text=True, timeout=600, env=env)
+        if proc.returncode != 0:
+            fail(f"deepseek train ({route}): exit {proc.returncode}: "
+                 f"{proc.stderr[-3000:]}")
+        ds.update(json.loads(proc.stdout.strip().splitlines()[-1]))
+    for route, r in ds.items():
+        by_path[f"deepseek_train_{route}"] = r["launches"]
+        if any(r["launches"].values()):
+            fail(f"deepseek train ({route}): kernels launched on an MLA "
+                 f"path: {r['launches']}")
+        if "oom" in r:
+            print(f"[deepseek-train] {card}: {route} route ran out of the "
+                  f"card's memory: {json.dumps(r['oom'])}", flush=True)
+            continue
+        if not all(np.isfinite(x) for x in r["loss"]):
+            fail(f"deepseek train ({route}): losses {r['loss']}")
+        print(f"[deepseek-train] {card}: {route} route, bf16 deepseek-v2-236b "
+              f"({DEEPSEEK_TRAIN_LAYERS} layers: the dense first and one MLA "
+              f"+ MoE layer, {r['params'] / 1e9:.3f} B parameters), "
+              f"{r['steps']} steps of one {TRAIN_SEQ}-token sequence: losses "
+              f"{[round(x, 6) for x in r['loss']]}, host s a step "
+              f"{[round(x, 4) for x in r['step_s']]} -> "
+              f"{TRAIN_SEQ / r['step_s'][-1]:.1f} tokens/s at the last; "
+              f"peak {r['peak_gb']:.2f} GB; graphs "
+              f"{r['graphs']['captures']} captured, pool "
+              f"{r['graphs']['pool_bytes'] / 1e9:.3f} GB; no kernel "
+              f"launched", flush=True)
+    if "oom" not in ds.get("eager", {"oom": 1}) and \
+            "oom" not in ds.get("compiled", {"oom": 1}):
+        for key in ("loss", "grad_norm", "digests"):
+            if ds["eager"][key] != ds["compiled"][key]:
+                fail(f"deepseek train: the compiled and eager routes' {key} "
+                     f"differ")
+        print(f"[deepseek-train] compiled vs eager: all "
+              f"{len(ds['eager']['digests'])} parameter leaves bitwise "
+              f"equal (SHA-256), losses equal", flush=True)
+    train_runs["deepseek"] = ds
+    print(f"[deepseek-train] processes {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    print(f"[train-single] phase {time.perf_counter() - phase_t0:.1f} s",
+          flush=True)
 
     # ------------------------------------- 25. distribution (main path)
     # The sharded steps of sharding/apply.py on a (1, 1) ("data", "model")
@@ -4646,6 +5266,12 @@ def main() -> int:
                   f"{'forward' if part == 'fwd' else 'whole backward'} "
                   f"{row['library_device_ms']:.6f} ms (bound "
                   f"{row['bound_ms']:.6f} ms)", flush=True)
+    for part, row in k4_qwen2vl.items():
+        row.update(dev_times[f"k4_qwen2vl_{part}"])
+        print(f"[device] K4 qwen2-vl {part}: {row['device_ms']:.6f} ms, "
+              f"SDPA {'forward' if part == 'fwd' else 'whole backward'} "
+              f"{row['library_device_ms']:.6f} ms (bound "
+              f"{row['bound_ms']:.6f} ms)", flush=True)
     k1_tp.update(dev_times["k1_tp"])
     k1_moe.update(dev_times["k1_tp_moe"])
     k1_seamless_tp.update(dev_times["k1_tp_seamless"])
@@ -4809,6 +5435,11 @@ def main() -> int:
          "library_device_ms": k4_rows[part]["library_device_ms"],
          "build": k4_rows[part].get("build"), "f32": k4_f32[part],
          "seamless": {key: rows[part] for key, rows in k4_seamless.items()},
+         "qwen2vl_train": k4_qwen2vl[part],
+         "train_single": {
+             model: {route: {k: v for k, v in r.items() if k != "digests"}
+                     for route, r in runs.items()}
+             for model, runs in train_runs.items()},
          "tensor_parallel": dict(k4_tp[part], shapes_by_size={
              w: r["k4_shapes"] for w, r in tp_runs.items()}),
          "tensor_parallel_moe_f32": k4_moe[part],
@@ -4870,7 +5501,7 @@ def k4_check_seen(torch, seen, tag: str, prefix: str) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     k4_err = {"fwd": 0.0, "dq": 0.0, "dkdv": 0.0}
-    for (qs, ks, dt), ((q, k, v), kw) in sorted(seen.items(),
+    for (qs, ks, dt, *_), ((q, k, v), kw) in sorted(seen.items(),
                                                  key=lambda kv: kv[0][0]):
         dname = str(dt)[6:]
         case = (f"K4 on {tag} inputs q {qs} k {ks} "
@@ -4965,10 +5596,11 @@ def tensor_parallel(torch, card: str, tp_ref: dict, by_path: dict) -> dict:
         for c in counters:
             for name in c:
                 c[name] = 0
+        steps = TP_DECODE_STEPS
         t0 = time.perf_counter()
         with keep_routes(tokens.numel()) as routes:
             plg, logits, toks = tp_serve(torch, model, params, tokens, last,
-                                         src=src)
+                                         src=src, steps=steps)
             torch.cuda.synchronize()
         by_path[f"tp_ref_{key}"] = {name: n for c in counters
                                     for name, n in c.items()}
@@ -4981,7 +5613,8 @@ def tensor_parallel(torch, card: str, tp_ref: dict, by_path: dict) -> dict:
         # bf16 routes' own spread, printed beside the sharded run's.
         with keep_routes(tokens.numel()) as proutes:
             pplg, plogits, ptoks = tp_serve(torch, Model(dataclasses.replace(
-                cfg, use_pallas=False)), params, tokens, last, src=src)
+                cfg, use_pallas=False)), params, tokens, last, src=src,
+                steps=steps)
         refs[key]["plain"] = {"prefill": pplg.cpu(),
                               "logits0": plogits[0].cpu(), "tokens": ptoks,
                               "routes": proutes}
@@ -4989,7 +5622,7 @@ def tensor_parallel(torch, card: str, tp_ref: dict, by_path: dict) -> dict:
         print(f"[tensor-parallel] {card}: ({key[0]}) unsharded {cfg.name} "
               f"bf16, {cfg.n_layers} layers: a prefill of {len(lengths)} "
               f"prompt(s) ({list(lengths)} tokens, bucket {bucket}) and "
-              f"{DECODE_STEPS} decode steps in {refs[key]['s']:.3f} s, peak "
+              f"{steps} decode steps in {refs[key]['s']:.3f} s, peak "
               f"{refs[key]['peak_gb']:.2f} GB; launches "
               f"{json.dumps(by_path[f'tp_ref_{key}'])}", flush=True)
         del model, params, plg, logits, src
@@ -5357,7 +5990,7 @@ def tp_case_report(torch, card: str, world: int, case: str, res: list,
                   if f.get("router_err") else "")
         parts.append(
             f"f32: local {json.dumps(f['local'])}; a prefill and "
-            f"{DECODE_STEPS} decode steps: logits within the f32 tolerance "
+            f"{TP_DECODE_STEPS} decode steps: logits within the f32 tolerance "
             f"(prefill {f['prefill_err']:.3e}, decode {f['logits_err']:.3e}), "
             f"tokens equal; one train step of {f['train_batch']}: loss "
             f"{f['loss']:.6f} against the unsharded {f['loss_unsharded']:.6f}"
@@ -5437,8 +6070,8 @@ def tp_src(torch, dev, cfg, n: int):
 
 
 def tp_serve(torch, model, params, tokens, last, mesh=None, policy=None,
-             src=None):
-    """A prefill of ``tokens``, then DECODE_STEPS greedy decode steps in a
+             src=None, steps: int = DECODE_STEPS):
+    """A prefill of ``tokens``, then ``steps`` greedy decode steps in a
     cache twice the bucket, each row from its prompt's last token; sharded
     over ``mesh`` when ``policy`` is given.  An enc-dec model encodes
     ``src`` in the prefill, and decodes over a cross cache of its length.
@@ -5482,7 +6115,7 @@ def tp_serve(torch, model, params, tokens, last, mesh=None, policy=None,
         step = make_sharded_decode_step(model, mesh)
     logits, toks = [], []
     inp = tokens[torch.arange(n, device=tokens.device), last][:, None]
-    for i in range(DECODE_STEPS):
+    for i in range(steps):
         pos = (last + i).to(torch.int32)
         if policy is None:
             lg, big = step(params, big, inp, pos)
@@ -5735,7 +6368,7 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
     def serve_case(key: str, cfg, tokens, last, want: dict, src=None,
                    gathers=None) -> dict:
         """``cfg``'s model sharded: a prefill (of an enc-dec model, over
-        ``src``) and DECODE_STEPS decode steps, the caches a decode step
+        ``src``) and TP_DECODE_STEPS decode steps, the caches a decode step
         gathers over ``model`` counted (``gathers``: the count required).
         In f32 rank 0 then holds the prefill's and every step's logits
         within the f32 tolerance of the unsharded run, tokens equal; in
@@ -5760,8 +6393,9 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
                     keep_inputs(mamba_ops, "_ssd_kernel_call") as s5, \
                     keep_routes(tokens.numel()) as routes:
                 t0 = time.perf_counter()
-                plg, logits, toks = tp_serve(torch, model, sp, tokens, last,
-                                             mesh, policy, src)
+                plg, logits, toks = tp_serve(
+                    torch, model, sp, tokens, last, mesh, policy, src,
+                    TP_DECODE_STEPS)
                 torch.cuda.synchronize()
                 res["serve_s"] = time.perf_counter() - t0
         finally:
@@ -5789,7 +6423,8 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
             zero_counts()
             params = model.init(SEED)
             uplg, ulogits, utoks = tp_serve(torch, model, params, tokens,
-                                            last, src=src)
+                                            last, src=src,
+                                            steps=TP_DECODE_STEPS)
             res["serve_check_s"] = time.perf_counter() - t0
             read_counts(f"tp{world}_{key}_unsharded_serve")
             res["prefill_err"] = check_close(
@@ -6184,6 +6819,46 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
     return 0
 
 
+def run_train_route(arch: str, layers: int, routes: str) -> int:
+    """Phase 28's routes in a process of their own: ``train_single_route``
+    of bf16 ``arch`` cut to ``layers`` layers on TRAIN_SINGLE_STEPS steps
+    of ``train_single_batches``, on each route of ``routes`` (``eager``,
+    ``compiled``, comma-separated) in turn; a line for each, then a last
+    line of each route's figures with its kernels' launches."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.mamba_scan import mamba_scan as k5
+    from repro_torch.kernels.matmul import matmul as mm
+    from repro_torch.kernels.prefill import prefill as pf
+
+    counters = (pf.LAUNCHES, mm.LAUNCHES, fa.LAUNCHES, k5.LAUNCHES)
+    cfg = get_config(arch, n_layers=layers)
+    batches = train_single_batches(torch, cfg, torch.device("cuda"))
+    out = {}
+    for route in routes.split(","):
+        for c in counters:
+            for key in c:
+                c[key] = 0
+        r = train_single_route(torch, cfg, batches[:TRAIN_SINGLE_STEPS],
+                               route == "compiled")
+        r["launches"] = {key: n for c in counters for key, n in c.items()}
+        out[route] = r
+        print(f"[train-route] {arch} at {layers} layers, {route}: "
+              + json.dumps({k: v for k, v in r.items() if k != "digests"}),
+              flush=True)
+    print(json.dumps(out))
+    return 0
+
+
 def run_example(name: str) -> int:
     """Run the port's example ``name`` on the card; its report, then K4's
     forward and backward against their plain versions on the first inputs
@@ -6227,6 +6902,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--example"] and len(sys.argv) == 3:
         sys.exit(run_example(sys.argv[2]))
+    if sys.argv[1:2] == ["--train-route"] and len(sys.argv) == 5:
+        sys.exit(run_train_route(sys.argv[2], int(sys.argv[3]),
+                                 sys.argv[4]))
     if sys.argv[1:2] == ["--tp-probe"] and len(sys.argv) == 5:
         sys.exit(run_tp_probe(*map(int, sys.argv[2:5])))
     if sys.argv[1:2] == ["--tp-rank"] and len(sys.argv) == 8:

@@ -44,7 +44,14 @@ the honest number when workers have devices of their own and a pessimistic
 one when they share a device.
 
 The unit op is plain torch (``torch.tanh(h @ x)``), as the reference leaves
-it to XLA; no kernel of the port is involved.
+it to XLA; no kernel of the port is involved.  Where the reference jits it,
+the port captures it on CUDA (``compile_op=True``, the default) as CUDA
+graphs (``serve/compiled.py``): three a chain, over two buffers, x -> a,
+a -> b and b -> a, steps without inputs, so that each unit op of a chain is
+one graph launch and no copy.  One chain a device, and in
+overlap mode one a worker, on the worker's stream.  ``compile_op=False`` is
+the eager route, two launches a unit op; the two give the same bits.  On
+the CPU the op runs eagerly either way.
 """
 
 from __future__ import annotations
@@ -108,6 +115,50 @@ class WallclockStats:
         )
 
 
+def _op(h: torch.Tensor, x: torch.Tensor, out=None) -> torch.Tensor:
+    # Chained unit op: tanh keeps values in (-1, 1) so arbitrary-depth
+    # chains neither overflow nor denormalize.
+    return torch.tanh(h @ x, out=out)
+
+
+class _UnitChain:
+    """Chains of the unit op over ``x``, as three compiled steps over two
+    buffers: x -> a, a -> b and b -> a (``serve/compiled.py``; captured on
+    ``stream``, from one pool: a chain's steps follow each other on one
+    stream, never at once).  On CUDA each step runs twice here, its warm-up
+    and its capture, so that a chain of ``k`` ops is ``k`` replays: the
+    first step, then the other two in turn.  It ends in ``a`` (k odd) or
+    ``b`` (k even), which the next chain overwrites."""
+
+    def __init__(self, x: torch.Tensor, stream=None, name: str = "unit_op"):
+        # Here, not at the top: ``serve`` imports the models, which import
+        # ``core``.
+        from ..serve.compiled import CompiledStep, new_pool
+
+        a, b = torch.empty_like(x), torch.empty_like(x)
+        self.a, self.b = a, b
+        pool = new_pool(x.device)
+        if stream is None and x.device.type == "cuda":
+            stream = torch.cuda.Stream(x.device)
+
+        def step(tag, fn):
+            return CompiledStep(f"{name}[{tag}]", fn, x.device, pool=pool,
+                                stream=stream)
+
+        self.first = step("x->a", lambda: _op(x, x, out=a))
+        self.ab = step("a->b", lambda: _op(a, x, out=b))
+        self.ba = step("b->a", lambda: _op(b, x, out=a))
+        if x.device.type == "cuda":
+            for s in (self.first, self.ab, self.ba) * 2:
+                s()
+
+    def run(self, k: int) -> torch.Tensor:
+        self.first()
+        for i in range(1, k):
+            (self.ab if i % 2 else self.ba)()
+        return self.a if k % 2 else self.b
+
+
 @dataclasses.dataclass(slots=True)
 class _Handle:
     """One launched grain: the chain's last tensor plus its timing state."""
@@ -137,7 +188,10 @@ class WallclockBackend(ExecutionBackend):
                     ``wallclock_devices()``, every visible CUDA device);
                     workers are assigned round-robin and stick,
       calibration_reps  unit ops timed at startup to seed the unit-time EMA,
-      seed          seeds the ``torch.Generator`` that draws the operand.
+      seed          seeds the ``torch.Generator`` that draws the operand,
+      compile_op    on CUDA, the unit op as captured graphs, one launch an
+                    op (the reference's ``jax.jit``); False: eager, every
+                    op dispatched from Python.
     """
 
     name = "wallclock"
@@ -151,6 +205,7 @@ class WallclockBackend(ExecutionBackend):
         devices: list | None = None,
         calibration_reps: int = 24,
         seed: int = 0,
+        compile_op: bool = True,
     ):
         if side < 2 or base_repeats < 1:
             raise ValueError("need side >= 2 and base_repeats >= 1")
@@ -166,7 +221,11 @@ class WallclockBackend(ExecutionBackend):
         x0 = torch.randn((self.side, self.side), generator=gen,
                          dtype=torch.float32) / float(self.side) ** 0.5
         self._x = [x0.to(d) for d in self.devices]
-        self._streams: dict[str, Any] = {}    # worker -> CUDA stream (overlap)
+        self.compile_op = bool(compile_op)
+        # Captured chains: one a device, and one a worker in overlap mode
+        # (None where the op runs eagerly).
+        self._chains: list[_UnitChain | None] = [None] * len(self._x)
+        self._streams: dict[str, Any] = {}    # worker -> (CUDA stream, chain)
         self._dev_of: dict[str, int] = {}     # worker name -> device index
         self._next_dev = 0
         self._cost_ref = 1.0
@@ -179,11 +238,23 @@ class WallclockBackend(ExecutionBackend):
         self._calibrate(max(int(calibration_reps), 4))
 
     # -- the unit op ---------------------------------------------------------
+    def _chain_for(self, x: torch.Tensor, stream=None) -> _UnitChain | None:
+        """A captured chain over ``x`` (on ``stream``), or None where the
+        op runs eagerly: on the CPU, or with ``compile_op=False``."""
+        if not self.compile_op or x.device.type != "cuda":
+            return None
+        return _UnitChain(x, stream)
+
     @staticmethod
-    def _op(h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        # Chained unit op: tanh keeps values in (-1, 1) so arbitrary-depth
-        # chains neither overflow nor denormalize.
-        return torch.tanh(h @ x)
+    def _chain(x: torch.Tensor, k: int, chain: _UnitChain | None):
+        """``k`` chained unit ops from ``x``: ``k`` graph launches, or
+        ``2k`` eager ones."""
+        if chain is not None:
+            return chain.run(k)
+        h = x
+        for _ in range(k):
+            h = _op(h, x)
+        return h
 
     @staticmethod
     def _wait(t: torch.Tensor) -> None:
@@ -194,14 +265,14 @@ class WallclockBackend(ExecutionBackend):
 
     # -- calibration ---------------------------------------------------------
     def _calibrate(self, reps: int) -> None:
-        """Warm the unit op on every device and seed the unit-time EMA from
-        a measured chain on device 0."""
-        for x in self._x:
-            self._wait(self._op(x, x))
-        h, x = self._x[0], self._x[0]
+        """Warm the unit op on every device (and capture its chain there),
+        then seed the unit-time EMA from a measured chain on device 0."""
+        for i, x in enumerate(self._x):
+            self._wait(_op(x, x))
+            self._chains[i] = self._chain_for(x)
+        x = self._x[0]
         t0 = time.perf_counter()
-        for _ in range(reps):
-            h = self._op(h, x)
+        h = self._chain(x, reps, self._chains[0])
         self._wait(h)
         self._unit_s = max((time.perf_counter() - t0) / reps, _MIN_DT)
 
@@ -254,12 +325,14 @@ class WallclockBackend(ExecutionBackend):
             self._next_dev += 1
         return i
 
-    def _stream(self, name: str, device: torch.device):
-        """The worker's own CUDA stream (overlap mode), made on first use."""
-        s = self._streams.get(name)
-        if s is None:
-            s = self._streams[name] = torch.cuda.Stream(device=device)
-        return s
+    def _stream(self, name: str, x: torch.Tensor):
+        """The worker's own CUDA stream (overlap mode) and its chain over
+        ``x`` captured on that stream, made on first use."""
+        got = self._streams.get(name)
+        if got is None:
+            s = torch.cuda.Stream(device=x.device)
+            got = self._streams[name] = (s, self._chain_for(x, s))
+        return got
 
     # -- ExecutionBackend: lifecycle ----------------------------------------
     def begin_job(self, executor: GrainExecutor, n_grains: int,
@@ -298,19 +371,15 @@ class WallclockBackend(ExecutionBackend):
             self.tracer.emit("start", t_s=now_s, worker=worker.name,
                              grain=grain, repeats=k, device=i)
         if self.overlap and x.device.type == "cuda":
-            stream = self._stream(worker.name, x.device)
+            stream, chain = self._stream(worker.name, x)
             t0 = time.perf_counter()
             with torch.cuda.stream(stream):
-                h = x
-                for _ in range(k):
-                    h = self._op(h, x)
+                h = self._chain(x, k, chain)
                 done = torch.cuda.Event()
                 done.record(stream)
             return _Handle(h, k, t0, None, done)
         t0 = time.perf_counter()
-        h = x
-        for _ in range(k):
-            h = self._op(h, x)
+        h = self._chain(x, k, self._chains[i])
         if self.overlap:
             return _Handle(h, k, t0, None)
         self._wait(h)

@@ -196,9 +196,11 @@ def lm_logits(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     logits = (x @ table).to(dtype_of(cfg.logit_dtype))
     if cfg.padded_vocab != cfg.vocab_size:
         # Padded vocab rows never win an argmax: the reference's -1e30 mask.
+        # ``fill_`` takes the scalar as an argument; an item assignment
+        # would make it a host tensor first, which a CUDA graph cannot copy.
         mask = torch.zeros((cfg.padded_vocab,), dtype=logits.dtype,
                            device=logits.device)
-        mask[cfg.vocab_size:] = -1e30
+        mask[cfg.vocab_size:].fill_(-1e30)
         logits = logits + mask
     return logits
 

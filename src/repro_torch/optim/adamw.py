@@ -30,6 +30,13 @@ from ..tree import tree_flatten, tree_map, tree_unflatten
 __all__ = ["AdamWConfig", "lr_at", "init_opt_state", "global_norm",
            "adamw_update"]
 
+#: A leaf larger than this many elements is updated this many at a time
+#: (a slice of its flat view), so the update's f32 temporaries stay near
+#: this size and not the leaf's: at full width one stacked MLP leaf's are
+#: several GB, and beside the moments they decided which depths fit the
+#: card.  The update is elementwise, so each element rounds as before.
+SLICE = 1 << 26
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -69,10 +76,14 @@ def init_opt_state(params) -> dict:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, summed in leaf order."""
+    """sqrt of the sum of squares of every leaf, summed in leaf order.  A
+    leaf widened to f32 is squared in its own copy: one f32 temporary a
+    leaf, not two (the same values)."""
     total = 0
     for leaf in tree_flatten(tree)[0]:
-        total = total + torch.sum(torch.square(leaf.to(torch.float32)))
+        wide = leaf.to(torch.float32)
+        total = total + torch.sum(
+            torch.square(wide) if wide is leaf else wide.square_())
     return torch.sqrt(total)
 
 
@@ -88,16 +99,30 @@ def adamw_update(grads, opt_state: dict, params, cfg: AdamWConfig, *,
     b1c = 1 - cfg.b1 ** step_f
     b2c = 1 - cfg.b2 ** step_f
 
-    def upd(g, m, v, p):
+    def part(g, m, v, p, decay: bool):
         # m <- b1 m + (1 - b1) g and v <- b2 v + (1 - b2) g g, in place.
         g = g.to(torch.float32) * scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
         delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        if p.ndim >= 2:  # decay matrices only (norms/bias exempt), standard
+        if decay:
             delta = delta + cfg.weight_decay * p.to(torch.float32)
-        new = (p.to(torch.float32) - lr * delta).to(p.dtype)
-        return p.copy_(new) if in_place else new
+        return (p.to(torch.float32) - lr * delta).to(p.dtype)
+
+    def upd(g, m, v, p):
+        # Decay matrices only (norms/bias exempt), standard.
+        decay = p.ndim >= 2
+        leaves = (g, m, v, p)
+        if p.numel() <= SLICE or not all(
+                type(t) is torch.Tensor and t.is_contiguous() for t in leaves):
+            new = part(g, m, v, p, decay)
+            return p.copy_(new) if in_place else new
+        out = p if in_place else torch.empty_like(p)
+        flat = [t.view(-1) for t in leaves + (out,)]
+        for lo in range(0, p.numel(), SLICE):
+            gs, ms, vs, ps, os_ = (t[lo:lo + SLICE] for t in flat)
+            os_.copy_(part(gs, ms, vs, ps, decay))
+        return out
 
     flat_p, treedef = tree_flatten(params)
     flat_g = tree_flatten(grads)[0]

@@ -2,7 +2,8 @@
 reference's ``jax.jit`` on ``DecodeEngine``'s decode step and on each
 length bucket's prefill (``repro/serve/engine.py``), and on the training
 steps: the grain gradient, ``HDPTrainer``'s AdamW update and
-``train_single``'s step (``repro/train/{step,loop}.py``).
+``train_single``'s step (``repro/train/{step,loop}.py``), and on the
+wall-clock backend's unit op (``repro/core/wallclock.py``).
 
 On CUDA the step is captured as a CUDA graph, which the card replays with
 no Python dispatch; the hand-written kernels it launches (K1, K2; K4's and

@@ -25,7 +25,14 @@ training route to the graph's rules:
   (f) the reduced Mamba models on K5's route (``use_pallas=True``: its
       autograd function, whose forward and backward run their plain
       versions on the CPU): the grain gradient capture-safe, and bit for
-      bit the eager route's.
+      bit the eager route's;
+  (g) ``train_single`` on the batches the launcher feeds the embeds and
+      enc-dec configs: the reduced Qwen2-VL on embeds with M-RoPE
+      positions whose three streams differ (an image block), and the
+      reduced SeamlessM4T at two target lengths (two graphs in one
+      ``BatchSteps``), each on K4's route: guarded from each graph's
+      second call, compiled bit for bit eager, both within the
+      reference's tolerance.
 
 The card's side (captured graphs, launch counts over replays) is in
 ``tests/test_torch_cuda.py``.
@@ -43,6 +50,7 @@ import torch
 from repro.cluster import Cluster as JaxCluster
 from repro.cluster import FleetSpec as JaxFleetSpec
 from repro.cluster import TrainJob as JaxTrainJob
+from repro.configs import get_config as jax_get_config
 from repro.models import Model as JaxModel
 from repro.optim import AdamWConfig as JaxAdamWConfig
 from repro.train import train_single as jax_train_single
@@ -62,6 +70,7 @@ from repro_torch.train import (
 from repro_torch.train import loop as train_loop
 from repro_torch.tree import tree_leaves
 from test_torch_compiled import ARCHS, CaptureGuard
+from test_torch_mrope import vl_positions
 from test_torch_train import (
     FLEET,
     GRAD_TOL,
@@ -378,3 +387,130 @@ def test_kernel_route_grain_is_capture_safe_and_bitwise_eager(arch):
                 tree_leaves(grads), tree_leaves(wgrads), strict=True))
     assert len(guarded) == 2
     assert [s.calls for s in fast.steps] == [3]
+
+
+# ------------------------------------ (g) the embeds and enc-dec batches
+#: The configs ``train_single`` trains on ``configs/shapes.py``'s batch
+#: kinds other than tokens (kept apart from ``ARCHS``, which the engine's
+#: tests also read: ``DecodeEngine`` refuses both).
+BATCH_ARCHS = ("qwen2-vl-7b", "seamless-m4t-medium")
+
+
+def _arch_batches(cfg) -> list[dict]:
+    """The numpy batches of (g), one a step: Qwen2-VL's embeds over two
+    rows of text, an image block and text (the (B, 3, S) streams differ),
+    three steps of one batch; SeamlessM4T's source frames with 12 and then
+    5 target tokens, in turn over four steps."""
+    rng = np.random.default_rng(11)
+
+    def loss_fields(b, s):
+        return {"targets": rng.integers(0, cfg.vocab_size, (b, s)).astype(
+                    np.int32),
+                "loss_mask": (rng.random((b, s)) > 0.2).astype(np.float32)}
+
+    if cfg.input_mode == "embeds" and not cfg.is_enc_dec:
+        pos = np.stack([vl_positions(2, 3, 5), vl_positions(4, 2, 8)])
+        assert (pos[:, 0] != pos[:, 1]).any() and \
+            (pos[:, 1] != pos[:, 2]).any()
+        s = pos.shape[-1]
+        one = {"embeds": rng.standard_normal((2, s, cfg.d_model)).astype(
+                   np.float32),
+               "positions": pos, **loss_fields(2, s)}
+        return [one] * STEPS
+    shapes = []
+    for tgt in (12, 5):
+        shapes.append({
+            "src_embeds": (rng.standard_normal((2, 10, cfg.d_model)) * 0.5)
+            .astype(np.float32),
+            "tgt_tokens": rng.integers(0, cfg.vocab_size, (2, tgt)).astype(
+                np.int32),
+            **loss_fields(2, tgt)})
+    return [shapes[i % 2] for i in range(2 * 2)]
+
+
+@pytest.fixture(scope="module", params=BATCH_ARCHS)
+def arch_runs(request):
+    """(g) The reference's ``train_single`` and the port's on both routes
+    (the compiled one guarded from each graph's second call), from the
+    reference's initial weights, on one list of numpy batches."""
+    jcfg = jax_get_config(request.param, reduced=True)
+    batches = _arch_batches(jcfg)
+    n = len(batches)
+    jstate, jhist = jax_train_single(
+        JaxModel(jcfg), n, lambda s: {k: jnp.asarray(v)
+                                      for k, v in batches[s].items()},
+        opt_cfg=JaxAdamWConfig(**OPT_KW), log_every=1)
+    model = BridgedModel(jcfg)
+    tb = [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches]
+    runs = {}
+    with _guarded_from_second_call() as guarded:
+        runs["compiled"] = train_single(
+            model, n, lambda s: tb[s], opt_cfg=AdamWConfig(**OPT_KW),
+            log_every=1, compile_steps=True)
+    runs["eager"] = train_single(model, n, lambda s: tb[s],
+                                 opt_cfg=AdamWConfig(**OPT_KW), log_every=1,
+                                 compile_steps=False)
+    return {"arch": request.param, "reference": (jstate, jhist),
+            "guarded": guarded, "batches": batches, **runs}
+
+
+def test_padded_vocab_logits_are_capture_safe():
+    """(g) The logits of a vocabulary padded to a multiple (SeamlessM4T's
+    250 to 256 reduced, 256206 to 258048 whole) mask the pad columns with
+    -1e30 by ``fill_``: no host tensor inside a captured step, and the
+    reference's values."""
+    from repro.models import layers as jlayers
+    from repro_torch.models import layers
+
+    cfg = get_config("seamless-m4t-medium", reduced=True)
+    assert cfg.padded_vocab > cfg.vocab_size
+    rng = np.random.default_rng(5)
+    table = rng.standard_normal((cfg.padded_vocab, cfg.d_model)).astype(
+        np.float32)
+    x = rng.standard_normal((2, 3, cfg.d_model)).astype(np.float32)
+    params, xt = {"table": torch.from_numpy(table)}, torch.from_numpy(x)
+    with CaptureGuard():
+        got = layers.lm_logits(params, xt, cfg)
+    want = jlayers.lm_logits({"table": jnp.asarray(table)}, jnp.asarray(x),
+                             jax_get_config("seamless-m4t-medium",
+                                            reduced=True))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    assert (got[..., cfg.vocab_size:] < -1e29).all()
+
+
+def test_arch_train_single_is_capture_safe(arch_runs):
+    """(g) Each batch shape's graph ran its second and later calls under
+    ``CaptureGuard``: one graph for Qwen2-VL, two for SeamlessM4T."""
+    names = arch_runs["guarded"]
+    shapes = {tuple(b[k].shape for k in sorted(b))
+              for b in arch_runs["batches"]}
+    assert len(shapes) == (2 if arch_runs["arch"].startswith("seamless")
+                           else 1)
+    assert len(set(names)) == len(shapes)
+    assert len(names) == len(arch_runs["batches"]) - len(shapes)
+
+
+def test_arch_train_single_compiled_equals_eager(arch_runs):
+    """(g) The compiled route's history and every state leaf (parameters
+    and moments) bit for bit the eager route's."""
+    (fast, fhist), (slow, shist) = arch_runs["compiled"], arch_runs["eager"]
+    assert fhist == shist and len(fhist) == len(arch_runs["batches"])
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(fast), tree_leaves(slow), strict=True))
+
+
+@pytest.mark.parametrize("route", ["compiled", "eager"])
+def test_arch_train_single_matches_reference(arch_runs, route):
+    """(g) Each route within the reference's ``train_single`` tolerance
+    (that of (e)): every step's loss, tokens, grad norm and learning rate,
+    and the final parameters."""
+    jstate, jhist = arch_runs["reference"]
+    state, hist = arch_runs[route]
+    for got, want in zip(hist, jhist, strict=True):
+        for key in ("loss", "tokens", "grad_norm", "lr"):
+            np.testing.assert_allclose(got[key], want[key], rtol=LOSS_RTOL,
+                                       err_msg=key)
+    for g, w in zip(tree_leaves(state.params),
+                    jax.tree_util.tree_leaves(jstate.params), strict=True):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL)

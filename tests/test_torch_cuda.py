@@ -1645,6 +1645,173 @@ def test_compiled_train_single_is_eager_bit_for_bit(dev):
         "flash_attention_bwd_dkdv": 3 * cfg.n_layers}
 
 
+def _arch_batch(cfg, dev, seq: int, tgt: int | None = None) -> dict:
+    """A bf16 batch of ``cfg``'s input mode: embeds with M-RoPE streams that
+    differ (text, a 3 x 3 image block, text), or ``seq`` source frames and
+    ``tgt`` target tokens."""
+    g = torch.Generator().manual_seed(27)
+    if cfg.is_enc_dec:
+        toks = torch.randint(0, cfg.vocab_size, (2, tgt + 1), generator=g)
+        return {"src_embeds": (torch.randn((2, seq, cfg.d_model), generator=g)
+                               * 0.5).to(dev, torch.bfloat16),
+                "tgt_tokens": toks[:, :-1].int().to(dev),
+                "targets": toks[:, 1:].int().to(dev),
+                "loss_mask": torch.ones((2, tgt), device=dev)}
+    t = list(range(3)) + [3] * 9
+    h = list(range(3)) + [3 + i // 3 for i in range(9)]
+    w = list(range(3)) + [3 + i % 3 for i in range(9)]
+    rest = list(range(6, 6 + seq - 12))
+    pos = torch.tensor([[t + rest, h + rest, w + rest]] * 2,
+                       dtype=torch.int32)
+    return {"embeds": torch.randn((2, seq, cfg.d_model), generator=g).to(
+                dev, torch.bfloat16),
+            "positions": pos.to(dev),
+            "targets": torch.randint(0, cfg.vocab_size, (2, seq),
+                                     generator=g).int().to(dev),
+            "loss_mask": torch.ones((2, seq), device=dev)}
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "seamless-m4t-medium"])
+def test_compiled_train_single_embeds_and_enc_dec_bit_for_bit(dev, arch):
+    """``train_single`` on the card on the reduced Qwen2-VL (embeds, M-RoPE
+    streams that differ; 3 steps) and SeamlessM4T (two target lengths in
+    turn, two graphs; 4 steps), bf16 on K4: the compiled route's history,
+    state and K4 launches the eager route's, bit for bit."""
+    from repro_torch.serve import compiled
+    from repro_torch.train import train_single
+
+    cfg = get_config(arch, reduced=True, param_dtype="bfloat16",
+                     compute_dtype="bfloat16")
+    model = Model(dataclasses.replace(cfg, use_pallas=None))
+    if cfg.is_enc_dec:
+        shapes = [_arch_batch(cfg, dev, 48, 32), _arch_batch(cfg, dev, 48, 8)]
+        batches = [shapes[i % 2] for i in range(4)]
+    else:
+        batches = [_arch_batch(cfg, dev, 48)] * 3
+    runs = {}
+    for flag in (True, False):
+        before, captures = dict(fa.LAUNCHES), compiled.STATS["captures"]
+        state, hist = train_single(model, len(batches), lambda s: batches[s],
+                                   log_every=1, compile_steps=flag)
+        torch.cuda.synchronize()
+        runs[flag] = (hist, tree_leaves(state),
+                      {n: fa.LAUNCHES[n] - before[n] for n in before},
+                      compiled.STATS["captures"] - captures)
+    fast, slow = runs[True], runs[False]
+    assert fast[0] == slow[0] and len(fast[0]) == len(batches)
+    assert all(torch.equal(a, b) for a, b in zip(fast[1], slow[1],
+                                                 strict=True))
+    n = (cfg.encoder.n_layers + 2 * cfg.n_layers if cfg.is_enc_dec
+         else cfg.n_layers) * len(batches)
+    assert fast[2] == slow[2] == {"flash_attention_fwd": 2 * n,
+                                  "flash_attention_bwd_dq": n,
+                                  "flash_attention_bwd_dkdv": n}
+    assert fast[3] == (2 if cfg.is_enc_dec else 1) and slow[3] == 0
+
+
+#: K4's shapes on the training paths of Qwen2-VL-7B (q (32, 1024, 128)
+#: over k/v (4, 1024, 128), causal) and SeamlessM4T-medium (16 heads of 64:
+#: the encoder's self-attention over 512 frames, non-causal; the decoder's,
+#: causal; the cross-attention of 64 target tokens over 512 frames):
+#: (Sq, Skv, Hq, Hkv, D, causal).
+K4_TRAIN_PATH_SHAPES = [(1024, 1024, 32, 4, 128, True),
+                        (512, 512, 16, 16, 64, False),
+                        (512, 512, 16, 16, 64, True),
+                        (64, 512, 16, 16, 64, False)]
+
+
+@pytest.mark.parametrize("sq,skv,hq,hkv,d,causal", K4_TRAIN_PATH_SHAPES)
+def test_flash_attention_bf16_training_shapes_match_autograd(
+        dev, sq, skv, hq, hkv, d, causal):
+    """bf16 forward, dQ and dK/dV at the training paths' shapes against the
+    plain version and autograd through it, at the bf16 tolerance; one
+    launch of each kernel."""
+    q, k, v = _k4_inputs(dev, 1, sq, skv, hq, hkv, d, torch.bfloat16)
+    dout = _rand(q.shape, torch.float32, dev, 28).to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention(*leaves, causal=causal, group=hq // hkv)
+    grads = torch.autograd.grad(out, leaves, dout)
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+        "flash_attention_bwd_dkdv": 1}
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = flash_attention_ref(*ref_leaves, causal=causal, group=hq // hkv)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, dout)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
+    for name, g, r in zip("qkv", grads, ref_grads, strict=True):
+        assert g.dtype == torch.bfloat16, name
+        torch.testing.assert_close(g.float(), r.float(), rtol=2e-2,
+                                   atol=2e-2, msg=f"d{name}")
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_wallclock_unit_op_graph_route_is_eager_bitwise(dev, overlap):
+    """The wall-clock unit op on the card: on the compiled route every op
+    of a chain is one graph launch (calibration's and each grain's, after
+    each graph's capture), and each grain's chain ends in the eager
+    route's bits."""
+    from repro_torch.core import SimWorker, WallclockBackend
+    from repro_torch.serve import compiled
+
+    replays0, captures0 = compiled.STATS["replays"], compiled.STATS["captures"]
+    fast = WallclockBackend(side=128, overlap=overlap, calibration_reps=8)
+    # Three graphs captured, each replayed once as it is; then 8 unit ops.
+    assert compiled.STATS["captures"] - captures0 == 3
+    assert compiled.STATS["replays"] - replays0 == 3 + 8
+    slow = WallclockBackend(side=128, overlap=overlap, calibration_reps=8,
+                            compile_op=False)
+    assert fast._chains[0] is not None and slow._chains == [None]
+    for wb in (fast, slow):     # in overlap mode, the worker's own chain
+        h = wb.launch(None, SimWorker("w0", 1.0), 0, 1.0, 0.0)
+        if h.done is not None:
+            h.done.synchronize()
+    for grain, perf in enumerate((1.0, 2.0, 3.0, 12 / 7), start=1):
+        ends = []
+        for wb in (fast, slow):
+            replays0 = compiled.STATS["replays"]
+            h = wb.launch(None, SimWorker("w0", perf), grain, 1.0, 0.0)
+            if h.done is not None:
+                h.done.synchronize()
+            torch.cuda.synchronize()
+            assert compiled.STATS["replays"] - replays0 == (
+                h.k if wb is fast else 0)
+            ends.append(h.value.clone())
+        assert torch.equal(ends[0], ends[1])
+
+
+@pytest.mark.parametrize("size", [7, 1 << 12])
+def test_adamw_update_in_slices_keeps_its_bits_on_the_card(dev, monkeypatch,
+                                                           size):
+    """AdamW on the card with large leaves updated a slice at a time
+    (``adamw.SLICE``): the same parameters and moments, bit for bit, as
+    the whole-leaf update, bf16 parameters over f32 moments."""
+    from repro_torch.optim import AdamWConfig, adamw_update
+    from repro_torch.optim import adamw as adamw_mod
+
+    shapes = [(3, 4096, 5), (70001,), (2, 64)]
+
+    def run(slice_size):
+        monkeypatch.setattr(adamw_mod, "SLICE", slice_size)
+        p = [_rand(s, torch.bfloat16, dev, 30 + i)
+             for i, s in enumerate(shapes)]
+        g = [_rand(s, torch.bfloat16, dev, 40 + i)
+             for i, s in enumerate(shapes)]
+        opt = {"m": [_rand(s, torch.float32, dev, 50 + i) * 0.1
+                     for i, s in enumerate(shapes)],
+               "v": [_rand(s, torch.float32, dev, 60 + i).abs() * 1e-3
+                     for i, s in enumerate(shapes)],
+               "step": torch.tensor(4, dtype=torch.int32, device=dev)}
+        new_p, new_opt, _ = adamw_update(g, opt, p, AdamWConfig(),
+                                         in_place=True)
+        torch.cuda.synchronize()
+        return new_p + new_opt["m"] + new_opt["v"]
+
+    whole, sliced = run(1 << 26), run(size)
+    assert all(torch.equal(a, b) for a, b in zip(whole, sliced, strict=True))
+
+
 def test_capture_returns_cached_blocks_first(dev, monkeypatch):
     """A graph's private pool cannot take the blocks the allocator keeps
     cached for eager tensors: a capture hands them back to the device

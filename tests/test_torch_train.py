@@ -68,7 +68,7 @@ from repro_torch.train import (
     make_train_step,
     train_single,
 )
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 torch.set_num_threads(1)
 
@@ -276,6 +276,43 @@ def test_adamw_update_matches_reference(step0, gscale):
         for w, g in zip(jax.tree_util.tree_leaves(want), tree_leaves(got),
                         strict=True):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6)
+
+
+@pytest.mark.parametrize("in_place", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size", [7, 16])
+def test_adamw_update_in_slices_keeps_its_bits(monkeypatch, size, dtype,
+                                               in_place):
+    """Leaves larger than ``adamw.SLICE`` elements are updated a slice at
+    a time: at a slice of 7 or 16 elements (every leaf above but one
+    sliced, at offsets of any alignment) the new parameters and moments
+    are the whole-leaf update's bit for bit, and in place they land in
+    the given tensors."""
+    from repro_torch.optim import adamw as adamw_mod
+
+    params, grads, m, v = _opt_inputs()
+    cfg = AdamWConfig(warmup_steps=5, decay_steps=500)
+
+    def run(slice_size):
+        monkeypatch.setattr(adamw_mod, "SLICE", slice_size)
+        p = tree_map(lambda t: t.to(dtype), params_from_numpy(params, "cpu"))
+        opt = {"m": params_from_numpy(m, "cpu"),
+               "v": params_from_numpy(v, "cpu"),
+               "step": torch.tensor(3, dtype=torch.int32)}
+        given = tree_leaves(p)
+        new_p, new_opt, stats = adamw_update(
+            tree_map(lambda t: t.to(dtype), params_from_numpy(grads, "cpu")),
+            opt, p, cfg, in_place=in_place)
+        assert all((a is b) is in_place for a, b in zip(
+            tree_leaves(new_p), given, strict=True))
+        return (tree_leaves(new_p) + tree_leaves(new_opt["m"])
+                + tree_leaves(new_opt["v"])), stats
+
+    whole, wstats = run(1 << 26)
+    sliced, sstats = run(size)
+    assert all(torch.equal(wstats[k], sstats[k]) for k in wstats)
+    assert all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(whole, sliced, strict=True))
 
 
 def test_lr_schedule_matches_reference():

@@ -28,6 +28,7 @@ from repro_torch.core import (
     SimBackend,
     SimWorker,
     WallclockBackend,
+    wallclock,
 )
 from repro_torch.serve import Request
 
@@ -169,6 +170,64 @@ def test_wallclock_overlap_modes_measure(overlap):
     assert rep.work_done == 12 and stats.n_launched == 12
     assert stats.overlap is overlap and stats.platform == "cpu"
     assert rep.measured_speedup > 0
+
+
+# ------------------------------------------- the unit op's compiled route
+def _eager_chain(x: torch.Tensor, k: int) -> torch.Tensor:
+    h = x
+    for _ in range(k):
+        h = torch.tanh(h @ x)
+    return h
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 7, 12])
+def test_unit_chain_gives_the_eager_chain(k):
+    """The compiled route's chain (three graphs over two buffers; on the
+    CPU each graph's step runs eagerly) gives the eager chain's values bit
+    for bit, one graph call a unit op, and a chain after a longer one
+    still starts from ``x``."""
+    x = torch.randn((16, 16), generator=torch.Generator().manual_seed(k))
+    chain = wallclock._UnitChain(x / 4.0)
+    for n in (k + 3, k):
+        got = chain.run(n)
+        assert torch.equal(got, _eager_chain(x / 4.0, n))
+    calls = chain.first.calls + chain.ab.calls + chain.ba.calls
+    assert calls == 2 * k + 3 and chain.first.calls == 2
+    assert chain.ab.calls - chain.ba.calls in (0, 1, 2)
+
+
+@pytest.mark.parametrize("compile_op", [True, False])
+def test_wallclock_cpu_unit_op_stays_eager(compile_op):
+    """On the CPU either setting keeps today's eager route (no chain is
+    captured), and a grain's chain ends where the compiled route's chain
+    over the same operand ends."""
+    wb = WallclockBackend(calibration_reps=4, devices=CPU,
+                          compile_op=compile_op)
+    assert wb.compile_op is compile_op and wb._chains == [None]
+    worker = SimWorker("w0", 2.0)
+    handle = wb.launch(None, worker, 0, 1.0, 0.0)
+    assert handle.k == wb.repeats(1.0, 2.0) and handle.measured > 0
+    want = wallclock._UnitChain(wb._x[0]).run(handle.k)
+    assert torch.equal(handle.value, want)
+    assert wb._streams == {}
+
+
+def test_wallclock_compiled_route_runs_through_the_chain():
+    """A backend whose chain is the compiled route's (forced on the CPU,
+    where it is captured nowhere) runs each grain as that many graph
+    calls, with the eager backend's values and repeats."""
+    fast = WallclockBackend(calibration_reps=4, devices=CPU)
+    slow = WallclockBackend(calibration_reps=4, devices=CPU,
+                            compile_op=False)
+    chain = fast._chains[0] = wallclock._UnitChain(fast._x[0])
+    done = 0
+    for grain, perf in enumerate((4.0, 3.0, 2.0, 1.0)):
+        worker = SimWorker(f"w{grain}", perf)
+        a = fast.launch(None, worker, grain, 1.0, 0.0)
+        b = slow.launch(None, worker, grain, 1.0, 0.0)
+        done += a.k
+        assert a.k == b.k and torch.equal(a.value, b.value)
+        assert chain.first.calls + chain.ab.calls + chain.ba.calls == done
 
 
 # ----------------------------------------------- sim-vs-wallclock agreement
