@@ -372,7 +372,8 @@ Phases, each of which exits non-zero when it fails:
                main process takes first and frees (the ranks then init the
                model one at a time, each keeping its shards): (d)
                Qwen1.5-MoE expert-parallel at model 2 and 4 (30 and 15
-               experts a rank), whole in bf16 (the four prompts, 4 decode
+               experts a rank), whole in bf16 at model 2 (on four ranks
+               (j) serves it whole) (the four prompts, 4 decode
                steps, capacity drops as configured: at the first MoE
                layer at most 5 % of the prefill's tokens routed to other
                experts than the unsharded's, each layer's count printed
@@ -380,7 +381,7 @@ Phases, each of which exits non-zero when it fails:
                first step's logits within relative Frobenius error 0.5,
                as the routes' recorded spread at full depth allows:
                ``scripts/bf16_depth_spread.py``; tokens reported) and in f32
-               cut to 4 of 24 layers (the prompts and 4 decode steps
+               cut to 4 of 24 layers (1 at model 4) (the prompts and 4 decode steps
                within the f32 tolerance, tokens equal, and one train step
                of phase 11's f32 grain: the loss, every parameter leaf and
                both moments, the router's printed, within the f32
@@ -414,9 +415,22 @@ Phases, each of which exits non-zero when it fails:
                against the plain version), the f32 checks of (h); at model
                2 also whole in bf16, held as (f) (relative Frobenius error
                2e-2: on an H100 the unsharded routes differ by 8.0e-3 at
-               its 12 layers, ``scripts/bf16_depth_spread.py``); K5 held
+               its 12 layers, ``scripts/bf16_depth_spread.py``); (j)
+               Qwen1.5-MoE on a (data 2, model 2) mesh of the four ranks
+               (world 4 only), expert-parallel, each data rank half of
+               every expert's capacity slots and the shared expert on its
+               own rows: whole in bf16 (the four prompts, 2 a data rank,
+               and TP_DATA_DECODE_STEPS decode step) held as (d) against
+               (d)'s unsharded run, and in f32 cut to 4 layers (the prompts and 4 decode
+               steps, and one train step of two of phase 11's f32 grains,
+               one a data rank, held as (d)'s); the serves under the
+               ``tp`` policy (no weight gathered over the data axis
+               through the host), the train step under ``fsdp_tp``;
+               each rank's routed and
+               shared expert FLOPs in the f32 prefill (FlopCounterMode)
+               printed beside (d)'s at (1, 2), each exactly half; K5 held
                against its plain version on the inputs each rank gave it;
-               ((d)-(i) decode TP_DECODE_STEPS steps, (a)-(c) 16);
+               ((d)-(j) decode TP_DECODE_STEPS steps, (a)-(c) 16);
                then K1 and K4 in bf16 at model 2's local heads, K1 (bf16) and K4
                (f32) at Qwen1.5-MoE's, K5 (bf16) at Mamba2-2.7B's, K1
                (bf16) at SeamlessM4T's decoder and K4 (bf16, f32) at its
@@ -671,14 +685,20 @@ DEEPSEEK_TRAIN_LAYERS = 2
 #: axis (mesh (1, m)), each with the cases its ranks run (the module
 #: docstring's letters): Qwen2-1.5B's f32 check cut to TP_F32_LAYERS of its
 #: 28 layers ((a), (c)) and whole in bf16 ((b), model 2 only); Qwen1.5-MoE
-#: expert-parallel ((d): 30 and 15 experts a rank) and expert-TP ((e), one
+#: expert-parallel ((d): 30 and 15 experts a rank; bf16 at model 2 only) and expert-TP ((e), one
 #: layer at model 8: 60 experts do not divide 8); Mamba2-2.7B ((f): 40 and
 #: 20 heads a rank); Jamba cut to one period ((g), model 2 only);
 #: DeepSeek-V2's MLA ((h): 64 and 32 heads a rank) and SeamlessM4T-medium's
-#: cross-attention ((i): 8 and 4 heads a rank; bf16 at model 2 only).
-TP_RUNS = ((2, "abcdfghi"), (4, "acdfhi"), (8, "e"))
+#: cross-attention ((i): 8 and 4 heads a rank; bf16 at model 2 only);
+#: Qwen1.5-MoE on the (data, model) mesh TP_DATA_MESH ((j), world 4 only:
+#: 30 experts a rank, each data rank half of every expert's slots).
+TP_RUNS = ((2, "abcdfghi"), (4, "acdfhij"), (8, "e"))
+TP_DATA_MESH = (2, 2)
 TP_F32_LAYERS = 4
 TP_ETP_LAYERS = 1
+#: (d)'s f32 cut at model 4, cut from MOE_F32_LAYERS to make room for (j)
+#: (the same expert-parallel route as at model 2, at 15 experts a rank).
+TP_MOE_M4_F32_LAYERS = 1
 #: (f): phase 13's prompt (100 tokens in a bucket of 128), the f32 check
 #: cut to TP_MAMBA_F32_LAYERS of Mamba2-2.7B's 64 layers.
 TP_MAMBA_PROMPT, TP_MAMBA_BUCKET = 100, 128
@@ -708,6 +728,10 @@ TP_MAMBA_BF16_LAYERS = 2
 #: 24 layers took 37 s at model 4.  The checks read the prefill's and
 #: each step's logits and tokens.
 TP_DECODE_STEPS = 4
+#: (j)'s bf16 decode steps, cut to make room for its f32 train step,
+#: whose ``fsdp_tp`` weights cross the host to the other data rank at
+#: each pass (the checks read the prefill's and the first step's logits).
+TP_DATA_DECODE_STEPS = 1
 TP_TOP_TOKENS = 5
 TP_BF16_LIMIT = 0.5
 TP_ROUTE_FLIPS = 0.05
@@ -888,6 +912,43 @@ def keep_routes(rows: int):
         yield kept
     finally:
         moe._route = saved
+
+
+@contextlib.contextmanager
+def expert_flops():
+    """The FLOPs (``FlopCounterMode``) of the routed and of the shared
+    expert products of the capacity-routed MoE layers (``apply_moe``:
+    prefill and training, not the decode's ``apply_moe_dense``) while the
+    block runs: ``{"routed": n, "shared": n}``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models import moe, transformer
+
+    counts = {"routed": 0, "shared": 0}
+    real_apply, real_mlp = transformer.apply_moe, moe._expert_mlp
+    inside = [False]
+
+    def apply(*args, **kwargs):
+        inside[0] = True
+        try:
+            return real_apply(*args, **kwargs)
+        finally:
+            inside[0] = False
+
+    def mlp(x, w_gate, *args, **kwargs):
+        if not inside[0]:
+            return real_mlp(x, w_gate, *args, **kwargs)
+        with FlopCounterMode(display=False) as fc:
+            y = real_mlp(x, w_gate, *args, **kwargs)
+        counts["routed" if w_gate.ndim == 3 else "shared"] += \
+            fc.get_total_flops()
+        return y
+
+    transformer.apply_moe, moe._expert_mlp = apply, mlp
+    try:
+        yield counts
+    finally:
+        transformer.apply_moe, moe._expert_mlp = real_apply, real_mlp
 
 
 def route_flips(got, want) -> list[int]:
@@ -5661,6 +5722,7 @@ def tensor_parallel(torch, card: str, tp_ref: dict, by_path: dict) -> dict:
               f"{'taken' if shared == 'gloo' else 'refused'} (exit codes "
               f"{rcs}); ranks on one card run over {shared!r}", flush=True)
     tp_runs = {}
+    d_flops = None
     for world, what in TP_RUNS:
         backend = "nccl" if n_cards >= world else shared
         with tempfile.TemporaryDirectory() as tmp:
@@ -5769,9 +5831,14 @@ def tensor_parallel(torch, card: str, tp_ref: dict, by_path: dict) -> dict:
                   f"{head['b_s']:.3f} s, peak {head['b_peak_gb']:.2f} GB a "
                   f"rank, serve {head['b_serve_s']:.3f} s", flush=True)
         k5_err = max([k5_err] + [rr["k5_err"] for rr in res])
-        for case in "defghi":
+        for case in "defghij":
             if case in what:
                 tp_case_report(torch, card, world, case, res, saved, refs)
+        if "d" in what and world == 2:
+            d_flops = [rr["d"]["f32"]["expert_flops"] for rr in res]
+        if "j" in what:
+            moe_split_flops(card, d_flops,
+                            [rr["j"]["f32"]["expert_flops"] for rr in res])
         peaks = [round(rr["peak_gb"], 2) for rr in res]
         print(f"[tensor-parallel] {card}: m={world}: rank seconds "
               f"{[round(rr['s'], 1) for rr in res]}, peaks {peaks} GB "
@@ -5904,6 +5971,27 @@ def tensor_parallel(torch, card: str, tp_ref: dict, by_path: dict) -> dict:
             "k5_err": k5_err}
 
 
+def moe_split_flops(card: str, whole: list, split: list) -> None:
+    """Phase 26 (j): each rank's FLOPs in the routed and the shared expert
+    products of the f32 prefill (``expert_flops``) at TP_DATA_MESH beside
+    those of (d) at (1, 2) on the same prompts; each must be half the
+    count of the rank of (d) that holds the same experts."""
+    nm = TP_DATA_MESH[1]
+    if whole is None:
+        fail("tensor-parallel (j): (d) did not run at model 2 before it")
+    ratios = [{kind: n / whole[r % nm][kind] for kind, n in got.items()}
+              for r, got in enumerate(split)]
+    print(f"[tensor-parallel] {card}: (j) the f32 prefill's expert FLOPs a "
+          f"rank (FlopCounterMode), routed / shared: at "
+          f"{TP_DATA_MESH} {[[c['routed'], c['shared']] for c in split]}, "
+          f"(d) at (1, {nm}) {[[c['routed'], c['shared']] for c in whole]}; "
+          f"ratios {ratios} (expected 0.5)", flush=True)
+    for r, ratio in enumerate(ratios):
+        if any(v != 0.5 for v in ratio.values()):
+            fail(f"tensor-parallel (j): rank {r}'s expert FLOPs {split[r]}, "
+                 f"not half of (d)'s {whole[r % nm]}")
+
+
 def tp_bf16_cases():
     """Phase 26's bf16 cases that the main process holds to an unsharded
     run: (key, config, prompt lengths, bucket)."""
@@ -5922,25 +6010,30 @@ def tp_bf16_cases():
 
 def tp_case_report(torch, card: str, world: int, case: str, res: list,
                    saved: dict, refs: dict) -> None:
-    """Phase 26's case (d)-(i) at model ``world``: its bf16 run (rank 0's,
-    in ``saved``) against the unsharded run in ``refs``, the prefill's and
-    the first decode step's logits by relative Frobenius error, (f) and (i)
-    at the bf16 rtol (as (b)) with the first step's tokens among the
-    unsharded step's TP_TOP_TOKENS most likely, (d) and (g) within
-    TP_BF16_LIMIT with the first MoE layer's routing held (TP_ROUTE_FLIPS);
-    the f32 checks' errors rank 0 took; each rank's seconds and peaks."""
+    """Phase 26's case (d)-(j) at world size ``world``: its bf16 run (rank
+    0's, in ``saved``) against the unsharded run in ``refs`` ((j) against
+    (d)'s), the prefill's and the first decode step's logits by relative
+    Frobenius error, (f) and (i) at the bf16 rtol (as (b)) with the first
+    step's tokens among the unsharded step's TP_TOP_TOKENS most likely,
+    (d), (g) and (j) within TP_BF16_LIMIT with the first MoE layer's
+    routing held (TP_ROUTE_FLIPS); the f32 checks' errors rank 0 took;
+    each rank's seconds and peaks."""
     label = {"d": "Qwen1.5-MoE, expert-parallel", "e": "Qwen1.5-MoE, "
              "expert-TP", "f": "Mamba2-2.7B, split heads",
              "g": "Jamba-v0.1 cut to one period, every layer split",
              "h": "DeepSeek-V2, MLA split heads and the latent cache's "
                   "sequence (MoE expert-parallel)",
              "i": "SeamlessM4T-medium, cross-attention split heads and the "
-                  "cross cache's sequence"}[case]
+                  "cross cache's sequence",
+             "j": f"Qwen1.5-MoE on a (data, model) {TP_DATA_MESH} mesh, "
+                  f"expert-parallel, each data rank half of every expert's "
+                  f"capacity slots"}[case]
     head = res[0][case]
     parts = []
     if "bf16" in head:
         key = f"{case}_bf16"
-        got, ref = saved[key], refs[key]
+        # (j) is held to (d)'s unsharded run: the same model and prompts.
+        got, ref = saved[key], refs["d_bf16" if case == "j" else key]
         limit = TOL["bfloat16"][0] if case in "fi" else TP_BF16_LIMIT
 
         def rel(a, b):
@@ -5948,6 +6041,8 @@ def tp_case_report(torch, card: str, world: int, case: str, res: list,
                          / torch.linalg.vector_norm(b))
 
         def same(a, b):
+            # (j) may decode fewer steps than the run it is held to.
+            b = b[:len(a)]
             pairs = [(x, y) for ra, rb in zip(a, b, strict=True)
                      for x, y in zip(ra, rb, strict=True)]
             return f"{sum(x == y for x, y in pairs)} of {len(pairs)}"
@@ -6198,7 +6293,12 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
     import numpy as np
     import torch
     import torch.distributed as dist
-    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor import (
+        DTensor,
+        Replicate,
+        Shard,
+        distribute_tensor,
+    )
 
     sys.path.insert(0, SRC)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6301,37 +6401,66 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
             dist.barrier()
         return res
 
-    def shards(model, policy):
+    def shards(model, policy, park: int = 0):
         """This rank's shards of the model's seeded init (one rank at a
         time where the ranks' whole models together would pass
         TP_STAGGER_BYTES), and the seconds the ranks took.  Each whole
         leaf is freed as soon as its shard is cut: a rank holds the
-        whole model and one leaf's shard at most."""
+        whole model and one leaf's shard at most.  ``park``: the first
+        ``park`` ranks keep their shards in host memory until every rank
+        has cut its own, so that the last rank's whole model meets fewer
+        shards on the card (replicas over a data axis hold too much for
+        it to meet them all)."""
         meta = model.abstract_params()
         specs = tree_flatten(policy.param_specs(meta), is_leaf=is_spec)[0]
+        parked = rank < park
+        cudart = torch.cuda.cudart() if parked else None
 
         def init():
             leaves, treedef = tree_flatten(model.init(SEED))
             out = []
             for i, spec in enumerate(specs):
                 leaf, leaves[i] = leaves[i], None
-                out.append(own_shards(distribute_tensor(
+                d = own_shards(distribute_tensor(
                     leaf, mesh, to_placements(spec, mesh),
-                    src_data_rank=None)))
-                del leaf
-            return tree_unflatten(treedef, out)
+                    src_data_rank=None))
+                if parked:
+                    # Page-locked while parked (registered, not the
+                    # caching host allocator's: it is released after).
+                    local = d.to_local()
+                    host = torch.empty(local.shape, dtype=local.dtype)
+                    if host.numel():
+                        cudart.cudaHostRegister(
+                            host.data_ptr(),
+                            host.numel() * host.element_size(), 0)
+                    d = (host.copy_(local), d.placements, d.shape,
+                         d.stride())
+                out.append(d)
+                del leaf, d
+            return treedef, out
 
         whole = sum(t.numel() * t.element_size() for t in tree_leaves(meta))
         t0 = time.perf_counter()
-        sp = staggered(init) if world * whole > TP_STAGGER_BYTES else init()
-        return sp, time.perf_counter() - t0
+        treedef, out = (staggered(init) if world * whole > TP_STAGGER_BYTES
+                        else init())
+        if parked:
+            hosts, out = out, []
+            for host, pl, shape, stride in hosts:
+                out.append(DTensor.from_local(
+                    host.to(dev), mesh, pl, run_check=False, shape=shape,
+                    stride=stride))
+                if host.numel():
+                    cudart.cudaHostUnregister(host.data_ptr())
+            del hosts
+        return tree_unflatten(treedef, out), time.perf_counter() - t0
 
     def split_shapes(cfg, sp) -> dict:
         """Each split layer's local key leaves: an MoE layer's experts (or
         their width), a Mamba layer's heads, an MLA layer's (the prefix
         layer's too) and a cross-attention layer's heads, for the checks
-        and the report; fails where one is not split."""
+        and the report; fails where one is not split over ``model``."""
         got = {}
+        nm = mesh.size(1)
         layers = [(f"prefix{i}", layer, 0) for i, layer in
                   enumerate(sp["stack"].get("prefix", ()))]
         layers += [(key, layer, 1)
@@ -6340,22 +6469,27 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
             for kind, leaf in (("mla", "wuq"), ("cross", "wq")):
                 if kind in layer:
                     shp = list(layer[kind][leaf].to_local().shape[lead:])
-                    if shp[1] * world != cfg.n_q_heads:
+                    if shp[1] * nm != cfg.n_q_heads:
                         fail(f"{tag} {key} {kind} heads {shp}, not split")
                     got[f"{key}.{kind}.{leaf}"] = shp
             if lead == 0:
                 continue
             if "moe" in layer:
-                shp = list(layer["moe"]["w_gate"].to_local().shape[1:])
+                w_gate = layer["moe"]["w_gate"]
+                shp = list(w_gate.to_local().shape[1:])
                 e, f = cfg.moe.n_routed, cfg.moe.d_expert
-                want = ([e // world, cfg.d_model, f] if e % world == 0
-                        else [e, cfg.d_model, f // world])
+                # ``fsdp_tp`` on a data axis of more than one rank stores
+                # ``d_model`` split over it too.
+                d = cfg.d_model // (mesh.size(0) if isinstance(
+                    w_gate.placements[0], Shard) else 1)
+                want = ([e // nm, d, f] if e % nm == 0
+                        else [e, d, f // nm])
                 if shp != want:
                     fail(f"{tag} {key} experts {shp}, expected {want}")
                 got[f"{key}.moe.w_gate"] = shp
             if "mamba" in layer:
                 shp = list(layer["mamba"]["wdt"].to_local().shape[1:])
-                if shp[1] * world != cfg.ssm.n_heads(cfg.d_model):
+                if shp[1] * nm != cfg.ssm.n_heads(cfg.d_model):
                     fail(f"{tag} {key} Mamba heads {shp}, not split")
                 got[f"{key}.mamba.wdt"] = shp
         return got
@@ -6366,16 +6500,19 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
             fail(f"{tag} {what_run}: launches {got}, expected {want}")
 
     def serve_case(key: str, cfg, tokens, last, want: dict, src=None,
-                   gathers=None) -> dict:
+                   gathers=None, flops: bool = False,
+                   steps: int = TP_DECODE_STEPS, park: int = 0) -> dict:
         """``cfg``'s model sharded: a prefill (of an enc-dec model, over
-        ``src``) and TP_DECODE_STEPS decode steps, the caches a decode step
-        gathers over ``model`` counted (``gathers``: the count required).
+        ``src``) and ``steps`` decode steps, the caches a decode step
+        gathers over ``model`` counted (``gathers``: the count required;
+        ``flops``: the prefill's expert products' FLOPs, ``expert_flops``;
+        ``park``: ``shards``').
         In f32 rank 0 then holds the prefill's and every step's logits
         within the f32 tolerance of the unsharded run, tokens equal; in
         bf16 it keeps them for the main process, which holds them against
         the unsharded run it took first."""
         model, policy = Model(cfg), Policy(cfg, mesh)
-        sp, init_s = shards(model, policy)
+        sp, init_s = shards(model, policy, park)
         res = {"init_s": init_s, "local": split_shapes(cfg, sp)}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -6391,15 +6528,19 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
             with keep_inputs(ops, "_prefill_call") as s1, \
                     keep_inputs(flash_ops, "_flash_call") as s4, \
                     keep_inputs(mamba_ops, "_ssd_kernel_call") as s5, \
-                    keep_routes(tokens.numel()) as routes:
+                    keep_routes(tokens.numel()) as routes, \
+                    (expert_flops() if flops else contextlib.nullcontext(
+                        )) as counted:
                 t0 = time.perf_counter()
                 plg, logits, toks = tp_serve(
                     torch, model, sp, tokens, last, mesh, policy, src,
-                    TP_DECODE_STEPS)
+                    steps)
                 torch.cuda.synchronize()
                 res["serve_s"] = time.perf_counter() - t0
         finally:
             sharding_apply._cache_view = real_view
+        if flops:
+            res["expert_flops"] = counted
         res["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         res["cache_gathers"] = views[0]
         if gathers is not None and views[0] != gathers:
@@ -6423,8 +6564,7 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
             zero_counts()
             params = model.init(SEED)
             uplg, ulogits, utoks = tp_serve(torch, model, params, tokens,
-                                            last, src=src,
-                                            steps=TP_DECODE_STEPS)
+                                            last, src=src, steps=steps)
             res["serve_check_s"] = time.perf_counter() - t0
             read_counts(f"tp{world}_{key}_unsharded_serve")
             res["prefill_err"] = check_close(
@@ -6552,8 +6692,11 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
         return res
 
     def split_layers(cases) -> None:
-        """Phase 26's MoE, Mamba, MLA and cross-attention cases (d)-(i) on
-        this rank: each result under ``out[case]``."""
+        """Phase 26's MoE, Mamba, MLA and cross-attention cases (d)-(j) on
+        this rank: each result under ``out[case]``.  (j) runs on a
+        TP_DATA_MESH mesh of the same ranks: ``mesh`` is rebound for it,
+        and the cases' functions read it from this scope."""
+        nonlocal mesh
         k4 = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
               "flash_attention_bwd_dkdv": 0}
 
@@ -6568,19 +6711,61 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
         for case in cases:
             t0 = time.perf_counter()
             if case in ("d", "e"):
-                n = MOE_F32_LAYERS if case == "d" else TP_ETP_LAYERS
+                n = (TP_ETP_LAYERS if case == "e" else MOE_F32_LAYERS
+                     if world == 2 else TP_MOE_M4_F32_LAYERS)
                 cfg32 = get_config("qwen2-moe-a2.7b", n_layers=n,
                                    param_dtype="float32",
                                    compute_dtype="float32")
                 res = {}
-                if case == "d":
+                # Whole in bf16 at model 2; on four ranks (j) serves it
+                # whole, on the (data 2, model 2) mesh.
+                if case == "d" and world == 2:
                     res["bf16"] = serve_case(
                         "d_bf16", bf16["d_bf16"], *moe_tokens,
                         {"prefill_flash": 24, "ssd_scan": 0})
+                # (d) at model 2 counts its prefill's expert FLOPs, which
+                # (j) halves over its data ranks.
                 res["f32"] = serve_case(f"{case}_f32", cfg32, *moe_tokens,
-                                        {"prefill_flash": n, "ssd_scan": 0})
+                                        {"prefill_flash": n, "ssd_scan": 0},
+                                        flops=case == "d" and world == 2)
                 res["f32"].update(train_case(f"{case}_f32", cfg32,
                                              k4_train(n)))
+            elif case == "j":
+                # Qwen1.5-MoE on (data 2, model 2): the prompts 2 a data
+                # rank, the train step on two of phase 11's f32 grains, one
+                # a data rank; each data rank computes half of every
+                # expert's capacity slots and the shared expert on its own
+                # rows.  The serves take the ``tp`` policy (each data rank
+                # a replica of its ``model`` shard): under ``fsdp_tp``
+                # every layer's weights cross the host to the other data
+                # rank at each pass, and the bf16 serve took 186.9 s, the
+                # f32 one 77.1 s.  Three bf16 half-models and a whole one
+                # did not fit on the card together, so the first rank
+                # parks its shards on the host while the others init.
+                # The train step keeps ``fsdp_tp``: four ranks' f32 states
+                # fit on the card only so.
+                outer, mesh = mesh, make_debug_mesh(*TP_DATA_MESH,
+                                                    device_type="cuda")
+                try:
+                    n = MOE_F32_LAYERS
+                    cfg32 = get_config("qwen2-moe-a2.7b", n_layers=n,
+                                       param_dtype="float32",
+                                       compute_dtype="float32")
+                    res = {"bf16": serve_case(
+                        "j_bf16", dataclasses.replace(
+                            bf16["d_bf16"], sharding_policy="tp"),
+                        *moe_tokens, {"prefill_flash": 24, "ssd_scan": 0},
+                        steps=TP_DATA_DECODE_STEPS, park=1)}
+                    res["f32"] = serve_case(
+                        "j_f32", dataclasses.replace(cfg32,
+                                                     sharding_policy="tp"),
+                        *moe_tokens, {"prefill_flash": n, "ssd_scan": 0},
+                        flops=True)
+                    res["f32"].update(train_case(
+                        "j_f32", cfg32, k4_train(n),
+                        grain_batch(cfg32, [0, 1])))
+                finally:
+                    mesh = outer
             elif case == "f":
                 cfgm = bf16["f_bf16"]
                 prompt = tp_prompts(torch, dev, cfgm.vocab_size,
@@ -6663,7 +6848,7 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
                  for run, r in res.items() if isinstance(r, dict)}),
                 flush=True)
 
-    split_layers([case for case in "defghi" if case in what])
+    split_layers([case for case in "defghij" if case in what])
     if "a" in what:
         # (a), (c): f32, TP_F32_LAYERS layers, sharded.
         cfg32 = dataclasses.replace(

@@ -153,7 +153,7 @@ def model_flops(cfg, model: Model, shape, n_tokens: int, kind: str):
 
 def _collective_mode():
     """A ``CommDebugMode`` that also records each collective's result
-    bytes and group size (``.records``)."""
+    bytes, group size and group name (``.records``)."""
     from torch.distributed.distributed_c10d import _resolve_process_group
     from torch.distributed.tensor.debug import CommDebugMode
 
@@ -180,6 +180,7 @@ def _collective_mode():
             t = out[0] if isinstance(out, (list, tuple)) else out
             self.records.append({
                 "op": op, "bytes": t.numel() * t.element_size(), "group": g,
+                "pg": group,
                 "what": f"{name} {tuple(t.shape)} {str(t.dtype)[6:]}"})
             return out
 

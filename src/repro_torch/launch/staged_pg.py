@@ -27,8 +27,23 @@ __all__ = ["register", "BACKEND"]
 BACKEND = "staged"
 
 
+def _host_out(ts: list) -> list:
+    """Host buffers for outputs that a collective writes whole: their
+    contents are not copied over.  Pinned (the caching host allocator
+    keeps them for the next collective): copies from and to pinned memory
+    run about ten times faster than from pageable memory on an H100
+    host."""
+    return [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            if t.is_cuda else t for t in ts]
+
+
 def _host(ts: list) -> list:
-    return [t.detach().cpu() if t.is_cuda else t for t in ts]
+    """Host copies of the inputs, pinned as ``_host_out``'s."""
+    out = _host_out(ts)
+    for h, t in zip(out, ts, strict=True):
+        if h is not t:
+            h.copy_(t.detach())
+    return out
 
 
 def _back(dst: list, src: list) -> None:
@@ -73,7 +88,7 @@ class _StagedGroup(dist.ProcessGroup):
         return self.allreduce(tensors, opts)
 
     def allgather(self, outputs, inputs, opts=None):
-        outs = [_host(o) for o in outputs]
+        outs = [_host_out(o) for o in outputs]
         self._gloo.allgather(outs, _host(inputs),
                              opts or dist.AllgatherOptions()).wait()
         for o, h in zip(outputs, outs, strict=True):
@@ -81,7 +96,7 @@ class _StagedGroup(dist.ProcessGroup):
         return self._done(outputs)
 
     def _allgather_base(self, output, inp, opts=None):
-        (out,), (i,) = _host([output]), _host([inp])
+        (out,), (i,) = _host_out([output]), _host([inp])
         self._gloo._allgather_base(out, i,
                                    opts or dist.AllgatherOptions()).wait()
         _back([output], [out])
@@ -99,7 +114,7 @@ class _StagedGroup(dist.ProcessGroup):
         return self.allgather_into_tensor_coalesced(outputs, inputs, opts)
 
     def _reduce_scatter_base(self, output, inp, opts=None):
-        (out,), (i,) = _host([output]), _host([inp])
+        (out,), (i,) = _host_out([output]), _host([inp])
         self._gloo._reduce_scatter_base(
             out, i, opts or dist.ReduceScatterOptions()).wait()
         _back([output], [out])
@@ -117,7 +132,7 @@ class _StagedGroup(dist.ProcessGroup):
         return self.reduce_scatter_tensor_coalesced(outputs, inputs, opts)
 
     def alltoall_base(self, output, inp, out_splits, in_splits, opts=None):
-        (out,), (i,) = _host([output]), _host([inp])
+        (out,), (i,) = _host_out([output]), _host([inp])
         self._gloo.alltoall_base(out, i, out_splits, in_splits,
                                  opts or dist.AllToAllOptions()).wait()
         _back([output], [out])

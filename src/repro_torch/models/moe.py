@@ -31,15 +31,26 @@ What the port keeps of the reference, value for value:
   - the expert MLP rounds as ``silu(g.float()).to(x.dtype) * u``, and the
     combine multiplies by the gates in ``x.dtype`` and sums over k there.
 
-Split over ranks (``group``, a ``models/parallel.py::Group`` of more than
-one rank), as ``sharding/policy.py`` stores the experts: expert-parallel
-where ``w_gate`` holds E/m of the experts (this rank's, in order), expert-
-TP where it holds every expert at ff/m of its width.  Every rank routes the
-whole token set alike (the router is replicated), so ranks and ``keep``
-are the unsplit layer's; it runs its experts' buckets only (expert-
-parallel) or every bucket at its width (expert-TP), and returns its
-partial combine in f32, the shared expert's column/row-parallel partial
-added, for the caller's one all-reduce.  No token moves between ranks.
+Split over ``model`` ranks (``group``, a ``models/parallel.py::Group`` of
+more than one rank), as ``sharding/policy.py`` stores the experts: expert-
+parallel where ``w_gate`` holds E/m of the experts (this rank's, in order),
+expert-TP where it holds every expert at ff/m of its width.  Every rank
+routes the whole token set alike (the router is replicated), so ranks and
+``keep`` are the unsplit layer's; it runs its experts' buckets only
+(expert-parallel) or every bucket at its width (expert-TP), and returns
+its partial combine in f32, the shared expert's column/row-parallel
+partial added, for the caller's one all-reduce.
+
+Split over data ranks (``par``, a sharded step's ``Parallel``), as the
+reference's compiled step splits it: the layer routes the global batch's
+tokens (``par.moe_tokens``, an all-gather of the ranks' rows), so
+capacities, drops and the aux loss are the global batch's; data rank i of
+n fills only slots ``[i C / n, (i + 1) C / n)`` of each of its experts'
+buckets (``par.moe_share``, C = ``cap_max`` rounded up to a multiple of
+n), and its f32 partial combine over every global token goes back as this
+rank's rows summed over the data ranks (``par.moe_rows``, a reduce-
+scatter).  The shared expert runs on the rank's own rows.  So each data
+rank computes 1/n of the routed and shared experts' products.
 
 Plain tensor code, no kernel: the reference's MoE has no Pallas kernel.
 """
@@ -53,7 +64,7 @@ import torch.nn.functional as F
 from ..core.homogenization import scope_lengths
 from .config import ModelConfig
 from .layers import dense_init, dtype_of
-from .parallel import SOLO, Group
+from .parallel import SINGLE, SOLO, Group, Parallel
 
 __all__ = ["F32_LEAVES", "capacity_per_expert", "init_moe", "apply_moe",
            "apply_moe_dense", "expert_load"]
@@ -152,18 +163,21 @@ def _experts(p: dict, m, group: Group) -> tuple[int, int, Group | None]:
 
 def apply_moe(
     p: dict, cfg: ModelConfig, x: torch.Tensor, capacities=None, *,
-    group: Group = SOLO,
+    group: Group = SOLO, par: Parallel = SINGLE,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out, aux_loss).  ``capacities``: (E,) ints (a
     tensor, array or list); None => uniform capacity from the config's
-    capacity factor.  Under ``group`` of more than one rank ``out`` is
-    this rank's partial sum in f32."""
+    capacity factor.  Under ``group`` of more than one rank, or a ``par``
+    that splits the slots over data ranks, ``out`` is this rank's partial
+    sum in f32."""
     m = cfg.moe
     e, k = m.n_routed, m.top_k
-    b, s, d = x.shape
+    d = x.shape[-1]
+    tokens = par.moe_tokens(x)
+    b, s = tokens.shape[:2]
     t = b * s
     dev = x.device
-    xt = x.reshape(t, d)
+    xt = tokens.reshape(t, d)
     probs, gate_vals, experts = _route(p, m, xt)
 
     # Load-balancing aux loss (Switch): E * sum_e f_e * p_e.
@@ -191,13 +205,20 @@ def apply_moe(
 
     # Scatter this rank's tokens into its (E, C) buckets (every expert on
     # one rank).  Dropped assignments, and under expert parallelism those
-    # of other ranks' experts, point at the sentinel E * cap_max: the one
-    # spare slot, cut off after the scatter.
+    # of other ranks' experts, and over data ranks those of other ranks'
+    # slots, point at the sentinel E * C: the one spare slot, cut off
+    # after the scatter.
     lo, n_e, down = _experts(p, m, group)
     if n_e < m.n_routed:
         keep = keep & (experts >= lo) & (experts < lo + n_e)
-    sentinel = n_e * cap_max
-    bucket_idx = torch.where(keep, (experts - lo) * cap_max + rank_in_expert,
+    share, n_share = par.moe_share()
+    slots, slot = cap_max, rank_in_expert
+    if n_share > 1:
+        slots = -(-cap_max // n_share)
+        slot = rank_in_expert - share * slots
+        keep = keep & (slot >= 0) & (slot < slots)
+    sentinel = n_e * slots
+    bucket_idx = torch.where(keep, (experts - lo) * slots + slot,
                              sentinel)                            # (T, K)
     flat_idx = bucket_idx.reshape(-1)
     token_ids = torch.arange(t, device=dev)[:, None].expand(t, k).reshape(-1)
@@ -207,22 +228,22 @@ def apply_moe(
     filled.scatter_(0, flat_idx, True)
     gather_src, filled = gather_src[:sentinel], filled[:sentinel]
 
-    xg = xt[gather_src.reshape(n_e, cap_max)]                     # (E, C, d)
-    xg = torch.where(filled.reshape(n_e, cap_max, 1), xg, 0)
+    xg = xt[gather_src.reshape(n_e, slots)]                       # (E, C, d)
+    xg = torch.where(filled.reshape(n_e, slots, 1), xg, 0)
     yo = _expert_mlp(xg, p["w_gate"], p["w_up"], p["w_down"],
                      down)                                        # (E, C, d)
 
     # Combine: token t gets sum_k gate * y[expert_k, slot_k].  The sentinel
     # reads the last row (the reference's gather clamps it); keep masks it.
     # Split over ranks: each rank's partial in f32, rounded once after the
-    # ranks' sum.
+    # ranks' sum; over data ranks, this rank's rows of that sum.
     per_k = yo.reshape(sentinel, d)[bucket_idx.clamp(max=sentinel - 1)]
-    if group.size == 1:
+    if group.size == 1 and n_share == 1:
         gates = gate_vals[..., None].to(x.dtype)
     else:
         per_k, gates = per_k.float(), gate_vals[..., None]
     combine = torch.where(keep[..., None], per_k * gates, 0)
-    out = combine.sum(dim=1).reshape(b, s, d)
+    out = par.moe_rows(combine.sum(dim=1).reshape(b, s, d))
     return _shared(p, m, x, out, group), aux
 
 

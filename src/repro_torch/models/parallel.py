@@ -24,8 +24,10 @@ The model code (``model.py``, ``transformer.py``, ``attention.py``) takes a
   - **the residual stream between periods** (training): ``seq_split`` /
     ``seq_gather`` around a stack's periods, and ``in_periods()``, the
     object for the layers inside them;
-  - **MoE routing**: ``moe_tokens`` / ``moe_rows``, the global token set of
-    a batch split over data ranks and this rank's rows of the result.
+  - **MoE routing**: ``moe_tokens``, the global token set of a batch split
+    over data ranks; ``moe_share``, which share of every expert's capacity
+    slots this rank computes; ``moe_rows``, this rank's rows of the data
+    ranks' partial outputs summed.
 
 ``SINGLE`` is one device: every hook is the identity, and the model runs
 exactly the ops it runs without it.  A sharded step passes its own
@@ -195,11 +197,18 @@ class Parallel:
 
     # -- MoE routing -----------------------------------------------------
     def moe_tokens(self, h: torch.Tensor) -> torch.Tensor:
-        """The token set an MoE layer routes."""
+        """The token set an MoE layer routes (its rows in rank order)."""
         return h
 
+    def moe_share(self) -> tuple[int, int]:
+        """``(i, n)``: this rank computes the i-th of n equal shares of
+        every expert's capacity slots."""
+        return 0, 1
+
     def moe_rows(self, y: torch.Tensor) -> torch.Tensor:
-        """This rank's rows of an MoE layer's output."""
+        """This rank's rows of ``y``, an MoE layer's partial output over
+        ``moe_tokens``' rows, summed over the ranks that share the
+        slots."""
         return y
 
 

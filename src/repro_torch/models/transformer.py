@@ -37,7 +37,8 @@ the model and sharding: the stack takes its periods (and a decode its cache
 periods) from it, each layer its groups (attention, MLA, cross-attention
 and Mamba heads, dense-MLP width, MoE experts or their width split over
 ranks, or the layer computed whole where they do not divide), and an MoE
-layer its token set.  ``SINGLE``, the default, is the identity on every hook.
+layer its token set and its share of the experts' slots.  ``SINGLE``, the
+default, is the identity on every hook.
 """
 
 from __future__ import annotations
@@ -135,7 +136,10 @@ def apply_layer(
     on this rank's heads and the dense MLP on its columns where ``par``
     split them, every other layer whole; an MoE layer routes
     ``par.moe_tokens`` (a sharded step's global token set, as the
-    reference's compiled step routes it) and keeps ``par.moe_rows``.
+    reference's compiled step routes it), computes its data rank's share
+    of the experts' capacity slots (``par.moe_share``) and the shared
+    expert on its own rows, and takes its rows of the data ranks' summed
+    partials (``par.moe_rows``).
     Mamba splits its heads; an MoE layer its experts (expert-parallel) or
     their width (expert-TP), its aux loss's gradient counted once over the
     group (``Group.once``).  MLA and cross-attention split their heads
@@ -216,9 +220,9 @@ def apply_layer(
         if mode == "decode":
             mo, _ = apply_moe_dense(p["moe"], cfg, h, group=g)
         else:
-            mo, aux = apply_moe(p["moe"], cfg, par.moe_tokens(h), capacities,
-                                group=g)
-            mo, aux = par.moe_rows(mo), g.once(aux)
+            mo, aux = apply_moe(p["moe"], cfg, h, capacities, group=g,
+                                par=par)
+            aux = g.once(aux)
         x = x + g.row_out(mo).to(x.dtype)
     return x, (None if mode == "train" else new_cache), aux
 

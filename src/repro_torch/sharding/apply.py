@@ -40,7 +40,12 @@ out_shardings=...)`` (``repro/launch/dryrun.py::build_step``), built on
     the global weight sum and takes 1/n of the aux term (the MoE layers
     route the global token set, ``DataSplit``), so the data ranks' losses
     sum to the global batch's; a split MoE layer's ranks count its aux
-    gradient 1/m each (``Group.once``), as they compute it alike.
+    gradient 1/m each (``Group.once``), as they compute it alike.  Each
+    data rank computes 1/n of every expert's capacity slots over the
+    global tokens and the shared expert on its own rows; the ranks' f32
+    partials are reduce-scattered to each rank's rows
+    (``DataSplit.scatter_rows``), as the reference's compiled step sums
+    its partial expert products over ``data``.
   - **Decode.**  An attention, MLA or cross-attention layer's cache
     stays at ``Policy.cache_specs`` (the sequence over ``model``; the
     prefix layers' too): each rank attends every head over its own
@@ -179,9 +184,17 @@ class DataSplit:
             self.mesh, _all_replicate(self.mesh)).to_local(
             grad_placements=self.grad_placements)
 
-    def own_rows(self, y: torch.Tensor) -> torch.Tensor:
-        rows = y.shape[0] // self.n
-        return y.narrow(0, self.index * rows, rows)
+    def scatter_rows(self, y: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of ``y`` summed over the data ranks (a
+        reduce-scatter); its gradient returns as an all-gather."""
+        if self.n == 1:
+            return y
+        if y.shape[0] % self.n:
+            raise ValueError(f"{y.shape[0]} rows do not split over "
+                             f"{self.n} data ranks")
+        return DTensor.from_local(y, self.mesh, self.grad_placements,
+                                  run_check=False).redistribute(
+            self.mesh, self.rows()).to_local(grad_placements=self.rows())
 
     def as_dtensor(self, t: torch.Tensor, dim: int = 0) -> DTensor:
         return DTensor.from_local(t, self.mesh, self.rows(dim),

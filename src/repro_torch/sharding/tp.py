@@ -252,7 +252,10 @@ class MeshParallel(Parallel):
     put in the model's trees (``apply.ShardedPeriods`` and
     ``apply.ShardedCachePeriods``); ``split`` gives the ``model`` group
     where a leaf's local size is its global one over the axis's size;
-    ``moe_tokens``/``moe_rows`` are the data split's (``apply.DataSplit``).
+    ``moe_tokens``, ``moe_share`` and ``moe_rows`` are the data split's
+    (``apply.DataSplit``): the global batch's rows gathered, this data
+    rank's share of the experts' slots, and the data ranks' partials
+    reduce-scattered to this rank's rows.
     ``seq_parallel``: inside a stack's periods the residual stream is split
     on the sequence over ``model`` (training)."""
 
@@ -396,5 +399,8 @@ class MeshParallel(Parallel):
     def moe_tokens(self, h):
         return self.data.gather_rows(h)
 
+    def moe_share(self):
+        return self.data.index, self.data.n
+
     def moe_rows(self, y):
-        return self.data.own_rows(y)
+        return self.data.scatter_rows(y)

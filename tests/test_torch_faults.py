@@ -13,6 +13,9 @@ repaired, against the reference.
 - The dry run's peak: an MoE cell's falls when its experts split over
   ``model``, and a dense cell's is that of the same step on real tensors
   (``launch/dryrun.py::_untracked_propagation``).
+- The dry run's FLOPs: an MoE cell's a device fall with the data ranks,
+  each of which computes its share of the experts
+  (``models/moe.py::apply_moe``).
 """
 
 import json
@@ -206,7 +209,8 @@ _PEAK = textwrap.dedent(
     if "moe" in over:
         over["moe"] = dataclasses.replace(cfg.moe, **over["moe"])
     cfg = dataclasses.replace(cfg, **over)
-    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=2 * d,
+    batch = int(sys.argv[6]) if len(sys.argv) > 6 else 2 * d
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=batch,
                                 seq_len=8)
     mesh = debug_mesh_shape(d, m)
     if how == "real":
@@ -232,21 +236,33 @@ _PEAK = textwrap.dedent(
             step(*args)
         peak = max(v["Total"] for v in
                    mem.get_tracker_snapshot("peak").values())
+        flops = None
     else:
-        peak = dryrun.measure(cfg, shape, mesh)["peak_bytes"]
-    print(json.dumps({"peak": peak}))
+        got = dryrun.measure(cfg, shape, mesh)
+        peak, flops = got["peak_bytes"], got["flops"]
+    print(json.dumps({"peak": peak, "flops": flops}))
     """
 )
 
 
-def _peak(arch: str, d: int, m: int, how: str, over: dict) -> int:
+def _dry_run(arch: str, d: int, m: int, how: str, over: dict,
+             batch: int | None = None) -> dict:
+    """The dry run's peak and FLOPs a device (``how="fake"``), or the
+    peak of the same step on real tensors (``"real"``), of a train cell
+    of ``batch`` sequences of 8 tokens (``2 d`` by default) on the (d, m)
+    mesh."""
     got = subprocess.run(
         [sys.executable, "-c", _PEAK, arch, str(d), str(m), how,
-         json.dumps(over)], capture_output=True, text=True, timeout=300,
+         json.dumps(over)] + ([] if batch is None else [str(batch)]),
+        capture_output=True, text=True, timeout=300,
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                            OMP_NUM_THREADS="1"))
     assert got.returncode == 0, got.stderr[-3000:]
-    return json.loads(got.stdout.strip().splitlines()[-1])["peak"]
+    return json.loads(got.stdout.strip().splitlines()[-1])
+
+
+def _peak(arch: str, d: int, m: int, how: str, over: dict) -> int:
+    return _dry_run(arch, d, m, how, over)["peak"]
 
 
 def test_dry_run_peak_falls_with_the_expert_split():
@@ -261,6 +277,21 @@ def test_dry_run_peak_falls_with_the_expert_split():
             "moe": {"d_expert": 1024}}
     peaks = [_peak("qwen2-moe-a2.7b", 16, m, "fake", over) for m in (1, 2)]
     assert peaks[1] < 0.6 * peaks[0], peaks
+
+
+def test_dry_run_flops_fall_with_the_data_split():
+    """An MoE cell whose experts dominate its FLOPs (the reduced
+    Qwen1.5-MoE, experts of 256 x 1024, ``fsdp_tp``, a global batch of 8
+    sequences): its dry-run FLOPs a device at 4 data ranks are at most 0.3
+    of those at 1, as each data rank computes a quarter of every expert's
+    capacity slots and the shared expert on its own rows.  When every data
+    rank computed the global token set's experts, they stayed near the
+    data-1 figure."""
+    over = {"d_model": 256, "sharding_policy": "fsdp_tp",
+            "moe": {"d_expert": 1024}}
+    flops = [_dry_run("qwen2-moe-a2.7b", d, 1, "fake", over, batch=8)[
+        "flops"] for d in (1, 4)]
+    assert flops[1] <= 0.3 * flops[0], flops
 
 
 def test_dry_run_peak_of_a_dense_cell_is_that_on_real_tensors():

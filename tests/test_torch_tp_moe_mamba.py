@@ -36,6 +36,8 @@ import numpy as np
 import pytest
 import torch
 from test_torch_tp import _run_ranks
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
 from repro.configs import get_config as jax_get_config
 from repro.configs.shapes import train_batch_specs as jax_train_batch
@@ -43,7 +45,7 @@ from repro.models import Model as JaxModel
 from repro_torch.configs import get_config
 from repro_torch.models import moe
 from repro_torch.models.layers import gated_rms_norm
-from repro_torch.models.parallel import Group
+from repro_torch.models.parallel import SINGLE, SOLO, Group, Parallel
 from repro_torch.sharding.tp import TPGroup
 
 torch.set_num_threads(1)
@@ -104,14 +106,17 @@ _WORKER = textwrap.dedent(
         return all(torch.equal(a, c) for a, c in zip(
             tree_leaves(got), tree_leaves(want), strict=True))
 
-    # What each rank's split layers get: the experts' weights (E, d, ff)
-    # and the heads K5's op scans, while a sharded step runs.
-    seen = {"on": False, "experts": set(), "heads": set()}
+    # What each rank's split layers get: the experts' weights (E, d, ff),
+    # the capacity slots of each bucket the routed experts run (train and
+    # prefill) and the heads K5's op scans, while a sharded step runs.
+    seen = {"on": False, "experts": set(), "slots": set(), "heads": set()}
     real_mlp, real_ssd = moe._expert_mlp, mamba.ssd
 
     def rec_mlp(x, w_gate, *a, **k):
         if seen["on"] and w_gate.ndim == 3:
             seen["experts"].add(tuple(w_gate.shape))
+            if x.ndim == 3:
+                seen["slots"].add(x.shape[1])
         return real_mlp(x, w_gate, *a, **k)
 
     def rec_ssd(x, *a, **k):
@@ -236,8 +241,8 @@ _WORKER = textwrap.dedent(
                 slg, dcaches = sharded(sdstep, sparams, dcaches, sin, pos)
             # The collectives over the data axis are the fsdp parameter
             # gathers; the rest run over ``model``.
-            assert nd == 1 or nd != nm
-            rest = [c for c in comm.records if nd == 1 or c["group"] != nd]
+            data_pg = mesh.get_group(0).group_name if nd > 1 else None
+            rest = [c for c in comm.records if nd == 1 or c["pg"] != data_pg]
             out["decode_param_gathers"] = len(comm.records) - len(rest)
             conv = [c for c in rest if c["op"] == "all-gather"
                     and c["bytes"] == conv_bytes]
@@ -257,6 +262,7 @@ _WORKER = textwrap.dedent(
     out["decode_caches"] = margins(full_tree(dcaches), ucaches)
     out["decode_equal"] = dec_equal and equal(full_tree(dcaches), ucaches)
     out["experts"] = sorted(seen["experts"])
+    out["slots"] = sorted(seen["slots"])
     out["heads"] = sorted(seen["heads"])
     print(json.dumps(out))
     dist.destroy_process_group()
@@ -304,6 +310,13 @@ def _reference(arch: str, moe_over: dict, tmp_path_factory):
     return _REFS[key]
 
 
+def _cap_max(cfg, t: int) -> int:
+    """``apply_moe``'s bucket size over ``t`` routed tokens."""
+    m = cfg.moe
+    c = int(np.ceil(m.capacity_factor * t * m.top_k / m.n_routed * 2))
+    return max((c + 7) // 8 * 8, 8)
+
+
 def _close(a: float, b: float) -> bool:
     return abs(a - b) <= TOL[1] + TOL[0] * abs(b)
 
@@ -315,6 +328,12 @@ _CASES = [
                  id="qwen2-moe-ep-1x4-tp"),
     pytest.param("qwen2-moe-a2.7b", (1, 4), {"sharding_policy": "fsdp_tp"},
                  {"n_routed": 6}, id="qwen2-moe-etp-1x4-fsdp_tp"),
+    pytest.param("qwen2-moe-a2.7b", (2, 1), {"sharding_policy": "fsdp_tp"},
+                 {}, id="qwen2-moe-ep-2x1-fsdp_tp"),
+    pytest.param("qwen2-moe-a2.7b", (2, 2), {"sharding_policy": "fsdp_tp"},
+                 {}, id="qwen2-moe-ep-2x2-fsdp_tp"),
+    pytest.param("qwen2-moe-a2.7b", (2, 2), {"sharding_policy": "fsdp_tp"},
+                 {"n_routed": 7}, id="qwen2-moe-etp-2x2-fsdp_tp"),
     pytest.param("mamba2-2.7b", (1, 2), {"sharding_policy": "fsdp_tp"}, {},
                  id="mamba2-1x2-fsdp_tp"),
     pytest.param("mamba2-2.7b", (1, 4), {"sharding_policy": "tp"}, {},
@@ -384,6 +403,10 @@ def test_tp_moe_mamba_match_unsharded_and_reference(arch, mesh, over,
             want = (e // nm, cfg.d_model, f) if e % nm == 0 \
                 else (e, cfg.d_model, f // nm)
             assert res["experts"] == [list(want)], res["experts"]
+            # Each data rank fills 1/nd of every bucket's slots: the train
+            # step's 4 x 16 tokens and the prefill's 4 x 8.
+            assert res["slots"] == sorted(_cap_max(cfg, BATCH * s) // nd
+                                          for s in (16, 8)), res["slots"]
         if cfg.ssm is not None:
             assert res["heads"] == [cfg.ssm.n_heads(cfg.d_model) // nm]
             # The state split by heads over ``model``.
@@ -464,6 +487,118 @@ def test_split_moe_partials_sum_to_the_whole_layer(e, m, shared):
                                             group=g)[0]
     torch.testing.assert_close(got, want, rtol=TOL[0], atol=TOL[1])
     torch.testing.assert_close(got_d, want_d, rtol=TOL[0], atol=TOL[1])
+
+
+# ------------------------------------ the MoE layer split over data ranks
+class _DataRank(Parallel):
+    """Data rank ``rank`` of ``size`` of a sharded step, in process: an MoE
+    layer routes ``whole``'s rows with its input in place of this rank's
+    (after checking that they are equal), as the all-gather gives them,
+    its gradient returning to the input; ``moe_rows`` keeps the rank's
+    partial in ``got`` and returns this rank's rows of it, or of
+    ``sum(parts)`` where given (after checking that ``parts[rank]`` is
+    the partial)."""
+
+    def __init__(self, rank: int, size: int, whole, parts=None):
+        self.rank, self.size, self.whole, self.parts = rank, size, whole, parts
+        self.rows = whole.shape[0] // size
+        self.got = None
+
+    def moe_tokens(self, h):
+        lo, hi = self.rank * self.rows, (self.rank + 1) * self.rows
+        assert torch.equal(h, self.whole[lo:hi])
+        return torch.cat([self.whole[:lo], h, self.whole[hi:]])
+
+    def moe_share(self):
+        return self.rank, self.size
+
+    def moe_rows(self, y):
+        self.got = y.detach()
+        if self.parts is not None:
+            assert torch.equal(y, self.parts[self.rank])
+            y = sum(self.parts)
+        return y.narrow(0, self.rank * self.rows, self.rows)
+
+
+class _ExpertFlops(TorchDispatchMode):
+    """The FLOPs of each matrix product (``FlopCounterMode``'s formulas),
+    forward and backward, by what it multiplies: the routed experts'
+    (batched over experts), the shared expert's (a ``d_shared``
+    dimension) and the router's (the rest)."""
+
+    def __init__(self, d_shared: int):
+        super().__init__()
+        self.d_shared = d_shared
+        self.flops = {"routed": 0, "shared": 0, "router": 0}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        formula = flop_registry.get(func._overloadpacket)
+        if formula is not None:
+            shapes = [tuple(t.shape) for t in (*args, out)
+                      if isinstance(t, torch.Tensor)]
+            kind = ("routed" if any(len(sh) == 3 for sh in shapes) else
+                    "shared" if any(self.d_shared in sh for sh in shapes)
+                    else "router")
+            self.flops[kind] += formula(*args, **(kwargs or {}),
+                                        out_val=out)
+        return out
+
+
+@pytest.mark.parametrize("e,m", [(8, 1), (8, 2), (7, 2)])
+def test_data_split_moe_computes_its_share(e, m):
+    """One MoE layer on 2 data ranks (the global batch's 2 rows, one a
+    rank), expert-parallel (E % m == 0) or expert-TP: each data rank's
+    routed and shared expert products, forward and backward
+    (``FlopCounterMode``'s count), are exactly half those of the layer at
+    data 1 on the same global batch, and the router's, which routes the
+    global batch on every rank, equal; the data ranks' partials, summed
+    and then over the ``model`` ranks, give the whole layer's rows, and
+    every rank's aux loss is the whole layer's."""
+    cfg = _moe_cfg(e, True)
+    # A shared width of its own (256, 128 a model rank): ``_ExpertFlops``
+    # tells the shared expert's products by it.
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           d_shared=256))
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn(2, 12, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    caps = torch.tensor([8, 0, 16, 8, 8, 8, 16, 8][:e])
+    want, want_aux = moe.apply_moe(p, cfg, x, caps)
+
+    def run(pr, g, par, xin):
+        """The layer's forward and backward on ``pr``; its output, aux
+        loss and the products' FLOPs by kind."""
+        leaves = {k: v.clone().requires_grad_(True) for k, v in
+                  pr.items() if k != "shared"}
+        leaves["shared"] = {k: v.clone().requires_grad_(True) for k, v in
+                            pr["shared"].items()}
+        xin = xin.clone().requires_grad_(True)
+        flops = _ExpertFlops(cfg.moe.d_shared // m)
+        with FlopCounterMode(display=False) as total, flops:
+            out, aux = moe.apply_moe(leaves, cfg, xin, caps, group=g,
+                                     par=par)
+            (out.sum() + aux).backward()
+        assert sum(flops.flops.values()) == total.get_total_flops()
+        return out.detach(), aux.detach(), flops.flops
+
+    got = 0
+    for r in range(m):
+        pr = _moe_share(p, cfg, r, m)
+        g = TPGroup(None, r, m) if m > 1 else SOLO
+        _, _, whole_flops = run(pr, g, SINGLE, x)
+        ranks = [_DataRank(i, 2, x) for i in range(2)]
+        for i, rank in enumerate(ranks):
+            _, aux, flops = run(pr, g, rank, x[i:i + 1])
+            assert torch.equal(aux, want_aux)
+            assert flops["routed"] * 2 == whole_flops["routed"], flops
+            assert flops["shared"] * 2 == whole_flops["shared"], flops
+            assert flops["router"] == whole_flops["router"] > 0, flops
+        parts = [rank.got for rank in ranks]
+        assert all(t.dtype == torch.float32 for t in parts)
+        got = got + torch.cat([run(pr, g, _DataRank(i, 2, x, parts),
+                                   x[i:i + 1])[0] for i in range(2)])
+    torch.testing.assert_close(got, want, rtol=TOL[0], atol=TOL[1])
 
 
 # -------------------------------------------- the split gated norm, in process
