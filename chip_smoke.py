@@ -344,12 +344,19 @@ Phases, each of which exits non-zero when it fails:
  26. tensor-parallel — the sharded steps tensor-parallel over the mesh's
                ``model`` axis, at model 2 and 4 on a (1, m) mesh, the ranks
                in processes of their own (``chip_smoke.py --tp-rank``): on
-               one card over gloo where a probe pair of processes finds it
-               takes the steps' collectives on CUDA tensors, else over
-               ``launch/staged_pg.py``'s backend (gloo between the
-               processes, each collective staged through host memory); over
-               NCCL where there are m cards; the backend and world size
-               printed.  (a) f32 Qwen2-1.5B cut to 4 of 28 layers,
+               one card over ``launch/shared_pg.py``'s backend ``"shared"``
+               (each group's mailboxes in the card's memory, opened through
+               CUDA IPC; ``shared_reduce_kernel`` and
+               ``shared_gather_kernel`` read them on each rank's stream;
+               each rank prints its mailbox bytes, at most 256 MiB, and
+               per-op calls, bytes, host seconds and chunks; before (d) at
+               model 4 a probe times the all-gather the staged backend
+               took 1.15-1.38 s for, 0.54 GB a rank over pairs of ranks,
+               best of 3, and the two kernels at one chunk against their
+               plain versions; a ``[transport]`` line gives them in the
+               kernels line's keys); over NCCL where
+               there are m cards; the backend and world size printed.
+               (a) f32 Qwen2-1.5B cut to 4 of 28 layers,
                ``fsdp_tp``, its cache in bf16: one train step of phase 11's
                f32 grain against ``make_train_step`` from the same init
                (loss, every parameter leaf and both moments within the f32
@@ -1921,6 +1928,7 @@ def main() -> int:
     from repro_torch.kernels.prefill import ops
     from repro_torch.kernels.prefill import prefill as pf
     from repro_torch.kernels.prefill.ref import cache_cast_ref, prefill_ref
+    from repro_torch.launch import shared_pg
     from repro_torch.models import Model
     from repro_torch.serve import DecodeEngine, Request
     from repro_torch.serve import compiled as compiled_steps
@@ -1938,15 +1946,18 @@ def main() -> int:
 
     # ------------------------------------------------------------- 2. build
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
         for built in [pool.submit(pf.load_library), pool.submit(mm.load_library),
-                      pool.submit(fa.load_library), pool.submit(k5.load_library)]:
+                      pool.submit(fa.load_library), pool.submit(k5.load_library),
+                      pool.submit(shared_pg.load_library)]:
             built.result()
     build_s = time.perf_counter() - t0
-    print(f"[build] prefill, matmul, flash-attention and SSD-scan kernels "
-          f"built and loaded in {build_s:.2f} s", flush=True)
+    print(f"[build] prefill, matmul, flash-attention and SSD-scan kernels and "
+          f"the shared backend's transport built and loaded in {build_s:.2f} "
+          f"s", flush=True)
     build_logs = {}
-    for lib in ("prefill", "matmul", "flash_attention", "mamba_scan"):
+    for lib in ("prefill", "matmul", "flash_attention", "mamba_scan",
+                "shared_pg"):
         log = os.path.join(BUILD_DIR, f"{lib}.log")
         if not os.path.exists(log):          # absent when the library was cached
             continue
@@ -5267,10 +5278,11 @@ def main() -> int:
     # ------------------------------------------- 26. tensor-parallel (main path)
     # The sharded steps tensor-parallel over a (1, m) mesh: ranks in
     # processes of their own (``chip_smoke.py --tp-rank``), on the one card
-    # over gloo where it takes the steps' collectives on CUDA tensors (a
-    # probe pair tries them first), else over ``launch/staged_pg.py``'s
-    # backend (gloo between the processes, each collective staged through
-    # host memory); NCCL across cards where there are m of them.  Against
+    # over ``launch/shared_pg.py``'s backend (mailboxes in the card's memory
+    # opened through CUDA IPC, its two kernels reading them on each rank's
+    # stream; each rank's counters and mailbox bytes printed, and a probe
+    # of the staged backend's slowest all-gather before (d)); NCCL across
+    # cards where there are m of them.  Against
     # the unsharded steps: (a) and (c) on rank 0, (b) here against phase
     # 25's unsharded bf16 train step and decode of the same batch, prompts
     # and init.
@@ -5711,20 +5723,10 @@ def tensor_parallel(torch, card: str, tp_ref: dict, by_path: dict) -> dict:
                     p.wait()
         return [p.returncode for p in procs], outs
 
-    if n_cards >= 2:
-        shared = "nccl"
-    else:
-        rcs, outs = run_ranks(lambda r, port: ["--tp-probe", str(r), "2",
-                                               str(port)], 2, 120)
-        shared = "gloo" if rcs == [0, 0] else "staged"
-        print(f"[tensor-parallel] {card}: gloo between two processes on the "
-              f"one card, the steps' collectives on CUDA tensors: "
-              f"{'taken' if shared == 'gloo' else 'refused'} (exit codes "
-              f"{rcs}); ranks on one card run over {shared!r}", flush=True)
-    tp_runs = {}
+    tp_runs, transport = {}, {"launches": {}, "ranks": {}}
     d_flops = None
     for world, what in TP_RUNS:
-        backend = "nccl" if n_cards >= world else shared
+        backend = "nccl" if n_cards >= world else "shared"
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "rank0.pt")
             rcs, outs = run_ranks(lambda r, port: [
@@ -5839,19 +5841,28 @@ def tensor_parallel(torch, card: str, tp_ref: dict, by_path: dict) -> dict:
         if "j" in what:
             moe_split_flops(card, d_flops,
                             [rr["j"]["f32"]["expert_flops"] for rr in res])
+        if backend == "shared":
+            transport_report(card, world, res, by_path, transport)
         peaks = [round(rr["peak_gb"], 2) for rr in res]
         print(f"[tensor-parallel] {card}: m={world}: rank seconds "
               f"{[round(rr['s'], 1) for rr in res]}, peaks {peaks} GB "
               f"(torch.cuda.max_memory_allocated a rank)"
-              + ("; the ranks share one card and their collectives cross "
-                 "the host: these are not a tensor-parallel speed"
-                 if backend != "nccl" else ""), flush=True)
+              + ("; the ranks share one card, their collectives through "
+                 "mailboxes in its memory: these are not a tensor-parallel "
+                 "speed" if backend != "nccl" else ""), flush=True)
         tp_runs[world] = {"backend": backend, "what": what,
                           "k1_shapes": head["k1_shapes"],
                           "k4_shapes": head["k4_shapes"],
                           "k5_shapes": head["k5_shapes"],
                           "rank_s": [round(rr["s"], 1) for rr in res],
                           "peaks_gb": [round(rr["peak_gb"], 2) for rr in res]}
+    if transport["ranks"]:
+        line = transport_kernels(transport)
+        print(f"[transport] {card}: " + json.dumps(line), flush=True)
+        for row in line["transport_kernels"]:
+            if not row["launches"]:
+                fail(f"tensor-parallel: {row['name']} was not launched on "
+                     f"the sharded runs")
     print(f"[tensor-parallel] ran model sizes "
           f"{[(w, r['backend']) for w, r in tp_runs.items()]}; phase "
           f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
@@ -5990,6 +6001,69 @@ def moe_split_flops(card: str, whole: list, split: list) -> None:
         if any(v != 0.5 for v in ratio.values()):
             fail(f"tensor-parallel (j): rank {r}'s expert FLOPs {split[r]}, "
                  f"not half of (d)'s {whole[r % nm]}")
+
+
+def transport_report(card: str, world: int, res: list, by_path: dict,
+                     transport: dict) -> None:
+    """Phase 26, each size over the shared backend: each rank's mailbox
+    bytes (fails above DEVICE_BYTES_MAX) and per-op counters, the probe's
+    line, and the transport kernels' launches over the size's runs into
+    ``transport``."""
+    from repro_torch.launch import shared_pg
+
+    for r, rr in enumerate(res):
+        t = rr["transport"]
+        peak = t["mailbox_peak_bytes"]["cuda"]
+        if peak > shared_pg.DEVICE_BYTES_MAX:
+            fail(f"tensor-parallel m={world} rank {r}: {peak} B of device "
+                 f"mailboxes, more than {shared_pg.DEVICE_BYTES_MAX}")
+        ops = {op: {"calls": c["calls"], "bytes": c["bytes"],
+                    "s": round(c["seconds"], 6), "chunks": c["chunks"]}
+               for op, c in sorted(t["ops"].items())}
+        print(f"[tensor-parallel] {card}: m={world} rank {r} transport "
+              f"'shared': device mailboxes {peak / 2**20:.0f} MiB at most "
+              f"(host {t['mailbox_peak_bytes']['cpu'] / 2**20:.0f} MiB); "
+              f"per op (calls, bytes in, host s inside, chunks) "
+              + json.dumps(ops), flush=True)
+        transport["ranks"][(world, r)] = ops
+        if "transport_probe" in rr:
+            transport.setdefault("probe", rr["transport_probe"])
+    for key, counts in by_path.items():
+        if key.startswith(f"tp{world}_") and "shared_reduce" in counts:
+            for name in shared_pg.LAUNCHES:
+                transport["launches"][name] = \
+                    transport["launches"].get(name, 0) + counts[name]
+    probe = transport.get("probe")
+    if world == 4 and probe is not None:
+        print(f"[tensor-parallel] {card}: m=4 transport probe: all-gather of "
+              f"{probe['bytes_a_rank'] / 1e9:.3f} GB a rank over pairs of "
+              f"ranks in {probe['best_s']:.6f} s over 'shared' (best of "
+              f"{TRANSPORT_PROBE_REPS}: {probe['s']}), against the staged "
+              f"backend's gloo 1.15-1.38 s and pinned copies 0.04-0.07 s "
+              f"(NVIDIA H100 80GB HBM3, 700.00 W)",
+              flush=True)
+
+
+def transport_kernels(transport: dict) -> dict:
+    """The shared backend's two kernels (not TPU kernels), in the keys of
+    the kernels line: launches on phase 26's sharded runs, the probe's
+    times and checks at one chunk."""
+    probe = transport.get("probe", {})
+    rows = []
+    for name, part in (("shared_reduce", "reduce"),
+                       ("shared_gather", "gather")):
+        row = probe.get(part, {})
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/launch/csrc/shared_pg.cu",
+            "replaces": "none: not a TPU kernel (the transport between "
+                        "ranks that share the card)",
+            "launches": transport["launches"].get(name, 0),
+            "max_abs_err": row.get("max_abs_err"), "ms": row.get("ms"),
+            "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
+            "bound_by": "bytes", "library_ms": row.get("library_ms"),
+            "bytes": row.get("bytes")})
+    return {"transport_kernels": rows}
 
 
 def tp_bf16_cases():
@@ -6247,27 +6321,112 @@ def own_shards(tree):
     return tree_map(own, tree)
 
 
-def run_tp_probe(rank: int, world: int, port: int) -> int:
-    """One rank of phase 26's backend probe: ``gloo`` between processes
-    that share the card, each collective the tensor-parallel steps run
-    on CUDA tensors."""
-    import torch
-    import torch.distributed as dist
-    import torch.distributed._functional_collectives as fc
+#: Phase 26's transport probe: the staged backend's timed all-gather, 128 Mi
+#: f32 (0.54 GB) a rank over pairs of ranks at world 4; best of
+#: TRANSPORT_PROBE_REPS.
+TRANSPORT_PROBE_ELEMS = 128 * 2**20
+TRANSPORT_PROBE_REPS = 3
 
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=world)
-    g = dist.group.WORLD
-    x = torch.arange(64.0, device="cuda").reshape(2, 4, 4, 2) + rank
-    for op in (lambda: fc.all_reduce(x, "sum", g),
-               lambda: fc.all_reduce(x, "max", g),
-               lambda: fc.all_gather_tensor(x, 2, g),
-               lambda: fc.reduce_scatter_tensor(x, "sum", 1, g)):
-        fc.wait_tensor(op())
-    torch.cuda.synchronize()
-    dist.destroy_process_group()
-    return 0
+
+def shared_probe(torch, dist, rank: int, world: int, tag: str) -> dict:
+    """Phase 26 before (d): the all-gather timed over the staged backend
+    (gloo 1.15-1.38 s, pinned copies 0.04-0.07 s on an NVIDIA H100 80GB
+    HBM3 at 700 W), over the shared
+    backend, each half checked against its rank's seeded input; then, on
+    rank 0 while the others wait, ``shared_reduce_kernel`` (4 slots) and
+    ``shared_gather_kernel`` (4 segments) at the probe's chunk of one slot,
+    each against its plain version, timed beside one PyTorch call for the
+    same function and the bound (bytes over HBM_BYTES_PER_S)."""
+    from repro_torch.launch import shared_pg
+
+    pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    group = pairs[rank // 2]
+    n = TRANSPORT_PROBE_ELEMS
+
+    def seeded(r):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 2600 + r)
+        return torch.randn(n, generator=gen, device="cuda")
+
+    x = seeded(rank)
+    y = torch.empty(2 * n, device="cuda")
+    secs = []
+    for _ in range(TRANSPORT_PROBE_REPS):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        dist.all_gather_into_tensor(y, x, group=group)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    first = rank // 2 * 2
+    if not all(torch.equal(y[i * n:(i + 1) * n], seeded(first + i))
+               for i in range(2)):
+        fail(f"{tag} the probe's all-gather differs from the ranks' inputs")
+    chunks = -(-x.numel() * x.element_size() // shared_pg.SLOT_BYTES)
+    del x, y
+    dist.destroy_process_group(group)
+    res = {"bytes_a_rank": n * 4, "s": secs, "best_s": min(secs),
+           "chunks": chunks}
+    if rank == 0:
+        count = shared_pg.SLOT_BYTES // 4
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 2610)
+        rows = torch.randn(4, count, generator=gen, device="cuda")
+        slots = list(rows)
+        out = torch.empty(count, device="cuda")
+        shared_pg.shared_reduce(slots, out, "sum")
+        want = shared_pg.reduce_plain(slots, "sum")
+        torch.cuda.synchronize()
+        nbytes = 5 * shared_pg.SLOT_BYTES
+        res["reduce"] = {
+            "n": 4, "count": count, "dtype": "float32",
+            "bitwise": bool(torch.equal(out, want)),
+            "max_abs_err": float((out - want).abs().max()),
+            "ms": time_ms(torch, lambda: shared_pg.shared_reduce(
+                slots, out, "sum")),
+            "plain_ms": time_ms(torch, lambda: shared_pg.reduce_plain(
+                slots, "sum")),
+            "library_ms": time_ms(torch, lambda: torch.sum(rows, 0)),
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+        segs = [r.view(torch.uint8) for r in rows]
+        whole = torch.empty(4 * shared_pg.SLOT_BYTES, dtype=torch.uint8,
+                            device="cuda")
+        dsts = list(whole.chunk(4))
+        shared_pg.shared_gather(segs, dsts)
+        torch.cuda.synchronize()
+        ok = bool(torch.equal(whole, rows.view(torch.uint8).reshape(-1)))
+        nbytes = 2 * 4 * shared_pg.SLOT_BYTES
+        res["gather"] = {
+            "segments": 4, "bytes_a_segment": shared_pg.SLOT_BYTES,
+            "bitwise": ok, "max_abs_err": 0.0 if ok else float("inf"),
+            "ms": time_ms(torch, lambda: shared_pg.shared_gather(segs, dsts)),
+            "plain_ms": time_ms(torch, lambda: shared_pg.gather_plain(
+                segs, dsts)),
+            "library_ms": time_ms(torch, lambda: torch.cat(segs, out=whole)),
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+        for name in ("reduce", "gather"):
+            if not res[name]["bitwise"]:
+                fail(f"{tag} shared_{name}_kernel differs from its plain "
+                     f"version: {res[name]}")
+        del rows, out, want, whole, segs, dsts, slots
+        torch.cuda.empty_cache()
+        print(f"{tag} transport probe: an all-gather of "
+              f"{n * 4 / 1e9:.3f} GB a rank over pairs of ranks (staged: "
+              f"gloo 1.15-1.38 s, pinned copies 0.04-0.07 s) over 'shared' "
+              f"in {min(secs):.6f} s (best of "
+              f"{TRANSPORT_PROBE_REPS}: {[round(t, 6) for t in secs]}), "
+              f"{chunks} chunks of {shared_pg.SLOT_BYTES} B; at one chunk: "
+              f"shared_reduce_kernel (4 slots, f32) {res['reduce']['ms']:.6f}"
+              f" ms (plain {res['reduce']['plain_ms']:.6f}, torch.sum "
+              f"{res['reduce']['library_ms']:.6f}, bound "
+              f"{res['reduce']['bound_ms']:.6f}), shared_gather_kernel (4 "
+              f"segments) {res['gather']['ms']:.6f} ms (plain "
+              f"{res['gather']['plain_ms']:.6f}, torch.cat "
+              f"{res['gather']['library_ms']:.6f}, bound "
+              f"{res['gather']['bound_ms']:.6f}); both bitwise their plain "
+              f"versions", flush=True)
+    dist.barrier()
+    return res
 
 
 def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
@@ -6304,9 +6463,9 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(rank % torch.cuda.device_count())
-    if backend == "staged":
-        from repro_torch.launch.staged_pg import register
-        register()
+    if backend == "shared":
+        from repro_torch.launch import shared_pg
+        shared_pg.register()
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)
     from repro_torch.configs import get_config
@@ -6350,6 +6509,9 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
     tag = f"[tensor-parallel m={world} rank {rank}]"
     mesh = make_debug_mesh(1, world, device_type="cuda")
     counters = (pf.LAUNCHES, mm.LAUNCHES, fa.LAUNCHES, k5.LAUNCHES)
+    if backend == "shared":
+        # The transport's kernels, counted over each run as the model's.
+        counters += (shared_pg.LAUNCHES,)
     launches: dict[str, dict[str, int]] = {}
 
     def zero_counts() -> None:
@@ -6848,6 +7010,12 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
                  for run, r in res.items() if isinstance(r, dict)}),
                 flush=True)
 
+    if backend == "shared" and world == 4:
+        # Before (d): the staged backend's timed all-gather (0.54 GB a
+        # rank, pairs of ranks at world 4) over the shared backend, and the
+        # transport's kernels at its chunk; the counters start after it.
+        out["transport_probe"] = shared_probe(torch, dist, rank, world, tag)
+        shared_pg.COUNTERS.clear()
     split_layers([case for case in "defghij" if case in what])
     if "a" in what:
         # (a), (c): f32, TP_F32_LAYERS layers, sharded.
@@ -6999,6 +7167,8 @@ def run_tp_rank(rank: int, world: int, port: int, backend: str, what: str,
     if rank == 0:
         torch.save(saved, out_path)
     out["launches"] = launches
+    if backend == "shared":
+        out["transport"] = shared_pg.stats()
     dist.destroy_process_group()
     print(json.dumps(out), flush=True)
     return 0
@@ -7090,8 +7260,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-route"] and len(sys.argv) == 5:
         sys.exit(run_train_route(sys.argv[2], int(sys.argv[3]),
                                  sys.argv[4]))
-    if sys.argv[1:2] == ["--tp-probe"] and len(sys.argv) == 5:
-        sys.exit(run_tp_probe(*map(int, sys.argv[2:5])))
     if sys.argv[1:2] == ["--tp-rank"] and len(sys.argv) == 8:
         sys.exit(run_tp_rank(int(sys.argv[2]), int(sys.argv[3]),
                              int(sys.argv[4]), *sys.argv[5:8]))

@@ -38,3 +38,8 @@ def get_config(arch: str, reduced: bool = False, **overrides) -> ModelConfig:
     replaced by ``overrides``."""
     cfg = _mod(arch).reduced() if reduced else _mod(arch).config()
     return dataclasses.replace(cfg, **overrides).validate()
+
+
+def all_configs(reduced: bool = False) -> dict[str, ModelConfig]:
+    """Every arch's config (or its reduced test size), by arch id."""
+    return {a: get_config(a, reduced) for a in ARCH_IDS}

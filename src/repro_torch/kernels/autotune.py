@@ -10,8 +10,10 @@ shapes share tiles; an unswept shape falls back to the op's built-in
 defaults).  The backend is the torch device: ``cpu`` or ``cuda:<card
 name>``.  The port keeps its own registry file beside this module and never
 reads or writes the JAX package's.  The JAX compile-cache half has no
-counterpart: PyTorch runs eagerly.  No op of the port consults it yet: the
-CUDA prefill kernel has one compiled tile, and the registry is empty.
+counterpart: PyTorch runs eagerly, and the kernels' libraries are cached by
+content (``kernels/build.py``'s ``_build/``).  No op of the port consults
+it yet: the CUDA prefill kernel has one compiled tile, and the registry is
+empty; ``save_registry`` writes what a sweep finds.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 
 __all__ = [
     "shape_bucket", "registry_key", "device_backend", "lookup",
-    "load_registry", "REGISTRY_PATH",
+    "load_registry", "save_registry", "REGISTRY_PATH",
 ]
 
 REGISTRY_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -65,10 +67,20 @@ def load_registry(path: str = REGISTRY_PATH) -> dict:
         return {}
 
 
-def lookup(op: str, dims: dict[str, int], device) -> dict:
+def save_registry(registry: dict, path: str = REGISTRY_PATH) -> None:
+    """Write ``registry`` (key -> ``{"blocks": {...}, ...}``) as sorted JSON;
+    the next ``load_registry`` reads it anew."""
+    with open(path, "w") as f:
+        json.dump(registry, f, indent=2, sort_keys=True)
+        f.write("\n")
+    load_registry.cache_clear()
+
+
+def lookup(op: str, dims: dict[str, int], device,
+           path: str = REGISTRY_PATH) -> dict:
     """Tuned block params for this op/device/shape bucket, or ``{}`` when the
     bucket was never swept (callers then keep their built-in defaults)."""
-    entry = load_registry().get(registry_key(op, dims, device))
+    entry = load_registry(path).get(registry_key(op, dims, device))
     if not isinstance(entry, dict):
         return {}
     return entry.get("blocks", {})

@@ -7,7 +7,8 @@ the host).  ``--backend wallclock`` measures engine steps on the card
 (``--devices`` of them, all visible by default) and, as in the reference,
 refuses a scenario; ``--tuned`` applies the port's env profile
 (``launch/env.py``).
-The reference launcher's deprecated pre-Cluster shims are not ported.
+The reference launcher's deprecated pre-Cluster shims (``parse_replicas``,
+``build_fleet``, ``scenario_timeline``) are kept with its contract.
 
 ``--fleet`` is the ``FleetSpec`` grammar (``[NAME=]PERFxSLOTS[@PROFILE]``,
 comma- or colon-separated — the old ``--replicas PERFxBATCH`` grammar is a
@@ -62,6 +63,38 @@ from .common import (
 )
 
 
+def parse_replicas(spec: str) -> list[tuple[float, int]]:
+    """Deprecated: the old ``--replicas`` view of a fleet string.  Delegates
+    to ``FleetSpec.parse``, preserving this function's historical contract
+    that a bare-perf item means 4 slots (FleetSpec itself defaults bare
+    items to 1).  Prefer consuming a FleetSpec directly."""
+    items = [
+        it if ("x" in it or "=" in it) else f"{it}x4"
+        for it in (s.strip() for s in spec.replace(",", ":").split(":"))
+        if it
+    ]
+    fleet = FleetSpec.parse(":".join(items), prefix="r")
+    return [(w.perf, w.concurrency) for w in fleet.workers]
+
+
+def build_fleet(model, params, specs, max_seq: int, queue_depth: int):
+    """Deprecated shim for the pre-Cluster entry point: builds the legacy
+    ``FleetServer`` (old callers, benchmarks at timing scale), one
+    ``DecodeEngine`` a replica on the model's device.  New code should use
+    ``Cluster(fleet).serve(ServeJob(...))``."""
+    from ..serve.dispatch import Replica
+    from ..serve.engine import DecodeEngine
+    from ..serve.fleet import FleetServer
+
+    replicas = [Replica(f"r{i}", p) for i, (p, _) in enumerate(specs)]
+    engines = {
+        f"r{i}": DecodeEngine(model, params, max_batch=b, max_seq=max_seq,
+                              name=f"r{i}", device=model.device)
+        for i, (_, b) in enumerate(specs)
+    }
+    return FleetServer(replicas, engines, max_queue_depth=queue_depth)
+
+
 def make_requests(n: int, vocab: int, max_new: int, seed: int = 0):
     rng = np.random.default_rng(seed)
     return [
@@ -69,6 +102,18 @@ def make_requests(n: int, vocab: int, max_new: int, seed: int = 0):
                 max_new_tokens=max_new)
         for i in range(n)
     ]
+
+
+def scenario_timeline(scenario: str, specs, requests):
+    """Deprecated: the old hand-rolled timeline builder, now a Scenario DSL
+    compile (``halving`` == ``halve:r0@25%``, ``kill`` == ``kill:r0@25%``)."""
+    fleet = FleetSpec.from_dicts(
+        [{"name": f"r{i}", "perf": p, "concurrency": b}
+         for i, (p, b) in enumerate(specs)]
+    )
+    cost = sum(len(r.prompt) + r.max_new_tokens for r in requests)
+    phase_s = cost / fleet.total_rate()
+    return Scenario.from_arg(scenario, "r0").compile(fleet, phase_s=phase_s)
 
 
 def main() -> None:

@@ -1839,3 +1839,204 @@ def test_capture_returns_cached_blocks_first(dev, monkeypatch):
         assert torch.equal(step(x), x * 2)
     assert step.graph is not None
     assert calls == ["empty_cache", "capture_begin"]
+
+
+# ---------------------------------------- the shared backend's transport
+_SHARED_WORKER = """
+import hashlib, json, sys, warnings
+warnings.filterwarnings("ignore")
+import numpy as np
+import torch, torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
+from repro_torch.launch import shared_pg
+rank, world, port, mode = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], \\
+    sys.argv[4]
+torch.cuda.set_device(0)
+if mode == "unbuildable":
+    def refuse(*args, **kwargs):
+        raise RuntimeError("nvcc refused")
+    shared_pg.build_library = refuse
+    shared_pg.load_library.cache_clear()
+shared_pg.register(slot_bytes=4096)
+dist.init_process_group("shared", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=world)
+pg = dist.group.WORLD
+if mode == "unbuildable":
+    try:
+        dist.all_reduce(torch.ones(8, device="cuda"))
+        print(json.dumps({"raised": False}))
+    except RuntimeError as e:
+        print(json.dumps({"raised": "nvcc refused" in str(e),
+                          "memory": shared_pg.MEMORY}))
+    sys.exit(0)
+
+
+def data(r, shape, dt, seed):
+    rng = np.random.default_rng(1000 * seed + r)
+    if dt == torch.int64:
+        return torch.from_numpy(rng.integers(-1000, 1000, size=shape))
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dt)
+
+
+def run(dev):
+    # every collective on `dev`: the results, on the host
+    res = {}
+    for seed, dt in enumerate((torch.float32, torch.bfloat16, torch.float16,
+                               torch.int64)):
+        x = data(rank, (33, 129), dt, seed).to(dev)
+        for op, rop in (("sum", dist.ReduceOp.SUM),
+                        ("max", dist.ReduceOp.MAX)):
+            y = x.clone()
+            dist.all_reduce(y, op=rop)
+            res[f"ar-{op}-{dt}"] = y
+            y = torch.empty(11, 129, dtype=dt, device=dev)
+            dist.reduce_scatter_tensor(y, x[:11 * world].contiguous(), op=rop)
+            res[f"rs-{op}-{dt}"] = y
+        y = torch.empty(world * 33, 129, dtype=dt, device=dev)
+        dist.all_gather_into_tensor(y, x)
+        res[f"ag-{dt}"] = y
+        y = x.clone()
+        dist.broadcast(y, src=world - 1)
+        res[f"bc-{dt}"] = y
+        rows = [[(r * 3 + j * 5) % 4 * 9 for j in range(world)]
+                for r in range(world)]
+        send = data(rank, (sum(rows[rank]), 5), dt, seed + 20).to(dev)
+        recv = [rows[j][rank] for j in range(world)]
+        y = torch.empty(sum(recv), 5, dtype=dt, device=dev)
+        dist.all_to_all_single(y, send, recv, rows[rank])
+        res[f"a2a-{dt}"] = y
+    x = data(rank, (29, 7), torch.float32, 9).to(dev)
+    y = x.t().clone().t()                     # a non-contiguous view
+    dist.all_reduce(y)
+    res["ar-noncontig"] = y
+    res["funcol-ag"] = funcol.wait_tensor(funcol.all_gather_tensor(x, 1, pg))
+    torch.cuda.synchronize()
+    return {k: v.cpu() for k, v in res.items()}
+
+
+def bits(t):
+    t = t.contiguous()
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+for k in shared_pg.LAUNCHES:
+    shared_pg.LAUNCHES[k] = 0
+on_card, on_cpu = run("cuda"), run("cpu")
+equal = {k: torch.equal(bits(on_card[k]), bits(on_cpu[k])) for k in on_card}
+digests = {k: hashlib.sha256(bits(v).numpy().tobytes()).hexdigest()
+           for k, v in on_card.items()}
+# a probe of mixed devices
+try:
+    dist.all_gather_into_tensor(torch.empty(world * 3, device="cuda"),
+                                torch.ones(3))
+    mixed = False
+except ValueError:
+    mixed = True
+launches = dict(shared_pg.LAUNCHES)
+memory = dict(shared_pg.MEMORY)
+dist.destroy_process_group()
+print(json.dumps({"equal": equal, "digests": digests, "mixed": mixed,
+                  "launches": launches, "memory": memory,
+                  "after": dict(shared_pg.MEMORY)}))
+"""
+
+
+def _shared_ranks(mode: str, world: int = 2) -> list[dict]:
+    import json
+    import os
+    import pathlib
+    import socket
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _SHARED_WORKER, str(r), str(world), str(port),
+         mode], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env, cwd=root) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (_, err) in zip(procs, outs, strict=True):
+        assert p.returncode == 0, err[-3000:]
+    return [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
+
+
+def test_shared_backend_on_the_card_is_its_cpu_route(dev):
+    """Two processes on the card over the ``"shared"`` backend (CUDA IPC
+    mailboxes, a 4 KiB slot: every tensor in chunks): each collective's
+    output bitwise its CPU route's on the same inputs, in f32, bf16, f16
+    and int64, sum and max, uneven all-to-all and a non-contiguous input;
+    the reductions the same on both ranks; both kernels launched; a call
+    that mixes devices raises; no mailbox left after
+    ``destroy_process_group``."""
+    ranks = _shared_ranks("routes")
+    for res in ranks:
+        assert all(res["equal"].values()), [
+            k for k, v in res["equal"].items() if not v]
+        assert res["mixed"]
+        assert res["launches"]["shared_reduce"] > 0
+        assert res["launches"]["shared_gather"] > 0
+        assert res["memory"]["cuda"] == 2 * 4096
+        assert res["after"] == {"cuda": 0, "cpu": 0}
+    for k, d in ranks[0]["digests"].items():
+        if k.startswith(("ar", "ag", "bc", "funcol")):
+            assert ranks[1]["digests"][k] == d, k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("n,count,shift", [(2, 1 << 20, 0), (4, 4099, 0),
+                                           (8, 777, 3), (3, 1 << 16, 1)])
+def test_shared_reduce_kernel_is_its_plain_version(dev, dtype, op, n, count,
+                                                   shift):
+    """``shared_reduce_kernel`` bitwise ``reduce_plain`` (rank order, f32
+    accumulation, one rounding), with 16-byte loads (aligned) and scalar
+    loads (``shift`` elements off the boundary)."""
+    from repro_torch.launch import shared_pg
+
+    slots = [_rand((count + shift,), dtype, dev, 70 + r)[shift:]
+             for r in range(n)]
+    out = torch.empty(count + shift, dtype=dtype, device=dev)[shift:]
+    before = shared_pg.LAUNCHES["shared_reduce"]
+    shared_pg.shared_reduce(slots, out, op)
+    torch.cuda.synchronize()
+    assert shared_pg.LAUNCHES["shared_reduce"] == before + 1
+    want = shared_pg.reduce_plain([s.cpu() for s in slots], op)
+    assert torch.equal(out.cpu().view(torch.int16 if dtype == torch.bfloat16
+                                      else torch.int32),
+                       want.view(torch.int16 if dtype == torch.bfloat16
+                                 else torch.int32))
+
+
+def test_shared_gather_kernel_is_its_plain_version(dev):
+    """``shared_gather_kernel`` copies each segment whole, aligned or not."""
+    from repro_torch.launch import shared_pg
+
+    src = [torch.randint(0, 255, (n,), dtype=torch.uint8, device=dev)
+           for n in (1 << 20, 4099, 17, 0)]
+    dst = [torch.zeros(n + 3, dtype=torch.uint8, device=dev)[3:]
+           for n in (1 << 20, 4099, 17, 0)]
+    shared_pg.shared_gather(src, dst)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(src, dst, strict=True))
+
+
+def test_shared_backend_raises_without_its_library(dev):
+    """A CUDA tensor's collective with the library unbuildable raises; it
+    does not fall back to the host, and no mailbox is held."""
+    for res in _shared_ranks("unbuildable"):
+        assert res["raised"] is True
+        assert res["memory"]["cuda"] == 0

@@ -215,6 +215,45 @@ def test_source_scan_covers_the_remaining_configs_modules():
             "configs/seamless_m4t_medium.py"} <= scanned
 
 
+_SHARED = """
+import os, tempfile
+import torch, torch.distributed as dist
+from repro_torch.configs.registry import all_configs
+from repro_torch.kernels.autotune import save_registry
+from repro_torch.launch import shared_pg
+from repro_torch.launch.serve import (build_fleet, parse_replicas,
+                                      scenario_timeline)
+
+shared_pg.register(slot_bytes=1024)
+fd, path = tempfile.mkstemp()
+os.close(fd)
+dist.init_process_group("shared", init_method=f"file://{path}", rank=0,
+                        world_size=1)
+x = torch.arange(1000.0)
+dist.all_reduce(x)
+assert torch.equal(x, torch.arange(1000.0))
+dist.destroy_process_group()
+if os.path.exists(path):
+    os.remove(path)
+assert shared_pg.MEMORY == {"cuda": 0, "cpu": 0}
+assert parse_replicas("8:4") == [(8.0, 4), (4.0, 4)]
+assert len(all_configs(reduced=True)) == 10
+"""
+
+
+def test_port_shared_backend_and_launch_shims_load_no_jax_or_repro():
+    """A collective over the ``"shared"`` backend (its CPU route), and the
+    launcher shims, ``all_configs`` and ``save_registry`` imported."""
+    assert _run(_SHARED) == []
+
+
+def test_source_scan_covers_the_shared_backend():
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert "launch/shared_pg.py" in scanned
+    assert "launch/staged_pg.py" not in scanned
+    assert (PORT / "launch" / "csrc" / "shared_pg.cu").exists()
+
+
 def test_import_chip_smoke_loads_no_jax_or_repro():
     assert _run("import chip_smoke\n") == []
 

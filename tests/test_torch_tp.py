@@ -12,8 +12,11 @@ against the unsharded ones, tokens equal), and counts the collectives of
 one decode step (``CommDebugMode``): none may be the size of a cache.  At
 model 4 each rank's attention must get its own q heads and the KV head
 they read; under ``seq_parallel`` each checkpointed period must keep 1/m
-of the unsharded step's saved bytes (``saved_tensors_hooks``).  Three
-cases run in the default tier, the rest under ``-m slow``.
+of the unsharded step's saved bytes (``saved_tensors_hooks``).  Four
+cases run in the default tier, ``1x2-fsdp_tp-shared`` among them (the
+same steps over ``launch/shared_pg.py``'s backend, on its CPU route: host
+mailboxes, the device route's protocol and rank order); the rest under
+``-m slow``.
 
 The in-process cases hold the head maps and the cache assembly of the
 split-head routes against the global head map, rank by rank.
@@ -56,8 +59,8 @@ _WORKER = textwrap.dedent(
     rank, world, nd, nm = int(rank), int(world), int(nd), int(nm)
     case = json.loads(case)
     backend = case.get("backend", "gloo")
-    if backend == "staged":
-        from repro_torch.launch.staged_pg import register
+    if backend == "shared":
+        from repro_torch.launch.shared_pg import register
         register()
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)
@@ -298,8 +301,10 @@ _CASES = [
                  marks=_SLOW),
     pytest.param((1, 2), {"sharding_policy": "tp"}, "gloo", id="1x2-tp",
                  marks=_SLOW),
-    pytest.param((2, 2), {"sharding_policy": "fsdp_tp"}, "staged",
-                 id="2x2-fsdp_tp-staged", marks=_SLOW),
+    pytest.param((2, 2), {"sharding_policy": "fsdp_tp"}, "shared",
+                 id="2x2-fsdp_tp-shared", marks=_SLOW),
+    pytest.param((1, 2), {"sharding_policy": "fsdp_tp"}, "shared",
+                 id="1x2-fsdp_tp-shared"),
 ]
 
 
@@ -307,8 +312,9 @@ _CASES = [
 def test_tp_steps_match_unsharded_and_reference(mesh, over, backend,
                                                 tmp_path):
     """Train, prefill and decode, tensor-parallel on gloo ranks (or on
-    ``launch/staged_pg.py``'s backend, as ranks that share one card run),
-    against the unsharded port steps and the reference's loss."""
+    ``launch/shared_pg.py``'s backend, as ranks that share one card run,
+    here on its CPU route), against the unsharded port steps and the
+    reference's loss."""
     nd, nm = mesh
     jcfg = dataclasses.replace(jax_get_config("qwen2-1.5b", reduced=True),
                                **over)
