@@ -211,11 +211,14 @@ Phases, each of which exits non-zero when it fails:
                to MAMBA_TRAIN_F32_LAYERS layers against ``use_pallas=False``
                (loss rtol 1e-4, every gradient leaf within GRAD_TOL); (c)
                phase 11.2's flow on bf16 Mamba2-2.7B (d_model 2560, 80 heads
-               of 64, d_state 128) at MAMBA_TRAIN_LAYERS layers: 3 steps of
-               8 grains of 1024 tokens under ``halve:pod0@1:25%``, compiled
-               then eager, losses, every parameter leaf and the launches
-               equal, tokens/s, host ms of a replayed grain, the busy share
-               of a steady step and the peak (run after phase 14),
+               of 64, d_state 128) whole (MAMBA_TRAIN_LAYERS, 64 layers):
+               3 steps of 8 grains of 1024 tokens under
+               ``halve:pod0@1:25%``, compiled then eager, losses, every
+               parameter leaf and the launches equal, tokens/s, host ms of
+               a replayed grain, the busy share of a steady step; each
+               route's peak (at most MAMBA_TRAIN_PEAK_GB), graph pools, a
+               gradient tree's bytes and the most grains waiting at once
+               (run after phase 14),
  16. moe model — Qwen1.5-MoE (``qwen2-moe-a2.7b``) in f32 at its published
                widths, depth cut to 4 of 24 layers (14.3 B parameters are
                57 GB in f32), from ``Model.init(seed)``: prefill of one
@@ -304,8 +307,8 @@ Phases, each of which exits non-zero when it fails:
                within GRAD_TOL of ``use_pallas=False``.  Then each bf16 model
                on the compiled route and the eager route in turn, 3 steps
                and one more of each batch shape (DeepSeek: 3 steps, eager
-               first, each route a process of its own, on expandable
-               segments): losses, every parameter leaf
+               first, each route a process of its own): losses, every
+               parameter leaf
                (SHA-256) and K4's launches equal on both routes, K4's
                launches as predicted (forward twice, dQ and dK/dV once a
                layer a step; none on DeepSeek's path); tokens/s, a steady
@@ -590,14 +593,20 @@ K5_BWD_GRID_EDGES = ((2, 1, 4096, 64, 128, 256), (3, 3, 4096, 32, 16, 64),
                      (160, 8, 300, 64, 100, 128))
 #: The Mamba training phase (27): the f32 grain of Mamba2-2.7B at its
 #: published widths cut to this many of its 64 layers, and the depth of the
-#: bf16 ``Cluster.train`` run: all 64 layers run out of the card's memory
-#: in the compiled route's first step (77-78 GiB allocated, 23.2 GiB of it
-#: in the graph pools, when the combine buffers a grain's gradients); 60
-#: train 3 steps (``scripts/mamba_train_depth.py``: peak 62.7 GB) but run
-#: out in this phase's steady third step, the combine buffering more
-#: grains (75.3 GiB allocated); so the run is cut to 56.
+#: bf16 ``Cluster.train`` run: the whole model.  Its peak is the
+#: combine's: 5.4 GB of bf16 parameters, 21.6 GB of f32 moments, the folded
+#: sum and the grain graph's gradients (5.4 GB each), and 5.4 GB for each
+#: grain the combine holds waiting (at most 5 at once under this phase's
+#: scenario), 68 GB in all.  Beside it the graph pool reserves 8.4 GB, 19.2
+#: GB before each period's gradients went into the stacked gradient as the
+#: backward left the period (``models/parallel.py::stacked_periods``) and
+#: ``global_norm`` widened a slice at a time, not a stacked leaf (3.4 GB):
+#: with those blocks reserved, 64 and 60 layers ran out of memory in this
+#: phase (``scripts/mamba_train_depth.py --snapshot`` names the owners).
 MAMBA_TRAIN_F32_LAYERS = 4
-MAMBA_TRAIN_LAYERS = 56
+MAMBA_TRAIN_LAYERS = 64
+#: Phase 27's bound on each route's ``torch.cuda.max_memory_allocated``.
+MAMBA_TRAIN_PEAK_GB = 75.0
 #: Depth cuts at the published widths: Qwen1.5-MoE in f32 (14.3 B
 #: parameters are 57 GB in f32) and Granite-34B in bf16 (93.9 GB whole).
 MOE_F32_LAYERS = 4
@@ -666,10 +675,11 @@ DECODE_STEPS = 16
 TRAIN_SINGLE_STEPS = 3
 #: Qwen2-VL-7B's depth in training: its embeddings and unembedding hold
 #: 1.090 B parameters, each layer 0.237 B (q heads padded to 32), so 13.1 GB
-#: of state and 2.84 GB a layer; all 28 layers would be 92.6 GB.  At 16
-#: layers the compiled route peaks near 69 GB with a 30 GB graph pool; at
-#: 18 and 20 its capture ran out of the card's memory, at an f32 copy of a
-#: gradient leaf (4.55 GiB asked at 18).  ``python3
+#: of state and 2.84 GB a layer; all 28 layers would be 92.6 GB.  The
+#: eager route decides the cut: its update makes a new parameter tree
+#: beside the old one and the gradients, and at 18 layers it ran out of
+#: the card's memory (83.03 GB at its peak) where the compiled route
+#: peaked at 67.06 GB; at 16 both routes fit.  ``python3
 #: scripts/mamba_train_depth.py --arch qwen2-vl-7b --layers ...`` trains
 #: each depth's steps in a process of its own and prints its peak or where
 #: it ran out of memory.
@@ -684,9 +694,9 @@ SEAMLESS_TRAIN_F32_LAYERS = 4
 #: 1536 and 2 shared): 5.359 B parameters, 64.3 GB of training state in
 #: bf16.  No smaller cut keeps an MLA + MoE layer.  Each route runs in a
 #: process of its own (``chip_smoke.py --train-route``), the eager one
-#: first, on expandable segments (phase 28 says why): a route that runs
-#: out of the card's memory prints the allocation it stopped at and does
-#: not fail the phase.
+#: first, on the default allocator: a route that runs out of the card's
+#: memory prints the allocation it stopped at and does not fail the
+#: phase.
 DEEPSEEK_TRAIN_LAYERS = 2
 #: Phase 26: the tensor-parallel steps at these sizes of the ``model``
 #: axis (mesh (1, m)), each with the cases its ranks run (the module
@@ -1154,11 +1164,12 @@ def train_split(torch, loop):
     the grain) and in AdamW (``HDPTrainer._apply_update``: the update on
     either route, a compiled one's warm-up, capture or replay), and the
     host seconds of each training step (``HDPTrainer.step``); ``calls``
-    keeps each grain's and each update's seconds in call order.  The
+    keeps each grain's and each update's seconds in call order;
+    ``waiting`` the most grains a combine held waiting at once.  The
     combine and AdamW only enqueue their work, so their timed calls end in
     ``torch.cuda.synchronize()``, from outside any capture."""
     spent = {"grain": [0, 0.0], "combine": [0, 0.0], "adamw": [0, 0.0],
-             "steps": [], "calls": {"grain": [], "adamw": []}}
+             "steps": [], "calls": {"grain": [], "adamw": []}, "waiting": 0}
     saved = [(loop._GrainGradExecutor, "execute"),
              (loop._PrefixCombine, "add"), (loop.HDPTrainer, "_apply_update"),
              (loop.HDPTrainer, "step")]
@@ -1174,6 +1185,8 @@ def train_split(torch, loop):
                 if sync:
                     torch.cuda.synchronize()
                 dt = time.perf_counter() - t
+                if key == "combine":
+                    spent["waiting"] = max(spent["waiting"], args[0].most)
                 if key == "steps":
                     spent["steps"].append(dt)
                 else:
@@ -1341,6 +1354,8 @@ def train_single_route(torch, cfg, batches, compile_steps: bool,
         loss=[h["loss"] for h in hist], tokens=[h["tokens"] for h in hist],
         grad_norm=[h["grad_norm"] for h in hist], step_s=times,
         held_gb=held, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+        card_gb=torch.cuda.mem_get_info()[1] / 1e9,
         graphs={k: compiled.STATS[k] - stats0[k] for k in stats0},
         params=sum(leaf.numel() for leaf in tree_leaves(state.params)))
     t0 = time.perf_counter()
@@ -3243,6 +3258,15 @@ def main() -> int:
                   f"launches {json.dumps(launches)}; peak memory "
                   f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated)",
                   flush=True)
+            grad_gb = sum(x.numel() * x.element_size() for x in
+                          tree_leaves(rep.artifact.state.params)) / 1e9
+            print(f"[{tag}] {card}: {route} route memory: peak "
+                  f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated), "
+                  f"graph pools {graphs['pool_bytes'] / 1e9:.3f} GB, one "
+                  f"gradient tree {grad_gb:.3f} GB, at most "
+                  f"{spent['waiting']} grains waiting at once in a step "
+                  f"(the combine keeps every waiting grain on the card)",
+                  flush=True)
             print(f"[{tag}] {route} host wall split: grain gradients "
                   f"{spent['grain'][0]} calls {grain_s:.3f} s, combine "
                   f"{spent['combine'][0]} calls {spent['combine'][1]:.3f} s, "
@@ -3272,6 +3296,8 @@ def main() -> int:
                 print(f"[{tag}] eager route: host ms a grain with its wait "
                       f"{gms}; an update {ums}", flush=True)
             hdp[route] = {
+                "grad_gb": grad_gb, "waiting": spent["waiting"],
+                "pool_gb": graphs["pool_bytes"] / 1e9,
                 "loss": losses,
                 "grad_norm": [p.metrics["grad_norm"] for p in rep.phases],
                 "digests": leaf_digests(torch, tree_leaves,
@@ -3930,11 +3956,13 @@ def main() -> int:
         "mamba-train", model, "mamba_train_hdp",
         lambda path, n: check_k5_launches(path, n, MAMBA_TRAIN_LAYERS),
         ("ssd_scan_mma_kernel", "ssd_bwd_"), "K5")
+    for route, r in mamba_hdp.items():
+        if r["peak_gb"] > MAMBA_TRAIN_PEAK_GB:
+            fail(f"mamba train ({route}): peak {r['peak_gb']:.2f} GB over "
+                 f"{MAMBA_TRAIN_PEAK_GB} GB")
     print(f"[mamba-train] {card}: bf16 {model.cfg.name} at "
-          f"{MAMBA_TRAIN_LAYERS} of 64 layers"
-          + ("" if MAMBA_TRAIN_LAYERS == 64 else " (a cut: the whole model "
-             "ran out of the card's memory in training)")
-          + f": compiled {mamba_hdp['compiled']['tokens_s']:.1f} tokens/s, "
+          f"{MAMBA_TRAIN_LAYERS} of 64 layers: compiled "
+          f"{mamba_hdp['compiled']['tokens_s']:.1f} tokens/s, "
           f"a replayed grain {mamba_hdp['compiled']['replay_grain_ms']:.3f} "
           f"host ms, busy {mamba_hdp['compiled']['busy']:.4f} of a steady "
           f"step, peak {mamba_hdp['compiled']['peak_gb']:.2f} GB; eager "
@@ -4802,7 +4830,9 @@ def main() -> int:
                   f"replays) {[round(x, 4) for x in r['step_s']]}; a steady "
                   f"step {r['steady_s'] / n_shapes:.4f} s -> "
                   f"{r['tokens_s']:.1f} tokens/s; peak {r['peak_gb']:.2f} "
-                  f"GB (torch.cuda.max_memory_allocated); graphs "
+                  f"GB (torch.cuda.max_memory_allocated), reserved at most "
+                  f"{r['reserved_gb']:.2f} GB of the card's "
+                  f"{r['card_gb']:.2f}; graphs "
                   f"{graphs['captures']} captured in "
                   f"{graphs['capture_s']:.3f} s, pool "
                   f"{graphs['pool_bytes'] / 1e9:.3f} GB, "
@@ -4863,18 +4893,17 @@ def main() -> int:
     # tokens: the capacity-routed MoE backward over 160 experts.  No kernel
     # runs (MLA's q/k head dim of 192 is not one of K4's; MLA is plain
     # einsums, as in the reference).  Each route in a process of its own,
-    # the eager one first, the allocator on expandable segments: at peaks
-    # of 74-76 GB of the card's 85, cached blocks too small for the next
-    # f32 copy of an expert-sized gradient leaf (4.69 GiB) made both routes
-    # run out on the default allocator.
+    # the eager one first, on the default allocator: until ``global_norm``
+    # summed a slice at a time, its f32 copy of an expert-sized gradient
+    # leaf (4.69 GiB) made both routes run out there, and they ran on
+    # expandable segments.
     t0 = time.perf_counter()
     ds = {}
-    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     for route in ("eager", "compiled"):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--train-route",
              "deepseek-v2-236b", str(DEEPSEEK_TRAIN_LAYERS), route],
-            capture_output=True, text=True, timeout=600, env=env)
+            capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             fail(f"deepseek train ({route}): exit {proc.returncode}: "
                  f"{proc.stderr[-3000:]}")
@@ -4897,7 +4926,9 @@ def main() -> int:
               f"{[round(x, 6) for x in r['loss']]}, host s a step "
               f"{[round(x, 4) for x in r['step_s']]} -> "
               f"{TRAIN_SEQ / r['step_s'][-1]:.1f} tokens/s at the last; "
-              f"peak {r['peak_gb']:.2f} GB; graphs "
+              f"peak {r['peak_gb']:.2f} GB, reserved at most "
+              f"{r['reserved_gb']:.2f} GB of the card's {r['card_gb']:.2f}; "
+              f"graphs "
               f"{r['graphs']['captures']} captured, pool "
               f"{r['graphs']['pool_bytes'] / 1e9:.3f} GB; no kernel "
               f"launched", flush=True)

@@ -53,13 +53,15 @@ def debug_mesh_shape(n_data: int = 2, n_model: int = 4) -> MeshShape:
 
 
 def make_mesh(shape: MeshShape, device_type: str | None = None):
-    """A ``DeviceMesh`` of ``shape`` on the default process group:
-    ``device_type`` "cuda" when CUDA is there, else "cpu"."""
-    import torch
+    """A ``DeviceMesh`` of ``shape`` on the default process group, on
+    ``device_type`` ("cuda" unless given).  Without a ``device_type`` and
+    without CUDA it raises, as the port's entry points do
+    (``device.resolve_device``): a mesh on the CPU is asked for by name."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    from ..device import resolve_device
+
+    device_type = resolve_device(device_type).type
     return init_device_mesh(device_type, shape.sizes,
                             mesh_dim_names=shape.axis_names)
 

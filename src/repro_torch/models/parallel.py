@@ -5,8 +5,10 @@ The model code (``model.py``, ``transformer.py``, ``attention.py``) takes a
 ``Parallel`` and asks it for:
 
   - **periods**: a stack's per-period parameter trees and the function that
-    makes one ready for its layers (``periods``), and a decode's cache
-    periods (``cache_periods``: ``period(t)``, ``commit(t, caches)``);
+    makes one ready for its layers (``periods``; in training each period's
+    gradients go into the stack's as the backward leaves it), and a
+    decode's cache periods (``cache_periods``: ``period(t)``, ``commit(t,
+    caches)``);
   - **groups**: ``split(n_local, n_global)`` gives the ``Group`` that splits a
     layer's heads, MLP width or experts (a leaf's local size against its
     global one), or of a layer every rank computes whole where they do
@@ -46,7 +48,7 @@ from .config import ModelConfig
 from .layers import chunked_ce, embed_tokens, lm_logits, take_targets
 
 __all__ = ["Group", "SOLO", "Parallel", "SINGLE", "unbind_periods",
-           "index_periods"]
+           "stacked_periods", "index_periods"]
 
 
 class Group:
@@ -115,14 +117,79 @@ def index_periods(tree: Any, i: int) -> Any:
 
 
 def unbind_periods(tree: Any) -> list:
-    """A stacked period pytree as one pytree per period.  ``unbind``'s
-    backward stacks the per-period gradients in one op, where indexing
-    period by period would add a zero-padded full-size gradient per
-    period."""
+    """A stacked period pytree as one pytree per period (views)."""
     leaves, treedef = tree_flatten(tree)
     parts = [leaf.unbind(0) for leaf in leaves]
     return [tree_unflatten(treedef, [p[t] for p in parts])
             for t in range(len(parts[0]))]
+
+
+class _StackGrads:
+    """The gradients of a stack's leaves, written a period's row at a time
+    (``_PeriodRows``): the buffers are allocated at the first period the
+    backward reaches and handed to autograd by the last."""
+
+    def __init__(self, leaves: list, n_periods: int):
+        self.leaves = leaves
+        self.bufs: list = [None] * len(leaves)
+        self.left = n_periods
+
+    def put(self, t: int, grads: tuple, needed) -> tuple:
+        for i, (leaf, g) in enumerate(zip(self.leaves, grads, strict=True)):
+            if not needed[i]:
+                continue
+            if self.bufs[i] is None:
+                self.bufs[i] = torch.empty(leaf.shape, dtype=leaf.dtype,
+                                           device=leaf.device)
+            if g is None:
+                self.bufs[i][t].zero_()
+            else:
+                self.bufs[i][t].copy_(g)
+        self.left -= 1
+        if self.left:
+            return (None,) * len(self.leaves)
+        bufs, self.bufs = tuple(self.bufs), []
+        return bufs
+
+
+class _PeriodRows(torch.autograd.Function):
+    """Period ``t`` of a stack's leaves, as views; the backward copies each
+    gradient into row ``t`` of the stack's gradient (``_StackGrads``) and
+    drops it, so at most one period's gradients live beside the stacked
+    ones.  (``unbind``'s nodes run at the backward's end and hold every
+    period's until then: in a graph's pool on the card those blocks stay
+    reserved beside the stacked gradients.)"""
+
+    @staticmethod
+    def forward(ctx, t: int, acc: _StackGrads, *leaves):
+        ctx.t, ctx.acc = t, acc
+        ctx.set_materialize_grads(False)
+        return tuple(leaf[t] for leaf in leaves)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None) + ctx.acc.put(ctx.t, grads,
+                                          ctx.needs_input_grad[2:])
+
+
+def stacked_periods(tree: Any):
+    """A stacked period pytree as one pytree per period, made as they are
+    iterated.  Where autograd records and a leaf requires grad, each
+    period comes from a ``_PeriodRows`` made just before the period's
+    forward: its backward node then runs as soon as the period's
+    gradients are complete (autograd runs the latest-made ready node
+    first), before the backward enters the period below.  Elsewhere
+    (prefill, decode) the periods are ``unbind_periods``' views."""
+    leaves, treedef = tree_flatten(tree)
+    n = leaves[0].shape[0] if leaves else 0
+    if not (torch.is_grad_enabled()
+            and any(leaf.requires_grad for leaf in leaves)):
+        yield from unbind_periods(tree)
+        return
+    acc = _StackGrads(leaves, n)
+    for t in range(n):
+        yield tree_unflatten(treedef, list(_PeriodRows.apply(t, acc,
+                                                             *leaves)))
 
 
 def _same(tree):
@@ -146,10 +213,11 @@ class Parallel:
     """One device: the identity on every hook."""
 
     # -- periods ---------------------------------------------------------
-    def periods(self, periods: Any) -> tuple[list, Callable]:
-        """A stack's per-period parameter trees, and the function that makes
-        one ready for its layers."""
-        return unbind_periods(periods), _same
+    def periods(self, periods: Any) -> tuple[Any, Callable]:
+        """A stack's per-period parameter trees (an iterable,
+        ``stacked_periods``), and the function that makes one ready for its
+        layers."""
+        return stacked_periods(periods), _same
 
     def cache_periods(self, periods: Any):
         """A decode's cache periods: ``period(t)`` and ``commit(t,

@@ -75,16 +75,69 @@ def init_opt_state(params) -> dict:
     }
 
 
+def _sum_squares(t: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of the squares of ``t``'s elements: a ``SLICE`` of its
+    flat view at a time, widened (or, in f32, squared) into one temporary,
+    the slices' sums added in order.  A whole-leaf copy in f32 was several
+    GB for a stacked leaf at full width."""
+    flat = t.reshape(-1)
+    total = None
+    for lo in range(0, max(flat.numel(), 1), SLICE):
+        part = flat[lo:lo + SLICE]
+        s = torch.sum(torch.square(part) if part.dtype == torch.float32
+                      else part.to(torch.float32).square_())
+        total = s if total is None else total + s
+    return total
+
+
+def _local(leaf):
+    """(the part of ``leaf`` this rank counts, its mesh): a plain tensor
+    whole; of a DTensor its local shard, or nothing on a rank that is not
+    the first of a mesh dimension the leaf is replicated over (each
+    element is counted once over the mesh).  A ``Partial`` leaf raises:
+    the square of a partial sum is not a part of the square of the sum."""
+    if type(leaf) is torch.Tensor:
+        return leaf, None
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(leaf, DTensor):
+        return leaf, None
+    if any(p.is_partial() for p in leaf.placements):
+        raise ValueError(f"global_norm: a Partial leaf ({leaf.placements}); "
+                         f"redistribute it to Shard or Replicate first")
+    mesh = leaf.device_mesh
+    coord = mesh.get_coordinate() or [0] * mesh.ndim
+    mine = all(c == 0 for c, p in zip(coord, leaf.placements, strict=True)
+               if p.is_replicate())
+    return (leaf.to_local() if mine else None), mesh
+
+
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, summed in leaf order.  A
-    leaf widened to f32 is squared in its own copy: one f32 temporary a
-    leaf, not two (the same values)."""
-    total = 0
+    """sqrt of the sum of squares of every leaf, summed in leaf order, each
+    leaf a slice at a time (``_sum_squares``).  A tree of DTensors (the
+    sharded step) sums each rank's shards the same way, reduces the total
+    over the mesh and returns it replicated: at world size 1 the bits of
+    the same tree unsharded."""
+    total, mesh = 0, None
     for leaf in tree_flatten(tree)[0]:
-        wide = leaf.to(torch.float32)
-        total = total + torch.sum(
-            torch.square(wide) if wide is leaf else wide.square_())
-    return torch.sqrt(total)
+        local, on = _local(leaf)
+        if on is not None:
+            if mesh is not None and on != mesh:
+                raise ValueError("global_norm: the leaves lie on more than "
+                                 "one mesh")
+            mesh = on
+        if local is not None:
+            total = total + _sum_squares(local)
+    if mesh is None:
+        return torch.sqrt(total)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    if not isinstance(total, torch.Tensor):
+        total = torch.zeros((), dtype=torch.float32,
+                            device=mesh.device_type)
+    total = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim,
+                               run_check=False)
+    return torch.sqrt(total.redistribute(mesh, [Replicate()] * mesh.ndim))
 
 
 def adamw_update(grads, opt_state: dict, params, cfg: AdamWConfig, *,

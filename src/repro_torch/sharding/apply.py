@@ -34,7 +34,10 @@ out_shardings=...)`` (``repro/launch/dryrun.py::build_step``), built on
     ``Replicate`` where every rank computed the same.  They return as
     reduce-scatters or all-reduces to the stored placements, and AdamW
     updates the shards; the global-norm clip takes the whole gradient's
-    norm (DTensor reductions).
+    norm (``global_norm``: each rank sums the squares of its local shards
+    a slice at a time, a leaf replicated over a mesh dimension on that
+    dimension's first rank only, then one all-reduce of the total over
+    the mesh).
   - **Batch.** The batch is split over the data axes (``batch_specs``)
     and the same on every ``model`` rank.  The step divides the loss by
     the global weight sum and takes 1/n of the aux term (the MoE layers

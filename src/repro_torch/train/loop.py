@@ -173,6 +173,7 @@ class _PrefixCombine:
         self.next_grain = 0
         self.pending: dict[int, tuple] = {}
         self.buffered = 0          # grains that waited in ``pending``
+        self.most = 0              # the most grains waiting at once
         self.grads_sum = None
         self.tok_sum = 0.0
         self.loss_sum = 0.0
@@ -181,6 +182,7 @@ class _PrefixCombine:
         if grain != self.next_grain:
             self.pending[grain] = (loss, tokens, tree_map(torch.clone, grads))
             self.buffered += 1
+            self.most = max(self.most, len(self.pending))
             return
         self._fold(loss, tokens, grads)
         while self.next_grain in self.pending:

@@ -16,6 +16,9 @@ repaired, against the reference.
 - The dry run's FLOPs: an MoE cell's a device fall with the data ranks,
   each of which computes its share of the experts
   (``models/moe.py::apply_moe``).
+- A mesh asked for without a device type where CUDA is absent raises, as
+  the port's entry points do, where it used to build a CPU mesh; asked for
+  on the CPU by name it builds (``launch/mesh.py::make_mesh``).
 """
 
 import json
@@ -31,7 +34,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_model import cache_leaves, port_cfg
-from test_torch_tp import ROOT, _run_ranks
+from test_torch_tp import ROOT, _free_port, _run_ranks
 
 from repro.configs import get_config as jax_get_config
 from repro.configs.shapes import train_batch_specs as jax_train_batch
@@ -302,3 +305,41 @@ def test_dry_run_peak_of_a_dense_cell_is_that_on_real_tensors():
     peaks = {how: _peak("qwen2-1.5b", 1, 1, how, {}) for how in
              ("fake", "real")}
     assert peaks["fake"] == peaks["real"], peaks
+
+
+# ------------------------------------------------- a mesh without a device
+_MESH = textwrap.dedent(
+    """
+    import sys
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import MeshShape, make_mesh
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{sys.argv[1]}",
+                            rank=0, world_size=1)
+    shape = MeshShape(("data", "model"), (1, 1))
+    print("cpu mesh:", make_mesh(shape, "cpu").device_type)
+    try:
+        mesh = make_mesh(shape)
+    except RuntimeError as err:
+        print("raised:", err)
+    else:
+        print("built:", mesh.device_type)
+    dist.destroy_process_group()
+    """
+)
+
+
+def test_mesh_without_a_device_type_raises_without_cuda():
+    """``make_mesh(shape)`` on a machine without CUDA (hidden from a
+    subprocess with a gloo group of one rank) raises, naming CUDA; with
+    ``device_type="cpu"`` it builds a CPU mesh, as the dry run and the
+    tensor-parallel tests ask for."""
+    got = subprocess.run(
+        [sys.executable, "-c", _MESH, str(_free_port())],
+        capture_output=True, text=True, timeout=120, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1"))
+    assert got.returncode == 0, got.stderr[-3000:]
+    lines = got.stdout.splitlines()
+    assert "cpu mesh: cpu" in lines
+    assert any(line.startswith("raised: CUDA is not available")
+               for line in lines), got.stdout
